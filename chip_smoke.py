@@ -7,19 +7,26 @@ non-zero:
                 limit; turns TF32 off for fp32 matrix products and cuDNN.
   2. build    — compiles every CUDA kernel from ``src/repro_torch/kernels/
                 csrc/`` (one nvcc per source, started together).
-  3. kernels  — holds each kernel against its plain PyTorch version on the
+  3. kernels  — holds each kernel (paged decode attention, and the
+                expert-parallel path's moe_gemm, fused_topk_route and
+                histogram_offsets) against its plain PyTorch version on the
                 card at the main path's full-width shapes, and times the
                 kernel, the plain version, a library call that computes the
                 same function (a yardstick only; the port never calls it)
                 and the least time the card could take (bound).
-  4. main     — serves Mixtral-8x7B at published widths, depth cut to 8 of
-                32 layers, with random weights from ``--seed``, through
-                ``repro_torch.serve.ContinuousEngine`` (dist_only, ep_ranks
-                4); checks completions, tokens, kernel launch counts and
-                that a re-plan replicated an expert; then profiles decode
-                steps with torch.profiler (device time by kernel, idle
-                share) and checks a reduced model's logits on the card
-                against the CPU path.
+  4. main     — Mixtral-8x7B at published widths with random weights from
+                ``--seed``, through ``repro_torch.serve.ContinuousEngine``
+                (dist_only, 4 EP ranks, one replica slot per rank): first
+                the dense MoE path over the first 2 layers, then the
+                expert-parallel path (``ep=True``) over 8 of the 32 layers,
+                both on one set of weights. Each serves the same trace;
+                checks completions, tokens, kernel launch counts (reset
+                before and read after each run), that a re-plan replicated
+                an expert and, under EP, that a replica slot computed
+                pairs. Then it profiles EP decode steps with torch.profiler
+                (device time by kernel, idle share) and checks a reduced
+                model's logits on the card against the CPU path, dense and
+                EP.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -45,7 +52,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM, dense bf16 tensor cores
 MAIN_LAYERS = 8                    # of Mixtral's 32: 32 bf16 layers ~93 GB > 80 GB
+DENSE_LAYERS = 2                   # the dense path's run: all experts on all tokens
+EP_RANKS, DUP_SLOTS = 4, 1
+EP_KERNELS = ("moe_gemm", "histogram_offsets")   # the router runs on both paths
 
 
 def log(phase: str, **kv) -> None:
@@ -173,38 +184,231 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the expert-parallel path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _kernel_row(name, source, replaces, rows, main):
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"{name} disagrees with its plain version at {bad}")
+    path = rows[main]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": path["ms"], "plain_ms": path["plain_ms"],
+            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+            "library_ms": path["library_ms"]}
+
+
+def _log_row(kernel, key, shape, row):
+    log("kernels", kernel=kernel, case=key, shape=shape,
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+           for k, v in row.items()})
+
+
+def ep_slot_experts(num_experts: int):
+    """The main path's slot -> expert map: the experts on 4 ranks with one
+    replica slot each, under the plan Algorithm 1 makes for a Zipf-skewed
+    expert distribution (hot experts replicated)."""
+    from repro_torch.core.duplication import duplicate_experts_host
+    from repro_torch.core.placement import slot_experts
+    dist = 1.0 / np.arange(1, num_experts + 1)
+    plan = duplicate_experts_host(dist / dist.sum(), EP_RANKS, DUP_SLOTS,
+                                  4).plan
+    return slot_experts(plan, num_experts, EP_RANKS, DUP_SLOTS)
+
+
+def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
+    """Both main-path shapes: decode (12 slots x cap 8 rows) and prefill
+    (12 slots x 4 ranks x cap 32 rows), fp32 and bf16."""
+    from repro_torch.kernels import ops, ref
+
+    E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    se_np = ep_slot_experts(E)
+    S = len(se_np)
+    distinct = len(set(se_np.tolist()))
+    se = torch.tensor(se_np, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = {"decode": 8, "prefill": 4 * 32}
+    # fp32: the same arithmetic summed over up to 14336 terms in another
+    # order; bf16: h is rounded to bf16, so a last-bit difference of its
+    # fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    peak = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = {n: (torch.randn(shape, generator=gen, device="cuda")
+                 * scale).to(dtype)
+             for n, shape, scale in (("w_gate", (E, d, F), d ** -0.5),
+                                     ("w_up", (E, d, F), d ** -0.5),
+                                     ("w_down", (E, F, d), F ** -0.5))}
+        elem = w["w_up"].element_size()
+        for case, T in shapes.items():
+            x = torch.randn((S, T, d), generator=gen, device="cuda").to(dtype)
+            args = (x, w["w_gate"], w["w_up"], w["w_down"], se)
+            got = ops.moe_gemm(*args)
+            torch.cuda.synchronize()
+            want = ref.moe_gemm_plain(*args)
+            err = (got.float() - want.float()).abs()
+            t = tol[dtype]
+            ok = bool((err <= t + t * want.float().abs()).all()
+                      and torch.isfinite(got.float()).all())
+            # each referenced expert's three matrices read once, x read and
+            # y written once; 3 products of 2 T d F operations per slot
+            nbytes = (distinct * 3 * d * F + 2 * S * T * d) * elem + S * 4
+            flops = 6.0 * S * T * d * F
+            bound_ms, bound_by = _bound(nbytes, flops, peak[dtype])
+            row = {"max_abs_err": float(err.max()), "ok": ok,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "slot_weight_ms": S * 3 * d * F * elem
+                   / HBM_BYTES_PER_S * 1e3}
+            if dtype == torch.bfloat16:
+                def library(x=x):
+                    wg, wu, wd = (w[n][se.long()] for n in
+                                  ("w_gate", "w_up", "w_down"))
+                    return torch.bmm(torch.nn.functional.silu(
+                        torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+                row["ms"] = time_ms(lambda: ops.moe_gemm(*args), flush)
+                row["plain_ms"] = time_ms(lambda: ref.moe_gemm_plain(*args),
+                                          flush, runs=5)
+                row["library_ms"] = time_ms(library, flush, runs=5)
+            key = f"{str(dtype).split('.')[-1]}/{case}"
+            rows[key] = row
+            _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
+            del x, got, want, err
+        del w
+        torch.cuda.empty_cache()
+    return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
+                       "src/repro/kernels/moe_gemm.py:60", rows,
+                       "bfloat16/decode")
+
+
+def router_phase(flush: torch.Tensor, seed: int, cfg):
+    """Decode routes the 8 replicated tokens once; prefill routes 4 ranks'
+    128 tokens in one launch. Indices must match exactly except on rows
+    whose sorted top-(K+1) probabilities hold two within 4 ulps, where the
+    two orders of summation may break the tie differently; those rows are
+    counted and printed."""
+    from repro_torch.kernels import ops, ref
+
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows = {}
+    for case, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128)}.items():
+        logits = torch.randn((R, T, E), generator=gen, device="cuda") * 2.0
+        got = ops.fused_topk_route(logits, K)
+        torch.cuda.synchronize()
+        want = ref.fused_topk_route_plain(logits, K)
+        top = torch.sort(want[2], dim=-1, descending=True).values[..., :K + 1]
+        gaps = top[..., :-1] - top[..., 1:]
+        near = (gaps <= 4 * torch.finfo(torch.float32).eps
+                * top[..., :-1]).any(-1)
+        differ = (got[0] != want[0]).any(-1)
+        err = max(float((g - w).abs().max()) for g, w in
+                  zip(got[1:4], want[1:4]))
+        counts_ok = torch.equal(got[4], want[4]) or bool(differ.any())
+        ok = bool((~differ | near).all()) and err <= 1e-6 and counts_ok
+        nbytes = 4 * (2 * R * T * E + 2 * R * T * K + R * T + R * E)
+        flops = R * T * E * (4 + 2 * K)      # max, exp, sum, divide; K rounds
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
+        offs = (torch.arange(R, device="cuda") * E)[:, None, None]
+
+        def library():
+            p = torch.softmax(logits, dim=-1)
+            g, i = torch.topk(p, K, dim=-1)
+            return g, i, torch.bincount((i + offs).reshape(-1),
+                                        minlength=R * E)
+        row = {"max_abs_err": err, "ok": ok, "near_tie_rows": int(near.sum()),
+               "index_mismatch_rows": int(differ.sum()),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": time_ms(lambda: ops.fused_topk_route(logits, K), flush),
+               "plain_ms": time_ms(
+                   lambda: ref.fused_topk_route_plain(logits, K), flush),
+               "library_ms": time_ms(library, flush)}
+        rows[case] = row
+        _log_row("fused_topk_route", case, f"R{R}xT{T}xE{E}xK{K}", row)
+    return _kernel_row("fused_topk_route",
+                       "src/repro_torch/kernels/csrc/topk_router.cu",
+                       "src/repro/kernels/topk_router.py:66", rows, "decode")
+
+
+def histogram_phase(flush: torch.Tensor, seed: int):
+    """The sort packer's shapes: prefill (4 ranks x 256 pairs, 12 slots +
+    the overflow class) and decode (4 ranks x 16 pairs, 3 slots + 1); and
+    the most classes the kernel takes, where its shared memory is full.
+    Exact."""
+    from repro_torch.kernels import histogram, ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    rows = {}
+    for case, (R, N, C) in {"decode": (EP_RANKS, 16, 4),
+                            "prefill": (EP_RANKS, 256, 13),
+                            "max_classes": (1, 40000,
+                                            histogram.MAX_CLASSES)}.items():
+        ids = torch.randint(0, C, (R, N), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        got = ops.histogram_offsets(ids, C)
+        torch.cuda.synchronize()
+        want = ref.histogram_offsets_plain(ids, C)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        bound_ms, bound_by = _bound(4 * (R * N + 2 * R * C), R * (N + C),
+                                    FP32_FLOPS)
+        offs = (torch.arange(R, device="cuda", dtype=torch.int32) * C)[:, None]
+
+        def library():
+            counts = torch.bincount((ids + offs).reshape(-1),
+                                    minlength=R * C).reshape(R, C)
+            return counts, torch.cumsum(counts, dim=1) - counts
+        row = {"max_abs_err": 0.0 if ok else float("inf"), "ok": ok,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": time_ms(lambda: ops.histogram_offsets(ids, C), flush),
+               "plain_ms": time_ms(
+                   lambda: ref.histogram_offsets_plain(ids, C), flush),
+               "library_ms": time_ms(library, flush)}
+        rows[case] = row
+        _log_row("histogram_offsets", case, f"R{R}xN{N}xC{C}", row)
+    return _kernel_row("histogram_offsets",
+                       "src/repro_torch/kernels/csrc/histogram.cu",
+                       "src/repro/kernels/histogram.py:60", rows, "decode")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path_phase(seed: int):
-    from repro_torch.configs.registry import get_config
+def layer_view(model, cfg, num_layers: int):
+    """A Transformer over the first ``num_layers`` layers of ``model``,
+    sharing its weight tensors (nothing is copied)."""
+    from repro_torch.models.transformer import Transformer
+
+    top = {n: getattr(model, n) for n in ("embed", "final_norm", "lm_head")}
+    layers = [dict(layer.named_parameters())
+              for layer in model.layers[:num_layers]]
+    return Transformer(dataclasses.replace(cfg, num_layers=num_layers), top,
+                       layers)
+
+
+def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
+    """Serve the main trace (16 requests of 64..500 prompt tokens, 64 new
+    tokens each, 20 ms apart) with every kernel count set to 0 just
+    before and read just after. Returns (engine, launches)."""
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_model
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ServeRequest)
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
-                              num_layers=MAIN_LAYERS)
-    log("main", model=cfg.name, d_model=cfg.d_model, heads=cfg.num_heads,
-        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-        d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
-        window=cfg.sliding_window,
-        reduced=f"num_layers 32->{MAIN_LAYERS} (32 bf16 layers ~93 GB > 80 GB)")
-    t0 = time.perf_counter()
-    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
-                       device="cuda")
-    torch.cuda.synchronize()
-    log("main", init_s=f"{time.perf_counter() - t0:.3f}",
-        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
-
     ccfg = ContinuousConfig(max_slots=8, prefill_len=512, block_size=16,
                             max_len=1024, strategy="dist_only",
-                            predict_interval=4, dup_slots=1)
-    eng = ContinuousEngine(cfg, model, ccfg, ep_ranks=4)
+                            predict_interval=4, dup_slots=DUP_SLOTS)
+    eng = ContinuousEngine(cfg, model, ccfg, ep_ranks=EP_RANKS, ep=ep)
     t0 = time.perf_counter()
     eng.warmup()
-    log("main", warmup_s=f"{time.perf_counter() - t0:.3f}")
+    log("main", path=label, warmup_s=f"{time.perf_counter() - t0:.3f}")
 
     rng = np.random.default_rng(seed)
     reqs = [ServeRequest(rid=i,
@@ -218,20 +422,26 @@ def main_path_phase(seed: int):
     t0 = time.perf_counter()
     eng.run_trace(reqs)
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES["paged_decode_attention"]
+    launches = dict(ops.LAUNCHES)
 
     done = eng.scheduler.completed
     s = eng.metrics.summary()
     imb = eng.metrics.imbalance_over_time()
-    log("main", requests=len(reqs), completed=len(done),
-        iterations=eng.iterations, decode_steps=eng.decode_steps,
-        kernel_launches=launches, wall_s=f"{wall:.3f}",
+    prefills = len(reqs) + int(s["preemptions"])   # a preempted one refills
+    log("main", path=label, layers=cfg.num_layers, requests=len(reqs),
+        completed=len(done), iterations=eng.iterations,
+        prefills=prefills, decode_steps=eng.decode_steps,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        wall_s=f"{wall:.3f}",
         decode_toks_per_s=f"{s.get('decode_toks_per_s', 0.0):.2f}",
         step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
         ttft_p50_ms=f"{s['ttft_p50'] * 1e3:.3f}",
         replans=int(s["replans"]),
         replicated_replans=int(s["replicated_replans"]),
+        dropped_pairs=int(s["dropped_tokens"]),
         modelled_imbalance=f"{float(np.mean(imb)) if imb else 1.0:.4f}",
+        measured_imbalance=(f"{eng.measured_imbalance():.4f}" if ep
+                            else "n/a (dense path)"),
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     failures = []
     if len(done) != len(reqs):
@@ -241,13 +451,53 @@ def main_path_phase(seed: int):
         if len(toks) != r.max_new_tokens or (toks < 0).any() \
                 or (toks >= cfg.vocab_size).any():
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
-    if launches != eng.decode_steps * cfg.num_layers:
-        failures.append(f"kernel launches {launches} != decode steps "
-                        f"{eng.decode_steps} x {cfg.num_layers} layers")
+    forwards = (prefills + eng.decode_steps) * cfg.num_layers
+    want = {"paged_decode_attention": eng.decode_steps * cfg.num_layers,
+            "fused_topk_route": forwards}
+    for k in EP_KERNELS:
+        want[k] = forwards if ep else 0
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
     if s["replicated_replans"] < 1:
         failures.append("no re-plan replicated an expert")
+    if ep:
+        e_loc = cfg.moe.num_experts // EP_RANKS
+        sc = eng.slot_counts.reshape(cfg.num_layers, EP_RANKS, -1)
+        replica_pairs = int(sc[:, :, e_loc:].sum())
+        log("main", path=label, replica_slot_pairs=replica_pairs,
+            home_slot_pairs=int(sc[:, :, :e_loc].sum()))
+        if replica_pairs == 0:
+            failures.append("no replica slot computed a pair")
     if failures:
-        raise SystemExit("main path failed: " + "; ".join(failures))
+        raise SystemExit(f"main path ({label}) failed: " + "; ".join(failures))
+    return eng, launches
+
+
+def main_path_phase(seed: int):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=MAIN_LAYERS)
+    log("main", model=cfg.name, d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+        window=cfg.sliding_window, ep_ranks=EP_RANKS, dup_slots=DUP_SLOTS,
+        capacity_factor=cfg.moe.capacity_factor,
+        reduced=f"num_layers 32->{MAIN_LAYERS} (32 bf16 layers ~93 GB > "
+                f"80 GB); the dense path's run {DENSE_LAYERS} of them")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log("main", init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+
+    dense = layer_view(model, cfg, DENSE_LAYERS)
+    eng, _ = serve_trace("dense", dense, dense.cfg, seed, ep=False)
+    del eng, dense
+    eng, launches = serve_trace("ep", model, cfg, seed, ep=True)
     profile_phase(eng, cfg, seed)
     del eng, model
     torch.cuda.empty_cache()
@@ -255,7 +505,7 @@ def main_path_phase(seed: int):
 
 
 def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
-    """Where a decode step's time goes: fill every slot with fresh
+    """Where an engine's decode step's time goes: fill every slot with fresh
     requests, time ``iters`` decode-only iterations on the host clock, then
     ``iters`` more under torch.profiler. Prints the device's busy time by
     kernel and its idle share of the profiled window."""
@@ -303,65 +553,144 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
             per_step=f"{n / iters:.1f}", kernel=f"'{name[:90]}'")
 
 
-def reference_phase(seed: int):
-    """Reduced Mixtral on the card (kernel path) against the same weights
-    on the CPU (plain path): a prefill and three teacher-forced decode
-    steps, logits compared at a bf16 tolerance."""
-    from repro_torch.bridge import params_from_jax, params_to_jax
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.transformer import Runtime, init_model
+def _reference_run(model, cfg, rt, plan, prompt, forced, S: int, bs: int):
+    """A slot prefill of ``prompt`` (bucket S) and teacher-forced paged
+    decode steps. Returns (logits (1 + steps, 1, V) fp32 on the host, the
+    per-step stats moved to the host)."""
     from repro_torch.serve.kvcache import init_block_pool, write_prefill_blocks
     from repro_torch.train.steps import (make_paged_decode_step,
                                          make_slot_prefill_step)
 
-    cfg = get_config("mixtral-8x7b").reduced()
-    gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+    dev = model.device
+    prefill = make_slot_prefill_step(cfg, rt)
+    decode = make_paged_decode_step(cfg, rt)
+    toks = np.zeros((1, S), np.int32)
+    toks[0, :len(prompt)] = prompt
+    tw = (np.arange(S) < len(prompt)).astype(np.float32)[None]
+    _, lg, temp, st = prefill(model, torch.tensor(toks, device=dev), None,
+                              torch.tensor([len(prompt) - 1], device=dev),
+                              torch.tensor(tw, device=dev), plan)
+    out, stats = [lg.float().cpu()], [st]
+    pool = init_block_pool(cfg, 1 + 64 // bs, bs, device=dev)
+    table = np.arange(1, 1 + 64 // bs, dtype=np.int32)
+    write_prefill_blocks(pool, temp, table[:S // bs])
+    for t in range(len(forced)):
+        ln = torch.tensor([len(prompt) + t], dtype=torch.int32, device=dev)
+        _, lg, pool, st = decode(
+            model, torch.tensor([[forced[t]]], device=dev), pool,
+            torch.tensor(table[None], device=dev), ln,
+            torch.ones((1, 1), device=dev), plan)
+        out.append(lg.float().cpu())
+        stats.append(st)
+    host = [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in s.items()}
+            for s in stats]
+    return torch.cat(out), host
+
+
+def _near_tie_routes(run):
+    """Call ``run()`` with the model's router recorded. Returns its result
+    and the number of routing decisions whose sorted top-(K+1)
+    probabilities hold two within 2% of each other: decisions that bf16
+    differences between two devices' hidden states may break differently."""
+    import repro_torch.models.transformer as tr
+
+    route, near = tr.route, [0]
+
+    def recording(w, moe, x):
+        out = route(w, moe, x)
+        top = torch.sort(out.probs, dim=-1,
+                         descending=True).values[..., :moe.top_k + 1]
+        near[0] += int((top[..., :-1] - top[..., 1:]
+                        < 0.02 * top[..., :-1]).any(-1).sum())
+        return out
+    tr.route = recording
+    try:
+        return run(), near[0]
+    finally:
+        tr.route = route
+
+
+def reference_phase(seed: int):
+    """Reduced Mixtral on the card (kernel path) against the same weights
+    on the CPU (plain path): a prefill and three teacher-forced decode
+    steps, on the dense path and on the EP path (4 ranks, one replica slot
+    each, a duplicated plan). Logits are compared at a bf16 tolerance. On
+    the EP path slot counts and dropped pairs must be equal; the router
+    weights are scaled by 25 so that routing margins stand clear of the
+    bf16 noise between the two devices, and where the CPU run still holds
+    near-tie decisions each may move at most two pairs."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.duplication import duplicate_experts_host
+    from repro_torch.core.placement import stack_plans
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_model
+
+    base = get_config("mixtral-8x7b").reduced()
+    gpu = init_model(base, torch.Generator(device="cuda").manual_seed(seed),
                      device="cuda")
-    cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+    with torch.no_grad():
+        for layer in gpu.layers:
+            layer.router.mul_(25.0)
+    cpu = params_from_jax(params_to_jax(gpu), base, device="cpu")
     rng = np.random.default_rng(seed)
     S, bs, n_dec = 32, 8, 3
-    prompt = rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
-    forced = rng.integers(0, cfg.vocab_size, n_dec).astype(np.int32)
-    rt = Runtime(window_override=64)
-    logits, launches = {}, {}
-    for name, model in (("cuda", gpu), ("cpu", cpu)):
-        before = ops.LAUNCHES["paged_decode_attention"]
-        dev = model.device
-        prefill = make_slot_prefill_step(cfg, rt)
-        decode = make_paged_decode_step(cfg, rt)
-        toks = np.zeros((1, S), np.int32)
-        toks[0, :len(prompt)] = prompt
-        tw = (np.arange(S) < len(prompt)).astype(np.float32)[None]
-        _, lg, temp, _ = prefill(model, torch.tensor(toks, device=dev), None,
-                                 torch.tensor([len(prompt) - 1], device=dev),
-                                 torch.tensor(tw, device=dev))
-        out = [lg.float().cpu()]
-        pool = init_block_pool(cfg, 1 + 64 // bs, bs, device=dev)
-        table = np.arange(1, 1 + 64 // bs, dtype=np.int32)
-        write_prefill_blocks(pool, temp, table[:S // bs])
-        for t in range(n_dec):
-            ln = torch.tensor([len(prompt) + t], dtype=torch.int32, device=dev)
-            _, lg, pool, _ = decode(
-                model, torch.tensor([[forced[t]]], device=dev), pool,
-                torch.tensor(table[None], device=dev), ln,
-                torch.ones((1, 1), device=dev))
-            out.append(lg.float().cpu())
-        logits[name] = torch.cat(out)
-        launches[name] = ops.LAUNCHES["paged_decode_attention"] - before
-    err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    scale = float(logits["cpu"].abs().max())
-    ok = (bool(torch.isfinite(logits["cuda"]).all())
-          and err <= 5e-2 * max(scale, 1.0)
-          and launches == {"cuda": n_dec * cfg.num_layers, "cpu": 0})
-    log("reference", model=cfg.name, steps=f"prefill+{n_dec}decode",
-        max_abs_err=f"{err:.6g}", logit_scale=f"{scale:.6g}",
-        tolerance="5e-2 x max|logit| (bf16 activations, CPU vs GPU sums)",
-        kernel_launches=f"cuda:{launches['cuda']},cpu:{launches['cpu']}",
-        ok=ok)
-    if not ok:
-        raise SystemExit("reduced-model logits on the card disagree with the "
-                         "CPU path")
+    prompt = rng.integers(0, base.vocab_size, 20).astype(np.int32)
+    forced = rng.integers(0, base.vocab_size, n_dec).astype(np.int32)
+    dist = np.array([[0.55, 0.15, 0.2, 0.1], [0.1, 0.2, 0.1, 0.6]])
+    plan = stack_plans([duplicate_experts_host(dist[l], EP_RANKS, DUP_SLOTS,
+                                               base.moe.max_copies).plan
+                        for l in range(base.num_layers)])
+    ep_cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, duplication_slots=DUP_SLOTS))
+    paths = {
+        "dense": (base, Runtime(window_override=64), None),
+        "ep": (ep_cfg, Runtime(window_override=64, ep=True,
+                               ep_ranks=EP_RANKS), plan)}
+    failures = []
+    for path, (cfg, rt, pl) in paths.items():
+        logits, stats, launches = {}, {}, {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            ops.reset_launches()
+            (logits[name], stats[name]), near = _near_tie_routes(
+                lambda: _reference_run(model, cfg, rt, pl, prompt, forced, S,
+                                       bs))
+            launches[name] = dict(ops.LAUNCHES)
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        L = cfg.num_layers
+        want = {"paged_decode_attention": n_dec * L,
+                "fused_topk_route": (1 + n_dec) * L}
+        for k in EP_KERNELS:
+            want[k] = (1 + n_dec) * L if path == "ep" else 0
+        ok = (bool(torch.isfinite(logits["cuda"]).all())
+              and err <= 5e-2 * max(scale, 1.0)
+              and launches["cuda"] == want
+              and not any(launches["cpu"].values()))
+        ep_stats = {}
+        if path == "ep":
+            moved = {k: sum(int((a[k].to(torch.int64)
+                                 - b[k].to(torch.int64)).abs().sum())
+                            for a, b in zip(stats["cuda"], stats["cpu"]))
+                     for k in ("slot_counts", "dropped")}
+            ok = ok and all(v <= 2 * near for v in moved.values())
+            ep_stats = dict(
+                slot_count_pairs_moved=moved["slot_counts"],
+                dropped_moved=moved["dropped"],
+                dropped_pairs=sum(int(s_["dropped"].sum())
+                                  for s_ in stats["cpu"]))
+        log("reference", path=path, model=cfg.name,
+            steps=f"prefill+{n_dec}decode", max_abs_err=f"{err:.6g}",
+            logit_scale=f"{scale:.6g}",
+            tolerance="5e-2 x max|logit| (bf16 activations, CPU vs GPU sums)",
+            near_tie_routes_cpu=near, **ep_stats,
+            kernel_launches=",".join(f"{k}:{v}" for k, v in
+                                     launches["cuda"].items()), ok=ok)
+        if not ok:
+            failures.append(path)
+    if failures:
+        raise SystemExit(f"reduced model on the card disagrees with the CPU "
+                         f"path: {failures}")
 
 
 def main() -> int:
@@ -396,13 +725,18 @@ def main() -> int:
                 log("build", kernel=name, ptxas=f"'{line.strip()}'")
 
     from repro_torch.configs.registry import get_config
-    path_window = get_config("mixtral-8x7b").sliding_window
+    mixtral = get_config("mixtral-8x7b")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    kernels = [paged_attention_phase(flush, args.seed, path_window)]
+    kernels = [paged_attention_phase(flush, args.seed, mixtral.sliding_window),
+               moe_gemm_phase(flush, args.seed, mixtral),
+               router_phase(flush, args.seed, mixtral),
+               histogram_phase(flush, args.seed)]
     del flush
+    torch.cuda.empty_cache()
 
-    launches = main_path_phase(args.seed)
-    kernels[0]["launches"] = launches
+    launches = main_path_phase(args.seed)     # the EP run's counts
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     reference_phase(args.seed)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """Expert placement plans — the interface between the duplication planner
 (Algorithm 1, `core.duplication`) and the EP dispatch runtime
-(the JAX package's `moe/dispatch.py`; not ported yet).
+(`moe.dispatch`).
 
 A plan describes, for one MoE layer, which expert occupies each *slot*:
 
@@ -16,7 +16,9 @@ All arrays are replicated (identical on every rank) and dynamically valued
 (recomputed per prediction interval) but statically shaped.
 
 Port note: the same functions as the JAX package's ``core/placement.py``,
-with numpy arrays (int32) in place of jnp arrays.
+with numpy arrays (int32) in place of jnp arrays. ``slot_experts`` and
+``to_device`` are the port's own: the dispatch reads replica weights
+through a slot -> expert map instead of a gathered weight pool.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class PlacementPlan(NamedTuple):
@@ -164,3 +167,51 @@ def plan_from_assignments(assignments, num_experts: int, ep_ranks: int,
         pool_expert=np.asarray(pool_expert, np.int32),
         pool_sel=np.asarray(pool_sel, np.int32),
     )
+
+
+def slot_experts(plan: PlacementPlan, num_experts: int, ep_ranks: int,
+                 dup_slots: int) -> np.ndarray:
+    """(..., R * n_slots) int32: for every global slot, the expert whose
+    weights the JAX package's dispatch puts there (``gather_replica_pool``
+    and ``_slot_weights`` in its ``moe/dispatch.py``). ``plan`` may be one
+    layer's or a stacked (L, ...) plan.
+
+    Home slot ``(r, j < E_loc)`` holds expert ``r * E_loc + j``. Replica slot
+    ``(r, E_loc + i)`` holds what source rank ``src = pool_sel[r, i]``
+    contributed to the pool: its local expert ``pool_expert[src] % E_loc``,
+    i.e. expert ``src * E_loc + pool_expert[src] % E_loc``. Under the
+    identity plan JAX fills the pool with zeros instead; no (token, k) pair
+    is routed to a replica slot then, so any map gives the same output."""
+    e_loc, n_slots = plan_dims(num_experts, ep_ranks, dup_slots)
+    pool_expert = np.asarray(plan.pool_expert, np.int64)       # (..., R)
+    src = np.asarray(plan.pool_sel, np.int64)[..., :dup_slots]  # (..., R, D)
+    lead = pool_expert.shape[:-1]
+    home = np.broadcast_to(np.arange(num_experts).reshape(ep_ranks, e_loc),
+                           lead + (ep_ranks, e_loc))
+    contrib = np.take_along_axis(pool_expert, src.reshape(lead + (-1,)),
+                                 axis=-1).reshape(src.shape)
+    rep = src * e_loc + contrib % e_loc
+    out = np.concatenate([home, rep], axis=-1)
+    return out.reshape(lead + (ep_ranks * n_slots,)).astype(np.int32)
+
+
+class DevicePlan(NamedTuple):
+    """What the dispatch reads of a placement plan, as device tensors: one
+    layer's, or stacked over layers (index with ``layer``)."""
+    n_replicas: torch.Tensor     # (..., E) int64
+    replica_table: torch.Tensor  # (..., E, C_max) int64 global slot ids
+    slot_experts: torch.Tensor   # (..., R * n_slots) int32
+
+    def layer(self, l: int) -> "DevicePlan":
+        return DevicePlan(*(t[l] for t in self))
+
+
+def to_device(plan: PlacementPlan, num_experts: int, ep_ranks: int,
+              dup_slots: int, device) -> DevicePlan:
+    """Move a (stacked) plan to ``device`` once, at each re-plan, so the
+    forward passes between re-plans copy nothing from the host."""
+    def dev(a, dtype):
+        return torch.tensor(np.array(a), dtype=dtype, device=device)
+    return DevicePlan(
+        dev(plan.n_replicas, torch.int64), dev(plan.replica_table, torch.int64),
+        dev(slot_experts(plan, num_experts, ep_ranks, dup_slots), torch.int32))

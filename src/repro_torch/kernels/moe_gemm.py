@@ -1,0 +1,98 @@
+"""Grouped expert FFN for Hopper: the launcher of ``csrc/moe_gemm.cu``.
+
+Port of the TPU kernel ``src/repro/kernels/moe_gemm.py`` (``moe_gemm``).
+For every slot ``s`` of the EP dispatch, ``y[s] = act(x[s] @ Wg[e]) *
+(x[s] @ Wu[e]) @ Wd[e]`` with ``e = slot_experts[s]``: the weights stay in
+the ``(E, d, F)`` / ``(E, F, d)`` expert tensors and each slot reads its
+expert's in place, so a replica slot costs an index, not a weight copy.
+One call launches the gate/up/activation kernel (writing ``h`` in x's dtype
+to a scratch this wrapper allocates) and the down kernel on PyTorch's
+current stream. The kernels are bound by the weight bytes they read; see
+the source's header for the design. ``kernels.ops.moe_gemm`` is the wrapper
+the dispatch calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ACTIVATIONS = {"swiglu": 0, "gelu": 1, "relu": 2}
+MAX_SLOTS = 65535
+
+
+def _function():
+    fn = build.load("moe_gemm").moe_gemm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation) -> None:
+    """Raise on anything the kernel does not take. ``w_gate`` may be None
+    (the kernel then reads ``w_up`` in its place)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in {tuple(ACTIVATIONS)}")
+    if x.dim() != 3 or w_up.dim() != 3 or w_down.dim() != 3:
+        raise ValueError(f"expected x (S,T,d), w_up (E,d,F), w_down (E,F,d); "
+                         f"got {tuple(x.shape)}, {tuple(w_up.shape)}, "
+                         f"{tuple(w_down.shape)}")
+    S, T, d = x.shape
+    E, d_w, F = w_up.shape
+    if d_w != d or tuple(w_down.shape) != (E, F, d):
+        raise ValueError(f"weights {tuple(w_up.shape)}, {tuple(w_down.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    if w_gate is not None and w_gate.shape != w_up.shape:
+        raise ValueError(f"w_gate {tuple(w_gate.shape)} != w_up "
+                         f"{tuple(w_up.shape)}")
+    if tuple(slot_experts.shape) != (S,) or slot_experts.dtype != torch.int32:
+        raise ValueError(f"slot_experts must be ({S},) int32; got "
+                         f"{tuple(slot_experts.shape)} {slot_experts.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    if S > MAX_SLOTS:
+        raise ValueError(f"{S} slots > {MAX_SLOTS}")
+    named = [("x", x), ("w_up", w_up), ("w_down", w_down),
+             ("slot_experts", slot_experts)]
+    if w_gate is not None:
+        named.append(("w_gate", w_gate))
+    for name, t in named:
+        if name != "slot_experts" and t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: cast the "
+                            "weights once, not per call")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu"):
+    """Launch both kernels on CUDA tensors. x: (S, T, d); w_gate / w_up:
+    (E, d, F); w_down: (E, F, d); slot_experts: (S,) int32 in [0, E) (a
+    slot outside it computes zeros). Returns (S, T, d) in x's dtype."""
+    check_inputs(x, w_gate, w_up, w_down, slot_experts, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x.device}")
+    w_gate = w_up if w_gate is None else w_gate
+    S, T, d = x.shape
+    E, _, F = w_up.shape
+    out = torch.empty_like(x)
+    if S == 0 or T == 0:
+        return out
+    h = torch.empty((S, T, F), dtype=x.dtype, device=x.device)
+    tensors = (x, w_gate, w_up, w_down, h, out)
+    aligned = int(d % 8 == 0 and F % 8 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in tensors))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _function()(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                      w_down.data_ptr(), slot_experts.data_ptr(), h.data_ptr(),
+                      out.data_ptr(), S, T, d, F, E, ACTIVATIONS[activation],
+                      _DTYPES[x.dtype], aligned, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm launch failed: CUDA error {err}")
+    return out

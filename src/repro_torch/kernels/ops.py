@@ -11,10 +11,14 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import histogram as _hist
+from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import topk_router as _tk
 
-LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
+                            "fused_topk_route": 0, "histogram_offsets": 0}
 
 
 def reset_launches() -> None:
@@ -39,4 +43,53 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     out = _pa.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                      lengths, window=window)
     LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu"):
+    """Grouped expert FFN of the EP dispatch, every slot in one call.
+
+    Replaces the TPU kernel ``src/repro/kernels/moe_gemm.py``
+    (``moe_gemm``). x: (S, T, d) rows received by each slot; w_gate / w_up:
+    (E, d, F) expert weights (``w_gate`` None: ``w_up``, for gelu / relu);
+    w_down: (E, F, d); slot_experts: (S,) int32, the expert slot s computes
+    with. Returns (S, T, d) in x's dtype. Bound by the weight bytes read
+    (see ``kernels.moe_gemm``)."""
+    if x.device.type == "cpu":
+        _mg.check_inputs(x, w_gate, w_up, w_down, slot_experts, activation)
+        return _ref.moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
+                                   activation)
+    out = _mg.moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation)
+    LAUNCHES["moe_gemm"] += 1
+    return out
+
+
+def fused_topk_route(logits, top_k: int):
+    """Softmax, top-k (ties to the lowest index), logsumexp and expert
+    counts in one pass over (R, T, E) fp32 logits, R independent batches
+    (EP ranks).
+
+    Replaces the TPU kernel ``src/repro/kernels/topk_router.py``
+    (``fused_topk_route``). Returns idx (R, T, K) int32, un-normalised
+    gates (R, T, K), probs (R, T, E), lse (R, T) and counts (R, E) int32."""
+    if logits.device.type == "cpu":
+        _tk.check_inputs(logits, top_k)
+        return _ref.fused_topk_route_plain(logits, top_k)
+    out = _tk.fused_topk_route(logits, top_k)
+    LAUNCHES["fused_topk_route"] += 1
+    return out
+
+
+def histogram_offsets(ids, num_classes: int):
+    """Class counts of each row of (R, N) int32 ids and their exclusive
+    prefix sums, (R, num_classes) int32 each; ids outside the classes are
+    not counted.
+
+    Replaces the TPU kernel ``src/repro/kernels/histogram.py``
+    (``histogram_offsets``)."""
+    if ids.device.type == "cpu":
+        _hist.check_inputs(ids, num_classes)
+        return _ref.histogram_offsets_plain(ids, num_classes)
+    out = _hist.histogram_offsets(ids, num_classes)
+    LAUNCHES["histogram_offsets"] += 1
     return out

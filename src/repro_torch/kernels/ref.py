@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth).
 
 Each function repeats the JAX package's oracle (``src/repro/kernels/ref.py``)
-op for op. The CPU tests hold these against the JAX kernels, and
+or, where the Pallas kernel rounds differently from that oracle, the
+Pallas body, op for op. The CPU tests hold these against the JAX kernels, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -75,3 +77,85 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, *,
     return paged_decode_ref(q, gather_view(k_pool, block_tables),
                             gather_view(v_pool, block_tables), lengths,
                             window=window, block_size=k_pool.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel dispatch path's kernels
+# ---------------------------------------------------------------------------
+
+def _activate(g, u, activation: str):
+    """fp32 activation of the grouped FFN; ``g`` is unused unless swiglu."""
+    if activation == "swiglu":
+        return F.silu(g) * u
+    if activation == "gelu":
+        return F.gelu(u, approximate="tanh")       # jax.nn.gelu's default
+    if activation == "relu":
+        return torch.relu(u)
+    raise ValueError(f"activation {activation!r}")
+
+
+def moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
+                   activation: str = "swiglu"):
+    """Per-slot expert FFN ``act(x @ wg) * (x @ wu) @ wd`` in the Pallas
+    body's order (``src/repro/kernels/moe_gemm.py``, ``_kernel``): the gate
+    and up products accumulate in fp32, the activation runs in fp32, ``h``
+    is cast to x's dtype, and the down product accumulates in fp32 before
+    the cast to x's dtype.
+
+    x: (S, T, d); w_gate / w_up: (E, d, F) (``w_gate`` None: ``w_up``, as
+    the JAX wrapper does); w_down: (E, F, d); slot_experts: (S,) int, the
+    expert whose weights slot s computes with. Returns (S, T, d)."""
+    w_gate = w_up if w_gate is None else w_gate
+    out = torch.empty_like(x)
+    for s, e in enumerate(slot_experts.tolist()):
+        xs = x[s].float()
+        u = xs @ w_up[e].float()
+        g = xs @ w_gate[e].float() if activation == "swiglu" else None
+        h = _activate(g, u, activation).to(x.dtype)
+        out[s] = (h.float() @ w_down[e].float()).to(x.dtype)
+    return out
+
+
+def fused_topk_route_plain(logits, top_k: int):
+    """Softmax, ``top_k`` rounds of max / argmax (ties to the lowest index),
+    logsumexp and per-batch expert counts, in the Pallas body's order
+    (``src/repro/kernels/topk_router.py``, ``_kernel``).
+
+    logits: (..., T, E) fp32. Returns idx (..., T, K) int32, un-normalised
+    gates (..., T, K) fp32, probs (..., T, E), lse (..., T) and counts
+    (..., E) int32 (one histogram per leading index)."""
+    x = logits.float()
+    m = x.amax(dim=-1, keepdim=True)
+    ex = torch.exp(x - m)
+    den = ex.sum(dim=-1, keepdim=True)
+    probs = ex / den
+    lse = (m + torch.log(den)).squeeze(-1)
+    work = probs.clone()
+    sels, gs = [], []
+    for _ in range(top_k):
+        sel = torch.argmax(work, dim=-1, keepdim=True)   # first maximum
+        gs.append(torch.gather(work, -1, sel))
+        sels.append(sel)
+        work.scatter_(-1, sel, float("-inf"))
+    idx = torch.cat(sels, dim=-1)
+    E = x.shape[-1]
+    lead = idx.shape[:-2]
+    counts = torch.zeros(lead + (E,), dtype=torch.int32, device=x.device)
+    flat = idx.reshape(lead + (-1,))
+    counts.scatter_add_(-1, flat, torch.ones_like(flat, dtype=torch.int32))
+    return idx.to(torch.int32), torch.cat(gs, dim=-1), probs, lse, counts
+
+
+def histogram_offsets_plain(ids, num_classes: int):
+    """Class counts of ``ids`` (..., N) and their exclusive prefix sum,
+    both (..., num_classes) int32 (``src/repro/kernels/histogram.py``:
+    ``histogram`` then the ``cumsum`` of ``histogram_offsets``). Ids
+    outside ``[0, num_classes)`` are not counted."""
+    ok = (ids >= 0) & (ids < num_classes)
+    lead = ids.shape[:-1]
+    counts = torch.zeros(lead + (num_classes,), dtype=torch.int32,
+                         device=ids.device)
+    counts.scatter_add_(-1, torch.where(ok, ids, 0).long(),
+                        ok.to(torch.int32))
+    starts = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    return counts, starts

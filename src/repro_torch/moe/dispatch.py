@@ -1,0 +1,328 @@
+"""Expert-parallel MoE dispatch with placement-aware duplication (the port
+of the JAX package's ``moe/dispatch.py``), with the R EP ranks as the
+leading dimension of every per-rank tensor on one device.
+
+Every rank hosts ``E_loc = E / R`` home experts plus ``D`` replica slots,
+``S = R * n_slots`` global slots in all. Per layer:
+
+  1. route (``moe.router.route``: one kernel launch for all ranks'
+     tokens);
+  2. pick a replica per (token, k): round-robin over ``n_replicas[e]``;
+  3. pack each rank's ``(S * cap, d)`` send buffer with a stable argsort
+     and the ``histogram_offsets`` kernel (``_pack_sort``; the one-hot
+     cumsum packer ``_pack_onehot`` is kept as the tests' oracle); the
+     drop rule is first-come within a slot, in token order;
+  4. exchange: ``all_to_all`` over the ranks;
+  5. run the grouped expert FFN on the received ``(R * n_slots, R * cap,
+     d)`` block: one ``moe_gemm`` launch for all ranks, each slot reading
+     its expert's weights through the plan's slot -> expert map
+     (``core.placement.slot_experts``), where the JAX package gathers a
+     replica weight pool;
+  6. exchange back and combine with the router gates.
+
+The collectives go through ``StackedRanks``: ``all_to_all`` is a transpose
+of the ``(R_src, R_dst, ...)`` send buffers, ``psum`` a sum over the rank
+dimension, ``pmean`` a mean and ``rank_index`` an ``arange(R)``. A backend
+over ``torch.distributed`` would implement the same four methods with one
+rank per process.
+
+Not ported here: the Token-to-Expert predicted mode (``predicted_idx``)
+and the reschedule quota (``resched_quota``); both raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.placement import DevicePlan, plan_dims
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.moe.router import RouterOutput
+
+_SLICE3 = ("is not ported yet: it belongs to the Token-to-Expert / "
+           "reschedule slice (ROADMAP.md slice 3)")
+
+
+class MoEStats(NamedTuple):
+    expert_counts: torch.Tensor  # (E,) float32 tokens routed per expert (global)
+    slot_counts: torch.Tensor    # (S,) tokens kept per global slot (global)
+    dropped: torch.Tensor        # () tokens dropped by capacity (global)
+    aux_loss: torch.Tensor
+    z_loss: torch.Tensor
+
+
+class StackedRanks:
+    """The EP ranks as the leading dimension of each per-rank tensor, all on
+    one device; the collectives are operations on that dimension."""
+
+    def __init__(self, ranks: int):
+        self.ranks = ranks
+
+    def all_to_all(self, buf):
+        """(R_src, R_dst, ...) -> (R_dst, R_src, ...): rank dst receives
+        every source rank's block for it."""
+        return buf.transpose(0, 1)
+
+    def psum(self, t):
+        return t.sum(dim=0)
+
+    def pmean(self, t):
+        return t.mean(dim=0)
+
+    def rank_index(self, device):
+        return torch.arange(self.ranks, device=device)
+
+
+def capacity(t_local: int, top_k: int, num_slots_global: int, factor: float,
+             multiple: int = 8) -> int:
+    c = math.ceil(t_local * top_k / num_slots_global * factor)
+    return max(multiple, math.ceil(c / multiple) * multiple)
+
+
+def _positions_in_slot(gslot, num_slots: int):
+    """Rank of each element within its slot group (one-hot cumsum), per
+    row. gslot: (R, N) in [0, num_slots). Returns (R, N) int64."""
+    oh = F.one_hot(gslot.long(), num_slots)                     # (R, N, S)
+    pos = torch.cumsum(oh, dim=1) - 1
+    return torch.gather(pos, 2, gslot.long()[..., None])[..., 0]
+
+
+def _gather_rows(x, idx):
+    """x: (R, T, d); idx: (R, ...) token indices -> (R, ..., d)."""
+    R = x.shape[0]
+    r = torch.arange(R, device=x.device).reshape((R,) + (1,) * (idx.dim() - 1))
+    return x[r, idx]
+
+
+# ---------------------------------------------------------------------------
+# send-buffer packing. Both packers share one contract, per rank row:
+# assignments (token_of, gslot, valid) and a per-slot capacity give a
+# zero-padded (num_classes * cap, d) send buffer, the in-capacity mask, the
+# send-buffer destinations, per-slot counts and the dropped count. The drop
+# rule is first-come within each slot in token order; ``_pack_sort`` keeps
+# it through a stable argsort.
+# x: (R, T, d); token_of: (N,); gslot, valid: (R, N).
+# ---------------------------------------------------------------------------
+
+def _pack_onehot(x, token_of, gslot, valid, *, num_classes: int, cap: int):
+    """Reference oracle: (N, S+1) one-hot cumsum positions + scatter."""
+    R, _, d = x.shape
+    g = torch.where(valid, gslot.long(), num_classes)   # invalid -> overflow
+    pos = _positions_in_slot(g, num_classes + 1)        # invalid eat no capacity
+    in_cap = (pos < cap) & valid
+    dest = torch.where(in_cap, g * cap + pos, num_classes * cap)
+    rows = _gather_rows(x, token_of.expand(R, -1))
+    send = torch.zeros((R, num_classes * cap + 1, d), dtype=x.dtype,
+                       device=x.device)
+    # only the discarded last row takes more than one write
+    send.scatter_(1, dest[..., None].expand(-1, -1, d), rows)
+    counts = torch.zeros((R, num_classes), dtype=torch.int32, device=x.device)
+    counts.scatter_add_(1, g.clamp(max=num_classes - 1),
+                        in_cap.to(torch.int32))
+    dropped = (valid & ~in_cap).sum(dim=1)
+    return send[:, :-1], in_cap, dest, counts, dropped
+
+
+def _pack_sort(x, token_of, gslot, valid, *, num_classes: int, cap: int):
+    """Stable argsort + histogram-offset slot assignment (the dispatch's
+    path): positions within a slot come from the class histogram's
+    exclusive prefix sum, and each slot's send range gathers its run of
+    the sorted tokens."""
+    R, _, d = x.shape
+    N = gslot.shape[1]
+    dev = x.device
+    g = torch.where(valid, gslot.to(torch.int32), num_classes).contiguous()
+    order = torch.argsort(g, dim=1, stable=True)        # token order kept
+    g_sorted = torch.gather(g, 1, order).long()
+    hist, starts = kernel_ops.histogram_offsets(g, num_classes + 1)
+    hist, starts = hist.long(), starts.long()
+    pos_sorted = (torch.arange(N, device=dev)[None, :]
+                  - torch.gather(starts, 1, g_sorted))
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    in_cap = (pos < cap) & valid
+    dest = torch.where(in_cap, g.long() * cap + pos, num_classes * cap)
+    # slot s's send range [s*cap, s*cap + min(hist[s], cap)) gathers the
+    # sorted run starting at starts[s]; the rest of the buffer stays zero
+    ar_cap = torch.arange(cap, device=dev)
+    fill = starts[:, :num_classes, None] + ar_cap               # (R, C, cap)
+    counts = torch.clamp(hist[:, :num_classes], max=cap)
+    fill_ok = ar_cap[None, None, :] < counts[..., None]
+    tok_sorted = torch.gather(token_of.expand(R, -1), 1, order)
+    src = torch.gather(tok_sorted, 1, fill.clamp(0, N - 1).reshape(R, -1))
+    rows = _gather_rows(x, src).reshape(R, num_classes, cap, d)
+    send = torch.where(fill_ok[..., None], rows,
+                       torch.zeros((), dtype=x.dtype, device=dev))
+    dropped = torch.clamp(hist[:, :num_classes] - cap, min=0).sum(dim=1)
+    return (send.reshape(R, num_classes * cap, d), in_cap, dest,
+            counts.to(torch.int32), dropped)
+
+
+def choose_replica(plan: DevicePlan, expert, salt):
+    """Round-robin replica choice. expert, salt: broadcastable int
+    tensors. Returns the global slot of each (token, k)."""
+    expert = expert.long()
+    n_rep = plan.n_replicas[expert]
+    choice = salt % torch.clamp(n_rep, min=1)
+    c_max = plan.replica_table.shape[-1]
+    return plan.replica_table[expert, torch.clamp(choice, max=c_max - 1)]
+
+
+def grouped_ffn(experts: dict, x, slot_experts, activation: str):
+    """x: (S, T_s, d) rows per slot -> (S, T_s, d): slot s runs expert
+    ``slot_experts[s]`` (the ``moe_gemm`` kernel, or its plain version on
+    the CPU). ``experts``: {"w_gate" (optional), "w_up", "w_down"} with
+    (E, d, F) / (E, F, d) leaves."""
+    return kernel_ops.moe_gemm(x, experts.get("w_gate"), experts["w_up"],
+                               experts["w_down"], slot_experts, activation)
+
+
+def _slot_map(plan: DevicePlan, num_experts: int, dup_slots: int, S: int,
+              device):
+    if dup_slots == 0:
+        return torch.arange(num_experts, dtype=torch.int32, device=device)
+    se = plan.slot_experts
+    if se.shape[-1] != S:
+        raise ValueError(f"plan has {se.shape[-1]} slots, dispatch needs {S}")
+    return se
+
+
+def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
+                    experts: dict, slot_experts, activation: str,
+                    comm: StackedRanks):
+    """One dispatch -> FFN -> combine round for all ranks.
+
+    x: (R, T, d); gslot, valid: (R, N) flattened (token, k) assignments
+    with token index n // K. Returns y_flat (R, N, d) per-assignment
+    outputs (zeros where dropped or invalid), slot counts (R, S), drops
+    (R,) and the in-capacity mask."""
+    R, T, d = x.shape
+    N = gslot.shape[1]
+    K = N // T
+    S = R * num_slots
+    token_of = torch.arange(N, device=x.device) // K
+    send, in_cap, dest, slot_counts, dropped = _pack_sort(
+        x, token_of, gslot, valid, num_classes=S, cap=cap)
+    recv = comm.all_to_all(send.reshape(R, R, num_slots * cap, d))
+    # (R_dst, R_src, n_slots, cap, d) -> (R_dst * n_slots, R_src * cap, d)
+    recv = recv.reshape(R, R, num_slots, cap, d).transpose(1, 2) \
+               .reshape(S, R * cap, d).contiguous()
+    y_slots = grouped_ffn(experts, recv, slot_experts, activation)
+    y_back = y_slots.reshape(R, num_slots, R, cap, d).transpose(1, 2)
+    y_recv = comm.all_to_all(y_back).reshape(R, S * cap, d)
+    y_flat = torch.gather(y_recv, 1, dest.clamp(max=S * cap - 1)[..., None]
+                          .expand(-1, -1, d))
+    y_flat = torch.where(in_cap[..., None], y_flat,
+                         torch.zeros((), dtype=y_flat.dtype, device=x.device))
+    return y_flat, slot_counts, dropped, in_cap
+
+
+def _salt(T: int, K: int, device):
+    return (torch.arange(T, device=device)[:, None]
+            + torch.arange(K, device=device)[None, :]).reshape(-1)
+
+
+def _expert_counts(expert_idx, num_experts: int):
+    """(..., T, K) assignments -> (..., E) float32 counts."""
+    flat = expert_idx.reshape(expert_idx.shape[:-2] + (-1,)).long()
+    out = torch.zeros(flat.shape[:-1] + (num_experts,), dtype=torch.float32,
+                      device=flat.device)
+    return out.scatter_add_(-1, flat, torch.ones_like(flat, dtype=torch.float32))
+
+
+def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
+               moe: MoEConfig, *, ep_ranks: int, activation: str = "swiglu",
+               predicted_idx=None, resched_quota=None,
+               comm: Optional[StackedRanks] = None):
+    """Placement-aware EP MoE FFN over sharded tokens (see the module
+    docstring). x: (R, T, d), rank r's T local tokens in row r;
+    ``router_out``: the fused router's output on them, with leading R
+    (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, (E, ...)
+    leaves; ``plan``: one layer's ``DevicePlan``. Returns (y (R, T, d),
+    MoEStats) with global statistics."""
+    if predicted_idx is not None:
+        raise NotImplementedError("predicted_idx " + _SLICE3)
+    if resched_quota is not None:
+        raise NotImplementedError("resched_quota " + _SLICE3)
+    comm = comm or StackedRanks(ep_ranks)
+    R, T, d = x.shape
+    if R != ep_ranks:
+        raise ValueError(f"x has {R} rank rows, ep_ranks is {ep_ranks}")
+    K, E = moe.top_k, moe.num_experts
+    dup_slots = moe.duplication_slots
+    _, n_slots = plan_dims(E, ep_ranks, dup_slots)
+    S = ep_ranks * n_slots
+    cap = capacity(T, K, S, moe.capacity_factor)
+    se = _slot_map(plan, E, dup_slots, S, x.device)
+
+    true_idx = router_out.expert_idx                             # (R, T, K)
+    gates = router_out.gates.to(x.dtype)
+    gslot = choose_replica(plan, true_idx.reshape(R, T * K),
+                           _salt(T, K, x.device))
+    valid = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
+    y_flat, slot_counts, dropped, _ = _dispatch_round(
+        x, gslot, valid, num_slots=n_slots, cap=cap, experts=experts,
+        slot_experts=se, activation=activation, comm=comm)
+    y = (y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2)
+    stats = MoEStats(
+        expert_counts=comm.psum(_expert_counts(true_idx, E)),
+        slot_counts=comm.psum(slot_counts),
+        dropped=comm.psum(dropped),
+        aux_loss=comm.pmean(router_out.aux_loss),
+        z_loss=comm.pmean(router_out.z_loss))
+    return y, stats
+
+
+def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
+                          plan: DevicePlan, moe: MoEConfig, *, ep_ranks: int,
+                          activation: str = "swiglu", predicted_idx=None,
+                          resched_quota=None,
+                          comm: Optional[StackedRanks] = None):
+    """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
+    once (``router_out`` unbatched). Each rank computes the (token, k)
+    pairs assigned to its slots and a psum combines the results. Returns
+    (y (T, d), MoEStats)."""
+    if predicted_idx is not None:
+        raise NotImplementedError("predicted_idx " + _SLICE3)
+    if resched_quota is not None:
+        raise NotImplementedError("resched_quota " + _SLICE3)
+    comm = comm or StackedRanks(ep_ranks)
+    T, d = x.shape
+    R = ep_ranks
+    K, E = moe.top_k, moe.num_experts
+    dup_slots = moe.duplication_slots
+    _, n_slots = plan_dims(E, ep_ranks, dup_slots)
+    S = R * n_slots
+    cap = capacity(T, K, n_slots, moe.capacity_factor)  # per-rank slot capacity
+    se = _slot_map(plan, E, dup_slots, S, x.device)
+
+    expert_flat = router_out.expert_idx.reshape(-1)
+    gslot = choose_replica(plan, expert_flat, _salt(T, K, x.device))  # (N,)
+    N = gslot.shape[0]
+    rank = comm.rank_index(x.device)
+    mine = (gslot // n_slots)[None, :] == rank[:, None]              # (R, N)
+    token_of = torch.arange(N, device=x.device) // K
+    send, in_cap, dest, _, dropped = _pack_sort(
+        x.expand(R, T, d), token_of, (gslot % n_slots).expand(R, N), mine,
+        num_classes=n_slots, cap=cap)
+    ys = grouped_ffn(experts, send.reshape(S, cap, d), se, activation)
+    ys = ys.reshape(R, n_slots * cap, d)
+    y_flat = torch.gather(ys, 1, dest.clamp(max=n_slots * cap - 1)[..., None]
+                          .expand(-1, -1, d))
+    y_flat = torch.where(in_cap[..., None], y_flat,
+                         torch.zeros((), dtype=ys.dtype, device=x.device))
+    gates = router_out.gates.to(x.dtype)
+    y = comm.psum((y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2))
+    slot_counts = torch.zeros((R, S), dtype=torch.int32, device=x.device)
+    slot_counts.scatter_add_(1, gslot.clamp(max=S - 1).expand(R, N),
+                             in_cap.to(torch.int32))
+    stats = MoEStats(
+        expert_counts=_expert_counts(router_out.expert_idx, E),  # replicated
+        slot_counts=comm.psum(slot_counts),
+        dropped=comm.psum(dropped),
+        aux_loss=router_out.aux_loss,
+        z_loss=router_out.z_loss)
+    return y, stats

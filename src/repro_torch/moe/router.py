@@ -1,5 +1,6 @@
 """Top-k MoE router with load-balance auxiliary loss and router z-loss
-(the dense path of the JAX package's ``moe/router.py``)."""
+(the JAX package's ``moe/router.py``), on the ``fused_topk_route``
+kernel."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels import ops as kernel_ops
 
 
 class RouterOutput(NamedTuple):
@@ -18,38 +20,29 @@ class RouterOutput(NamedTuple):
     z_loss: torch.Tensor        # scalar
 
 
-def top_k_lowest_index(probs, k: int):
-    """(values, indices) of the k largest entries per row, ties going to
-    the LOWEST index as ``lax.top_k`` does: k rounds of argmax (which
-    returns the first maximum), masking each winner before the next."""
-    work = probs.clone()
-    vals, idxs = [], []
-    for _ in range(k):
-        i = torch.argmax(work, dim=-1, keepdim=True)
-        vals.append(torch.gather(probs, -1, i))
-        idxs.append(i)
-        work.scatter_(-1, i, float("-inf"))
-    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
-
-
 def route(w_router, moe: MoEConfig, x) -> RouterOutput:
-    """x: (T, d) token-major. Returns the top-k assignment and losses.
-    Logits are fp32: both x and the router weight are upcast."""
-    logits = torch.matmul(x.float(), w_router.float())
-    E = moe.num_experts
-    probs = torch.softmax(logits, dim=-1)
-    gates, expert_idx = top_k_lowest_index(probs, moe.top_k)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    """x: (T, d) token-major, or (R, T, d): R independent batches (the EP
+    ranks) routed in one call, each with its own losses, so every field
+    gains the leading R and the losses have shape (R,). Logits are fp32:
+    both x and the router weight are upcast.
 
+    The fused softmax / top-k / histogram kernel
+    (``kernels.ops.fused_topk_route``, ties to the lowest index as
+    ``lax.top_k``) routes every row, and the losses come from its counts
+    and logsumexp, as in the JAX package's ``route(impl="fused")``."""
+    logits = torch.matmul(x.float(), w_router.float())
+    batched = logits.dim() == 3
+    lg = logits if batched else logits[None]
+    expert_idx, gates, probs, lse, counts = kernel_ops.fused_topk_route(
+        lg.contiguous(), moe.top_k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
-    f = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, expert_idx.reshape(-1),
-        torch.full((expert_idx.numel(),), 1.0 / expert_idx.numel(),
-                   dtype=torch.float32, device=x.device))
-    p_mean = probs.mean(dim=0)
-    aux = E * torch.sum(f * p_mean) * moe.router_aux_loss
-    z = torch.mean(torch.logsumexp(logits, dim=-1).square()) * moe.router_z_loss
-    return RouterOutput(expert_idx.to(torch.int32), gates, probs, aux, z)
+    f = counts.float() / (expert_idx.shape[-2] * expert_idx.shape[-1])
+    aux = (moe.num_experts * torch.sum(f * probs.mean(dim=-2), dim=-1)
+           * moe.router_aux_loss)
+    z = torch.mean(lse.square(), dim=-1) * moe.router_z_loss
+    out = RouterOutput(expert_idx, gates, probs, aux, z)
+    return out if batched else RouterOutput(*(t[0] for t in out))
 
 
 def expert_histogram(expert_idx, num_experts: int, weight=None):

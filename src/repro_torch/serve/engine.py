@@ -8,15 +8,23 @@ decode step for every running slot at its own position over the paged KV
 pool. Every step feeds the per-layer expert histograms (padding and idle
 slots weighted 0) to the ``DistributionEstimator``; every
 ``predict_interval`` steps ``replan()`` runs Algorithm 1 for each layer and
-the new placement plan replaces the old one. ``ep_ranks`` is an
-accounting parameter here: the MoE layers run the exact single-device
-path, and the plan drives the modelled per-rank imbalance reported by
-``ServeMetrics``.
+the new placement plan replaces the old one at once (the JAX engine's
+``replica_impl="gather"`` behaviour).
+
+``ep=True`` is the port's counterpart of giving the JAX engine a mesh: the
+MoE layers run the expert-parallel dispatch with ``ep_ranks`` ranks as a
+leading tensor dimension on one device, and the live plan decides which
+slot each (token, k) pair goes to, which pairs are dropped at capacity and
+which expert's weights each replica slot computes with. The plan moves to
+the device once per re-plan. Dropped pairs are counted per iteration into
+``ServeMetrics`` (``dropped_tokens``). Without ``ep`` (the default) the
+layers run the exact dense path and ``ep_ranks`` only sizes the plan and
+the modelled per-rank imbalance.
 
 Not ported yet (see ROADMAP.md): the replica store and migration
-executors with their plan-diff churn accounting (a plan simply swaps
-here), the online GPS controller, the Token-to-Expert predictors, the
-reschedule lever, ``profile_phases`` and ``assert_no_recompiles``.
+executors with their plan-diff churn accounting, the online GPS
+controller, the Token-to-Expert predictors, the reschedule lever,
+``profile_phases`` and ``assert_no_recompiles``.
 """
 
 from __future__ import annotations
@@ -32,14 +40,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.duplication import duplicate_experts_host
 from repro_torch.core.placement import (PlacementPlan, identity_plan,
-                                        stack_plans)
+                                        stack_plans, to_device)
 from repro_torch.core.predictors import DistributionEstimator
 from repro_torch.models.transformer import Runtime, Transformer, init_cache
 from repro_torch.obs.accuracy import PredictorAccuracyTracker
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
                                        write_prefill_blocks)
-from repro_torch.serve.metrics import RequestTiming, ServeMetrics
+from repro_torch.serve.metrics import RequestTiming, ServeMetrics, imbalance
 from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
                                          ServeRequest)
 from repro_torch.train.steps import (make_paged_decode_step,
@@ -96,7 +104,8 @@ class ContinuousEngine:
     the device the model's parameters live on."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
-                 ccfg: ContinuousConfig, *, ep_ranks: int = 1, tracer=None,
+                 ccfg: ContinuousConfig, *, ep_ranks: int = 1,
+                 ep: bool = False, tracer=None,
                  metrics: Optional[ServeMetrics] = None, name: str = ""):
         if not cfg.is_moe or cfg.attention != "gqa":
             raise ValueError("the port's engine serves GQA MoE models so far")
@@ -107,8 +116,12 @@ class ContinuousEngine:
             raise ValueError(
                 f"prefill_len {ccfg.prefill_len} exceeds the model's "
                 f"sliding window {cfg.sliding_window}")
+        if ep and ccfg.prefill_len % ep_ranks:
+            raise ValueError(f"prefill_len {ccfg.prefill_len} does not split "
+                             f"over {ep_ranks} EP ranks")
         self.ccfg = ccfg
         self.ep_ranks = ep_ranks
+        self.ep = ep
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.name = name
         self.strategy = ccfg.strategy
@@ -116,6 +129,11 @@ class ContinuousEngine:
         self.iterations = 0
         self.decode_steps = 0
         self._plan_stack: Optional[PlacementPlan] = None
+        self._plan_dev = None            # the live plan on the device (EP)
+        self._step_dropped = 0.0
+        # (L, R * n_slots) pairs each global slot computed since the engine
+        # was built (EP only): the measured per-slot, so per-rank, load
+        self.slot_counts: Optional[np.ndarray] = None
 
         self.moe_cfg = dataclasses.replace(
             cfg.moe, duplication_slots=ccfg.dup_slots,
@@ -131,7 +149,8 @@ class ContinuousEngine:
 
         # window_override = max_len: the paged pool is linear in logical
         # positions (decode still masks to the architectural window)
-        self.rt = Runtime(window_override=ccfg.max_len)
+        self.rt = Runtime(window_override=ccfg.max_len, ep=ep,
+                          ep_ranks=ep_ranks)
         self.pool = init_block_pool(cfg, ccfg.num_blocks, ccfg.block_size,
                                     device=self.device)
         self.allocator = BlockAllocator(ccfg.num_blocks, ccfg.block_size)
@@ -161,8 +180,15 @@ class ContinuousEngine:
 
     def _current_plan(self) -> PlacementPlan:
         if self._plan_stack is None:
-            self._plan_stack = self._identity_stack()
+            self._set_plan(self._identity_stack())
         return self._plan_stack
+
+    def _set_plan(self, plan: PlacementPlan) -> None:
+        self._plan_stack = plan
+        if self.ep:
+            m = self.moe_cfg
+            self._plan_dev = to_device(plan, m.num_experts, self.ep_ranks,
+                                       m.duplication_slots, self.device)
 
     def replan(self) -> PlacementPlan:
         """Algorithm 1 per layer from the estimator's current prediction
@@ -182,7 +208,7 @@ class ContinuousEngine:
             "plan.switch", cat="plan", track="plan",
             args={"iteration": self.iterations, "strategy": self.strategy,
                   "extra_copies": extra})
-        self._plan_stack = plan
+        self._set_plan(plan)
         return plan
 
     # ---------------------------------------------------------------- warmup
@@ -193,10 +219,12 @@ class ContinuousEngine:
         if self.scheduler.active_slots:
             raise RuntimeError("warmup() before serving")
         ccfg = self.ccfg
+        self._current_plan()
         self._prefill_fn(
             self.model, self._dev(np.zeros((1, ccfg.prefill_len), np.int32)),
             self._temp_cache, self._dev(np.zeros((1,), np.int32)),
-            self._dev(np.zeros((1, ccfg.prefill_len), np.float32)))
+            self._dev(np.zeros((1, ccfg.prefill_len), np.float32)),
+            self._plan_dev)
         tables = np.zeros(
             (ccfg.max_slots, self.scheduler.tables.max_blocks_per_slot),
             np.int32)
@@ -204,7 +232,8 @@ class ContinuousEngine:
             self.model, self._dev(np.zeros((ccfg.max_slots, 1), np.int32)),
             self.pool, self._dev(tables),
             self._dev(np.zeros((ccfg.max_slots,), np.int32)),
-            self._dev(np.zeros((ccfg.max_slots, 1), np.float32)))
+            self._dev(np.zeros((ccfg.max_slots, 1), np.float32)),
+            self._plan_dev)
         next_tok.cpu()
         self._warm = True
 
@@ -234,6 +263,7 @@ class ContinuousEngine:
             step_args["model"] = self.name
         step_span = self.tracer.span("step", args=step_args)
         step_span.__enter__()
+        self._step_dropped = 0.0
         self._current_plan()
 
         with self.tracer.span("admission") as adm:
@@ -254,7 +284,8 @@ class ContinuousEngine:
                 tw[0, :req.prompt_len] = 1.0
                 next_tok, _, temp, stats = self._prefill_fn(
                     self.model, self._dev(toks), self._temp_cache,
-                    self._dev([req.prompt_len - 1]), self._dev(tw))
+                    self._dev([req.prompt_len - 1]), self._dev(tw),
+                    self._plan_dev)
                 write_prefill_blocks(
                     self.pool, temp,
                     sched.tables.tables[slot, :S // ccfg.block_size])
@@ -299,7 +330,8 @@ class ContinuousEngine:
                 next_tok, _, self.pool, stats = self._decode_fn(
                     self.model, self._dev(self._last_tokens[:, None]),
                     self.pool, self._dev(sched.tables.tables),
-                    self._dev(sched.tables.lengths), self._dev(active))
+                    self._dev(sched.tables.lengths), self._dev(active),
+                    self._plan_dev)
                 nt = next_tok.cpu().numpy()
             self.decode_steps += 1
             for slot in decode_slots:
@@ -336,6 +368,9 @@ class ContinuousEngine:
                         self.estimator.predict() if self.strategy != "none"
                         else None, self.strategy)
 
+        if self._step_dropped:
+            self.metrics.record_dropped(self._step_dropped)
+
         dt = clock() - now
         wall = time.perf_counter() - t_wall0
         self.metrics.record_iteration(
@@ -353,8 +388,22 @@ class ContinuousEngine:
 
     # ----------------------------------------------------------- internals
     def _accumulate(self, acc, stats):
+        if self.ep:
+            self._step_dropped += float(stats["dropped"].sum())
+            sc = stats["slot_counts"].to("cpu", torch.float64).numpy()
+            self.slot_counts = (sc if self.slot_counts is None
+                                else self.slot_counts + sc)
         c = stats["expert_counts"].to("cpu", torch.float64).numpy()
         return c if acc is None else acc + c
+
+    def measured_imbalance(self) -> float:
+        """max / mean of the pairs each EP rank computed (from
+        ``slot_counts``), averaged over layers; 1.0 before any EP step."""
+        if self.slot_counts is None:
+            return 1.0
+        L = self.slot_counts.shape[0]
+        return imbalance(self.slot_counts.reshape(L, self.ep_ranks, -1)
+                         .sum(-1))
 
     def _maybe_finish(self, slot: int, now: float, events: StepEvents):
         req = self.scheduler.slots[slot]

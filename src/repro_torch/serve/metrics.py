@@ -1,6 +1,8 @@
 """SLO metrics for the serving subsystem (the port's copy of the JAX
 package's ``serve/metrics.py``, without the migration, rescheduling and
-dispatch-phase columns of the paths not ported yet).
+dispatch-phase columns of the paths not ported yet; of the rescheduling
+columns only ``dropped_tokens`` is kept, the pairs the EP dispatch drops
+at capacity).
 
 Per-request: TTFT (arrival -> first token), TPOT (mean inter-token time),
 end-to-end latency. Per-window: throughput, goodput (completions meeting
@@ -166,6 +168,8 @@ class ServeMetrics:
         self._decode_tokens_n: float = 0.0
         self._attn_live_blocks: float = 0.0
         self._attn_alloc_blocks: float = 0.0
+        # (token, k) pairs the EP dispatch dropped at capacity
+        self.dropped_tokens: float = 0.0
         self._win_counts: Optional[np.ndarray] = None
         self._win: Optional[WindowRecord] = None
         self._t0: Optional[float] = None
@@ -228,6 +232,11 @@ class ServeMetrics:
         self.replan_count += 1.0
         self.replicated_replans += float(extra_copies > 0)
 
+    # ---------------------------------------------------------------- drops
+    def record_dropped(self, pairs: float) -> None:
+        """Account one iteration's (token, k) pairs dropped at capacity."""
+        self.dropped_tokens += float(pairs)
+
     # ---------------------------------------------------------- per-request
     def record_completion(self, t: RequestTiming):
         self.timings.append(t)
@@ -276,6 +285,7 @@ class ServeMetrics:
                 if t.ttft <= self.slo_ttft and t.tpot <= self.slo_tpot]
         total_tokens = sum(t.new_tokens for t in ts)
         out = {
+            "dropped_tokens": self.dropped_tokens,
             "replans": self.replan_count,
             "replicated_replans": self.replicated_replans,
             "step_p50_s": _pct(self.step_walls, 50),

@@ -1,5 +1,7 @@
 """Serving step functions for the continuous engine: one-request slot
-prefill and the paged decode step, each with greedy next tokens."""
+prefill and the paged decode step, each with greedy next tokens. Both
+pass the engine's live placement plan stack through to ``forward``, where
+the EP path dispatches under it."""
 
 from __future__ import annotations
 
@@ -15,10 +17,10 @@ def make_slot_prefill_step(cfg: ModelConfig, rt: Runtime):
     and ``token_weight`` masks padding out of the MoE expert histograms."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, last_pos=None,
-                     token_weight=None):
+                     token_weight=None, plan=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="prefill",
                                        cache=cache, last_pos=last_pos,
-                                       token_weight=token_weight)
+                                       token_weight=token_weight, plan=plan)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return prefill_step
@@ -30,11 +32,11 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
     next tokens for every slot; the engine masks idle slots."""
     @torch.inference_mode()
     def decode_step(model: Transformer, tokens, pool, block_tables, lengths,
-                    token_weight=None):
+                    token_weight=None, plan=None):
         logits, pool, stats = forward(model, cfg, tokens, rt, mode="decode",
                                       cache=pool, cache_len=lengths,
                                       block_tables=block_tables,
-                                      token_weight=token_weight)
+                                      token_weight=token_weight, plan=plan)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, pool, stats
     return decode_step
