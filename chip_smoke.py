@@ -7,13 +7,14 @@ non-zero:
                 limit; turns TF32 off for fp32 matrix products and cuDNN.
   2. build    — compiles every CUDA kernel from ``src/repro_torch/kernels/
                 csrc/`` (one nvcc per source, started together).
-  3. kernels  — holds each kernel (paged decode attention, and the
+  3. kernels  — holds each kernel (paged decode attention, the
                 expert-parallel path's moe_gemm, fused_topk_route and
-                histogram_offsets) against its plain PyTorch version on the
-                card at the main path's full-width shapes, and times the
-                kernel, the plain version, a library call that computes the
-                same function (a yardstick only; the port never calls it)
-                and the least time the card could take (bound).
+                histogram_offsets, and Griffin's rg_lru_scan) against its
+                plain PyTorch version on the card at the main paths'
+                full-width shapes, and times the kernel, the plain version,
+                a library call that computes the same function where one
+                exists (a yardstick only; the port never calls it) and the
+                least time the card could take (bound).
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -24,9 +25,17 @@ non-zero:
                 before and read after each run), that a re-plan replicated
                 an expert and, under EP, that a replica slot computed
                 pairs. Then it profiles EP decode steps with torch.profiler
-                (device time by kernel, idle share) and checks a reduced
-                model's logits on the card against the CPU path, dense and
-                EP.
+                (device time by kernel, idle share).
+                Then RecurrentGemma-2B at published widths, all 26 layers,
+                through ``repro_torch.launch.serve.main`` (``ServeEngine``):
+                16 requests of 3072 prompt tokens in batches of 8, 64 new
+                tokens each; checks completions and that every recurrent
+                layer of every prefill launched rg_lru_scan, reads prefill
+                and decode step times from the run's trace, and profiles
+                decode steps on the same weights.
+  5. reference — reduced models' logits on the card against the CPU path:
+                Mixtral dense and EP, and Griffin with prompts longer than
+                its local window.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -57,6 +66,7 @@ MAIN_LAYERS = 8                    # of Mixtral's 32: 32 bf16 layers ~93 GB > 80
 DENSE_LAYERS = 2                   # the dense path's run: all experts on all tokens
 EP_RANKS, DUP_SLOTS = 4, 1
 EP_KERNELS = ("moe_gemm", "histogram_offsets")   # the router runs on both paths
+GRIFFIN_ARGS = dict(requests=16, batch=8, seq=3072, new_tokens=64)
 
 
 def log(phase: str, **kv) -> None:
@@ -378,6 +388,48 @@ def histogram_phase(flush: torch.Tensor, seed: int):
                        "src/repro/kernels/histogram.py:60", rows, "decode")
 
 
+def rg_lru_phase(flush: torch.Tensor, seed: int):
+    """Griffin's prefill shapes (batch 8, 3072- and 2048-token prompts, rnn
+    width 2560; h0 zero, as a prefill starts), one step, a ragged shape and
+    a long one with a nonzero h0. Both outputs must equal the plain version
+    bit for bit: the kernel rounds the product and the sum apart, as the
+    plain version does. No single PyTorch call computes a first-order
+    linear recurrence, so there is no library time."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = {}
+    for case, (B, S, D, zero_h0) in {
+            "prefill": (8, 3072, 2560, True), "prefill_2048": (8, 2048, 2560, True),
+            "one_step": (8, 1, 2560, False), "ragged": (2, 1025, 257, False),
+            "long_h0": (4, 2000, 256, False)}.items():
+        a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.49 + 0.5
+        b = torch.randn((B, S, D), generator=gen, device="cuda") * 0.1
+        h0 = (torch.zeros((B, D), device="cuda") if zero_h0 else
+              torch.randn((B, D), generator=gen, device="cuda"))
+        got = ops.rg_lru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        want = ref.rg_lru_scan_plain(a, b, h0)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        # a and b read once, every h written once, h0 read, h_last written;
+        # one product and one sum per element
+        bound_ms, bound_by = _bound(4 * (3 * B * S * D + 2 * B * D),
+                                    2 * B * S * D, FP32_FLOPS)
+        row = {"max_abs_err": err, "ok": ok, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "ms": time_ms(lambda: ops.rg_lru_scan(a, b, h0), flush),
+               "plain_ms": time_ms(lambda: ref.rg_lru_scan_plain(a, b, h0),
+                                   flush, runs=5),
+               "library_ms": None}
+        rows[case] = row
+        _log_row("rg_lru_scan", case, f"B{B}xS{S}xD{D}", row)
+        del a, b, h0, got, want
+    torch.cuda.empty_cache()
+    return _kernel_row("rg_lru_scan", "src/repro_torch/kernels/csrc/rg_lru.cu",
+                       "src/repro/kernels/rg_lru.py:49", rows, "prefill")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -452,8 +504,9 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
                 or (toks >= cfg.vocab_size).any():
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
     forwards = (prefills + eng.decode_steps) * cfg.num_layers
-    want = {"paged_decode_attention": eng.decode_steps * cfg.num_layers,
-            "fused_topk_route": forwards}
+    want = {k: 0 for k in launches}
+    want.update(paged_decode_attention=eng.decode_steps * cfg.num_layers,
+                fused_topk_route=forwards)
     for k in EP_KERNELS:
         want[k] = forwards if ep else 0
     if launches != want:
@@ -509,7 +562,6 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
     requests, time ``iters`` decode-only iterations on the host clock, then
     ``iters`` more under torch.profiler. Prints the device's busy time by
     kernel and its idle share of the profiled window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from repro_torch.serve import ServeRequest
@@ -536,12 +588,7 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
             now += 1.0
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us() / 1e3 / iters
-            k[1] += 1
+    kernels = _kernel_time_by_name(prof, iters)
     busy = sum(ms for ms, _ in kernels.values())
     log("profile", decode_iterations=iters, slots=eng.ccfg.max_slots,
         step_ms=f"{plain_ms:.3f}", profiled_step_ms=f"{wall_ms:.3f}",
@@ -551,6 +598,154 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log("profile", ms_per_step=f"{ms:.4f}", share=f"{ms / busy:.4f}",
             per_step=f"{n / iters:.1f}", kernel=f"'{name[:90]}'")
+
+
+def _kernel_time_by_name(prof, iters: int):
+    """{kernel name: [device ms per iteration, launches]} of a profile."""
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us() / 1e3 / iters
+            k[1] += 1
+    return kernels
+
+
+def griffin_phase(seed: int):
+    """RecurrentGemma-2B at published widths and all 26 layers, random
+    weights from ``seed``, through the command a user runs
+    (``repro_torch.launch.serve.main``): 16 requests of 3072 Zipf tokens in
+    batches of 8, 64 new tokens each, so max_len 3136 and the local
+    layers' rotating buffer holds W = 2048 (the prompts are longer than the
+    window and every decode step wraps it). Kernel counts are set to 0
+    just before the run and read just after. Returns the launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    cfg = get_config("recurrentgemma-2b")
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+             for i in range(cfg.num_layers)]
+    n_rec = kinds.count("recurrent")
+    log("griffin", model=cfg.name, layers=cfg.num_layers,
+        recurrent_layers=n_rec, local_layers=cfg.num_layers - n_rec,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, rnn_width=cfg.rnn_width,
+        local_window=cfg.local_window, vocab=cfg.vocab_size,
+        reduced="none (published widths, all 26 layers)")
+    a = GRIFFIN_ARGS
+    trace = os.path.join(ROOT, "build", "chip_smoke", "griffin_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    argv = ["--arch", cfg.name, "--requests", str(a["requests"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--new-tokens", str(a["new_tokens"]), "--seed", str(seed),
+            "--device", "cuda", "--trace-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in out.getvalue().splitlines():
+        log("griffin", stdout=f"'{line}'")
+    with open(trace) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    prefill_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "prefill"]
+    decode_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "decode"]
+    batches = -(-a["requests"] // a["batch"])
+    served = f"served {a['requests']} requests"
+    log("griffin", argv=f"'{' '.join(argv)}'", rc=rc,
+        completed=f"{a['requests'] if served in out.getvalue() else '?'}"
+                  f" of {a['requests']}",
+        prefills=len(prefill_ms), decode_steps=len(decode_ms),
+        prefill_ms_per_batch_p50=f"{np.median(prefill_ms):.3f}",
+        decode_ms_per_step_p50=f"{np.median(decode_ms):.3f}",
+        decode_toks_per_s=f"{a['batch'] / np.median(decode_ms) * 1e3:.2f}",
+        wall_s=f"{wall:.3f}", peak_gb=f"{peak_gb:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    failures = []
+    if rc != 0 or served not in out.getvalue():
+        failures.append(f"launch.serve exit {rc}: not every request completed")
+    if len(prefill_ms) != batches or \
+            len(decode_ms) != batches * (a["new_tokens"] - 1):
+        failures.append(f"{len(prefill_ms)} prefills, {len(decode_ms)} "
+                        "decode steps in the trace")
+    want = {k: 0 for k in launches}
+    want["rg_lru_scan"] = n_rec * batches
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
+    if failures:
+        raise SystemExit("Griffin main path failed: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+    return launches
+
+
+def griffin_profile_phase(seed: int, steps: int = 6) -> None:
+    """The same full-width Griffin weights (the same seed) in a
+    ``ServeEngine``: one batch of 8 x 3072 prompts prefilled (its logits
+    finite, of shape (8, 1, V)), 2 decode steps on the host clock, then
+    ``steps`` more under torch.profiler: device busy time by kernel and the
+    idle share of the profiled window; the next tokens must lie in the
+    vocabulary."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config("recurrentgemma-2b")
+    a = GRIFFIN_ARGS
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    eng = ServeEngine(cfg, model, ServeConfig(
+        max_len=a["seq"] + a["new_tokens"]))
+    toks = next(token_batches(seed, cfg.vocab_size, a["batch"], a["seq"]))
+    logits, cache, _ = eng.prefill({"tokens": toks["tokens"]})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    ok = (tuple(logits.shape) == (a["batch"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()))
+    pos = a["seq"]
+    for _ in range(2):
+        tok, _, cache, _ = eng.decode(tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, _, cache, _ = eng.decode(tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    host = tok.cpu()
+    ok = ok and bool(((host >= 0) & (host < cfg.vocab_size)).all())
+    kernels = _kernel_time_by_name(prof, steps)
+    busy = sum(ms for ms, _ in kernels.values())
+    log("griffin_profile", decode_steps=steps, batch=a["batch"],
+        cache_len=pos, profiled_step_ms=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / steps:.1f}",
+        logits_ok=ok)
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+        log("griffin_profile", ms_per_step=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", per_step=f"{n / steps:.1f}",
+            kernel=f"'{name[:90]}'")
+    if not ok:
+        raise SystemExit("Griffin profile run: non-finite logits or tokens "
+                         "outside the vocabulary")
+    del eng, model, cache, logits
+    torch.cuda.empty_cache()
 
 
 def _reference_run(model, cfg, rt, plan, prompt, forced, S: int, bs: int):
@@ -659,8 +854,9 @@ def reference_phase(seed: int):
         err = float((logits["cuda"] - logits["cpu"]).abs().max())
         scale = float(logits["cpu"].abs().max())
         L = cfg.num_layers
-        want = {"paged_decode_attention": n_dec * L,
-                "fused_topk_route": (1 + n_dec) * L}
+        want = {k: 0 for k in launches["cuda"]}
+        want.update(paged_decode_attention=n_dec * L,
+                    fused_topk_route=(1 + n_dec) * L)
         for k in EP_KERNELS:
             want[k] = (1 + n_dec) * L if path == "ep" else 0
         ok = (bool(torch.isfinite(logits["cuda"]).all())
@@ -691,6 +887,70 @@ def reference_phase(seed: int):
     if failures:
         raise SystemExit(f"reduced model on the card disagrees with the CPU "
                          f"path: {failures}")
+
+
+def griffin_reference_phase(seed: int):
+    """Reduced Griffin (3 layers: recurrent, recurrent, local; window 32)
+    on the card (rg_lru_scan kernel) against the same weights on the CPU
+    (plain version): a prefill of two 45-token prompts, longer than the
+    window, then four teacher-forced decode steps that wrap the rotating
+    buffer. Logits within 5e-2 (``LOGIT_ATOL`` of the CPU parity tests,
+    where the CPU path is held against the JAX package); the recurrent
+    states within 5e-3, the tolerance of ``tests/test_torch_griffin.py``'s
+    block test: the scan itself is bit-exact (phase 3), but its inputs come
+    from bf16 projections that cuBLAS and the CPU round apart by an ulp
+    here and there, and the state follows ``i * x`` closely."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_cache, init_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config("recurrentgemma-2b").reduced()
+    gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda")
+    cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    B, S, n_dec = 2, 45, 4
+    prompt = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (B, n_dec)).astype(np.int32)
+    rt = Runtime()
+    prefill, decode = make_prefill_step(cfg, rt), make_decode_step(cfg, rt)
+    logits, states, launches = {}, {}, {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        dev = model.device
+        ops.reset_launches()
+        cache = init_cache(cfg, rt, B, S + n_dec, device=dev)
+        lg, cache, _ = prefill(model, torch.tensor(prompt, device=dev), cache)
+        out = [lg.float().cpu()]
+        for t in range(n_dec):
+            _, lg, cache, _ = decode(
+                model, torch.tensor(forced[:, t:t + 1], device=dev), cache,
+                S + t)
+            out.append(lg.float().cpu())
+        logits[name] = torch.cat(out, dim=1)
+        states[name] = [c["h"].cpu() for c in cache if "h" in c]
+        launches[name] = dict(ops.LAUNCHES)
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    h_err = max(float((a - b).abs().max())
+                for a, b in zip(states["cuda"], states["cpu"]))
+    n_rec = len(states["cpu"])
+    want = {k: 0 for k in launches["cuda"]}
+    want["rg_lru_scan"] = n_rec
+    ok = (bool(torch.isfinite(logits["cuda"]).all()) and err <= 5e-2
+          and h_err <= 5e-3 and launches["cuda"] == want
+          and not any(launches["cpu"].values()))
+    log("reference", path="griffin", model=cfg.name,
+        steps=f"prefill({S} tokens, window {cfg.local_window})+{n_dec}decode",
+        max_abs_err=f"{err:.6g}",
+        logit_scale=f"{float(logits['cpu'].abs().max()):.6g}",
+        state_max_abs_err=f"{h_err:.6g}",
+        tolerance="logits 5e-2, recurrent state 5e-3",
+        kernel_launches=",".join(f"{k}:{v}" for k, v in
+                                 launches["cuda"].items()), ok=ok)
+    if not ok:
+        raise SystemExit("reduced Griffin on the card disagrees with the CPU "
+                         "path")
 
 
 def main() -> int:
@@ -730,14 +990,18 @@ def main() -> int:
     kernels = [paged_attention_phase(flush, args.seed, mixtral.sliding_window),
                moe_gemm_phase(flush, args.seed, mixtral),
                router_phase(flush, args.seed, mixtral),
-               histogram_phase(flush, args.seed)]
+               histogram_phase(flush, args.seed),
+               rg_lru_phase(flush, args.seed)]
     del flush
     torch.cuda.empty_cache()
 
     launches = main_path_phase(args.seed)     # the EP run's counts
+    launches["rg_lru_scan"] = griffin_phase(args.seed)["rg_lru_scan"]
+    griffin_profile_phase(args.seed)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     reference_phase(args.seed)
+    griffin_reference_phase(args.seed)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,15 +3,18 @@
 ``params_from_jax`` takes the tree of ``init_model`` as numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``) and builds the port's
 ``Transformer``; ``params_to_jax`` is its inverse, returning the same key
-paths as float32 numpy arrays. Layer leaves are stacked over L in the JAX
-tree and split into ``layers[l]`` here; every weight keeps its
+paths as float32 numpy arrays. Uniform-stack layer leaves are stacked over
+L in the JAX tree (``layers``) and split into ``layers[l]`` here; hybrid
+models keep a list of per-layer trees (``hybrid_layers``: ``rec.*`` or
+``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps its
 ``(d_in, d_out)`` layout.
 
-The embedding, ``lm_head``, attention and expert weights are stored in
+The embedding, ``lm_head``, attention, expert and FFN weights, and the
+recurrent block's dense weights, ``conv_w`` and ``conv_b`` are stored in
 bf16 (the reference casts each to bf16 at every use, so the values the
-model computes with are unchanged); the router weight and norm scales stay
-fp32. A round trip therefore returns the bf16-rounded weights the
-reference computes with, and is exact from then on.
+model computes with are unchanged); the router weight, ``lam`` and the
+norm scales stay fp32. A round trip therefore returns the bf16-rounded
+weights the reference computes with, and is exact from then on.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (WEIGHT_DTYPE, Transformer,
-                                            _layer_shapes)
+                                            _layer_kind, _layer_shapes)
 
 # JAX key path -> port parameter name
 TOP_KEYS = {("embed", "table"): "embed", ("final_norm", "scale"): "final_norm",
@@ -40,6 +43,19 @@ LAYER_KEYS = {
 }
 _TOP_DTYPES = {"embed": WEIGHT_DTYPE, "final_norm": torch.float32,
                "lm_head": WEIGHT_DTYPE}
+# one hybrid layer's JAX key path -> port parameter name
+_REC_KEYS = {("rec", n, "w") if n.startswith("w_") else ("rec", n): "rec_" + n
+             for n in ("w_gate", "w_main", "conv_w", "conv_b", "w_a", "w_x",
+                       "lam", "w_out")}
+_FFN_KEYS = {("ffn", n): n for n in ("w_gate", "w_up", "w_down")}
+
+
+def _hybrid_keys(cfg: ModelConfig, kind: str):
+    """JAX key path -> port name for one hybrid layer of ``kind``."""
+    names = _layer_shapes(cfg, kind)
+    keys = {**{p: n for p, n in LAYER_KEYS.items() if p[0] != "moe"},
+            **_REC_KEYS, **_FFN_KEYS}
+    return {path: name for path, name in keys.items() if name in names}
 
 
 def _get(tree, path):
@@ -65,6 +81,23 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     top = {name: _tensor(_get(tree, path), _TOP_DTYPES[name], dev)
            for path, name in TOP_KEYS.items()}
+    if cfg.family == "hybrid":
+        layers = []
+        for l, sub in enumerate(tree["hybrid_layers"]):
+            kind = _layer_kind(cfg, l)
+            shapes = _layer_shapes(cfg, kind)
+            t = {}
+            for path, name in _hybrid_keys(cfg, kind).items():
+                a = np.asarray(_get(sub, path))
+                if a.shape != shapes[name][0]:
+                    raise ValueError(f"hybrid_layers[{l}].{name}: shape "
+                                     f"{a.shape}, expected {shapes[name][0]}")
+                t[name] = _tensor(a, shapes[name][2], dev)
+            layers.append(t)
+        if len(layers) != cfg.num_layers:
+            raise ValueError(f"{len(layers)} hybrid layers, expected "
+                             f"{cfg.num_layers}")
+        return Transformer(cfg, top, layers)
     shapes = _layer_shapes(cfg)
     stacked = {name: np.asarray(_get(tree["layers"], path))
                for path, name in LAYER_KEYS.items()}
@@ -85,6 +118,14 @@ def params_to_jax(model: Transformer) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, name in TOP_KEYS.items():
         _put(tree, path, np32(getattr(model, name)))
+    if model.cfg.family == "hybrid":
+        tree["hybrid_layers"] = []
+        for layer in model.layers:
+            sub: Dict[str, Any] = {}
+            for path, name in _hybrid_keys(model.cfg, layer.kind).items():
+                _put(sub, path, np32(getattr(layer, name)))
+            tree["hybrid_layers"].append(sub)
+        return tree
     for path, name in LAYER_KEYS.items():
         _put(tree, ("layers",) + path,
              np.stack([np32(getattr(layer, name)) for layer in model.layers]))

@@ -1,21 +1,22 @@
 """Model configuration for the PyTorch port.
 
 The port's own copy of ``ModelConfig`` / ``MoEConfig`` for the families it
-serves so far (uniform-stack decoder-only GQA models with a dense or MoE
-FFN). Field names and defaults follow the JAX package's configs, so a
+serves so far: uniform-stack decoder-only GQA models with a dense or MoE
+FFN, and the hybrid family (Griffin: RG-LRU recurrent blocks and local
+attention, in a repeating ``block_pattern``). Field names and defaults follow the JAX package's configs, so a
 config means the same model in both packages. Configs are plain frozen
 dataclasses.
 
-``reduced()`` derives the CPU-smoke variant (<=2 layers, d_model<=256,
-<=4 experts) used by the tests; it shrinks exactly the dimensions the JAX
-package's ``reduced()`` shrinks.
+``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
+pattern; d_model<=256, <=4 experts) used by the tests; it shrinks exactly
+the dimensions the JAX package's ``reduced()`` shrinks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -34,7 +35,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                          # dense | moe
+    family: str                          # dense | moe | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -42,7 +43,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                    # 0 -> d_model // num_heads
-    attention: str = "gqa"
+    attention: str = "gqa"               # gqa | mixed (hybrid)
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10000.0
@@ -50,6 +51,10 @@ class ModelConfig:
     activation: str = "swiglu"
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    # hybrid (recurrentgemma): block pattern repeated over layers
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")
+    rnn_width: int = 0                   # RG-LRU recurrence width (0 = d_model)
+    local_window: int = 2048             # local-attention window (hybrid)
     source: str = ""
 
     def __post_init__(self):
@@ -71,6 +76,8 @@ class ModelConfig:
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 1024),
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            local_window=min(self.local_window, 32),
+            rnn_width=min(self.rnn_width, 256) if self.rnn_width else 0,
             name=self.name + "-smoke",
         )
         if self.moe is not None:
@@ -80,4 +87,6 @@ class ModelConfig:
                 top_k=min(self.moe.top_k, 2),
                 d_ff_expert=min(self.moe.d_ff_expert, 256),
             )
+        if self.block_pattern:
+            changes["num_layers"] = len(self.block_pattern)
         return dataclasses.replace(self, **changes)

@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -15,10 +15,12 @@ from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rg_lru as _rg
 from repro_torch.kernels import topk_router as _tk
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
-                            "fused_topk_route": 0, "histogram_offsets": 0}
+                            "fused_topk_route": 0, "histogram_offsets": 0,
+                            "rg_lru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -92,4 +94,20 @@ def histogram_offsets(ids, num_classes: int):
         return _ref.histogram_offsets_plain(ids, num_classes)
     out = _hist.histogram_offsets(ids, num_classes)
     LAUNCHES["histogram_offsets"] += 1
+    return out
+
+
+def rg_lru_scan(a, b, h0):
+    """The RG-LRU linear recurrence ``h_t = a_t * h_{t-1} + b_t`` per
+    channel, fp32 carry from ``h0``.
+
+    Replaces the TPU kernel ``src/repro/kernels/rg_lru.py``
+    (``rg_lru_scan``). a, b: (B, S, D) fp32; h0: (B, D) fp32. Returns
+    (h_all (B, S, D), h_last (B, D)). Bound by the bytes it reads and
+    writes (see ``kernels.rg_lru``)."""
+    if a.device.type == "cpu":
+        _rg.check_inputs(a, b, h0)
+        return _ref.rg_lru_scan_plain(a, b, h0)
+    out = _rg.rg_lru_scan(a, b, h0)
+    LAUNCHES["rg_lru_scan"] += 1
     return out

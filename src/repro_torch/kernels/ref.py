@@ -159,3 +159,19 @@ def histogram_offsets_plain(ids, num_classes: int):
                         ok.to(torch.int32))
     starts = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
     return counts, starts
+
+
+def rg_lru_scan_plain(a, b, h0):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t`` per channel, a
+    sequential loop over time with an fp32 carry, in the order of the Pallas
+    body (``src/repro/kernels/rg_lru.py``, ``_kernel``) and of the JAX
+    oracle ``rg_lru_ref``: one rounded product, then one rounded sum.
+
+    a, b: (B, S, D) fp32; h0: (B, D) fp32. Returns (h_all (B, S, D),
+    h_last (B, D))."""
+    h = h0.float()
+    out = torch.empty_like(a, dtype=torch.float32)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out, h

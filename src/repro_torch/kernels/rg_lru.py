@@ -1,0 +1,65 @@
+"""RG-LRU linear-recurrence scan for Hopper: the launcher of
+``csrc/rg_lru.cu``.
+
+Port of the TPU kernel ``src/repro/kernels/rg_lru.py`` (``rg_lru_scan``).
+From fp32 ``a`` and ``b`` of shape ``(B, S, D)`` and an fp32 ``h0`` of
+shape ``(B, D)``, one launch computes ``h_t = a_t * h_{t-1} + b_t`` for
+every channel and returns every ``h_t`` and the last one. Every recurrent
+layer of a Griffin prefill calls it through ``kernels.ops.rg_lru_scan``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_BATCH = 65535                  # csrc/rg_lru.cu puts B on the grid's y axis
+
+
+def _function():
+    fn = build.load("rg_lru").rg_lru_scan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_inputs(a, b, h0) -> None:
+    """Raise on anything the kernel does not take."""
+    if a.dim() != 3:
+        raise ValueError(f"expected a (B, S, D); got {tuple(a.shape)}")
+    B, S, D = a.shape
+    if tuple(b.shape) != (B, S, D):
+        raise ValueError(f"b {tuple(b.shape)} does not match a {tuple(a.shape)}")
+    if tuple(h0.shape) != (B, D):
+        raise ValueError(f"h0 {tuple(h0.shape)} is not ({B}, {D})")
+    for name, t in (("a", a), ("b", b), ("h0", h0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != a.device:
+            raise ValueError(f"{name} on {t.device}, a on {a.device}")
+    if not (0 < B <= MAX_BATCH and S > 0 and D > 0):
+        raise ValueError(f"a {tuple(a.shape)}: need 0 < B <= {MAX_BATCH}, "
+                         "S > 0 and D > 0")
+
+
+def rg_lru_scan(a, b, h0):
+    """Launch the kernel on CUDA tensors. Returns ``(h_all (B, S, D),
+    h_last (B, D))``, fp32."""
+    check_inputs(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
+    B, S, D = a.shape
+    out = torch.empty_like(a)
+    h_last = torch.empty_like(h0)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _function()(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                      out.data_ptr(), h_last.data_ptr(), B, S, D, stream)
+    if err != 0:
+        raise RuntimeError(f"rg_lru_scan launch failed: CUDA error {err}")
+    return out, h_last

@@ -1,12 +1,20 @@
-"""GQA attention: projection with RoPE, chunked online-softmax prefill, and
-paged decode over the shared KV block pool.
+"""GQA attention: projection with RoPE, chunked online-softmax prefill,
+paged decode over the shared KV block pool, and decode over a contiguous
+per-batch cache, linear or a rotating window buffer.
 
 Prefill follows the JAX package's ``chunked_attention`` block for block
 (scores in the activation dtype, probabilities cast to V's dtype before
 the PV product, an fp32 running max / denominator / accumulator) and is
-plain PyTorch with the reference's masks. Decode goes through the fused
-paged kernel (``kernels.ops.paged_decode_attention``), whose probabilities
-stay fp32.
+plain PyTorch with the reference's masks. Paged decode goes through the
+fused paged kernel (``kernels.ops.paged_decode_attention``), whose
+probabilities stay fp32. Contiguous decode (``decode_attention``) is plain
+PyTorch, as the JAX package computes it outside any Pallas kernel, and
+keeps its probabilities in fp32 for the PV product too.
+
+Rotating-window caches (Griffin's local layers): the buffer holds
+``W = min(max_len, window)`` positions, absolute position ``p`` lives in
+slot ``p % W``, and RoPE is applied at the absolute position when k is
+written, so attention over the buffer does not depend on slot order.
 
 Layer parameters are a dict {"wq", "wk", "wv", "wo"} of (d_in, d_out)
 weights. Caches and pools are updated in place (the JAX package returns
@@ -151,4 +159,84 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, pool, block_tables, lengths,
     qg = q.reshape(B, K, G, hd)
     out = kernel_ops.paged_decode_attention(
         qg, pool["k"], pool["v"], block_tables, lengths, window=window)
+    return dense(p["wo"], out.reshape(B, 1, -1))
+
+
+def decode_attention(q, k_cache, v_cache, *, cache_len, window=0):
+    """Single-token attention over a contiguous cache. q: (B, 1, H, hd);
+    k_cache/v_cache: (B, S_max, K, hd); cache_len: current length including
+    the new token, an int or a (B,) tensor. Scores in the activation dtype,
+    probabilities and the PV product in fp32 (as the JAX package, so the
+    contiguous and paged decodes agree to summation-order noise)."""
+    B, _, H, hd = q.shape
+    _, S_max, K, _ = k_cache.shape
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, K, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache) * scale
+    pos = torch.arange(S_max, device=q.device)
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)  # (1|B, 1)
+    mask = pos[None, :] < cl
+    if window > 0:
+        mask = mask & (pos[None, :] >= cl - window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s.float(), dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    return out.to(q.dtype).reshape(B, 1, H, hd)
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache, cache_len: int, *, window=0):
+    """Decode one token over a linear cache. x: (B, 1, d); ``cache_len``:
+    the length BEFORE this token, where its k/v are written (in place)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
+    q, k, v = gqa_project(p, cfg, x, positions)
+    cache["k"][:, cache_len] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, cache_len] = v[:, 0].to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"],
+                           cache_len=cache_len + 1, window=window)
+    return dense(p["wo"], out.reshape(B, 1, -1))
+
+
+def gqa_prefill_windowed(p, cfg: ModelConfig, x, positions, cache, *,
+                         window: int):
+    """Prefill with a rotating window cache (buffer length <= window): the
+    last ``min(S, W)`` positions are written to slots ``pos % W``."""
+    W = cache["k"].shape[1]
+    if W > window:
+        return gqa_prefill(p, cfg, x, positions, cache, window=window)
+    q, k, v = gqa_project(p, cfg, x, positions)
+    out = chunked_attention(q, k, v, causal=True, window=window)
+    B, S = x.shape[:2]
+    n = min(S, W)
+    tail = torch.arange(S - n, S, device=x.device)
+    cache["k"][:, tail % W] = k[:, tail].to(cache["k"].dtype)
+    cache["v"][:, tail % W] = v[:, tail].to(cache["v"].dtype)
+    return dense(p["wo"], out.reshape(B, S, -1))
+
+
+def gqa_decode_windowed(p, cfg: ModelConfig, x, cache, cache_len: int, *,
+                        window: int = 0):
+    """Decode against a linear cache (window == 0 or a buffer longer than
+    the window) or a rotating window buffer: the new k/v go to slot
+    ``cache_len % W`` and attention covers the ``min(cache_len + 1, W)``
+    live slots."""
+    W = cache["k"].shape[1]
+    if window == 0 or W > window:
+        return gqa_decode(p, cfg, x, cache, cache_len, window=window)
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
+    q, k, v = gqa_project(p, cfg, x, positions)
+    slot = cache_len % W
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"],
+                           cache_len=min(cache_len + 1, W), window=0)
     return dense(p["wo"], out.reshape(B, 1, -1))

@@ -66,6 +66,17 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def gelu_tanh(x):
+    """``jax.nn.gelu`` (tanh approximation, its default) op for op in x's
+    dtype: its constants rounded to that dtype and every product and sum
+    rounded, as XLA computes it. In bf16 this equals the JAX package bit for
+    bit, where ``F.gelu(approximate="tanh")`` (one rounding at the end)
+    differs in about one element in five."""
+    c = torch.tensor(0.7978845608028654, dtype=x.dtype)       # sqrt(2 / pi)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def ffn(w_gate, w_up, w_down, x, activation: str):
     """Dense FFN; ``w_gate`` is unused (may be None) unless swiglu."""
     if activation == "swiglu":
@@ -73,7 +84,7 @@ def ffn(w_gate, w_up, w_down, x, activation: str):
     else:
         h = dense(w_up, x)
         if activation == "gelu":
-            h = F.gelu(h, approximate="tanh")
+            h = gelu_tanh(h)
         elif activation == "relu":
             h = F.relu(h)
         elif activation == "relu2":

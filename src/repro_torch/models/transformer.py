@@ -1,11 +1,20 @@
-"""Model assembly for the uniform-stack decoder-only GQA families (dense and
-MoE), as an ``nn.Module`` whose parameters mirror the JAX package's
-``init_model`` tree.
+"""Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
+package's ``init_model`` tree, for two families:
+
+* the uniform-stack decoder-only GQA MoE models (Mixtral);
+* the hybrid family (Griffin / RecurrentGemma): a repeating block pattern
+  of recurrent layers (``models.griffin``, RG-LRU) and local-attention
+  layers over a rotating window buffer, each followed by a dense FFN.
 
 Execution modes (``Transformer.forward``):
-  prefill — causal pass that fills a linear cache; returns logits at the
-            last (or each request's last real) position.
-  decode  — one token per slot against the paged KV block pool.
+  prefill — causal pass that fills a cache (a linear cache; for hybrid
+            models the per-layer recurrent states and window buffers);
+            returns logits at the last (or each request's last real)
+            position.
+  decode  — one token per row: against the paged KV block pool with (B,)
+            per-slot lengths and block tables (continuous batching), or
+            against the prefill's cache with one scalar ``cache_len`` for
+            the whole batch (``ServeEngine``).
 
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
@@ -15,10 +24,12 @@ the ranks, decode replicates the tokens. Under EP the placement plan
 decides which slot each (token, k) pair goes to, which pairs are dropped at
 capacity, and which expert weights each replica slot computes with.
 
-Storage: the embedding, ``lm_head``, attention and expert weights are kept
-in bf16 — the reference casts each of them to the bf16 activation dtype at
+Storage: the embedding, ``lm_head``, attention, expert and FFN weights and
+the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
+bf16 — the reference casts each of them to the bf16 activation dtype at
 every use, so the bf16 copy computes the same values in half the bytes.
-The router weight and the norm scales stay fp32, as they are used in fp32.
+The router weight, the RG-LRU's ``lam`` and the norm scales stay fp32, as
+they are used in fp32.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import DevicePlan, identity_plan, to_device
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense, embed, rmsnorm,
+from repro_torch.models import griffin
+from repro_torch.models.layers import (dense, embed, ffn, rmsnorm,
                                        truncated_normal_init)
 from repro_torch.models.moe import moe_ffn_dense
 from repro_torch.moe import dispatch as ep_dispatch
@@ -58,11 +70,23 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class DecoderLayer(nn.Module):
-    """One attention + MoE-FFN block. Weights are (d_in, d_out)."""
+def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    """"attn" for the uniform stack; the block pattern's entry ("recurrent"
+    or "local") for hybrid models."""
+    if cfg.family == "hybrid":
+        return cfg.block_pattern[layer_idx % len(cfg.block_pattern)]
+    return "attn"
 
-    def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor]):
+
+class DecoderLayer(nn.Module):
+    """One block. Weights are (d_in, d_out). ``kind`` "attn": attention +
+    MoE FFN; "recurrent": recurrent block (``rec_*``) + FFN; "local":
+    local attention + FFN."""
+
+    def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
+                 kind: str = "attn"):
         super().__init__()
+        self.kind = kind
         for name, t in tensors.items():
             setattr(self, name, _param(t))
 
@@ -73,27 +97,38 @@ class DecoderLayer(nn.Module):
         return {"router": self.router, "w_gate": self.w_gate,
                 "w_up": self.w_up, "w_down": self.w_down}
 
+    def rec_params(self):
+        return {name[4:]: t for name, t in self.named_parameters()
+                if name.startswith("rec_")}
+
 
 class Transformer(nn.Module):
-    """Decoder-only MoE transformer. Parameters (per-layer ones live in
+    """Decoder-only transformer. Parameters (per-layer ones live in
     ``layers[l]``):
 
-      embed (V, d), final_norm (d,), lm_head (d, V);
-      ln1, ln2 (d,); wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d);
-      router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d).
+      embed (V, d), final_norm (d,), lm_head (d, V); every layer ln1, ln2
+      (d,); attention layers wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d).
+      MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d).
+      Hybrid layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
+      under swiglu); recurrent layers rec_w_gate, rec_w_main (d, dr),
+      rec_conv_w (4, dr), rec_conv_b (dr,), rec_w_a, rec_w_x (dr, dr),
+      rec_lam (dr,), rec_w_out (dr, d); local layers the attention weights.
     """
 
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
                  layers):
         super().__init__()
-        if not cfg.is_moe or cfg.attention != "gqa" or cfg.qkv_bias \
-                or cfg.tie_embeddings or cfg.norm != "rmsnorm":
+        hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
+        moe = cfg.is_moe and cfg.attention == "gqa"
+        if not (hybrid or moe) or cfg.qkv_bias or cfg.tie_embeddings \
+                or cfg.norm != "rmsnorm":
             raise ValueError(f"{cfg.name}: the port serves untied, bias-free "
-                             "rmsnorm GQA MoE models only so far")
+                             "rmsnorm GQA MoE and hybrid models only so far")
         self.cfg = cfg
         for name, t in top.items():
             setattr(self, name, _param(t))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, t) for t in layers)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, t, _layer_kind(cfg, l))
+                                    for l, t in enumerate(layers))
 
     @property
     def device(self) -> torch.device:
@@ -112,22 +147,38 @@ class Transformer(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
-def _layer_shapes(cfg: ModelConfig):
+def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
+    """name -> (shape, init scale, dtype) of one layer of ``kind``; scale
+    None = ones (norm scale). Recurrent layers' ``rec_*`` entries carry
+    ``models.griffin.param_shapes`` (``init_model`` draws them there)."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    E, F = cfg.moe.num_experts, cfg.moe.d_ff_expert
-    # name -> (shape, init scale, dtype); scale None = ones (norm scale)
-    return {
-        "ln1": ((d,), None, torch.float32),
-        "ln2": ((d,), None, torch.float32),
-        "wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-        "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-        "wv": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-        "wo": ((H * hd, d), 1 / math.sqrt(H * hd), WEIGHT_DTYPE),
-        "router": ((d, E), 0.02, torch.float32),
-        "w_gate": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
-        "w_up": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
-        "w_down": ((E, F, d), 1 / math.sqrt(F), WEIGHT_DTYPE),
-    }
+    shapes = {"ln1": ((d,), None, torch.float32),
+              "ln2": ((d,), None, torch.float32)}
+    if kind in ("attn", "local"):
+        shapes.update({
+            "wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "wv": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "wo": ((H * hd, d), 1 / math.sqrt(H * hd), WEIGHT_DTYPE)})
+    if kind == "attn":
+        E, F = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        shapes.update({
+            "router": ((d, E), 0.02, torch.float32),
+            "w_gate": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "w_up": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "w_down": ((E, F, d), 1 / math.sqrt(F), WEIGHT_DTYPE)})
+        return shapes
+    if kind == "recurrent":
+        shapes.update({"rec_" + n: (shape, scale, dt) for n, (shape, scale, dt, _)
+                       in griffin.param_shapes(cfg).items()})
+    elif kind != "local":
+        raise ValueError(f"layer kind {kind!r}")
+    F = cfg.d_ff
+    if cfg.activation == "swiglu":
+        shapes["w_gate"] = ((d, F), 1 / math.sqrt(d), WEIGHT_DTYPE)
+    shapes["w_up"] = ((d, F), 1 / math.sqrt(d), WEIGHT_DTYPE)
+    shapes["w_down"] = ((F, d), 1 / math.sqrt(F), WEIGHT_DTYPE)
+    return shapes
 
 
 def _draw(shape, scale, dtype, generator, device):
@@ -160,10 +211,16 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
         "lm_head": _draw((d, V), 1 / math.sqrt(d), WEIGHT_DTYPE, generator, dev),
     }
-    shapes = _layer_shapes(cfg)
-    layers = [{name: _draw(shape, scale, dt, generator, dev)
-               for name, (shape, scale, dt) in shapes.items()}
-              for _ in range(cfg.num_layers)]
+    layers = []
+    for l in range(cfg.num_layers):
+        kind = _layer_kind(cfg, l)
+        t = {name: _draw(shape, scale, dt, generator, dev)
+             for name, (shape, scale, dt) in _layer_shapes(cfg, kind).items()
+             if not name.startswith("rec_")}
+        if kind == "recurrent":
+            t.update(("rec_" + n, w) for n, w in griffin.init_recurrent_block(
+                cfg, generator, dev).items())
+        layers.append(t)
     return Transformer(cfg, top, layers)
 
 
@@ -178,10 +235,19 @@ def cache_len_for(cfg: ModelConfig, rt: Runtime, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Stacked (over layers) linear cache {"k", "v"}: (L, B, S, K, hd)."""
+    """Uniform stack: one linear cache {"k", "v"}: (L, B, S, K, hd), S =
+    ``cache_len_for``. Hybrid: a list over layers, a recurrent state
+    {"h", "conv"} for each recurrent layer and a window buffer {"k", "v"}
+    of ``min(max_len, local_window)`` positions for each local layer."""
+    dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        W = min(max_len, cfg.local_window)
+        return [griffin.init_recurrent_state(cfg, batch, dtype, dev)
+                if _layer_kind(cfg, l) == "recurrent" else
+                attn.init_gqa_cache(cfg, batch, W, dtype, dev)
+                for l in range(cfg.num_layers)]
     clen = cache_len_for(cfg, rt, max_len)
     shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.head_dim)
-    dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -264,13 +330,18 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     if mode == "prefill":
         a = attn.gqa_prefill(layer.attn_params(), cfg, h, positions, cache,
                              window=rt.window(cfg))
-    elif mode == "decode":
+    elif mode == "decode" and block_tables is not None:
         # the paged pool is linear in logical positions (window_override =
         # max_len only sizes caches) but decode still masks to the
         # architectural sliding window
         a = attn.gqa_decode_paged(layer.attn_params(), cfg, h, cache,
                                   block_tables, cache_len,
                                   window=cfg.sliding_window)
+    elif mode == "decode":
+        # one scalar position for the whole batch over a linear cache (or
+        # a rotating buffer once the cache is as short as the window)
+        a = attn.gqa_decode_windowed(layer.attn_params(), cfg, h, cache,
+                                     cache_len, window=rt.window(cfg))
     else:
         raise ValueError(f"mode {mode!r}")
     x = x + a
@@ -278,6 +349,28 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     y, *stats = _moe_apply(layer, cfg, h, rt, plan_l, mode == "decode",
                            token_weight)
     return x + y, tuple(stats)
+
+
+def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
+                  mode: str, cache_len):
+    """One hybrid block: recurrent block or local attention over the
+    rotating window buffer, then the FFN. Window buffers are updated in
+    place; a recurrent layer returns a new state. Returns (x, state)."""
+    h = rmsnorm(layer.ln1, x)
+    if layer.kind == "recurrent":
+        a, state = griffin.recurrent_block(layer.rec_params(), cfg, h, state)
+    elif mode == "prefill":
+        a = attn.gqa_prefill_windowed(layer.attn_params(), cfg, h, positions,
+                                      state, window=cfg.local_window)
+    elif mode == "decode":
+        a = attn.gqa_decode_windowed(layer.attn_params(), cfg, h, state,
+                                     cache_len, window=cfg.local_window)
+    else:
+        raise ValueError(f"mode {mode!r}")
+    x = x + a
+    y = ffn(getattr(layer, "w_gate", None), layer.w_up, layer.w_down,
+            rmsnorm(layer.ln2, x), cfg.activation)
+    return x + y, state
 
 
 def _logits(model: Transformer, x):
@@ -292,9 +385,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
                   of each request's last real token; default the padded
                   end); fills ``cache`` (a fresh one when None).
-    mode=decode:  tokens (B, 1); ``cache`` is the block pool {"k", "v"}:
-                  (L, N, bs, K, hd); ``cache_len`` the (B,) int32 lengths;
-                  ``block_tables`` (B, M) int32. Logits (B, 1, V).
+    mode=decode:  tokens (B, 1); with ``block_tables`` (B, M) int32,
+                  ``cache`` is the block pool {"k", "v"}: (L, N, bs, K, hd)
+                  and ``cache_len`` the (B,) int32 lengths; without, the
+                  prefill's cache and ``cache_len`` one int, the length
+                  before this token. Logits (B, 1, V).
     ``token_weight``: (B, S) weight of each token in the expert histogram
     (0 for padding / idle slots). ``plan``: the (L, ...) placement plan
     stack the EP path dispatches under, a ``DevicePlan`` (see
@@ -305,12 +400,22 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     """
     x = embed(model.embed, tokens).to(ACT_DTYPE)
     B, S = tokens.shape
-    if mode == "decode":
+    if mode == "decode" and torch.is_tensor(cache_len):
         positions = cache_len.long()[:, None]
+    elif mode == "decode":
+        positions = torch.full((B, 1), cache_len, dtype=torch.long,
+                               device=x.device)
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
         if cache is None:
             cache = init_cache(cfg, rt, B, S, device=x.device)
+    if cfg.family == "hybrid":
+        cache = list(cache)
+        for l, layer in enumerate(model.layers):
+            x, cache[l] = _hybrid_layer(layer, cfg, x, positions, cache[l],
+                                        mode, cache_len)
+        stats = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
+        return _last_logits(model, x, mode, last_pos), cache, stats
     if plan is not None and not isinstance(plan, DevicePlan):
         m = cfg.moe
         plan = to_device(plan, m.num_experts, rt.ep_ranks,
@@ -332,9 +437,16 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     if rt.ep:
         stats["slot_counts"] = torch.stack(slots)
         stats["dropped"] = torch.stack(dropped)
+    return _last_logits(model, x, mode, last_pos), cache, stats
+
+
+def _last_logits(model: Transformer, x, mode: str, last_pos):
+    """Logits at each row's last real position in prefill (``last_pos``,
+    default the padded end), at the one position in decode."""
     if mode == "prefill":
         if last_pos is not None:
-            x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
+            x = x[torch.arange(x.shape[0], device=x.device),
+                  last_pos.long()][:, None]
         else:
             x = x[:, -1:]
-    return _logits(model, x), cache, stats
+    return _logits(model, x)

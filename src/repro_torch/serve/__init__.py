@@ -1,16 +1,19 @@
-"""Serving runtime: continuous batching over a paged KV block pool, with
-the Distribution-Only predict -> plan loop in every step."""
+"""Serving runtime: the batched ``ServeEngine`` and continuous batching
+over a paged KV block pool, with the Distribution-Only predict -> plan
+loop."""
 from repro_torch.serve.engine import (ContinuousConfig, ContinuousEngine,
-                                      StepEvents)
+                                      ServeConfig, ServeEngine, StepEvents)
 from repro_torch.serve.kvcache import BlockAllocator, init_block_pool
 from repro_torch.serve.metrics import (RequestTiming, ServeMetrics, imbalance,
                                        plan_rank_loads)
-from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
-                                         RequestState, ServeRequest)
+from repro_torch.serve.scheduler import (BatchScheduler, ContinuousScheduler,
+                                         IterationPlan, Request, RequestState,
+                                         ServeRequest, pad_fifo_batch)
 
 __all__ = [
-    "BlockAllocator", "ContinuousConfig", "ContinuousEngine",
-    "ContinuousScheduler", "IterationPlan", "RequestState", "RequestTiming",
+    "BatchScheduler", "BlockAllocator", "ContinuousConfig",
+    "ContinuousEngine", "ContinuousScheduler", "IterationPlan", "Request",
+    "RequestState", "RequestTiming", "ServeConfig", "ServeEngine",
     "ServeMetrics", "ServeRequest", "StepEvents", "imbalance",
-    "init_block_pool", "plan_rank_loads",
+    "init_block_pool", "pad_fifo_batch", "plan_rank_loads",
 ]

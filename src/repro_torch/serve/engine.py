@@ -1,6 +1,18 @@
-"""Continuous-batching serving engine with the paper's Distribution-Only
-predict -> plan loop (the port of the JAX package's ``ContinuousEngine``
-as it runs without a mesh).
+"""Serving engines with the paper's Distribution-Only predict -> plan loop.
+
+``ServeEngine`` (the port of the JAX package's ``ServeEngine`` as it runs
+without a mesh) serves one padded batch at a time: a batched prefill, then
+greedy decode at one position for the whole batch over the prefill's
+cache. It serves every family the port has, and is the only engine for
+hybrid (Griffin) models. MoE models take the single-device dense path;
+the estimator, the accuracy window and Algorithm 1 re-plan on the
+interval, and a new plan replaces the old one at once. With a tracer on,
+its ``prefill`` and ``decode`` spans end after the device has finished
+the step (one ``torch.cuda.synchronize`` each), so they read as step
+times; with the null tracer nothing synchronises.
+
+``ContinuousEngine`` is the port of the JAX package's
+``ContinuousEngine`` as it runs without a mesh.
 
 Each ``step()`` is one mixed iteration: admit + prefill up to
 ``max_prefills_per_step`` waiting requests into free slots, then run ONE
@@ -50,10 +62,177 @@ from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
 from repro_torch.serve.metrics import RequestTiming, ServeMetrics, imbalance
 from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
                                          ServeRequest)
-from repro_torch.train.steps import (make_paged_decode_step,
-                                     make_slot_prefill_step)
+from repro_torch.train.steps import (make_decode_step, make_paged_decode_step,
+                                     make_prefill_step, make_slot_prefill_step)
 
 STRATEGIES = ("none", "dist_only")
+
+
+# ===========================================================================
+# batched engine
+# ===========================================================================
+
+@dataclass
+class ServeConfig:
+    """Knobs of ``ServeEngine``: the fields of the JAX package's
+    ``ServeConfig`` that its mesh-less path reads. ``token_to_expert``, a
+    mesh, the replica store, overlapped migration, in-graph re-planning and
+    the reschedule lever are not ported (ROADMAP.md)."""
+    strategy: str = "dist_only"       # none | dist_only
+    predict_interval: int = 1         # batches between re-plans (paper Sec 3.1)
+    dup_slots: int = 1                # replica slots per EP rank
+    max_copies: int = 4               # Algorithm 1 C_max
+    ema: float = 0.9                  # moving-average for the MLE estimator
+    max_len: int = 2048               # cache length for generation
+
+    def __post_init__(self):
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"strategy {self.strategy!r}: the port serves "
+                             f"{STRATEGIES} so far")
+
+
+class ServeEngine:
+    """Batched prefill + greedy decode with dynamic expert duplication, on
+    the device the model's parameters live on."""
+
+    def __init__(self, cfg: ModelConfig, model: Transformer,
+                 serve: ServeConfig, *, ep_ranks: int = 1, tracer=None):
+        self.serve = serve
+        self.ep_ranks = ep_ranks
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.batches_seen = 0
+        self._plan_stack: Optional[PlacementPlan] = None
+        self.history: List[dict] = []         # per-batch balance telemetry
+        if cfg.is_moe:
+            dup_slots = serve.dup_slots if serve.strategy != "none" else 0
+            self.moe_cfg = dataclasses.replace(
+                cfg.moe, duplication_slots=dup_slots,
+                max_copies=serve.max_copies)
+            cfg = dataclasses.replace(cfg, moe=self.moe_cfg)
+            self.estimator = DistributionEstimator(
+                cfg.num_layers, cfg.moe.num_experts, ema=serve.ema)
+            self.accuracy = PredictorAccuracyTracker(
+                cfg.num_layers, cfg.moe.num_experts)
+        else:
+            self.moe_cfg = self.estimator = self.accuracy = None
+        self.cfg = cfg
+        self.model = model
+        self.device = model.device
+        # no mesh: the MoE layers take the exact dense path, which reads no
+        # placement plan, so the steps are not handed one
+        self.rt = Runtime()
+        self._prefill = make_prefill_step(cfg, self.rt)
+        self._decode = make_decode_step(cfg, self.rt)
+
+    # ------------------------------------------------------------------ plan
+    def _identity_stack(self) -> Optional[PlacementPlan]:
+        if not self.cfg.is_moe:
+            return None
+        m = self.moe_cfg
+        return stack_plans([
+            identity_plan(m.num_experts, self.ep_ranks, m.duplication_slots,
+                          m.max_copies) for _ in range(self.cfg.num_layers)])
+
+    def replan(self) -> Optional[PlacementPlan]:
+        """Algorithm 1 per layer from the current distribution estimate
+        (the identity plan for dense models or strategy "none")."""
+        if not self.cfg.is_moe or self.serve.strategy == "none":
+            return self._identity_stack()
+        m = self.moe_cfg
+        dist = self.estimator.predict()                  # (L, E)
+        # without a mesh there are no replica weights to move: the new
+        # plan is adopted at once
+        self._plan_stack = stack_plans([
+            duplicate_experts_host(dist[l], self.ep_ranks,
+                                   m.duplication_slots, m.max_copies).plan
+            for l in range(self.cfg.num_layers)])
+        self.tracer.instant("plan.switch", cat="plan", track="plan",
+                            args={"batch": self.batches_seen})
+        return self._plan_stack
+
+    # ----------------------------------------------------------------- steps
+    def _sync(self):
+        if self.tracer.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefill(self, batch, cache=None):
+        """Prefill ``batch["tokens"]`` (B, S) (host array or tensor) into
+        ``cache`` (a fresh one of ``max_len`` when None). Returns (logits
+        (B, 1, V), cache, stats)."""
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, S = tokens.shape
+        if cache is None:
+            cache = init_cache(self.cfg, self.rt, B, self.serve.max_len,
+                               device=self.device)
+        logits, cache, stats = self._prefill(self.model, tokens, cache)
+        self._observe(stats)
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.tracer.add_span("prefill", dt,
+                             ts_ns=self.tracer.now_ns() - int(dt * 1e9),
+                             args={"batch": B, "tokens": B * S})
+        return logits, cache, stats
+
+    def decode(self, tokens, cache, cache_len: int):
+        """One greedy decode step for the batch at position ``cache_len``.
+        Returns (next tokens (B, 1) int32, logits, cache, stats)."""
+        with self.tracer.span("decode", args={"cache_len": cache_len}):
+            out = self._decode(self.model, tokens, cache, cache_len)
+            self._sync()
+        return out
+
+    def generate(self, batch, max_new_tokens: int = 8):
+        """Prefill + greedy decode; returns (generated (B, T) int32 tensor,
+        the last batch's telemetry)."""
+        S = batch["tokens"].shape[1]
+        logits, cache, _ = self.prefill(batch, cache=None)
+        next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out = [next_tok]
+        for t in range(max_new_tokens - 1):
+            next_tok, _, cache, _ = self.decode(next_tok, cache, S + t)
+            out.append(next_tok)
+        return torch.cat(out, dim=1), self.history[-1] if self.history else {}
+
+    # -------------------------------------------------------------- observe
+    def _observe(self, stats):
+        """Feed router histograms to the estimator; replan on the interval."""
+        self.batches_seen += 1
+        if not self.cfg.is_moe or stats.get("expert_counts") is None:
+            return
+        counts = stats["expert_counts"].to("cpu", torch.float64).numpy()
+        self.estimator.update(counts)
+        self.accuracy.observe(counts)
+        tele = {"batch": self.batches_seen,
+                "skew": float(counts.sum(0).max()
+                              / max(counts.sum(0).mean(), 1e-9))}
+        self.history.append(tele)
+        if (self.serve.strategy != "none"
+                and self.batches_seen % self.serve.predict_interval == 0):
+            wa = self.accuracy.close_window()
+            if wa is not None:
+                self.tracer.counter("pred_hit_rate", wa.hit_rate,
+                                    track="predictor")
+                tele["pred_hit_rate"] = wa.hit_rate
+                tele["pred_kl"] = wa.kl
+            self.replan()
+            # score the distribution this re-plan just planned from
+            # against the next window's realized routing
+            self.accuracy.begin_window(self.estimator.predict(),
+                                       self.serve.strategy)
+
+    # ------------------------------------------------------------- telemetry
+    def rank_loads(self, slot_counts: np.ndarray) -> np.ndarray:
+        """(L, S) slot counts -> (L, R) per-rank token loads."""
+        m = self.moe_cfg
+        n_slots = m.num_experts // self.ep_ranks + m.duplication_slots
+        sc = np.asarray(slot_counts, np.float64)
+        return sc.reshape(sc.shape[0], self.ep_ranks, n_slots).sum(-1)
+
+
+# ===========================================================================
+# continuous batching
+# ===========================================================================
 
 
 @dataclass

@@ -1,7 +1,8 @@
-"""Continuous-batching request scheduler (the port's copy of the JAX
-package's ``ContinuousScheduler``).
+"""Request schedulers (the port's copies of the JAX package's).
 
-Requests arrive at arbitrary times, are admitted into fixed *slots* as
+* ``BatchScheduler`` — the pad-to-one-batch FIFO that feeds
+  ``ServeEngine`` (``launch/serve.py``).
+* ``ContinuousScheduler`` — continuous batching. Requests arrive at arbitrary times, are admitted into fixed *slots* as
 capacity (slots + KV blocks) allows, decode every iteration at their own
 position, and leave the instant they finish. KV memory is managed
 per-slot through a ``BlockAllocator`` (paged pool); when the pool runs dry
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -26,6 +27,19 @@ from repro_torch.serve.kvcache import BlockAllocator, SlotTables
 # ---------------------------------------------------------------------------
 # requests
 # ---------------------------------------------------------------------------
+
+@dataclass
+class Request:
+    """A request of the synchronous ``BatchScheduler``."""
+    rid: int
+    tokens: np.ndarray            # (S,) prompt tokens
+    max_new_tokens: int = 8
+    generated: List[int] = field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
 
 class RequestState(enum.Enum):
     WAITING = "waiting"
@@ -57,6 +71,58 @@ class ServeRequest:
     @property
     def done(self) -> bool:
         return len(self.generated) >= self.max_new_tokens
+
+
+# ---------------------------------------------------------------------------
+# pad-to-one-batch FIFO
+# ---------------------------------------------------------------------------
+
+def pad_fifo_batch(batch_reqs, batch_size: int, seq_len: int, pad_id: int = 0
+                   ) -> Dict:
+    """Pad a FIFO group to (batch_size, seq_len): prompts right-padded with
+    ``pad_id`` (truncated above ``seq_len``), missing rows all zeros, and a
+    (batch_size, seq_len) float mask of the real tokens."""
+    toks = np.full((len(batch_reqs), seq_len), pad_id, np.int32)
+    mask = np.zeros((len(batch_reqs), seq_len), np.float32)
+    for i, r in enumerate(batch_reqs):
+        s = min(len(r.tokens), seq_len)
+        toks[i, :s] = r.tokens[:s]
+        mask[i, :s] = 1.0
+    if len(batch_reqs) < batch_size:
+        pad = batch_size - len(batch_reqs)
+        toks = np.concatenate([toks, np.zeros((pad, seq_len), np.int32)])
+        mask = np.concatenate([mask, np.zeros((pad, seq_len), np.float32)])
+    return {"tokens": toks, "mask": mask, "requests": list(batch_reqs)}
+
+
+class BatchScheduler:
+    """FIFO scheduler: pads prompts to a common length, yields full batches."""
+
+    def __init__(self, batch_size: int, seq_len: int, pad_id: int = 0):
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.pad_id = pad_id
+        self.queue: List[Request] = []
+        self.completed: List[Request] = []
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def has_work(self) -> bool:
+        return len(self.queue) > 0
+
+    def next_batch(self) -> Optional[Dict]:
+        if not self.queue:
+            return None
+        batch_reqs = self.queue[:self.batch_size]
+        self.queue = self.queue[self.batch_size:]
+        return pad_fifo_batch(batch_reqs, self.batch_size, self.seq_len,
+                              self.pad_id)
+
+    def finish(self, reqs: List[Request], generated: np.ndarray):
+        for i, r in enumerate(reqs):
+            r.generated.extend(int(t) for t in generated[i])
+            self.completed.append(r)
 
 
 # ---------------------------------------------------------------------------

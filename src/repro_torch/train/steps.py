@@ -1,7 +1,10 @@
-"""Serving step functions for the continuous engine: one-request slot
-prefill and the paged decode step, each with greedy next tokens. Both
-pass the engine's live placement plan stack through to ``forward``, where
-the EP path dispatches under it."""
+"""Serving step functions.
+
+For the continuous engine: one-request slot prefill and the paged decode
+step, each with greedy next tokens. For ``ServeEngine``: the batched
+prefill and the decode step over the prefill's cache at one scalar
+position (greedy next tokens). All pass the engine's live placement plan
+stack through to ``forward``, where the EP path dispatches under it."""
 
 from __future__ import annotations
 
@@ -39,4 +42,29 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
                                       token_weight=token_weight, plan=plan)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, pool, stats
+    return decode_step
+
+
+def make_prefill_step(cfg: ModelConfig, rt: Runtime):
+    """Batched prefill of (B, S) prompts into ``cache`` (a fresh one when
+    None). Returns (logits at the last position, cache, stats)."""
+    @torch.inference_mode()
+    def prefill_step(model: Transformer, tokens, cache=None, plan=None):
+        return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
+                       plan=plan)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, rt: Runtime):
+    """One decode step for the whole batch at position ``cache_len`` (an
+    int: the length before this token) over the prefill's cache. Returns
+    (greedy next tokens (B, 1) int32, logits, cache, stats)."""
+    @torch.inference_mode()
+    def decode_step(model: Transformer, tokens, cache, cache_len: int,
+                    plan=None):
+        logits, cache, stats = forward(model, cfg, tokens, rt, mode="decode",
+                                       cache=cache, cache_len=cache_len,
+                                       plan=plan)
+        next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return next_tok, logits, cache, stats
     return decode_step

@@ -317,6 +317,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    walked = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "models/griffin", "launch/serve", "data/synthetic", "kernels/rg_lru",
+        "serve/engine", "serve/scheduler")} <= walked
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
