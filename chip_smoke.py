@@ -14,7 +14,10 @@ non-zero:
                 full-width shapes, and times the kernel, the plain version,
                 a library call that computes the same function where one
                 exists (a yardstick only; the port never calls it) and the
-                least time the card could take (bound).
+                least time the card could take (bound). Paged attention
+                (a split pass and a combine pass per call) also runs one
+                slot alone and all slots at length 1023, and prints its
+                split plan and the pair's device time under torch.profiler.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -82,6 +85,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(text: str):
+    """(function, line) for each register and stack line of an nvcc
+    ``-Xptxas=-v`` log, the function demangled where ``c++filt`` exists
+    and cut to its name and template arguments."""
+    out, function = [], "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            function = line.split("'")[1]
+            try:
+                function = subprocess.run(
+                    ["c++filt", function], capture_output=True, text=True,
+                    timeout=10).stdout.strip() or function
+            except (OSError, subprocess.SubprocessError):
+                pass
+            function = function.replace("(anonymous namespace)::", "")
+            function = function.split("(")[0].removeprefix("void ")
+        elif "registers" in line or "bytes stack" in line:
+            out.append((function, line.strip()))
+    return out
+
+
 def time_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn``, the L2 cache flushed
     (a 256 MiB write) before each run, after 3 warm-up calls."""
@@ -104,8 +128,17 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
 # phase 3: paged decode attention against its plain version
 # ---------------------------------------------------------------------------
 
+PAGED_KERNELS = ("split_kernel", "combine_kernel")   # the pair one call launches
+
+
 def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
+    """The phase's shape (B 8, K 8, G 4, hd 128, bs 16, M 64 from max_len
+    1024) at lengths 0..1023 in fp32 and bf16 under three windows, then two
+    more bf16-timed cases: one slot alone at length 1023 (B = 1) and all 8
+    slots at 1023. Prints each case's split plan, and the profiler's device
+    time of the kernel pair for the path row (bf16, ``path_window``)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import smem_bytes, split_plan
 
     B, K, G, hd, bs, M = 8, 8, 4, 128, 16, 64
     N = 1 + B * M                                        # block 0 = null
@@ -114,13 +147,13 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
     dev = torch.device("cuda")
     perm = torch.randperm(B * M, generator=gen, device=dev).to(torch.int32)
     tables = (1 + perm).reshape(B, M).contiguous()
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
     base = {n: torch.randn(shape, generator=gen, device=dev)
             for n, shape in (("q", (B, K, G, hd)), ("k", (N, bs, K, hd)),
                              ("v", (N, bs, K, hd)))}
 
-    def library(q, kp, vp, window):
+    def library(q, kp, vp, tables, lengths, window):
         # yardstick: gather the view, expand KV heads, one fused attention
+        b = q.shape[0]
         kv = [ref.gather_view(p, tables).permute(0, 2, 1, 3)
               .repeat_interleave(G, dim=1) for p in (kp, vp)]
         S = kv[0].shape[2]
@@ -130,67 +163,124 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
         if window > 0:
             mask &= pos >= cl - window
         out = torch.nn.functional.scaled_dot_product_attention(
-            q.reshape(B, K * G, 1, hd), kv[0], kv[1],
+            q.reshape(b, K * G, 1, hd), kv[0], kv[1],
             attn_mask=mask[:, None, None, :])
-        return out.reshape(B, K, G, hd)
+        return out.reshape(b, K, G, hd)
 
+    # (label, slots, lengths, windows): the first is the path's case
+    cases = [("path", B, lengths_l, (0, 18, path_window)),
+             ("one_slot_1023", 1, [1023], (path_window,)),
+             ("all_1023", B, [1023] * B, (path_window,))]
     tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp = (base[n].to(dtype) for n in ("q", "k", "v"))
-        elem = q.element_size()
-        for window in (0, 18, path_window):
-            got = ops.paged_decode_attention(q, kp, vp, tables, lengths,
-                                             window=window)
-            want = ref.paged_decode_plain(q, kp, vp, tables, lengths,
-                                          window=window)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            atol, rtol = tol[dtype]
-            ok = bool((err <= atol + rtol * want.float().abs()).all())
-            if not torch.isfinite(got.float()).all():
-                ok = False
-            cl = np.asarray(lengths_l) + 1
-            live = (np.minimum(cl, window) if window > 0 else cl).sum()
-            nbytes = (live * K * hd * 2 * elem          # live K and V rows
-                      + 2 * q.numel() * elem            # q in, out
-                      + lengths.numel() * 4
-                      + sum(-(-int(c) // bs) for c in cl) * 4)
-            flops = live * K * G * hd * 4               # QK^T and PV
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           flops / FP32_FLOPS) * 1e3
-            row = {"max_abs_err": float(err.max()), "ok": ok,
-                   "bound_ms": bound_ms,
-                   "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                >= flops / FP32_FLOPS else "operations")}
-            if dtype == torch.bfloat16:
-                row["ms"] = time_ms(lambda: ops.paged_decode_attention(
-                    q, kp, vp, tables, lengths, window=window), flush)
-                row["plain_ms"] = time_ms(lambda: ref.paged_decode_plain(
-                    q, kp, vp, tables, lengths, window=window), flush)
-                row["library_ms"] = time_ms(
-                    lambda: library(q, kp, vp, window), flush)
-            results[(str(dtype).split(".")[-1], window)] = row
-            log("kernels", kernel="paged_decode_attention",
-                dtype=str(dtype).split(".")[-1], window=window,
-                shape=f"B{B}xK{K}xG{G}xhd{hd}xbs{bs}xM{M}",
-                **{k: (f"{v:.6g}" if isinstance(v, float) else v)
-                   for k, v in row.items()})
+    for label, b, lens, windows in cases:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        tab = tables[:b].contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            q = base["q"][:b].to(dtype).contiguous()
+            kp, vp = (base[n].to(dtype) for n in ("k", "v"))
+            elem = q.element_size()
+            splits, P = split_plan(b, K, M, bs, hd, elem, G)
+            for window in windows:
+                got = ops.paged_decode_attention(q, kp, vp, tab, lengths,
+                                                 window=window)
+                want = ref.paged_decode_plain(q, kp, vp, tab, lengths,
+                                              window=window)
+                # the kernel's own two passes in plain PyTorch, same plan
+                want_split = ref.paged_decode_split_plain(
+                    q, kp, vp, tab, lengths, window=window,
+                    blocks_per_split=P)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                err_split = (got.float() - want_split.float()).abs()
+                atol, rtol = tol[dtype]
+                ok = bool((err <= atol + rtol * want.float().abs()).all()
+                          and (err_split <= atol + rtol
+                               * want_split.float().abs()).all())
+                if not torch.isfinite(got.float()).all():
+                    ok = False
+                cl = np.asarray(lens) + 1
+                live = (np.minimum(cl, window) if window > 0 else cl).sum()
+                m_lo = np.where((window > 0) & (cl > window),
+                                (cl - window) // bs, 0)
+                m_hi = np.minimum(-(-cl // bs) - 1, M - 1)
+                live_ctas = K * int(sum(hi // P - lo // P + 1
+                                        for lo, hi in zip(m_lo, m_hi)))
+                nbytes = (live * K * hd * 2 * elem      # live K and V rows
+                          + 2 * q.numel() * elem        # q in, out
+                          + lengths.numel() * 4
+                          + sum(-(-int(c) // bs) for c in cl) * 4)
+                flops = live * K * G * hd * 4           # QK^T and PV
+                bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                               flops / FP32_FLOPS) * 1e3
+                row = {"max_abs_err": float(err.max()),
+                       "max_abs_err_split": float(err_split.max()), "ok": ok,
+                       "bound_ms": bound_ms,
+                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= flops / FP32_FLOPS else "operations"),
+                       "splits": splits, "blocks_per_split": P,
+                       "ctas": splits * K * b, "live_ctas": live_ctas,
+                       "smem_bytes": smem_bytes(P, bs, hd, G, elem)}
+                if dtype == torch.bfloat16 and window == path_window:
+                    args = (q, kp, vp, tab, lengths)
+                    row["ms"] = time_ms(lambda: ops.paged_decode_attention(
+                        *args, window=window), flush)
+                    row["plain_ms"] = time_ms(lambda: ref.paged_decode_plain(
+                        *args, window=window), flush)
+                    row["library_ms"] = time_ms(
+                        lambda: library(*args, window), flush)
+                    row["profiler_ms"] = pair_device_ms(
+                        lambda: ops.paged_decode_attention(
+                            *args, window=window), flush)
+                results[(label, str(dtype).split(".")[-1], window)] = row
+                log("kernels", kernel="paged_decode_attention", case=label,
+                    dtype=str(dtype).split(".")[-1], window=window,
+                    shape=f"B{b}xK{K}xG{G}xhd{hd}xbs{bs}xM{M}",
+                    **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                       for k, v in row.items()})
     bad = [k for k, r in results.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"paged_decode_attention disagrees with its plain "
                          f"version at {bad}")
-    path = results[("bfloat16", path_window)]
+    path = results[("path", "bfloat16", path_window)]
+    log("kernels", kernel="paged_decode_attention", case="path",
+        split_plan=f"splits={path['splits']},P={path['blocks_per_split']}",
+        ctas=path["ctas"], live_ctas=path["live_ctas"],
+        event_ms=f"{path['ms']:.6g}",
+        profiler_pair_ms=f"{path['profiler_ms']:.6g}",
+        bound_ms=f"{path['bound_ms']:.6g}",
+        library_ms=f"{path['library_ms']:.6g}")
     return {
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:97",
-        "max_abs_err": max(r["max_abs_err"] for (dt, _), r in results.items()
+        "max_abs_err": max(r["max_abs_err"] for (_, dt, _), r in results.items()
                            if dt == "bfloat16"),
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"],
     }
+
+
+def pair_device_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
+    """Device time per call of the paged attention kernel pair under
+    torch.profiler, the L2 cache flushed before each call: what the CUDA
+    event window of ``time_ms`` holds without the host's share."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = _kernel_time_by_name(prof, runs)
+    ms = sum(t for name, (t, _) in kernels.items()
+             if any(k in name for k in PAGED_KERNELS))
+    if ms <= 0:
+        raise SystemExit("the profiler saw no paged attention kernel")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -598,6 +688,11 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log("profile", ms_per_step=f"{ms:.4f}", share=f"{ms / busy:.4f}",
             per_step=f"{n / iters:.1f}", kernel=f"'{name[:90]}'")
+    pa = [(ms, n) for name, (ms, n) in kernels.items()
+          if any(k in name for k in PAGED_KERNELS)]
+    log("profile", kernel="paged_decode_attention (split + combine)",
+        ms_per_step=f"{sum(ms for ms, _ in pa):.4f}",
+        launches_per_step=f"{sum(n for _, n in pa) / iters:.1f}")
 
 
 def _kernel_time_by_name(prof, iters: int):
@@ -980,9 +1075,9 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         sources=",".join(build.sources()))
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "bytes stack" in line:
-                log("build", kernel=name, ptxas=f"'{line.strip()}'")
+        for function, line in ptxas_report(text):
+            log("build", kernel=name, function=f"'{function}'",
+                ptxas=f"'{line}'")
 
     from repro_torch.configs.registry import get_config
     mixtral = get_config("mixtral-8x7b")

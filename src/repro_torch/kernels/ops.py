@@ -37,7 +37,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     their KV head; k_pool/v_pool: (N_blocks, bs, K, hd), block 0 the null
     block; block_tables: (B, M) int32; lengths: (B,) int32. Returns
     (B, K, G, hd) in q's dtype. On the card the kernel is bound by the live
-    K/V bytes it reads (see ``kernels.paged_attention``)."""
+    K/V bytes it reads (see ``kernels.paged_attention``). One call is two
+    device launches, a split pass and a combine pass, and counts once in
+    ``LAUNCHES``."""
     if q.device.type == "cpu":
         _pa.check_inputs(q, k_pool, v_pool, block_tables, lengths)
         return _ref.paged_decode_plain(q, k_pool, v_pool, block_tables,

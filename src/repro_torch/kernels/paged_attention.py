@@ -8,14 +8,17 @@ stream straight from the shared pool, without the ``(B, M*bs, K, hd)``
 gathered view the plain version builds.
 
 The kernel is bound by bytes: each live K/V position is read once and used
-by G query heads, ~G flops per byte in bf16. One CTA per (slot, KV head) reads
-each K/V tile once for all G heads and loops over only the slot's live
-blocks (in-context and, under a sliding window, in-window), so the bytes it
-reads scale with each slot's valid window rather than the table width.
-See the source's header for the design and what is left to do.
+by G query heads, ~G flops per byte in bf16. To keep enough loads in flight
+it is a split-KV (flash-decoding) pair: a split pass with one CTA per
+(split of ``P`` table blocks, KV head, slot) that reads each live K/V tile
+once for all G heads and leaves an un-normalised partial softmax in an fp32
+workspace, then a combine pass per (slot, KV head). One call of
+``paged_decode_attention`` is two device launches. ``split_plan`` picks
+``P`` from the table width on the host, so the plan never waits for
+``lengths``. See the source's header for the design and what is left.
 
 Built at first use by ``kernels.build``; ``torch`` tensors pass as raw
-pointers through ``ctypes`` and the kernel runs on PyTorch's current
+pointers through ``ctypes`` and both kernels run on PyTorch's current
 stream. ``kernels.ops.paged_decode_attention`` is the wrapper the model
 calls.
 """
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -33,6 +37,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 8                 # query heads per KV head
 MAX_TILE_BYTES = 8192         # one (block_size, head_dim) K or V tile
+THREADS = 256                 # per CTA of the split pass
+SMEM_LIMIT = 232448           # shared memory one CTA may use on sm_90
+MIN_CTAS = 2 * 132            # two split-pass CTAs per SM of an H100
+
+
+def smem_bytes(P: int, bs: int, hd: int, G: int, elem: int) -> int:
+    """Shared memory of one split-pass CTA (``Layout`` in the source): the
+    K tile (reused for the P @ V partial sums), the V tile, q and the scores
+    in fp32, and the split's physical block ids."""
+    a16 = lambda n: -(-n // 16) * 16                       # noqa: E731
+    tile = P * bs * hd * elem
+    red = (THREADS // (hd * elem // 16)) * G * hd * 4
+    return a16(max(tile, red)) + tile + G * hd * 4 + a16(P * bs * G * 4) + 4 * P
+
+
+def split_plan(B: int, K: int, M: int, bs: int, hd: int, elem: int,
+               G: int) -> Tuple[int, int]:
+    """``(splits, P)``: the split pass covers table blocks ``[s*P, (s+1)*P)``
+    with one CTA per (split, KV head, slot).
+
+    P is the largest power of two whose split still fits one CTA's shared
+    memory and that leaves at least ``MIN_CTAS`` CTAs (two per SM); where
+    even P = 1 leaves fewer (``B*K*M < MIN_CTAS``), P is 1. It reads only
+    shapes: the live range of each slot is cut on the device."""
+    P, best = 1, 1
+    while P < M:
+        P *= 2
+        if smem_bytes(P, bs, hd, G, elem) > SMEM_LIMIT \
+                or B * K * -(-M // P) < MIN_CTAS:
+            break
+        best = P
+    return -(-M // best), best
 
 
 def _function():
@@ -40,8 +76,9 @@ def _function():
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
         # without argtypes ctypes would pass each pointer as a 32-bit int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -87,10 +124,11 @@ def check_inputs(q, k_pool, v_pool, block_tables, lengths) -> None:
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            window: int = 0):
-    """Launch the kernel on CUDA tensors. q: (B, K, G, hd); k_pool/v_pool:
-    (N_blocks, bs, K, hd); block_tables: (B, M) int32; lengths: (B,) int32
-    — the slot attends positions ``[0, lengths[b]]`` minus anything behind
-    the sliding ``window``. Returns (B, K, G, hd) in q's dtype."""
+    """Launch the split and combine kernels on CUDA tensors. q: (B, K, G,
+    hd); k_pool/v_pool: (N_blocks, bs, K, hd); block_tables: (B, M) int32;
+    lengths: (B,) int32 — the slot attends positions ``[0, lengths[b]]``
+    minus anything behind the sliding ``window``. Returns (B, K, G, hd) in
+    q's dtype."""
     check_inputs(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
@@ -98,15 +136,20 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     B, K, G, hd = q.shape
+    bs, M = k_pool.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    splits, P = split_plan(B, K, M, bs, hd, q.element_size(), G)
+    # the accumulators (B, K, splits, G, hd), then m and l (B, K, splits, G)
+    workspace = torch.empty(B * K * splits * G * (hd + 2),
+                            dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _function()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, K, G, hd, k_pool.shape[1], block_tables.shape[1], int(window),
-        1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+        workspace.data_ptr(), B, K, G, hd, bs, M, int(window),
+        1.0 / math.sqrt(hd), splits, P, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")

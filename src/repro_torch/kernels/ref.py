@@ -79,6 +79,51 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, *,
                             window=window, block_size=k_pool.shape[1])
 
 
+def paged_decode_split_plain(q, k_pool, v_pool, block_tables, lengths, *,
+                             window: int = 0, blocks_per_split: int = 1):
+    """The CUDA kernel's two passes in plain PyTorch (split-KV decoding).
+
+    Split pass: split s covers table blocks ``[s*P, (s+1)*P)``; over its
+    keys it takes fp32 scores (masked at -1e30), one max ``m`` and one sum
+    ``l`` per head, and the un-normalised ``P @ V``. A split with no valid
+    key is empty: ``m = -1e30``, ``l = 0`` and an accumulator of NaN, as
+    the kernel leaves it unwritten. Combine pass: ``m* = max m_s`` and
+    ``out = sum w_s acc_s / max(sum w_s l_s, 1e-20)`` with ``w_s = exp(m_s
+    - m*)`` over the non-empty splits only. Same arguments and result as
+    ``paged_decode_plain``; the tests and ``chip_smoke.py`` hold the kernel
+    and the blockwise oracle against it."""
+    B, K, G, hd = q.shape
+    bs, M, P = k_pool.shape[1], block_tables.shape[1], blocks_per_split
+    scale = 1.0 / (hd ** 0.5)
+    kv = [gather_view(p, block_tables).float() for p in (k_pool, v_pool)]
+    cl = lengths.to(torch.int32) + 1
+    qf = q.float()
+    ms, ls, accs = [], [], []
+    for lo in range(0, M, P):
+        pos = torch.arange(lo * bs, min(lo + P, M) * bs, dtype=torch.int32,
+                           device=q.device)
+        mask = pos[None, :] < cl[:, None]                         # (B, n)
+        if window > 0:
+            mask &= pos[None, :] >= (cl - window)[:, None]
+        k, v = (t[:, lo * bs:min(lo + P, M) * bs] for t in kv)    # (B, n, K, hd)
+        s = torch.einsum("bkgh,bckh->bkgc", qf, k) * scale
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        live = mask.any(dim=1)[:, None, None]                     # (B, 1, 1)
+        ms.append(torch.where(live, m, NEG_INF))
+        ls.append(torch.where(live, p.sum(dim=-1), 0.0))
+        acc = torch.einsum("bkgc,bckh->bkgh", p, v)
+        accs.append(torch.where(live[..., None], acc, float("nan")))
+    m, l, acc = (torch.stack(t) for t in (ms, ls, accs))          # splits first
+    live = l > 0
+    m_star = torch.where(live, m, NEG_INF).amax(dim=0)
+    w = torch.where(live, torch.exp(m - m_star), 0.0)
+    num = torch.where(live[..., None], w[..., None] * acc, 0.0).sum(dim=0)
+    den = (w * l).sum(dim=0)
+    return (num / torch.clamp_min(den, 1e-20)[..., None]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the expert-parallel dispatch path's kernels
 # ---------------------------------------------------------------------------

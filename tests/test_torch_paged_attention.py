@@ -3,13 +3,19 @@
 The port's plain version (``repro_torch.kernels.ref``) is held against the
 JAX Pallas kernel run as its own tests run it (``interpret=True``) and
 against the JAX gather oracle, over the grid of
-``tests/test_paged_attention.py`` plus an idle slot (length 0). The CUDA
-kernel itself runs only on a card: its test is marked ``cuda`` and skips
-here.
+``tests/test_paged_attention.py`` plus an idle slot (length 0). So is the
+plain version of the CUDA kernel's two passes,
+``ref.paged_decode_split_plain`` (per-split softmax, then the combine), at
+1, 2 and 3 blocks per split (3 leaves a ragged last split) and on a table
+wide enough that some splits are live and some empty; ``split_plan`` is
+checked for coverage, shared memory and CTA count. The CUDA kernel itself
+runs only on a card: its test is marked ``cuda`` and skips here.
 
 Tolerances: atol 1e-5 in fp32 (the same op sequence, summed in another
 order) and 1e-2 in bf16 (one bf16 ulp of outputs below 2 in magnitude).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +27,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.paged_attention import paged_decode_attention as jax_kernel  # noqa: E402
 from repro.kernels.ref import paged_decode_ref as jax_ref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    MIN_CTAS, SMEM_LIMIT, smem_bytes, split_plan)
 
 M = 4  # table width (blocks per slot)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -28,12 +36,12 @@ JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _ragged_lengths(bs):
+def _ragged_lengths(bs, M=M):
     # idle slot, block-filling, block-opening, interior, full capacity
     return [0, bs - 1, bs, 2 * bs + 3, M * bs - 1]
 
 
-def _state(bs, G, lengths, *, K=2, hd=32, seed=0):
+def _state(bs, G, lengths, *, K=2, hd=32, seed=0, M=M):
     """numpy inputs: q (B,K,G,hd), pools (N,bs,K,hd), tables, lengths."""
     B = len(lengths)
     rng = np.random.default_rng(seed)
@@ -58,26 +66,122 @@ def _jax(arrays, dtype):
             + [jnp.asarray(tables), jnp.asarray(lengths)])
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_wants(dtype, bs, G, window, lengths, M=M):
+    """The JAX Pallas kernel's (interpret=True) and the JAX gather oracle's
+    outputs on ``_state``, as float32 numpy; cached, so every port-side
+    version and split size is held against one JAX run per case."""
+    arrays = _state(bs, G, list(lengths), M=M)
+    q, kp, vp, tables, lens = _jax(arrays, dtype)
+    want_kernel = jax_kernel(q, kp, vp, tables, lens, window=window,
+                             interpret=True)
+    B = tables.shape[0]
+    want_oracle = jax_ref(q, kp[tables].reshape(B, -1, *kp.shape[2:]),
+                          vp[tables].reshape(B, -1, *vp.shape[2:]), lens,
+                          window=window, block_size=bs)
+    return tuple(np.asarray(w, np.float32) for w in (want_kernel, want_oracle))
+
+
+def _assert_matches_jax(got, dtype, bs, G, window, lengths, M=M):
+    assert got.dtype == TORCH[dtype]
+    for want in _jax_wants(dtype, bs, G, window, tuple(lengths), M):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=TOL[dtype], rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bs", [8, 16])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("window", [0, "bs+2"])
 def test_plain_matches_jax_kernel_and_oracle(dtype, bs, G, window):
     window = bs + 2 if window == "bs+2" else 0
-    arrays = _state(bs, G, _ragged_lengths(bs))
-    q, kp, vp, tables, lengths = _jax(arrays, dtype)
-    want_kernel = jax_kernel(q, kp, vp, tables, lengths, window=window,
-                             interpret=True)
-    B = tables.shape[0]
-    want_oracle = jax_ref(q, kp[tables].reshape(B, -1, *kp.shape[2:]),
-                          vp[tables].reshape(B, -1, *vp.shape[2:]), lengths,
-                          window=window, block_size=bs)
-    got = ref.paged_decode_plain(*_torch(arrays, dtype), window=window)
-    assert got.dtype == TORCH[dtype] and got.shape == tuple(q.shape)
-    for want in (want_kernel, want_oracle):
-        np.testing.assert_allclose(got.float().numpy(),
-                                   np.asarray(want, np.float32),
-                                   atol=TOL[dtype], rtol=0)
+    lengths = _ragged_lengths(bs)
+    got = ref.paged_decode_plain(*_torch(_state(bs, G, lengths), dtype),
+                                 window=window)
+    _assert_matches_jax(got, dtype, bs, G, window, lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("window", [0, "bs+2"])
+@pytest.mark.parametrize("P", [1, 2, 3])
+def test_split_plain_matches_jax_kernel_and_oracle(dtype, bs, G, window, P):
+    """The kernel's two passes at P blocks per split (P = 3: a ragged last
+    split over the 4-block table) against both JAX references and the
+    blockwise plain version."""
+    window = bs + 2 if window == "bs+2" else 0
+    lengths = _ragged_lengths(bs)
+    args = _torch(_state(bs, G, lengths), dtype)
+    got = ref.paged_decode_split_plain(*args, window=window,
+                                       blocks_per_split=P)
+    _assert_matches_jax(got, dtype, bs, G, window, lengths)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        ref.paged_decode_plain(*args, window=window).float().numpy(),
+        atol=TOL[dtype], rtol=0)
+
+
+WIDE_M = 16
+WIDE_LENGTHS = {
+    # one idle slot; slots live in the first split only, in some, in all
+    "mixed": (0, 7, 40, 100, WIDE_M * 8 - 1),
+    "idle": (0, 0, 0),                      # every slot idle
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 19])
+@pytest.mark.parametrize("P", [3, 5])
+@pytest.mark.parametrize("lengths", sorted(WIDE_LENGTHS))
+def test_split_plain_on_a_wide_table(dtype, window, P, lengths):
+    """A 16-block table (bs 8): several splits live per long slot, the
+    splits past a slot's length empty, and under window 19 the splits
+    behind the window empty too. Empty splits carry a NaN accumulator in
+    the plain version, so a combine that did not skip them would fail."""
+    bs, G, lens = 8, 4, WIDE_LENGTHS[lengths]
+    args = _torch(_state(bs, G, lens, M=WIDE_M), dtype)
+    got = ref.paged_decode_split_plain(*args, window=window,
+                                       blocks_per_split=P)
+    assert torch.isfinite(got.float()).all()
+    _assert_matches_jax(got, dtype, bs, G, window, lens, M=WIDE_M)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        ref.paged_decode_plain(*args, window=window).float().numpy(),
+        atol=TOL[dtype], rtol=0)
+
+
+# (B, K, M, bs, hd, bytes per element, G)
+PLANS = [(8, 8, 64, 16, 128, 2, 4),      # the main path's decode
+         (8, 8, 64, 16, 128, 4, 4),
+         (1, 8, 64, 16, 128, 2, 4),      # one slot alone
+         (1, 8, 64, 16, 128, 4, 4),
+         (64, 8, 256, 16, 128, 2, 4),    # wide batch: P bounded by memory
+         (64, 8, 256, 16, 128, 4, 8),
+         (2, 8, 4096, 16, 128, 4, 8),    # long table
+         (3, 8, 100, 8, 64, 2, 4),       # M not a power of two
+         (1, 1, 5, 16, 128, 2, 1)]       # B*K*M < MIN_CTAS
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=lambda p: "-".join(map(str, p)))
+def test_split_plan_covers_fits_and_fills(plan):
+    B, K, M, bs, hd, elem, G = plan
+    splits, P = split_plan(B, K, M, bs, hd, elem, G)
+    assert P >= 1 and P & (P - 1) == 0
+    assert splits * P >= M > (splits - 1) * P       # every block once
+    assert smem_bytes(P, bs, hd, G, elem) <= SMEM_LIMIT
+    if B * K * M >= MIN_CTAS:
+        assert B * K * splits >= MIN_CTAS
+    else:
+        assert P == 1
+
+
+@pytest.mark.parametrize("B,want", [(8, (8, 8)), (1, (64, 1))])
+def test_split_plan_of_the_main_path(B, want):
+    """max_len 1024 at block 16 is a 64-block table: 8 slots get 8 splits
+    of 8 blocks (512 CTAs), one slot alone 64 splits of 1 (512 CTAs)."""
+    assert split_plan(B, 8, 64, 16, 128, 2, 4) == want
 
 
 def test_wrapper_sends_cpu_tensors_to_plain_version():
@@ -192,8 +296,15 @@ def test_cuda_kernel_matches_plain_version(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     ops.reset_launches()
-    for bs, G, window in ((8, 1, 0), (16, 4, 18), (16, 4, 0)):
-        arrays = _state(bs, G, _ragged_lengths(bs), K=8, hd=128)
+    # (bs, G, window, table width M, lengths); the M = 64 cases run with
+    # several splits live per slot and reach length 1023
+    cases = [(8, 1, 0, M, _ragged_lengths(8)),
+             (16, 4, 18, M, _ragged_lengths(16)),
+             (16, 4, 0, M, _ragged_lengths(16)),
+             (16, 4, 0, 64, [0, 15, 300, 700, 1023]),
+             (16, 4, 40, 64, [0, 15, 300, 700, 1023])]
+    for bs, G, window, width, lengths in cases:
+        arrays = _state(bs, G, lengths, K=8, hd=128, M=width)
         dev = [t.cuda() for t in _torch(arrays, dtype)]
         got = ops.paged_decode_attention(*dev, window=window)
         torch.cuda.synchronize()
@@ -202,4 +313,4 @@ def test_cuda_kernel_matches_plain_version(dtype):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), atol=tol,
                                    rtol=0 if dtype == "float32" else tol)
-    assert ops.LAUNCHES["paged_decode_attention"] == 3
+    assert ops.LAUNCHES["paged_decode_attention"] == len(cases)
