@@ -18,6 +18,10 @@ non-zero:
                 (a split pass and a combine pass per call) also runs one
                 slot alone and all slots at length 1023, and prints its
                 split plan and the pair's device time under torch.profiler.
+                moe_gemm also runs the rows and counts of one real routed
+                decode step (decode_live), and prints its device time and
+                the time of reading every slot's weights and every named
+                expert's once at the memory rate.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -28,7 +32,8 @@ non-zero:
                 before and read after each run), that a re-plan replicated
                 an expert and, under EP, that a replica slot computed
                 pairs. Then it profiles EP decode steps with torch.profiler
-                (device time by kernel, idle share).
+                (device time by kernel, idle share; paged attention's and
+                moe_gemm's time and launches per step).
                 Then RecurrentGemma-2B at published widths, all 26 layers,
                 through ``repro_torch.launch.serve.main`` (``ServeEngine``):
                 16 requests of 3072 prompt tokens in batches of 8, 64 new
@@ -229,7 +234,7 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
                         *args, window=window), flush)
                     row["library_ms"] = time_ms(
                         lambda: library(*args, window), flush)
-                    row["profiler_ms"] = pair_device_ms(
+                    row["profiler_ms"] = device_ms(
                         lambda: ops.paged_decode_attention(
                             *args, window=window), flush)
                 results[(label, str(dtype).split(".")[-1], window)] = row
@@ -262,10 +267,12 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
     }
 
 
-def pair_device_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
-    """Device time per call of the paged attention kernel pair under
-    torch.profiler, the L2 cache flushed before each call: what the CUDA
-    event window of ``time_ms`` holds without the host's share."""
+def device_ms(fn, flush: torch.Tensor, kernels=PAGED_KERNELS,
+              runs: int = 25) -> float:
+    """Device time per call of the named kernels (paged attention's pair by
+    default) under torch.profiler, the L2 cache flushed before each call:
+    what the CUDA event window of ``time_ms`` holds without the host's
+    share."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -275,11 +282,11 @@ def pair_device_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    kernels = _kernel_time_by_name(prof, runs)
-    ms = sum(t for name, (t, _) in kernels.items()
-             if any(k in name for k in PAGED_KERNELS))
+    times = _kernel_time_by_name(prof, runs)
+    ms = sum(t for name, (t, _) in times.items()
+             if any(k in name for k in kernels))
     if ms <= 0:
-        raise SystemExit("the profiler saw no paged attention kernel")
+        raise SystemExit(f"the profiler saw none of {kernels}")
     return ms
 
 
@@ -312,30 +319,57 @@ def _log_row(kernel, key, shape, row):
            for k, v in row.items()})
 
 
-def ep_slot_experts(num_experts: int):
-    """The main path's slot -> expert map: the experts on 4 ranks with one
-    replica slot each, under the plan Algorithm 1 makes for a Zipf-skewed
-    expert distribution (hot experts replicated)."""
+def ep_plan(num_experts: int):
+    """The main path's placement plan: the experts on 4 ranks with one
+    replica slot each, as Algorithm 1 plans them for a Zipf-skewed expert
+    distribution (hot experts replicated)."""
     from repro_torch.core.duplication import duplicate_experts_host
-    from repro_torch.core.placement import slot_experts
     dist = 1.0 / np.arange(1, num_experts + 1)
-    plan = duplicate_experts_host(dist / dist.sum(), EP_RANKS, DUP_SLOTS,
+    return duplicate_experts_host(dist / dist.sum(), EP_RANKS, DUP_SLOTS,
                                   4).plan
-    return slot_experts(plan, num_experts, EP_RANKS, DUP_SLOTS)
+
+
+def ep_slot_experts(num_experts: int):
+    """The slot -> expert map of ``ep_plan``."""
+    from repro_torch.core.placement import slot_experts
+    return slot_experts(ep_plan(num_experts), num_experts, EP_RANKS,
+                        DUP_SLOTS)
+
+
+def decode_live_batch(cfg, gen):
+    """One real routed decode step's kernel inputs: 8 random tokens through
+    the port's router (random router weight) and the decode path's packer
+    under ``ep_plan``. Returns (send (S, cap, d) bf16, row_counts (S, 1),
+    slot_experts (S,))."""
+    from repro_torch.core.placement import to_device
+    from repro_torch.moe.dispatch import pack_replicated
+    from repro_torch.moe.router import route
+
+    E, d = cfg.moe.num_experts, cfg.d_model
+    moe = dataclasses.replace(cfg.moe, duplication_slots=DUP_SLOTS)
+    plan = to_device(ep_plan(E), E, EP_RANKS, DUP_SLOTS, "cuda")
+    tokens = torch.randn((8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w_router = torch.randn((d, E), generator=gen, device="cuda") * d ** -0.5
+    send, counts, se = pack_replicated(tokens, route(w_router, moe, tokens),
+                                       plan, moe, ep_ranks=EP_RANKS)[:3]
+    return send.contiguous(), counts, se
 
 
 def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
-    """Both main-path shapes: decode (12 slots x cap 8 rows) and prefill
-    (12 slots x 4 ranks x cap 32 rows), fp32 and bf16."""
+    """Both main-path shapes with every row live: decode (12 slots x cap 8
+    rows, one row block per slot) and prefill (12 slots x 4 source ranks x
+    cap 32 rows), fp32 and bf16; and in bf16 the rows and counts of one
+    real routed decode step (``decode_live``). The slot map names 8
+    distinct experts in 12 slots: the plan puts every rank's replica slot
+    on the hottest expert, which 4 slots then share."""
     from repro_torch.kernels import ops, ref
 
     E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     se_np = ep_slot_experts(E)
     S = len(se_np)
-    distinct = len(set(se_np.tolist()))
     se = torch.tensor(se_np, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = {"decode": 8, "prefill": 4 * 32}
+    blocks = {"decode": (8, 1), "prefill": (4 * 32, 4)}       # (T, B)
     # fp32: the same arithmetic summed over up to 14336 terms in another
     # order; bf16: h is rounded to bf16, so a last-bit difference of its
     # fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2)
@@ -349,40 +383,62 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
                                      ("w_up", (E, d, F), d ** -0.5),
                                      ("w_down", (E, F, d), F ** -0.5))}
         elem = w["w_up"].element_size()
-        for case, T in shapes.items():
+        cases = {}
+        for case, (T, B) in blocks.items():
             x = torch.randn((S, T, d), generator=gen, device="cuda").to(dtype)
-            args = (x, w["w_gate"], w["w_up"], w["w_down"], se)
-            got = ops.moe_gemm(*args)
+            counts = torch.full((S, B), T // B, dtype=torch.int32,
+                                device="cuda")
+            cases[case] = (x, counts, se)
+        if dtype == torch.bfloat16:
+            cases["decode_live"] = decode_live_batch(cfg, gen)
+        for case, (x, counts, slot_map) in cases.items():
+            S, T, _ = x.shape
+            args = (x, w["w_gate"], w["w_up"], w["w_down"], slot_map)
+            got = ops.moe_gemm(*args, row_counts=counts)
             torch.cuda.synchronize()
-            want = ref.moe_gemm_plain(*args)
+            want = ref.moe_gemm_plain(*args, row_counts=counts)
             err = (got.float() - want.float()).abs()
             t = tol[dtype]
             ok = bool((err <= t + t * want.float().abs()).all()
                       and torch.isfinite(got.float()).all())
-            # each referenced expert's three matrices read once, x read and
-            # y written once; 3 products of 2 T d F operations per slot
-            nbytes = (distinct * 3 * d * F + 2 * S * T * d) * elem + S * 4
-            flops = 6.0 * S * T * d * F
+            # the live rows' experts' three matrices read once each, their
+            # x read and y written once; 3 products of 2 d F operations per
+            # live row
+            live = ref.live_rows_mask(counts, T)
+            n_live = int(live.sum())
+            live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
+            named = len(set(slot_map.tolist()))
+            matrix = 3 * d * F * elem
+            nbytes = live_experts * matrix + 2 * n_live * d * elem \
+                + counts.numel() * 4 + S * 4
+            flops = 6.0 * n_live * d * F
             bound_ms, bound_by = _bound(nbytes, flops, peak[dtype])
             row = {"max_abs_err": float(err.max()), "ok": ok,
+                   "live_rows": n_live, "live_experts": live_experts,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "slot_weight_ms": S * 3 * d * F * elem
-                   / HBM_BYTES_PER_S * 1e3}
+                   "slot_weight_ms": S * matrix / HBM_BYTES_PER_S * 1e3,
+                   "distinct_weight_ms": named * matrix / HBM_BYTES_PER_S
+                   * 1e3}
             if dtype == torch.bfloat16:
-                def library(x=x):
-                    wg, wu, wd = (w[n][se.long()] for n in
+                def library(x=x, slot_map=slot_map):
+                    wg, wu, wd = (w[n][slot_map.long()] for n in
                                   ("w_gate", "w_up", "w_down"))
                     return torch.bmm(torch.nn.functional.silu(
                         torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
-                row["ms"] = time_ms(lambda: ops.moe_gemm(*args), flush)
-                row["plain_ms"] = time_ms(lambda: ref.moe_gemm_plain(*args),
-                                          flush, runs=5)
+                row["ms"] = time_ms(
+                    lambda: ops.moe_gemm(*args, row_counts=counts), flush)
+                row["profiler_ms"] = device_ms(
+                    lambda: ops.moe_gemm(*args, row_counts=counts), flush,
+                    ("moe_gemm",))
+                row["plain_ms"] = time_ms(
+                    lambda: ref.moe_gemm_plain(*args, row_counts=counts),
+                    flush, runs=5)
                 row["library_ms"] = time_ms(library, flush, runs=5)
             key = f"{str(dtype).split('.')[-1]}/{case}"
             rows[key] = row
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
-            del x, got, want, err
-        del w
+            del got, want, err
+        del w, cases
         torch.cuda.empty_cache()
     return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:60", rows,
@@ -693,6 +749,10 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
     log("profile", kernel="paged_decode_attention (split + combine)",
         ms_per_step=f"{sum(ms for ms, _ in pa):.4f}",
         launches_per_step=f"{sum(n for _, n in pa) / iters:.1f}")
+    mg = [(ms, n) for name, (ms, n) in kernels.items() if "moe_gemm" in name]
+    log("profile", kernel="moe_gemm (gate/up + down)",
+        ms_per_step=f"{sum(ms for ms, _ in mg):.4f}",
+        launches_per_step=f"{sum(n for _, n in mg) / iters:.1f}")
 
 
 def _kernel_time_by_name(prof, iters: int):

@@ -2,14 +2,19 @@
 
 Port of the TPU kernel ``src/repro/kernels/moe_gemm.py`` (``moe_gemm``).
 For every slot ``s`` of the EP dispatch, ``y[s] = act(x[s] @ Wg[e]) *
-(x[s] @ Wu[e]) @ Wd[e]`` with ``e = slot_experts[s]``: the weights stay in
-the ``(E, d, F)`` / ``(E, F, d)`` expert tensors and each slot reads its
-expert's in place, so a replica slot costs an index, not a weight copy.
-One call launches the gate/up/activation kernel (writing ``h`` in x's dtype
-to a scratch this wrapper allocates) and the down kernel on PyTorch's
-current stream. The kernels are bound by the weight bytes they read; see
-the source's header for the design. ``kernels.ops.moe_gemm`` is the wrapper
-the dispatch calls.
+(x[s] @ Wu[e]) @ Wd[e]`` with ``e = slot_experts[s]``. The weights stay in
+the ``(E, d, F)`` / ``(E, F, d)`` expert tensors, and the kernels read each
+expert that a slot names once per launch, for all the slots that name it:
+a replica slot costs neither a weight copy nor a second read. An optional
+``(S, B)`` ``row_counts`` marks the live rows of each slot (rows ``[b*T/B,
+b*T/B + row_counts[s, b])``); the others are taken as zero, give zero
+outputs and cost no weight reads. One call launches the
+gate/up/activation kernel (writing ``h`` in x's dtype to a scratch this
+wrapper allocates) and the down kernel on PyTorch's current stream; the
+host reads no count. See the source's header for the two main loops (a
+``cp.async`` + ``mma.sync`` loop over rows gathered per expert for the
+decode shape, ``T <= 64``; TMA + ``wgmma`` tiles for the prefill shape).
+``kernels.ops.moe_gemm`` is the wrapper the dispatch calls.
 """
 
 from __future__ import annotations
@@ -28,14 +33,17 @@ MAX_SLOTS = 65535
 def _function():
     fn = build.load("moe_gemm").moe_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation) -> None:
+def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
+                 row_counts=None) -> None:
     """Raise on anything the kernel does not take. ``w_gate`` may be None
-    (the kernel then reads ``w_up`` in its place)."""
+    (the kernel then reads ``w_up`` in its place), and so may
+    ``row_counts`` (every row live)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {tuple(ACTIVATIONS)}")
     if x.dim() != 3 or w_up.dim() != 3 or w_down.dim() != 3:
@@ -61,8 +69,17 @@ def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation) -> None:
              ("slot_experts", slot_experts)]
     if w_gate is not None:
         named.append(("w_gate", w_gate))
+    if row_counts is not None:
+        if (row_counts.dim() != 2 or row_counts.shape[0] != S
+                or row_counts.shape[1] < 1 or row_counts.dtype != torch.int32):
+            raise ValueError(f"row_counts must be ({S}, B) int32; got "
+                             f"{tuple(row_counts.shape)} {row_counts.dtype}")
+        if T % row_counts.shape[1]:
+            raise ValueError(f"row_counts has {row_counts.shape[1]} blocks, "
+                             f"which do not divide T = {T}")
+        named.append(("row_counts", row_counts))
     for name, t in named:
-        if name != "slot_experts" and t.dtype != x.dtype:
+        if name not in ("slot_experts", "row_counts") and t.dtype != x.dtype:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: cast the "
                             "weights once, not per call")
         if not t.is_contiguous():
@@ -71,11 +88,14 @@ def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu"):
+def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu",
+             row_counts=None):
     """Launch both kernels on CUDA tensors. x: (S, T, d); w_gate / w_up:
     (E, d, F); w_down: (E, F, d); slot_experts: (S,) int32 in [0, E) (a
-    slot outside it computes zeros). Returns (S, T, d) in x's dtype."""
-    check_inputs(x, w_gate, w_up, w_down, slot_experts, activation)
+    slot outside it computes zeros); row_counts: None or (S, B) int32 live
+    rows per block of T / B rows. Returns (S, T, d) in x's dtype."""
+    check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
+                 row_counts)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x.device}")
     w_gate = w_up if w_gate is None else w_gate
@@ -89,10 +109,13 @@ def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu"):
     aligned = int(d % 8 == 0 and F % 8 == 0
                   and all(t.data_ptr() % 16 == 0 for t in tensors))
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    counts_ptr, B = ((None, 1) if row_counts is None
+                     else (row_counts.data_ptr(), row_counts.shape[1]))
     err = _function()(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                      w_down.data_ptr(), slot_experts.data_ptr(), h.data_ptr(),
-                      out.data_ptr(), S, T, d, F, E, ACTIVATIONS[activation],
-                      _DTYPES[x.dtype], aligned, stream)
+                      w_down.data_ptr(), slot_experts.data_ptr(), counts_ptr,
+                      h.data_ptr(), out.data_ptr(), S, T, d, F, E, B,
+                      ACTIVATIONS[activation], _DTYPES[x.dtype], aligned,
+                      stream)
     if err != 0:
         raise RuntimeError(f"moe_gemm launch failed: CUDA error {err}")
     return out

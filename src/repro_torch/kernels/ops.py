@@ -50,20 +50,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return out
 
 
-def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu"):
+def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu",
+             row_counts=None):
     """Grouped expert FFN of the EP dispatch, every slot in one call.
 
     Replaces the TPU kernel ``src/repro/kernels/moe_gemm.py``
     (``moe_gemm``). x: (S, T, d) rows received by each slot; w_gate / w_up:
     (E, d, F) expert weights (``w_gate`` None: ``w_up``, for gelu / relu);
     w_down: (E, F, d); slot_experts: (S,) int32, the expert slot s computes
-    with. Returns (S, T, d) in x's dtype. Bound by the weight bytes read
-    (see ``kernels.moe_gemm``)."""
+    with (outside [0, E): zeros); row_counts: None (every row live) or
+    (S, B) int32 with B dividing T, where rows ``[b*T/B, b*T/B +
+    row_counts[s, b])`` of slot s are live and every other row gives zeros.
+    Returns (S, T, d) in x's dtype. Bound by the weight bytes read, each
+    live expert's once (see ``kernels.moe_gemm``)."""
     if x.device.type == "cpu":
-        _mg.check_inputs(x, w_gate, w_up, w_down, slot_experts, activation)
+        _mg.check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
+                         row_counts)
         return _ref.moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
-                                   activation)
-    out = _mg.moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation)
+                                   activation, row_counts)
+    out = _mg.moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
+                       row_counts)
     LAUNCHES["moe_gemm"] += 1
     return out
 

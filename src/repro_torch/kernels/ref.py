@@ -139,8 +139,17 @@ def _activate(g, u, activation: str):
     raise ValueError(f"activation {activation!r}")
 
 
+def live_rows_mask(row_counts, T: int):
+    """(S, B) live-row counts -> (S, T) bool: row t of slot s is live when
+    ``t % (T / B) < row_counts[s, t // (T / B)]``."""
+    S, B = row_counts.shape
+    tb = T // B
+    t = torch.arange(T, device=row_counts.device)
+    return (t % tb)[None, :] < row_counts.long()[:, t // tb]
+
+
 def moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
-                   activation: str = "swiglu"):
+                   activation: str = "swiglu", row_counts=None):
     """Per-slot expert FFN ``act(x @ wg) * (x @ wu) @ wd`` in the Pallas
     body's order (``src/repro/kernels/moe_gemm.py``, ``_kernel``): the gate
     and up products accumulate in fp32, the activation runs in fp32, ``h``
@@ -149,15 +158,25 @@ def moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
 
     x: (S, T, d); w_gate / w_up: (E, d, F) (``w_gate`` None: ``w_up``, as
     the JAX wrapper does); w_down: (E, F, d); slot_experts: (S,) int, the
-    expert whose weights slot s computes with. Returns (S, T, d)."""
+    expert whose weights slot s computes with (outside [0, E): zeros);
+    row_counts: None or (S, B) int, live rows per block of T / B rows
+    (``live_rows_mask``); a dead row's output is zero, whatever it holds.
+    Returns (S, T, d)."""
     w_gate = w_up if w_gate is None else w_gate
-    out = torch.empty_like(x)
+    E = w_up.shape[0]
+    out = torch.zeros_like(x)
     for s, e in enumerate(slot_experts.tolist()):
+        if not 0 <= e < E:
+            continue
         xs = x[s].float()
         u = xs @ w_up[e].float()
         g = xs @ w_gate[e].float() if activation == "swiglu" else None
         h = _activate(g, u, activation).to(x.dtype)
         out[s] = (h.float() @ w_down[e].float()).to(x.dtype)
+    if row_counts is not None:
+        live = live_rows_mask(row_counts, x.shape[1])
+        out = torch.where(live[..., None], out, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
     return out
 
 

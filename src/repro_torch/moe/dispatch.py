@@ -17,7 +17,9 @@ Every rank hosts ``E_loc = E / R`` home experts plus ``D`` replica slots,
      d)`` block: one ``moe_gemm`` launch for all ranks, each slot reading
      its expert's weights through the plan's slot -> expert map
      (``core.placement.slot_experts``), where the JAX package gathers a
-     replica weight pool;
+     replica weight pool. The packer's per-slot counts go with it as the
+     kernel's ``row_counts``, so rows past a source rank's count (zero
+     padding) cost the kernel nothing;
   6. exchange back and combine with the router gates.
 
 The collectives go through ``StackedRanks``: ``all_to_all`` is a transpose
@@ -171,13 +173,17 @@ def choose_replica(plan: DevicePlan, expert, salt):
     return plan.replica_table[expert, torch.clamp(choice, max=c_max - 1)]
 
 
-def grouped_ffn(experts: dict, x, slot_experts, activation: str):
+def grouped_ffn(experts: dict, x, slot_experts, activation: str,
+                row_counts=None):
     """x: (S, T_s, d) rows per slot -> (S, T_s, d): slot s runs expert
     ``slot_experts[s]`` (the ``moe_gemm`` kernel, or its plain version on
     the CPU). ``experts``: {"w_gate" (optional), "w_up", "w_down"} with
-    (E, d, F) / (E, F, d) leaves."""
+    (E, d, F) / (E, F, d) leaves. ``row_counts``: None, or (S, B) int32
+    live rows of each block of T_s / B rows; the other rows must be zero
+    (the packer's padding) and give zeros."""
     return kernel_ops.moe_gemm(x, experts.get("w_gate"), experts["w_up"],
-                               experts["w_down"], slot_experts, activation)
+                               experts["w_down"], slot_experts, activation,
+                               row_counts=row_counts)
 
 
 def _slot_map(plan: DevicePlan, num_experts: int, dup_slots: int, S: int,
@@ -210,7 +216,9 @@ def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
     # (R_dst, R_src, n_slots, cap, d) -> (R_dst * n_slots, R_src * cap, d)
     recv = recv.reshape(R, R, num_slots, cap, d).transpose(1, 2) \
                .reshape(S, R * cap, d).contiguous()
-    y_slots = grouped_ffn(experts, recv, slot_experts, activation)
+    # source rank r's rows for slot s sit at [r * cap, r * cap + count)
+    y_slots = grouped_ffn(experts, recv, slot_experts, activation,
+                          row_counts=slot_counts.T.contiguous())
     y_back = y_slots.reshape(R, num_slots, R, cap, d).transpose(1, 2)
     y_recv = comm.all_to_all(y_back).reshape(R, S * cap, d)
     y_flat = torch.gather(y_recv, 1, dest.clamp(max=S * cap - 1)[..., None]
@@ -276,6 +284,35 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     return y, stats
 
 
+def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
+                    moe: MoEConfig, *, ep_ranks: int,
+                    comm: Optional[StackedRanks] = None):
+    """The decode path's send side: the same (T, d) tokens on every rank,
+    routed once (``router_out`` unbatched); each rank packs the (token, k)
+    pairs assigned to its slots. Returns (send (S, cap, d) rows per global
+    slot, row_counts (S, 1) int32 live rows per slot, slot_experts (S,),
+    in_cap (R, N), dest (R, N), dropped (R,), gslot (N,)) with N = T * K."""
+    comm = comm or StackedRanks(ep_ranks)
+    T, d = x.shape
+    R = ep_ranks
+    K, E = moe.top_k, moe.num_experts
+    _, n_slots = plan_dims(E, ep_ranks, moe.duplication_slots)
+    S = R * n_slots
+    cap = capacity(T, K, n_slots, moe.capacity_factor)  # per-rank slot capacity
+    se = _slot_map(plan, E, moe.duplication_slots, S, x.device)
+    expert_flat = router_out.expert_idx.reshape(-1)
+    gslot = choose_replica(plan, expert_flat, _salt(T, K, x.device))  # (N,)
+    N = gslot.shape[0]
+    rank = comm.rank_index(x.device)
+    mine = (gslot // n_slots)[None, :] == rank[:, None]              # (R, N)
+    token_of = torch.arange(N, device=x.device) // K
+    send, in_cap, dest, counts, dropped = _pack_sort(
+        x.expand(R, T, d), token_of, (gslot % n_slots).expand(R, N), mine,
+        num_classes=n_slots, cap=cap)
+    return (send.reshape(S, cap, d), counts.reshape(S, 1), se, in_cap, dest,
+            dropped, gslot)
+
+
 def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                           plan: DevicePlan, moe: MoEConfig, *, ep_ranks: int,
                           activation: str = "swiglu", predicted_idx=None,
@@ -283,8 +320,8 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                           comm: Optional[StackedRanks] = None):
     """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
     once (``router_out`` unbatched). Each rank computes the (token, k)
-    pairs assigned to its slots and a psum combines the results. Returns
-    (y (T, d), MoEStats)."""
+    pairs assigned to its slots (``pack_replicated``) and a psum combines
+    the results. Returns (y (T, d), MoEStats)."""
     if predicted_idx is not None:
         raise NotImplementedError("predicted_idx " + _SLICE3)
     if resched_quota is not None:
@@ -293,24 +330,14 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
     T, d = x.shape
     R = ep_ranks
     K, E = moe.top_k, moe.num_experts
-    dup_slots = moe.duplication_slots
-    _, n_slots = plan_dims(E, ep_ranks, dup_slots)
-    S = R * n_slots
-    cap = capacity(T, K, n_slots, moe.capacity_factor)  # per-rank slot capacity
-    se = _slot_map(plan, E, dup_slots, S, x.device)
-
-    expert_flat = router_out.expert_idx.reshape(-1)
-    gslot = choose_replica(plan, expert_flat, _salt(T, K, x.device))  # (N,)
+    send, row_counts, se, in_cap, dest, dropped, gslot = pack_replicated(
+        x, router_out, plan, moe, ep_ranks=ep_ranks, comm=comm)
+    S, cap, _ = send.shape
     N = gslot.shape[0]
-    rank = comm.rank_index(x.device)
-    mine = (gslot // n_slots)[None, :] == rank[:, None]              # (R, N)
-    token_of = torch.arange(N, device=x.device) // K
-    send, in_cap, dest, _, dropped = _pack_sort(
-        x.expand(R, T, d), token_of, (gslot % n_slots).expand(R, N), mine,
-        num_classes=n_slots, cap=cap)
-    ys = grouped_ffn(experts, send.reshape(S, cap, d), se, activation)
-    ys = ys.reshape(R, n_slots * cap, d)
-    y_flat = torch.gather(ys, 1, dest.clamp(max=n_slots * cap - 1)[..., None]
+    rows_per_rank = S // R * cap
+    ys = grouped_ffn(experts, send, se, activation, row_counts=row_counts)
+    ys = ys.reshape(R, rows_per_rank, d)
+    y_flat = torch.gather(ys, 1, dest.clamp(max=rows_per_rank - 1)[..., None]
                           .expand(-1, -1, d))
     y_flat = torch.where(in_cap[..., None], y_flat,
                          torch.zeros((), dtype=ys.dtype, device=x.device))
