@@ -21,7 +21,13 @@ non-zero:
                 moe_gemm also runs the rows and counts of one real routed
                 decode step (decode_live), and prints its device time and
                 the time of reading every slot's weights and every named
-                expert's once at the memory rate.
+                expert's once at the memory rate. The two launch-bound
+                kernels, fused_topk_route and histogram_offsets, print
+                their device time, their time after the kernel that
+                precedes each on the main path, and an untimed sweep over
+                the shapes where their designs change (every case held to
+                the same checks); an empty kernel gives the card's launch
+                floor beside them.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -32,8 +38,8 @@ non-zero:
                 before and read after each run), that a re-plan replicated
                 an expert and, under EP, that a replica slot computed
                 pairs. Then it profiles EP decode steps with torch.profiler
-                (device time by kernel, idle share; paged attention's and
-                moe_gemm's time and launches per step).
+                (device time by kernel, idle share; each EP kernel's time
+                and launches per step).
                 Then RecurrentGemma-2B at published widths, all 26 layers,
                 through ``repro_torch.launch.serve.main`` (``ServeEngine``):
                 16 requests of 3072 prompt tokens in batches of 8, 64 new
@@ -48,7 +54,12 @@ non-zero:
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases router,histogram,...] [--src DIR]
+
+``--phases`` runs a subset (no kernels JSON then); ``--src`` runs the
+``repro_torch`` under another commit's ``src/`` (for example one unpacked
+with ``git archive`` into ``build/``), its kernels built from its own
+sources, so that two versions are measured in one run on one card.
 """
 
 from __future__ import annotations
@@ -113,7 +124,8 @@ def ptxas_report(text: str):
 
 def time_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn``, the L2 cache flushed
-    (a 256 MiB write) before each run, after 3 warm-up calls."""
+    (a write of ``flush``, 256 MiB unless a phase says otherwise) before
+    each run, after 3 warm-up calls."""
     for _ in range(3):
         fn()
     times = []
@@ -290,6 +302,52 @@ def device_ms(fn, flush: torch.Tensor, kernels=PAGED_KERNELS,
     return ms
 
 
+def after_ms(fn, flush: torch.Tensor, kernels, runs: int = 25) -> float:
+    """Median, over ``runs`` calls of ``fn`` (a predecessor kernel, then the
+    named kernel, the L2 flushed first), of the named kernel's end minus
+    the end of the last kernel before it that is not a fill, from
+    torch.profiler's device timestamps: what the kernel adds after the
+    kernel it follows on the main path, a memset the wrapper launches
+    included. A programmatic dependent launch hides part of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events() if e.device_type == DeviceType.CUDA)
+    gaps, prev = [], None      # prev: end of the last other non-fill kernel
+    for _, end, name in ev:
+        mine = any(k in name for k in kernels)
+        if mine and prev is not None:
+            gaps.append(end - prev)
+        if "Fill" not in name:
+            prev = None if mine else end
+    if len(gaps) != runs:
+        raise SystemExit(f"the profiler saw {len(gaps)} of {runs} {kernels} "
+                         "launches after another kernel")
+    return float(np.median(gaps)) / 1e3
+
+
+def host_ms(fn, runs: int = 200) -> float:
+    """Host wall time per call of ``fn``, ``runs`` calls queued without a
+    synchronisation between them: the wrapper's share of a call."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / runs
+    torch.cuda.synchronize()
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the expert-parallel path's kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -445,63 +503,152 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
                        "bfloat16/decode")
 
 
-def router_phase(flush: torch.Tensor, seed: int, cfg):
-    """Decode routes the 8 replicated tokens once; prefill routes 4 ranks'
-    128 tokens in one launch. Indices must match exactly except on rows
-    whose sorted top-(K+1) probabilities hold two within 4 ulps, where the
-    two orders of summation may break the tie differently; those rows are
-    counted and printed."""
+ROUTER_SWEEP = dict(T=(1, 8, 63, 64, 65, 128, 512, 4096), R=(1, 4),
+                    E=(8, 16, 17, 256), K=range(1, 9))
+HIST_SWEEP = dict(C=(4, 13, 32, 33), N=(0, 16, 256, 40000), R=(1, 4, 33))
+TIE_ROWS = 3                       # rows of equal logits at each rank's start
+# the flush before each pair timing: 1 GiB keeps the device busy for about
+# 0.35 ms, long enough for the host to queue the predecessor and the kernel
+# before the device reaches them, so the pair's time is the device's alone
+PAIR_LEAD_BYTES = 1 << 30
+
+
+def _route_check(logits, K: int):
+    """One kernel call held against the plain version: indices exact except
+    on near-tie rows (sorted top-(K+1) probabilities holding two within 4
+    ulps, which two orders of summation may break differently), the first
+    ``TIE_ROWS`` rows of every rank (exact ties) routed to experts 0..K-1,
+    fp32 outputs within 1e-6, counts exact unless a near tie moved an
+    index."""
     from repro_torch.kernels import ops, ref
 
-    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    got = ops.fused_topk_route(logits, K)
+    torch.cuda.synchronize()
+    want = ref.fused_topk_route_plain(logits, K)
+    top = torch.sort(want[2], dim=-1, descending=True).values[..., :K + 1]
+    gaps = top[..., :-1] - top[..., 1:]
+    near = (gaps <= 4 * torch.finfo(torch.float32).eps
+            * top[..., :-1]).any(-1)
+    differ = (got[0] != want[0]).any(-1)
+    ties = torch.arange(K, dtype=torch.int32, device=logits.device)
+    ties_ok = bool((got[0][:, :TIE_ROWS] == ties).all())
+    err = max(float((g - w).abs().max()) for g, w in
+              zip(got[1:4], want[1:4]))
+    counts_ok = torch.equal(got[4], want[4]) or bool(differ.any())
+    ok = (bool((~differ | near).all()) and ties_ok and err <= 1e-6
+          and counts_ok)
+    return {"max_abs_err": err, "ok": ok, "near_tie_rows": int(near.sum()),
+            "index_mismatch_rows": int(differ.sum())}
+
+
+def _route_logits(gen, R, T, E):
+    logits = torch.randn((R, T, E), generator=gen, device="cuda") * 2.0
+    logits[:, :TIE_ROWS] = 0.25
+    return logits
+
+
+def router_phase(flush: torch.Tensor, seed: int, cfg):
+    """The main path's shapes, timed: decode routes the 8 replicated tokens
+    once (1 x 8 x 8, K 2), prefill 4 ranks' 128 tokens in one launch; and
+    4096 rows of one batch (``long``, the cluster path). Each is also timed
+    after the logits' matmul that precedes it in ``moe/router.py``
+    (``pair_ms`` by events around both, ``after_ms`` from the profiler;
+    ``PAIR_LEAD_BYTES`` flushed first), where a programmatic dependent
+    launch can overlap the two, and by the wrapper's host time
+    (``host_ms``). Then, untimed, every T of 1, 8, 63, 64, 65, 128, 512 and
+    4096 with R of 1 and 4, E of 8, 16, 17 and 256 and K of 1..8: packed
+    rows (E <= 16) and one warp per row (E > 16), one CTA or a cluster of
+    3 to 8 CTAs per rank, warps that loop over rows. Every case is held to
+    ``_route_check``; near-tie rows are counted and printed."""
+    from repro_torch.kernels import ops, ref
+
+    E, K, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    lead = torch.empty(PAIR_LEAD_BYTES, dtype=torch.uint8, device="cuda")
     rows = {}
-    for case, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128)}.items():
-        logits = torch.randn((R, T, E), generator=gen, device="cuda") * 2.0
-        got = ops.fused_topk_route(logits, K)
-        torch.cuda.synchronize()
-        want = ref.fused_topk_route_plain(logits, K)
-        top = torch.sort(want[2], dim=-1, descending=True).values[..., :K + 1]
-        gaps = top[..., :-1] - top[..., 1:]
-        near = (gaps <= 4 * torch.finfo(torch.float32).eps
-                * top[..., :-1]).any(-1)
-        differ = (got[0] != want[0]).any(-1)
-        err = max(float((g - w).abs().max()) for g, w in
-                  zip(got[1:4], want[1:4]))
-        counts_ok = torch.equal(got[4], want[4]) or bool(differ.any())
-        ok = bool((~differ | near).all()) and err <= 1e-6 and counts_ok
+    for case, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128),
+                         "long": (1, 4096)}.items():
+        logits = _route_logits(gen, R, T, E)
+        row = _route_check(logits, K)
         nbytes = 4 * (2 * R * T * E + 2 * R * T * K + R * T + R * E)
         flops = R * T * E * (4 + 2 * K)      # max, exp, sum, divide; K rounds
-        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, FP32_FLOPS)
         offs = (torch.arange(R, device="cuda") * E)[:, None, None]
+        x = torch.randn((R, T, d), generator=gen, device="cuda")
+        w = torch.randn((d, E), generator=gen, device="cuda") * d ** -0.5
 
         def library():
             p = torch.softmax(logits, dim=-1)
             g, i = torch.topk(p, K, dim=-1)
             return g, i, torch.bincount((i + offs).reshape(-1),
                                         minlength=R * E)
-        row = {"max_abs_err": err, "ok": ok, "near_tie_rows": int(near.sum()),
-               "index_mismatch_rows": int(differ.sum()),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "ms": time_ms(lambda: ops.fused_topk_route(logits, K), flush),
-               "plain_ms": time_ms(
-                   lambda: ref.fused_topk_route_plain(logits, K), flush),
-               "library_ms": time_ms(library, flush)}
+
+        def pair():
+            return ops.fused_topk_route(torch.matmul(x, w), K)
+        row.update(
+            ms=time_ms(lambda: ops.fused_topk_route(logits, K), flush),
+            profiler_ms=device_ms(lambda: ops.fused_topk_route(logits, K),
+                                  flush, ("topk_route",)),
+            pair_ms=time_ms(pair, lead),
+            after_ms=after_ms(pair, lead, ("topk_route",)),
+            host_ms=host_ms(lambda: ops.fused_topk_route(logits, K)),
+            plain_ms=time_ms(lambda: ref.fused_topk_route_plain(logits, K),
+                             flush),
+            library_ms=time_ms(library, flush))
         rows[case] = row
         _log_row("fused_topk_route", case, f"R{R}xT{T}xE{E}xK{K}", row)
+    sweep = {}
+    for T in ROUTER_SWEEP["T"]:
+        for R in ROUTER_SWEEP["R"]:
+            for e in ROUTER_SWEEP["E"]:
+                logits = _route_logits(gen, R, T, e)
+                for k in ROUTER_SWEEP["K"]:
+                    sweep[f"R{R}xT{T}xE{e}xK{k}"] = _route_check(logits, k)
+    _log_sweep("fused_topk_route", sweep)
+    rows.update(sweep)
     return _kernel_row("fused_topk_route",
                        "src/repro_torch/kernels/csrc/topk_router.cu",
                        "src/repro/kernels/topk_router.py:66", rows, "decode")
 
 
+def _log_sweep(kernel, sweep):
+    for key, row in sweep.items():
+        if not row["ok"]:
+            _log_row(kernel, key, key, row)
+    log("kernels", kernel=kernel, case="sweep", cases=len(sweep),
+        failed=sum(not r["ok"] for r in sweep.values()),
+        max_abs_err=f"{max(r['max_abs_err'] for r in sweep.values()):.6g}",
+        **{k: sum(r[k] for r in sweep.values())
+           for k in ("near_tie_rows", "index_mismatch_rows")
+           if k in next(iter(sweep.values()))})
+
+
+def _hist_check(ids, C: int):
+    """One kernel call held against the plain version: both outputs
+    exact."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.histogram_offsets(ids, C)
+    torch.cuda.synchronize()
+    want = ref.histogram_offsets_plain(ids, C)
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    return {"max_abs_err": 0.0 if ok else float("inf"), "ok": ok}
+
+
 def histogram_phase(flush: torch.Tensor, seed: int):
-    """The sort packer's shapes: prefill (4 ranks x 256 pairs, 12 slots +
-    the overflow class) and decode (4 ranks x 16 pairs, 3 slots + 1); and
-    the most classes the kernel takes, where its shared memory is full.
-    Exact."""
+    """The sort packer's shapes, timed: prefill (4 ranks x 256 pairs, 12
+    slots + the overflow class) and decode (4 ranks x 16 pairs, 3 slots +
+    1), each also after the stable argsort that precedes it in
+    ``moe/dispatch.py::_pack_sort`` (``pair_ms`` by events, ``after_ms``
+    from the profiler; ``PAIR_LEAD_BYTES`` flushed first) and by the
+    wrapper's host time (``host_ms``); and the most classes the kernel
+    takes, where its shared memory is full. Then, untimed, C of 4, 13, 32 (the warp-per-row kernel's last) and 33
+    (the CTA-per-row kernel's first), N of 0, 16, 256 and 40000 and R of 1,
+    4 and 33 (two CTAs of warps), ids from -2 to C + 2. Exact."""
     from repro_torch.kernels import histogram, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    lead = torch.empty(PAIR_LEAD_BYTES, dtype=torch.uint8, device="cuda")
     rows = {}
     for case, (R, N, C) in {"decode": (EP_RANKS, 16, 4),
                             "prefill": (EP_RANKS, 256, 13),
@@ -509,29 +656,56 @@ def histogram_phase(flush: torch.Tensor, seed: int):
                                             histogram.MAX_CLASSES)}.items():
         ids = torch.randint(0, C, (R, N), generator=gen, device="cuda",
                             dtype=torch.int32)
-        got = ops.histogram_offsets(ids, C)
-        torch.cuda.synchronize()
-        want = ref.histogram_offsets_plain(ids, C)
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        bound_ms, bound_by = _bound(4 * (R * N + 2 * R * C), R * (N + C),
-                                    FP32_FLOPS)
+        row = _hist_check(ids, C)
+        row["bound_ms"], row["bound_by"] = _bound(
+            4 * (R * N + 2 * R * C), R * (N + C), FP32_FLOPS)
         offs = (torch.arange(R, device="cuda", dtype=torch.int32) * C)[:, None]
 
         def library():
             counts = torch.bincount((ids + offs).reshape(-1),
                                     minlength=R * C).reshape(R, C)
             return counts, torch.cumsum(counts, dim=1) - counts
-        row = {"max_abs_err": 0.0 if ok else float("inf"), "ok": ok,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "ms": time_ms(lambda: ops.histogram_offsets(ids, C), flush),
-               "plain_ms": time_ms(
-                   lambda: ref.histogram_offsets_plain(ids, C), flush),
-               "library_ms": time_ms(library, flush)}
+
+        def pair():
+            torch.argsort(ids, dim=1, stable=True)
+            return ops.histogram_offsets(ids, C)
+        row.update(
+            ms=time_ms(lambda: ops.histogram_offsets(ids, C), flush),
+            profiler_ms=device_ms(lambda: ops.histogram_offsets(ids, C),
+                                  flush, ("histogram_offsets",)),
+            pair_ms=time_ms(pair, lead),
+            after_ms=after_ms(pair, lead, ("histogram_offsets",)),
+            host_ms=host_ms(lambda: ops.histogram_offsets(ids, C)),
+            plain_ms=time_ms(lambda: ref.histogram_offsets_plain(ids, C),
+                             flush),
+            library_ms=time_ms(library, flush))
         rows[case] = row
         _log_row("histogram_offsets", case, f"R{R}xN{N}xC{C}", row)
+    sweep = {}
+    for C in HIST_SWEEP["C"]:
+        for N in HIST_SWEEP["N"]:
+            for R in HIST_SWEEP["R"]:
+                ids = torch.randint(-2, C + 3, (R, N), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                sweep[f"R{R}xN{N}xC{C}"] = _hist_check(ids, C)
+    _log_sweep("histogram_offsets", sweep)
+    rows.update(sweep)
     return _kernel_row("histogram_offsets",
                        "src/repro_torch/kernels/csrc/histogram.cu",
                        "src/repro/kernels/histogram.py:60", rows, "decode")
+
+
+def launch_floor_phase(flush: torch.Tensor) -> None:
+    """The card's launch floor: an empty kernel (``csrc/histogram.cu``'s
+    ``empty_kernel``, one CTA of 32 threads, launched through ``ctypes`` as
+    the kernels are), timed as they are: CUDA events, L2 flushed first, and
+    device time under torch.profiler."""
+    from repro_torch.kernels import histogram
+
+    log("kernels", kernel="launch_floor",
+        ms=f"{time_ms(histogram.launch_empty, flush):.6g}",
+        profiler_ms=f"{device_ms(histogram.launch_empty, flush, ('empty_kernel',)):.6g}",
+        host_ms=f"{host_ms(histogram.launch_empty):.6g}")
 
 
 def rg_lru_phase(flush: torch.Tensor, seed: int):
@@ -744,15 +918,16 @@ def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log("profile", ms_per_step=f"{ms:.4f}", share=f"{ms / busy:.4f}",
             per_step=f"{n / iters:.1f}", kernel=f"'{name[:90]}'")
-    pa = [(ms, n) for name, (ms, n) in kernels.items()
-          if any(k in name for k in PAGED_KERNELS)]
-    log("profile", kernel="paged_decode_attention (split + combine)",
-        ms_per_step=f"{sum(ms for ms, _ in pa):.4f}",
-        launches_per_step=f"{sum(n for _, n in pa) / iters:.1f}")
-    mg = [(ms, n) for name, (ms, n) in kernels.items() if "moe_gemm" in name]
-    log("profile", kernel="moe_gemm (gate/up + down)",
-        ms_per_step=f"{sum(ms for ms, _ in mg):.4f}",
-        launches_per_step=f"{sum(n for _, n in mg) / iters:.1f}")
+    for label, names in (
+            ("paged_decode_attention (split + combine)", PAGED_KERNELS),
+            ("moe_gemm (gate/up + down)", ("moe_gemm",)),
+            ("fused_topk_route", ("topk_route",)),
+            ("histogram_offsets", ("histogram_offsets",))):
+        hits = [(ms, n) for name, (ms, n) in kernels.items()
+                if any(k in name for k in names)]
+        log("profile", kernel=label,
+            ms_per_step=f"{sum(ms for ms, _ in hits):.4f}",
+            launches_per_step=f"{sum(n for _, n in hits) / iters:.1f}")
 
 
 def _kernel_time_by_name(prof, iters: int):
@@ -1108,19 +1283,36 @@ def griffin_reference_phase(seed: int):
                          "path")
 
 
+KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
+                 "rg_lru")
+PHASES = KERNEL_PHASES + ("floor", "main", "griffin", "reference")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the src/ directory whose repro_torch to run "
+                         "(default: this checkout's); another commit's, to "
+                         "hold two versions side by side on one card")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} "
+                         "(default: all; only a run of all prints the "
+                         "kernels line)")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
-        print(f"chip_smoke: no src/repro_torch beside {__file__} — run it "
-              "from a checkout of the repository", file=sys.stderr)
+    if not os.path.isdir(os.path.join(args.src, "repro_torch")):
+        print(f"chip_smoke: no repro_torch in {args.src} — run it from a "
+              "checkout of the repository", file=sys.stderr)
         return 2
+    sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.kernels import build
 
     smi = nvidia_smi()
@@ -1128,7 +1320,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("device", nvidia_smi=f"'{smi}'", torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count(),
-        tf32="off (cuda.matmul.allow_tf32=False, cudnn.allow_tf32=False)")
+        tf32="off (cuda.matmul.allow_tf32=False, cudnn.allow_tf32=False)",
+        src=os.path.abspath(args.src), phases=",".join(phases))
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -1142,23 +1335,33 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     mixtral = get_config("mixtral-8x7b")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    kernels = [paged_attention_phase(flush, args.seed, mixtral.sliding_window),
-               moe_gemm_phase(flush, args.seed, mixtral),
-               router_phase(flush, args.seed, mixtral),
-               histogram_phase(flush, args.seed),
-               rg_lru_phase(flush, args.seed)]
-    del flush
+    kernel_phases = {
+        "paged_attention": lambda: paged_attention_phase(
+            flush, args.seed, mixtral.sliding_window),
+        "moe_gemm": lambda: moe_gemm_phase(flush, args.seed, mixtral),
+        "router": lambda: router_phase(flush, args.seed, mixtral),
+        "histogram": lambda: histogram_phase(flush, args.seed),
+        "rg_lru": lambda: rg_lru_phase(flush, args.seed)}
+    kernels = [kernel_phases[p]() for p in KERNEL_PHASES if p in phases]
+    if "floor" in phases:
+        launch_floor_phase(flush)
+    del flush, kernel_phases
     torch.cuda.empty_cache()
 
-    launches = main_path_phase(args.seed)     # the EP run's counts
-    launches["rg_lru_scan"] = griffin_phase(args.seed)["rg_lru_scan"]
-    griffin_profile_phase(args.seed)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    reference_phase(args.seed)
-    griffin_reference_phase(args.seed)
+    launches = {}
+    if "main" in phases:
+        launches.update(main_path_phase(args.seed))   # the EP run's counts
+    if "griffin" in phases:
+        launches["rg_lru_scan"] = griffin_phase(args.seed)["rg_lru_scan"]
+        griffin_profile_phase(args.seed)
+    if "reference" in phases:
+        reference_phase(args.seed)
+        griffin_reference_phase(args.seed)
 
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if set(phases) == set(PHASES):
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
