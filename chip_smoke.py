@@ -19,9 +19,11 @@ non-zero:
                 slot alone and all slots at length 1023, and prints its
                 split plan and the pair's device time under torch.profiler.
                 moe_gemm also runs the rows and counts of one real routed
-                decode step (decode_live), and prints its device time and
-                the time of reading every slot's weights and every named
-                expert's once at the memory rate. The two launch-bound
+                decode step (decode_live) and the decode shape on a replica
+                store's 16-row tensors (decode_store: 12 slots, 12 distinct
+                rows, against the 12-set bound), and prints its device time
+                and the time of reading every slot's weights and every
+                named expert's once at the memory rate. The two launch-bound
                 kernels, fused_topk_route and histogram_offsets, print
                 their device time, their time after the kernel that
                 precedes each on the main path, and an untimed sweep over
@@ -32,14 +34,27 @@ non-zero:
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
                 the dense MoE path over the first 2 layers, then the
-                expert-parallel path (``ep=True``) over 8 of the 32 layers,
-                both on one set of weights. Each serves the same trace;
-                checks completions, tokens, kernel launch counts (reset
-                before and read after each run), that a re-plan replicated
-                an expert and, under EP, that a replica slot computed
-                pairs. Then it profiles EP decode steps with torch.profiler
-                (device time by kernel, idle share; each EP kernel's time
-                and launches per step).
+                expert-parallel path (``ep=True``) over 8 of the 32 layers
+                at the engine's defaults: the replica store
+                (``replica_impl="store"``), layer-staged migration on a side
+                stream, ``prefetch_lead`` 2 and the migration gate. Both on
+                one set of weights, each serving the same trace; checks
+                completions, tokens, kernel launch counts (reset before and
+                read after each run), that a re-plan replicated an expert
+                and, under EP, that a replica slot computed pairs, that a
+                migration committed with bytes moved and that every live
+                replica row equals its expert's home row; prints the
+                migration counters, the modelled stall (the reference's
+                A100-PCIe link, not this card) and the store's bytes. Then:
+                a mid-migration check (some layers of a staged fill ready:
+                one EP decode forward through the store equals, bit for
+                bit, the ``replica_impl="gather"`` forward under the mixed
+                plan); EP decode steps profiled with torch.profiler, with
+                the store and with a ``"gather"`` engine on the same
+                weights and plan (device time by kernel, idle share; each
+                EP kernel's time and launches per step); and the decode
+                steps during which a fill is in flight (the copies' device
+                time per entry and rate, each stream's busy time).
                 Then RecurrentGemma-2B at published widths, all 26 layers,
                 through ``repro_torch.launch.serve.main`` (``ServeEngine``):
                 16 requests of 3072 prompt tokens in batches of 8, 64 new
@@ -413,13 +428,30 @@ def decode_live_batch(cfg, gen):
     return send.contiguous(), counts, se
 
 
+def store_slot_rows(num_experts: int):
+    """The ``decode_store`` case's slot -> row map on a replica store's
+    16-row tensor (``runtime.store``: the 8 home rows, then a live and a
+    back row per rank's replica slot): home slots read their home rows,
+    every replica slot its own live row, so 12 slots name 12 rows."""
+    rows = ep_slot_experts(num_experts).copy()
+    e_loc = num_experts // EP_RANKS
+    n_slots = e_loc + DUP_SLOTS
+    for r in range(EP_RANKS):
+        for i in range(DUP_SLOTS):
+            rows[r * n_slots + e_loc + i] = num_experts + 2 * (r * DUP_SLOTS
+                                                               + i)
+    return rows
+
+
 def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
     """Both main-path shapes with every row live: decode (12 slots x cap 8
     rows, one row block per slot) and prefill (12 slots x 4 source ranks x
     cap 32 rows), fp32 and bf16; and in bf16 the rows and counts of one
-    real routed decode step (``decode_live``). The slot map names 8
-    distinct experts in 12 slots: the plan puts every rank's replica slot
-    on the hottest expert, which 4 slots then share."""
+    real routed decode step (``decode_live``) and the decode shape on a
+    replica store's 16-row weight tensors (``decode_store``: 12 slots read
+    12 distinct rows, as the EP store run's replica slots do). The main
+    slot map names 8 distinct experts in 12 slots: the plan puts every
+    rank's replica slot on the hottest expert, which 4 slots then share."""
     from repro_torch.kernels import ops, ref
 
     E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
@@ -447,11 +479,19 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
             counts = torch.full((S, B), T // B, dtype=torch.int32,
                                 device="cuda")
             cases[case] = (x, counts, se)
+        store_w = None
         if dtype == torch.bfloat16:
             cases["decode_live"] = decode_live_batch(cfg, gen)
+            # the store's rows: homes, then copies standing in for the
+            # replica rows (each slot's weights come from its own row)
+            store_w = {n: torch.cat([t, t]) for n, t in w.items()}
+            cases["decode_store"] = (
+                cases["decode"][0], cases["decode"][1],
+                torch.tensor(store_slot_rows(E), device="cuda"))
         for case, (x, counts, slot_map) in cases.items():
             S, T, _ = x.shape
-            args = (x, w["w_gate"], w["w_up"], w["w_down"], slot_map)
+            cw = store_w if case == "decode_store" else w
+            args = (x, cw["w_gate"], cw["w_up"], cw["w_down"], slot_map)
             got = ops.moe_gemm(*args, row_counts=counts)
             torch.cuda.synchronize()
             want = ref.moe_gemm_plain(*args, row_counts=counts)
@@ -478,8 +518,8 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
                    "distinct_weight_ms": named * matrix / HBM_BYTES_PER_S
                    * 1e3}
             if dtype == torch.bfloat16:
-                def library(x=x, slot_map=slot_map):
-                    wg, wu, wd = (w[n][slot_map.long()] for n in
+                def library(x=x, slot_map=slot_map, cw=cw):
+                    wg, wu, wd = (cw[n][slot_map.long()] for n in
                                   ("w_gate", "w_up", "w_down"))
                     return torch.bmm(torch.nn.functional.silu(
                         torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
@@ -496,7 +536,7 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
             rows[key] = row
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
             del got, want, err
-        del w, cases
+        del w, cases, store_w
         torch.cuda.empty_cache()
     return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:60", rows,
@@ -766,18 +806,34 @@ def layer_view(model, cfg, num_layers: int):
                        layers)
 
 
+MAIN_CCFG = dict(max_slots=8, prefill_len=512, block_size=16, max_len=1024,
+                 strategy="dist_only", predict_interval=4,
+                 dup_slots=DUP_SLOTS)
+
+
 def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
     """Serve the main trace (16 requests of 64..500 prompt tokens, 64 new
     tokens each, 20 ms apart) with every kernel count set to 0 just
-    before and read just after. Returns (engine, launches)."""
+    before and read just after, at the engine's defaults (under EP: the
+    replica store, overlapped migration, ``prefetch_lead`` 2, the
+    migration gate). Returns (engine, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ServeRequest)
 
-    ccfg = ContinuousConfig(max_slots=8, prefill_len=512, block_size=16,
-                            max_len=1024, strategy="dist_only",
-                            predict_interval=4, dup_slots=DUP_SLOTS)
-    eng = ContinuousEngine(cfg, model, ccfg, ep_ranks=EP_RANKS, ep=ep)
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**MAIN_CCFG),
+                           ep_ranks=EP_RANKS, ep=ep)
+    if eng._store is not None:
+        store = eng._store
+        home = cfg.num_layers * cfg.moe.num_experts * store.entry_bytes
+        log("main", path=label, replica_impl=cfg.moe.replica_impl,
+            overlap=eng._overlap, prefetch_lead=eng.ccfg.prefetch_lead,
+            migration_gate=eng.ccfg.migration_gate,
+            entry_bytes=store.entry_bytes,
+            store_device_gb=f"{store.device_bytes / 1e9:.3f}",
+            store_replica_rows_gb=f"{(store.device_bytes - home) / 1e9:.3f}",
+            jax_hbm_gb_per_rank=f"{store.hbm_bytes_per_rank / 1e9:.3f}",
+            allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
     t0 = time.perf_counter()
     eng.warmup()
     log("main", path=label, warmup_s=f"{time.perf_counter() - t0:.3f}")
@@ -815,6 +871,21 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
         measured_imbalance=(f"{eng.measured_imbalance():.4f}" if ep
                             else "n/a (dense path)"),
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    eb = max(eng._entry_bytes, 1)
+    log("main", path=label, migration_replans=int(s["migration_replans"]),
+        commits=int(s["migration_commits"]),
+        rejected=int(s["migration_rejected"]),
+        prebegun=int(s["migration_prebegun"]),
+        cancelled=int(s["migration_cancelled"]),
+        entries_planned=int(s["migration_planned_bytes"] // eb),
+        entries_moved=int(s["migration_bytes_moved"] // eb),
+        planned_gb=f"{s['migration_planned_bytes'] / 1e9:.3f}",
+        moved_gb=f"{s['migration_bytes_moved'] / 1e9:.3f}",
+        modelled_stall_ms=f"{s['migration_stall_us'] / 1e3:.3f}",
+        modelled_hidden_ms=f"{s['migration_hidden_s'] * 1e3:.3f}",
+        modelled_exposed_ms=f"{s['migration_exposed_s'] * 1e3:.3f}",
+        stall_model="A100-PCIe link 64 GB/s, the reference's deployment "
+                    "model (core.simulator.A100_PCIE), not this card")
     failures = []
     if len(done) != len(reqs):
         failures.append(f"{len(done)} of {len(reqs)} requests completed")
@@ -841,14 +912,291 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
             home_slot_pairs=int(sc[:, :, :e_loc].sum()))
         if replica_pairs == 0:
             failures.append("no replica slot computed a pair")
+    if eng._store is not None:
+        if s["migration_commits"] < 1 or s["migration_bytes_moved"] <= 0:
+            failures.append("no migration committed with bytes moved")
+        bad = live_rows_mismatch(eng)
+        log("main", path=label, live_replica_rows_checked=bad[1],
+            live_rows_equal_home=not bad[0])
+        if bad[0]:
+            failures.append(f"live replica rows differ from their experts' "
+                            f"home rows at {bad[0][:4]}")
     if failures:
         raise SystemExit(f"main path ({label}) failed: " + "; ".join(failures))
     return eng, launches
 
 
+def live_rows_mismatch(eng):
+    """([(layer, slot)] whose live replica row is not bit-equal to the home
+    row of the slot's expert, number of live replica rows checked)."""
+    store = eng._store
+    torch.cuda.synchronize()
+    rows = store.slot_rows()
+    bad, n = [], 0
+    for l in range(store.slot_experts.shape[0]):
+        for slot in store.replica_slots():
+            e = int(store.slot_experts[l, slot])
+            if e < 0:
+                continue
+            n += 1
+            if not all(torch.equal(w[l][rows[l, slot]], w[l][e])
+                       for w in store.weights.values()):
+                bad.append((l, int(slot)))
+    return bad, n
+
+
+def shifted_plan(eng, shift: int):
+    """A plan stack that fills every replica slot of every layer: Algorithm
+    1 on a distribution whose expert ``(shift + layer) % E`` takes 65% of
+    the pairs (it gets the most copies, another expert the rest), so that
+    two shifts differ in every replica slot."""
+    from repro_torch.core.duplication import duplicate_experts_host
+    from repro_torch.core.placement import stack_plans
+
+    m = eng.moe_cfg
+    plans = []
+    for l in range(eng.cfg.num_layers):
+        dist = np.full((m.num_experts,), 0.35 / (m.num_experts - 1))
+        dist[(shift + l) % m.num_experts] = 0.65
+        plans.append(duplicate_experts_host(
+            dist, EP_RANKS, m.duplication_slots, m.max_copies).plan)
+    return stack_plans(plans)
+
+
+def begin_fill(eng, target):
+    """Start a layer-staged fill from the plan in force toward ``target``
+    through the engine's own executor. Returns the diff."""
+    from repro_torch.runtime import plan_diff
+
+    if eng._executor.active:
+        eng._executor.cancel()
+    diff = plan_diff(eng._plan_stack, target, EP_RANKS,
+                     eng.moe_cfg.duplication_slots)
+    eng._begin_migration(diff, target)
+    return diff
+
+
+def mid_migration_phase(eng, cfg, seed: int) -> None:
+    """One EP decode forward (8 slots at length 0 in a fresh block pool)
+    at a state of a staged fill with some but not all layers ready, through
+    the store view, against the ``replica_impl="gather"`` forward (the
+    home rows, through the slot -> expert map) under the per-layer mixed
+    plan. Logits and slot counts must be equal bit for bit."""
+    from repro_torch.core.placement import PlacementPlan
+    from repro_torch.serve.kvcache import init_block_pool
+    from repro_torch.train.steps import make_paged_decode_step
+
+    target = shifted_plan(eng, 1)
+    diff = begin_fill(eng, target)
+    while not eng._executor.ready_mask().any():  # chunks: a layer prefix
+        commit, _ = eng._executor.tick(1)
+        if commit is not None:
+            raise SystemExit(f"the {diff.num_entries}-entry fill committed "
+                             "before a mid-migration state")
+    ready = eng._executor.ready_mask()
+    live = eng._plan_stack
+    mixed = PlacementPlan(*(np.where(
+        ready.reshape((-1,) + (1,) * (np.asarray(a).ndim - 1)), b, a)
+        for a, b in zip(live, target)))
+    decode = make_paged_decode_step(eng.cfg, eng.rt)
+    B = eng.ccfg.max_slots
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    tables = torch.arange(1, B + 1, dtype=torch.int32,
+                          device="cuda")[:, None].contiguous()
+    lengths = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    active = torch.ones((B, 1), device="cuda")
+    out = {}
+    for name, plan, store in (
+            ("store", eng._plan_dev, eng._store_view()),
+            ("gather", eng._to_device(mixed), None)):
+        pool = init_block_pool(eng.cfg, 1 + B, eng.ccfg.block_size,
+                               device="cuda")
+        _, lg, _, st = decode(eng.model, tokens, pool, tables, lengths,
+                              active, plan, store)
+        out[name] = (lg.float(), st["slot_counts"])
+    torch.cuda.synchronize()
+    err = float((out["store"][0] - out["gather"][0]).abs().max())
+    equal = (torch.equal(out["store"][0], out["gather"][0])
+             and torch.equal(out["store"][1], out["gather"][1]))
+    e_loc = cfg.moe.num_experts // EP_RANKS
+    sc = out["store"][1].reshape(cfg.num_layers, EP_RANKS, -1)
+    ready_rep = int(sc[torch.tensor(ready, device="cuda")][:, :, e_loc:]
+                    .sum())
+    log("mid_migration", entries=diff.num_entries,
+        ready_layers=int(ready.sum()), layers=cfg.num_layers,
+        replica_pairs_in_ready_layers=ready_rep,
+        max_abs_logit_diff=f"{err:.6g}", bit_equal=equal,
+        tolerance="exact (logits and slot_counts)")
+    eng._executor.cancel()
+    if not 0 < ready.sum() < cfg.num_layers or ready_rep == 0:
+        raise SystemExit(f"mid-migration state has {int(ready.sum())} of "
+                         f"{cfg.num_layers} layers ready, {ready_rep} pairs "
+                         "on their replica slots")
+    if not equal:
+        raise SystemExit("the store forward mid-migration differs from the "
+                         "gather forward under the mixed plan")
+
+
+def _fill_slots(eng, cfg, seed: int, new_tokens: int, now: float) -> float:
+    """Admit one fresh 256-token request per slot and run the prefills."""
+    from repro_torch.serve import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    for i in range(eng.ccfg.max_slots):
+        eng.submit(ServeRequest(
+            rid=10_000 * (seed % 7 + 1) + i, max_new_tokens=new_tokens,
+            arrival=now,
+            tokens=rng.integers(0, cfg.vocab_size, 256).astype(np.int32)))
+    while eng.scheduler.waiting:                  # admission + prefills
+        eng.step(now)
+        now += 1.0
+    return now
+
+
+def _drain(eng, now: float) -> float:
+    while eng.has_work():
+        eng.step(now)
+        now += 1.0
+    return now
+
+
+def _is_copy(name: str) -> bool:
+    """A device-to-device copy (the store's row copies are ``copy_`` of
+    contiguous rows, a DtoD memcpy each)."""
+    return "Memcpy DtoD" in name
+
+
+def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
+    """Where an engine's decode step's time goes: fill every slot with fresh
+    requests, time ``iters`` decode-only iterations on the host clock, then
+    ``iters`` more under torch.profiler. Prints the device's busy time by
+    kernel and its idle share of the profiled window. Re-planning is off
+    (strategy "none"), so the plan in force stays and nothing migrates."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    strategy, eng.strategy = eng.strategy, "none"
+    now = _fill_slots(eng, cfg, seed + 1, 2 * iters + 8, 0.0)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng.step(now)
+        now += 1.0
+    plain_ms = (time.perf_counter() - t0) * 1e3 / iters
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.step(now)
+            now += 1.0
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    _drain(eng, now)
+    eng.strategy = strategy
+    kernels = _kernel_time_by_name(prof, iters)
+    busy = sum(ms for ms, _ in kernels.values())
+    log("profile", path=label, decode_iterations=iters,
+        slots=eng.ccfg.max_slots,
+        dtod_copies_per_step=sum(n for name, (_, n) in kernels.items()
+                                 if _is_copy(name)) / iters,
+        step_ms=f"{plain_ms:.3f}", profiled_step_ms=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / iters:.1f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        log("profile", path=label, ms_per_step=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", per_step=f"{n / iters:.1f}",
+            kernel=f"'{name[:90]}'")
+    for kname, names in (
+            ("paged_decode_attention (split + combine)", PAGED_KERNELS),
+            ("moe_gemm (gate/up + down)", ("moe_gemm",)),
+            ("fused_topk_route", ("topk_route",)),
+            ("histogram_offsets", ("histogram_offsets",))):
+        hits = [(ms, n) for name, (ms, n) in kernels.items()
+                if any(k in name for k in names)]
+        log("profile", path=label, kernel=kname,
+            ms_per_step=f"{sum(ms for ms, _ in hits):.4f}",
+            launches_per_step=f"{sum(n for _, n in hits) / iters:.1f}")
+
+
+FILL_RANGE = "chip_smoke.fill_steps"
+
+
+def migration_profile_phase(eng, cfg, seed: int, max_steps: int = 8) -> None:
+    """Decode steps during which a staged fill is in flight: every slot
+    busy, a fill toward ``shifted_plan`` begun, then decode iterations under
+    torch.profiler until it commits. Prints the copies' device time per
+    entry (three row copies each) and their rate, the main stream's busy
+    time per step beside them, and the reference's modelled stall for the
+    same entries (an A100-PCIe link, not this card)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import record_function
+
+    from repro_torch.runtime import migration_stall_s
+
+    strategy, eng.strategy = eng.strategy, "none"
+    now = _fill_slots(eng, cfg, seed + 2, max_steps + 8, 0.0)
+    for _ in range(2):                            # decode-only windows
+        eng.step(now)
+        now += 1.0
+    commits = eng.metrics.migration["commits"]
+    steps = 0
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        # a step before the fill: the tracer can miss the first device
+        # events of a window, and only events after its end are counted
+        eng.step(now)
+        now += 1.0
+        torch.cuda.synchronize()
+        with record_function(FILL_RANGE):
+            diff = begin_fill(eng, shifted_plan(eng, 2))
+            t0 = time.perf_counter()
+            while eng._executor.active and steps < max_steps:
+                eng.step(now)
+                now += 1.0
+                steps += 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    committed = eng.metrics.migration["commits"] - commits
+    _drain(eng, now)
+    eng.strategy = strategy
+    start = next(e.time_range.start for e in prof.events()
+                 if e.name == FILL_RANGE)
+    by_stream = _events_by_stream(prof, start)
+    busy = {res: sum(ms for _, ms in evs) for res, evs in by_stream.items()}
+    main = max(busy, key=busy.get)               # the forward's stream
+    side = [(name, ms) for res, evs in by_stream.items() if res != main
+            for name, ms in evs]
+    copies = [ms for name, ms in side if _is_copy(name)]
+    copy_ms = sum(copies)
+    n = diff.num_entries
+    eb = eng._store.entry_bytes
+    per_step = max(steps, 1)
+    for res in sorted(busy):
+        log("migration_profile", stream=res, main=res == main,
+            events=len(by_stream[res]),
+            busy_ms_per_step=f"{busy[res] / per_step:.3f}")
+    log("migration_profile", entries=n, entry_bytes=eb, steps=steps,
+        committed=int(committed), side_stream_copies=len(copies),
+        side_stream_other_events=len(side) - len(copies),
+        copy_ms_per_entry=f"{copy_ms / max(n, 1):.4f}",
+        copy_gb_per_s=f"{n * eb / max(copy_ms, 1e-9) / 1e6:.1f}",
+        copy_read_write_gb_per_s=f"{2 * n * eb / max(copy_ms, 1e-9) / 1e6:.1f}",
+        copy_ms_per_step=f"{copy_ms / per_step:.3f}",
+        main_stream_busy_ms_per_step=f"{busy[main] / per_step:.3f}",
+        profiled_step_ms=f"{wall_ms:.3f}",
+        modelled_stall_ms=f"{migration_stall_s(n * eb, eng._hw()) * 1e3:.3f}",
+        stall_model="A100-PCIe 64 GB/s (reference's deployment model)")
+    if committed != 1 or len(copies) != 3 * n or len(side) != len(copies):
+        raise SystemExit(f"migration profile: {int(committed)} commits, "
+                         f"{len(copies)} side-stream copies for {n} entries, "
+                         f"{len(side) - len(copies)} other side-stream events")
+
+
 def main_path_phase(seed: int):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ContinuousConfig, ContinuousEngine
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"),
                               num_layers=MAIN_LAYERS)
@@ -870,64 +1218,37 @@ def main_path_phase(seed: int):
     dense = layer_view(model, cfg, DENSE_LAYERS)
     eng, _ = serve_trace("dense", dense, dense.cfg, seed, ep=False)
     del eng, dense
+    # the store run: the engine's defaults (replica_impl "store")
     eng, launches = serve_trace("ep", model, cfg, seed, ep=True)
-    profile_phase(eng, cfg, seed)
+    mid_migration_phase(eng, cfg, seed)
+    profile_phase(eng, cfg, seed, "store")
+    gather_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, replica_impl="gather"))
+    gather = ContinuousEngine(gather_cfg, model,
+                              ContinuousConfig(**MAIN_CCFG),
+                              ep_ranks=EP_RANKS, ep=True)
+    gather._set_plan(eng._plan_stack)             # the store run's plan
+    profile_phase(gather, cfg, seed, "gather")
+    del gather
+    migration_profile_phase(eng, cfg, seed)
     del eng, model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_phase(eng, cfg, seed: int, iters: int = 12) -> None:
-    """Where an engine's decode step's time goes: fill every slot with fresh
-    requests, time ``iters`` decode-only iterations on the host clock, then
-    ``iters`` more under torch.profiler. Prints the device's busy time by
-    kernel and its idle share of the profiled window."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+def _events_by_stream(prof, start_us: float = float("-inf")):
+    """{device resource (stream) id: [(name, device ms)]} of a profile's
+    device events that start at ``start_us`` or later (the tracer's copy of
+    the ``FILL_RANGE`` annotation on each stream left out)."""
+    from torch.autograd import DeviceType
 
-    from repro_torch.serve import ServeRequest
-
-    rng = np.random.default_rng(seed + 1)
-    for i in range(eng.ccfg.max_slots):
-        eng.submit(ServeRequest(
-            rid=1000 + i, max_new_tokens=2 * iters + 8, arrival=0.0,
-            tokens=rng.integers(0, cfg.vocab_size, 256).astype(np.int32)))
-    now = 0.0
-    while eng.scheduler.waiting:                  # admission + prefills
-        eng.step(now)
-        now += 1.0
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        eng.step(now)
-        now += 1.0
-    plain_ms = (time.perf_counter() - t0) * 1e3 / iters
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            eng.step(now)
-            now += 1.0
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = _kernel_time_by_name(prof, iters)
-    busy = sum(ms for ms, _ in kernels.values())
-    log("profile", decode_iterations=iters, slots=eng.ccfg.max_slots,
-        step_ms=f"{plain_ms:.3f}", profiled_step_ms=f"{wall_ms:.3f}",
-        device_busy_ms_per_step=f"{busy:.3f}",
-        idle_share=f"{1 - busy / wall_ms:.4f}",
-        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / iters:.1f}")
-    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-        log("profile", ms_per_step=f"{ms:.4f}", share=f"{ms / busy:.4f}",
-            per_step=f"{n / iters:.1f}", kernel=f"'{name[:90]}'")
-    for label, names in (
-            ("paged_decode_attention (split + combine)", PAGED_KERNELS),
-            ("moe_gemm (gate/up + down)", ("moe_gemm",)),
-            ("fused_topk_route", ("topk_route",)),
-            ("histogram_offsets", ("histogram_offsets",))):
-        hits = [(ms, n) for name, (ms, n) in kernels.items()
-                if any(k in name for k in names)]
-        log("profile", kernel=label,
-            ms_per_step=f"{sum(ms for ms, _ in hits):.4f}",
-            launches_per_step=f"{sum(n for _, n in hits) / iters:.1f}")
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.start >= start_us \
+                and e.name != FILL_RANGE:
+            out.setdefault(getattr(e, "device_resource_id", -1), []).append(
+                (e.name, e.time_range.elapsed_us() / 1e3))
+    return out
 
 
 def _kernel_time_by_name(prof, iters: int):

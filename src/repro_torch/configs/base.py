@@ -30,6 +30,23 @@ class MoEConfig:
     # Paper technique knobs -------------------------------------------------
     max_copies: int = 4                  # Algorithm 1 C_max
     duplication_slots: int = 0           # extra expert slots per EP rank
+    # Replica weight movement -----------------------------------------------
+    # "store": the EP engine keeps persistent replica rows
+    # (repro_torch.runtime.ReplicaStore) and moves weights only when the
+    # plan changes; "gather": every slot reads its expert's home weights
+    # through the slot -> expert map (the oracle, and the path whenever no
+    # store is threaded in).
+    replica_impl: str = "store"
+    # Overlapped migration: plan-diff fills are staged per layer on a side
+    # stream and each layer adopts the target plan once its fill has
+    # landed (repro_torch.runtime.LayerStagedExecutor). False drains the
+    # diff between engine steps.
+    overlap_migration: bool = True
+    # Per-rank HBM budget (GB) for the replica store, in the JAX package's
+    # accounting (a second copy of the home experts plus the replica
+    # slots). 0 = unlimited; otherwise the EP engine clamps
+    # duplication_slots until the store fits (core.placement.clamp_dup_slots).
+    store_hbm_budget_gb: float = 0.0
 
 
 @dataclass(frozen=True)

@@ -17,8 +17,9 @@ All arrays are replicated (identical on every rank) and dynamically valued
 
 Port note: the same functions as the JAX package's ``core/placement.py``,
 with numpy arrays (int32) in place of jnp arrays. ``slot_experts`` and
-``to_device`` are the port's own: the dispatch reads replica weights
-through a slot -> expert map instead of a gathered weight pool.
+``to_device`` are the port's own: the dispatch reads each slot's weights
+as one row of a weight tensor, through a slot -> row map (the expert's
+home row, or under the replica store the slot's own row).
 """
 
 from __future__ import annotations
@@ -97,6 +98,33 @@ def slot_expert_map(plan: PlacementPlan, ep_ranks: int,
         for c in range(1, int(n_rep[ei])):
             se[int(table[ei, c])] = ei
     return se
+
+
+def store_bytes_per_rank(num_experts: int, ep_ranks: int, dup_slots: int, *,
+                         entry_bytes: int, num_layers: int) -> int:
+    """Device memory one EP rank spends on a persistent replica store in
+    the JAX package's accounting: ``L x n_slots`` slot entries (a second
+    copy of the home experts plus the replica slots). The budget clamp
+    reads this figure, so plans match the reference's under one budget;
+    the port's store holds less (``runtime.store``)."""
+    _, n_slots = plan_dims(num_experts, ep_ranks, dup_slots)
+    return int(num_layers) * n_slots * int(entry_bytes)
+
+
+def clamp_dup_slots(num_experts: int, ep_ranks: int, dup_slots: int, *,
+                    entry_bytes: int, num_layers: int,
+                    hbm_budget_bytes: float) -> int:
+    """Largest ``d <= dup_slots`` whose replica store fits the per-rank
+    HBM budget (``MoEConfig.store_hbm_budget_gb``). 0 disables the clamp.
+    Can return 0 (no replica slots fit — duplication off)."""
+    if hbm_budget_bytes <= 0 or dup_slots <= 0:
+        return dup_slots
+    d = int(dup_slots)
+    while d > 0 and store_bytes_per_rank(
+            num_experts, ep_ranks, d, entry_bytes=entry_bytes,
+            num_layers=num_layers) > hbm_budget_bytes:
+        d -= 1
+    return d
 
 
 def quota_limited_plan(assignments, num_experts: int, ep_ranks: int,
@@ -197,21 +225,28 @@ def slot_experts(plan: PlacementPlan, num_experts: int, ep_ranks: int,
 
 class DevicePlan(NamedTuple):
     """What the dispatch reads of a placement plan, as device tensors: one
-    layer's, or stacked over layers (index with ``layer``)."""
+    layer's, or stacked over layers (index with ``layer``). ``slot_rows``
+    is the row of the layer's weight tensors each slot computes with:
+    ``slot_experts`` when the weights are the (E, ...) home experts, the
+    replica store's rows (``runtime.store``) when they are its tensors."""
     n_replicas: torch.Tensor     # (..., E) int64
     replica_table: torch.Tensor  # (..., E, C_max) int64 global slot ids
     slot_experts: torch.Tensor   # (..., R * n_slots) int32
+    slot_rows: torch.Tensor      # (..., R * n_slots) int32
 
     def layer(self, l: int) -> "DevicePlan":
         return DevicePlan(*(t[l] for t in self))
 
 
 def to_device(plan: PlacementPlan, num_experts: int, ep_ranks: int,
-              dup_slots: int, device) -> DevicePlan:
+              dup_slots: int, device, rows=None) -> DevicePlan:
     """Move a (stacked) plan to ``device`` once, at each re-plan, so the
-    forward passes between re-plans copy nothing from the host."""
+    forward passes between re-plans copy nothing from the host. ``rows``:
+    the slot -> row map (shaped as ``slot_experts``); None reads every
+    slot's expert from its home row."""
     def dev(a, dtype):
         return torch.tensor(np.array(a), dtype=dtype, device=device)
+    se = dev(slot_experts(plan, num_experts, ep_ranks, dup_slots), torch.int32)
     return DevicePlan(
         dev(plan.n_replicas, torch.int64), dev(plan.replica_table, torch.int64),
-        dev(slot_experts(plan, num_experts, ep_ranks, dup_slots), torch.int32))
+        se, se if rows is None else dev(rows, torch.int32))

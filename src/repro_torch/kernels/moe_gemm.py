@@ -3,9 +3,11 @@
 Port of the TPU kernel ``src/repro/kernels/moe_gemm.py`` (``moe_gemm``).
 For every slot ``s`` of the EP dispatch, ``y[s] = act(x[s] @ Wg[e]) *
 (x[s] @ Wu[e]) @ Wd[e]`` with ``e = slot_experts[s]``. The weights stay in
-the ``(E, d, F)`` / ``(E, F, d)`` expert tensors, and the kernels read each
-expert that a slot names once per launch, for all the slots that name it:
-a replica slot costs neither a weight copy nor a second read. An optional
+the ``(E, d, F)`` / ``(E, F, d)`` weight tensors, and the kernels read each
+row (expert) that a slot names once per launch, for all the slots that
+name it: a replica slot that names its expert's home row costs no second
+read, one that names its own row of the replica store
+(``runtime.store``) costs a read of that row. An optional
 ``(S, B)`` ``row_counts`` marks the live rows of each slot (rows ``[b*T/B,
 b*T/B + row_counts[s, b])``); the others are taken as zero, give zero
 outputs and cost no weight reads. One call launches the

@@ -22,7 +22,13 @@ expert-parallel dispatch (``moe.dispatch``) with the R EP ranks as a
 leading tensor dimension on one device: prefill splits each sequence over
 the ranks, decode replicates the tokens. Under EP the placement plan
 decides which slot each (token, k) pair goes to, which pairs are dropped at
-capacity, and which expert weights each replica slot computes with.
+capacity, and which weight row each slot computes with: its expert's row
+of the layer's (E, ...) weights, or with a ``StoreView`` the replica
+store's rows (``runtime.store``). While a layer-staged migration is in
+flight, a layer whose fill is ready reads the target plan and the filled
+rows, once the main stream has waited on that layer's fill event; the
+other layers read the live plan and rows (``_migration_view``, the JAX
+package's per-layer select).
 
 Storage: the embedding, ``lm_head``, attention, expert and FFN weights and
 the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
@@ -35,8 +41,9 @@ they are used in fp32.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -64,6 +71,17 @@ class Runtime(NamedTuple):
 
     def window(self, cfg: ModelConfig) -> int:
         return self.window_override or cfg.sliding_window
+
+
+class StoreView(NamedTuple):
+    """What a forward reads of the replica store: its per-layer row tensors
+    and, while a layer-staged migration is in flight, the ready mask, the
+    target plan (its ``slot_rows`` the rows each slot reads once its layer
+    is ready) and the per-layer fill events (``LayerStagedExecutor``)."""
+    weights: Dict[str, List[torch.Tensor]]   # {name: [(E + 2RD, ...)] * L}
+    ready: Optional[np.ndarray] = None       # (L,) bool, host
+    target: Optional[DevicePlan] = None      # stacked target plan
+    events: Optional[list] = None            # per layer: CUDA event or None
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -136,11 +154,11 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, rt: Runtime = Runtime(), *, mode: str,
                 cache=None, cache_len=None, block_tables=None,
-                last_pos=None, token_weight=None, plan=None):
+                last_pos=None, token_weight=None, plan=None, store=None):
         return forward(self, self.cfg, tokens, rt, mode=mode, cache=cache,
                        cache_len=cache_len, block_tables=block_tables,
                        last_pos=last_pos, token_weight=token_weight,
-                       plan=plan)
+                       plan=plan, store=store)
 
 
 # ---------------------------------------------------------------------------
@@ -257,11 +275,15 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
-               plan_l: Optional[DevicePlan], decode: bool, token_weight=None):
+               plan_l: Optional[DevicePlan], decode: bool, token_weight=None,
+               experts_l=None, fill_event=None):
     """MoE FFN of one layer (the JAX package's ``_moe_apply``). x: (B, S, d).
     Returns (y, expert_counts (E,), slot_counts, aux, z, dropped);
     slot_counts and dropped are None on the dense path, which has no slots
-    and drops nothing.
+    and drops nothing. ``experts_l``: the weights ``plan_l.slot_rows``
+    index (the store's rows; None: the layer's home experts);
+    ``fill_event``: a CUDA event the main stream waits on first (the
+    layer's staged fill).
 
     ``token_weight`` (B, S) weights each token in the expert histogram, so
     padding and idle slots (weight 0) still flow through the FFN but do not
@@ -282,8 +304,10 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                                          moe.max_copies),
                            moe.num_experts, R, moe.duplication_slots,
                            x.device)
-    experts = {"w_gate": layer.w_gate, "w_up": layer.w_up,
-               "w_down": layer.w_down}
+    if fill_event is not None:
+        torch.cuda.current_stream(x.device).wait_event(fill_event)
+    experts = experts_l or {"w_gate": layer.w_gate, "w_up": layer.w_up,
+                            "w_down": layer.w_down}
     kw = dict(ep_ranks=R, activation=cfg.activation)
     if decode:
         # decode batches are too small to shard: every rank sees every
@@ -321,7 +345,8 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
 
 def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 rt: Runtime, *, cache, cache_len=None, mode="prefill",
-                block_tables=None, token_weight=None, plan_l=None):
+                block_tables=None, token_weight=None, plan_l=None,
+                experts_l=None, fill_event=None):
     """GQA attention + MoE FFN for one layer. ``cache``: this layer's
     {"k", "v"} (linear cache in prefill, block pool in decode), updated in
     place. Returns (x, (expert_counts (E,), slot_counts, aux, z,
@@ -347,7 +372,7 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     x = x + a
     h = rmsnorm(layer.ln2, x)
     y, *stats = _moe_apply(layer, cfg, h, rt, plan_l, mode == "decode",
-                           token_weight)
+                           token_weight, experts_l, fill_event)
     return x + y, tuple(stats)
 
 
@@ -377,9 +402,25 @@ def _logits(model: Transformer, x):
     return dense(model.lm_head, rmsnorm(model.final_norm, x))
 
 
+def _migration_view(l: int, plan: Optional[DevicePlan],
+                    store: Optional[StoreView]):
+    """Layer ``l``'s (plan, weights, fill event): without a store the plan
+    row and the layer's home experts; with one, the live plan row and
+    the store's rows until the layer's staged fill is ready, then the
+    target plan row (its filled rows) and the fill's event."""
+    plan_l = None if plan is None else plan.layer(l)
+    if store is None:
+        return plan_l, None, None
+    experts = {k: w[l] for k, w in store.weights.items()}
+    if store.ready is not None and store.ready[l]:
+        event = store.events[l] if store.events is not None else None
+        return store.target.layer(l), experts, event
+    return plan_l, experts, None
+
+
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
-            last_pos=None, token_weight=None, plan=None):
+            last_pos=None, token_weight=None, plan=None, store=None):
     """Returns (logits, cache, stats).
 
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
@@ -394,7 +435,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     (0 for padding / idle slots). ``plan``: the (L, ...) placement plan
     stack the EP path dispatches under, a ``DevicePlan`` (see
     ``core.placement.to_device``) or a host ``PlacementPlan``; None is the
-    identity plan. stats: {"expert_counts": (L, E) fp32, "aux_loss",
+    identity plan. ``store``: a ``StoreView`` of the replica store, whose
+    rows ``plan`` (then a ``DevicePlan`` made with the store's
+    ``slot_rows``) indexes; None reads the home experts.
+    stats: {"expert_counts": (L, E) fp32, "aux_loss",
     "z_loss"}, and under EP also "slot_counts": (L, R * n_slots) kept pairs
     per global slot and "dropped": (L,) pairs dropped at capacity.
     """
@@ -416,6 +460,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
                                         mode, cache_len)
         stats = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
         return _last_logits(model, x, mode, last_pos), cache, stats
+    if store is not None and not isinstance(plan, DevicePlan):
+        raise ValueError("a store view needs a DevicePlan of its rows")
     if plan is not None and not isinstance(plan, DevicePlan):
         m = cfg.moe
         plan = to_device(plan, m.num_experts, rt.ep_ranks,
@@ -423,10 +469,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     counts, slots, dropped, aux, z = [], [], [], 0.0, 0.0
     for l, layer in enumerate(model.layers):
         cache_l = {"k": cache["k"][l], "v": cache["v"][l]}
+        plan_l, experts_l, event = _migration_view(l, plan, store)
         x, (c, sc, a_l, z_l, dr) = _attn_layer(
             layer, cfg, x, positions, rt, cache=cache_l, cache_len=cache_len,
             mode=mode, block_tables=block_tables, token_weight=token_weight,
-            plan_l=None if plan is None else plan.layer(l))
+            plan_l=plan_l, experts_l=experts_l, fill_event=event)
         counts.append(c)
         slots.append(sc)
         dropped.append(dr)

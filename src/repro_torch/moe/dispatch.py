@@ -15,11 +15,14 @@ Every rank hosts ``E_loc = E / R`` home experts plus ``D`` replica slots,
   4. exchange: ``all_to_all`` over the ranks;
   5. run the grouped expert FFN on the received ``(R * n_slots, R * cap,
      d)`` block: one ``moe_gemm`` launch for all ranks, each slot reading
-     its expert's weights through the plan's slot -> expert map
-     (``core.placement.slot_experts``), where the JAX package gathers a
-     replica weight pool. The packer's per-slot counts go with it as the
-     kernel's ``row_counts``, so rows past a source rank's count (zero
-     padding) cost the kernel nothing;
+     one row of the layer's weight tensors through the plan's slot -> row
+     map (``DevicePlan.slot_rows``). With the (E, ...) home experts as the
+     weights that map is the slot -> expert map
+     (``core.placement.slot_experts``: the JAX package's
+     ``replica_impl="gather"``); with the replica store's row tensors
+     (``runtime.store``) a replica slot reads its own row. The packer's
+     per-slot counts go with it as the kernel's ``row_counts``, so rows
+     past a source rank's count (zero padding) cost the kernel nothing;
   6. exchange back and combine with the router gates.
 
 The collectives go through ``StackedRanks``: ``all_to_all`` is a transpose
@@ -173,31 +176,33 @@ def choose_replica(plan: DevicePlan, expert, salt):
     return plan.replica_table[expert, torch.clamp(choice, max=c_max - 1)]
 
 
-def grouped_ffn(experts: dict, x, slot_experts, activation: str,
+def grouped_ffn(experts: dict, x, slot_rows, activation: str,
                 row_counts=None):
-    """x: (S, T_s, d) rows per slot -> (S, T_s, d): slot s runs expert
-    ``slot_experts[s]`` (the ``moe_gemm`` kernel, or its plain version on
-    the CPU). ``experts``: {"w_gate" (optional), "w_up", "w_down"} with
-    (E, d, F) / (E, F, d) leaves. ``row_counts``: None, or (S, B) int32
+    """x: (S, T_s, d) rows per slot -> (S, T_s, d): slot s runs the weights
+    in row ``slot_rows[s]`` of ``experts`` (the ``moe_gemm`` kernel, or its
+    plain version on the CPU). ``experts``: {"w_gate" (optional), "w_up",
+    "w_down"} with (rows, d, F) / (rows, F, d) leaves: the home experts, or
+    the replica store's rows. ``row_counts``: None, or (S, B) int32
     live rows of each block of T_s / B rows; the other rows must be zero
     (the packer's padding) and give zeros."""
     return kernel_ops.moe_gemm(x, experts.get("w_gate"), experts["w_up"],
-                               experts["w_down"], slot_experts, activation,
+                               experts["w_down"], slot_rows, activation,
                                row_counts=row_counts)
 
 
 def _slot_map(plan: DevicePlan, num_experts: int, dup_slots: int, S: int,
               device):
+    """(S,) int32 weight row of each slot."""
     if dup_slots == 0:
         return torch.arange(num_experts, dtype=torch.int32, device=device)
-    se = plan.slot_experts
-    if se.shape[-1] != S:
-        raise ValueError(f"plan has {se.shape[-1]} slots, dispatch needs {S}")
-    return se
+    rows = plan.slot_rows
+    if rows.shape[-1] != S:
+        raise ValueError(f"plan has {rows.shape[-1]} slots, dispatch needs {S}")
+    return rows
 
 
 def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
-                    experts: dict, slot_experts, activation: str,
+                    experts: dict, slot_rows, activation: str,
                     comm: StackedRanks):
     """One dispatch -> FFN -> combine round for all ranks.
 
@@ -217,7 +222,7 @@ def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
     recv = recv.reshape(R, R, num_slots, cap, d).transpose(1, 2) \
                .reshape(S, R * cap, d).contiguous()
     # source rank r's rows for slot s sit at [r * cap, r * cap + count)
-    y_slots = grouped_ffn(experts, recv, slot_experts, activation,
+    y_slots = grouped_ffn(experts, recv, slot_rows, activation,
                           row_counts=slot_counts.T.contiguous())
     y_back = y_slots.reshape(R, num_slots, R, cap, d).transpose(1, 2)
     y_recv = comm.all_to_all(y_back).reshape(R, S * cap, d)
@@ -248,8 +253,9 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     """Placement-aware EP MoE FFN over sharded tokens (see the module
     docstring). x: (R, T, d), rank r's T local tokens in row r;
     ``router_out``: the fused router's output on them, with leading R
-    (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, (E, ...)
-    leaves; ``plan``: one layer's ``DevicePlan``. Returns (y (R, T, d),
+    (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, the (E, ...)
+    home experts or the store's rows (``plan.slot_rows`` indexes them);
+    ``plan``: one layer's ``DevicePlan``. Returns (y (R, T, d),
     MoEStats) with global statistics."""
     if predicted_idx is not None:
         raise NotImplementedError("predicted_idx " + _SLICE3)
@@ -273,7 +279,7 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     valid = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
     y_flat, slot_counts, dropped, _ = _dispatch_round(
         x, gslot, valid, num_slots=n_slots, cap=cap, experts=experts,
-        slot_experts=se, activation=activation, comm=comm)
+        slot_rows=se, activation=activation, comm=comm)
     y = (y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2)
     stats = MoEStats(
         expert_counts=comm.psum(_expert_counts(true_idx, E)),
@@ -290,7 +296,7 @@ def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
     """The decode path's send side: the same (T, d) tokens on every rank,
     routed once (``router_out`` unbatched); each rank packs the (token, k)
     pairs assigned to its slots. Returns (send (S, cap, d) rows per global
-    slot, row_counts (S, 1) int32 live rows per slot, slot_experts (S,),
+    slot, row_counts (S, 1) int32 live rows per slot, slot_rows (S,),
     in_cap (R, N), dest (R, N), dropped (R,), gslot (N,)) with N = T * K."""
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape

@@ -1,0 +1,201 @@
+"""Persistent replica rows for the EP dispatch on one device.
+
+The JAX package's store is a second copy of every rank's slot layout,
+``(L, S, ...)`` with ``S = ep_ranks * n_slots``, filled functionally into a
+whole back copy during a migration. At Mixtral's widths that is two more
+copies of the experts than one 80 GB card holds. The port keeps the JAX
+store's host state and semantics (``slot_experts``, per-layer ``version``,
+``entry_bytes``, ``hbm_bytes_per_rank``) with another device layout:
+
+* one tensor per MoE layer and weight name, of ``E + 2 * R * D`` rows.
+  Rows ``[0, E)`` are the home experts: the model's own ``w_gate``,
+  ``w_up`` and ``w_down`` become views of them (``from_model``), so no
+  home expert is held twice;
+* replica slot ``i`` of rank ``r`` (global slot ``r * n_slots + E_loc +
+  i``) owns rows ``E + 2 * (r * D + i) + {0, 1}``: a *live* row, which the
+  dispatch reads, and a *back* row, which a migration fills. A per-slot
+  bit says which of the two is live; a commit flips the bit of every slot
+  it filled.
+
+What dispatch reads (``slot_rows``): a home slot its expert's home row, a
+replica slot its live row. Every row index goes to ``moe_gemm`` as the
+slot's weight index, so a replica slot reads its own copy, as each rank of
+a multi-card deployment does. Unused replica rows (no live replica points
+at them) are never read, as in JAX: building the store under the identity
+plan copies nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.placement import PlacementPlan, plan_dims
+from repro_torch.runtime import cost as _cost
+from repro_torch.runtime.diff import stacked_slot_experts
+
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+class ReplicaStore:
+    """Per-layer replica row tensors + host bookkeeping (slot map, live
+    bits, versions)."""
+
+    def __init__(self, weights: Dict[str, Sequence[torch.Tensor]],
+                 slot_experts: np.ndarray, *, num_experts: int,
+                 ep_ranks: int, dup_slots: int):
+        self.weights = weights                  # {name: [(E + 2RD, ...)] * L}
+        self.slot_experts = np.asarray(slot_experts)     # (L, S) host view
+        self.num_experts = num_experts
+        self.ep_ranks = ep_ranks
+        self.dup_slots = dup_slots
+        self.e_loc, self.n_slots = plan_dims(num_experts, ep_ranks, dup_slots)
+        L = self.slot_experts.shape[0]
+        self.version = np.zeros((L,), np.int64)   # bumped per layer on commit
+        # which of replica slot (r, i)'s two rows is live, (L, R * D)
+        self.live_bit = np.zeros((L, ep_ranks * dup_slots), np.int64)
+
+    # ------------------------------------------------------------------ init
+    @classmethod
+    def from_params(cls, experts, plan_stack: PlacementPlan, *,
+                    num_experts: int, ep_ranks: int,
+                    dup_slots: int) -> "ReplicaStore":
+        """Build the store for a stacked plan from the expert weights
+        {name: (L, E, ...)} (a stacked tensor or a sequence of per-layer
+        tensors), which are copied into the home rows. Each live replica
+        slot's live row gets a copy of its expert; the other replica rows
+        are zeros."""
+        store = cls._empty(tuple(experts), plan_stack,
+                           num_experts=num_experts, ep_ranks=ep_ranks,
+                           dup_slots=dup_slots)
+        L = store.slot_experts.shape[0]
+        for l in range(L):
+            for k, w in experts.items():
+                store.weights[k].append(store._layer_rows(w[l]))
+            store._fill_live_replicas(l)
+        return store
+
+    @classmethod
+    def from_model(cls, model, plan_stack: PlacementPlan, *,
+                   num_experts: int, ep_ranks: int,
+                   dup_slots: int) -> "ReplicaStore":
+        """Build the store from a ``Transformer``'s MoE layers and re-point
+        each layer's ``w_gate`` / ``w_up`` / ``w_down`` to the store's home
+        rows, one layer at a time, so the old tensors are freed as the
+        store grows and no home expert is held twice."""
+        store = cls._empty(EXPERT_WEIGHTS, plan_stack,
+                           num_experts=num_experts, ep_ranks=ep_ranks,
+                           dup_slots=dup_slots)
+        for l, layer in enumerate(model.layers):
+            for k in EXPERT_WEIGHTS:
+                rows = store._layer_rows(getattr(layer, k).data)
+                store.weights[k].append(rows)
+                setattr(layer, k, nn.Parameter(rows[:num_experts],
+                                               requires_grad=False))
+            store._fill_live_replicas(l)
+        return store
+
+    @classmethod
+    def _empty(cls, names, plan_stack, **dims) -> "ReplicaStore":
+        se = stacked_slot_experts(plan_stack, dims["ep_ranks"],
+                                  dims["dup_slots"])
+        return cls({k: [] for k in names}, se, **dims)
+
+    def _layer_rows(self, home: torch.Tensor) -> torch.Tensor:
+        """(E, ...) home experts -> a new (E + 2RD, ...) row tensor holding
+        them in rows [0, E) and zeros in the replica rows."""
+        E = self.num_experts
+        extra = 2 * self.ep_ranks * self.dup_slots
+        rows = torch.empty((E + extra,) + tuple(home.shape[1:]),
+                           dtype=home.dtype, device=home.device)
+        rows[:E].copy_(home)
+        rows[E:].zero_()
+        return rows
+
+    def _fill_live_replicas(self, l: int) -> None:
+        rows = self.slot_rows()[l]
+        for s in self.replica_slots():
+            e = int(self.slot_experts[l, s])
+            if e >= 0:
+                for w in self.weights.values():
+                    w[l][rows[s]].copy_(w[l][e])
+
+    # ------------------------------------------------------------- row maps
+    def replica_slots(self) -> np.ndarray:
+        """Global ids of the replica slots, in (rank, i) order."""
+        r = np.arange(self.ep_ranks)[:, None]
+        i = np.arange(self.dup_slots)[None, :]
+        return (r * self.n_slots + self.e_loc + i).reshape(-1)
+
+    def _pair_base(self, slot) -> np.ndarray:
+        """First of the two rows replica ``slot`` owns (array or int)."""
+        slot = np.asarray(slot)
+        idx = (slot // self.n_slots) * self.dup_slots \
+            + slot % self.n_slots - self.e_loc
+        return self.num_experts + 2 * idx
+
+    def slot_rows(self, live_bit=None) -> np.ndarray:
+        """(L, S) int32 row each slot reads: home slots their expert's home
+        row, replica slots their live row (under ``live_bit``, default the
+        store's)."""
+        bits = self.live_bit if live_bit is None else live_bit
+        L, S = self.slot_experts.shape
+        home = np.arange(S)
+        rank, j = home // self.n_slots, home % self.n_slots
+        rows = np.broadcast_to(rank * self.e_loc + j, (L, S)).copy()
+        rep = self.replica_slots()
+        rows[:, rep] = self._pair_base(rep)[None, :] + bits
+        return rows.astype(np.int32)
+
+    def back_row(self, layer: int, slot: int) -> int:
+        """The row a migration fills for replica ``slot`` of ``layer``."""
+        i = int(self._pair_base(slot) - self.num_experts) // 2
+        return int(self._pair_base(slot)) + 1 - int(self.live_bit[layer, i])
+
+    def _flipped(self, layer, dst_slot) -> np.ndarray:
+        bits = self.live_bit.copy()
+        i = (self._pair_base(np.asarray(dst_slot, np.int64))
+             - self.num_experts) // 2
+        bits[np.asarray(layer, np.int64), i] ^= 1
+        return bits
+
+    def target_rows(self, layer, dst_slot) -> np.ndarray:
+        """(L, S) rows each slot reads once the given (layer, slot) entries
+        are filled and committed: their back rows, every other slot's
+        current row."""
+        return self.slot_rows(self._flipped(layer, dst_slot))
+
+    # ---------------------------------------------------------------- commit
+    def adopt(self, slot_experts: np.ndarray, filled=None) -> None:
+        """Commit a migration: the slots of ``filled`` ((layer, dst_slot)
+        arrays) swap their live and back rows, and the slot map becomes
+        ``slot_experts``; every layer whose map changed bumps its
+        version."""
+        changed = np.any(np.asarray(slot_experts) != self.slot_experts, axis=1)
+        self.version += changed.astype(np.int64)
+        if filled is not None and len(filled[0]):
+            self.live_bit = self._flipped(*filled)
+        self.slot_experts = np.asarray(slot_experts)
+
+    # ------------------------------------------------------------------ info
+    @property
+    def entry_bytes(self) -> int:
+        return _cost.entry_bytes(self.weights)
+
+    @property
+    def hbm_bytes_per_rank(self) -> int:
+        """The JAX package's figure for one EP rank's store shard: L layers
+        x n_slots local slot entries (home second copy + replica slots), the
+        figure the ``store_hbm_budget_gb`` clamp accounts for."""
+        L = int(self.slot_experts.shape[0])
+        return L * self.n_slots * self.entry_bytes
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes the row tensors hold on the device, the home rows (the
+        model's own expert weights) included."""
+        return sum(t.numel() * t.element_size()
+                   for w in self.weights.values() for t in w)

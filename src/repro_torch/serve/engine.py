@@ -27,15 +27,32 @@ the new placement plan replaces the old one at once (the JAX engine's
 MoE layers run the expert-parallel dispatch with ``ep_ranks`` ranks as a
 leading tensor dimension on one device, and the live plan decides which
 slot each (token, k) pair goes to, which pairs are dropped at capacity and
-which expert's weights each replica slot computes with. The plan moves to
-the device once per re-plan. Dropped pairs are counted per iteration into
+which weights each replica slot computes with. The plan moves to the
+device once per plan swap. Dropped pairs are counted per iteration into
 ``ServeMetrics`` (``dropped_tokens``). Without ``ep`` (the default) the
 layers run the exact dense path and ``ep_ranks`` only sizes the plan and
 the modelled per-rank imbalance.
 
-Not ported yet (see ROADMAP.md): the replica store and migration
-executors with their plan-diff churn accounting, the online GPS
-controller, the Token-to-Expert predictors, the reschedule lever,
+Replica weights (``repro_torch.runtime``), as the JAX engine runs them on a
+mesh: under ``ep`` with ``MoEConfig.replica_impl="store"`` (the default)
+and replica slots, the engine keeps a ``ReplicaStore`` whose rows the
+replica slots read, and a re-plan moves weights only for the slots whose
+expert changes: serve -> diff -> chunked fill of back rows on a side CUDA
+stream -> swap. With overlapped migration (the default) fills are staged
+per layer under a compute-time-aware chunk budget, each layer adopts the
+target plan once its fill has landed, and the engine pre-begins a
+migration toward the predicted plan ``prefetch_lead`` iterations before
+the re-plan boundary (cancelled on misprediction). ``migration_gate``
+rejects re-plans whose exposed modelled stall exceeds the predicted
+imbalance gain. Without a store (``ep=False``, or
+``replica_impl="gather"``) a new plan replaces the old one at once, and its
+diff is still costed (``migration_*`` metrics), as the JAX engine does
+without a mesh. The stall is modelled on ``core.simulator.A100_PCIE``'s
+link (the paper's deployment), not measured.
+
+Not ported yet (see ROADMAP.md): the online GPS controller, the
+Token-to-Expert predictors (and the Token-to-Expert half of the
+prefetcher's predicted distribution), the reschedule lever,
 ``profile_phases`` and ``assert_no_recompiles``.
 """
 
@@ -51,21 +68,64 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.duplication import duplicate_experts_host
-from repro_torch.core.placement import (PlacementPlan, identity_plan,
+from repro_torch.core.placement import (PlacementPlan, clamp_dup_slots,
+                                        identity_plan, quota_limited_plan,
                                         stack_plans, to_device)
 from repro_torch.core.predictors import DistributionEstimator
-from repro_torch.models.transformer import Runtime, Transformer, init_cache
+from repro_torch.core.simulator import A100_PCIE
+from repro_torch.models.transformer import (Runtime, StoreView, Transformer,
+                                            init_cache)
 from repro_torch.obs.accuracy import PredictorAccuracyTracker
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.runtime import cost as mig_cost
+from repro_torch.runtime import (LayerStagedExecutor, MigrationExecutor,
+                                 ReplicaStore, make_migrate_step, plan_diff,
+                                 plans_equal)
+from repro_torch.runtime.store import EXPERT_WEIGHTS
 from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
                                        write_prefill_blocks)
-from repro_torch.serve.metrics import RequestTiming, ServeMetrics, imbalance
+from repro_torch.serve.metrics import (RequestTiming, ServeMetrics, imbalance,
+                                       plan_rank_loads)
 from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
                                          ServeRequest)
 from repro_torch.train.steps import (make_decode_step, make_paged_decode_step,
                                      make_prefill_step, make_slot_prefill_step)
 
 STRATEGIES = ("none", "dist_only")
+
+
+def _model_experts(model: Transformer) -> dict:
+    """{name: [(E, ...)] * L}: the MoE layers' expert weights."""
+    return {k: [getattr(layer, k) for layer in model.layers]
+            for k in EXPERT_WEIGHTS}
+
+
+def _clamp_store_dup_slots(cfg: ModelConfig, model: Transformer,
+                           ep_ranks: int, dup_slots: int) -> int:
+    """Store-aware memory clamp: shrink the requested replica slots until
+    the store, in the JAX package's accounting (a second copy of the home
+    experts plus the replica slots), fits the per-rank HBM budget
+    (``MoEConfig.store_hbm_budget_gb``; 0 = unlimited). Callers gate on
+    EP: engines without it never build a store."""
+    if not (dup_slots > 0 and cfg.moe.replica_impl == "store"
+            and cfg.moe.store_hbm_budget_gb > 0):
+        return dup_slots
+    return clamp_dup_slots(
+        cfg.moe.num_experts, ep_ranks, dup_slots,
+        entry_bytes=mig_cost.entry_bytes(_model_experts(model)),
+        num_layers=cfg.num_layers,
+        hbm_budget_bytes=cfg.moe.store_hbm_budget_gb * 1e9)
+
+
+def _chunk_stall_split(moved_bytes: float, window_s: float, hw,
+                       overlap: bool):
+    """(hidden_s, exposed_s) of one tick's modelled wire time: overlapped
+    fills hide up to one window of transfer under forward compute,
+    synchronous fills expose everything."""
+    stall = mig_cost.migration_stall_s(moved_bytes, hw)
+    if not overlap:
+        return 0.0, stall
+    return mig_cost.split_hidden_exposed(stall, window_s)
 
 
 # ===========================================================================
@@ -256,6 +316,23 @@ class ContinuousConfig:
     ema: float = 0.9                  # estimator moving average
     eos_id: int = -1                  # -1: generate exactly max_new_tokens
     metrics_window: int = 16          # iterations per metrics window
+    # Replica-weight migration (repro_torch.runtime; active when the engine
+    # runs EP with dup_slots > 0 and moe.replica_impl == "store")
+    migrate_chunk: int = 8            # slot entries per chunk
+    migrate_chunks_per_step: int = 0  # chunks per engine iteration when
+                                      # overlap is OFF (0 = drain the diff
+                                      # at replan time)
+    migration_gate: bool = True       # reject re-plans whose EXPOSED stall
+                                      # exceeds the predicted imbalance gain
+    # Overlapped migration: None inherits MoEConfig.overlap_migration. When
+    # on, the chunk budget is sized to the measured non-migration step time
+    # (runtime.cost), fills are layer-staged so each layer adopts the
+    # moment its fill lands, and the engine PRE-BEGINS migration toward
+    # the predicted next-window plan ``prefetch_lead`` iterations before
+    # the re-plan boundary (cancel-on-misprediction).
+    overlap_migration: Optional[bool] = None
+    prefetch_lead: int = 2            # iterations before the boundary to
+                                      # pre-begin (0 = no predictive start)
 
     def __post_init__(self):
         if self.prefill_len % self.block_size:
@@ -314,9 +391,19 @@ class ContinuousEngine:
         # was built (EP only): the measured per-slot, so per-rank, load
         self.slot_counts: Optional[np.ndarray] = None
 
+        dup_slots = ccfg.dup_slots
+        if ep:
+            dup_slots = _clamp_store_dup_slots(cfg, model, ep_ranks,
+                                               dup_slots)
+        self._overlap = (ccfg.overlap_migration
+                         if ccfg.overlap_migration is not None
+                         else cfg.moe.overlap_migration)
         self.moe_cfg = dataclasses.replace(
-            cfg.moe, duplication_slots=ccfg.dup_slots,
-            max_copies=ccfg.max_copies)
+            cfg.moe, duplication_slots=dup_slots,
+            max_copies=ccfg.max_copies, overlap_migration=self._overlap)
+        # logical duplication quota <= the built dup_slots (see
+        # set_dup_slot_quota)
+        self.dup_slot_quota = dup_slots
         cfg = dataclasses.replace(cfg, moe=self.moe_cfg)
         self.estimator = DistributionEstimator(
             cfg.num_layers, cfg.moe.num_experts, ema=ccfg.ema)
@@ -346,6 +433,37 @@ class ContinuousEngine:
                                       device=self.device)
         self._warm = False
 
+        # ----------------------------------------------- replica-weight store
+        self._store: Optional[ReplicaStore] = None
+        self._executor = None
+        self._target_dev = None          # an in-flight fill's target (device)
+        self._recent_step_s = 0.0        # EMA over ALL steps
+        # overlap window: EMA over migration-free steps, split by iteration
+        # kind (runtime.cost.KindWindowEMA)
+        self._serve_ema = mig_cost.KindWindowEMA()
+        self._step_kind = "decode"
+        self._step_migration_bytes = 0.0
+        self._prebegun_plan = None       # predictive pre-migration target
+        self._entry_bytes = mig_cost.entry_bytes(_model_experts(model))
+        m = self.moe_cfg
+        if ep and m.duplication_slots > 0 and m.replica_impl == "store":
+            self._store = ReplicaStore.from_model(
+                model, self._identity_stack(), num_experts=m.num_experts,
+                ep_ranks=ep_ranks, dup_slots=m.duplication_slots)
+            stream = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+            step_fn = make_migrate_step(self._store, stream)
+            if self._overlap:
+                self._executor = LayerStagedExecutor(
+                    step_fn, self._store, num_layers=cfg.num_layers,
+                    chunk=ccfg.migrate_chunk, tracer=self.tracer,
+                    stream=stream)
+            else:
+                self._executor = MigrationExecutor(
+                    step_fn, self._store, chunk=ccfg.migrate_chunk,
+                    chunks_per_tick=ccfg.migrate_chunks_per_step,
+                    tracer=self.tracer, stream=stream)
+
     def _dev(self, a) -> torch.Tensor:
         """Host array -> a fresh tensor on the engine's device."""
         return torch.tensor(np.asarray(a), device=self.device)
@@ -362,33 +480,247 @@ class ContinuousEngine:
             self._set_plan(self._identity_stack())
         return self._plan_stack
 
+    def _to_device(self, plan: PlacementPlan, rows=None):
+        m = self.moe_cfg
+        return to_device(plan, m.num_experts, self.ep_ranks,
+                         m.duplication_slots, self.device, rows=rows)
+
     def _set_plan(self, plan: PlacementPlan) -> None:
+        """Put ``plan`` in force (with the store's live rows under EP)."""
         self._plan_stack = plan
         if self.ep:
-            m = self.moe_cfg
-            self._plan_dev = to_device(plan, m.num_experts, self.ep_ranks,
-                                       m.duplication_slots, self.device)
+            self._plan_dev = self._to_device(
+                plan, None if self._store is None else self._store.slot_rows())
+
+    def _store_view(self) -> Optional[StoreView]:
+        """What this step's forwards read of the store: its rows, and while
+        a staged fill is in flight its ready mask, target plan and fill
+        events (the JAX engine's ``_overlap_args``)."""
+        if self._store is None:
+            return None
+        ex = self._executor
+        if self._overlap and ex.active:
+            return StoreView(self._store.weights, ex.ready_mask(),
+                             self._target_dev, ex.fill_events())
+        return StoreView(self._store.weights)
 
     def replan(self) -> PlacementPlan:
         """Algorithm 1 per layer from the estimator's current prediction
-        (the identity plan under strategy "none"); the new plan stack
-        replaces the old one at once."""
+        (the identity plan under strategy "none"), at most
+        ``dup_slot_quota`` replica slots per rank. Returns the plan in
+        force afterwards: the new one, or with a store the old one until
+        the migration toward the new one commits."""
         m = self.moe_cfg
         if self.strategy == "none":
             plan = self._identity_stack()
         else:
             dist = self.estimator.predict()
-            plan = stack_plans([duplicate_experts_host(
-                dist[l], self.ep_ranks, m.duplication_slots,
-                m.max_copies).plan for l in range(self.cfg.num_layers)])
-        extra = int((np.asarray(plan.n_replicas) - 1).sum())
-        self.metrics.record_replan(extra)
+            q = max(0, min(self.dup_slot_quota, m.duplication_slots))
+            if q == m.duplication_slots:
+                plans = [duplicate_experts_host(
+                    dist[l], self.ep_ranks, m.duplication_slots,
+                    m.max_copies).plan for l in range(self.cfg.num_layers)]
+            else:
+                # quota-limited: plan with only q replica slots, then rebuild
+                # at the full slot geometry
+                plans = [quota_limited_plan(
+                    duplicate_experts_host(dist[l], self.ep_ranks, q,
+                                           m.max_copies).assignments,
+                    m.num_experts, self.ep_ranks, m.duplication_slots,
+                    m.max_copies, quota=q)
+                    for l in range(self.cfg.num_layers)]
+            plan = stack_plans(plans)
+        self.metrics.record_replan(int((np.asarray(plan.n_replicas) - 1).sum()))
+        return self._adopt_plan(plan)
+
+    def set_dup_slot_quota(self, quota: int) -> None:
+        """Cap the replica slots the planner may USE (per rank) below the
+        built ``dup_slots``. Takes effect at the next re-plan: shrinking
+        strands now-unused slots (zero transfer, see
+        ``runtime.diff.vacated_slots``), growth migrates weights in through
+        the plan diff."""
+        self.dup_slot_quota = max(
+            0, min(int(quota), self.moe_cfg.duplication_slots))
+
+    # ------------------------------------------------------ replica migration
+    def _hw(self):
+        """The hardware the migration stall is modelled on: the JAX
+        engine's fallback without a controller."""
+        return A100_PCIE
+
+    def _overlap_window_s(self) -> float:
+        """The overlap window one engine step offers a staged fill: the
+        measured NON-migration step time for the CURRENT iteration kind,
+        falling back to the whole-step EMA (the JAX engine's last fallback,
+        the profiled dispatch phases, is not ported)."""
+        w = self._serve_ema.window(self._step_kind)
+        if w > 0:
+            return w
+        return self._recent_step_s
+
+    def _overlap_budget(self) -> int:
+        return mig_cost.overlap_chunk_budget(
+            self._overlap_window_s(), chunk_entries=self.ccfg.migrate_chunk,
+            entry_bytes=max(self._entry_bytes, 1), hw=self._hw())
+
+    def _hidden_estimate(self, stall_s: float, entries: int) -> float:
+        """Predicted hidden share of a migration's stall under the overlap
+        schedule: the fill drains over ``ceil(entries / (chunk * budget))``
+        steps, each hiding up to one overlap window of wire time."""
+        if not self._overlap or entries <= 0:
+            return 0.0
+        window = self._overlap_window_s()
+        per_tick = max(self.ccfg.migrate_chunk * self._overlap_budget(), 1)
+        drain_steps = -(-entries // per_tick)
+        return min(stall_s, drain_steps * window)
+
+    def _begin_migration(self, diff, target: PlacementPlan) -> None:
+        self._executor.begin(diff, target)
+        if self._overlap:
+            self._target_dev = self._to_device(target,
+                                               self._executor.target_rows)
+
+    def _adopt_plan(self, target: PlacementPlan) -> PlacementPlan:
+        """serve -> diff -> staged fill -> per-layer swap. Without a store
+        the plan swaps at once (and the diff is still costed, so the
+        store-less engines surface the plan-churn bytes an EP deployment
+        would pay); with one, only changed slots are filled and each layer
+        keeps serving the OLD plan until its fill is ready. A pre-begun
+        migration toward this exact plan just keeps filling; toward a
+        different plan it is cancelled (misprediction) and the fill
+        restarts."""
+        if (self._plan_stack is None
+                or self.moe_cfg.duplication_slots == 0):
+            self._set_plan(target)
+            return target
+        m = self.moe_cfg
+        if (self._executor is not None and self._executor.active
+                and self._prebegun_plan is not None):
+            if plans_equal(target, self._prebegun_plan):
+                # prediction confirmed: the transfer started early
+                self._prebegun_plan = None
+                self.metrics.record_migration(replanned=True)
+                return self._plan_stack
+            self._executor.cancel()
+            self._prebegun_plan = None
+            self.metrics.record_migration(cancelled=True)
+        diff = plan_diff(self._plan_stack, target, self.ep_ranks,
+                         m.duplication_slots)
+        planned = diff.num_entries * self._entry_bytes
+        stall = mig_cost.migration_stall_s(planned, self._hw())
+        self.metrics.record_migration(replanned=True, planned_bytes=planned,
+                                      stall_s=stall)
         self.tracer.instant(
             "plan.switch", cat="plan", track="plan",
             args={"iteration": self.iterations, "strategy": self.strategy,
-                  "extra_copies": extra})
-        self._set_plan(plan)
-        return plan
+                  "entries": int(diff.num_entries), "bytes": float(planned),
+                  "stall_us": stall * 1e6})
+        if self._store is None or diff.num_entries == 0:
+            # no store to fill, or the switch moves no weights; an in-flight
+            # migration toward an older target is superseded
+            if self._executor is not None:
+                self._executor.cancel()
+            if self._store is None and planned > 0:
+                # the overlap economics a store's prefetcher would produce
+                hidden = self._hidden_estimate(stall, diff.num_entries)
+                self.metrics.record_migration(hidden_s=hidden,
+                                              exposed_s=stall - hidden)
+                self._step_migration_bytes += planned
+            self._set_plan(target)
+            return target
+        if not self._migration_accept(stall, target, diff.num_entries):
+            # an accepted in-flight fill (if any) keeps draining toward its
+            # own target
+            self.metrics.record_migration(rejected=True)
+            self.tracer.instant(
+                "plan.reject", cat="plan", track="plan",
+                args={"iteration": self.iterations,
+                      "stall_us": stall * 1e6, "bytes": float(planned)})
+            return self._plan_stack
+        self._begin_migration(diff, target)
+        if not self._overlap and self.ccfg.migrate_chunks_per_step == 0:
+            self._tick_migration()              # drain + commit right away
+        return self._plan_stack
+
+    def _migration_accept(self, stall_s: float, target,
+                          entries: int = 0) -> bool:
+        """Hysteresis: a re-plan must repay its EXPOSED weight movement
+        (total stall minus the share the overlap schedule hides under
+        forward compute) with predicted imbalance gain before the next
+        re-plan."""
+        if not self.ccfg.migration_gate or self._recent_step_s <= 0:
+            return True
+        m = self.moe_cfg
+        counts = self.estimator.predict()
+        old = imbalance(plan_rank_loads(counts, self._plan_stack,
+                                        self.ep_ranks, m.duplication_slots))
+        new = imbalance(plan_rank_loads(counts, target, self.ep_ranks,
+                                        m.duplication_slots))
+        gain_frac = max(old - new, 0.0) / max(old, 1e-9)
+        gain_s = gain_frac * max(self.predict_interval, 1) * self._recent_step_s
+        return mig_cost.should_migrate(
+            stall_s, gain_s, hidden_s=self._hidden_estimate(stall_s, entries))
+
+    def _tick_migration(self) -> None:
+        """Enqueue this step's migration budget (compute-time-aware when
+        overlapped, the fixed chunks_per_step knob otherwise); swap plan and
+        store rows on commit. The copies go to the side stream without the
+        host waiting, so they run under the forward that follows."""
+        if self._executor is None or not self._executor.active:
+            return
+        budget = self._overlap_budget() if self._overlap else None
+        commit, moved = self._executor.tick(budget)
+        if moved:
+            self._step_migration_bytes += moved
+            hidden, exposed = _chunk_stall_split(
+                moved, self._overlap_window_s(), self._hw(),
+                overlap=self._overlap)
+            self.metrics.record_migration(bytes_moved=moved, hidden_s=hidden,
+                                          exposed_s=exposed)
+        if commit is not None:
+            filled, plan, se = commit
+            self._store.adopt(se, filled)
+            self._target_dev = None
+            self._set_plan(plan)
+            self._prebegun_plan = None
+            self.metrics.record_migration(committed=True)
+
+    def _predicted_dist(self) -> np.ndarray:
+        """(L, E) next-window hot-expert distribution, published early: the
+        Distribution-Only estimator, whose EMA state is what the boundary
+        re-plan will consume."""
+        return self.estimator.predict()
+
+    def _prebegin_migration(self) -> None:
+        """Start filling replica rows toward the PREDICTED next-window plan
+        while the current window is still serving; a boundary plan that
+        differs cancels the stale fill."""
+        if self._store is None or self._executor is None:
+            return
+        m = self.moe_cfg
+        dist = self._predicted_dist()
+        target = stack_plans([
+            duplicate_experts_host(dist[l], self.ep_ranks,
+                                   m.duplication_slots, m.max_copies).plan
+            for l in range(self.cfg.num_layers)])
+        diff = plan_diff(self._plan_stack, target, self.ep_ranks,
+                         m.duplication_slots)
+        if diff.num_entries == 0:
+            return
+        planned = diff.num_entries * self._entry_bytes
+        stall = mig_cost.migration_stall_s(planned, self._hw())
+        if not self._migration_accept(stall, target, diff.num_entries):
+            return
+        self._begin_migration(diff, target)
+        self._prebegun_plan = target
+        # the diff cost is accounted HERE (the boundary re-plan that
+        # confirms the prediction records only the replan event)
+        self.metrics.record_migration(prebegun=True, planned_bytes=planned,
+                                      stall_s=stall)
+        self.tracer.instant(
+            "migration.prebegin", cat="migration", track="migration",
+            args={"iteration": self.iterations,
+                  "entries": int(diff.num_entries), "bytes": float(planned)})
 
     # ---------------------------------------------------------------- warmup
     def warmup(self):
@@ -399,11 +731,12 @@ class ContinuousEngine:
             raise RuntimeError("warmup() before serving")
         ccfg = self.ccfg
         self._current_plan()
+        store = self._store_view()
         self._prefill_fn(
             self.model, self._dev(np.zeros((1, ccfg.prefill_len), np.int32)),
             self._temp_cache, self._dev(np.zeros((1,), np.int32)),
             self._dev(np.zeros((1, ccfg.prefill_len), np.float32)),
-            self._plan_dev)
+            self._plan_dev, store)
         tables = np.zeros(
             (ccfg.max_slots, self.scheduler.tables.max_blocks_per_slot),
             np.int32)
@@ -412,7 +745,7 @@ class ContinuousEngine:
             self.pool, self._dev(tables),
             self._dev(np.zeros((ccfg.max_slots,), np.int32)),
             self._dev(np.zeros((ccfg.max_slots, 1), np.float32)),
-            self._plan_dev)
+            self._plan_dev, store)
         next_tok.cpu()
         self._warm = True
 
@@ -443,13 +776,17 @@ class ContinuousEngine:
         step_span = self.tracer.span("step", args=step_args)
         step_span.__enter__()
         self._step_dropped = 0.0
+        self._step_migration_bytes = 0.0
+        self._tick_migration()       # commit BEFORE this iteration's plan read
         self._current_plan()
+        store = self._store_view()
 
         with self.tracer.span("admission") as adm:
             splan: IterationPlan = sched.schedule(now)
             adm.set_args(prefills=len(splan.prefills),
                          decode_slots=len(splan.decode_slots),
                          preempted=len(splan.preempted))
+        self._step_kind = "prefill" if splan.prefills else "decode"
 
         # ---------------------------------------------------------- prefill
         for req in splan.prefills:
@@ -464,7 +801,7 @@ class ContinuousEngine:
                 next_tok, _, temp, stats = self._prefill_fn(
                     self.model, self._dev(toks), self._temp_cache,
                     self._dev([req.prompt_len - 1]), self._dev(tw),
-                    self._plan_dev)
+                    self._plan_dev, store)
                 write_prefill_blocks(
                     self.pool, temp,
                     sched.tables.tables[slot, :S // ccfg.block_size])
@@ -510,7 +847,7 @@ class ContinuousEngine:
                     self.model, self._dev(self._last_tokens[:, None]),
                     self.pool, self._dev(sched.tables.tables),
                     self._dev(sched.tables.lengths), self._dev(active),
-                    self._plan_dev)
+                    self._plan_dev, store)
                 nt = next_tok.cpu().numpy()
             self.decode_steps += 1
             for slot in decode_slots:
@@ -541,8 +878,20 @@ class ContinuousEngine:
                                             track="predictor")
                         self.tracer.counter("pred_kl", wa.kl,
                                             track="predictor")
-                    if self.strategy != "none":
-                        self.replan()
+                if self.strategy != "none" and boundary:
+                    self.replan()
+                elif (self._overlap and self.strategy != "none"
+                      and self.ccfg.prefetch_lead > 0
+                      and self._executor is not None
+                      and not self._executor.active
+                      and self.predict_interval > self.ccfg.prefetch_lead
+                      and (self.iterations + self.ccfg.prefetch_lead)
+                      % self.predict_interval == 0):
+                    # the estimator publishes next-window hot experts
+                    # early: start moving weights toward the predicted plan
+                    # now, under this window's forward compute
+                    self._prebegin_migration()
+                if boundary:
                     self.accuracy.begin_window(
                         self.estimator.predict() if self.strategy != "none"
                         else None, self.strategy)
@@ -551,7 +900,13 @@ class ContinuousEngine:
             self.metrics.record_dropped(self._step_dropped)
 
         dt = clock() - now
+        self._recent_step_s = (dt if self._recent_step_s <= 0
+                               else 0.9 * self._recent_step_s + 0.1 * dt)
         wall = time.perf_counter() - t_wall0
+        if self._step_migration_bytes == 0:
+            # migration-free steps calibrate the overlap window, on the
+            # wall clock and per iteration kind
+            self._serve_ema.update(self._step_kind, wall)
         self.metrics.record_iteration(
             now, dt, prefill_tokens=prefill_tokens,
             decode_tokens=len(decode_slots),

@@ -1,8 +1,8 @@
 """SLO metrics for the serving subsystem (the port's copy of the JAX
-package's ``serve/metrics.py``, without the migration, rescheduling and
-dispatch-phase columns of the paths not ported yet; of the rescheduling
-columns only ``dropped_tokens`` is kept, the pairs the EP dispatch drops
-at capacity).
+package's ``serve/metrics.py``, with its replica-migration columns, and
+without the rescheduling and dispatch-phase columns of the paths not
+ported yet; of the rescheduling columns only ``dropped_tokens`` is kept,
+the pairs the EP dispatch drops at capacity).
 
 Per-request: TTFT (arrival -> first token), TPOT (mean inter-token time),
 end-to-end latency. Per-window: throughput, goodput (completions meeting
@@ -151,9 +151,22 @@ class ServeMetrics:
         self.windows: List[WindowRecord] = []
         # re-plan accounting: how many re-plans ran, and how many of them
         # replicated at least one expert (any layer's plan holds an extra
-        # copy); the port's engine swaps plans without weight migration
+        # copy)
         self.replan_count: float = 0.0
         self.replicated_replans: float = 0.0
+        # replica-weight migration accounting (repro_torch.runtime), the
+        # JAX package's keys: planned = bytes a re-plan's diff would move;
+        # moved = bytes the executor copied; stall = modelled serialized
+        # wire time (on the engine's hardware model), split into hidden
+        # (overlapped with forward compute by the layer-staged prefetcher)
+        # and exposed (still on the serving critical path);
+        # prebegun/cancelled = predictive pre-migrations started before the
+        # re-plan boundary / abandoned on misprediction
+        self.migration: Dict[str, float] = {
+            "planned_bytes": 0.0, "bytes_moved": 0.0, "stall_s": 0.0,
+            "hidden_s": 0.0, "exposed_s": 0.0,
+            "replans": 0.0, "commits": 0.0, "rejected": 0.0,
+            "prebegun": 0.0, "cancelled": 0.0}
         # every iteration's wall seconds (host clock, after the step's
         # results reached the host) for the step-time percentiles
         self.step_walls: List[float] = []
@@ -232,6 +245,30 @@ class ServeMetrics:
         self.replan_count += 1.0
         self.replicated_replans += float(extra_copies > 0)
 
+    # ----------------------------------------------------------- migration
+    def record_migration(self, *, planned_bytes: float = 0.0,
+                         bytes_moved: float = 0.0, stall_s: float = 0.0,
+                         hidden_s: float = 0.0, exposed_s: float = 0.0,
+                         replanned: bool = False, committed: bool = False,
+                         rejected: bool = False, prebegun: bool = False,
+                         cancelled: bool = False):
+        """Account one replica-migration event (re-plan diffed, chunk
+        executed, swap committed, re-plan rejected by the cost gate, a
+        predictive pre-begin, or a cancel-on-misprediction). ``hidden_s``
+        / ``exposed_s`` split the modelled wire time of the chunks a step
+        enqueued into overlapped-with-compute vs critical-path seconds."""
+        m = self.migration
+        m["planned_bytes"] += float(planned_bytes)
+        m["bytes_moved"] += float(bytes_moved)
+        m["stall_s"] += float(stall_s)
+        m["hidden_s"] += float(hidden_s)
+        m["exposed_s"] += float(exposed_s)
+        m["replans"] += bool(replanned)
+        m["commits"] += bool(committed)
+        m["rejected"] += bool(rejected)
+        m["prebegun"] += bool(prebegun)
+        m["cancelled"] += bool(cancelled)
+
     # ---------------------------------------------------------------- drops
     def record_dropped(self, pairs: float) -> None:
         """Account one iteration's (token, k) pairs dropped at capacity."""
@@ -284,10 +321,21 @@ class ServeMetrics:
         good = [t for t in ts
                 if t.ttft <= self.slo_ttft and t.tpot <= self.slo_tpot]
         total_tokens = sum(t.new_tokens for t in ts)
+        mig = self.migration
         out = {
             "dropped_tokens": self.dropped_tokens,
             "replans": self.replan_count,
             "replicated_replans": self.replicated_replans,
+            "migration_planned_bytes": mig["planned_bytes"],
+            "migration_bytes_moved": mig["bytes_moved"],
+            "migration_stall_us": mig["stall_s"] * 1e6,
+            "migration_hidden_s": mig["hidden_s"],
+            "migration_exposed_s": mig["exposed_s"],
+            "migration_replans": mig["replans"],
+            "migration_commits": mig["commits"],
+            "migration_rejected": mig["rejected"],
+            "migration_prebegun": mig["prebegun"],
+            "migration_cancelled": mig["cancelled"],
             "step_p50_s": _pct(self.step_walls, 50),
             "step_p99_s": _pct(self.step_walls, 99),
             "completed": float(len(ts)),

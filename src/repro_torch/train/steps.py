@@ -4,7 +4,11 @@ For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
 prefill and the decode step over the prefill's cache at one scalar
 position (greedy next tokens). All pass the engine's live placement plan
-stack through to ``forward``, where the EP path dispatches under it."""
+stack through to ``forward``, where the EP path dispatches under it; the
+continuous engine's two steps also pass its replica store view
+(``models.transformer.StoreView``: the store's per-layer rows and, while a
+staged migration is in flight, its ready mask, target plan and fill
+events)."""
 
 from __future__ import annotations
 
@@ -20,10 +24,11 @@ def make_slot_prefill_step(cfg: ModelConfig, rt: Runtime):
     and ``token_weight`` masks padding out of the MoE expert histograms."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, last_pos=None,
-                     token_weight=None, plan=None):
+                     token_weight=None, plan=None, store=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="prefill",
                                        cache=cache, last_pos=last_pos,
-                                       token_weight=token_weight, plan=plan)
+                                       token_weight=token_weight, plan=plan,
+                                       store=store)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return prefill_step
@@ -35,11 +40,12 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
     next tokens for every slot; the engine masks idle slots."""
     @torch.inference_mode()
     def decode_step(model: Transformer, tokens, pool, block_tables, lengths,
-                    token_weight=None, plan=None):
+                    token_weight=None, plan=None, store=None):
         logits, pool, stats = forward(model, cfg, tokens, rt, mode="decode",
                                       cache=pool, cache_len=lengths,
                                       block_tables=block_tables,
-                                      token_weight=token_weight, plan=plan)
+                                      token_weight=token_weight, plan=plan,
+                                      store=store)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, pool, stats
     return decode_step

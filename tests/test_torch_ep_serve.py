@@ -20,7 +20,9 @@ expert counts are equal.
 
 Engine level: the meshed JAX ``ContinuousEngine`` (``replica_impl=
 "gather"``, ``dist_only``, one replica slot per rank, a re-plan every 2
-iterations) against ``repro_torch``'s ``ContinuousEngine(ep=True)``. The
+iterations) against ``repro_torch``'s ``ContinuousEngine(ep=True)`` with
+the same ``replica_impl="gather"`` (the store path is held against the
+JAX store engine in ``tests/test_torch_store_serve.py``). The
 JAX engine's runtime does not set ``use_kernel``, so its router and expert
 FFN round bf16 at other places than the port's. Generated tokens must be
 equal, except where the JAX logits that produced a token have a top-2
@@ -333,6 +335,9 @@ def test_ep_model_matches_meshed_jax(jax_ref, port_model):
 # --------------------------------------------------------------------------
 
 def _serve_port(cfg, model, ep: bool, **changes):
+    # like with like: the JAX engine here runs replica_impl="gather"
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, replica_impl="gather"))
     scope = {"np": np}
     exec(CAPTURE, scope)
     eng = ContinuousEngine(cfg, model, ContinuousConfig(**dict(ENGINE_KW,
