@@ -62,7 +62,31 @@ non-zero:
                 layer of every prefill launched rg_lru_scan, reads prefill
                 and decode step times from the run's trace, and profiles
                 decode steps on the same weights.
-  5. reference — reduced models' logits on the card against the CPU path:
+  5. gps      — (run between phase 4's Mixtral and Griffin runs) the
+                GPS decision loop on the main path's Mixtral weights
+                (8 of 32 layers): ``ContinuousEngine(ep=True)`` at the
+                store defaults with an ``OnlineGPSController`` on the
+                ``H100_SXM_NVLINK`` preset (a window of 8 iterations,
+                patience 1) replays ``workloads.skew_shift_trace`` (221
+                bursty requests whose topic mix goes flat -> concentrated
+                -> flat) through ``run_trace(time_scale=20)``, kernel
+                counts set to 0 just before and read just after. Checks
+                completions and tokens, launches, one decision per closed
+                window, the engine's strategy and ``predict_interval``
+                after each decision (under "none": no fill in flight, the
+                identity plan), every audit record replayed through
+                ``recommend_strategy``, a hot-middle window skew above the
+                flat start's, a switch to "none" and one back, live replica
+                rows equal to their home rows, and a fill restarted in
+                flight (two forwards bit-equal to the gather forward under
+                their mixed plans, the new target on the device). Prints
+                the windows' skews, verdicts and intervals, the audit
+                summary, the migration counters with fills restarted or
+                cancelled in flight, the modelled stall on the preset
+                beside the A100-PCIe figure for the same bytes, step and
+                TTFT p50, decode tokens/s, imbalance, drops, peak memory
+                and the controller's host time per evaluation.
+  6. reference — reduced models' logits on the card against the CPU path:
                 Mixtral dense and EP, and Griffin with prompts longer than
                 its local window.
 
@@ -101,6 +125,7 @@ DENSE_LAYERS = 2                   # the dense path's run: all experts on all to
 EP_RANKS, DUP_SLOTS = 4, 1
 EP_KERNELS = ("moe_gemm", "histogram_offsets")   # the router runs on both paths
 GRIFFIN_ARGS = dict(requests=16, batch=8, seq=3072, new_tokens=64)
+MEASURED = {}                      # numbers one phase measures for another
 
 
 def log(phase: str, **kv) -> None:
@@ -532,6 +557,9 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
                     lambda: ref.moe_gemm_plain(*args, row_counts=counts),
                     flush, runs=5)
                 row["library_ms"] = time_ms(library, flush, runs=5)
+                row["device_tflops"] = flops / row["profiler_ms"] / 1e9
+                if case == "prefill":
+                    MEASURED["moe_gemm_prefill_tflops"] = row["device_tflops"]
             key = f"{str(dtype).split('.')[-1]}/{case}"
             rows[key] = row
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
@@ -884,8 +912,10 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
         modelled_stall_ms=f"{s['migration_stall_us'] / 1e3:.3f}",
         modelled_hidden_ms=f"{s['migration_hidden_s'] * 1e3:.3f}",
         modelled_exposed_ms=f"{s['migration_exposed_s'] * 1e3:.3f}",
-        stall_model="A100-PCIe link 64 GB/s, the reference's deployment "
-                    "model (core.simulator.A100_PCIE), not this card")
+        stall_model=f"{eng._hw().name} link "
+                    f"{eng._hw().link_bw / 1e9:.0f} GB/s, the reference's "
+                    "deployment model (no controller: core.simulator."
+                    "A100_PCIE), not this card")
     failures = []
     if len(done) != len(reqs):
         failures.append(f"{len(done)} of {len(reqs)} requests completed")
@@ -976,28 +1006,23 @@ def begin_fill(eng, target):
     return diff
 
 
-def mid_migration_phase(eng, cfg, seed: int) -> None:
-    """One EP decode forward (8 slots at length 0 in a fresh block pool)
-    at a state of a staged fill with some but not all layers ready, through
-    the store view, against the ``replica_impl="gather"`` forward (the
-    home rows, through the slot -> expert map) under the per-layer mixed
-    plan. Logits and slot counts must be equal bit for bit."""
+def mixed_plan(live, target, ready):
+    """The plan a staged fill serves: ``target``'s layers where ``ready``,
+    ``live``'s elsewhere."""
     from repro_torch.core.placement import PlacementPlan
+
+    return PlacementPlan(*(np.where(
+        ready.reshape((-1,) + (1,) * (np.asarray(a).ndim - 1)), b, a)
+        for a, b in zip(live, target)))
+
+
+def decode_forward(eng, cfg, seed: int):
+    """``forward(plan_dev, store)``: one EP decode forward of 8 slots at
+    length 0 in a fresh block pool, the same random tokens on every call.
+    Returns the fp32 logits and the slot counts, without synchronising."""
     from repro_torch.serve.kvcache import init_block_pool
     from repro_torch.train.steps import make_paged_decode_step
 
-    target = shifted_plan(eng, 1)
-    diff = begin_fill(eng, target)
-    while not eng._executor.ready_mask().any():  # chunks: a layer prefix
-        commit, _ = eng._executor.tick(1)
-        if commit is not None:
-            raise SystemExit(f"the {diff.num_entries}-entry fill committed "
-                             "before a mid-migration state")
-    ready = eng._executor.ready_mask()
-    live = eng._plan_stack
-    mixed = PlacementPlan(*(np.where(
-        ready.reshape((-1,) + (1,) * (np.asarray(a).ndim - 1)), b, a)
-        for a, b in zip(live, target)))
     decode = make_paged_decode_step(eng.cfg, eng.rt)
     B = eng.ccfg.max_slots
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
@@ -1007,15 +1032,40 @@ def mid_migration_phase(eng, cfg, seed: int) -> None:
                           device="cuda")[:, None].contiguous()
     lengths = torch.zeros((B,), dtype=torch.int32, device="cuda")
     active = torch.ones((B, 1), device="cuda")
-    out = {}
-    for name, plan, store in (
-            ("store", eng._plan_dev, eng._store_view()),
-            ("gather", eng._to_device(mixed), None)):
+
+    def forward(plan, store):
         pool = init_block_pool(eng.cfg, 1 + B, eng.ccfg.block_size,
                                device="cuda")
         _, lg, _, st = decode(eng.model, tokens, pool, tables, lengths,
                               active, plan, store)
-        out[name] = (lg.float(), st["slot_counts"])
+        return lg.float(), st["slot_counts"]
+    return forward
+
+
+def tick_to_mid_state(eng, diff) -> np.ndarray:
+    """Enqueue a staged fill a chunk at a time until some layer is ready.
+    Returns the ready mask."""
+    while not eng._executor.ready_mask().any():  # chunks: a layer prefix
+        commit, _ = eng._executor.tick(1)
+        if commit is not None:
+            raise SystemExit(f"the {diff.num_entries}-entry fill committed "
+                             "before a mid-migration state")
+    return eng._executor.ready_mask()
+
+
+def mid_migration_phase(eng, cfg, seed: int) -> None:
+    """One EP decode forward (8 slots at length 0 in a fresh block pool)
+    at a state of a staged fill with some but not all layers ready, through
+    the store view, against the ``replica_impl="gather"`` forward (the
+    home rows, through the slot -> expert map) under the per-layer mixed
+    plan. Logits and slot counts must be equal bit for bit."""
+    target = shifted_plan(eng, 1)
+    diff = begin_fill(eng, target)
+    ready = tick_to_mid_state(eng, diff)
+    mixed = mixed_plan(eng._plan_stack, target, ready)
+    forward = decode_forward(eng, cfg, seed)
+    out = {"store": forward(eng._plan_dev, eng._store_view()),
+           "gather": forward(eng._to_device(mixed), None)}
     torch.cuda.synchronize()
     err = float((out["store"][0] - out["gather"][0]).abs().max())
     equal = (torch.equal(out["store"][0], out["gather"][0])
@@ -1193,10 +1243,11 @@ def migration_profile_phase(eng, cfg, seed: int, max_steps: int = 8) -> None:
                          f"{len(side) - len(copies)} other side-stream events")
 
 
-def main_path_phase(seed: int):
+def build_mixtral(seed: int):
+    """Mixtral-8x7B at published widths, the first ``MAIN_LAYERS`` of its
+    32 layers, random weights from ``seed``, on the card."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_model
-    from repro_torch.serve import ContinuousConfig, ContinuousEngine
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"),
                               num_layers=MAIN_LAYERS)
@@ -1214,6 +1265,11 @@ def main_path_phase(seed: int):
     torch.cuda.synchronize()
     log("main", init_s=f"{time.perf_counter() - t0:.3f}",
         weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    return model, cfg
+
+
+def main_path_phase(model, cfg, seed: int):
+    from repro_torch.serve import ContinuousConfig, ContinuousEngine
 
     dense = layer_view(model, cfg, DENSE_LAYERS)
     eng, _ = serve_trace("dense", dense, dense.cfg, seed, ep=False)
@@ -1231,9 +1287,309 @@ def main_path_phase(seed: int):
     profile_phase(gather, cfg, seed, "gather")
     del gather
     migration_profile_phase(eng, cfg, seed)
-    del eng, model
+    del eng                                       # and its replica rows
     torch.cuda.empty_cache()
     return launches
+
+
+# The GPS loop's run: the shapes of the JAX package's
+# benchmarks/bench_serve_traces.py, its trace and its time scale.
+GPS_CCFG = dict(max_slots=8, prefill_len=64, block_size=16, max_len=96,
+                strategy="dist_only", predict_interval=4,
+                dup_slots=DUP_SLOTS, metrics_window=8)
+GPS_TRACE = dict(horizon=90.0, rate=1.5)
+GPS_TIME_SCALE = 20.0
+# The saving MoE-GPS must predict before balancing is run: between the
+# flat windows' predicted dist_only savings (skew 1.48-1.86: 0.27-0.36) and
+# the hot windows' (skew 2.54-3.74: 0.50-0.65) on the H100 preset, from
+# the window skews of this phase's first run on the card (PERF.md).
+GPS_MIN_SAVING = 0.45
+
+
+def restart_check(eng, cfg, seed: int) -> None:
+    """A staged fill restarted while in flight, as a re-plan restarts it:
+    a fill toward plan A is enqueued until some layer is ready, a decode
+    forward reading A's filled rows is queued, then a fill toward plan B
+    (every replica slot different, so its copies overwrite the rows the
+    first forward reads) begins from the plan in force and is enqueued
+    until some layer is ready, and a second forward reads B's rows. Each
+    forward must equal, bit for bit, the gather forward under its own
+    mixed plan (write after read: B's copies wait for the first forward),
+    and the engine's fill target on the device must be B's."""
+    from repro_torch.runtime import plan_diff
+
+    forward = decode_forward(eng, cfg, seed)
+    live = eng._plan_stack
+    outs, mixed, diffs, ready_layers, experts = [], [], [], [], []
+    for shift in (1, 2):
+        target = shifted_plan(eng, shift)
+        diff = plan_diff(live, target, EP_RANKS,
+                         eng.moe_cfg.duplication_slots)
+        eng._begin_migration(diff, target)        # a restart on shift 2
+        ready = tick_to_mid_state(eng, diff)
+        outs.append(forward(eng._plan_dev, eng._store_view()))
+        mixed.append(mixed_plan(live, target, ready))
+        diffs.append(diff)
+        experts.append(eng._to_device(target).slot_experts.cpu().numpy())
+        ready_layers.append(int(ready.sum()))
+    on_device = (None if eng._target_dev is None
+                 else eng._target_dev.slot_experts.cpu().numpy())
+    target_ok = (on_device is not None
+                 and np.array_equal(on_device, experts[1])
+                 and not np.array_equal(on_device, experts[0]))
+    refs = [forward(eng._to_device(m), None) for m in mixed]
+    torch.cuda.synchronize()
+    equal = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+             for a, b in zip(outs, refs)]
+    eng._cancel_migration()
+    log("gps_restart", entries=",".join(str(d.num_entries) for d in diffs),
+        ready_layers=",".join(map(str, ready_layers)),
+        forward_a_bit_equal=equal[0], forward_b_bit_equal=equal[1],
+        target_on_device_is_b=target_ok, in_flight_after_cancel=(
+            eng._executor.active or eng._target_dev is not None),
+        tolerance="exact (logits and slot_counts)")
+    if not (all(equal) and target_ok):
+        raise SystemExit("a fill restarted in flight broke a forward or "
+                         "left the old target in force")
+
+
+def gps_phase(model, cfg, seed: int) -> None:
+    """The GPS decision loop on the card: the EP engine (store defaults)
+    with an ``OnlineGPSController`` on the H100 preset replays the
+    skew-shifting trace; checks completions, launches, one decision per
+    closed window, the engine following every decision, the audit log
+    replayed through ``recommend_strategy``, skew rising from the flat
+    start to the hot middle, a switch to "none" and back, and live replica
+    rows equal to their experts' home rows; then a fill restarted in
+    flight (``restart_check``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gps import recommend_strategy
+    from repro_torch.core.simulator import A100_PCIE, H100_SXM_NVLINK
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import migration_stall_s
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   ControllerConfig, OnlineGPSController)
+    from repro_torch.workloads import skew_shift_trace, to_serve_requests
+
+    full = get_config("mixtral-8x7b")
+    ccfg = ControllerConfig(
+        hardware=H100_SXM_NVLINK, window_iters=8, patience=1,
+        min_saving=GPS_MIN_SAVING,
+        # the engine moves 8 layers' rows; the controller prices the
+        # 32-layer deployment it simulates
+        migration_bytes_scale=full.num_layers / cfg.num_layers)
+    ctl = OnlineGPSController(full, ccfg, predictor_available=False)
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**GPS_CCFG),
+                           ep_ranks=EP_RANKS, ep=True, controller=ctl)
+    hw = ccfg.hardware
+    log("gps", model=cfg.name, layers=cfg.num_layers,
+        reduced=f"num_layers 32->{MAIN_LAYERS} (the cut of the main run: "
+                "32 bf16 layers ~93 GB > 80 GB)",
+        engine=",".join(f"{k}:{v}" for k, v in GPS_CCFG.items()),
+        replica_impl=cfg.moe.replica_impl, overlap=eng._overlap,
+        migration_gate=eng.ccfg.migration_gate,
+        hardware=f"'{hw}'", window_iters=ccfg.window_iters,
+        patience=ccfg.patience, min_saving=ccfg.min_saving,
+        migration_bytes_scale=ccfg.migration_bytes_scale,
+        moe_gemm_prefill_tflops=MEASURED.get("moe_gemm_prefill_tflops",
+                                             "not measured"),
+        mxu_util_measured=(
+            f"{MEASURED['moe_gemm_prefill_tflops'] * 1e12 / BF16_FLOPS:.4f}"
+            if "moe_gemm_prefill_tflops" in MEASURED else "not measured"))
+
+    # instrumentation: fills restarted or cancelled while in flight, the
+    # controller's host time, one decision per closed window, the engine
+    # following each decision, the arrival times each window served
+    ex = eng._executor
+    fills = {"begun": 0, "restarted": 0, "cancelled_in_flight": 0}
+    begin, cancel = ex.begin, ex.cancel
+
+    def counted_begin(diff, target):
+        fills["begun"] += 1
+        fills["restarted"] += ex.active
+        begin(diff, target)
+
+    def counted_cancel():
+        fills["cancelled_in_flight"] += ex.active
+        cancel()
+    ex.begin, ex.cancel = counted_begin, counted_cancel
+    eval_s = []
+    evaluate = ctl._evaluate
+
+    def timed_evaluate(now):
+        t0 = time.perf_counter()
+        d = evaluate(now)
+        eval_s.append(time.perf_counter() - t0)
+        return d
+    ctl._evaluate = timed_evaluate
+    closed, window_errors = [0], []
+    observe = ctl.observe
+
+    def checked_observe(counts, now, **kw):
+        closes = ctl._iters + 1 >= ccfg.window_iters
+        had = ctl._counts is not None or counts is not None
+        d = observe(counts, now, **kw)
+        closed[0] += closes and had
+        if (d is not None) != (closes and had):
+            window_errors.append(f"t={now:.2f}: decision {d is not None}, "
+                                 f"window closed with counts {closes and had}")
+        return d
+    ctl.observe = checked_observe
+    follow_errors = []
+    apply_decision = eng._apply_decision
+
+    def checked_apply(d):
+        apply_decision(d)
+        if (eng.strategy, eng.predict_interval) != (d.strategy,
+                                                    d.predict_interval):
+            follow_errors.append(f"t={d.t:.2f}: engine {eng.strategy}/"
+                                 f"{eng.predict_interval}, decision "
+                                 f"{d.strategy}/{d.predict_interval}")
+        if d.strategy == "none" and (
+                ex.active or eng._target_dev is not None
+                or int(np.asarray(eng._plan_stack.n_replicas).max()) != 1):
+            follow_errors.append(f"t={d.t:.2f}: under 'none' a fill is in "
+                                 "flight or the plan replicates")
+    eng._apply_decision = checked_apply
+    arrivals, windows = [], []
+    step = eng.step
+
+    def recording_step(now, clock=None):
+        ev = step(now, clock)
+        arrivals.extend(r.arrival for r in ev.prefilled)
+        if ev.decision is not None:
+            windows.append((ev.decision,
+                            float(np.mean(arrivals)) if arrivals else None))
+            arrivals.clear()
+        return ev
+    eng.step = recording_step
+
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    trace = skew_shift_trace(cfg.vocab_size, seed=seed, **GPS_TRACE)
+    reqs = to_serve_requests(trace)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    end = eng.run_trace(reqs, time_scale=GPS_TIME_SCALE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    s = eng.metrics.summary()
+    imb = eng.metrics.imbalance_over_time()
+    done = eng.scheduler.completed
+    prefills = len(reqs) + int(s["preemptions"])
+    decisions = ctl.decisions
+    switches = [d for d in decisions if d.switched]
+    log("gps", requests=len(reqs), completed=len(done),
+        iterations=eng.iterations, prefills=prefills,
+        decode_steps=eng.decode_steps, virtual_end_s=f"{end:.3f}",
+        time_scale=GPS_TIME_SCALE, warmup_s=f"{warmup_s:.3f}",
+        wall_s=f"{wall:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        decisions=len(decisions), windows_closed_with_counts=closed[0],
+        switches=len(switches),
+        switch_log=f"'{' | '.join(ctl.switch_log())}'")
+    log("gps", **{k: f"{v:g}" for k, v in ctl.audit.summary().items()})
+    log("gps", window_skews=",".join(f"{d.skew:.4f}" for d, _ in windows),
+        window_mean_arrival_s=",".join(
+            "-" if a is None else f"{a:.1f}" for _, a in windows))
+    log("gps", verdicts=",".join(str(d.recommended) for d in decisions),
+        strategies=",".join(d.strategy for d in decisions),
+        predict_interval=",".join(str(d.predict_interval)
+                                  for d in decisions),
+        dist_only_saving=",".join(
+            f"{r.dist_only_saving:.4f}" for r in ctl.audit.records))
+    eb = max(eng._entry_bytes, 1)
+    planned = s["migration_planned_bytes"]
+    log("gps", migration_replans=int(s["migration_replans"]),
+        commits=int(s["migration_commits"]),
+        rejected=int(s["migration_rejected"]),
+        prebegun=int(s["migration_prebegun"]),
+        cancelled=int(s["migration_cancelled"]),
+        fills_begun=fills["begun"], fills_restarted=fills["restarted"],
+        fills_cancelled_in_flight=fills["cancelled_in_flight"],
+        entries_planned=int(planned // eb),
+        entries_moved=int(s["migration_bytes_moved"] // eb),
+        moved_gb=f"{s['migration_bytes_moved'] / 1e9:.3f}",
+        modelled_stall_ms=f"{s['migration_stall_us'] / 1e3:.3f}",
+        modelled_hidden_ms=f"{s['migration_hidden_s'] * 1e3:.3f}",
+        modelled_exposed_ms=f"{s['migration_exposed_s'] * 1e3:.3f}",
+        stall_model=f"'{eng._hw().name}' link {eng._hw().link_bw / 1e9:.0f} "
+                    "GB/s (modelled, not this card)",
+        a100_pcie_stall_ms_same_bytes=(
+            f"{migration_stall_s(planned, A100_PCIE) * 1e3:.3f}"))
+    ttft = s["ttft_p50"]
+    log("gps", step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
+        ttft_p50_virtual_s=f"{ttft:.3f}",
+        ttft_p50_wall_ms=f"{ttft / GPS_TIME_SCALE * 1e3:.3f}",
+        decode_toks_per_s=f"{s.get('decode_toks_per_s', 0.0):.2f}",
+        measured_imbalance=f"{eng.measured_imbalance():.4f}",
+        modelled_imbalance=f"{float(np.mean(imb)) if imb else 1.0:.4f}",
+        dropped_pairs=int(s["dropped_tokens"]),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        controller_eval_ms_p50=f"{np.median(eval_s) * 1e3:.4f}",
+        controller_eval_ms_max=f"{max(eval_s) * 1e3:.4f}")
+
+    failures = window_errors[:3] + follow_errors[:3]
+    if len(done) != len(reqs):
+        failures.append(f"{len(done)} of {len(reqs)} requests completed")
+    for r in done:
+        toks = np.asarray(r.generated)
+        if len(toks) != r.max_new_tokens or (toks < 0).any() \
+                or (toks >= cfg.vocab_size).any():
+            failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
+    forwards = (prefills + eng.decode_steps) * cfg.num_layers
+    want = {k: 0 for k in launches}
+    want.update(paged_decode_attention=eng.decode_steps * cfg.num_layers,
+                fused_topk_route=forwards)
+    for k in EP_KERNELS:
+        want[k] = forwards
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
+    if len(decisions) != closed[0]:
+        failures.append(f"{len(decisions)} decisions for {closed[0]} "
+                        "windows closed with counts")
+    replay_bad = []
+    for r in ctl.audit.records:
+        v, _ = recommend_strategy(
+            full, hw, skew=r.skew_input, batch=r.batch, seq=r.seq_len,
+            allow_t2e=r.allow_t2e, min_saving=r.min_saving,
+            migration_stall_s=r.migration_stall_s, levers=ccfg.levers,
+            resched_residual=r.resched_residual,
+            resched_extra_frac=r.resched_extra_frac)
+        if (str(v), v.lever) != (r.recommended, r.lever_recommended):
+            replay_bad.append(r.seq)
+    log("gps", audit_records=len(ctl.audit), replayed_equal=not replay_bad)
+    if replay_bad:
+        failures.append(f"audit records {replay_bad[:4]} replay to another "
+                        "verdict")
+    H = GPS_TRACE["horizon"]
+    flat = [d.skew for d, a in windows if a is not None and a < 0.35 * H]
+    hot = [d.skew for d, a in windows
+           if a is not None and 0.5 * H <= a <= 0.75 * H]
+    log("gps", flat_start_skews=",".join(f"{x:.4f}" for x in flat),
+        hot_middle_skews=",".join(f"{x:.4f}" for x in hot))
+    if not (flat and hot and max(hot) > min(flat)):
+        failures.append("no hot-middle window skew above the flat start's "
+                        "lowest")
+    if not any(d.strategy == "none" for d in switches):
+        failures.append("no switch to 'none'")
+    if not any(d.strategy == "dist_only" for d in switches):
+        failures.append("no switch back to 'dist_only'")
+    bad = live_rows_mismatch(eng)
+    log("gps", live_replica_rows_checked=bad[1],
+        live_rows_equal_home=not bad[0])
+    if bad[0]:
+        failures.append(f"live replica rows differ from their experts' home "
+                        f"rows at {bad[0][:4]}")
+    if failures:
+        raise SystemExit("GPS loop failed: " + "; ".join(failures))
+    restart_check(eng, cfg, seed)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def _events_by_stream(prof, start_us: float = float("-inf")):
@@ -1606,7 +1962,7 @@ def griffin_reference_phase(seed: int):
 
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru")
-PHASES = KERNEL_PHASES + ("floor", "main", "griffin", "reference")
+PHASES = KERNEL_PHASES + ("floor", "main", "gps", "griffin", "reference")
 
 
 def main() -> int:
@@ -1670,8 +2026,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {}
-    if "main" in phases:
-        launches.update(main_path_phase(args.seed))   # the EP run's counts
+    if "main" in phases or "gps" in phases:
+        model, cfg = build_mixtral(args.seed)     # one set of weights for both
+        if "main" in phases:
+            launches.update(main_path_phase(model, cfg, args.seed))
+        if "gps" in phases:
+            gps_phase(model, cfg, args.seed)
+        del model
+        torch.cuda.empty_cache()
     if "griffin" in phases:
         launches["rg_lru_scan"] = griffin_phase(args.seed)["rg_lru_scan"]
         griffin_profile_phase(args.seed)

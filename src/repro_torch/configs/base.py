@@ -24,6 +24,9 @@ class MoEConfig:
     num_experts: int
     top_k: int
     d_ff_expert: int
+    num_shared_experts: int = 0          # always-on experts (deepseek-style)
+    dense_residual: bool = False         # arctic: dense FFN in parallel with MoE
+    d_ff_dense: int = 0                  # width of the dense residual branch
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.01
     router_z_loss: float = 1e-3

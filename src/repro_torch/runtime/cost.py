@@ -7,8 +7,8 @@ row tensors (``runtime.store``).
 
 Three consumers:
 
-* ``core.gps.run_gps`` (JAX package; the port's comes with the GPS
-  decision loop) — an amortized per-layer-per-step migration stall
+* ``core.gps.run_gps``, through the online controller
+  (``serve.controller``) — an amortized per-layer-per-step migration stall
   is added to the *duplicating* strategies' overhead, so the guideline
   rejects a strategy whose plan churn costs more than its balance gain.
   With overlapped (async-prefetch) migration only the EXPOSED fraction of

@@ -47,13 +47,23 @@ rejects re-plans whose exposed modelled stall exceeds the predicted
 imbalance gain. Without a store (``ep=False``, or
 ``replica_impl="gather"``) a new plan replaces the old one at once, and its
 diff is still costed (``migration_*`` metrics), as the JAX engine does
-without a mesh. The stall is modelled on ``core.simulator.A100_PCIE``'s
-link (the paper's deployment), not measured.
+without a mesh. The stall is modelled on the attached controller's
+``ControllerConfig.hardware``, else on ``core.simulator.A100_PCIE``'s link
+(the paper's deployment, the JAX engine's fallback); it is not measured.
 
-Not ported yet (see ROADMAP.md): the online GPS controller, the
-Token-to-Expert predictors (and the Token-to-Expert half of the
-prefetcher's predicted distribution), the reschedule lever,
-``profile_phases`` and ``assert_no_recompiles``.
+An attached ``OnlineGPSController`` (``controller=``) reads every
+iteration's expert histogram, the replica bytes the iteration moved and
+the share of them hidden under forward compute, and the pairs dropped at
+capacity. When a window closes it re-runs MoE-GPS on the window's skew;
+the engine then adopts the verdict's strategy through ``replan()`` (a
+switch to "none" adopts the identity plan and cancels an in-flight fill)
+and its ``predict_interval``.
+
+Not ported yet (see ROADMAP.md): the Token-to-Expert predictors (and the
+Token-to-Expert half of the prefetcher's predicted distribution; a
+controller that may choose Token-to-Expert is refused), the reschedule
+lever (a controller offered it is refused), ``profile_phases`` and
+``assert_no_recompiles``.
 """
 
 from __future__ import annotations
@@ -353,6 +363,7 @@ class StepEvents:
     completed: List[ServeRequest] = dataclasses.field(default_factory=list)
     preempted: List[ServeRequest] = dataclasses.field(default_factory=list)
     decoded_slots: int = 0
+    decision: Optional[object] = None          # controller Decision, if any
 
 
 class ContinuousEngine:
@@ -361,7 +372,7 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  ccfg: ContinuousConfig, *, ep_ranks: int = 1,
-                 ep: bool = False, tracer=None,
+                 ep: bool = False, controller=None, tracer=None,
                  metrics: Optional[ServeMetrics] = None, name: str = ""):
         if not cfg.is_moe or cfg.attention != "gqa":
             raise ValueError("the port's engine serves GQA MoE models so far")
@@ -375,9 +386,21 @@ class ContinuousEngine:
         if ep and ccfg.prefill_len % ep_ranks:
             raise ValueError(f"prefill_len {ccfg.prefill_len} does not split "
                              f"over {ep_ranks} EP ranks")
+        if controller is not None and controller.predictor_available:
+            raise ValueError(
+                "the controller may choose token_to_expert, which the port "
+                "cannot run yet (ROADMAP.md §1 item 4, Token-to-Expert "
+                "prediction): pass predictor_available=False")
+        if controller is not None and \
+                tuple(controller.cfg.levers) != ("duplicate",):
+            raise ValueError(
+                f"levers {tuple(controller.cfg.levers)}: the port drives "
+                "only the duplicate lever (ROADMAP.md §1 item 5, token "
+                "rescheduling)")
         self.ccfg = ccfg
         self.ep_ranks = ep_ranks
         self.ep = ep
+        self.controller = controller
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.name = name
         self.strategy = ccfg.strategy
@@ -443,6 +466,7 @@ class ContinuousEngine:
         self._serve_ema = mig_cost.KindWindowEMA()
         self._step_kind = "decode"
         self._step_migration_bytes = 0.0
+        self._step_migration_hidden_bytes = 0.0
         self._prebegun_plan = None       # predictive pre-migration target
         self._entry_bytes = mig_cost.entry_bytes(_model_experts(model))
         m = self.moe_cfg
@@ -544,9 +568,9 @@ class ContinuousEngine:
 
     # ------------------------------------------------------ replica migration
     def _hw(self):
-        """The hardware the migration stall is modelled on: the JAX
-        engine's fallback without a controller."""
-        return A100_PCIE
+        """The hardware the migration stall is modelled on: the
+        controller's deployment, else the JAX engine's fallback."""
+        return self.controller.cfg.hardware if self.controller else A100_PCIE
 
     def _overlap_window_s(self) -> float:
         """The overlap window one engine step offers a staged fill: the
@@ -575,10 +599,16 @@ class ContinuousEngine:
         return min(stall_s, drain_steps * window)
 
     def _begin_migration(self, diff, target: PlacementPlan) -> None:
+        """Start (or restart, abandoning the fill in flight) a fill toward
+        ``target``."""
         self._executor.begin(diff, target)
         if self._overlap:
             self._target_dev = self._to_device(target,
                                                self._executor.target_rows)
+
+    def _cancel_migration(self) -> None:
+        self._executor.cancel()
+        self._target_dev = None
 
     def _adopt_plan(self, target: PlacementPlan) -> PlacementPlan:
         """serve -> diff -> staged fill -> per-layer swap. Without a store
@@ -601,7 +631,7 @@ class ContinuousEngine:
                 self._prebegun_plan = None
                 self.metrics.record_migration(replanned=True)
                 return self._plan_stack
-            self._executor.cancel()
+            self._cancel_migration()
             self._prebegun_plan = None
             self.metrics.record_migration(cancelled=True)
         diff = plan_diff(self._plan_stack, target, self.ep_ranks,
@@ -619,13 +649,17 @@ class ContinuousEngine:
             # no store to fill, or the switch moves no weights; an in-flight
             # migration toward an older target is superseded
             if self._executor is not None:
-                self._executor.cancel()
+                self._cancel_migration()
             if self._store is None and planned > 0:
-                # the overlap economics a store's prefetcher would produce
+                # the overlap economics a store's prefetcher would produce,
+                # so the controller sees the same hidden/exposed split
                 hidden = self._hidden_estimate(stall, diff.num_entries)
                 self.metrics.record_migration(hidden_s=hidden,
                                               exposed_s=stall - hidden)
                 self._step_migration_bytes += planned
+                if stall > 0:
+                    self._step_migration_hidden_bytes += \
+                        planned * (hidden / stall)
             self._set_plan(target)
             return target
         if not self._migration_accept(stall, target, diff.num_entries):
@@ -675,6 +709,9 @@ class ContinuousEngine:
             hidden, exposed = _chunk_stall_split(
                 moved, self._overlap_window_s(), self._hw(),
                 overlap=self._overlap)
+            stall = hidden + exposed
+            if stall > 0:
+                self._step_migration_hidden_bytes += moved * (hidden / stall)
             self.metrics.record_migration(bytes_moved=moved, hidden_s=hidden,
                                           exposed_s=exposed)
         if commit is not None:
@@ -777,6 +814,7 @@ class ContinuousEngine:
         step_span.__enter__()
         self._step_dropped = 0.0
         self._step_migration_bytes = 0.0
+        self._step_migration_hidden_bytes = 0.0
         self._tick_migration()       # commit BEFORE this iteration's plan read
         self._current_plan()
         store = self._store_view()
@@ -895,6 +933,8 @@ class ContinuousEngine:
                     self.accuracy.begin_window(
                         self.estimator.predict() if self.strategy != "none"
                         else None, self.strategy)
+            if self.controller is not None:
+                events.decision = self._observe_controller(iter_counts, now)
 
         if self._step_dropped:
             self.metrics.record_dropped(self._step_dropped)
@@ -921,6 +961,41 @@ class ContinuousEngine:
         return events
 
     # ----------------------------------------------------------- internals
+    def _observe_controller(self, iter_counts, now: float):
+        """Feed the iteration to the controller; adopt a closed window's
+        verdict. Returns the Decision (None while the window is open)."""
+        decision = self.controller.observe(
+            iter_counts, now,
+            migration_bytes=self._step_migration_bytes,
+            migration_hidden_bytes=self._step_migration_hidden_bytes,
+            overflow_tokens=0.0, dropped_tokens=self._step_dropped,
+            resched_residual=None, resched_absorbed_pred=None)
+        if decision is None:
+            return None
+        self.tracer.instant(
+            "gps.decision", cat="gps", track="gps",
+            args={"recommended": decision.recommended,
+                  "strategy": decision.strategy, "skew": decision.skew,
+                  "volatility": decision.volatility,
+                  "switched": decision.switched,
+                  "predict_interval": decision.predict_interval})
+        self.tracer.counter("skew", decision.skew, track="gps")
+        if decision.switched:
+            self.tracer.instant("gps.switch", cat="gps", track="gps",
+                                args={"to": decision.strategy})
+        self._apply_decision(decision)
+        return decision
+
+    def _apply_decision(self, decision) -> None:
+        if decision.strategy != self.strategy:
+            self.strategy = decision.strategy
+            # replan() handles "none" too: the identity stack goes through
+            # _adopt_plan, which cancels any in-flight fill (a direct
+            # _plan_stack write would let a stale commit reinstate the
+            # abandoned duplicated plan)
+            self.replan()
+        self.predict_interval = decision.predict_interval
+
     def _accumulate(self, acc, stats):
         if self.ep:
             self._step_dropped += float(stats["dropped"].sum())

@@ -321,7 +321,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"src/repro_torch/{m}.py" for m in (
         "models/griffin", "launch/serve", "data/synthetic", "kernels/rg_lru",
         "serve/engine", "serve/scheduler", "runtime/store", "runtime/migrate",
-        "runtime/diff", "runtime/cost")} <= walked
+        "runtime/diff", "runtime/cost", "core/balance", "core/gps",
+        "core/simulator", "obs/audit", "serve/controller",
+        "workloads/traces")} <= walked
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
