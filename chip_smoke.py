@@ -29,7 +29,8 @@ non-zero:
                 precedes each on the main path, and an untimed sweep over
                 the shapes where their designs change (every case held to
                 the same checks); an empty kernel gives the card's launch
-                floor beside them.
+                floor beside them. (moe_gemm's correction-round case runs
+                in phase t2e, on a real round's rows.)
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -86,7 +87,32 @@ non-zero:
                 beside the A100-PCIe figure for the same bytes, step and
                 TTFT p50, decode tokens/s, imbalance, drops, peak memory
                 and the controller's host time per evaluation.
-  6. reference — reduced models' logits on the card against the CPU path:
+  6. t2e      — (run after gps, before Griffin) Token-to-Expert prediction
+                on the same Mixtral weights: fits the predictor ladder
+                (global and per-token frequency models; the FFN and LSTM
+                predictors trained on the card with AdamW) on a synthetic
+                routing trace (256 x 64 tokens, vocab 32000, 8 layers,
+                skew 1.8, 80/20 split) and prints each rung's held-out
+                accuracy, FLOPs per token, fit time and predict time per
+                1 x 512 prompt (host wall and CUDA events), holding the FFN
+                and LSTM forwards on the card against the CPU; serves the
+                main trace on the EP store engine under
+                ``strategy="token_to_expert"`` with the conditional model
+                and with the LSTM (each prefill layer a predicted dispatch
+                round and a correction round: two moe_gemm and two
+                histogram_offsets launches, counted against the same
+                formula), printing the mispredicted share and the serving
+                numbers beside phase 4's dist_only run; holds a real
+                correction round's moe_gemm inputs (12 slots x 4 ranks x
+                cap2 8 rows, its live counts) against the plain version
+                (the kernels line's ``prefill_correction`` case, with its
+                time, device time and bound); and replays
+                ``skew_shift_trace(horizon=45)`` with an
+                ``OnlineGPSController(predictor_available=True)`` on the
+                A100-PCIe preset (the JAX default), checking launches, the
+                engine following each decision, every audit record
+                replayed, and a switch into token_to_expert and one out.
+  7. reference — reduced models' logits on the card against the CPU path:
                 Mixtral dense and EP, and Griffin with prompts longer than
                 its local window.
 
@@ -105,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -403,12 +430,14 @@ def _kernel_row(name, source, replaces, rows, main):
     if bad:
         raise SystemExit(f"{name} disagrees with its plain version at {bad}")
     path = rows[main]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": path["ms"], "plain_ms": path["plain_ms"],
-            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
-            "library_ms": path["library_ms"]}
+    KERNEL_ROWS[name] = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "library_ms": path["library_ms"]}
+    return KERNEL_ROWS[name]
 
 
 def _log_row(kernel, key, shape, row):
@@ -468,6 +497,69 @@ def store_slot_rows(num_experts: int):
     return rows
 
 
+MOE_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+KERNEL_ROWS = {}                   # the kernels line's rows, by kernel name
+
+
+def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor):
+    """One ``moe_gemm`` case held against its plain version: x (S, T, d),
+    ``counts`` (S, B) live rows per block, ``slot_map`` (S,) weight rows
+    of ``cw`` ({"w_gate", "w_up", "w_down"}). In bf16 also its time, device
+    time, the plain version's and the library call's, against the bound of
+    its live rows (each live expert's three matrices read once, its rows
+    read and written once, 3 products of 2 d F operations per live row).
+    fp32 is the same arithmetic summed over up to 14336 terms in another
+    order; in bf16 h is rounded to bf16, so a last-bit difference of its
+    fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2)."""
+    from repro_torch.kernels import ops, ref
+
+    S, T, d = x.shape
+    F = cw["w_up"].shape[-1]
+    dtype = x.dtype
+    args = (x, cw["w_gate"], cw["w_up"], cw["w_down"], slot_map)
+    got = ops.moe_gemm(*args, row_counts=counts)
+    torch.cuda.synchronize()
+    want = ref.moe_gemm_plain(*args, row_counts=counts)
+    err = (got.float() - want.float()).abs()
+    t = MOE_GEMM_TOL[dtype]
+    ok = bool((err <= t + t * want.float().abs()).all()
+              and torch.isfinite(got.float()).all())
+    elem = cw["w_up"].element_size()
+    live = ref.live_rows_mask(counts, T)
+    n_live = int(live.sum())
+    live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
+    named = len(set(slot_map.tolist()))
+    matrix = 3 * d * F * elem
+    nbytes = live_experts * matrix + 2 * n_live * d * elem \
+        + counts.numel() * 4 + S * 4
+    flops = 6.0 * n_live * d * F
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+    row = {"max_abs_err": float(err.max()), "ok": ok,
+           "live_rows": n_live, "live_experts": live_experts,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "slot_weight_ms": S * matrix / HBM_BYTES_PER_S * 1e3,
+           "distinct_weight_ms": named * matrix / HBM_BYTES_PER_S * 1e3}
+    del got, want, err
+    if dtype == torch.bfloat16:
+        def library():
+            wg, wu, wd = (cw[n][slot_map.long()] for n in
+                          ("w_gate", "w_up", "w_down"))
+            return torch.bmm(torch.nn.functional.silu(
+                torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+        row["ms"] = time_ms(lambda: ops.moe_gemm(*args, row_counts=counts),
+                            flush)
+        row["profiler_ms"] = device_ms(
+            lambda: ops.moe_gemm(*args, row_counts=counts), flush,
+            ("moe_gemm",))
+        row["plain_ms"] = time_ms(
+            lambda: ref.moe_gemm_plain(*args, row_counts=counts), flush,
+            runs=5)
+        row["library_ms"] = time_ms(library, flush, runs=5)
+        row["device_tflops"] = flops / row["profiler_ms"] / 1e9
+    return row
+
+
 def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
     """Both main-path shapes with every row live: decode (12 slots x cap 8
     rows, one row block per slot) and prefill (12 slots x 4 source ranks x
@@ -476,20 +568,15 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
     replica store's 16-row weight tensors (``decode_store``: 12 slots read
     12 distinct rows, as the EP store run's replica slots do). The main
     slot map names 8 distinct experts in 12 slots: the plan puts every
-    rank's replica slot on the hottest expert, which 4 slots then share."""
-    from repro_torch.kernels import ops, ref
-
+    rank's replica slot on the hottest expert, which 4 slots then share.
+    The Token-to-Expert correction round's shape (``prefill_correction``)
+    is held in the t2e phase, on a real round's rows and counts."""
     E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     se_np = ep_slot_experts(E)
     S = len(se_np)
     se = torch.tensor(se_np, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     blocks = {"decode": (8, 1), "prefill": (4 * 32, 4)}       # (T, B)
-    # fp32: the same arithmetic summed over up to 14336 terms in another
-    # order; bf16: h is rounded to bf16, so a last-bit difference of its
-    # fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-    peak = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         w = {n: (torch.randn(shape, generator=gen, device="cuda")
@@ -497,7 +584,6 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
              for n, shape, scale in (("w_gate", (E, d, F), d ** -0.5),
                                      ("w_up", (E, d, F), d ** -0.5),
                                      ("w_down", (E, F, d), F ** -0.5))}
-        elem = w["w_up"].element_size()
         cases = {}
         for case, (T, B) in blocks.items():
             x = torch.randn((S, T, d), generator=gen, device="cuda").to(dtype)
@@ -516,54 +602,12 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
         for case, (x, counts, slot_map) in cases.items():
             S, T, _ = x.shape
             cw = store_w if case == "decode_store" else w
-            args = (x, cw["w_gate"], cw["w_up"], cw["w_down"], slot_map)
-            got = ops.moe_gemm(*args, row_counts=counts)
-            torch.cuda.synchronize()
-            want = ref.moe_gemm_plain(*args, row_counts=counts)
-            err = (got.float() - want.float()).abs()
-            t = tol[dtype]
-            ok = bool((err <= t + t * want.float().abs()).all()
-                      and torch.isfinite(got.float()).all())
-            # the live rows' experts' three matrices read once each, their
-            # x read and y written once; 3 products of 2 d F operations per
-            # live row
-            live = ref.live_rows_mask(counts, T)
-            n_live = int(live.sum())
-            live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
-            named = len(set(slot_map.tolist()))
-            matrix = 3 * d * F * elem
-            nbytes = live_experts * matrix + 2 * n_live * d * elem \
-                + counts.numel() * 4 + S * 4
-            flops = 6.0 * n_live * d * F
-            bound_ms, bound_by = _bound(nbytes, flops, peak[dtype])
-            row = {"max_abs_err": float(err.max()), "ok": ok,
-                   "live_rows": n_live, "live_experts": live_experts,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "slot_weight_ms": S * matrix / HBM_BYTES_PER_S * 1e3,
-                   "distinct_weight_ms": named * matrix / HBM_BYTES_PER_S
-                   * 1e3}
-            if dtype == torch.bfloat16:
-                def library(x=x, slot_map=slot_map, cw=cw):
-                    wg, wu, wd = (cw[n][slot_map.long()] for n in
-                                  ("w_gate", "w_up", "w_down"))
-                    return torch.bmm(torch.nn.functional.silu(
-                        torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
-                row["ms"] = time_ms(
-                    lambda: ops.moe_gemm(*args, row_counts=counts), flush)
-                row["profiler_ms"] = device_ms(
-                    lambda: ops.moe_gemm(*args, row_counts=counts), flush,
-                    ("moe_gemm",))
-                row["plain_ms"] = time_ms(
-                    lambda: ref.moe_gemm_plain(*args, row_counts=counts),
-                    flush, runs=5)
-                row["library_ms"] = time_ms(library, flush, runs=5)
-                row["device_tflops"] = flops / row["profiler_ms"] / 1e9
-                if case == "prefill":
-                    MEASURED["moe_gemm_prefill_tflops"] = row["device_tflops"]
+            row = moe_gemm_case(x, counts, slot_map, cw, flush)
+            if case == "prefill" and "device_tflops" in row:
+                MEASURED["moe_gemm_prefill_tflops"] = row["device_tflops"]
             key = f"{str(dtype).split('.')[-1]}/{case}"
             rows[key] = row
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
-            del got, want, err
         del w, cases, store_w
         torch.cuda.empty_cache()
     return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
@@ -839,22 +883,27 @@ MAIN_CCFG = dict(max_slots=8, prefill_len=512, block_size=16, max_len=1024,
                  dup_slots=DUP_SLOTS)
 
 
-def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
+def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
+                phase: str = "main", predictor=None, on_start=None):
     """Serve the main trace (16 requests of 64..500 prompt tokens, 64 new
     tokens each, 20 ms apart) with every kernel count set to 0 just
     before and read just after, at the engine's defaults (under EP: the
     replica store, overlapped migration, ``prefetch_lead`` 2, the
-    migration gate). Returns (engine, launches)."""
+    migration gate); with a ``predictor``, under ``token_to_expert`` (each
+    EP prefill layer then runs two dispatch rounds). ``on_start``: called
+    just before the trace starts. Returns (engine, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ServeRequest)
 
-    eng = ContinuousEngine(cfg, model, ContinuousConfig(**MAIN_CCFG),
-                           ep_ranks=EP_RANKS, ep=ep)
+    strategy = "token_to_expert" if predictor is not None else "dist_only"
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(
+        **dict(MAIN_CCFG, strategy=strategy)), ep_ranks=EP_RANKS, ep=ep,
+        predictor=predictor)
     if eng._store is not None:
         store = eng._store
         home = cfg.num_layers * cfg.moe.num_experts * store.entry_bytes
-        log("main", path=label, replica_impl=cfg.moe.replica_impl,
+        log(phase, path=label, strategy=strategy, replica_impl=cfg.moe.replica_impl,
             overlap=eng._overlap, prefetch_lead=eng.ccfg.prefetch_lead,
             migration_gate=eng.ccfg.migration_gate,
             entry_bytes=store.entry_bytes,
@@ -864,7 +913,7 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
             allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
     t0 = time.perf_counter()
     eng.warmup()
-    log("main", path=label, warmup_s=f"{time.perf_counter() - t0:.3f}")
+    log(phase, path=label, warmup_s=f"{time.perf_counter() - t0:.3f}")
 
     rng = np.random.default_rng(seed)
     reqs = [ServeRequest(rid=i,
@@ -874,6 +923,8 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
                          max_new_tokens=64, arrival=0.02 * i)
             for i in range(16)]
     torch.cuda.reset_peak_memory_stats()
+    if on_start is not None:
+        on_start()
     ops.reset_launches()
     t0 = time.perf_counter()
     eng.run_trace(reqs)
@@ -884,23 +935,30 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
     s = eng.metrics.summary()
     imb = eng.metrics.imbalance_over_time()
     prefills = len(reqs) + int(s["preemptions"])   # a preempted one refills
-    log("main", path=label, layers=cfg.num_layers, requests=len(reqs),
+    MEASURED[f"serve/{label}"] = numbers = {
+        "step_p50_ms": s["step_p50_s"] * 1e3,
+        "ttft_p50_ms": s["ttft_p50"] * 1e3,
+        "decode_toks_per_s": s.get("decode_toks_per_s", 0.0),
+        "dropped_pairs": int(s["dropped_tokens"]),
+        "measured_imbalance": eng.measured_imbalance() if ep else None,
+        "modelled_imbalance": float(np.mean(imb)) if imb else 1.0}
+    log(phase, path=label, layers=cfg.num_layers, requests=len(reqs),
         completed=len(done), iterations=eng.iterations,
         prefills=prefills, decode_steps=eng.decode_steps,
         launches=",".join(f"{k}:{v}" for k, v in launches.items()),
         wall_s=f"{wall:.3f}",
         decode_toks_per_s=f"{s.get('decode_toks_per_s', 0.0):.2f}",
-        step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
-        ttft_p50_ms=f"{s['ttft_p50'] * 1e3:.3f}",
+        step_p50_ms=f"{numbers['step_p50_ms']:.3f}",
+        ttft_p50_ms=f"{numbers['ttft_p50_ms']:.3f}",
         replans=int(s["replans"]),
         replicated_replans=int(s["replicated_replans"]),
-        dropped_pairs=int(s["dropped_tokens"]),
-        modelled_imbalance=f"{float(np.mean(imb)) if imb else 1.0:.4f}",
-        measured_imbalance=(f"{eng.measured_imbalance():.4f}" if ep
+        dropped_pairs=numbers["dropped_pairs"],
+        modelled_imbalance=f"{numbers['modelled_imbalance']:.4f}",
+        measured_imbalance=(f"{numbers['measured_imbalance']:.4f}" if ep
                             else "n/a (dense path)"),
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     eb = max(eng._entry_bytes, 1)
-    log("main", path=label, migration_replans=int(s["migration_replans"]),
+    log(phase, path=label, migration_replans=int(s["migration_replans"]),
         commits=int(s["migration_commits"]),
         rejected=int(s["migration_rejected"]),
         prebegun=int(s["migration_prebegun"]),
@@ -924,12 +982,9 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
         if len(toks) != r.max_new_tokens or (toks < 0).any() \
                 or (toks >= cfg.vocab_size).any():
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
-    forwards = (prefills + eng.decode_steps) * cfg.num_layers
-    want = {k: 0 for k in launches}
-    want.update(paged_decode_attention=eng.decode_steps * cfg.num_layers,
-                fused_topk_route=forwards)
-    for k in EP_KERNELS:
-        want[k] = forwards if ep else 0
+    want = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                             ep=ep, t2e_prefills=prefills if predictor
+                             is not None and ep else 0)
     if launches != want:
         failures.append(f"kernel launches {launches} != {want}")
     if s["replicated_replans"] < 1:
@@ -938,7 +993,7 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
         e_loc = cfg.moe.num_experts // EP_RANKS
         sc = eng.slot_counts.reshape(cfg.num_layers, EP_RANKS, -1)
         replica_pairs = int(sc[:, :, e_loc:].sum())
-        log("main", path=label, replica_slot_pairs=replica_pairs,
+        log(phase, path=label, replica_slot_pairs=replica_pairs,
             home_slot_pairs=int(sc[:, :, :e_loc].sum()))
         if replica_pairs == 0:
             failures.append("no replica slot computed a pair")
@@ -946,14 +1001,31 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool):
         if s["migration_commits"] < 1 or s["migration_bytes_moved"] <= 0:
             failures.append("no migration committed with bytes moved")
         bad = live_rows_mismatch(eng)
-        log("main", path=label, live_replica_rows_checked=bad[1],
+        log(phase, path=label, live_replica_rows_checked=bad[1],
             live_rows_equal_home=not bad[0])
         if bad[0]:
             failures.append(f"live replica rows differ from their experts' "
                             f"home rows at {bad[0][:4]}")
     if failures:
-        raise SystemExit(f"main path ({label}) failed: " + "; ".join(failures))
+        raise SystemExit(f"{phase} path ({label}) failed: "
+                         + "; ".join(failures))
     return eng, launches
+
+
+def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
+                      ep: bool, t2e_prefills: int = 0):
+    """Each kernel's launches for a run of ``prefills`` prefills (of which
+    ``t2e_prefills`` dispatch on Token-to-Expert predictions: two rounds,
+    so two ``moe_gemm`` and two ``histogram_offsets`` launches per layer)
+    and ``decode_steps`` decode steps of ``cfg.num_layers`` layers."""
+    L = cfg.num_layers
+    forwards = (prefills + decode_steps) * L
+    want = {k: 0 for k in launches}
+    want.update(paged_decode_attention=decode_steps * L,
+                fused_topk_route=forwards)
+    for k in EP_KERNELS:
+        want[k] = forwards + t2e_prefills * L if ep else 0
+    return want
 
 
 def live_rows_mismatch(eng):
@@ -1541,12 +1613,8 @@ def gps_phase(model, cfg, seed: int) -> None:
         if len(toks) != r.max_new_tokens or (toks < 0).any() \
                 or (toks >= cfg.vocab_size).any():
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
-    forwards = (prefills + eng.decode_steps) * cfg.num_layers
-    want = {k: 0 for k in launches}
-    want.update(paged_decode_attention=eng.decode_steps * cfg.num_layers,
-                fused_topk_route=forwards)
-    for k in EP_KERNELS:
-        want[k] = forwards
+    want = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                             ep=True)
     if launches != want:
         failures.append(f"kernel launches {launches} != {want}")
     if len(decisions) != closed[0]:
@@ -1590,6 +1658,367 @@ def gps_phase(model, cfg, seed: int) -> None:
     restart_check(eng, cfg, seed)
     del eng
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase t2e: Token-to-Expert prediction on the main path
+# ---------------------------------------------------------------------------
+
+# the predictors' training trace: the routing of a predictable synthetic
+# corpus over Mixtral's vocabulary, experts and (cut) layers
+T2E_FIT_TRACE = dict(num_sequences=256, seq_len=64, skew=1.8,
+                     predictability=0.9)
+T2E_PROMPT = 512                   # the main path's prefill bucket
+T2E_LOGIT_TOL = 1e-3               # card against CPU, fp32 logits
+T2E_NEAR_TIE = 1e-4                # top-2 margin of a label allowed to flip
+T2E_CTL_TRACE = dict(horizon=45.0, rate=1.5)
+
+
+def _predict_ms(m, prompt, runs: int):
+    """Medians over ``runs`` calls of ``m.predict(prompt)`` (labels back on
+    the host): host wall ms and CUDA-event ms."""
+    m.predict(prompt)
+    host, events = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        m.predict(prompt)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return float(np.median(host)), float(np.median(events))
+
+
+def _card_vs_cpu(m, tokens: np.ndarray):
+    """A neural predictor's logits on the card against the same weights on
+    the CPU. Returns (max |difference|, labels differing, of them near
+    ties of the CPU logits)."""
+    from repro_torch.optim.adamw import tree_map
+
+    vocab = m.params["embed"].shape[0]
+    cpu = type(m)(m.num_layers, m.num_experts, vocab, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), m.params)
+    with torch.inference_mode():
+        a = m.apply(m.params, torch.as_tensor(tokens, device="cuda")).cpu()
+        b = cpu.apply(cpu.params, torch.as_tensor(tokens))
+    top2 = b.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < T2E_NEAR_TIE
+    flips = a.argmax(-1) != b.argmax(-1)
+    return (float((a - b).abs().max()), int(flips.sum()),
+            int((flips & near).sum()))
+
+
+def fit_ladder(cfg, seed: int):
+    """Fit the four rungs on the synthetic routing trace (80/20 split; the
+    neural ones on the card at the JAX defaults), print each one's
+    held-out accuracy, FLOPs per token, fit time and per-prompt predict
+    time, and hold the FFN and LSTM forwards on the card against the CPU.
+    Returns {rung: predictor}."""
+    from repro_torch.core.predictors import (ConditionalProbabilityModel,
+                                             FFNPredictor, LSTMPredictor,
+                                             ProbabilityModel, accuracy)
+    from repro_torch.data.synthetic import make_routing_trace
+
+    L, E, V = cfg.num_layers, cfg.moe.num_experts, cfg.vocab_size
+    tr = make_routing_trace(vocab=V, num_experts=E, num_layers=L, seed=seed,
+                            **T2E_FIT_TRACE)
+    n = int(tr.tokens.shape[0] * 0.8)
+    tok_tr, ex_tr = tr.tokens[:n], tr.experts[:, :n]
+    tok_te, ex_te = tr.tokens[n:], tr.experts[:, n:]
+    prompt = np.random.default_rng(seed).integers(
+        0, V, (1, T2E_PROMPT)).astype(np.int32)
+    makers = {"probability": lambda: ProbabilityModel(L, E),
+              "conditional": lambda: ConditionalProbabilityModel(L, E, V),
+              "ffn": lambda: FFNPredictor(L, E, V, seed=seed, device="cuda"),
+              "lstm": lambda: LSTMPredictor(L, E, V, seed=seed,
+                                            device="cuda")}
+    rungs, failures = {}, []
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        m = make().fit(ex_tr, tok_tr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        acc = accuracy(m.predict(tok_te), ex_te)
+        host, event = _predict_ms(m, prompt, 10 if name == "lstm" else 25)
+        MEASURED[f"t2e/{name}"] = dict(accuracy=acc, host_ms=host,
+                                       event_ms=event)
+        extra = {}
+        if name in ("ffn", "lstm"):
+            checks = [_card_vs_cpu(m, t) for t in (tok_te, prompt)]
+            err = max(c[0] for c in checks)
+            flips = sum(c[1] for c in checks)
+            near = sum(c[2] for c in checks)
+            extra = dict(card_vs_cpu_max_abs_err=f"{err:.3g}",
+                         label_flips=flips, of_them_near_ties=near,
+                         tolerance=f"logits {T2E_LOGIT_TOL}, labels equal "
+                                   f"outside top-2 margins < {T2E_NEAR_TIE}")
+            if err > T2E_LOGIT_TOL or flips > near:
+                failures.append(f"{name} on the card differs from the CPU "
+                                f"(max {err:.3g}, {flips - near} label flips "
+                                "outside near ties)")
+        log("t2e", rung=name, heldout_accuracy=f"{acc:.4f}",
+            flops_per_token=m.flops_per_token(L), fit_s=f"{fit_s:.3f}",
+            predict_prompt=f"1x{T2E_PROMPT}",
+            predict_host_ms_p50=f"{host:.4f}",
+            predict_event_ms_p50=f"{event:.4f}", **extra)
+        rungs[name] = m
+    if not MEASURED["t2e/conditional"]["accuracy"] > \
+            MEASURED["t2e/probability"]["accuracy"]:
+        failures.append("the conditional model does not beat the global "
+                        "frequency model")
+    if failures:
+        raise SystemExit("t2e predictors failed: " + "; ".join(failures))
+    log("t2e", trace="make_routing_trace(" + ", ".join(
+        f"{k}={v}" for k, v in T2E_FIT_TRACE.items())
+        + f", vocab={V}, num_experts={E}, num_layers={L}, seed={seed})",
+        split="80/20", train_sequences=n, heldout_sequences=len(tok_te))
+    return rungs
+
+
+class _RoundCounter:
+    """Counts, on the card (read once at the end), the (token, k) pairs of
+    Token-to-Expert EP prefills and those mispredicted (sent to the
+    correction round), and keeps a copy of the last correction round's
+    ``moe_gemm`` inputs. Installed around ``moe.dispatch``'s
+    ``ep_moe_ffn`` and ``grouped_ffn``; ``reset()`` zeroes the counts."""
+
+    def __init__(self):
+        from repro_torch.moe import dispatch
+
+        self.mod = dispatch
+        self.real = (dispatch.ep_moe_ffn, dispatch.grouped_ffn)
+        self.ffn_calls = None          # grouped_ffn calls of a predicted layer
+        self.sums = torch.zeros(2, dtype=torch.int64, device="cuda")
+        self.captured = None
+
+    def reset(self):
+        self.sums.zero_()
+
+    def __enter__(self):
+        real_ep, real_ffn = self.real
+
+        def counting_ep(x, router_out, *a, predicted_idx=None, **kw):
+            if predicted_idx is None:
+                return real_ep(x, router_out, *a, **kw)
+            R = x.shape[0]
+            self.sums[0] += predicted_idx.numel()
+            self.sums[1] += (predicted_idx.reshape(R, -1).to(torch.int64)
+                             != router_out.expert_idx.reshape(R, -1)
+                             .to(torch.int64)).sum()
+            self.ffn_calls = 0
+            try:
+                return real_ep(x, router_out, *a, predicted_idx=predicted_idx,
+                               **kw)
+            finally:
+                self.ffn_calls = None
+
+        def capturing_ffn(experts, x, slot_rows, activation,
+                          row_counts=None):
+            if self.ffn_calls is not None:
+                self.ffn_calls += 1
+                if self.ffn_calls == 2:          # the correction round
+                    self.captured = (x.clone(), row_counts.clone(),
+                                     slot_rows.clone(), experts)
+            return real_ffn(experts, x, slot_rows, activation,
+                            row_counts=row_counts)
+        self.mod.ep_moe_ffn = counting_ep
+        self.mod.grouped_ffn = capturing_ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ep_moe_ffn, self.mod.grouped_ffn = self.real
+
+    def numbers(self):
+        pairs, sent = self.sums.tolist()
+        return dict(prefill_pairs=pairs, sent_to_correction=sent,
+                    mispredicted_share=f"{sent / max(pairs, 1):.4f}")
+
+
+def correction_case(captured) -> None:
+    """``moe_gemm`` on a real correction round's rows and counts (12 slots
+    x 4 source ranks x cap2 8 rows) against its plain version: the
+    kernels line's ``prefill_correction`` case."""
+    x, counts, slot_rows, experts = captured
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    row = moe_gemm_case(x, counts, slot_rows, experts, flush)
+    S, T, d = x.shape
+    row["live_rows_per_block"] = ",".join(
+        str(c) for c in counts.flatten().tolist())
+    _log_row("moe_gemm", "bfloat16/prefill_correction",
+             f"S{S}xT{T}xd{d}xF{experts['w_up'].shape[-1]}", row)
+    if not row["ok"]:
+        raise SystemExit("moe_gemm disagrees with its plain version at "
+                         "bfloat16/prefill_correction")
+    if "moe_gemm" in KERNEL_ROWS:
+        k = KERNEL_ROWS["moe_gemm"]
+        k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
+    del flush
+
+
+def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
+    """An ``OnlineGPSController`` that may choose Token-to-Expert, on the
+    JAX default preset (A100-PCIe), drives the EP engine (store defaults,
+    the conditional predictor attached) over the skew-shifting trace;
+    checks completions, launches (two rounds per layer of each prefill
+    under token_to_expert), the engine following every decision, every
+    audit record replayed, and a switch into token_to_expert and one out
+    of it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.gps import recommend_strategy
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   ControllerConfig, OnlineGPSController)
+    from repro_torch.workloads import skew_shift_trace, to_serve_requests
+
+    full = get_config("mixtral-8x7b")
+    ccfg = ControllerConfig(
+        window_iters=8, patience=1,
+        migration_bytes_scale=full.num_layers / cfg.num_layers)
+    ctl = OnlineGPSController(full, ccfg, predictor_available=True)
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**GPS_CCFG),
+                           ep_ranks=EP_RANKS, ep=True, predictor=predictor,
+                           controller=ctl)
+    t2e_prefills, follow_errors = [0], []
+    predict = eng._predict_tokens
+
+    def counted_predict(tokens):
+        out = predict(tokens)
+        t2e_prefills[0] += out is not None
+        return out
+    eng._predict_tokens = counted_predict
+    apply_decision = eng._apply_decision
+
+    def checked_apply(d):
+        apply_decision(d)
+        if (eng.strategy, eng.predict_interval) != (d.strategy,
+                                                    d.predict_interval):
+            follow_errors.append(f"t={d.t:.2f}: engine {eng.strategy}, "
+                                 f"decision {d.strategy}")
+    eng._apply_decision = checked_apply
+    eng.warmup()
+    reqs = to_serve_requests(skew_shift_trace(cfg.vocab_size, seed=seed,
+                                              **T2E_CTL_TRACE))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng.run_trace(reqs, time_scale=GPS_TIME_SCALE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    s = eng.metrics.summary()
+    done = eng.scheduler.completed
+    prefills = len(reqs) + int(s["preemptions"])
+    decisions = ctl.decisions
+    switches = [d for d in decisions if d.switched]
+    log("t2e_gps", hardware=f"'{ccfg.hardware.name}'",
+        min_saving=ccfg.min_saving, window_iters=ccfg.window_iters,
+        requests=len(reqs), completed=len(done), iterations=eng.iterations,
+        prefills=prefills, t2e_prefills=t2e_prefills[0],
+        decode_steps=eng.decode_steps, wall_s=f"{wall:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        decisions=len(decisions), switches=len(switches),
+        switch_log=f"'{' | '.join(ctl.switch_log())}'")
+    log("t2e_gps", window_skews=",".join(f"{d.skew:.4f}" for d in decisions),
+        verdicts=",".join(str(d.recommended) for d in decisions),
+        strategies=",".join(d.strategy for d in decisions),
+        t2e_saving=",".join(f"{r.t2e_saving:.4f}"
+                            for r in ctl.audit.records),
+        dist_only_saving=",".join(f"{r.dist_only_saving:.4f}"
+                                  for r in ctl.audit.records))
+    log("t2e_gps", step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
+        decode_toks_per_s=f"{s.get('decode_toks_per_s', 0.0):.2f}",
+        dropped_pairs=int(s["dropped_tokens"]),
+        measured_imbalance=f"{eng.measured_imbalance():.4f}",
+        commits=int(s["migration_commits"]),
+        predicted_counts=("none" if eng._pred_counts is None else
+                          f"{eng._pred_counts.sum():.1f}"))
+    failures = follow_errors[:3]
+    if len(done) != len(reqs):
+        failures.append(f"{len(done)} of {len(reqs)} requests completed")
+    want = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                             ep=True, t2e_prefills=t2e_prefills[0])
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
+    replay_bad = []
+    for r in ctl.audit.records:
+        v, _ = recommend_strategy(
+            full, ccfg.hardware, skew=r.skew_input, batch=r.batch,
+            seq=r.seq_len, allow_t2e=r.allow_t2e, min_saving=r.min_saving,
+            migration_stall_s=r.migration_stall_s, levers=ccfg.levers,
+            resched_residual=r.resched_residual,
+            resched_extra_frac=r.resched_extra_frac)
+        if (str(v), v.lever) != (r.recommended, r.lever_recommended):
+            replay_bad.append(r.seq)
+    log("t2e_gps", audit_records=len(ctl.audit),
+        replayed_equal=not replay_bad)
+    if replay_bad:
+        failures.append(f"audit records {replay_bad[:4]} replay to another "
+                        "verdict")
+    into = [i for i, d in enumerate(decisions)
+            if d.switched and d.strategy == "token_to_expert"]
+    if not into:
+        failures.append("no switch into token_to_expert")
+    elif not any(d.switched for d in decisions[into[0] + 1:]):
+        failures.append("no switch out of token_to_expert")
+    if t2e_prefills[0] == 0 or eng._pred_counts is None:
+        failures.append("no prefill ran on Token-to-Expert predictions")
+    if failures:
+        raise SystemExit("t2e controller run failed: " + "; ".join(failures))
+    del eng
+    free_engines()
+
+
+def free_engines() -> None:
+    """Free the device memory of engines no longer referenced: the phases'
+    instrumentation closures tie each engine into a reference cycle, which
+    only the cycle collector breaks (an EP engine's store holds 22.5 GB)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("t2e", allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+
+
+def t2e_phase(model, cfg, seed: int) -> None:
+    """Token-to-Expert prediction on the main path's Mixtral weights: fit
+    the ladder, serve the main trace under ``token_to_expert`` with the
+    conditional model and with the LSTM (each prefill layer a predicted
+    and a correction round), hold a real correction round's ``moe_gemm``
+    against its plain version, and replay the skew-shifting trace under a
+    controller that may choose Token-to-Expert."""
+    t0 = time.perf_counter()
+    free_engines()
+    rungs = fit_ladder(cfg, seed)
+    for label, rung in (("t2e_conditional", "conditional"),
+                        ("t2e_lstm", "lstm")):
+        with _RoundCounter() as rc:
+            eng, _ = serve_trace(label, model, cfg, seed, ep=True,
+                                 phase="t2e", predictor=rungs[rung],
+                                 on_start=rc.reset)
+            nums = rc.numbers()
+        acc = eng.accuracy.summary()
+        log("t2e", path=label, **nums, accuracy_windows=int(
+            acc["pred_windows"]), window_hit_rate=(
+            f"{acc['pred_hit_rate']:.4f}" if "pred_hit_rate" in acc
+            else "none closed"))
+        if nums["sent_to_correction"] == 0 or rc.captured is None:
+            raise SystemExit(f"t2e ({label}): no correction round ran")
+        if rung == "conditional":
+            correction_case(rc.captured)
+        del eng, rc
+        free_engines()
+    keys = ("step_p50_ms", "ttft_p50_ms", "decode_toks_per_s",
+            "dropped_pairs", "measured_imbalance", "modelled_imbalance")
+    for label in ("ep", "t2e_conditional", "t2e_lstm"):
+        nums = MEASURED.get(f"serve/{label}")
+        strategy = "dist_only" if label == "ep" else "token_to_expert"
+        log("t2e_compare", path=label, strategy=strategy, **(
+            {k: (f"{nums[k]:.4f}" if isinstance(nums[k], float) else nums[k])
+             for k in keys} if nums else {"numbers": "not measured (phase "
+                                                     "main not run)"}))
+    t2e_controller_run(model, cfg, seed, rungs["conditional"])
+    log("t2e", phase_s=f"{time.perf_counter() - t0:.3f}")
 
 
 def _events_by_stream(prof, start_us: float = float("-inf")):
@@ -1962,7 +2391,8 @@ def griffin_reference_phase(seed: int):
 
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru")
-PHASES = KERNEL_PHASES + ("floor", "main", "gps", "griffin", "reference")
+PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "griffin",
+                          "reference")
 
 
 def main() -> int:
@@ -2026,12 +2456,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {}
-    if "main" in phases or "gps" in phases:
-        model, cfg = build_mixtral(args.seed)     # one set of weights for both
+    if {"main", "gps", "t2e"} & set(phases):
+        model, cfg = build_mixtral(args.seed)     # one set of weights for all
         if "main" in phases:
             launches.update(main_path_phase(model, cfg, args.seed))
         if "gps" in phases:
             gps_phase(model, cfg, args.seed)
+        if "t2e" in phases:
+            t2e_phase(model, cfg, args.seed)
         del model
         torch.cuda.empty_cache()
     if "griffin" in phases:

@@ -15,6 +15,11 @@ bf16 (the reference casts each to bf16 at every use, so the values the
 model computes with are unchanged); the router weight, ``lam`` and the
 norm scales stay fp32. A round trip therefore returns the bf16-rounded
 weights the reference computes with, and is exact from then on.
+
+``predictor_params_from_jax`` / ``predictor_params_to_jax`` carry the
+Token-to-Expert predictors' parameter trees (``FFNPredictor.params``,
+``LSTMPredictor.params``: nested dicts, every leaf fp32) across unchanged,
+so both packages predict from one set of weights.
 """
 
 from __future__ import annotations
@@ -130,3 +135,21 @@ def params_to_jax(model: Transformer) -> Dict[str, Any]:
         _put(tree, ("layers",) + path,
              np.stack([np32(getattr(layer, name)) for layer in model.layers]))
     return tree
+
+
+def predictor_params_from_jax(tree: Dict[str, Any], device="cuda"
+                              ) -> Dict[str, Any]:
+    """A JAX predictor's parameter tree (numpy or jax leaves) -> the same
+    tree of fp32 tensors on ``device`` (assign it to ``.params``)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: predictor_params_from_jax(v, dev) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32), device=dev)
+
+
+def predictor_params_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's predictor parameter tree -> the same tree of fp32 numpy
+    arrays (assign ``jax.tree.map(jnp.asarray, ...)`` to ``.params``)."""
+    if isinstance(tree, dict):
+        return {k: predictor_params_to_jax(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32).numpy()

@@ -7,6 +7,9 @@ without its mesh flags).
 
 Weights are random, drawn from ``--seed``; prompts are Zipf-distributed
 tokens from the same seed (numpy, so the JAX launcher gets the same ones).
+``--strategy token_to_expert`` fits a ``ConditionalProbabilityModel`` on a
+synthetic routing trace (64 sequences of ``--seq`` tokens, skew 1.5, from
+``--seed``), as the JAX launcher does, and hands it to the engine.
 ``main(argv)`` returns 0 when every request completes.
 """
 
@@ -18,7 +21,8 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.data.synthetic import token_batches
+from repro_torch.core.predictors import ConditionalProbabilityModel
+from repro_torch.data.synthetic import make_routing_trace, token_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_model
 from repro_torch.serve import BatchScheduler, Request, ServeConfig, ServeEngine
@@ -51,6 +55,16 @@ def main(argv=None) -> int:
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                        device=dev)
 
+    predictor = None
+    if args.strategy == "token_to_expert" and cfg.is_moe:
+        trace = make_routing_trace(
+            num_sequences=64, seq_len=args.seq, vocab=cfg.vocab_size,
+            num_experts=cfg.moe.num_experts, num_layers=cfg.num_layers,
+            skew=1.5, seed=args.seed)
+        predictor = ConditionalProbabilityModel(
+            cfg.num_layers, cfg.moe.num_experts, cfg.vocab_size
+        ).fit(trace.experts, trace.tokens)
+
     tracer = None
     if args.trace_out:
         from repro_torch.obs import SpanTracer
@@ -59,7 +73,7 @@ def main(argv=None) -> int:
                          ServeConfig(strategy=args.strategy,
                                      dup_slots=args.dup_slots,
                                      max_len=args.seq + args.new_tokens),
-                         tracer=tracer)
+                         predictor=predictor, tracer=tracer)
 
     sched = BatchScheduler(args.batch, args.seq)
     gen = token_batches(args.seed, cfg.vocab_size, 1, args.seq)

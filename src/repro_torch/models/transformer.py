@@ -276,7 +276,7 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
 
 def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                plan_l: Optional[DevicePlan], decode: bool, token_weight=None,
-               experts_l=None, fill_event=None):
+               experts_l=None, fill_event=None, predicted_l=None):
     """MoE FFN of one layer (the JAX package's ``_moe_apply``). x: (B, S, d).
     Returns (y, expert_counts (E,), slot_counts, aux, z, dropped);
     slot_counts and dropped are None on the dense path, which has no slots
@@ -287,7 +287,9 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
 
     ``token_weight`` (B, S) weights each token in the expert histogram, so
     padding and idle slots (weight 0) still flow through the FFN but do not
-    skew the estimator's input."""
+    skew the estimator's input. ``predicted_l``: None, or (B, S, K)
+    Token-to-Expert predictions; the EP dispatch takes them (split over
+    the ranks as ``x`` is), the dense path ignores them."""
     moe = cfg.moe
     B, S, d = x.shape
     if not rt.ep:
@@ -314,8 +316,10 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
         # token, routed once, and serves the pairs bound for its slots
         t = x.reshape(B * S, d)
         router_out = route(layer.router, moe, t)
+        pred = (None if predicted_l is None
+                else predicted_l.reshape(B * S, moe.top_k))
         y, stats = ep_dispatch.ep_moe_ffn_replicated(
-            t, router_out, experts, plan_l, moe, **kw)
+            t, router_out, experts, plan_l, moe, predicted_idx=pred, **kw)
         y = y.reshape(B, S, d)
         w = None if token_weight is None else token_weight.reshape(B * S)
     else:
@@ -330,8 +334,9 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                     .reshape(R, B * (S // R), *a.shape[2:])
         t = split(x)
         router_out = route(layer.router, moe, t)
+        pred = None if predicted_l is None else split(predicted_l)
         y, stats = ep_dispatch.ep_moe_ffn(t, router_out, experts, plan_l,
-                                          moe, **kw)
+                                          moe, predicted_idx=pred, **kw)
         y = y.reshape(R, B, S // R, d).transpose(0, 1).reshape(B, S, d)
         w = None if token_weight is None else split(token_weight)
     counts = stats.expert_counts
@@ -346,7 +351,7 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
 def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 rt: Runtime, *, cache, cache_len=None, mode="prefill",
                 block_tables=None, token_weight=None, plan_l=None,
-                experts_l=None, fill_event=None):
+                experts_l=None, fill_event=None, predicted_l=None):
     """GQA attention + MoE FFN for one layer. ``cache``: this layer's
     {"k", "v"} (linear cache in prefill, block pool in decode), updated in
     place. Returns (x, (expert_counts (E,), slot_counts, aux, z,
@@ -372,7 +377,7 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     x = x + a
     h = rmsnorm(layer.ln2, x)
     y, *stats = _moe_apply(layer, cfg, h, rt, plan_l, mode == "decode",
-                           token_weight, experts_l, fill_event)
+                           token_weight, experts_l, fill_event, predicted_l)
     return x + y, tuple(stats)
 
 
@@ -420,7 +425,8 @@ def _migration_view(l: int, plan: Optional[DevicePlan],
 
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
-            last_pos=None, token_weight=None, plan=None, store=None):
+            last_pos=None, token_weight=None, plan=None, store=None,
+            predicted_idx=None):
     """Returns (logits, cache, stats).
 
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
@@ -438,6 +444,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     identity plan. ``store``: a ``StoreView`` of the replica store, whose
     rows ``plan`` (then a ``DevicePlan`` made with the store's
     ``slot_rows``) indexes; None reads the home experts.
+    ``predicted_idx``: None, or (L, B, S, K) Token-to-Expert predicted
+    experts, which the EP prefill dispatches on (a correction round takes
+    the mispredicted pairs); the dense path ignores them and the EP decode
+    path raises on them.
     stats: {"expert_counts": (L, E) fp32, "aux_loss",
     "z_loss"}, and under EP also "slot_counts": (L, R * n_slots) kept pairs
     per global slot and "dropped": (L,) pairs dropped at capacity.
@@ -473,7 +483,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         x, (c, sc, a_l, z_l, dr) = _attn_layer(
             layer, cfg, x, positions, rt, cache=cache_l, cache_len=cache_len,
             mode=mode, block_tables=block_tables, token_weight=token_weight,
-            plan_l=plan_l, experts_l=experts_l, fill_event=event)
+            plan_l=plan_l, experts_l=experts_l, fill_event=event,
+            predicted_l=None if predicted_idx is None else predicted_idx[l])
         counts.append(c)
         slots.append(sc)
         dropped.append(dr)

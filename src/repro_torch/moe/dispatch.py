@@ -31,8 +31,17 @@ dimension, ``pmean`` a mean and ``rank_index`` an ``arange(R)``. A backend
 over ``torch.distributed`` would implement the same four methods with one
 rank per process.
 
-Not ported here: the Token-to-Expert predicted mode (``predicted_idx``)
-and the reschedule quota (``resched_quota``); both raise.
+Token-to-Expert predicted mode (``ep_moe_ffn(predicted_idx=...)``, a
+prefill feature): a first round dispatches every (token, k) pair to its
+PREDICTED expert at capacity ``cap``; a correction round re-dispatches the
+mispredicted pairs to their true experts at ``cap2 = max(8, int(cap *
+correction_cap_frac))``, with the replica choice's salt shifted by one.
+Each pair keeps the output of the round that computed its true expert.
+The drop count is the two rounds' sum, as in the JAX package (it counts a
+mispredicted pair dropped in round 1 although round 2 serves it).
+
+Not ported here: the reschedule quota (``resched_quota``, the token
+rescheduling lever), which raises.
 """
 
 from __future__ import annotations
@@ -48,8 +57,8 @@ from repro_torch.core.placement import DevicePlan, plan_dims
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.moe.router import RouterOutput
 
-_SLICE3 = ("is not ported yet: it belongs to the Token-to-Expert / "
-           "reschedule slice (ROADMAP.md slice 3)")
+_RESCHED = ("is not ported yet: it belongs to the token rescheduling "
+             "slice (ROADMAP.md §1 item 5)")
 
 
 class MoEStats(NamedTuple):
@@ -248,19 +257,18 @@ def _expert_counts(expert_idx, num_experts: int):
 
 def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
                moe: MoEConfig, *, ep_ranks: int, activation: str = "swiglu",
-               predicted_idx=None, resched_quota=None,
-               comm: Optional[StackedRanks] = None):
+               predicted_idx=None, correction_cap_frac: float = 0.25,
+               resched_quota=None, comm: Optional[StackedRanks] = None):
     """Placement-aware EP MoE FFN over sharded tokens (see the module
     docstring). x: (R, T, d), rank r's T local tokens in row r;
     ``router_out``: the fused router's output on them, with leading R
     (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, the (E, ...)
     home experts or the store's rows (``plan.slot_rows`` indexes them);
-    ``plan``: one layer's ``DevicePlan``. Returns (y (R, T, d),
-    MoEStats) with global statistics."""
-    if predicted_idx is not None:
-        raise NotImplementedError("predicted_idx " + _SLICE3)
+    ``plan``: one layer's ``DevicePlan``; ``predicted_idx``: None, or (R,
+    T, K) Token-to-Expert predictions, which add the correction round.
+    Returns (y (R, T, d), MoEStats) with global statistics."""
     if resched_quota is not None:
-        raise NotImplementedError("resched_quota " + _SLICE3)
+        raise NotImplementedError("resched_quota " + _RESCHED)
     comm = comm or StackedRanks(ep_ranks)
     R, T, d = x.shape
     if R != ep_ranks:
@@ -271,15 +279,32 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     S = ep_ranks * n_slots
     cap = capacity(T, K, S, moe.capacity_factor)
     se = _slot_map(plan, E, dup_slots, S, x.device)
+    kw = dict(num_slots=n_slots, experts=experts, slot_rows=se,
+              activation=activation, comm=comm)
 
     true_idx = router_out.expert_idx                             # (R, T, K)
     gates = router_out.gates.to(x.dtype)
-    gslot = choose_replica(plan, true_idx.reshape(R, T * K),
-                           _salt(T, K, x.device))
-    valid = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
-    y_flat, slot_counts, dropped, _ = _dispatch_round(
-        x, gslot, valid, num_slots=n_slots, cap=cap, experts=experts,
-        slot_rows=se, activation=activation, comm=comm)
+    true_flat = true_idx.reshape(R, T * K)
+    salt = _salt(T, K, x.device)
+    all_pairs = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
+    if predicted_idx is None:
+        y_flat, slot_counts, dropped, _ = _dispatch_round(
+            x, choose_replica(plan, true_flat, salt), all_pairs, cap=cap,
+            **kw)
+    else:
+        # round 1 on the predictions, round 2 corrects the mispredicted
+        # pairs on their true experts at a fraction of the capacity
+        pred = predicted_idx.reshape(R, T * K).to(true_flat.dtype)
+        y1, slot_counts, dropped1, _ = _dispatch_round(
+            x, choose_replica(plan, pred, salt), all_pairs, cap=cap, **kw)
+        correct = pred == true_flat
+        cap2 = max(8, int(cap * correction_cap_frac))
+        y2, slot_counts2, dropped2, _ = _dispatch_round(
+            x, choose_replica(plan, true_flat, salt + 1), ~correct,
+            cap=cap2, **kw)
+        y_flat = torch.where(correct[..., None], y1, y2)
+        slot_counts = slot_counts + slot_counts2
+        dropped = dropped1 + dropped2
     y = (y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2)
     stats = MoEStats(
         expert_counts=comm.psum(_expert_counts(true_idx, E)),
@@ -327,11 +352,13 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
     """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
     once (``router_out`` unbatched). Each rank computes the (token, k)
     pairs assigned to its slots (``pack_replicated``) and a psum combines
-    the results. Returns (y (T, d), MoEStats)."""
+    the results. Returns (y (T, d), MoEStats). Token-to-Expert
+    predictions are a prefill feature: ``predicted_idx`` raises, as in the
+    JAX package."""
     if predicted_idx is not None:
-        raise NotImplementedError("predicted_idx " + _SLICE3)
+        raise NotImplementedError("predicted pre-routing is a prefill feature")
     if resched_quota is not None:
-        raise NotImplementedError("resched_quota " + _SLICE3)
+        raise NotImplementedError("resched_quota " + _RESCHED)
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape
     R = ep_ranks

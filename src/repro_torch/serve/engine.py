@@ -1,4 +1,4 @@
-"""Serving engines with the paper's Distribution-Only predict -> plan loop.
+"""Serving engines with the paper's predict -> plan -> dispatch loop.
 
 ``ServeEngine`` (the port of the JAX package's ``ServeEngine`` as it runs
 without a mesh) serves one padded batch at a time: a batched prefill, then
@@ -6,7 +6,10 @@ greedy decode at one position for the whole batch over the prefill's
 cache. It serves every family the port has, and is the only engine for
 hybrid (Griffin) models. MoE models take the single-device dense path;
 the estimator, the accuracy window and Algorithm 1 re-plan on the
-interval, and a new plan replaces the old one at once. With a tracer on,
+interval, and a new plan replaces the old one at once. Under
+``token_to_expert`` with a ``predictor`` it predicts each batch's experts
+(``_predict_tokens``) and hands them to the prefill, whose dense path
+ignores them, as the JAX engine's mesh-less path does. With a tracer on,
 its ``prefill`` and ``decode`` spans end after the device has finished
 the step (one ``torch.cuda.synchronize`` each), so they read as step
 times; with the null tracer nothing synchronises.
@@ -59,11 +62,19 @@ the engine then adopts the verdict's strategy through ``replan()`` (a
 switch to "none" adopts the identity plan and cancels an in-flight fill)
 and its ``predict_interval``.
 
-Not ported yet (see ROADMAP.md): the Token-to-Expert predictors (and the
-Token-to-Expert half of the prefetcher's predicted distribution; a
-controller that may choose Token-to-Expert is refused), the reschedule
-lever (a controller offered it is refused), ``profile_phases`` and
-``assert_no_recompiles``.
+Token-to-Expert (``strategy="token_to_expert"`` with a ``predictor``, one
+of ``core.predictors``' ladder): every admitted prompt is predicted (the
+top-1 expert broadcast over k) before its prefill, which under ``ep``
+dispatches on the predictions and corrects the mispredicted pairs in a
+second round (``moe.dispatch.ep_moe_ffn``). The predicted histograms, an
+EMA at ``ccfg.ema``, are the predicted next-window distribution the
+prefetcher plans toward and the accuracy window scores; the boundary
+re-plan still plans from the estimator, as the JAX engine does. Without a
+predictor the strategy runs as ``dist_only`` does. A controller with
+``predictor_available=True`` may switch the engine in and out of it.
+
+Not ported yet (see ROADMAP.md): the reschedule lever (a controller
+offered it is refused), ``profile_phases`` and ``assert_no_recompiles``.
 """
 
 from __future__ import annotations
@@ -101,7 +112,15 @@ from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
 from repro_torch.train.steps import (make_decode_step, make_paged_decode_step,
                                      make_prefill_step, make_slot_prefill_step)
 
-STRATEGIES = ("none", "dist_only")
+STRATEGIES = ("none", "dist_only", "token_to_expert")
+
+
+def _top1_over_k(pred, top_k: int, device) -> torch.Tensor:
+    """(L, B, S) predicted expert labels -> (L, B, S, K) int32 on
+    ``device``: the top-1 prediction broadcast over k (the paper's
+    Token-to-Expert predictors predict the top-1 expert)."""
+    return torch.tensor(np.asarray(pred), device=device)[..., None] \
+        .repeat_interleave(top_k, dim=-1)
 
 
 def _model_experts(model: Transformer) -> dict:
@@ -145,10 +164,10 @@ def _chunk_stall_split(moved_bytes: float, window_s: float, hw,
 @dataclass
 class ServeConfig:
     """Knobs of ``ServeEngine``: the fields of the JAX package's
-    ``ServeConfig`` that its mesh-less path reads. ``token_to_expert``, a
-    mesh, the replica store, overlapped migration, in-graph re-planning and
-    the reschedule lever are not ported (ROADMAP.md)."""
-    strategy: str = "dist_only"       # none | dist_only
+    ``ServeConfig`` that its mesh-less path reads. A mesh, the replica
+    store, overlapped migration, in-graph re-planning and the reschedule
+    lever are not ported (ROADMAP.md)."""
+    strategy: str = "dist_only"       # none | dist_only | token_to_expert
     predict_interval: int = 1         # batches between re-plans (paper Sec 3.1)
     dup_slots: int = 1                # replica slots per EP rank
     max_copies: int = 4               # Algorithm 1 C_max
@@ -157,8 +176,8 @@ class ServeConfig:
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
-            raise ValueError(f"strategy {self.strategy!r}: the port serves "
-                             f"{STRATEGIES} so far")
+            raise ValueError(f"strategy {self.strategy!r}: one of "
+                             f"{STRATEGIES}")
 
 
 class ServeEngine:
@@ -166,9 +185,11 @@ class ServeEngine:
     the device the model's parameters live on."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
-                 serve: ServeConfig, *, ep_ranks: int = 1, tracer=None):
+                 serve: ServeConfig, *, ep_ranks: int = 1, predictor=None,
+                 tracer=None):
         self.serve = serve
         self.ep_ranks = ep_ranks
+        self.predictor = predictor            # Token-to-Expert model (optional)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.batches_seen = 0
         self._plan_stack: Optional[PlacementPlan] = None
@@ -220,6 +241,19 @@ class ServeEngine:
                             args={"batch": self.batches_seen})
         return self._plan_stack
 
+    # --------------------------------------------------------------- predict
+    def _predict_tokens(self, tokens) -> Optional[torch.Tensor]:
+        """Token-to-Expert pre-routing: (B, S) tokens -> (L, B, S, K) int32
+        predicted experts on the engine's device (the top-1 prediction
+        broadcast over k), or None unless that strategy runs with a
+        predictor."""
+        if self.serve.strategy != "token_to_expert" or self.predictor is None:
+            return None
+        if torch.is_tensor(tokens):
+            tokens = tokens.cpu().numpy()
+        return _top1_over_k(self.predictor.predict(np.asarray(tokens)),
+                            self.moe_cfg.top_k, self.device)
+
     # ----------------------------------------------------------------- steps
     def _sync(self):
         if self.tracer.enabled and self.device.type == "cuda":
@@ -230,12 +264,14 @@ class ServeEngine:
         ``cache`` (a fresh one of ``max_len`` when None). Returns (logits
         (B, 1, V), cache, stats)."""
         t0 = time.perf_counter()
+        pred = self._predict_tokens(batch["tokens"])
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         if cache is None:
             cache = init_cache(self.cfg, self.rt, B, self.serve.max_len,
                                device=self.device)
-        logits, cache, stats = self._prefill(self.model, tokens, cache)
+        logits, cache, stats = self._prefill(self.model, tokens, cache,
+                                             predicted_idx=pred)
         self._observe(stats)
         self._sync()
         dt = time.perf_counter() - t0
@@ -319,7 +355,7 @@ class ContinuousConfig:
     num_blocks: int = 0               # 0 = fully provision every slot
     max_len: int = 128                # per-request prompt+generation budget
     max_prefills_per_step: int = 2    # admission rate limit per iteration
-    strategy: str = "dist_only"       # none | dist_only
+    strategy: str = "dist_only"       # initial; the controller may switch it
     predict_interval: int = 4         # iterations between re-plans
     dup_slots: int = 1                # replica slots per EP rank
     max_copies: int = 4               # Algorithm 1 C_max
@@ -348,8 +384,8 @@ class ContinuousConfig:
         if self.prefill_len % self.block_size:
             raise ValueError("prefill_len must be a block_size multiple")
         if self.strategy not in STRATEGIES:
-            raise ValueError(f"strategy {self.strategy!r}: the port serves "
-                             f"{STRATEGIES} so far")
+            raise ValueError(f"strategy {self.strategy!r}: one of "
+                             f"{STRATEGIES}")
         if self.num_blocks == 0:
             per_slot = -(-self.max_len // self.block_size)
             self.num_blocks = 1 + self.max_slots * per_slot   # +1: null block
@@ -372,8 +408,9 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  ccfg: ContinuousConfig, *, ep_ranks: int = 1,
-                 ep: bool = False, controller=None, tracer=None,
-                 metrics: Optional[ServeMetrics] = None, name: str = ""):
+                 ep: bool = False, predictor=None, controller=None,
+                 tracer=None, metrics: Optional[ServeMetrics] = None,
+                 name: str = ""):
         if not cfg.is_moe or cfg.attention != "gqa":
             raise ValueError("the port's engine serves GQA MoE models so far")
         if cfg.sliding_window and ccfg.prefill_len > cfg.sliding_window:
@@ -386,11 +423,6 @@ class ContinuousEngine:
         if ep and ccfg.prefill_len % ep_ranks:
             raise ValueError(f"prefill_len {ccfg.prefill_len} does not split "
                              f"over {ep_ranks} EP ranks")
-        if controller is not None and controller.predictor_available:
-            raise ValueError(
-                "the controller may choose token_to_expert, which the port "
-                "cannot run yet (ROADMAP.md §1 item 4, Token-to-Expert "
-                "prediction): pass predictor_available=False")
         if controller is not None and \
                 tuple(controller.cfg.levers) != ("duplicate",):
             raise ValueError(
@@ -401,6 +433,7 @@ class ContinuousEngine:
         self.ep_ranks = ep_ranks
         self.ep = ep
         self.controller = controller
+        self.predictor = predictor       # Token-to-Expert model (optional)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.name = name
         self.strategy = ccfg.strategy
@@ -468,6 +501,7 @@ class ContinuousEngine:
         self._step_migration_bytes = 0.0
         self._step_migration_hidden_bytes = 0.0
         self._prebegun_plan = None       # predictive pre-migration target
+        self._pred_counts = None         # t2e predicted expert histogram EMA
         self._entry_bytes = mig_cost.entry_bytes(_model_experts(model))
         m = self.moe_cfg
         if ep and m.duplication_slots > 0 and m.replica_impl == "store":
@@ -722,10 +756,46 @@ class ContinuousEngine:
             self._prebegun_plan = None
             self.metrics.record_migration(committed=True)
 
+    # --------------------------------------------------------------- predict
+    def _shape_predictions(self, tokens: np.ndarray):
+        """(1, S) prompt -> ((L, 1, S) predicted labels, (L, 1, S, K)
+        predicted experts on the device)."""
+        pred = self.predictor.predict(np.asarray(tokens))
+        return pred, _top1_over_k(pred, self.moe_cfg.top_k, self.device)
+
+    def _predict_tokens(self, tokens: np.ndarray) -> Optional[torch.Tensor]:
+        """The prompt's predicted experts under Token-to-Expert (noted in
+        the predicted histogram), else None."""
+        if self.strategy != "token_to_expert" or self.predictor is None:
+            return None
+        pred, out = self._shape_predictions(tokens)
+        self._note_predicted(pred)
+        return out
+
+    def _note_predicted(self, pred: np.ndarray) -> None:
+        """Publish the Token-to-Expert predictor's output as a predicted
+        next-window expert histogram (an EMA at ``ccfg.ema``), available
+        before dispatch."""
+        E = self.moe_cfg.num_experts
+        L = self.cfg.num_layers
+        ids = np.clip(np.asarray(pred).reshape(L, -1), 0, E - 1)
+        hist = np.stack([np.bincount(ids[l], minlength=E)
+                         for l in range(L)]).astype(np.float64)
+        if self._pred_counts is None:
+            self._pred_counts = hist
+        else:
+            e = self.ccfg.ema
+            self._pred_counts = e * self._pred_counts + (1 - e) * hist
+
     def _predicted_dist(self) -> np.ndarray:
         """(L, E) next-window hot-expert distribution, published early: the
-        Distribution-Only estimator, whose EMA state is what the boundary
-        re-plan will consume."""
+        Token-to-Expert predictor's aggregated output when that strategy
+        runs, else the Distribution-Only estimator (whose EMA state is what
+        the boundary re-plan will consume)."""
+        if self.strategy == "token_to_expert" and self._pred_counts is not None:
+            tot = np.maximum(self._pred_counts.sum(axis=1, keepdims=True),
+                             1e-9)
+            return self._pred_counts / tot
         return self.estimator.predict()
 
     def _prebegin_migration(self) -> None:
@@ -761,19 +831,25 @@ class ContinuousEngine:
 
     # ---------------------------------------------------------------- warmup
     def warmup(self):
-        """Build the decode kernel (at its first launch) and run one prefill
-        and one decode. Must run before any request is admitted. Every
-        warmup slot is idle, so nothing is written into the pool."""
+        """Build the kernels (at their first launch) and run one prefill
+        (and one on Token-to-Expert predictions when a predictor is
+        attached) and one decode. Must run before any request is admitted.
+        Every warmup slot is idle, so nothing is written into the pool."""
         if self.scheduler.active_slots:
             raise RuntimeError("warmup() before serving")
         ccfg = self.ccfg
         self._current_plan()
         store = self._store_view()
-        self._prefill_fn(
-            self.model, self._dev(np.zeros((1, ccfg.prefill_len), np.int32)),
-            self._temp_cache, self._dev(np.zeros((1,), np.int32)),
-            self._dev(np.zeros((1, ccfg.prefill_len), np.float32)),
-            self._plan_dev, store)
+        toks = np.zeros((1, ccfg.prefill_len), np.int32)
+        preds = [None]
+        if self.predictor is not None:
+            preds.append(self._shape_predictions(toks)[1])
+        for pred in preds:
+            self._prefill_fn(
+                self.model, self._dev(toks), self._temp_cache,
+                self._dev(np.zeros((1,), np.int32)),
+                self._dev(np.zeros((1, ccfg.prefill_len), np.float32)),
+                self._plan_dev, store, predicted_idx=pred)
         tables = np.zeros(
             (ccfg.max_slots, self.scheduler.tables.max_blocks_per_slot),
             np.int32)
@@ -836,10 +912,11 @@ class ContinuousEngine:
                 toks[0, :req.prompt_len] = req.tokens[:S]
                 tw = np.zeros((1, S), np.float32)
                 tw[0, :req.prompt_len] = 1.0
+                pred = self._predict_tokens(toks)
                 next_tok, _, temp, stats = self._prefill_fn(
                     self.model, self._dev(toks), self._temp_cache,
                     self._dev([req.prompt_len - 1]), self._dev(tw),
-                    self._plan_dev, store)
+                    self._plan_dev, store, predicted_idx=pred)
                 write_prefill_blocks(
                     self.pool, temp,
                     sched.tables.tables[slot, :S // ccfg.block_size])
@@ -925,13 +1002,13 @@ class ContinuousEngine:
                       and self.predict_interval > self.ccfg.prefetch_lead
                       and (self.iterations + self.ccfg.prefetch_lead)
                       % self.predict_interval == 0):
-                    # the estimator publishes next-window hot experts
-                    # early: start moving weights toward the predicted plan
-                    # now, under this window's forward compute
+                    # the predictors publish next-window hot experts early:
+                    # start moving weights toward the predicted plan now,
+                    # under this window's forward compute
                     self._prebegin_migration()
                 if boundary:
                     self.accuracy.begin_window(
-                        self.estimator.predict() if self.strategy != "none"
+                        self._predicted_dist() if self.strategy != "none"
                         else None, self.strategy)
             if self.controller is not None:
                 events.decision = self._observe_controller(iter_counts, now)

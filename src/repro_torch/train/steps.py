@@ -8,7 +8,8 @@ stack through to ``forward``, where the EP path dispatches under it; the
 continuous engine's two steps also pass its replica store view
 (``models.transformer.StoreView``: the store's per-layer rows and, while a
 staged migration is in flight, its ready mask, target plan and fill
-events)."""
+events). Both prefill steps take the Token-to-Expert predictions
+(``predicted_idx`` (L, B, S, K)) the EP dispatch pre-routes on."""
 
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ def make_slot_prefill_step(cfg: ModelConfig, rt: Runtime):
     and ``token_weight`` masks padding out of the MoE expert histograms."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, last_pos=None,
-                     token_weight=None, plan=None, store=None):
+                     token_weight=None, plan=None, store=None,
+                     predicted_idx=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="prefill",
                                        cache=cache, last_pos=last_pos,
                                        token_weight=token_weight, plan=plan,
-                                       store=store)
+                                       store=store,
+                                       predicted_idx=predicted_idx)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return prefill_step
@@ -55,9 +58,10 @@ def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     """Batched prefill of (B, S) prompts into ``cache`` (a fresh one when
     None). Returns (logits at the last position, cache, stats)."""
     @torch.inference_mode()
-    def prefill_step(model: Transformer, tokens, cache=None, plan=None):
+    def prefill_step(model: Transformer, tokens, cache=None, plan=None,
+                     predicted_idx=None):
         return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
-                       plan=plan)
+                       plan=plan, predicted_idx=predicted_idx)
     return prefill_step
 
 

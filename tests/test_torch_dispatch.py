@@ -266,14 +266,28 @@ def test_ep_moe_ffn_matches_vmapped_jax_bf16(fn_name):
 
 
 def test_unported_modes_raise():
+    """Token-to-Expert predictions compute in ``ep_moe_ffn`` (predictions
+    equal to the routes leave nothing to correct: the result is the
+    one-round dispatch's, bit for bit) and raise the JAX package's message
+    in ``ep_moe_ffn_replicated``, a prefill feature there; the reschedule
+    quota is not ported and raises in both."""
     moe = MoEConfig(num_experts=E, top_k=K, d_ff_expert=F)
     x, wr, w = _inputs(2, 0)
     plan = to_device(_port_plan(_plan(2, 0, False)), E, 2, 0, "cpu")
     ro = route(torch.tensor(wr), moe, torch.tensor(x))
     wt = {n: torch.tensor(a) for n, a in w.items()}
-    for kw in ({"predicted_idx": ro.expert_idx}, {"resched_quota": 1}):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2, **kw)
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            ep.ep_moe_ffn_replicated(torch.tensor(x[0]), ro, wt, plan, moe,
-                                     ep_ranks=2, **kw)
+    y0, s0 = ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2)
+    y1, s1 = ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2,
+                           predicted_idx=ro.expert_idx)
+    assert torch.equal(y0, y1)
+    for name in ("expert_counts", "slot_counts", "dropped"):
+        assert torch.equal(getattr(s0, name), getattr(s1, name)), name
+    with pytest.raises(NotImplementedError, match="prefill feature"):
+        ep.ep_moe_ffn_replicated(torch.tensor(x[0]), ro, wt, plan, moe,
+                                 ep_ranks=2, predicted_idx=ro.expert_idx)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2,
+                      resched_quota=1)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ep.ep_moe_ffn_replicated(torch.tensor(x[0]), ro, wt, plan, moe,
+                                 ep_ranks=2, resched_quota=1)

@@ -28,8 +28,9 @@ bytes the controller is fed, against ``_chunk_stall_split`` (and the
 store-less engine's against ``_hidden_estimate``); a switch to "none"
 with a fill in flight cancels it and adopts the identity plan for good;
 a re-plan that restarts a fill in flight replaces the fill's target; the
-engine refuses a controller that may choose Token-to-Expert or a lever
-other than duplication; ``_hw()`` is the controller's hardware.
+engine accepts a controller that may choose Token-to-Expert and refuses one
+offered a lever other than duplication; ``_hw()`` is the controller's
+hardware.
 """
 
 import dataclasses
@@ -433,10 +434,12 @@ def test_replan_restarts_a_fill_in_flight():
 
 
 def test_engine_refuses_what_the_port_cannot_run():
-    with pytest.raises(ValueError, match="item 4"):
-        _store_engine(OnlineGPSController(
-            get_config("mixtral-8x7b"), ControllerConfig(),
-            predictor_available=True))
+    # a controller that may choose Token-to-Expert is accepted (the port
+    # runs it); one offered the reschedule lever is still refused
+    ctl = OnlineGPSController(get_config("mixtral-8x7b"), ControllerConfig(),
+                              predictor_available=True)
+    eng = _store_engine(ctl)
+    assert eng.controller is ctl and eng.strategy == "dist_only"
     with pytest.raises(ValueError, match="item 5"):
         _store_engine(OnlineGPSController(
             get_config("mixtral-8x7b"),

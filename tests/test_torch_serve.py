@@ -323,7 +323,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "serve/engine", "serve/scheduler", "runtime/store", "runtime/migrate",
         "runtime/diff", "runtime/cost", "core/balance", "core/gps",
         "core/simulator", "obs/audit", "serve/controller",
-        "workloads/traces")} <= walked
+        "workloads/traces", "optim/adamw", "optim/schedules",
+        "core/predictors")} <= walked
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
