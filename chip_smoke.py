@@ -30,7 +30,8 @@ non-zero:
                 the shapes where their designs change (every case held to
                 the same checks); an empty kernel gives the card's launch
                 floor beside them. (moe_gemm's correction-round case runs
-                in phase t2e, on a real round's rows.)
+                in phase t2e, its rescue-round cases in phase resched, each
+                on a real round's rows.)
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -112,7 +113,28 @@ non-zero:
                 A100-PCIe preset (the JAX default), checking launches, the
                 engine following each decision, every audit record
                 replayed, and a switch into token_to_expert and one out.
-  7. reference — reduced models' logits on the card against the CPU path:
+  7. resched  — (run after t2e, before Griffin) token rescheduling on the
+                same Mixtral weights: the JAX package's lever A/B
+                (``bench_serve_traces.py``: capacity factor 0.5, 10
+                prompts of 40-60 copies of token 7; legs duplicate,
+                reschedule with the greedy scheduler, both with the LP),
+                checking completions, launches and that the rescheduling
+                legs planned quotas, overflowed and paid rescue a2a bytes;
+                the main trace under ``lever="reschedule"`` and ``"both"``
+                (each EP layer of each forward a rescue round: one more
+                moe_gemm and histogram_offsets, and one more
+                histogram_offsets per decode layer for the global
+                positions, counted against the same formula) beside phase
+                4's dist_only run; the busiest kept rescue rounds'
+                moe_gemm inputs held against the plain version (the
+                kernels line's ``prefill_rescue`` and ``decode_rescue``
+                cases); the host milliseconds per quota re-plan, greedy
+                against LP, at 8 and 32 layers; and
+                ``skew_shift_trace(horizon=45)`` under a controller
+                offered all three levers (H100 preset), checking launches,
+                the engine following each decision's strategy and lever,
+                and every audit record replayed.
+  8. reference — reduced models' logits on the card against the CPU path:
                 Mixtral dense and EP, and Griffin with prompts longer than
                 its local window.
 
@@ -356,17 +378,22 @@ def device_ms(fn, flush: torch.Tensor, kernels=PAGED_KERNELS,
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    times = _kernel_time_by_name(prof, runs)
-    ms = sum(t for name, (t, _) in times.items()
-             if any(k in name for k in kernels))
-    if ms <= 0:
-        raise SystemExit(f"the profiler saw none of {kernels}")
-    return ms
+    # a profiler session can come back without the device events of the
+    # kernels it ran: one more session before failing
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = _kernel_time_by_name(prof, runs)
+        ms = sum(t for name, (t, _) in times.items()
+                 if any(k in name for k in kernels))
+        if ms > 0:
+            return ms
+        log("profile", retry="the profiler saw none of "
+            f"{','.join(kernels)}; device events seen: {len(times)}")
+    raise SystemExit(f"the profiler saw none of {kernels}")
 
 
 def after_ms(fn, flush: torch.Tensor, kernels, runs: int = 25) -> float:
@@ -883,23 +910,41 @@ MAIN_CCFG = dict(max_slots=8, prefill_len=512, block_size=16, max_len=1024,
                  dup_slots=DUP_SLOTS)
 
 
+def count_quota_forwards(eng):
+    """Count the engine's prefills and decode steps that run with a
+    reschedule quota (each EP layer of them runs a rescue round). Returns
+    the live {"prefill": n, "decode": n} counts."""
+    counts = {"prefill": 0, "decode": 0}
+    for kind in counts:
+        def counted(*a, _fn=getattr(eng, f"_{kind}_fn"), _kind=kind, **kw):
+            counts[_kind] += kw.get("resched") is not None
+            return _fn(*a, **kw)
+        setattr(eng, f"_{kind}_fn", counted)
+    return counts
+
+
 def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
-                phase: str = "main", predictor=None, on_start=None):
+                phase: str = "main", predictor=None, on_start=None,
+                lever: str = "duplicate", resched_impl: str = "greedy"):
     """Serve the main trace (16 requests of 64..500 prompt tokens, 64 new
     tokens each, 20 ms apart) with every kernel count set to 0 just
     before and read just after, at the engine's defaults (under EP: the
     replica store, overlapped migration, ``prefetch_lead`` 2, the
     migration gate); with a ``predictor``, under ``token_to_expert`` (each
-    EP prefill layer then runs two dispatch rounds). ``on_start``: called
-    just before the trace starts. Returns (engine, launches)."""
+    EP prefill layer then runs two dispatch rounds); under ``lever``
+    "reschedule" or "both", with ``resched_impl``'s quotas (each EP layer
+    then runs a rescue round). ``on_start``: called just before the trace
+    starts. Returns (engine, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ServeRequest)
 
     strategy = "token_to_expert" if predictor is not None else "dist_only"
     eng = ContinuousEngine(cfg, model, ContinuousConfig(
-        **dict(MAIN_CCFG, strategy=strategy)), ep_ranks=EP_RANKS, ep=ep,
+        **dict(MAIN_CCFG, strategy=strategy, lever=lever,
+               resched_impl=resched_impl)), ep_ranks=EP_RANKS, ep=ep,
         predictor=predictor)
+    quota_forwards = count_quota_forwards(eng)
     if eng._store is not None:
         store = eng._store
         home = cfg.num_layers * cfg.moe.num_experts * store.entry_bytes
@@ -925,6 +970,7 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
     torch.cuda.reset_peak_memory_stats()
     if on_start is not None:
         on_start()
+    quota_forwards.update(prefill=0, decode=0)
     ops.reset_launches()
     t0 = time.perf_counter()
     eng.run_trace(reqs)
@@ -940,8 +986,11 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
         "ttft_p50_ms": s["ttft_p50"] * 1e3,
         "decode_toks_per_s": s.get("decode_toks_per_s", 0.0),
         "dropped_pairs": int(s["dropped_tokens"]),
+        "overflow_pairs": int(s["overflow_tokens"]),
+        "overflow_absorbed_frac": s["overflow_absorbed_frac"],
         "measured_imbalance": eng.measured_imbalance() if ep else None,
-        "modelled_imbalance": float(np.mean(imb)) if imb else 1.0}
+        "modelled_imbalance": float(np.mean(imb)) if imb else 1.0,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(phase, path=label, layers=cfg.num_layers, requests=len(reqs),
         completed=len(done), iterations=eng.iterations,
         prefills=prefills, decode_steps=eng.decode_steps,
@@ -984,10 +1033,20 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
     want = expected_launches(launches, cfg, prefills, eng.decode_steps,
                              ep=ep, t2e_prefills=prefills if predictor
-                             is not None and ep else 0)
+                             is not None and ep else 0,
+                             resched_prefills=quota_forwards["prefill"],
+                             resched_decodes=quota_forwards["decode"])
     if launches != want:
         failures.append(f"kernel launches {launches} != {want}")
-    if s["replicated_replans"] < 1:
+    if lever != "duplicate" and ep and (
+            quota_forwards["prefill"] != prefills
+            or quota_forwards["decode"] != eng.decode_steps):
+        failures.append(f"forwards with a quota {quota_forwards} != "
+                        f"{prefills} prefills, {eng.decode_steps} decodes")
+    # "reschedule" freezes the warmup's identity plan: only the
+    # prefetcher's pre-begun fills, if the gate lets one through, move it
+    duplicating = lever != "reschedule"
+    if s["replicated_replans"] < 1 and duplicating:
         failures.append("no re-plan replicated an expert")
     if ep:
         e_loc = cfg.moe.num_experts // EP_RANKS
@@ -995,10 +1054,11 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
         replica_pairs = int(sc[:, :, e_loc:].sum())
         log(phase, path=label, replica_slot_pairs=replica_pairs,
             home_slot_pairs=int(sc[:, :, :e_loc].sum()))
-        if replica_pairs == 0:
+        if replica_pairs == 0 and duplicating:
             failures.append("no replica slot computed a pair")
     if eng._store is not None:
-        if s["migration_commits"] < 1 or s["migration_bytes_moved"] <= 0:
+        if duplicating and (s["migration_commits"] < 1
+                            or s["migration_bytes_moved"] <= 0):
             failures.append("no migration committed with bytes moved")
         bad = live_rows_mismatch(eng)
         log(phase, path=label, live_replica_rows_checked=bad[1],
@@ -1013,18 +1073,25 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
 
 
 def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
-                      ep: bool, t2e_prefills: int = 0):
+                      ep: bool, t2e_prefills: int = 0,
+                      resched_prefills: int = 0, resched_decodes: int = 0):
     """Each kernel's launches for a run of ``prefills`` prefills (of which
     ``t2e_prefills`` dispatch on Token-to-Expert predictions: two rounds,
     so two ``moe_gemm`` and two ``histogram_offsets`` launches per layer)
-    and ``decode_steps`` decode steps of ``cfg.num_layers`` layers."""
+    and ``decode_steps`` decode steps of ``cfg.num_layers`` layers. Of
+    them ``resched_prefills`` and ``resched_decodes`` ran with a reschedule
+    quota: a rescue round per layer (one more ``moe_gemm`` and
+    ``histogram_offsets``), and in decode the global first-come positions
+    (one more ``histogram_offsets``), whether or not a pair overflowed."""
     L = cfg.num_layers
     forwards = (prefills + decode_steps) * L
     want = {k: 0 for k in launches}
     want.update(paged_decode_attention=decode_steps * L,
                 fused_topk_route=forwards)
-    for k in EP_KERNELS:
-        want[k] = forwards + t2e_prefills * L if ep else 0
+    if ep:
+        rescue = (t2e_prefills + resched_prefills + resched_decodes) * L
+        want.update(moe_gemm=forwards + rescue,
+                    histogram_offsets=forwards + rescue + resched_decodes * L)
     return want
 
 
@@ -1199,6 +1266,7 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     strategy, eng.strategy = eng.strategy, "none"
+    in_flight = eng._executor is not None and eng._executor.active
     now = _fill_slots(eng, cfg, seed + 1, 2 * iters + 8, 0.0)
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -1218,7 +1286,7 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     kernels = _kernel_time_by_name(prof, iters)
     busy = sum(ms for ms, _ in kernels.values())
     log("profile", path=label, decode_iterations=iters,
-        slots=eng.ccfg.max_slots,
+        slots=eng.ccfg.max_slots, fill_in_flight_at_start=in_flight,
         dtod_copies_per_step=sum(n for name, (_, n) in kernels.items()
                                  if _is_copy(name)) / iters,
         step_ms=f"{plain_ms:.3f}", profiled_step_ms=f"{wall_ms:.3f}",
@@ -1378,6 +1446,27 @@ GPS_TIME_SCALE = 20.0
 GPS_MIN_SAVING = 0.45
 
 
+def audit_mismatches(ctl):
+    """Sequence numbers of the controller's audit records whose inputs
+    ``recommend_strategy`` replays to another verdict (or lever). The
+    replica weight reads a controller with several levers charges are 0
+    here: the full model's config has no replica slots."""
+    from repro_torch.core.gps import recommend_strategy
+
+    c = ctl.cfg
+    bad = []
+    for r in ctl.audit.records:
+        v, _ = recommend_strategy(
+            ctl.model_cfg, c.hardware, skew=r.skew_input, batch=r.batch,
+            seq=r.seq_len, allow_t2e=r.allow_t2e, min_saving=r.min_saving,
+            migration_stall_s=r.migration_stall_s, levers=c.levers,
+            resched_residual=r.resched_residual,
+            resched_extra_frac=r.resched_extra_frac)
+        if (str(v), v.lever) != (r.recommended, r.lever_recommended):
+            bad.append(r.seq)
+    return bad
+
+
 def restart_check(eng, cfg, seed: int) -> None:
     """A staged fill restarted while in flight, as a re-plan restarts it:
     a fill toward plan A is enqueued until some layer is ready, a decode
@@ -1435,7 +1524,6 @@ def gps_phase(model, cfg, seed: int) -> None:
     rows equal to their experts' home rows; then a fill restarted in
     flight (``restart_check``)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.gps import recommend_strategy
     from repro_torch.core.simulator import A100_PCIE, H100_SXM_NVLINK
     from repro_torch.kernels import ops
     from repro_torch.runtime import migration_stall_s
@@ -1620,16 +1708,7 @@ def gps_phase(model, cfg, seed: int) -> None:
     if len(decisions) != closed[0]:
         failures.append(f"{len(decisions)} decisions for {closed[0]} "
                         "windows closed with counts")
-    replay_bad = []
-    for r in ctl.audit.records:
-        v, _ = recommend_strategy(
-            full, hw, skew=r.skew_input, batch=r.batch, seq=r.seq_len,
-            allow_t2e=r.allow_t2e, min_saving=r.min_saving,
-            migration_stall_s=r.migration_stall_s, levers=ccfg.levers,
-            resched_residual=r.resched_residual,
-            resched_extra_frac=r.resched_extra_frac)
-        if (str(v), v.lever) != (r.recommended, r.lever_recommended):
-            replay_bad.append(r.seq)
+    replay_bad = audit_mismatches(ctl)
     log("gps", audit_records=len(ctl.audit), replayed_equal=not replay_bad)
     if replay_bad:
         failures.append(f"audit records {replay_bad[:4]} replay to another "
@@ -1779,58 +1858,87 @@ def fit_ladder(cfg, seed: int):
     return rungs
 
 
-class _RoundCounter:
-    """Counts, on the card (read once at the end), the (token, k) pairs of
-    Token-to-Expert EP prefills and those mispredicted (sent to the
-    correction round), and keeps a copy of the last correction round's
-    ``moe_gemm`` inputs. Installed around ``moe.dispatch``'s
-    ``ep_moe_ffn`` and ``grouped_ffn``; ``reset()`` zeroes the counts."""
+class _RoundCapture:
+    """Keeps copies of the second round's ``moe_gemm`` inputs (the second
+    ``grouped_ffn`` call) of every EP dispatch given ``key``: with
+    ``"predicted_idx"`` the Token-to-Expert correction round, with
+    ``"resched_quota"`` the rescue round. The last ``RING`` of each kind
+    are kept (prefill: ``ep_moe_ffn``, decode: ``ep_moe_ffn_replicated``)
+    without reading anything back during the run. With predictions it
+    also counts, on the card (read once at the end), the (token, k) pairs
+    of the predicted prefills and those mispredicted (sent to the
+    correction round). Installed around ``moe.dispatch``'s two EP
+    functions and ``grouped_ffn``; ``reset()`` zeroes the counts."""
 
-    def __init__(self):
+    RING = 32
+
+    def __init__(self, key: str):
         from repro_torch.moe import dispatch
 
+        self.key = key
         self.mod = dispatch
-        self.real = (dispatch.ep_moe_ffn, dispatch.grouped_ffn)
-        self.ffn_calls = None          # grouped_ffn calls of a predicted layer
+        self.real = (dispatch.ep_moe_ffn, dispatch.ep_moe_ffn_replicated,
+                     dispatch.grouped_ffn)
+        self.kind = None
+        self.calls = 0
+        self.rings = {"prefill": [], "decode": []}
+        self.seen = {"prefill": 0, "decode": 0}
         self.sums = torch.zeros(2, dtype=torch.int64, device="cuda")
-        self.captured = None
 
     def reset(self):
         self.sums.zero_()
 
-    def __enter__(self):
-        real_ep, real_ffn = self.real
-
-        def counting_ep(x, router_out, *a, predicted_idx=None, **kw):
-            if predicted_idx is None:
-                return real_ep(x, router_out, *a, **kw)
-            R = x.shape[0]
-            self.sums[0] += predicted_idx.numel()
-            self.sums[1] += (predicted_idx.reshape(R, -1).to(torch.int64)
-                             != router_out.expert_idx.reshape(R, -1)
-                             .to(torch.int64)).sum()
-            self.ffn_calls = 0
+    def _wrap(self, fn, kind):
+        def wrapped(x, router_out, *a, **kw):
+            if kw.get(self.key) is None:
+                return fn(x, router_out, *a, **kw)
+            if self.key == "predicted_idx":
+                R = x.shape[0]
+                pred = kw["predicted_idx"]
+                self.sums[0] += pred.numel()
+                self.sums[1] += (pred.reshape(R, -1).to(torch.int64)
+                                 != router_out.expert_idx.reshape(R, -1)
+                                 .to(torch.int64)).sum()
+            self.kind, self.calls = kind, 0
             try:
-                return real_ep(x, router_out, *a, predicted_idx=predicted_idx,
-                               **kw)
+                return fn(x, router_out, *a, **kw)
             finally:
-                self.ffn_calls = None
+                self.kind = None
+        return wrapped
+
+    def __enter__(self):
+        real_ep, real_rep, real_ffn = self.real
 
         def capturing_ffn(experts, x, slot_rows, activation,
                           row_counts=None):
-            if self.ffn_calls is not None:
-                self.ffn_calls += 1
-                if self.ffn_calls == 2:          # the correction round
-                    self.captured = (x.clone(), row_counts.clone(),
-                                     slot_rows.clone(), experts)
+            if self.kind is not None:
+                self.calls += 1
+                if self.calls == 2:              # the second round
+                    i = self.seen[self.kind] % self.RING
+                    self.rings[self.kind][i:i + 1] = [(
+                        x.clone(), row_counts.clone(), slot_rows.clone(),
+                        experts)]
+                    self.seen[self.kind] += 1
             return real_ffn(experts, x, slot_rows, activation,
                             row_counts=row_counts)
-        self.mod.ep_moe_ffn = counting_ep
+        self.mod.ep_moe_ffn = self._wrap(real_ep, "prefill")
+        self.mod.ep_moe_ffn_replicated = self._wrap(real_rep, "decode")
         self.mod.grouped_ffn = capturing_ffn
         return self
 
     def __exit__(self, *exc):
-        self.mod.ep_moe_ffn, self.mod.grouped_ffn = self.real
+        (self.mod.ep_moe_ffn, self.mod.ep_moe_ffn_replicated,
+         self.mod.grouped_ffn) = self.real
+
+    def latest(self, kind):
+        """The last kept second round of ``kind``."""
+        ring = self.rings[kind]
+        return ring[(self.seen[kind] - 1) % self.RING] if ring else None
+
+    def busiest(self, kind):
+        """The kept second round of ``kind`` with the most live rows."""
+        ring = self.rings[kind]
+        return max(ring, key=lambda c: int(c[1].sum())) if ring else None
 
     def numbers(self):
         pairs, sent = self.sums.tolist()
@@ -1838,21 +1946,24 @@ class _RoundCounter:
                     mispredicted_share=f"{sent / max(pairs, 1):.4f}")
 
 
-def correction_case(captured) -> None:
-    """``moe_gemm`` on a real correction round's rows and counts (12 slots
-    x 4 source ranks x cap2 8 rows) against its plain version: the
-    kernels line's ``prefill_correction`` case."""
+def round_case(label: str, captured) -> None:
+    """``moe_gemm`` on a real second round's rows and counts against its
+    plain version: the kernels line's ``prefill_correction``,
+    ``prefill_rescue`` or ``decode_rescue`` case. A round with no live row
+    checks no arithmetic, only the launch and its cost: the log says so
+    (``arithmetic_checked``)."""
     x, counts, slot_rows, experts = captured
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     row = moe_gemm_case(x, counts, slot_rows, experts, flush)
     S, T, d = x.shape
     row["live_rows_per_block"] = ",".join(
         str(c) for c in counts.flatten().tolist())
-    _log_row("moe_gemm", "bfloat16/prefill_correction",
+    row["arithmetic_checked"] = bool(int(counts.sum()) > 0)
+    _log_row("moe_gemm", f"bfloat16/{label}",
              f"S{S}xT{T}xd{d}xF{experts['w_up'].shape[-1]}", row)
     if not row["ok"]:
-        raise SystemExit("moe_gemm disagrees with its plain version at "
-                         "bfloat16/prefill_correction")
+        raise SystemExit(f"moe_gemm disagrees with its plain version at "
+                         f"bfloat16/{label}")
     if "moe_gemm" in KERNEL_ROWS:
         k = KERNEL_ROWS["moe_gemm"]
         k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
@@ -1868,7 +1979,6 @@ def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
     audit record replayed, and a switch into token_to_expert and one out
     of it."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.gps import recommend_strategy
     from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ControllerConfig, OnlineGPSController)
@@ -1942,16 +2052,7 @@ def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
                              ep=True, t2e_prefills=t2e_prefills[0])
     if launches != want:
         failures.append(f"kernel launches {launches} != {want}")
-    replay_bad = []
-    for r in ctl.audit.records:
-        v, _ = recommend_strategy(
-            full, ccfg.hardware, skew=r.skew_input, batch=r.batch,
-            seq=r.seq_len, allow_t2e=r.allow_t2e, min_saving=r.min_saving,
-            migration_stall_s=r.migration_stall_s, levers=ccfg.levers,
-            resched_residual=r.resched_residual,
-            resched_extra_frac=r.resched_extra_frac)
-        if (str(v), v.lever) != (r.recommended, r.lever_recommended):
-            replay_bad.append(r.seq)
+    replay_bad = audit_mismatches(ctl)
     log("t2e_gps", audit_records=len(ctl.audit),
         replayed_equal=not replay_bad)
     if replay_bad:
@@ -1971,13 +2072,13 @@ def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
     free_engines()
 
 
-def free_engines() -> None:
+def free_engines(phase: str = "t2e") -> None:
     """Free the device memory of engines no longer referenced: the phases'
     instrumentation closures tie each engine into a reference cycle, which
     only the cycle collector breaks (an EP engine's store holds 22.5 GB)."""
     gc.collect()
     torch.cuda.empty_cache()
-    log("t2e", allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    log(phase, allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
 
 
 def t2e_phase(model, cfg, seed: int) -> None:
@@ -1992,7 +2093,7 @@ def t2e_phase(model, cfg, seed: int) -> None:
     rungs = fit_ladder(cfg, seed)
     for label, rung in (("t2e_conditional", "conditional"),
                         ("t2e_lstm", "lstm")):
-        with _RoundCounter() as rc:
+        with _RoundCapture("predicted_idx") as rc:
             eng, _ = serve_trace(label, model, cfg, seed, ep=True,
                                  phase="t2e", predictor=rungs[rung],
                                  on_start=rc.reset)
@@ -2002,10 +2103,10 @@ def t2e_phase(model, cfg, seed: int) -> None:
             acc["pred_windows"]), window_hit_rate=(
             f"{acc['pred_hit_rate']:.4f}" if "pred_hit_rate" in acc
             else "none closed"))
-        if nums["sent_to_correction"] == 0 or rc.captured is None:
+        if nums["sent_to_correction"] == 0 or not rc.rings["prefill"]:
             raise SystemExit(f"t2e ({label}): no correction round ran")
         if rung == "conditional":
-            correction_case(rc.captured)
+            round_case("prefill_correction", rc.latest("prefill"))
         del eng, rc
         free_engines()
     keys = ("step_p50_ms", "ttft_p50_ms", "decode_toks_per_s",
@@ -2019,6 +2120,314 @@ def t2e_phase(model, cfg, seed: int) -> None:
                                                      "main not run)"}))
     t2e_controller_run(model, cfg, seed, rungs["conditional"])
     log("t2e", phase_s=f"{time.perf_counter() - t0:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase resched: token rescheduling on the main path
+# ---------------------------------------------------------------------------
+
+# the JAX package's lever A/B (benchmarks/bench_serve_traces.py): constant
+# prompts at capacity factor 0.5 overflow their slots
+RESCHED_AB_CCFG = dict(max_slots=4, prefill_len=64, block_size=8, max_len=96,
+                       strategy="dist_only", predict_interval=4,
+                       metrics_window=4, dup_slots=DUP_SLOTS)
+RESCHED_AB_LEGS = (("duplicate", "greedy"), ("reschedule", "greedy"),
+                   ("both", "lp"))
+RESCHED_CTL_TRACE = dict(horizon=45.0, rate=1.5)
+RESCHED_REPLAN_RUNS = 20
+
+
+def resched_ab(model, cfg, seed: int) -> None:
+    """The JAX package's lever A/B at full width: 10 prompts of 40-60
+    copies of token 7 at capacity factor 0.5, legs duplicate,
+    reschedule (greedy) and both (LP); checks completions, launches and
+    that the rescheduling legs engaged the lever."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   ServeRequest)
+
+    ab_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    failures = []
+    for lever, impl in RESCHED_AB_LEGS:
+        eng = ContinuousEngine(ab_cfg, model, ContinuousConfig(
+            **RESCHED_AB_CCFG, lever=lever, resched_impl=impl),
+            ep_ranks=EP_RANKS, ep=True)
+        quota_forwards = count_quota_forwards(eng)
+        eng.warmup()
+        rng = np.random.default_rng(0)
+        reqs = []
+        for i in range(10):
+            tokens = np.full(int(rng.integers(40, 60)), 7, np.int32)
+            reqs.append(ServeRequest(rid=i, arrival=i * 0.01, tokens=tokens,
+                                     max_new_tokens=int(rng.integers(1, 6))))
+        quota_forwards.update(prefill=0, decode=0)
+        ops.reset_launches()
+        eng.run_trace(reqs)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        s = eng.metrics.summary()
+        prefills = len(reqs) + int(s["preemptions"])
+        log("resched_ab", lever=lever, resched_impl=impl,
+            capacity_factor=0.5, completed=len(eng.scheduler.completed),
+            iterations=eng.iterations, prefills=prefills,
+            decode_steps=eng.decode_steps,
+            dropped_pairs=int(s["dropped_tokens"]),
+            overflow_pairs=int(s["overflow_tokens"]),
+            overflow_absorbed_frac=f"{s['overflow_absorbed_frac']:.4f}",
+            resched_a2a_bytes=int(s["resched_a2a_bytes"]),
+            resched_plans=int(s["resched_plans"]),
+            resched_residual=f"{s['resched_residual']:.4f}",
+            resched_absorbed_pred=f"{s['resched_absorbed_pred']:.4f}",
+            zero_drops=s["dropped_tokens"] == 0,
+            migration_replans=int(s["migration_replans"]),
+            commits=int(s["migration_commits"]),
+            step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
+            launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+        if len(eng.scheduler.completed) != len(reqs):
+            failures.append(f"{lever}: {len(eng.scheduler.completed)} of "
+                            f"{len(reqs)} requests completed")
+        want = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                                 ep=True,
+                                 resched_prefills=quota_forwards["prefill"],
+                                 resched_decodes=quota_forwards["decode"])
+        if launches != want:
+            failures.append(f"{lever}: kernel launches {launches} != {want}")
+        if lever != "duplicate" and not (
+                s["resched_plans"] >= 1 and s["overflow_tokens"] > 0
+                and s["resched_a2a_bytes"] > 0):
+            failures.append(f"{lever}: the lever did not engage (plans "
+                            f"{s['resched_plans']}, overflow "
+                            f"{s['overflow_tokens']}, a2a bytes "
+                            f"{s['resched_a2a_bytes']})")
+        if not 0.0 <= s["overflow_absorbed_frac"] <= 1.0:
+            failures.append(f"{lever}: absorbed fraction "
+                            f"{s['overflow_absorbed_frac']} outside [0, 1]")
+        del eng
+        free_engines("resched_ab")
+    if failures:
+        raise SystemExit("resched A/B failed: " + "; ".join(failures))
+
+
+def replan_cost(eng) -> None:
+    """Host milliseconds per quota re-plan, greedy against LP: the engine's
+    ``_replan_resched`` at its 8 layers (the scheduler, the quota's copy to
+    the card and the bookkeeping), and the scheduler alone on the same
+    counts and plans at 8 and at 32 layers (tiled)."""
+    from repro_torch.core.placement import PlacementPlan
+    from repro_torch.moe.dispatch import capacity
+    from repro_torch.schedule import make_scheduler
+
+    m = eng.moe_cfg
+    L = eng.cfg.num_layers
+    counts = (eng.estimator.predict()
+              * float(eng.ccfg.prefill_len * m.top_k))
+    cap = float(capacity(eng.ccfg.prefill_len // EP_RANKS, m.top_k,
+                         (m.num_experts // EP_RANKS + m.duplication_slots)
+                         * EP_RANKS, m.capacity_factor) * EP_RANKS)
+    plan = eng._plan_stack
+    plans = [PlacementPlan(*(np.asarray(a)[l] for a in plan))
+             for l in range(L)]
+    out = {}
+    for impl in ("greedy", "lp"):
+        sched = make_scheduler(impl)
+        eng._resched_sched = sched
+        ms = []
+        for _ in range(RESCHED_REPLAN_RUNS):
+            t0 = time.perf_counter()
+            eng._replan_resched()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{impl}_engine_8_layers_ms"] = f"{np.median(ms):.4f}"
+        for layers in (L, 32):
+            reps = -(-layers // L)
+            c = np.tile(counts, (reps, 1))[:layers]
+            p = (plans * reps)[:layers]
+            ms = []
+            for _ in range(RESCHED_REPLAN_RUNS):
+                t0 = time.perf_counter()
+                sched.plan_stack(c, p, ep_ranks=EP_RANKS,
+                                 dup_slots=m.duplication_slots, cap=cap)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"{impl}_scheduler_{layers}_layers_ms"] = \
+                f"{np.median(ms):.4f}"
+    log("resched_replan", runs=RESCHED_REPLAN_RUNS, cap_pairs=cap,
+        plan_replicas=int((np.asarray(plan.n_replicas) - 1).sum()), **out)
+
+
+def resched_controller_run(model, cfg, seed: int) -> None:
+    """An ``OnlineGPSController`` offered all three levers (the gps phase's
+    H100 preset and ``min_saving``) drives the EP engine over
+    ``skew_shift_trace(horizon=45)``; checks completions, launches (a
+    rescue round per layer of every forward given a quota), the engine
+    following every decision's strategy, lever and interval, and every
+    audit record replayed. How often the lever switches is the traffic's
+    verdict, not a check."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.simulator import H100_SXM_NVLINK
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   ControllerConfig, OnlineGPSController)
+    from repro_torch.workloads import skew_shift_trace, to_serve_requests
+
+    full = get_config("mixtral-8x7b")
+    ccfg = ControllerConfig(
+        hardware=H100_SXM_NVLINK, window_iters=8, patience=1,
+        min_saving=GPS_MIN_SAVING,
+        migration_bytes_scale=full.num_layers / cfg.num_layers,
+        levers=("duplicate", "reschedule", "both"))
+    ctl = OnlineGPSController(full, ccfg, predictor_available=False)
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**GPS_CCFG),
+                           ep_ranks=EP_RANKS, ep=True, controller=ctl)
+    quota_forwards = count_quota_forwards(eng)
+    follow_errors = []
+    apply_decision = eng._apply_decision
+
+    def checked_apply(d):
+        apply_decision(d)
+        got = (eng.strategy, eng.predict_interval)
+        if got != (d.strategy, d.predict_interval) or (
+                d.strategy != "none" and eng.lever != d.lever):
+            follow_errors.append(f"t={d.t:.2f}: engine {got} {eng.lever}, "
+                                 f"decision {d.strategy} {d.lever}")
+    eng._apply_decision = checked_apply
+    eng.warmup()
+    reqs = to_serve_requests(skew_shift_trace(cfg.vocab_size, seed=seed,
+                                              **RESCHED_CTL_TRACE))
+    quota_forwards.update(prefill=0, decode=0)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng.run_trace(reqs, time_scale=GPS_TIME_SCALE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    s = eng.metrics.summary()
+    done = eng.scheduler.completed
+    prefills = len(reqs) + int(s["preemptions"])
+    decisions = ctl.decisions
+    recs = ctl.audit.records
+    switches = [d for d in decisions if d.switched]
+    log("resched_gps", hardware=f"'{ccfg.hardware.name}'",
+        min_saving=ccfg.min_saving, levers=",".join(ccfg.levers),
+        requests=len(reqs), completed=len(done), iterations=eng.iterations,
+        prefills=prefills, decode_steps=eng.decode_steps,
+        quota_prefills=quota_forwards["prefill"],
+        quota_decodes=quota_forwards["decode"], wall_s=f"{wall:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        decisions=len(decisions), switches=len(switches),
+        switch_log=f"'{' | '.join(ctl.switch_log())}'")
+    log("resched_gps",
+        window_skews=",".join(f"{d.skew:.4f}" for d in decisions),
+        verdicts=",".join(f"{d.recommended}+{d.lever_recommended}"
+                          for d in decisions),
+        in_force=",".join(f"{d.strategy}+{d.lever}" for d in decisions),
+        lever_switches=sum(1 for a, b in zip(decisions, decisions[1:])
+                           if "none" not in (a.lever, b.lever)
+                           and a.lever != b.lever),
+        resched_saving=",".join(f"{r.resched_saving:.4f}" for r in recs),
+        dist_only_saving=",".join(f"{r.dist_only_saving:.4f}" for r in recs))
+    log("resched_gps",
+        resched_residual_fed=",".join(f"{r.resched_residual:.4f}"
+                                      for r in recs),
+        resched_absorbed_pred_fed=",".join(f"{r.overflow_pred_frac:.4f}"
+                                           for r in recs),
+        resched_extra_frac_fed=",".join(f"{r.resched_extra_frac:.4f}"
+                                        for r in recs),
+        overflow_realized_frac=",".join(f"{r.overflow_realized_frac:.4f}"
+                                        for r in recs))
+    log("resched_gps", step_p50_ms=f"{s['step_p50_s'] * 1e3:.3f}",
+        decode_toks_per_s=f"{s.get('decode_toks_per_s', 0.0):.2f}",
+        dropped_pairs=int(s["dropped_tokens"]),
+        overflow_pairs=int(s["overflow_tokens"]),
+        overflow_absorbed_frac=f"{s['overflow_absorbed_frac']:.4f}",
+        resched_plans=int(s["resched_plans"]),
+        measured_imbalance=f"{eng.measured_imbalance():.4f}",
+        commits=int(s["migration_commits"]))
+    failures = follow_errors[:3]
+    if len(done) != len(reqs):
+        failures.append(f"{len(done)} of {len(reqs)} requests completed")
+    want = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                             ep=True,
+                             resched_prefills=quota_forwards["prefill"],
+                             resched_decodes=quota_forwards["decode"])
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
+    replay_bad = audit_mismatches(ctl)
+    log("resched_gps", audit_records=len(recs), replayed_equal=not replay_bad)
+    if replay_bad:
+        failures.append(f"audit records {replay_bad[:4]} replay to another "
+                        "verdict")
+    if not decisions:
+        failures.append("no decision")
+    if failures:
+        raise SystemExit("resched controller run failed: "
+                         + "; ".join(failures))
+    del eng
+    free_engines("resched_gps")
+
+
+def resched_phase(model, cfg, seed: int) -> None:
+    """Token rescheduling on the main path's Mixtral weights: the JAX
+    package's lever A/B at full width; the main trace under "reschedule"
+    and "both" beside phase 4's dist_only run, with the rescue rounds'
+    ``moe_gemm`` inputs held against the plain version; the host cost of
+    a quota re-plan; a controller that may choose the lever."""
+    import contextlib
+
+    t0 = time.perf_counter()
+    free_engines("resched")
+    resched_ab(model, cfg, seed)
+    for lever in ("reschedule", "both"):
+        label = f"resched_{lever}"
+        # the rescue rounds' inputs are kept in the "reschedule" run only
+        # (three device copies per round there; "both" runs uninstrumented)
+        cap = _RoundCapture("resched_quota") if lever == "reschedule" \
+            else None
+        with cap or contextlib.nullcontext():
+            eng, _ = serve_trace(label, model, cfg, seed, ep=True,
+                                 phase="resched", lever=lever)
+        s = eng.metrics.summary()
+        log("resched", path=label, resched_impl=eng.ccfg.resched_impl,
+            overflow_pairs=int(s["overflow_tokens"]),
+            dropped_pairs=int(s["dropped_tokens"]),
+            overflow_absorbed_frac=f"{s['overflow_absorbed_frac']:.4f}",
+            resched_a2a_bytes=int(s["resched_a2a_bytes"]),
+            resched_plans=int(s["resched_plans"]),
+            resched_residual=f"{s['resched_residual']:.4f}",
+            resched_absorbed_pred=f"{s['resched_absorbed_pred']:.4f}")
+        if cap is not None:
+            log("resched", path=label, rescue_rounds_run=",".join(
+                f"{k}:{v}" for k, v in cap.seen.items()))
+            for kind in ("prefill", "decode"):
+                if not cap.rings[kind]:
+                    raise SystemExit(f"resched: no {kind} rescue round ran")
+                # (the kept inputs hold views of the store's rows: nothing
+                # may keep them past this loop). At 8 slots a decode step
+                # cannot overflow (a slot gets at most 8 pairs, its
+                # capacity is 8), so decode_rescue has no live row: it
+                # holds the launch and its cost, not the arithmetic, which
+                # phase 3's decode cases check at this shape
+                # (arithmetic_checked in its log line)
+                round_case(f"{kind}_rescue", cap.busiest(kind))
+            cap.rings.clear()
+            # decode steps with a rescue round per layer, beside phase 4's
+            # profile of the same engine kind without one
+            profile_phase(eng, cfg, seed, label)
+        else:
+            replan_cost(eng)
+        del eng, cap
+        free_engines("resched")
+    keys = ("step_p50_ms", "ttft_p50_ms", "decode_toks_per_s",
+            "dropped_pairs", "overflow_pairs", "overflow_absorbed_frac",
+            "measured_imbalance", "modelled_imbalance", "peak_gb")
+    for label in ("ep", "resched_reschedule", "resched_both"):
+        nums = MEASURED.get(f"serve/{label}")
+        lever = "duplicate" if label == "ep" else label.split("_")[1]
+        log("resched_compare", path=label, lever=lever, **(
+            {k: (f"{nums[k]:.4f}" if isinstance(nums[k], float) else nums[k])
+             for k in keys} if nums else {"numbers": "not measured (phase "
+                                                     "main not run)"}))
+    resched_controller_run(model, cfg, seed)
+    log("resched", phase_s=f"{time.perf_counter() - t0:.3f}")
 
 
 def _events_by_stream(prof, start_us: float = float("-inf")):
@@ -2391,8 +2800,8 @@ def griffin_reference_phase(seed: int):
 
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru")
-PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "griffin",
-                          "reference")
+PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
+                          "griffin", "reference")
 
 
 def main() -> int:
@@ -2456,7 +2865,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {}
-    if {"main", "gps", "t2e"} & set(phases):
+    if {"main", "gps", "t2e", "resched"} & set(phases):
         model, cfg = build_mixtral(args.seed)     # one set of weights for all
         if "main" in phases:
             launches.update(main_path_phase(model, cfg, args.seed))
@@ -2464,6 +2873,8 @@ def main() -> int:
             gps_phase(model, cfg, args.seed)
         if "t2e" in phases:
             t2e_phase(model, cfg, args.seed)
+        if "resched" in phases:
+            resched_phase(model, cfg, args.seed)
         del model
         torch.cuda.empty_cache()
     if "griffin" in phases:

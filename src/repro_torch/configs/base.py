@@ -50,6 +50,11 @@ class MoEConfig:
     # slots). 0 = unlimited; otherwise the EP engine clamps
     # duplication_slots until the store fits (core.placement.clamp_dup_slots).
     store_hbm_budget_gb: float = 0.0
+    # Token rescheduling (repro_torch.schedule): the rescue round re-sends
+    # pairs that overflowed their slot to an alternate copy at capacity
+    # ``max(8, int(cap * resched_cap_frac))``; active only when a quota is
+    # passed to the dispatch (lever "reschedule" or "both").
+    resched_cap_frac: float = 0.5
 
 
 @dataclass(frozen=True)

@@ -154,11 +154,12 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, rt: Runtime = Runtime(), *, mode: str,
                 cache=None, cache_len=None, block_tables=None,
-                last_pos=None, token_weight=None, plan=None, store=None):
+                last_pos=None, token_weight=None, plan=None, store=None,
+                resched=None):
         return forward(self, self.cfg, tokens, rt, mode=mode, cache=cache,
                        cache_len=cache_len, block_tables=block_tables,
                        last_pos=last_pos, token_weight=token_weight,
-                       plan=plan, store=store)
+                       plan=plan, store=store, resched=resched)
 
 
 # ---------------------------------------------------------------------------
@@ -276,12 +277,14 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
 
 def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                plan_l: Optional[DevicePlan], decode: bool, token_weight=None,
-               experts_l=None, fill_event=None, predicted_l=None):
+               experts_l=None, fill_event=None, predicted_l=None,
+               resched_l=None):
     """MoE FFN of one layer (the JAX package's ``_moe_apply``). x: (B, S, d).
-    Returns (y, expert_counts (E,), slot_counts, aux, z, dropped);
-    slot_counts and dropped are None on the dense path, which has no slots
-    and drops nothing. ``experts_l``: the weights ``plan_l.slot_rows``
-    index (the store's rows; None: the layer's home experts);
+    Returns (y, expert_counts (E,), slot_counts, aux, z, dropped,
+    overflow); slot_counts, dropped and overflow are None on the dense
+    path, which has no slots and drops nothing. ``experts_l``: the weights
+    ``plan_l.slot_rows`` index (the store's rows; None: the layer's home
+    experts);
     ``fill_event``: a CUDA event the main stream waits on first (the
     layer's staged fill).
 
@@ -289,7 +292,10 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
     padding and idle slots (weight 0) still flow through the FFN but do not
     skew the estimator's input. ``predicted_l``: None, or (B, S, K)
     Token-to-Expert predictions; the EP dispatch takes them (split over
-    the ranks as ``x`` is), the dense path ignores them."""
+    the ranks as ``x`` is), the dense path ignores them. ``resched_l``:
+    None, or the layer's (E, C_max) int32 reschedule quota: the EP
+    dispatch picks replicas through it and runs the rescue round; the
+    dense path ignores it."""
     moe = cfg.moe
     B, S, d = x.shape
     if not rt.ep:
@@ -297,7 +303,8 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
         w = (None if token_weight is None else token_weight.reshape(-1, 1)
              .expand_as(router_out.expert_idx))
         counts = expert_histogram(router_out.expert_idx, moe.num_experts, w)
-        return y, counts, None, router_out.aux_loss, router_out.z_loss, None
+        return (y, counts, None, router_out.aux_loss, router_out.z_loss,
+                None, None)
 
     R = rt.ep_ranks
     if plan_l is None:
@@ -310,7 +317,7 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
         torch.cuda.current_stream(x.device).wait_event(fill_event)
     experts = experts_l or {"w_gate": layer.w_gate, "w_up": layer.w_up,
                             "w_down": layer.w_down}
-    kw = dict(ep_ranks=R, activation=cfg.activation)
+    kw = dict(ep_ranks=R, activation=cfg.activation, resched_quota=resched_l)
     if decode:
         # decode batches are too small to shard: every rank sees every
         # token, routed once, and serves the pairs bound for its slots
@@ -345,17 +352,18 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
             router_out.expert_idx, moe.num_experts,
             w[..., None].expand_as(router_out.expert_idx))
     return (y, counts, stats.slot_counts, stats.aux_loss, stats.z_loss,
-            stats.dropped)
+            stats.dropped, stats.overflow)
 
 
 def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 rt: Runtime, *, cache, cache_len=None, mode="prefill",
                 block_tables=None, token_weight=None, plan_l=None,
-                experts_l=None, fill_event=None, predicted_l=None):
+                experts_l=None, fill_event=None, predicted_l=None,
+                resched_l=None):
     """GQA attention + MoE FFN for one layer. ``cache``: this layer's
     {"k", "v"} (linear cache in prefill, block pool in decode), updated in
     place. Returns (x, (expert_counts (E,), slot_counts, aux, z,
-    dropped))."""
+    dropped, overflow))."""
     h = rmsnorm(layer.ln1, x)
     if mode == "prefill":
         a = attn.gqa_prefill(layer.attn_params(), cfg, h, positions, cache,
@@ -377,7 +385,8 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     x = x + a
     h = rmsnorm(layer.ln2, x)
     y, *stats = _moe_apply(layer, cfg, h, rt, plan_l, mode == "decode",
-                           token_weight, experts_l, fill_event, predicted_l)
+                           token_weight, experts_l, fill_event, predicted_l,
+                           resched_l)
     return x + y, tuple(stats)
 
 
@@ -426,7 +435,7 @@ def _migration_view(l: int, plan: Optional[DevicePlan],
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
             last_pos=None, token_weight=None, plan=None, store=None,
-            predicted_idx=None):
+            predicted_idx=None, resched=None):
     """Returns (logits, cache, stats).
 
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
@@ -447,10 +456,15 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     ``predicted_idx``: None, or (L, B, S, K) Token-to-Expert predicted
     experts, which the EP prefill dispatches on (a correction round takes
     the mispredicted pairs); the dense path ignores them and the EP decode
-    path raises on them.
+    path raises on them. ``resched``: None, or the (L, E, C_max) int32
+    reschedule quota stack (``repro_torch.schedule``) the EP dispatch
+    picks replicas through, with a rescue round for the pairs that
+    overflow; the dense path ignores it.
     stats: {"expert_counts": (L, E) fp32, "aux_loss",
     "z_loss"}, and under EP also "slot_counts": (L, R * n_slots) kept pairs
-    per global slot and "dropped": (L,) pairs dropped at capacity.
+    per global slot, "dropped": (L,) pairs dropped at capacity and
+    "overflow": (L,) round-1 overflows the rescue round took (without
+    ``resched`` a host vector of zeros: nothing is launched for it).
     """
     x = embed(model.embed, tokens).to(ACT_DTYPE)
     B, S = tokens.shape
@@ -476,18 +490,20 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         m = cfg.moe
         plan = to_device(plan, m.num_experts, rt.ep_ranks,
                          m.duplication_slots, x.device)
-    counts, slots, dropped, aux, z = [], [], [], 0.0, 0.0
+    counts, slots, dropped, overflow, aux, z = [], [], [], [], 0.0, 0.0
     for l, layer in enumerate(model.layers):
         cache_l = {"k": cache["k"][l], "v": cache["v"][l]}
         plan_l, experts_l, event = _migration_view(l, plan, store)
-        x, (c, sc, a_l, z_l, dr) = _attn_layer(
+        x, (c, sc, a_l, z_l, dr, ov) = _attn_layer(
             layer, cfg, x, positions, rt, cache=cache_l, cache_len=cache_len,
             mode=mode, block_tables=block_tables, token_weight=token_weight,
             plan_l=plan_l, experts_l=experts_l, fill_event=event,
-            predicted_l=None if predicted_idx is None else predicted_idx[l])
+            predicted_l=None if predicted_idx is None else predicted_idx[l],
+            resched_l=None if resched is None else resched[l])
         counts.append(c)
         slots.append(sc)
         dropped.append(dr)
+        overflow.append(ov)
         aux = aux + a_l
         z = z + z_l
     stats = {"expert_counts": torch.stack(counts), "aux_loss": aux,
@@ -495,6 +511,7 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     if rt.ep:
         stats["slot_counts"] = torch.stack(slots)
         stats["dropped"] = torch.stack(dropped)
+        stats["overflow"] = torch.stack(overflow)
     return _last_logits(model, x, mode, last_pos), cache, stats
 
 

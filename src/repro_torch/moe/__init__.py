@@ -1,2 +1,3 @@
-"""MoE routing. The expert-parallel dispatch path (packers, replica choice,
-EP rounds) is not ported yet; see ROADMAP.md."""
+"""MoE routing (``router``) and the expert-parallel dispatch
+(``dispatch``). The dispatch phase profiler is not ported yet; see
+ROADMAP.md."""

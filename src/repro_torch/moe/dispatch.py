@@ -7,7 +7,9 @@ Every rank hosts ``E_loc = E / R`` home experts plus ``D`` replica slots,
 
   1. route (``moe.router.route``: one kernel launch for all ranks'
      tokens);
-  2. pick a replica per (token, k): round-robin over ``n_replicas[e]``;
+  2. pick a replica per (token, k): round-robin over ``n_replicas[e]``,
+     or under a reschedule quota a hashed draw against the scheduler's
+     per-copy thresholds (``choose_replica_quota``);
   3. pack each rank's ``(S * cap, d)`` send buffer with a stable argsort
      and the ``histogram_offsets`` kernel (``_pack_sort``; the one-hot
      cumsum packer ``_pack_onehot`` is kept as the tests' oracle); the
@@ -40,8 +42,17 @@ Each pair keeps the output of the round that computed its true expert.
 The drop count is the two rounds' sum, as in the JAX package (it counts a
 mispredicted pair dropped in round 1 although round 2 serves it).
 
-Not ported here: the reschedule quota (``resched_quota``, the token
-rescheduling lever), which raises.
+Token rescheduling (``resched_quota``: (E, C_max) int32 per-copy
+thresholds from ``repro_torch.schedule``): replica choice follows the
+quota, and the pairs that overflowed their slot's capacity get a second,
+*rescue* round aimed at the expert's next copy (the draw shifted by one):
+in ``ep_moe_ffn`` at ``cap2 = max(8, int(cap * resched_cap_frac))``, in
+``ep_moe_ffn_replicated`` at ``cap``, where every rank sees the global
+first-come positions (``_global_positions``) and serves the overflowed
+pairs whose alternate copy is its own. ``MoEStats.overflow`` counts the
+round-1 overflows and ``dropped`` becomes the rescue round's drops, as in
+the JAX package. In the predicted mode both rounds pick through the quota
+(the correction round at shift 1) and there is no rescue round.
 """
 
 from __future__ import annotations
@@ -57,16 +68,16 @@ from repro_torch.core.placement import DevicePlan, plan_dims
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.moe.router import RouterOutput
 
-_RESCHED = ("is not ported yet: it belongs to the token rescheduling "
-             "slice (ROADMAP.md §1 item 5)")
-
-
 class MoEStats(NamedTuple):
     expert_counts: torch.Tensor  # (E,) float32 tokens routed per expert (global)
     slot_counts: torch.Tensor    # (S,) tokens kept per global slot (global)
     dropped: torch.Tensor        # () tokens dropped by capacity (global)
     aux_loss: torch.Tensor
     z_loss: torch.Tensor
+    overflow: torch.Tensor       # () int64 round-1 capacity overflows the
+                                 # rescue round tried to save (global); a
+                                 # zero on x's device under a quota, a host
+                                 # zero without one (nothing is launched)
 
 
 class StackedRanks:
@@ -185,6 +196,47 @@ def choose_replica(plan: DevicePlan, expert, salt):
     return plan.replica_table[expert, torch.clamp(choice, max=c_max - 1)]
 
 
+# quota draw constants: they must match repro_torch.schedule.base (kept
+# literal here so the dispatch never imports the host-side scheduler)
+_RESCHED_Q = 1 << 16
+_RESCHED_MULT = 40503        # odd -> coprime with 2^16 -> equidistributed
+_RESCHED_EXPERT = 131
+
+
+def choose_replica_quota(plan: DevicePlan, quota, expert, salt,
+                         shift: int = 0):
+    """Quota-weighted replica choice (the reschedule lever's routing map).
+    ``quota``: (E, C_max) int32 cumulative thresholds in [0, RESCHED_Q]
+    (dead copy columns at RESCHED_Q); expert, salt: broadcastable int
+    tensors. A hashed draw per (token, k), in int32 arithmetic that wraps
+    as the JAX package's does, is compared against the expert's
+    thresholds; ``shift`` rotates the choice to the expert's next copy
+    (the rescue round's ``shift=1``). Returns the global slot."""
+    expert = expert.long()
+    e32 = expert.to(torch.int32)
+    u = ((salt.to(torch.int32) + e32 * _RESCHED_EXPERT) * _RESCHED_MULT) \
+        % _RESCHED_Q
+    choice = (quota[expert] <= u[..., None]).sum(dim=-1)
+    n_rep = torch.clamp(plan.n_replicas[expert], min=1)
+    choice = (choice + shift) % n_rep
+    c_max = plan.replica_table.shape[-1]
+    return plan.replica_table[expert, torch.clamp(choice, max=c_max - 1)]
+
+
+def _global_positions(gslot, valid, num_classes: int):
+    """First-come position of each assignment within its global slot (the
+    packers' ordering rule over all classes, so that replicated ranks
+    agree on which pairs overflow). gslot, valid: (N,). Returns (N,)
+    int64."""
+    N = gslot.shape[0]
+    g = torch.where(valid, gslot.to(torch.int32), num_classes).contiguous()
+    order = torch.argsort(g, stable=True)
+    _, starts = kernel_ops.histogram_offsets(g[None], num_classes + 1)
+    pos_sorted = (torch.arange(N, device=g.device)
+                  - starts[0].long()[g[order].long()])
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+
 def grouped_ffn(experts: dict, x, slot_rows, activation: str,
                 row_counts=None):
     """x: (S, T_s, d) rows per slot -> (S, T_s, d): slot s runs the weights
@@ -247,6 +299,14 @@ def _salt(T: int, K: int, device):
             + torch.arange(K, device=device)[None, :]).reshape(-1)
 
 
+def _no_overflow(resched_quota, device):
+    """MoEStats.overflow before a rescue round counts any: a zero on the
+    device under a quota (the forward stacks the layers' counts there), a
+    host zero without one."""
+    return torch.zeros((), dtype=torch.int64,
+                       device=device if resched_quota is not None else "cpu")
+
+
 def _expert_counts(expert_idx, num_experts: int):
     """(..., T, K) assignments -> (..., E) float32 counts."""
     flat = expert_idx.reshape(expert_idx.shape[:-2] + (-1,)).long()
@@ -265,10 +325,10 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, the (E, ...)
     home experts or the store's rows (``plan.slot_rows`` indexes them);
     ``plan``: one layer's ``DevicePlan``; ``predicted_idx``: None, or (R,
-    T, K) Token-to-Expert predictions, which add the correction round.
+    T, K) Token-to-Expert predictions, which add the correction round;
+    ``resched_quota``: None, or the layer's (E, C_max) int32 quota, which
+    the replica choice follows and which adds the rescue round.
     Returns (y (R, T, d), MoEStats) with global statistics."""
-    if resched_quota is not None:
-        raise NotImplementedError("resched_quota " + _RESCHED)
     comm = comm or StackedRanks(ep_ranks)
     R, T, d = x.shape
     if R != ep_ranks:
@@ -287,21 +347,36 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     true_flat = true_idx.reshape(R, T * K)
     salt = _salt(T, K, x.device)
     all_pairs = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
+    if resched_quota is None:
+        def pick(e, shift):
+            return choose_replica(plan, e, salt + shift if shift else salt)
+    else:
+        def pick(e, shift):
+            return choose_replica_quota(plan, resched_quota, e, salt, shift)
+    overflow = _no_overflow(resched_quota, x.device)
     if predicted_idx is None:
-        y_flat, slot_counts, dropped, _ = _dispatch_round(
-            x, choose_replica(plan, true_flat, salt), all_pairs, cap=cap,
-            **kw)
+        y_flat, slot_counts, dropped, in_cap = _dispatch_round(
+            x, pick(true_flat, 0), all_pairs, cap=cap, **kw)
+        if resched_quota is not None:
+            # rescue round: re-send the overflowed pairs to the expert's
+            # next copy; its drops are the layer's drops
+            miss = all_pairs & ~in_cap
+            overflow = comm.psum(miss.sum(dim=1))
+            cap2 = max(8, int(cap * moe.resched_cap_frac))
+            y2, slot_counts2, dropped, _ = _dispatch_round(
+                x, pick(true_flat, 1), miss, cap=cap2, **kw)
+            y_flat = torch.where(in_cap[..., None], y_flat, y2)
+            slot_counts = slot_counts + slot_counts2
     else:
         # round 1 on the predictions, round 2 corrects the mispredicted
         # pairs on their true experts at a fraction of the capacity
         pred = predicted_idx.reshape(R, T * K).to(true_flat.dtype)
         y1, slot_counts, dropped1, _ = _dispatch_round(
-            x, choose_replica(plan, pred, salt), all_pairs, cap=cap, **kw)
+            x, pick(pred, 0), all_pairs, cap=cap, **kw)
         correct = pred == true_flat
         cap2 = max(8, int(cap * correction_cap_frac))
         y2, slot_counts2, dropped2, _ = _dispatch_round(
-            x, choose_replica(plan, true_flat, salt + 1), ~correct,
-            cap=cap2, **kw)
+            x, pick(true_flat, 1), ~correct, cap=cap2, **kw)
         y_flat = torch.where(correct[..., None], y1, y2)
         slot_counts = slot_counts + slot_counts2
         dropped = dropped1 + dropped2
@@ -311,18 +386,23 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
         slot_counts=comm.psum(slot_counts),
         dropped=comm.psum(dropped),
         aux_loss=comm.pmean(router_out.aux_loss),
-        z_loss=comm.pmean(router_out.z_loss))
+        z_loss=comm.pmean(router_out.z_loss),
+        overflow=overflow)
     return y, stats
 
 
 def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
                     moe: MoEConfig, *, ep_ranks: int,
-                    comm: Optional[StackedRanks] = None):
+                    comm: Optional[StackedRanks] = None,
+                    resched_quota=None, shift: int = 0, select=None):
     """The decode path's send side: the same (T, d) tokens on every rank,
     routed once (``router_out`` unbatched); each rank packs the (token, k)
-    pairs assigned to its slots. Returns (send (S, cap, d) rows per global
-    slot, row_counts (S, 1) int32 live rows per slot, slot_rows (S,),
-    in_cap (R, N), dest (R, N), dropped (R,), gslot (N,)) with N = T * K."""
+    pairs assigned to its slots. ``resched_quota``: None (round-robin), or
+    the layer's quota, drawn at ``shift``; ``select``: None, or (N,) bool,
+    the only pairs to pack (the rescue round's overflowed pairs). Returns
+    (send (S, cap, d) rows per global slot, row_counts (S, 1) int32 live
+    rows per slot, slot_rows (S,), in_cap (R, N), dest (R, N), dropped
+    (R,), gslot (N,)) with N = T * K."""
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape
     R = ep_ranks
@@ -332,10 +412,17 @@ def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
     cap = capacity(T, K, n_slots, moe.capacity_factor)  # per-rank slot capacity
     se = _slot_map(plan, E, moe.duplication_slots, S, x.device)
     expert_flat = router_out.expert_idx.reshape(-1)
-    gslot = choose_replica(plan, expert_flat, _salt(T, K, x.device))  # (N,)
+    salt = _salt(T, K, x.device)
+    if resched_quota is None:
+        gslot = choose_replica(plan, expert_flat, salt)              # (N,)
+    else:
+        gslot = choose_replica_quota(plan, resched_quota, expert_flat, salt,
+                                     shift)
     N = gslot.shape[0]
     rank = comm.rank_index(x.device)
     mine = (gslot // n_slots)[None, :] == rank[:, None]              # (R, N)
+    if select is not None:
+        mine = mine & select[None, :]
     token_of = torch.arange(N, device=x.device) // K
     send, in_cap, dest, counts, dropped = _pack_sort(
         x.expand(R, T, d), token_of, (gslot % n_slots).expand(R, N), mine,
@@ -352,37 +439,57 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
     """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
     once (``router_out`` unbatched). Each rank computes the (token, k)
     pairs assigned to its slots (``pack_replicated``) and a psum combines
-    the results. Returns (y (T, d), MoEStats). Token-to-Expert
-    predictions are a prefill feature: ``predicted_idx`` raises, as in the
-    JAX package."""
+    the results. With ``resched_quota`` the pairs past their global slot's
+    first-come capacity are served again on the expert's next copy, at the
+    same capacity, by the rank that holds it. Returns (y (T, d),
+    MoEStats). Token-to-Expert predictions are a prefill feature:
+    ``predicted_idx`` raises, as in the JAX package."""
     if predicted_idx is not None:
         raise NotImplementedError("predicted pre-routing is a prefill feature")
-    if resched_quota is not None:
-        raise NotImplementedError("resched_quota " + _RESCHED)
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape
     R = ep_ranks
     K, E = moe.top_k, moe.num_experts
-    send, row_counts, se, in_cap, dest, dropped, gslot = pack_replicated(
-        x, router_out, plan, moe, ep_ranks=ep_ranks, comm=comm)
-    S, cap, _ = send.shape
-    N = gslot.shape[0]
+    kw = dict(ep_ranks=ep_ranks, comm=comm, resched_quota=resched_quota)
+    packed = pack_replicated(x, router_out, plan, moe, **kw)
+    S, cap, _ = packed[0].shape
+    N = T * K
     rows_per_rank = S // R * cap
-    ys = grouped_ffn(experts, send, se, activation, row_counts=row_counts)
-    ys = ys.reshape(R, rows_per_rank, d)
-    y_flat = torch.gather(ys, 1, dest.clamp(max=rows_per_rank - 1)[..., None]
-                          .expand(-1, -1, d))
-    y_flat = torch.where(in_cap[..., None], y_flat,
-                         torch.zeros((), dtype=ys.dtype, device=x.device))
+    slot_counts = torch.zeros((R, S), dtype=torch.int32, device=x.device)
+
+    def serve(send, row_counts, se, in_cap, dest, dropped, gslot):
+        """One round's FFN: (R, N, d) outputs (zeros where not computed)
+        and its drops; its kept pairs join the slot counts."""
+        ys = grouped_ffn(experts, send, se, activation, row_counts=row_counts)
+        ys = ys.reshape(R, rows_per_rank, d)
+        y_flat = torch.gather(ys, 1, dest.clamp(max=rows_per_rank - 1)
+                              [..., None].expand(-1, -1, d))
+        slot_counts.scatter_add_(1, gslot.clamp(max=S - 1).expand(R, N),
+                                 in_cap.to(torch.int32))
+        return torch.where(in_cap[..., None], y_flat,
+                           torch.zeros((), dtype=ys.dtype,
+                                       device=x.device)), dropped
+
+    y_flat, dropped = serve(*packed)
+    overflow = _no_overflow(resched_quota, x.device)
+    if resched_quota is not None:
+        # rescue round: every rank sees the global first-come positions
+        # (the tokens are replicated) and serves the overflowed pairs whose
+        # alternate copy is its own; the two rounds' masks are disjoint
+        gslot = packed[-1]
+        every = torch.ones_like(gslot, dtype=torch.bool)
+        miss = _global_positions(gslot, every, S) >= cap
+        overflow = miss.sum()                        # global, not per rank
+        y2, dropped = serve(*pack_replicated(x, router_out, plan, moe,
+                                             shift=1, select=miss, **kw))
+        y_flat = y_flat + y2
     gates = router_out.gates.to(x.dtype)
     y = comm.psum((y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2))
-    slot_counts = torch.zeros((R, S), dtype=torch.int32, device=x.device)
-    slot_counts.scatter_add_(1, gslot.clamp(max=S - 1).expand(R, N),
-                             in_cap.to(torch.int32))
     stats = MoEStats(
         expert_counts=_expert_counts(router_out.expert_idx, E),  # replicated
         slot_counts=comm.psum(slot_counts),
         dropped=comm.psum(dropped),
         aux_loss=router_out.aux_loss,
-        z_loss=router_out.z_loss)
+        z_loss=router_out.z_loss,
+        overflow=overflow)
     return y, stats

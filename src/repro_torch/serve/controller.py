@@ -65,9 +65,8 @@ class ControllerConfig:
     # Combined strategy space: which balancing levers the engine can drive.
     # The default keeps the pre-lever duplicate-only arbitration (and its
     # exact costing — replica HBM reads are only charged once a second
-    # lever exists to arbitrate against). Add "reschedule"/"both" when the
-    # engine runs the token scheduler (the JAX package's repro.schedule;
-    # not ported yet).
+    # lever exists to arbitrate against). Add "reschedule"/"both" to let
+    # the engine's token scheduler (repro_torch.schedule) be chosen.
     levers: tuple = ("duplicate",)
     # Scheduler residual imbalance assumed until the engine reports a
     # measured one via observe(resched_residual=...).

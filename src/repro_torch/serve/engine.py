@@ -73,8 +73,21 @@ re-plan still plans from the estimator, as the JAX engine does. Without a
 predictor the strategy runs as ``dist_only`` does. A controller with
 ``predictor_available=True`` may switch the engine in and out of it.
 
-Not ported yet (see ROADMAP.md): the reschedule lever (a controller
-offered it is refused), ``profile_phases`` and ``assert_no_recompiles``.
+Token rescheduling (``ContinuousConfig.lever``, the second balancing
+lever; ``repro_torch.schedule``): under "reschedule" or "both" every
+re-plan also turns the estimator's distribution into per-copy quotas
+(``resched_impl`` "greedy" or "lp") against the plan in force, and every
+forward picks replicas through them; under ``ep`` the pairs that overflow
+their slot get a rescue dispatch round to an alternate copy.
+"reschedule" adopts one plan and then freezes it (later boundaries only
+refresh the quotas); "both" re-plans and refreshes every time. The
+overflow, the rescue round's drops and its modelled a2a bytes go to
+``ServeMetrics`` (``overflow_tokens``, ``overflow_absorbed_frac``,
+``resched_*``) and to the controller, whose verdicts may switch the lever
+when its ``levers`` offer more than "duplicate".
+
+Not ported yet (see ROADMAP.md): ``profile_phases`` and
+``assert_no_recompiles``.
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ from repro_torch.core.predictors import DistributionEstimator
 from repro_torch.core.simulator import A100_PCIE
 from repro_torch.models.transformer import (Runtime, StoreView, Transformer,
                                             init_cache)
+from repro_torch.moe.dispatch import capacity
 from repro_torch.obs.accuracy import PredictorAccuracyTracker
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import cost as mig_cost
@@ -103,6 +117,7 @@ from repro_torch.runtime import (LayerStagedExecutor, MigrationExecutor,
                                  ReplicaStore, make_migrate_step, plan_diff,
                                  plans_equal)
 from repro_torch.runtime.store import EXPERT_WEIGHTS
+from repro_torch.schedule import make_scheduler
 from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
                                        write_prefill_blocks)
 from repro_torch.serve.metrics import (RequestTiming, ServeMetrics, imbalance,
@@ -113,6 +128,7 @@ from repro_torch.train.steps import (make_decode_step, make_paged_decode_step,
                                      make_prefill_step, make_slot_prefill_step)
 
 STRATEGIES = ("none", "dist_only", "token_to_expert")
+LEVERS = ("duplicate", "reschedule", "both")
 
 
 def _top1_over_k(pred, top_k: int, device) -> torch.Tensor:
@@ -166,7 +182,8 @@ class ServeConfig:
     """Knobs of ``ServeEngine``: the fields of the JAX package's
     ``ServeConfig`` that its mesh-less path reads. A mesh, the replica
     store, overlapped migration, in-graph re-planning and the reschedule
-    lever are not ported (ROADMAP.md)."""
+    lever (which acts on a meshed EP engine only) are not ported here
+    (ROADMAP.md)."""
     strategy: str = "dist_only"       # none | dist_only | token_to_expert
     predict_interval: int = 1         # batches between re-plans (paper Sec 3.1)
     dup_slots: int = 1                # replica slots per EP rank
@@ -379,6 +396,13 @@ class ContinuousConfig:
     overlap_migration: Optional[bool] = None
     prefetch_lead: int = 2            # iterations before the boundary to
                                       # pre-begin (0 = no predictive start)
+    # Balancing lever (repro_torch.schedule): initial; the controller may
+    # switch it when ControllerConfig.levers offers more than "duplicate".
+    # "reschedule" freezes the plan after its first adoption and balances
+    # by moving TOKENS across the frozen copies (quota dispatch + rescue
+    # round); "both" migrates on the interval AND token-schedules.
+    lever: str = "duplicate"          # duplicate | reschedule | both
+    resched_impl: str = "greedy"      # greedy | lp
 
     def __post_init__(self):
         if self.prefill_len % self.block_size:
@@ -386,6 +410,8 @@ class ContinuousConfig:
         if self.strategy not in STRATEGIES:
             raise ValueError(f"strategy {self.strategy!r}: one of "
                              f"{STRATEGIES}")
+        if self.lever not in LEVERS:
+            raise ValueError(f"lever {self.lever!r}: one of {LEVERS}")
         if self.num_blocks == 0:
             per_slot = -(-self.max_len // self.block_size)
             self.num_blocks = 1 + self.max_slots * per_slot   # +1: null block
@@ -423,12 +449,6 @@ class ContinuousEngine:
         if ep and ccfg.prefill_len % ep_ranks:
             raise ValueError(f"prefill_len {ccfg.prefill_len} does not split "
                              f"over {ep_ranks} EP ranks")
-        if controller is not None and \
-                tuple(controller.cfg.levers) != ("duplicate",):
-            raise ValueError(
-                f"levers {tuple(controller.cfg.levers)}: the port drives "
-                "only the duplicate lever (ROADMAP.md §1 item 5, token "
-                "rescheduling)")
         self.ccfg = ccfg
         self.ep_ranks = ep_ranks
         self.ep = ep
@@ -437,11 +457,24 @@ class ContinuousEngine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.name = name
         self.strategy = ccfg.strategy
+        self.lever = ccfg.lever
         self.predict_interval = ccfg.predict_interval
         self.iterations = 0
         self.decode_steps = 0
         self._plan_stack: Optional[PlacementPlan] = None
         self._plan_dev = None            # the live plan on the device (EP)
+        # token rescheduling: the quota stack moves to the device once per
+        # quota plan, as the plan does
+        self._resched_enabled = (
+            ccfg.lever in ("reschedule", "both")
+            or (controller is not None
+                and any(l != "duplicate" for l in controller.cfg.levers)))
+        self._resched_stack = None       # (L, E, C_max) int32 on the device
+        self._resched_sched = None       # TokenScheduler, built lazily
+        self._resched_frozen = False     # "reschedule" adopted its plan
+        self._resched_residual = None    # last plan's leftover imbalance
+        self._resched_absorbed_pred = None  # its predicted absorption
+        self._step_overflow = 0.0
         self._step_dropped = 0.0
         # (L, R * n_slots) pairs each global slot computed since the engine
         # was built (EP only): the measured per-slot, so per-rank, load
@@ -567,8 +600,17 @@ class ContinuousEngine:
         (the identity plan under strategy "none"), at most
         ``dup_slot_quota`` replica slots per rank. Returns the plan in
         force afterwards: the new one, or with a store the old one until
-        the migration toward the new one commits."""
+        the migration toward the new one commits.
+
+        Lever: "duplicate" and "both" adopt a fresh plan every time;
+        "reschedule" adopts one and then freezes it, and later calls only
+        recompute the quotas. Quotas are refreshed under either
+        rescheduling lever (``_replan_resched``)."""
         m = self.moe_cfg
+        if (self.strategy != "none" and self.lever == "reschedule"
+                and self._resched_frozen and self._plan_stack is not None):
+            self._replan_resched()
+            return self._plan_stack
         if self.strategy == "none":
             plan = self._identity_stack()
         else:
@@ -589,7 +631,11 @@ class ContinuousEngine:
                     for l in range(self.cfg.num_layers)]
             plan = stack_plans(plans)
         self.metrics.record_replan(int((np.asarray(plan.n_replicas) - 1).sum()))
-        return self._adopt_plan(plan)
+        out = self._adopt_plan(plan)
+        if self.strategy != "none" and self.lever == "reschedule":
+            self._resched_frozen = True
+        self._replan_resched()
+        return out
 
     def set_dup_slot_quota(self, quota: int) -> None:
         """Cap the replica slots the planner may USE (per rank) below the
@@ -599,6 +645,47 @@ class ContinuousEngine:
         the plan diff."""
         self.dup_slot_quota = max(
             0, min(int(quota), self.moe_cfg.duplication_slots))
+
+    def _replan_resched(self) -> None:
+        """Recompute the (L, E, C_max) quota stack from the estimator's
+        distribution against the plan currently IN FORCE (a staged
+        migration's target adopts later; the rescue round covers the
+        transient). Counts are the prefill bucket's (token, k) pairs, the
+        capacity a prefill slot's over the EP ranks."""
+        if (not self._resched_enabled or self.lever == "duplicate"
+                or self.strategy == "none"):
+            self._resched_stack = None
+            return
+        m = self.moe_cfg
+        plan = self._current_plan()
+        if self._resched_sched is None:
+            self._resched_sched = make_scheduler(self.ccfg.resched_impl)
+        dist = np.asarray(self.estimator.predict(), np.float64)   # (L, E)
+        counts = dist * float(self.ccfg.prefill_len * m.top_k)
+        t_local = max(self.ccfg.prefill_len // self.ep_ranks, 1)
+        n_slots_g = (m.num_experts // self.ep_ranks
+                     + m.duplication_slots) * self.ep_ranks
+        cap = capacity(t_local, m.top_k, n_slots_g,
+                       m.capacity_factor) * self.ep_ranks
+        layer_plans = [PlacementPlan(*(np.asarray(a)[l] for a in plan))
+                       for l in range(self.cfg.num_layers)]
+        quota, results = self._resched_sched.plan_stack(
+            counts, layer_plans, ep_ranks=self.ep_ranks,
+            dup_slots=m.duplication_slots, cap=float(cap))
+        self._resched_stack = self._dev(quota)
+        self._resched_residual = float(np.mean(
+            [r.imbalance_sched for r in results])) - 1.0
+        self._resched_absorbed_pred = float(np.mean(
+            [r.overflow_absorbed_frac for r in results]))
+        self.metrics.record_resched(
+            planned=True, absorbed_pred=self._resched_absorbed_pred,
+            residual=self._resched_residual)
+        self.tracer.instant(
+            "resched.plan", cat="plan", track="plan",
+            args={"iteration": self.iterations,
+                  "impl": self.ccfg.resched_impl,
+                  "residual": self._resched_residual,
+                  "absorbed_pred": self._resched_absorbed_pred})
 
     # ------------------------------------------------------ replica migration
     def _hw(self):
@@ -833,8 +920,10 @@ class ContinuousEngine:
     def warmup(self):
         """Build the kernels (at their first launch) and run one prefill
         (and one on Token-to-Expert predictions when a predictor is
-        attached) and one decode. Must run before any request is admitted.
-        Every warmup slot is idle, so nothing is written into the pool."""
+        attached) and one decode; under ``ep`` then one re-plan from the
+        empty estimator, as the JAX engine's meshed warmup does. Must run
+        before any request is admitted. Every warmup slot is idle, so
+        nothing is written into the pool."""
         if self.scheduler.active_slots:
             raise RuntimeError("warmup() before serving")
         ccfg = self.ccfg
@@ -860,6 +949,18 @@ class ContinuousEngine:
             self._dev(np.zeros((ccfg.max_slots, 1), np.float32)),
             self._plan_dev, store)
         next_tok.cpu()
+        if self.ep and self.strategy != "none":
+            # as the JAX engine does at the end of a meshed warmup: one
+            # re-plan from the empty estimator (the identity plan), which
+            # under "reschedule" is the plan that lever adopts and freezes,
+            # with its quotas; none of it counts as serving activity
+            self.replan()
+            while self._executor is not None and self._executor.active:
+                self._tick_migration()
+            m = self.metrics
+            m.migration = dict.fromkeys(m.migration, 0.0)
+            m.resched = dict.fromkeys(m.resched, 0.0)
+            m.replan_count = m.replicated_replans = 0.0
         self._warm = True
 
     # ------------------------------------------------------------------ step
@@ -889,11 +990,14 @@ class ContinuousEngine:
         step_span = self.tracer.span("step", args=step_args)
         step_span.__enter__()
         self._step_dropped = 0.0
+        self._step_overflow = 0.0
         self._step_migration_bytes = 0.0
         self._step_migration_hidden_bytes = 0.0
         self._tick_migration()       # commit BEFORE this iteration's plan read
         self._current_plan()
         store = self._store_view()
+        resched = (self._resched_stack
+                   if self.lever in ("reschedule", "both") else None)
 
         with self.tracer.span("admission") as adm:
             splan: IterationPlan = sched.schedule(now)
@@ -916,7 +1020,8 @@ class ContinuousEngine:
                 next_tok, _, temp, stats = self._prefill_fn(
                     self.model, self._dev(toks), self._temp_cache,
                     self._dev([req.prompt_len - 1]), self._dev(tw),
-                    self._plan_dev, store, predicted_idx=pred)
+                    self._plan_dev, store, predicted_idx=pred,
+                    resched=resched)
                 write_prefill_blocks(
                     self.pool, temp,
                     sched.tables.tables[slot, :S // ccfg.block_size])
@@ -925,7 +1030,8 @@ class ContinuousEngine:
                 req.t_first_token = clock()
                 self._last_tokens[slot] = tok0
                 prefill_tokens += req.prompt_len
-                iter_counts = self._accumulate(iter_counts, stats)
+                iter_counts = self._accumulate(iter_counts, stats,
+                                               resched is not None)
                 events.prefilled.append(req)
 
         # ----------------------------------------------------------- finish
@@ -962,7 +1068,7 @@ class ContinuousEngine:
                     self.model, self._dev(self._last_tokens[:, None]),
                     self.pool, self._dev(sched.tables.tables),
                     self._dev(sched.tables.lengths), self._dev(active),
-                    self._plan_dev, store)
+                    self._plan_dev, store, resched=resched)
                 nt = next_tok.cpu().numpy()
             self.decode_steps += 1
             for slot in decode_slots:
@@ -971,7 +1077,8 @@ class ContinuousEngine:
                 req.generated.append(tok)
                 sched.tables.lengths[slot] += 1
                 self._last_tokens[slot] = tok
-            iter_counts = self._accumulate(iter_counts, stats)
+            iter_counts = self._accumulate(iter_counts, stats,
+                                           resched is not None)
             events.decoded_slots = len(decode_slots)
             for slot in decode_slots:
                 self._maybe_finish(slot, clock(), events)
@@ -1010,11 +1117,16 @@ class ContinuousEngine:
                     self.accuracy.begin_window(
                         self._predicted_dist() if self.strategy != "none"
                         else None, self.strategy)
+            if self._step_overflow or self._step_dropped:
+                # rescue-round a2a surcharge: each overflowed (token, k)
+                # pair is re-sent once, its bf16 activation there and back
+                self.metrics.record_resched(
+                    overflow_tokens=self._step_overflow,
+                    dropped_tokens=self._step_dropped,
+                    extra_a2a_bytes=self._step_overflow * self.cfg.d_model
+                    * 2 * 2)
             if self.controller is not None:
                 events.decision = self._observe_controller(iter_counts, now)
-
-        if self._step_dropped:
-            self.metrics.record_dropped(self._step_dropped)
 
         dt = clock() - now
         self._recent_step_s = (dt if self._recent_step_s <= 0
@@ -1045,8 +1157,10 @@ class ContinuousEngine:
             iter_counts, now,
             migration_bytes=self._step_migration_bytes,
             migration_hidden_bytes=self._step_migration_hidden_bytes,
-            overflow_tokens=0.0, dropped_tokens=self._step_dropped,
-            resched_residual=None, resched_absorbed_pred=None)
+            overflow_tokens=self._step_overflow,
+            dropped_tokens=self._step_dropped,
+            resched_residual=self._resched_residual,
+            resched_absorbed_pred=self._resched_absorbed_pred)
         if decision is None:
             return None
         self.tracer.instant(
@@ -1064,8 +1178,15 @@ class ContinuousEngine:
         return decision
 
     def _apply_decision(self, decision) -> None:
-        if decision.strategy != self.strategy:
+        lever = decision.lever
+        lever_changed = (self._resched_enabled and lever != self.lever
+                         and decision.strategy != "none" and lever in LEVERS)
+        if decision.strategy != self.strategy or lever_changed:
             self.strategy = decision.strategy
+            if lever_changed:
+                self.lever = lever
+                # a fresh reschedule tenure freezes the NEXT adopted plan
+                self._resched_frozen = False
             # replan() handles "none" too: the identity stack goes through
             # _adopt_plan, which cancels any in-flight fill (a direct
             # _plan_stack write would let a stale commit reinstate the
@@ -1073,10 +1194,20 @@ class ContinuousEngine:
             self.replan()
         self.predict_interval = decision.predict_interval
 
-    def _accumulate(self, acc, stats):
+    def _accumulate(self, acc, stats, resched: bool = False):
+        """Add a forward's statistics to the step's: under EP its slot
+        counts, drops and (with a quota) overflows in one transfer."""
         if self.ep:
-            self._step_dropped += float(stats["dropped"].sum())
-            sc = stats["slot_counts"].to("cpu", torch.float64).numpy()
+            sc = stats["slot_counts"]
+            cols = [sc, stats["dropped"].to(sc.dtype)[:, None]]
+            if resched:
+                cols.append(stats["overflow"].to(sc.dtype)[:, None])
+            host = torch.cat(cols, dim=1).to("cpu", torch.float64).numpy()
+            S = sc.shape[1]
+            self._step_dropped += float(host[:, S].sum())
+            if resched:
+                self._step_overflow += float(host[:, S + 1].sum())
+            sc = host[:, :S]
             self.slot_counts = (sc if self.slot_counts is None
                                 else self.slot_counts + sc)
         c = stats["expert_counts"].to("cpu", torch.float64).numpy()

@@ -1,8 +1,7 @@
 """SLO metrics for the serving subsystem (the port's copy of the JAX
-package's ``serve/metrics.py``, with its replica-migration columns, and
-without the rescheduling and dispatch-phase columns of the paths not
-ported yet; of the rescheduling columns only ``dropped_tokens`` is kept,
-the pairs the EP dispatch drops at capacity).
+package's ``serve/metrics.py``, with its replica-migration and token
+rescheduling columns, and without the dispatch-phase columns of the
+phase profiler, which is not ported yet).
 
 Per-request: TTFT (arrival -> first token), TPOT (mean inter-token time),
 end-to-end latency. Per-window: throughput, goodput (completions meeting
@@ -181,8 +180,15 @@ class ServeMetrics:
         self._decode_tokens_n: float = 0.0
         self._attn_live_blocks: float = 0.0
         self._attn_alloc_blocks: float = 0.0
-        # (token, k) pairs the EP dispatch dropped at capacity
-        self.dropped_tokens: float = 0.0
+        # token-rescheduling accounting (repro_torch.schedule): the (token,
+        # k) pairs the EP dispatch dropped at capacity (every EP run), the
+        # capacity-overflow pairs the rescue round re-sent, its extra a2a
+        # bytes, and the scheduler's per-plan predictions (absorbed
+        # overflow fraction, residual imbalance)
+        self.resched: Dict[str, float] = {
+            "overflow_tokens": 0.0, "dropped_tokens": 0.0,
+            "resched_a2a_bytes": 0.0, "plans": 0.0,
+            "absorbed_pred_sum": 0.0, "residual_sum": 0.0}
         self._win_counts: Optional[np.ndarray] = None
         self._win: Optional[WindowRecord] = None
         self._t0: Optional[float] = None
@@ -269,10 +275,25 @@ class ServeMetrics:
         m["prebegun"] += bool(prebegun)
         m["cancelled"] += bool(cancelled)
 
-    # ---------------------------------------------------------------- drops
-    def record_dropped(self, pairs: float) -> None:
-        """Account one iteration's (token, k) pairs dropped at capacity."""
-        self.dropped_tokens += float(pairs)
+    # ---------------------------------------------------------- rescheduling
+    def record_resched(self, *, overflow_tokens: float = 0.0,
+                       dropped_tokens: float = 0.0,
+                       extra_a2a_bytes: float = 0.0,
+                       planned: bool = False,
+                       absorbed_pred: float = 0.0,
+                       residual: float = 0.0):
+        """Account token-rescheduling activity: an iteration's overflow and
+        drop counts and the rescue round's extra a2a bytes, plus
+        (``planned=True``) one scheduler quota plan with its predicted
+        absorbed-overflow fraction and residual imbalance."""
+        r = self.resched
+        r["overflow_tokens"] += float(overflow_tokens)
+        r["dropped_tokens"] += float(dropped_tokens)
+        r["resched_a2a_bytes"] += float(extra_a2a_bytes)
+        if planned:
+            r["plans"] += 1.0
+            r["absorbed_pred_sum"] += float(absorbed_pred)
+            r["residual_sum"] += float(residual)
 
     # ---------------------------------------------------------- per-request
     def record_completion(self, t: RequestTiming):
@@ -322,8 +343,21 @@ class ServeMetrics:
                 if t.ttft <= self.slo_ttft and t.tpot <= self.slo_tpot]
         total_tokens = sum(t.new_tokens for t in ts)
         mig = self.migration
+        rs = self.resched
+        # realized absorbed fraction: of the overflow pairs the dispatch
+        # saw, how many the rescue round kept (1.0 when nothing overflowed)
+        absorbed = (1.0 - rs["dropped_tokens"] / rs["overflow_tokens"]
+                    if rs["overflow_tokens"] > 0 else 1.0)
         out = {
-            "dropped_tokens": self.dropped_tokens,
+            "dropped_tokens": rs["dropped_tokens"],
+            "overflow_tokens": rs["overflow_tokens"],
+            "resched_a2a_bytes": rs["resched_a2a_bytes"],
+            "overflow_absorbed_frac": absorbed,
+            "resched_plans": rs["plans"],
+            "resched_absorbed_pred": (rs["absorbed_pred_sum"] / rs["plans"]
+                                      if rs["plans"] > 0 else 0.0),
+            "resched_residual": (rs["residual_sum"] / rs["plans"]
+                                 if rs["plans"] > 0 else 0.0),
             "replans": self.replan_count,
             "replicated_replans": self.replicated_replans,
             "migration_planned_bytes": mig["planned_bytes"],

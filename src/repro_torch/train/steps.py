@@ -9,7 +9,9 @@ continuous engine's two steps also pass its replica store view
 (``models.transformer.StoreView``: the store's per-layer rows and, while a
 staged migration is in flight, its ready mask, target plan and fill
 events). Both prefill steps take the Token-to-Expert predictions
-(``predicted_idx`` (L, B, S, K)) the EP dispatch pre-routes on."""
+(``predicted_idx`` (L, B, S, K)) the EP dispatch pre-routes on, and every
+step the reschedule quota stack (``resched`` (L, E, C_max) int32) the EP
+dispatch picks replicas through."""
 
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ def make_slot_prefill_step(cfg: ModelConfig, rt: Runtime):
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, last_pos=None,
                      token_weight=None, plan=None, store=None,
-                     predicted_idx=None):
+                     predicted_idx=None, resched=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="prefill",
                                        cache=cache, last_pos=last_pos,
                                        token_weight=token_weight, plan=plan,
                                        store=store,
-                                       predicted_idx=predicted_idx)
+                                       predicted_idx=predicted_idx,
+                                       resched=resched)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return prefill_step
@@ -43,12 +46,13 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
     next tokens for every slot; the engine masks idle slots."""
     @torch.inference_mode()
     def decode_step(model: Transformer, tokens, pool, block_tables, lengths,
-                    token_weight=None, plan=None, store=None):
+                    token_weight=None, plan=None, store=None,
+                    resched=None):
         logits, pool, stats = forward(model, cfg, tokens, rt, mode="decode",
                                       cache=pool, cache_len=lengths,
                                       block_tables=block_tables,
                                       token_weight=token_weight, plan=plan,
-                                      store=store)
+                                      store=store, resched=resched)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, pool, stats
     return decode_step
@@ -59,9 +63,10 @@ def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     None). Returns (logits at the last position, cache, stats)."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, plan=None,
-                     predicted_idx=None):
+                     predicted_idx=None, resched=None):
         return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
-                       plan=plan, predicted_idx=predicted_idx)
+                       plan=plan, predicted_idx=predicted_idx,
+                       resched=resched)
     return prefill_step
 
 
@@ -71,10 +76,10 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime):
     (greedy next tokens (B, 1) int32, logits, cache, stats)."""
     @torch.inference_mode()
     def decode_step(model: Transformer, tokens, cache, cache_len: int,
-                    plan=None):
+                    plan=None, resched=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="decode",
                                        cache=cache, cache_len=cache_len,
-                                       plan=plan)
+                                       plan=plan, resched=resched)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return decode_step

@@ -38,6 +38,7 @@ from repro_torch.core.placement import (PlacementPlan, slot_experts,  # noqa: E4
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.moe import dispatch as ep  # noqa: E402
 from repro_torch.moe.router import route  # noqa: E402
+from repro_torch.schedule import even_quota  # noqa: E402
 
 PACK_FIELDS = ("send", "in_cap", "dest", "counts", "dropped")
 PACKERS = {"sort": (ep._pack_sort, jep._pack_sort),
@@ -269,11 +270,15 @@ def test_unported_modes_raise():
     """Token-to-Expert predictions compute in ``ep_moe_ffn`` (predictions
     equal to the routes leave nothing to correct: the result is the
     one-round dispatch's, bit for bit) and raise the JAX package's message
-    in ``ep_moe_ffn_replicated``, a prefill feature there; the reschedule
-    quota is not ported and raises in both."""
+    in ``ep_moe_ffn_replicated``, a prefill feature there, also with a
+    quota; a reschedule quota is accepted by both functions: the even
+    quota on the identity plan picks every pair's home slot, as round
+    robin does, and at a capacity factor of 8 nothing overflows, so both
+    give the one-round result bit for bit with ``overflow`` 0."""
     moe = MoEConfig(num_experts=E, top_k=K, d_ff_expert=F)
     x, wr, w = _inputs(2, 0)
-    plan = to_device(_port_plan(_plan(2, 0, False)), E, 2, 0, "cpu")
+    host_plan = _port_plan(_plan(2, 0, False))
+    plan = to_device(host_plan, E, 2, 0, "cpu")
     ro = route(torch.tensor(wr), moe, torch.tensor(x))
     wt = {n: torch.tensor(a) for n, a in w.items()}
     y0, s0 = ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2)
@@ -282,12 +287,20 @@ def test_unported_modes_raise():
     assert torch.equal(y0, y1)
     for name in ("expert_counts", "slot_counts", "dropped"):
         assert torch.equal(getattr(s0, name), getattr(s1, name)), name
+    quota = torch.tensor(even_quota(host_plan))
     with pytest.raises(NotImplementedError, match="prefill feature"):
         ep.ep_moe_ffn_replicated(torch.tensor(x[0]), ro, wt, plan, moe,
-                                 ep_ranks=2, predicted_idx=ro.expert_idx)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ep.ep_moe_ffn(torch.tensor(x), ro, wt, plan, moe, ep_ranks=2,
-                      resched_quota=1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ep.ep_moe_ffn_replicated(torch.tensor(x[0]), ro, wt, plan, moe,
-                                 ep_ranks=2, resched_quota=1)
+                                 ep_ranks=2, predicted_idx=ro.expert_idx,
+                                 resched_quota=quota)
+    roomy = MoEConfig(num_experts=E, top_k=K, d_ff_expert=F,
+                      capacity_factor=8.0)
+    ro1 = route(torch.tensor(wr), roomy, torch.tensor(x[0]))
+    for fn, xs, r in ((ep.ep_moe_ffn, x, ro),
+                      (ep.ep_moe_ffn_replicated, x[0], ro1)):
+        ya, sa = fn(torch.tensor(xs), r, wt, plan, roomy, ep_ranks=2)
+        yb, sb = fn(torch.tensor(xs), r, wt, plan, roomy, ep_ranks=2,
+                    resched_quota=quota)
+        assert torch.equal(ya, yb) and sa.overflow == 0
+        assert int(sb.overflow) == 0 and int(sb.dropped) == 0
+        for name in ("expert_counts", "slot_counts", "dropped"):
+            assert torch.equal(getattr(sa, name), getattr(sb, name)), name

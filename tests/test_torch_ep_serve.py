@@ -65,6 +65,17 @@ ENGINE_KW = dict(max_slots=4, prefill_len=S, block_size=BS, max_len=MAXLEN,
                  strategy="dist_only", predict_interval=2, dup_slots=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The reduced model's operations are tiny: one intra-op thread runs
+    them as fast as many, and keeps this file from oversubscribing the
+    cores when test workers run side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model_inputs(vocab):
     # seed 0's second prompt puts one token's top-2 probabilities within the
     # bf16 noise of the two frameworks' hidden states, which moves one pair

@@ -28,9 +28,9 @@ bytes the controller is fed, against ``_chunk_stall_split`` (and the
 store-less engine's against ``_hidden_estimate``); a switch to "none"
 with a fill in flight cancels it and adopts the identity plan for good;
 a re-plan that restarts a fill in flight replaces the fill's target; the
-engine accepts a controller that may choose Token-to-Expert and refuses one
-offered a lever other than duplication; ``_hw()`` is the controller's
-hardware.
+engine accepts a controller that may choose Token-to-Expert and one
+offered every balancing lever (which enables the token scheduler);
+``_hw()`` is the controller's hardware.
 """
 
 import dataclasses
@@ -435,15 +435,22 @@ def test_replan_restarts_a_fill_in_flight():
 
 def test_engine_refuses_what_the_port_cannot_run():
     # a controller that may choose Token-to-Expert is accepted (the port
-    # runs it); one offered the reschedule lever is still refused
+    # runs it), and so is one offered every lever: it enables the token
+    # scheduler, while the engine starts on its configured lever; a lever
+    # the port does not know is refused
     ctl = OnlineGPSController(get_config("mixtral-8x7b"), ControllerConfig(),
                               predictor_available=True)
     eng = _store_engine(ctl)
     assert eng.controller is ctl and eng.strategy == "dist_only"
-    with pytest.raises(ValueError, match="item 5"):
-        _store_engine(OnlineGPSController(
-            get_config("mixtral-8x7b"),
-            ControllerConfig(levers=("duplicate", "reschedule"))))
+    assert not eng._resched_enabled
+    ctl = OnlineGPSController(
+        get_config("mixtral-8x7b"),
+        ControllerConfig(levers=("duplicate", "reschedule", "both")))
+    eng = _store_engine(ctl)
+    assert eng.controller is ctl and eng._resched_enabled
+    assert eng.lever == "duplicate" and eng._resched_stack is None
+    with pytest.raises(ValueError, match="lever"):
+        ContinuousConfig(**dict(ENGINE_KW, lever="migrate"))
 
 
 def test_hw_is_the_controllers_hardware():

@@ -57,6 +57,17 @@ ARCH = "recurrentgemma-2b"
 PLAN_FIELDS = ("n_replicas", "replica_table", "pool_expert", "pool_sel")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The reduced model's operations are tiny: one intra-op thread runs
+    them as fast as many, and keeps this file from oversubscribing the
+    cores when test workers run side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(a):
     return torch.tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
 

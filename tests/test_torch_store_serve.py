@@ -83,6 +83,17 @@ ENGINE_KW = dict(max_slots=4, prefill_len=64, block_size=8, max_len=128,
                  prefetch_lead=2, migration_gate=False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The reduced model's operations are tiny: one intra-op thread runs
+    them as fast as many, and keeps this file from oversubscribing the
+    cores when test workers run side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _requests(vocab):
     rng = np.random.default_rng(1)
     return [dict(rid=i, tokens=rng.integers(0, vocab, n).astype(np.int32),
