@@ -137,6 +137,49 @@ non-zero:
   8. reference — reduced models' logits on the card against the CPU path:
                 Mixtral dense and EP, and Griffin with prompts longer than
                 its local window.
+  9. roofline — (host only, after the Mixtral phases) ``repro_torch.
+                roofline``'s analytic report of Mixtral-8x7B (one replica
+                slot per rank, as the EP engine runs it) at 8 and 32 layers
+                for the main trace's decode step (8 sequences, 1024
+                positions) and a 512-token prefill, on the H100's data
+                sheet figures; beside it phase 4's EP decode step p50 as a
+                share of the card's peak for the step's model FLOPs, and
+                the roofline's memory time beside the step's profiled
+                device busy time.
+ 10. profile  — ``ContinuousEngine.profile_phases`` on an EP store engine
+                (4 ranks, one replica slot, the main trace's config) over
+                the first 2 Mixtral layers at full width (a fresh model
+                from ``--seed``: ``init_model`` draws the embedding and
+                head, then the layers in order, so these are the main
+                path's first 2 layers): the prefill bucket (512 tokens),
+                then ``metrics.reset_phases()`` and a decode-shaped profile
+                (8 tokens). Prints seconds per phase (attn, route, pack,
+                a2a, ffn, combine, total, migrate, prefetch); checks every
+                phase > 0, ``total`` the sum of the five dispatch phases,
+                the ``phase_*_us`` columns, the spans on the
+                "dispatch-profile" track and each phase's kernel launches
+                (route: fused_topk_route, pack: histogram_offsets, ffn:
+                moe_gemm, attn: paged_decode_attention). Also the packers
+                (sort against onehot) and paged attention (fused against
+                gather) head to head, the ffn phase beside phase 3's
+                moe_gemm rows, and the phases' sum over 8 layers beside
+                phase 4's profiled EP decode step.
+ 11. fleet    — the JAX package's fleet A/B (``bench_serve_traces.py``)
+                at full width: two Mixtral instances sharing one 4-layer
+                model (a fresh model from ``--seed``, the main path's first
+                4 layers), ``FleetEngine(ep=True)`` with 4 ranks and 2
+                replica slots each, ``workloads.build_workload(
+                "fleet_shift")`` (47 requests: a chat tenant ramping onto a
+                hot topic beside a flat batch tenant) on a virtual clock
+                (0.25 s per fleet step, at most 320); a static leg and an
+                arbiter leg. Checks for both: drained, every request
+                completed with its tokens, launches against phase 4's
+                formula summed over the two engines, the ledger's quotas
+                summing to what was provisioned, no allocator above its
+                quota, the merged trace valid with one pid per model; the
+                arbiter leg moved quota at least once, the static leg
+                never. Prints attainment (all and worst tenant), moves,
+                final quotas, fleet step p50 / p99 and peak memory.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -637,6 +680,7 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
         del w, cases, store_w
         torch.cuda.empty_cache()
+    MEASURED["moe_gemm_rows"] = rows
     return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:60", rows,
                        "bfloat16/decode")
@@ -1285,6 +1329,8 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     eng.strategy = strategy
     kernels = _kernel_time_by_name(prof, iters)
     busy = sum(ms for ms, _ in kernels.values())
+    MEASURED[f"profile/{label}"] = {"step_ms": plain_ms, "busy_ms": busy,
+                                    "profiled_step_ms": wall_ms}
     log("profile", path=label, decode_iterations=iters,
         slots=eng.ccfg.max_slots, fill_in_flight_at_start=in_flight,
         dtod_copies_per_step=sum(n for name, (_, n) in kernels.items()
@@ -1383,27 +1429,30 @@ def migration_profile_phase(eng, cfg, seed: int, max_steps: int = 8) -> None:
                          f"{len(side) - len(copies)} other side-stream events")
 
 
-def build_mixtral(seed: int):
-    """Mixtral-8x7B at published widths, the first ``MAIN_LAYERS`` of its
-    32 layers, random weights from ``seed``, on the card."""
+def build_mixtral(seed: int, layers: int = MAIN_LAYERS,
+                  phase: str = "main", dup_slots: int = DUP_SLOTS):
+    """Mixtral-8x7B at published widths, the first ``layers`` of its 32
+    layers, random weights from ``seed``, on the card. ``init_model`` draws
+    the embedding, the head, then the layers in order, so a smaller
+    ``layers`` gives the first layers of a larger model's weights."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_model
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
-                              num_layers=MAIN_LAYERS)
-    log("main", model=cfg.name, d_model=cfg.d_model, heads=cfg.num_heads,
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=layers)
+    log(phase, model=cfg.name, d_model=cfg.d_model, heads=cfg.num_heads,
         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
         d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
-        window=cfg.sliding_window, ep_ranks=EP_RANKS, dup_slots=DUP_SLOTS,
+        window=cfg.sliding_window, ep_ranks=EP_RANKS, dup_slots=dup_slots,
         capacity_factor=cfg.moe.capacity_factor,
-        reduced=f"num_layers 32->{MAIN_LAYERS} (32 bf16 layers ~93 GB > "
-                f"80 GB); the dense path's run {DENSE_LAYERS} of them")
+        reduced=f"num_layers 32->{layers} (32 bf16 layers ~93 GB > 80 GB)"
+                + (f"; the dense path's run {DENSE_LAYERS} of them"
+                   if phase == "main" else ""))
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda")
     torch.cuda.synchronize()
-    log("main", init_s=f"{time.perf_counter() - t0:.3f}",
+    log(phase, init_s=f"{time.perf_counter() - t0:.3f}",
         weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
     return model, cfg
 
@@ -2798,10 +2847,357 @@ def griffin_reference_phase(seed: int):
                          "path")
 
 
+# ---------------------------------------------------------------------------
+# phase roofline: the analytic roofline beside the measured decode step
+# ---------------------------------------------------------------------------
+
+def roofline_phase() -> None:
+    """``repro_torch.roofline``'s analytic report of Mixtral-8x7B at 8 and
+    32 layers (one replica slot per rank, as the EP engine runs) for the
+    main trace's decode step and a 512-token prefill; then phase 4's EP
+    decode step p50 as a share of the card's peak for the step's model
+    FLOPs, and the roofline's memory time beside the step's device busy
+    time (both "not measured" without phase main)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.roofline import PEAK_FLOPS, analyze, model_flops
+
+    base = get_config("mixtral-8x7b")
+    shapes = (InputShape("main_decode", MAIN_CCFG["max_len"],
+                         MAIN_CCFG["max_slots"], "decode"),
+              InputShape("main_prefill", MAIN_CCFG["prefill_len"], 1,
+                         "prefill"))
+    reports = {}
+    for layers in (MAIN_LAYERS, base.num_layers):
+        cfg = dataclasses.replace(base, num_layers=layers, moe=dataclasses
+                                  .replace(base.moe,
+                                           duplication_slots=DUP_SLOTS))
+        for shape in shapes:
+            r = analyze(f"{cfg.name}-{layers}L", shape, "1x1", 1, cfg)
+            reports[(layers, shape.name)] = (r, cfg, shape)
+            log("roofline", **{k: (f"{v:.6g}" if isinstance(v, float)
+                                   else v) for k, v in r.row().items()
+                               if k != "collective_breakdown"})
+    r, cfg, shape = reports[(MAIN_LAYERS, "main_decode")]
+    step = MEASURED.get("serve/ep")
+    prof = MEASURED.get("profile/store")
+    if step is None or prof is None:
+        log("roofline", decode_step="not measured (phase main not run)")
+        return
+    p50_s = step["step_p50_ms"] / 1e3
+    log("roofline", cell="main trace EP decode step (8 of 32 layers)",
+        model_flops=f"{model_flops(cfg, shape):.6g}",
+        step_p50_ms=f"{step['step_p50_ms']:.4f}",
+        model_flops_share_of_peak=f"{model_flops(cfg, shape) / (p50_s * PEAK_FLOPS):.6g}",
+        roofline_memory_ms=f"{r.memory_s * 1e3:.4f}",
+        roofline_compute_ms=f"{r.compute_s * 1e3:.4f}",
+        device_busy_ms=f"{prof['busy_ms']:.4f}",
+        decode_step_ms=f"{prof['step_ms']:.4f}",
+        memory_share_of_busy=f"{r.memory_s * 1e3 / prof['busy_ms']:.4f}",
+        memory_share_of_step=f"{r.memory_s * 1e3 / prof['step_ms']:.4f}",
+        peaks="H100 SXM data sheet: 989 TFLOP/s bf16, 3.35 TB/s")
+
+
+# ---------------------------------------------------------------------------
+# phase profile: ContinuousEngine.profile_phases at full width
+# ---------------------------------------------------------------------------
+
+PROFILE_LAYERS = 2                 # keeps the fp32 migrate inputs ~34 GB
+PROFILE_ITERS = 3
+PROFILE_SPANS = ("attn", "route", "pack", "a2a", "ffn", "combine", "migrate")
+
+
+def _track_spans(tracer, track: str):
+    doc = tracer.to_chrome()
+    tids = {e["tid"] for e in doc["traceEvents"] if e.get("ph") == "M"
+            and e.get("name") == "thread_name"
+            and e["args"]["name"] == track}
+    return [e["name"] for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e["tid"] in tids]
+
+
+def dispatch_profile_phase(seed: int) -> None:
+    """``profile_phases`` at the prefill bucket and decode-shaped on an EP
+    store engine over 2 full-width Mixtral layers, with its checks; the
+    packers and paged attention head to head; the ffn phase beside phase
+    3's moe_gemm rows and the phases' sum over 8 layers beside phase 4's
+    profiled EP decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.moe import profile as prof
+    from repro_torch.obs import SpanTracer
+    from repro_torch.serve import ContinuousConfig, ContinuousEngine
+
+    t0 = time.perf_counter()
+    free_engines("phases")
+    model, cfg = build_mixtral(seed, PROFILE_LAYERS, phase="phases")
+    tracer = SpanTracer()
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**MAIN_CCFG),
+                           ep_ranks=EP_RANKS, ep=True, tracer=tracer)
+    ccfg, m = eng.ccfg, eng.moe_cfg
+    log("phases", layers=cfg.num_layers, ep_ranks=EP_RANKS,
+        dup_slots=m.duplication_slots, iters=PROFILE_ITERS,
+        dispatch_dtype="float32 (the JAX profile's)",
+        allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    failures, profiles = [], {}
+    for shape, tokens in (("prefill", ccfg.prefill_len),
+                          ("decode", ccfg.max_slots)):
+        if shape == "decode":
+            eng.metrics.reset_phases()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        ph = eng.profile_phases(iters=PROFILE_ITERS, tokens=tokens)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        profiles[shape] = ph
+        log("phases", shape=shape, tokens=tokens,
+            **{f"{k}_s": f"{v:.6g}" for k, v in ph.items()},
+            call_s=f"{time.perf_counter() - t1:.3f}",
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+        # each timed phase runs its callable once in the chain, once warm
+        # and PROFILE_ITERS times; attn has no chain run
+        want = {k: 0 for k in launches}
+        want.update(paged_decode_attention=PROFILE_ITERS + 1,
+                    fused_topk_route=PROFILE_ITERS + 2,
+                    histogram_offsets=PROFILE_ITERS + 2,
+                    moe_gemm=PROFILE_ITERS + 2)
+        if launches != want:
+            failures.append(f"{shape}: launches {launches} != {want}")
+        keys = {"attn", "route", "pack", "a2a", "ffn", "combine", "total",
+                "migrate", "prefetch"}
+        if set(ph) != keys or not all(v > 0 for v in ph.values()):
+            failures.append(f"{shape}: phases {ph}")
+        dispatch = sum(ph[p] for p in prof.PHASES)
+        if ph.get("total") != dispatch:
+            failures.append(f"{shape}: total {ph.get('total')} != {dispatch}")
+        cols = {k for k in eng.metrics.summary() if k.startswith("phase_")}
+        if cols != {f"phase_{k}_us" for k in keys}:
+            failures.append(f"{shape}: summary columns {sorted(cols)}")
+    spans = _track_spans(tracer, "dispatch-profile")
+    log("phases", dispatch_profile_spans=len(spans),
+        span_order_ok=spans == list(PROFILE_SPANS) * 2)
+    if spans != list(PROFILE_SPANS) * 2:
+        failures.append(f"dispatch-profile spans {spans}")
+    dev = model.device
+    del eng, model, tracer
+    free_engines("phases")
+
+    packs = prof.pack_impl_times(d_model=cfg.d_model,
+                                 num_experts=cfg.moe.num_experts,
+                                 top_k=cfg.moe.top_k, tokens=ccfg.prefill_len,
+                                 device=dev)
+    attns = prof.attn_impl_times(
+        batch=ccfg.max_slots, num_kv=cfg.num_kv_heads,
+        gqa=cfg.num_heads // cfg.num_kv_heads, head_dim=cfg.head_dim,
+        block_size=ccfg.block_size,
+        max_blocks=ccfg.max_len // ccfg.block_size,
+        window=cfg.sliding_window, device=dev)
+    log("phases", head_to_head="pack", tokens=ccfg.prefill_len,
+        **{f"{k}_ms": f"{v * 1e3:.4f}" for k, v in packs.items()},
+        onehot_over_sort=f"{packs['onehot'] / packs['sort']:.3f}")
+    log("phases", head_to_head="paged attention", batch=ccfg.max_slots,
+        **{f"{k}_ms": f"{v * 1e3:.4f}" for k, v in attns.items()},
+        gather_over_fused=f"{attns['gather'] / attns['fused']:.3f}")
+    # phase 3 times its bf16 rows (the engine's arithmetic) and bounds its
+    # fp32 rows (the profile's), at 12 slots of 8 / 128 rows
+    rows = MEASURED.get("moe_gemm_rows", {})
+    for shape in ("decode", "prefill"):
+        fp32, bf16 = rows.get(f"float32/{shape}"), rows.get(
+            f"bfloat16/{shape}")
+        log("phases", compare="ffn phase vs kernel table", shape=shape,
+            ffn_phase_fp32_ms=f"{profiles[shape]['ffn'] * 1e3:.4f}",
+            ffn_phase_timer=f"host wall, best of {PROFILE_ITERS}, "
+                            "synchronised",
+            **({"moe_gemm_fp32_row_bound_ms": f"{fp32['bound_ms']:.4f}",
+                "moe_gemm_fp32_row_bound_by": fp32["bound_by"],
+                "moe_gemm_bf16_row_ms": f"{bf16['ms']:.4f}",
+                "row_timer": "CUDA events, median of 25, L2 flushed"}
+               if fp32 and bf16 else
+               {"moe_gemm_rows": "not measured (phase moe_gemm not run)"}))
+    dec = profiles["decode"]
+    per_layer = dec["attn"] + dec["total"]
+    step = MEASURED.get("profile/store")
+    log("phases", compare="decode phases vs phase 4's EP decode step",
+        phases_per_layer_ms=f"{per_layer * 1e3:.4f}",
+        phases_x_layers_ms=f"{per_layer * 1e3 * MAIN_LAYERS:.4f}",
+        layers=MAIN_LAYERS,
+        **({"ep_decode_device_busy_ms": f"{step['busy_ms']:.4f}",
+            "ep_decode_step_ms": f"{step['step_ms']:.4f}",
+            "step_minus_phases_ms":
+                f"{step['step_ms'] - per_layer * 1e3 * MAIN_LAYERS:.4f}"}
+           if step else {"ep_decode_step": "not measured (phase main not "
+                                           "run)"}))
+    if failures:
+        raise SystemExit("profile phase failed: " + "; ".join(failures))
+    log("phases", phase_s=f"{time.perf_counter() - t0:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase fleet: two full-width Mixtral instances under one arbiter
+# ---------------------------------------------------------------------------
+
+FLEET_LAYERS = 4                   # two stores of 2 replica slots: ~68 GB
+# the JAX package's fleet A/B (benchmarks/bench_serve_traces.py) with the
+# prompt bucket and length budget of its lever A/B, so that no prompt is
+# cut; 12 of the 48 pool blocks each, the A/B's 12 blocks
+FLEET_CCFG = dict(max_slots=4, prefill_len=64, block_size=8, max_len=96,
+                  strategy="dist_only", predict_interval=4, dup_slots=2,
+                  metrics_window=4, max_prefills_per_step=2)
+FLEET_KV_QUOTA, FLEET_DUP_QUOTA = 12, 1
+FLEET_ARBITER = dict(window_iters=8, patience=2, queue_norm=4.0,
+                     kv_blocks_per_move=4, kv_floor_blocks=4)
+FLEET_TRACE = dict(horizon=20.0, rate=1.2)
+FLEET_DT, FLEET_MAX_ITERS = 0.25, 320
+
+
+def fleet_leg(model, cfg, trace, label: str, arbiter: bool):
+    """One leg of the fleet A/B; returns its summary row."""
+    from repro_torch.fleet import (BATCH, ArbiterConfig, FleetAdmission,
+                                   FleetEngine, FleetModelSpec, SLOClass)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.serve import ContinuousConfig
+    from repro_torch.workloads import to_serve_requests
+
+    adm = FleetAdmission(routes={"chat": "m-chat", "batch": "m-batch"},
+                         slos={"chat": SLOClass("chat", slo_ttft=2.0,
+                                                slo_tpot=1.0),
+                               "batch": BATCH})
+    ccfg = ContinuousConfig(**FLEET_CCFG)
+    specs = [FleetModelSpec(n, cfg, model, ccfg,
+                            dup_slot_quota=FLEET_DUP_QUOTA,
+                            kv_block_quota=FLEET_KV_QUOTA)
+             for n in ("m-chat", "m-batch")]
+    t0 = time.perf_counter()
+    fleet = FleetEngine(specs, ep=True, ep_ranks=EP_RANKS, admission=adm,
+                        arbiter_cfg=ArbiterConfig(**FLEET_ARBITER),
+                        enable_arbiter=arbiter, trace=True,
+                        device=model.device)
+    fleet.warmup()
+    stores = [e._store.device_bytes for e in fleet.engines.values()]
+    log("fleet", leg=label, build_and_warmup_s=f"{time.perf_counter() - t0:.3f}",
+        store_device_gb=",".join(f"{b / 1e9:.3f}" for b in stores),
+        allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        kv_pool_blocks=ccfg.num_blocks - 1,
+        hardware=ArbiterConfig().hardware.name)
+    reqs = to_serve_requests(trace)
+    for r in sorted(reqs, key=lambda r: r.arrival):
+        fleet.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    now, n, over_quota = 0.0, 0, []
+    t0 = time.perf_counter()
+    while fleet.has_work() and n < FLEET_MAX_ITERS:
+        fleet.step(now)
+        now += FLEET_DT
+        n += 1
+        over_quota += [(n, name) for name, e in fleet.engines.items()
+                       if e.allocator.in_use > e.allocator.quota]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for eng in fleet.engines.values():
+        eng.metrics.flush(eng._plan_stack, eng.ep_ranks,
+                          eng.moe_cfg.duplication_slots)
+    s = fleet.summary()
+    failures = []
+    want = {k: 0 for k in launches}
+    done = 0
+    for name, eng in fleet.engines.items():
+        es = eng.metrics.summary()
+        prefills = len(eng.scheduler.completed) + int(es["preemptions"])
+        part = expected_launches(launches, cfg, prefills, eng.decode_steps,
+                                 ep=True)
+        want = {k: want[k] + part[k] for k in want}
+        done += len(eng.scheduler.completed)
+        for r in eng.scheduler.completed:
+            toks = np.asarray(r.generated)
+            if len(toks) != r.max_new_tokens or (toks < 0).any() \
+                    or (toks >= cfg.vocab_size).any():
+                failures.append(f"{name} request {r.rid}: bad tokens")
+        log("fleet", leg=label, model=name,
+            completed=len(eng.scheduler.completed), prefills=prefills,
+            decode_steps=eng.decode_steps,
+            attainment=f"{adm.model_attainment(eng.metrics, name):.4f}",
+            ttft_p50_s=f"{es['ttft_p50']:.4f}", ttft_p99_s=f"{es['ttft_p99']:.4f}",
+            replans=int(es["replans"]),
+            migration_commits=int(es["migration_commits"]),
+            dup_slot_quota=eng.dup_slot_quota,
+            kv_block_quota=eng.allocator.quota)
+    moves = fleet.arbiter.moves if fleet.arbiter else []
+    row = {"fleet_slo_attainment": s["fleet_slo_attainment"],
+           "fleet_slo_attainment_worst": s["fleet_slo_attainment_worst"],
+           "moves": len(moves),
+           "chat_kv_quota": int(s["m-chat_kv_block_quota"]),
+           "batch_kv_quota": int(s["m-batch_kv_block_quota"]),
+           "chat_dup_quota": int(s["m-chat_dup_slot_quota"]),
+           "batch_dup_quota": int(s["m-batch_dup_slot_quota"]),
+           "fleet_step_p50_ms": s["fleet_step_p50_ms"],
+           "fleet_step_p99_ms": s["fleet_step_p99_ms"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("fleet", leg=label, requests=len(reqs), completed=done,
+        iterations=n, drained=not fleet.has_work(), wall_s=f"{wall:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in row.items()})
+    for mv in moves:
+        log("fleet", leg=label, move=f"'{mv.explain()}'")
+    if fleet.has_work():
+        failures.append(f"not drained after {n} iterations")
+    if done != len(reqs):
+        failures.append(f"{done} of {len(reqs)} requests completed")
+    if launches != want:
+        failures.append(f"kernel launches {launches} != {want}")
+    if (row["chat_kv_quota"] + row["batch_kv_quota"] != 2 * FLEET_KV_QUOTA
+            or row["chat_dup_quota"] + row["batch_dup_quota"]
+            != 2 * FLEET_DUP_QUOTA):
+        failures.append(f"ledger quotas {row} do not sum to the provisioned")
+    if over_quota:
+        failures.append(f"allocator above its quota at {over_quota[:4]}")
+    doc = fleet.merged_trace()
+    bad = validate_chrome_trace(doc)
+    pids = {e["pid"] for e in doc["traceEvents"]}
+    if bad or pids != {1, 2}:
+        failures.append(f"merged trace: {bad[:3]}, pids {sorted(pids)}")
+    if failures:
+        raise SystemExit(f"fleet ({label}) failed: " + "; ".join(failures))
+    return row
+
+
+def fleet_phase(seed: int) -> None:
+    """The fleet A/B at full width: a static leg and an arbiter leg over
+    one shared 4-layer Mixtral."""
+    from repro_torch.workloads import build_workload
+
+    t0 = time.perf_counter()
+    free_engines("fleet")
+    model, cfg = build_mixtral(seed, FLEET_LAYERS, phase="fleet",
+                               dup_slots=FLEET_CCFG["dup_slots"])
+    trace = build_workload("fleet_shift", cfg.vocab_size, **FLEET_TRACE,
+                           seed=seed)
+    rows = {}
+    for label, arbiter in (("static", False), ("arbiter", True)):
+        rows[label] = fleet_leg(model, cfg, trace, label, arbiter)
+        free_engines("fleet")
+    if rows["arbiter"]["moves"] < 1 or rows["static"]["moves"] != 0:
+        raise SystemExit(f"fleet: moves {rows['arbiter']['moves']} "
+                         f"(arbiter) / {rows['static']['moves']} (static)")
+    log("fleet", compare="arbiter vs static",
+        attainment=f"{rows['arbiter']['fleet_slo_attainment']:.4f} vs "
+                   f"{rows['static']['fleet_slo_attainment']:.4f}",
+        attainment_worst=f"{rows['arbiter']['fleet_slo_attainment_worst']:.4f}"
+                         f" vs {rows['static']['fleet_slo_attainment_worst']:.4f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    del model
+    free_engines("fleet")
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
-                          "griffin", "reference")
+                          "roofline", "profile", "fleet", "griffin",
+                          "reference")
 
 
 def main() -> int:
@@ -2877,6 +3273,12 @@ def main() -> int:
             resched_phase(model, cfg, args.seed)
         del model
         torch.cuda.empty_cache()
+    if "roofline" in phases:
+        roofline_phase()
+    if "profile" in phases:
+        dispatch_profile_phase(args.seed)
+    if "fleet" in phases:
+        fleet_phase(args.seed)
     if "griffin" in phases:
         launches["rg_lru_scan"] = griffin_phase(args.seed)["rg_lru_scan"]
         griffin_profile_phase(args.seed)

@@ -9,7 +9,9 @@ dataclasses.
 
 ``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
 pattern; d_model<=256, <=4 experts) used by the tests; it shrinks exactly
-the dimensions the JAX package's ``reduced()`` shrinks.
+the dimensions the JAX package's ``reduced()`` shrinks. ``num_params()`` /
+``active_params()`` are the JAX package's analytic counts, and
+``INPUT_SHAPES`` its four assigned step shapes (the roofline's inputs).
 """
 
 from __future__ import annotations
@@ -90,6 +92,42 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe is not None
 
+    def num_params(self) -> int:
+        """Analytical parameter count (embedding + blocks + head), the JAX
+        package's formula: a hybrid counts every layer's attention as GQA
+        and its FFN, as the reference does."""
+        if self.attention not in ("gqa", "mixed"):
+            raise NotImplementedError(
+                f"attention {self.attention!r} has no port config yet "
+                "(ROADMAP.md §1)")
+        d, L, hd = self.d_model, self.num_layers, self.head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = d * self.num_heads * hd                   # Q
+        per_layer += 2 * d * self.num_kv_heads * hd           # K,V
+        per_layer += self.num_heads * hd * d                  # O
+        ff_mult = 3 if self.activation == "swiglu" else 2
+        if self.moe is not None:
+            e = self.moe
+            per_layer += e.num_experts * ff_mult * d * e.d_ff_expert
+            per_layer += e.num_shared_experts * ff_mult * d * e.d_ff_expert
+            if e.dense_residual:
+                per_layer += ff_mult * d * (e.d_ff_dense or self.d_ff)
+            per_layer += d * e.num_experts                    # router
+        else:
+            per_layer += ff_mult * d * self.d_ff
+        return emb + L * per_layer
+
+    def active_params(self) -> int:
+        """Active (per-token) parameter count: MoE counts only top_k
+        experts."""
+        if self.moe is None:
+            return self.num_params()
+        e = self.moe
+        ff_mult = 3 if self.activation == "swiglu" else 2
+        inactive = (e.num_experts - e.top_k) * ff_mult * self.d_model \
+            * e.d_ff_expert
+        return self.num_params() - self.num_layers * inactive
+
     def reduced(self) -> "ModelConfig":
         """CPU-smoke variant: same family/features, tiny dims."""
         changes = dict(
@@ -115,3 +153,23 @@ class ModelConfig:
         if self.block_pattern:
             changes["num_layers"] = len(self.block_pattern)
         return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the JAX package's assigned four)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

@@ -114,7 +114,7 @@ def attention_flops(cfg: ModelConfig, tokens: int, seq: int,
     ``causal=False`` for decode (each query sees the whole context)."""
     if cfg.attention == "mla":
         raise NotImplementedError(
-            "MLA attention has no port config yet (ROADMAP.md §1 item 5)")
+            "MLA attention has no port config yet (ROADMAP.md §1)")
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     s_eff = min(seq, cfg.sliding_window) if cfg.sliding_window else seq

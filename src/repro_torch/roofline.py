@@ -1,0 +1,239 @@
+"""Analytic roofline of one serving or training step on the port's card.
+
+Three terms per (arch x shape x chips), in seconds:
+
+  compute    = analytic FLOPs per device / peak FLOP/s
+  memory     = analytic HBM bytes per device / HBM bytes/s
+  collective = collective bytes per device / link bytes/s
+
+The op model (``analytic_flops``, ``analytic_hbm_bytes``, ``model_flops``)
+is the JAX package's ``roofline.py``, term for term, so one config and
+shape give the same numbers in both packages. The JAX package reads its
+per-device HLO and collective bytes from a compiled XLA program; the port
+has no compiled program to read, so ``analyze`` fills the analytic terms
+only (``hlo_*`` 0, ``collective_bytes_per_device`` 0 with an empty
+breakdown). The HLO text parser waits for the dry-run port (ROADMAP.md).
+
+Hardware constants: NVIDIA H100 SXM 80GB HBM3 at 700 W, from the data
+sheet, as ``core.simulator.H100_SXM_NVLINK`` holds them: 989 TFLOP/s dense
+bf16, 3.35 TB/s HBM3, 900 GB/s NVLink 4 per GPU. They are peak figures,
+not measurements.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import asdict, dataclass, field
+from typing import Dict
+
+from repro_torch.core.simulator import (H100_SXM_NVLINK, attention_flops,
+                                        dense_ffn_flops_per_token,
+                                        ffn_flops_per_token)
+
+# --------------------------------------------------------------------------
+# hardware constants (H100 SXM, data sheet)
+# --------------------------------------------------------------------------
+
+PEAK_FLOPS = H100_SXM_NVLINK.peak_flops      # dense bf16 per card
+HBM_BW = H100_SXM_NVLINK.hbm_bw              # bytes/s per card
+LINK_BW = H100_SXM_NVLINK.link_bw            # NVLink bytes/s per card
+
+
+def _check_family(cfg) -> None:
+    """The op model's branches for families the port has no config for
+    (RWKV's ``ssm``, MLA attention) are not ported."""
+    if cfg.family == "ssm" or cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} / attention "
+            f"{cfg.attention!r} has no port config yet (ROADMAP.md §1)")
+
+
+def _recurrent_layers(cfg) -> int:
+    L = cfg.num_layers
+    return sum(1 for i in range(L)
+               if cfg.block_pattern[i % len(cfg.block_pattern)]
+               == "recurrent") if cfg.block_pattern else 0
+
+
+# --------------------------------------------------------------------------
+# analytic op model
+# --------------------------------------------------------------------------
+
+def analytic_flops(cfg, shape) -> float:
+    """Per-STEP total (all devices) FLOPs for the step a shape lowers."""
+    _check_family(cfg)
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+
+    if shape.kind == "decode":
+        tokens = shape.global_batch
+        ctx = shape.seq_len
+        w = cfg.sliding_window or (4096 if shape.name == "long_500k" else 0)
+        s_eff = min(ctx, w) if w else ctx
+        if cfg.family == "hybrid":
+            dr = cfg.rnn_width or d
+            rec_l = (4 * d * dr + 3 * dr) * 2 * tokens   # gates + out proj
+            loc_l = attention_flops(cfg, tokens, min(ctx, cfg.local_window))
+            n_rec = _recurrent_layers(cfg)
+            attn = rec_l * n_rec + loc_l * (L - n_rec)
+        else:
+            attn = attention_flops(cfg, tokens, s_eff, causal=False) * L
+        ffn = (ffn_flops_per_token(cfg)
+               + dense_ffn_flops_per_token(cfg)) * tokens * L
+        head = 2 * tokens * d * V
+        return attn + ffn + head
+
+    tokens = shape.global_batch * shape.seq_len
+    if cfg.family == "hybrid":
+        dr = cfg.rnn_width or d
+        rec_l = (4 * d * dr + 3 * dr) * 2 * tokens
+        loc_l = attention_flops(cfg, tokens, min(shape.seq_len,
+                                                 cfg.local_window))
+        n_rec = _recurrent_layers(cfg)
+        attn = rec_l * n_rec + loc_l * (L - n_rec)
+    else:
+        attn = attention_flops(cfg, tokens, shape.seq_len) * L
+    ffn = (ffn_flops_per_token(cfg) + dense_ffn_flops_per_token(cfg)) \
+        * tokens * L
+    head = 2 * tokens * d * V
+    fwd = attn + ffn + head
+    return 3.0 * fwd if shape.kind == "train" else fwd
+
+
+def analytic_hbm_bytes(cfg, shape, chips: int, *, act_coeff: float = 10.0
+                       ) -> float:
+    """Per-DEVICE HBM traffic per step (weights + activations + cache/opt).
+
+    * weights: each device reads its resident shard once per step (train:
+      + grad write + fp32 Adam moments read+write);
+    * duplication: with ``duplication_slots > 0`` the replica store adds
+      one read of the extra slot entries per MoE layer per step;
+    * activations: ~``act_coeff`` residency round-trips per layer;
+    * decode: the full KV-cache shard read per step."""
+    _check_family(cfg)
+    B = 2  # bf16
+    params = cfg.num_params()
+    w = params * B / chips
+    if (cfg.moe is not None and cfg.moe.duplication_slots > 0
+            and shape.kind != "train"):
+        e = cfg.moe
+        ff_mult = 3 if cfg.activation == "swiglu" else 2
+        expert_bytes = ff_mult * cfg.d_model * e.d_ff_expert * B
+        w += e.duplication_slots * expert_bytes * cfg.num_layers
+    if shape.kind == "train":
+        # fwd read + bwd read + grad write (bf16) + moments r/w (fp32 x2 x2)
+        w = params * (4 * 3 + 2 * 2 + 4 * 4) / chips / 2  # fp32 params
+    tokens_local = shape.global_batch * shape.seq_len / chips
+    if shape.kind == "decode":
+        tokens_local = max(shape.global_batch / chips, 1.0 / chips)
+    act = act_coeff * tokens_local * cfg.d_model * B * cfg.num_layers
+    if shape.kind == "train":
+        act *= 2.0        # bwd re-reads activations
+    cache = 0.0
+    if shape.kind == "decode":
+        w_win = cfg.sliding_window or (4096 if shape.name == "long_500k" else 0)
+        clen = min(shape.seq_len, w_win) if w_win else shape.seq_len
+        if cfg.family == "hybrid":
+            dr = cfg.rnn_width or cfg.d_model
+            cache = shape.global_batch * (dr * 4 + cfg.local_window
+                                          * cfg.num_kv_heads * cfg.head_dim
+                                          * B) * cfg.num_layers / chips
+        else:
+            cache = (shape.global_batch * clen * 2 * cfg.num_kv_heads
+                     * cfg.head_dim * B * cfg.num_layers / chips)
+        cache = max(cache, 0.0)
+    return w + act + cache
+
+
+def model_flops(cfg, shape) -> float:
+    """6·N_active·D for training, 2·N_active·D for inference (per step):
+    the "useful compute" yardstick. N_active counts only the activated
+    experts; D = tokens the step processes (decode: one per sequence)."""
+    n = cfg.active_params()
+    tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        return 2.0 * n * tokens
+    return 2.0 * n * shape.global_batch          # decode: 1 new token/seq
+
+
+# --------------------------------------------------------------------------
+# report
+# --------------------------------------------------------------------------
+
+@dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    # analytic op model (the compute and memory terms)
+    analytic_flops_per_device: float
+    analytic_hbm_per_device: float
+    # compiled-program figures (the JAX package's HLO analysis; 0 here)
+    hlo_flops_per_device: float
+    hlo_bytes_per_device: float
+    collective_bytes_per_device: float
+    collective_breakdown: Dict[str, int] = field(default_factory=dict)
+    model_flops_total: float = 0.0
+    argument_bytes: int = 0
+    output_bytes: int = 0
+    temp_bytes: int = 0
+    peak_bytes: int = 0
+
+    @property
+    def compute_s(self) -> float:
+        return self.analytic_flops_per_device / PEAK_FLOPS
+
+    @property
+    def memory_s(self) -> float:
+        return self.analytic_hbm_per_device / HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes_per_device / LINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def total_s(self) -> float:
+        """Roofline step time = max of the three overlappable terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / analytic FLOPs: the share of the executed compute
+        that is 6ND/2ND work."""
+        total = self.analytic_flops_per_device * self.chips
+        return self.model_flops_total / total if total else 0.0
+
+    def row(self) -> Dict:
+        d = asdict(self)
+        d.update(compute_s=self.compute_s, memory_s=self.memory_s,
+                 collective_s=self.collective_s, dominant=self.dominant,
+                 total_s=self.total_s,
+                 useful_flops_ratio=self.useful_flops_ratio)
+        return d
+
+
+def analyze(arch: str, shape, mesh_name: str, chips: int,
+            cfg) -> RooflineReport:
+    """The analytic report of ``cfg`` at ``shape`` over ``chips`` cards."""
+    return RooflineReport(
+        arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
+        analytic_flops_per_device=analytic_flops(cfg, shape) / chips,
+        analytic_hbm_per_device=analytic_hbm_bytes(cfg, shape, chips),
+        hlo_flops_per_device=0.0, hlo_bytes_per_device=0.0,
+        collective_bytes_per_device=0.0, collective_breakdown={},
+        model_flops_total=model_flops(cfg, shape))
+
+
+def save_report(path: str, report: RooflineReport) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report.row(), f, indent=1)

@@ -86,8 +86,17 @@ overflow, the rescue round's drops and its modelled a2a bytes go to
 ``resched_*``) and to the controller, whose verdicts may switch the lever
 when its ``levers`` offer more than "duplicate".
 
-Not ported yet (see ROADMAP.md): ``profile_phases`` and
-``assert_no_recompiles``.
+Phase profiling (``profile_phases``): the paged decode ``attn`` kernel at
+this deployment's pool and table shapes, the dispatch phases (route /
+pack / a2a / ffn / combine, ``moe.profile``) at its prefill bucket or a
+given token count, and the ``migrate`` / ``prefetch`` cost of one fill
+chunk when duplication is on. The breakdown lands in ``ServeMetrics``'
+``phase_*_us`` columns and as retrospective spans on the tracer's
+"dispatch-profile" track; its ``total`` is the overlap window's last
+fallback before any step was measured.
+
+``assert_no_recompiles`` has no counterpart: eager PyTorch does not
+recompile.
 """
 
 from __future__ import annotations
@@ -95,7 +104,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -696,12 +705,16 @@ class ContinuousEngine:
     def _overlap_window_s(self) -> float:
         """The overlap window one engine step offers a staged fill: the
         measured NON-migration step time for the CURRENT iteration kind,
-        falling back to the whole-step EMA (the JAX engine's last fallback,
-        the profiled dispatch phases, is not ported)."""
+        falling back to the whole-step EMA and then to the profiled
+        per-layer dispatch phase total (``profile_phases``) times the
+        layers."""
         w = self._serve_ema.window(self._step_kind)
         if w > 0:
             return w
-        return self._recent_step_s
+        if self._recent_step_s > 0:
+            return self._recent_step_s
+        per_layer = self.metrics.phase_times.get("total", 0.0)
+        return per_layer * self.cfg.num_layers
 
     def _overlap_budget(self) -> int:
         return mig_cost.overlap_chunk_budget(
@@ -1238,6 +1251,60 @@ class ContinuousEngine:
             events.completed.append(req)
 
     # ------------------------------------------------------------ trace run
+    def profile_phases(self, iters: int = 3, impl: Optional[str] = None,
+                       tokens: Optional[int] = None) -> Dict[str, float]:
+        """Measure the per-step phase breakdown on the engine's device: the
+        paged decode ``attn`` kernel at this deployment's pool and table
+        shapes, the dispatch phases (route / pack / a2a / ffn / combine) at
+        ``ranks = ep_ranks`` under EP (else 1), and the ``migrate`` /
+        ``prefetch`` chunk-fill cost when duplication is on. ``tokens``
+        picks the dispatch shape (default: the prefill bucket; pass
+        ``max_slots`` for a decode-shaped profile); ``impl`` the packer
+        ("sort", the path's, or the "onehot" what-if). The breakdown is
+        recorded into ``metrics`` only when it profiles the path's packer
+        and the phase columns are empty (a second shape must
+        ``metrics.reset_phases()`` first); every profile also lands as
+        retrospective spans on the tracer's "dispatch-profile" track.
+        Returns seconds per phase; ``migrate`` is not part of ``total``
+        (it is paid per plan switch, not per step)."""
+        from repro_torch.moe.profile import (ATTN_PHASE, attn_phase_times,
+                                             dispatch_phase_times,
+                                             migrate_phase_time)
+        cfg, m, ccfg = self.cfg, self.moe_cfg, self.ccfg
+        tokens = tokens or ccfg.prefill_len
+        ranks = self.ep_ranks if self.ep else 1
+        phases: Dict[str, float] = {}
+        if cfg.attention in ("gqa", "mixed") and cfg.num_kv_heads > 0:
+            phases.update(attn_phase_times(
+                batch=ccfg.max_slots, num_kv=cfg.num_kv_heads,
+                gqa=max(cfg.num_heads // cfg.num_kv_heads, 1),
+                head_dim=cfg.head_dim, block_size=ccfg.block_size,
+                max_blocks=max(ccfg.max_len // ccfg.block_size, 1),
+                window=cfg.sliding_window, iters=iters, device=self.device))
+        phases.update(dispatch_phase_times(
+            d_model=cfg.d_model, d_ff=m.d_ff_expert,
+            num_experts=m.num_experts, top_k=m.top_k, tokens=tokens,
+            ranks=ranks, capacity_factor=m.capacity_factor,
+            impl=impl or "sort", activation=cfg.activation, iters=iters,
+            device=self.device))
+        if m.duplication_slots > 0:
+            phases.update(migrate_phase_time(
+                d_model=cfg.d_model, d_ff=m.d_ff_expert,
+                num_experts=m.num_experts, ranks=ranks,
+                dup_slots=m.duplication_slots, layers=cfg.num_layers,
+                chunk=ccfg.migrate_chunk, iters=iters, device=self.device))
+        ts = None
+        for k in (ATTN_PHASE, "route", "pack", "a2a", "ffn", "combine",
+                  "migrate"):
+            if k in phases:
+                ts = self.tracer.add_span(
+                    k, phases[k], ts_ns=ts, cat="dispatch",
+                    track="dispatch-profile",
+                    args={"impl": impl or "sort", "tokens": tokens})
+        if impl in (None, "sort") and not self.metrics.phase_times:
+            self.metrics.record_phases(phases)
+        return phases
+
     def run_trace(self, requests: List[ServeRequest], *, max_iters: int = 0,
                   time_scale: float = 1.0) -> float:
         """Replay a trace on a virtual clock: each iteration costs its

@@ -1,7 +1,6 @@
 """SLO metrics for the serving subsystem (the port's copy of the JAX
-package's ``serve/metrics.py``, with its replica-migration and token
-rescheduling columns, and without the dispatch-phase columns of the
-phase profiler, which is not ported yet).
+package's ``serve/metrics.py``, with its replica-migration, token
+rescheduling and dispatch-phase columns).
 
 Per-request: TTFT (arrival -> first token), TPOT (mean inter-token time),
 end-to-end latency. Per-window: throughput, goodput (completions meeting
@@ -148,6 +147,7 @@ class ServeMetrics:
         self._labels: Dict[str, str] = {"model": model} if model else {}
         self.timings: List[RequestTiming] = []
         self.windows: List[WindowRecord] = []
+        self.phase_times: Dict[str, float] = {}   # dispatch phase breakdown
         # re-plan accounting: how many re-plans ran, and how many of them
         # replicated at least one expert (any layer's plan holds an extra
         # copy)
@@ -245,6 +245,23 @@ class ServeMetrics:
         self._close_window(plan, ep_ranks, dup_slots)
 
     # -------------------------------------------------------------- replans
+    # ------------------------------------------------------- phase timings
+    def record_phases(self, phases: Dict[str, float]):
+        """Attach a measured phase breakdown (seconds per phase, from
+        ``ContinuousEngine.profile_phases``). Repeated calls accumulate, so
+        callers can record prefill- and decode-shaped profiles
+        separately."""
+        for k, v in phases.items():
+            self.phase_times[k] = self.phase_times.get(k, 0.0) + float(v)
+
+    def reset_phases(self) -> Dict[str, float]:
+        """Clear the accumulated phase breakdown (returning the old one), so
+        a second profile starts from zero instead of double-accumulating
+        into the same columns."""
+        old = self.phase_times
+        self.phase_times = {}
+        return old
+
     def record_replan(self, extra_copies: int) -> None:
         """Account one re-plan; ``extra_copies`` = replica copies beyond
         the home copies, summed over layers and experts."""
@@ -342,6 +359,8 @@ class ServeMetrics:
         good = [t for t in ts
                 if t.ttft <= self.slo_ttft and t.tpot <= self.slo_tpot]
         total_tokens = sum(t.new_tokens for t in ts)
+        phase_cols = {f"phase_{k}_us": v * 1e6
+                      for k, v in self.phase_times.items()}
         mig = self.migration
         rs = self.resched
         # realized absorbed fraction: of the overflow pairs the dispatch
@@ -349,6 +368,7 @@ class ServeMetrics:
         absorbed = (1.0 - rs["dropped_tokens"] / rs["overflow_tokens"]
                     if rs["overflow_tokens"] > 0 else 1.0)
         out = {
+            **phase_cols,
             "dropped_tokens": rs["dropped_tokens"],
             "overflow_tokens": rs["overflow_tokens"],
             "resched_a2a_bytes": rs["resched_a2a_bytes"],
