@@ -134,10 +134,36 @@ non-zero:
                 offered all three levers (H100 preset), checking launches,
                 the engine following each decision's strategy and lever,
                 and every audit record replayed.
-  8. reference — reduced models' logits on the card against the CPU path:
+  8. serve_ep — (run after resched, before Griffin) ``ServeEngine(ep=True)``
+                on the same Mixtral weights: 3 batches of 8 x 512 Zipf
+                prompts (``data.synthetic.token_batches(--seed)``), 24 new
+                tokens each, 4 ranks, one replica slot, a re-plan per batch,
+                in eight legs: the store with staged fills, synchronous
+                fills, ``replica_impl="gather"``, the first two again at
+                capacity factor 12 (``capacity()`` then covers every pair),
+                in-graph planning, lever "reschedule" (greedy) and "both"
+                (LP). Per leg: prefill ms per batch, decode step p50 and
+                tokens/s (host clock between synchronisations), dropped and
+                overflowed pairs, window skew, measured rank imbalance,
+                migration entries, bytes and steps to adopt, peak memory,
+                and launches (counts set to 0 before and read after each
+                leg) against the formula (no paged attention: the linear
+                cache). Checks: sync and gather ids equal, the no-drop
+                legs drop nothing and their ids are equal, the in-graph
+                plans equal ``duplicate_experts_device`` run on the CPU on
+                the same counts (its CUDA-event time beside the host
+                planner's, one call under ``torch.cuda.
+                set_sync_debug_mode("error")``), and under a lever every
+                forward from the first re-plan on carries a quota; and
+                the last prefill's kernel inputs in the store legs at
+                capacity factor 1.25 and 12 (layer 0's router logits, its
+                first round's packer ids, expert rows and counts) held
+                against the plain versions (the kernels line's
+                ``serve_ep_store`` / ``serve_ep_store_nodrop`` cases).
+  9. reference — reduced models' logits on the card against the CPU path:
                 Mixtral dense and EP, and Griffin with prompts longer than
                 its local window.
-  9. roofline — (host only, after the Mixtral phases) ``repro_torch.
+ 10. roofline — (host only, after the Mixtral phases) ``repro_torch.
                 roofline``'s analytic report of Mixtral-8x7B (one replica
                 slot per rank, as the EP engine runs it) at 8 and 32 layers
                 for the main trace's decode step (8 sequences, 1024
@@ -146,7 +172,7 @@ non-zero:
                 share of the card's peak for the step's model FLOPs, and
                 the roofline's memory time beside the step's profiled
                 device busy time.
- 10. profile  — ``ContinuousEngine.profile_phases`` on an EP store engine
+ 11. profile  — ``ContinuousEngine.profile_phases`` on an EP store engine
                 (4 ranks, one replica slot, the main trace's config) over
                 the first 2 Mixtral layers at full width (a fresh model
                 from ``--seed``: ``init_model`` draws the embedding and
@@ -164,7 +190,7 @@ non-zero:
                 gather) head to head, the ffn phase beside phase 3's
                 moe_gemm rows, and the phases' sum over 8 layers beside
                 phase 4's profiled EP decode step.
- 11. fleet    — the JAX package's fleet A/B (``bench_serve_traces.py``)
+ 12. fleet    — the JAX package's fleet A/B (``bench_serve_traces.py``)
                 at full width: two Mixtral instances sharing one 4-layer
                 model (a fresh model from ``--seed``, the main path's first
                 4 layers), ``FleetEngine(ep=True)`` with 4 ranks and 2
@@ -696,13 +722,14 @@ TIE_ROWS = 3                       # rows of equal logits at each rank's start
 PAIR_LEAD_BYTES = 1 << 30
 
 
-def _route_check(logits, K: int):
+def _route_check(logits, K: int, tie_rows: int = TIE_ROWS):
     """One kernel call held against the plain version: indices exact except
     on near-tie rows (sorted top-(K+1) probabilities holding two within 4
     ulps, which two orders of summation may break differently), the first
-    ``TIE_ROWS`` rows of every rank (exact ties) routed to experts 0..K-1,
-    fp32 outputs within 1e-6, counts exact unless a near tie moved an
-    index."""
+    ``tie_rows`` rows of every rank (exact ties, planted by
+    ``_route_logits``; 0 for a model's own logits) routed to experts
+    0..K-1, fp32 outputs within 1e-6, counts exact unless a near tie moved
+    an index."""
     from repro_torch.kernels import ops, ref
 
     got = ops.fused_topk_route(logits, K)
@@ -714,7 +741,7 @@ def _route_check(logits, K: int):
             * top[..., :-1]).any(-1)
     differ = (got[0] != want[0]).any(-1)
     ties = torch.arange(K, dtype=torch.int32, device=logits.device)
-    ties_ok = bool((got[0][:, :TIE_ROWS] == ties).all())
+    ties_ok = bool((got[0][:, :tie_rows] == ties).all())
     err = max(float((g - w).abs().max()) for g, w in
               zip(got[1:4], want[1:4]))
     counts_ok = torch.equal(got[4], want[4]) or bool(differ.any())
@@ -1118,7 +1145,8 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
 
 def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
                       ep: bool, t2e_prefills: int = 0,
-                      resched_prefills: int = 0, resched_decodes: int = 0):
+                      resched_prefills: int = 0, resched_decodes: int = 0,
+                      paged: bool = True):
     """Each kernel's launches for a run of ``prefills`` prefills (of which
     ``t2e_prefills`` dispatch on Token-to-Expert predictions: two rounds,
     so two ``moe_gemm`` and two ``histogram_offsets`` launches per layer)
@@ -1126,11 +1154,13 @@ def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
     them ``resched_prefills`` and ``resched_decodes`` ran with a reschedule
     quota: a rescue round per layer (one more ``moe_gemm`` and
     ``histogram_offsets``), and in decode the global first-come positions
-    (one more ``histogram_offsets``), whether or not a pair overflowed."""
+    (one more ``histogram_offsets``), whether or not a pair overflowed.
+    ``paged``: decode attends over the paged pool (``ContinuousEngine``;
+    ``ServeEngine``'s linear cache launches no attention kernel)."""
     L = cfg.num_layers
     forwards = (prefills + decode_steps) * L
     want = {k: 0 for k in launches}
-    want.update(paged_decode_attention=decode_steps * L,
+    want.update(paged_decode_attention=decode_steps * L if paged else 0,
                 fused_topk_route=forwards)
     if ep:
         rescue = (t2e_prefills + resched_prefills + resched_decodes) * L
@@ -2019,6 +2049,81 @@ def round_case(label: str, captured) -> None:
     del flush
 
 
+class _PrefillCapture:
+    """Keeps copies of the first ``fused_topk_route``, ``histogram_offsets``
+    and ``moe_gemm`` inputs of one EP prefill, taken while ``armed``:
+    layer 0's router logits, its first round's packer ids and its first
+    round's expert rows and counts (the weights by reference: the model's
+    or the store's rows). Nothing is read back during the run. Installed
+    around the three wrappers of ``kernels.ops``, which the router and the
+    dispatch call through the module."""
+
+    KERNELS = ("fused_topk_route", "histogram_offsets", "moe_gemm")
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+
+        self.ops = ops
+        self.real = {k: getattr(ops, k) for k in self.KERNELS}
+        self.armed = False
+        self.inputs = {}
+
+    def _keep(self, name, a, kw):
+        if name == "moe_gemm":
+            x, w_gate, w_up, w_down, slot_rows = a[:5]
+            return (x.clone(), kw["row_counts"].clone(), slot_rows.clone(),
+                    {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+        return (a[0].clone(), a[1])          # (logits, K) / (ids, C)
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def wrapped(*a, **kw):
+            if self.armed and name not in self.inputs:
+                self.inputs[name] = self._keep(name, a, kw)
+            return real(*a, **kw)
+        return wrapped
+
+    def __enter__(self):
+        for k in self.KERNELS:
+            setattr(self.ops, k, self._wrap(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.ops, k, fn)
+
+
+def prefill_cases(label: str, cap: _PrefillCapture) -> None:
+    """The three kernels on one real EP prefill's inputs
+    (``_PrefillCapture``) against their plain versions, at the kernel
+    phases' tolerances: ``_route_check`` (no planted tie rows),
+    ``_hist_check`` and ``moe_gemm_case`` (``round_case``). Logs each row
+    as the kernels line's ``serve_ep_<label>`` case; a mismatch fails the
+    phase."""
+    missing = [k for k in cap.KERNELS if k not in cap.inputs]
+    if missing:
+        raise SystemExit(f"serve_ep ({label}): the prefill ran no {missing}")
+    logits, K = cap.inputs["fused_topk_route"]
+    R, T, E = logits.shape
+    row = _route_check(logits, K, tie_rows=0)
+    _log_row("fused_topk_route", f"serve_ep_{label}", f"R{R}xT{T}xE{E}xK{K}",
+             row)
+    ids, C = cap.inputs["histogram_offsets"]
+    hrow = _hist_check(ids, C)
+    _log_row("histogram_offsets", f"serve_ep_{label}",
+             f"R{ids.shape[0]}xN{ids.shape[1]}xC{C}", hrow)
+    for name, r in (("fused_topk_route", row), ("histogram_offsets", hrow)):
+        if not r["ok"]:
+            raise SystemExit(f"{name} disagrees with its plain version at "
+                             f"serve_ep_{label}")
+        if name in KERNEL_ROWS:
+            k = KERNEL_ROWS[name]
+            k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
+    round_case(f"serve_ep_{label}", cap.inputs["moe_gemm"])
+    cap.inputs.clear()
+
+
 def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
     """An ``OnlineGPSController`` that may choose Token-to-Expert, on the
     JAX default preset (A100-PCIe), drives the EP engine (store defaults,
@@ -2477,6 +2582,263 @@ def resched_phase(model, cfg, seed: int) -> None:
                                                      "main not run)"}))
     resched_controller_run(model, cfg, seed)
     log("resched", phase_s=f"{time.perf_counter() - t0:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase serve_ep: ServeEngine's expert-parallel half on the main path
+# ---------------------------------------------------------------------------
+
+SERVE_EP_BATCHES, SERVE_EP_B, SERVE_EP_S, SERVE_EP_NEW = 3, 8, 512, 24
+SERVE_EP_KW = dict(strategy="dist_only", predict_interval=1,
+                   dup_slots=DUP_SLOTS, max_len=SERVE_EP_S + SERVE_EP_NEW)
+# capacity() then covers every (token, k) pair a rank can send to a slot
+NODROP_CF = float(EP_RANKS * (8 // EP_RANKS + DUP_SLOTS))       # 12.0
+# leg -> (ServeConfig changes, MoEConfig changes)
+SERVE_EP_LEGS = {
+    "store": ({}, {}),
+    "sync": ({}, dict(overlap_migration=False)),
+    "gather": ({}, dict(replica_impl="gather")),
+    "store_nodrop": ({}, dict(capacity_factor=NODROP_CF)),
+    "sync_nodrop": ({}, dict(capacity_factor=NODROP_CF,
+                             overlap_migration=False)),
+    "in_graph": (dict(in_graph_replan=True), {}),
+    "reschedule": (dict(lever="reschedule", resched_impl="greedy"), {}),
+    "both": (dict(lever="both", resched_impl="lp"), {}),
+}
+PLAN_TIMING_RUNS = 20
+# legs whose last prefill's kernel inputs are kept (``_PrefillCapture``)
+# and held against the plain versions: capacity factor 1.25 and 12
+CAPTURE_LEGS = ("store", "store_nodrop")
+
+
+def serve_ep_leg(label: str, model, cfg, batches, serve_kw, moe_kw,
+                 cap=None):
+    """One leg: ``ServeEngine(ep=True)`` generates ``SERVE_EP_NEW`` tokens
+    for each batch, every kernel count set to 0 just before and read just
+    after. Each prefill and decode step is timed on the host clock between
+    two synchronisations. With ``cap`` (a ``_PrefillCapture`` installed by
+    the caller) the last batch's prefill is captured (its copies are in
+    that prefill's time). Returns the leg's record."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    free_engines("serve_ep")
+    leg_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
+    eng = ServeEngine(leg_cfg, model, ServeConfig(**SERVE_EP_KW, **serve_kw),
+                      ep_ranks=EP_RANKS, ep=True)
+    rec = {"prefill_ms": [], "decode_ms": [], "quota": {"prefill": 0,
+                                                        "decode": 0},
+           "counts": [], "plans": [], "imbalance": []}
+    dec_dropped = torch.zeros((), dtype=torch.float64, device=model.device)
+    step_prefill, step_decode = eng._prefill, eng._decode
+
+    def prefill_step(*a, **kw):
+        rec["quota"]["prefill"] += kw.get("resched") is not None
+        if cap is not None:
+            cap.armed = len(rec["prefill_ms"]) == len(batches) - 1
+        out = step_prefill(*a, **kw)
+        if cap is not None:
+            cap.armed = False
+        if eng._in_graph:
+            rec["counts"].append(out[2]["expert_counts"].clone())
+        return out
+
+    def decode_step(*a, **kw):
+        nonlocal dec_dropped
+        rec["quota"]["decode"] += kw.get("resched") is not None
+        out = step_decode(*a, **kw)
+        dec_dropped = dec_dropped + out[3]["dropped"].sum()
+        return out
+    eng._prefill, eng._decode = prefill_step, decode_step
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "prefill_ms":
+                rl = eng.rank_loads(out[2]["slot_counts"].cpu().numpy())
+                rec["imbalance"].append(float(np.mean(
+                    rl.max(1) / np.maximum(rl.mean(1), 1e-9))))
+            return out
+        return run
+    eng.prefill, eng.decode = timed(prefill, "prefill_ms"), \
+        timed(decode, "decode_ms")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens, history, migration = [], [], []
+    for b in batches:
+        out, _ = eng.generate({"tokens": b}, max_new_tokens=SERVE_EP_NEW)
+        tokens.append(out.cpu().numpy())
+        history.append(dict(eng.history[-1]))
+        migration.append(dict(eng._last_migration))
+        if eng._in_graph:
+            rec["plans"].append([t.cpu().numpy() for t in eng._plan_stack])
+    torch.cuda.synchronize()
+    rec.update(launches=dict(ops.LAUNCHES), tokens=tokens, history=history,
+               migration=migration, decode_dropped=float(dec_dropped),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, engine=eng)
+    return rec
+
+
+def _in_graph_checks(rec, cfg) -> list:
+    """The in-graph leg's plans against ``duplicate_experts_device`` run
+    on the CPU on the same counts; the planning call's CUDA-event time
+    and its run under ``torch.cuda.set_sync_debug_mode("error")``, beside
+    the host planner over the same layers."""
+    from repro_torch.core.duplication import (duplicate_experts_device,
+                                              duplicate_experts_host)
+
+    m = rec["engine"].moe_cfg
+    failures, dev_ms, host_ms = [], [], []
+    for k, (counts, plan) in enumerate(zip(rec["counts"], rec["plans"])):
+        want = duplicate_experts_device(counts.cpu(), EP_RANKS,
+                                        m.duplication_slots, m.max_copies)
+        same = all(np.array_equal(a, b.numpy()) for a, b in zip(plan, want))
+        if not same:
+            failures.append(f"in_graph batch {k}: the device plan differs "
+                            "from the CPU planner's")
+        times = []
+        for _ in range(PLAN_TIMING_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            duplicate_experts_device(counts, EP_RANKS, m.duplication_slots,
+                                     m.max_copies)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        dev_ms.append(float(np.median(times)))
+        dist = counts.cpu().double().numpy()
+        dist = dist / np.maximum(dist.sum(1, keepdims=True), 1e-9)
+        times = []
+        for _ in range(PLAN_TIMING_RUNS):
+            t0 = time.perf_counter()
+            for l in range(cfg.num_layers):
+                duplicate_experts_host(dist[l], EP_RANKS,
+                                       m.duplication_slots, m.max_copies)
+            times.append((time.perf_counter() - t0) * 1e3)
+        host_ms.append(float(np.median(times)))
+        log("serve_ep", path="in_graph", batch=k, plan_equals_cpu=same,
+            replicas=int((plan[0] - 1).sum()),
+            plan_device_ms=f"{dev_ms[-1]:.4f}",
+            plan_host_ms_8_layers=f"{host_ms[-1]:.4f}")
+    counts = rec["counts"][-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        duplicate_experts_device(counts, EP_RANKS, m.duplication_slots,
+                                 m.max_copies)
+        clean = True
+    except RuntimeError as e:
+        clean = False
+        failures.append(f"in_graph: the planning call synchronised ({e})")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("serve_ep", path="in_graph", sync_debug_error_mode_clean=clean,
+        plan_device_ms_median=f"{np.median(dev_ms):.4f}",
+        plan_host_ms_8_layers_median=f"{np.median(host_ms):.4f}")
+    return failures
+
+
+def serve_ep_phase(model, cfg, seed: int) -> None:
+    """``ServeEngine(ep=True)`` on the main path's Mixtral weights: every
+    leg of ``SERVE_EP_LEGS`` serves the same 3 batches of 8 x 512 Zipf
+    prompts (24 new tokens each, a re-plan per batch); checks tokens,
+    launches, the store against gather, overlap against synchronous fills
+    where nothing drops, the in-graph plans, and the lever's quotas."""
+    import contextlib
+
+    from repro_torch.data.synthetic import token_batches
+
+    t0 = time.perf_counter()
+    log("serve_ep", model=cfg.name, layers=cfg.num_layers,
+        reduced=f"num_layers 32->{cfg.num_layers} (32 bf16 layers ~93 GB "
+                "> 80 GB)", batches=SERVE_EP_BATCHES,
+        batch=SERVE_EP_B, seq=SERVE_EP_S, new_tokens=SERVE_EP_NEW,
+        ep_ranks=EP_RANKS, dup_slots=DUP_SLOTS, nodrop_cf=NODROP_CF)
+    gen = token_batches(seed, cfg.vocab_size, SERVE_EP_B, SERVE_EP_S)
+    batches = [next(gen)["tokens"] for _ in range(SERVE_EP_BATCHES)]
+    decode_steps = SERVE_EP_BATCHES * (SERVE_EP_NEW - 1)
+    recs, failures = {}, []
+    for label, (serve_kw, moe_kw) in SERVE_EP_LEGS.items():
+        cap = _PrefillCapture() if label in CAPTURE_LEGS else None
+        with cap or contextlib.nullcontext():
+            rec = recs[label] = serve_ep_leg(label, model, cfg, batches,
+                                             serve_kw, moe_kw, cap)
+        eng = rec["engine"]
+        q = rec["quota"]
+        want = expected_launches(rec["launches"], cfg, SERVE_EP_BATCHES,
+                                 decode_steps, ep=True,
+                                 resched_prefills=q["prefill"],
+                                 resched_decodes=q["decode"], paged=False)
+        if rec["launches"] != want:
+            failures.append(f"{label}: kernel launches {rec['launches']} "
+                            f"!= {want}")
+        for k, toks in enumerate(rec["tokens"]):
+            if toks.shape != (SERVE_EP_B, SERVE_EP_NEW) or (toks < 0).any() \
+                    or (toks >= cfg.vocab_size).any():
+                failures.append(f"{label} batch {k}: bad tokens")
+        if serve_kw.get("lever", "duplicate") != "duplicate" and (
+                q["prefill"] != SERVE_EP_BATCHES - 1
+                or q["decode"] != decode_steps):
+            # the first prefill runs before the first re-plan made quotas
+            failures.append(f"{label}: forwards with a quota {q} != "
+                            f"{SERVE_EP_BATCHES - 1} prefills, "
+                            f"{decode_steps} decode steps")
+        dec = sorted(rec["decode_ms"])
+        hist = rec["history"]
+        log("serve_ep", path=label, store=eng._store is not None,
+            overlap=eng._overlap, in_graph=eng._in_graph,
+            lever=eng.serve.lever, resched_impl=eng.serve.resched_impl,
+            capacity_factor=eng.moe_cfg.capacity_factor,
+            prefill_ms=",".join(f"{t:.3f}" for t in rec["prefill_ms"]),
+            decode_step_p50_ms=f"{dec[len(dec) // 2]:.3f}",
+            decode_toks_per_s=f"{SERVE_EP_B * len(dec) / (sum(dec) / 1e3):.2f}",
+            prefill_dropped=",".join(str(int(h["dropped"])) for h in hist),
+            prefill_overflow=",".join(str(int(h["overflow"])) for h in hist),
+            decode_dropped=int(rec["decode_dropped"]),
+            window_skew=",".join(f"{h['skew']:.4f}" for h in hist),
+            rank_imbalance=",".join(f"{x:.4f}" for x in rec["imbalance"]),
+            migration_entries=",".join(str(h.get("migration_entries", "-"))
+                                       for h in hist),
+            migration_bytes=",".join(str(h.get("migration_bytes", "-"))
+                                     for h in hist),
+            steps_to_adopt=",".join(str(m.get("steps_to_adopt", "-"))
+                                    for m in rec["migration"]),
+            resched_residual=",".join(
+                f"{h['resched_residual']:.4f}" if "resched_residual" in h
+                else "-" for h in hist),
+            quota_forwards=f"{q['prefill']}+{q['decode']}",
+            launches=",".join(f"{k}:{v}"
+                              for k, v in rec["launches"].items()),
+            peak_gb=f"{rec['peak_gb']:.3f}")
+        if label == "in_graph":
+            failures += _in_graph_checks(rec, cfg)
+        if cap is not None:
+            # (the kept moe_gemm inputs name the engine's weight rows)
+            prefill_cases(label, cap)
+        del rec["engine"], eng, cap
+    free_engines("serve_ep")
+
+    def same_ids(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(
+            recs[a]["tokens"], recs[b]["tokens"]))
+    checks = {"sync_equals_gather": same_ids("sync", "gather"),
+              "store_nodrop_equals_sync_nodrop": same_ids("store_nodrop",
+                                                          "sync_nodrop")}
+    for label in ("store_nodrop", "sync_nodrop"):
+        dropped = sum(h["dropped"] for h in recs[label]["history"]) \
+            + recs[label]["decode_dropped"]
+        checks[f"{label}_dropped_0"] = dropped == 0
+    log("serve_ep", **checks, phase_s=f"{time.perf_counter() - t0:.3f}")
+    failures += [k for k, ok in checks.items() if not ok]
+    if failures:
+        raise SystemExit("serve_ep failed: " + "; ".join(failures))
 
 
 def _events_by_stream(prof, start_us: float = float("-inf")):
@@ -3196,8 +3558,8 @@ def fleet_phase(seed: int) -> None:
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
-                          "roofline", "profile", "fleet", "griffin",
-                          "reference")
+                          "serve_ep", "roofline", "profile", "fleet",
+                          "griffin", "reference")
 
 
 def main() -> int:
@@ -3261,7 +3623,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {}
-    if {"main", "gps", "t2e", "resched"} & set(phases):
+    if {"main", "gps", "t2e", "resched", "serve_ep"} & set(phases):
         model, cfg = build_mixtral(args.seed)     # one set of weights for all
         if "main" in phases:
             launches.update(main_path_phase(model, cfg, args.seed))
@@ -3271,6 +3633,8 @@ def main() -> int:
             t2e_phase(model, cfg, args.seed)
         if "resched" in phases:
             resched_phase(model, cfg, args.seed)
+        if "serve_ep" in phases:
+            serve_ep_phase(model, cfg, args.seed)
         del model
         torch.cuda.empty_cache()
     if "roofline" in phases:

@@ -12,11 +12,14 @@ Two implementations:
 * ``duplicate_experts_host`` — numpy, host-side, used by the serving loop
   at every prediction interval (placement is a host decision in real
   deployments: it changes collective *contents*, not shapes).
+* ``duplicate_experts_device`` — the port of the JAX package's jittable
+  ``duplicate_experts_jax``: a fixed number of masked iterations in torch
+  tensors on the device, for every layer at once, with no host round-trip
+  (in-graph planning, ``train.steps.make_prefill_replan_step``).
 * ``balanced_loads`` / ``bottleneck_load`` — analytical helpers used by the
   simulator (the JAX package's `core/simulator.py`) to score a plan.
 
-Port note: numpy-only copy of the JAX package's host planner; the
-jittable in-graph variant is not ported yet.
+Port note: the host planner is a numpy copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.placement import PlacementPlan, plan_from_assignments, plan_dims
 
@@ -125,6 +129,84 @@ def duplicate_experts_host(
     plan = plan_from_assignments(assignments, E, ep_ranks, dup_slots, max_copies)
     loads = _rank_loads(dist, ep_ranks, n_rep, copy_ranks)
     return DuplicationResult(plan=plan, rank_loads=loads, assignments=assignments)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-iteration variant on the device (in-graph planning)
+# ---------------------------------------------------------------------------
+
+def duplicate_experts_device(dist: torch.Tensor, ep_ranks: int,
+                             dup_slots: int,
+                             max_copies: int = 4) -> PlacementPlan:
+    """In-graph Algorithm 1: ``dist`` (L, E) per-layer expert counts or
+    fractions (a device tensor) -> a PlacementPlan of (L, ...) int32
+    tensors on the same device, equal to ``jax.vmap`` of the JAX package's
+    ``duplicate_experts_jax`` over the layers.
+
+    Runs exactly ``ep_ranks * max(dup_slots, 1)`` greedy iterations, each
+    masked where no move is feasible, so nothing reads a device value on
+    the host: every update is a ``torch.where`` over an indexed write."""
+    dist = dist.to(torch.float32)
+    L, E = dist.shape
+    R, C = ep_ranks, max_copies
+    dev = dist.device
+    e_loc, n_slots = plan_dims(E, R, dup_slots)
+    dist = dist / torch.clamp(dist.sum(-1, keepdim=True), min=1e-9)
+    lidx = torch.arange(L, device=dev)
+    experts = torch.arange(E, device=dev)
+    home_rank = experts // e_loc
+    home = home_rank * n_slots + experts % e_loc
+
+    n_rep = torch.ones((L, E), dtype=torch.int32, device=dev)
+    # hosted[l, e, r]: expert e has a copy on rank r
+    hosted = (home_rank[:, None] == torch.arange(R, device=dev)) \
+        .expand(L, E, R).clone()
+    table = home.to(torch.int32)[None, :, None].expand(L, E, C).clone()
+    pool_expert = torch.full((L, R), -1, dtype=torch.int32, device=dev)
+    pool_sel = torch.zeros((L, R, max(dup_slots, 1)), dtype=torch.int32,
+                           device=dev)
+    rank_extra = torch.zeros((L, R), dtype=torch.int32, device=dev)
+
+    for _ in range(R * max(dup_slots, 1)):
+        share = dist / n_rep.to(torch.float32)                 # per-copy load
+        # loads[l, r] = sum_e share[l, e] * hosted[l, e, r], a plain fp32
+        # sum over e in index order: its summation order is the one place
+        # where the plan could differ from XLA's einsum
+        hf = hosted.to(torch.float32)
+        loads = share[:, 0, None] * hf[:, 0]
+        for e in range(1, E):
+            loads = loads + share[:, e, None] * hf[:, e]
+        g_hot = loads.argmax(-1)                               # first max
+        g_cold = loads.argmin(-1)                              # first min
+        extra_cold = rank_extra[lidx, g_cold]
+        src_pe = pool_expert[:, home_rank]                     # (L, E)
+        feasible = (hosted[lidx, :, g_hot]
+                    & (n_rep < C)
+                    & ~hosted[lidx, :, g_cold]
+                    & (extra_cold < dup_slots)[:, None]
+                    & ((src_pe == -1) | (src_pe == experts)))
+        score = torch.where(feasible, share, -1.0)
+        e_star = score.argmax(-1)
+        do = ((score[lidx, e_star] > 0.0)
+              & (loads[lidx, g_hot] - loads[lidx, g_cold] > 1e-3))
+
+        gslot = (g_cold * n_slots + e_loc + extra_cold).to(torch.int32)
+        src_star = home_rank[e_star]
+        copy_idx = torch.clamp(n_rep[lidx, e_star], max=C - 1).long()
+        table[lidx, e_star, copy_idx] = torch.where(
+            do, gslot, table[lidx, e_star, copy_idx])
+        n_rep[lidx, e_star] += do.to(torch.int32)
+        hosted[lidx, e_star, g_cold] |= do
+        pool_expert[lidx, src_star] = torch.where(
+            do, e_star.to(torch.int32), pool_expert[lidx, src_star])
+        sel_j = torch.clamp(extra_cold, max=pool_sel.shape[2] - 1).long()
+        pool_sel[lidx, g_cold, sel_j] = torch.where(
+            do, src_star.to(torch.int32), pool_sel[lidx, g_cold, sel_j])
+        rank_extra[lidx, g_cold] += do.to(torch.int32)
+
+    return PlacementPlan(n_replicas=n_rep, replica_table=table,
+                         pool_expert=torch.clamp(pool_expert, min=0),
+                         pool_sel=pool_sel)
 
 
 def bottleneck_load(dist: np.ndarray, ep_ranks: int) -> float:

@@ -20,6 +20,8 @@ with numpy arrays (int32) in place of jnp arrays. ``slot_experts`` and
 ``to_device`` are the port's own: the dispatch reads each slot's weights
 as one row of a weight tensor, through a slot -> row map (the expert's
 home row, or under the replica store the slot's own row).
+``device_slot_experts`` and ``device_plan`` build the same from a plan
+whose fields are tensors on the device (an in-graph plan).
 """
 
 from __future__ import annotations
@@ -238,15 +240,47 @@ class DevicePlan(NamedTuple):
         return DevicePlan(*(t[l] for t in self))
 
 
+def device_slot_experts(plan: PlacementPlan, num_experts: int,
+                        ep_ranks: int, dup_slots: int) -> torch.Tensor:
+    """``slot_experts`` of a plan whose fields are torch tensors (one
+    layer's or stacked), computed on their device: (..., R * n_slots)
+    int32, equal to the numpy ``slot_experts`` of the same plan."""
+    e_loc, n_slots = plan_dims(num_experts, ep_ranks, dup_slots)
+    pool_expert = plan.pool_expert.long()                      # (..., R)
+    src = plan.pool_sel.long()[..., :dup_slots]                # (..., R, D)
+    lead = tuple(pool_expert.shape[:-1])
+    home = torch.arange(num_experts, device=pool_expert.device) \
+        .reshape(ep_ranks, e_loc).expand(lead + (ep_ranks, e_loc))
+    contrib = torch.gather(pool_expert, -1, src.reshape(lead + (-1,))) \
+        .reshape(src.shape)
+    rep = src * e_loc + contrib % e_loc
+    out = torch.cat([home, rep], dim=-1)
+    return out.reshape(lead + (ep_ranks * n_slots,)).to(torch.int32)
+
+
+def device_plan(plan: PlacementPlan, num_experts: int, ep_ranks: int,
+                dup_slots: int, rows=None) -> DevicePlan:
+    """The ``DevicePlan`` of a plan whose fields are already tensors on the
+    device (an in-graph plan, ``core.duplication.
+    duplicate_experts_device``), built there: nothing is copied to or from
+    the host. ``rows``: the slot -> row map, a tensor shaped as the slot
+    map; None reads every slot's expert from its home row."""
+    se = device_slot_experts(plan, num_experts, ep_ranks, dup_slots)
+    return DevicePlan(plan.n_replicas.long(), plan.replica_table.long(), se,
+                      se if rows is None else rows.to(torch.int32))
+
+
 def to_device(plan: PlacementPlan, num_experts: int, ep_ranks: int,
               dup_slots: int, device, rows=None) -> DevicePlan:
     """Move a (stacked) plan to ``device`` once, at each re-plan, so the
     forward passes between re-plans copy nothing from the host. ``rows``:
     the slot -> row map (shaped as ``slot_experts``); None reads every
-    slot's expert from its home row."""
-    def dev(a, dtype):
-        return torch.tensor(np.array(a), dtype=dtype, device=device)
-    se = dev(slot_experts(plan, num_experts, ep_ranks, dup_slots), torch.int32)
-    return DevicePlan(
-        dev(plan.n_replicas, torch.int64), dev(plan.replica_table, torch.int64),
-        se, se if rows is None else dev(rows, torch.int32))
+    slot's expert from its home row. A plan of tensors is moved to
+    ``device`` (no copy where it already lies there, as an in-graph plan
+    does: ``device_plan``)."""
+    def dev(a):
+        return a.to(device) if torch.is_tensor(a) else torch.tensor(
+            np.array(a), device=device)
+    return device_plan(PlacementPlan(*(dev(a) for a in plan)), num_experts,
+                       ep_ranks, dup_slots,
+                       rows=None if rows is None else dev(rows))

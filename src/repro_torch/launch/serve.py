@@ -1,9 +1,16 @@
 """Serving entry point: batched requests through the ``ServeEngine`` with
-prediction-guided expert duplication (the port of ``repro.launch.serve``,
-without its mesh flags).
+prediction-guided expert duplication (the port of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --reduced --device cpu --requests 8 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --device cpu --data-mesh 1 --model-mesh 4 --seq 32
+
+``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
+nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
+``--model-mesh`` EP ranks as a leading tensor dimension on the one device.
+One card has no data axis, so ``--data-mesh`` must then be 1, and each
+prompt of ``--seq`` tokens splits over the ranks.
 
 Weights are random, drawn from ``--seed``; prompts are Zipf-distributed
 tokens from the same seed (numpy, so the JAX launcher gets the same ones).
@@ -40,6 +47,10 @@ def main(argv=None) -> int:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--dup-slots", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-mesh", type=int, default=0)
+    ap.add_argument("--model-mesh", type=int, default=0,
+                    help="with --data-mesh 1: EP ranks (the JAX launcher's "
+                         "mesh flags)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -48,6 +59,17 @@ def main(argv=None) -> int:
                          "(open in Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
 
+    ep, ep_ranks = False, 1
+    if args.data_mesh and args.model_mesh:
+        if args.data_mesh != 1:
+            raise ValueError(
+                f"--data-mesh {args.data_mesh}: one device has no data axis "
+                "(serving across cards waits for a torch.distributed "
+                "backend: ROADMAP.md section 1, item 4)")
+        ep, ep_ranks = True, args.model_mesh
+        if args.seq % ep_ranks:
+            raise ValueError(f"--seq {args.seq} does not split over "
+                             f"{ep_ranks} EP ranks")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -73,7 +95,11 @@ def main(argv=None) -> int:
                          ServeConfig(strategy=args.strategy,
                                      dup_slots=args.dup_slots,
                                      max_len=args.seq + args.new_tokens),
-                         predictor=predictor, tracer=tracer)
+                         ep_ranks=ep_ranks, ep=ep, predictor=predictor,
+                         tracer=tracer)
+    if ep:
+        print(f"EP over {ep_ranks} ranks on one device "
+              f"(replica store: {engine._store is not None})")
 
     sched = BatchScheduler(args.batch, args.seq)
     gen = token_batches(args.seed, cfg.vocab_size, 1, args.seq)

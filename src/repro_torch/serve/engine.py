@@ -1,18 +1,33 @@
 """Serving engines with the paper's predict -> plan -> dispatch loop.
 
-``ServeEngine`` (the port of the JAX package's ``ServeEngine`` as it runs
-without a mesh) serves one padded batch at a time: a batched prefill, then
-greedy decode at one position for the whole batch over the prefill's
-cache. It serves every family the port has, and is the only engine for
-hybrid (Griffin) models. MoE models take the single-device dense path;
-the estimator, the accuracy window and Algorithm 1 re-plan on the
-interval, and a new plan replaces the old one at once. Under
-``token_to_expert`` with a ``predictor`` it predicts each batch's experts
-(``_predict_tokens``) and hands them to the prefill, whose dense path
-ignores them, as the JAX engine's mesh-less path does. With a tracer on,
-its ``prefill`` and ``decode`` spans end after the device has finished
-the step (one ``torch.cuda.synchronize`` each), so they read as step
-times; with the null tracer nothing synchronises.
+``ServeEngine`` (the port of the JAX package's ``ServeEngine``) serves one
+padded batch at a time: a batched prefill, then greedy decode at one
+position for the whole batch over the prefill's cache. It serves every
+family the port has, and is the only engine for hybrid (Griffin) models.
+Without ``ep``, MoE models take the single-device dense path (the JAX
+engine without a mesh): the estimator, the accuracy window and Algorithm
+1 re-plan on the interval, a new plan replaces the old one at once, and
+Token-to-Expert predictions reach a prefill that ignores them. With
+``ep=True`` (the JAX engine on a mesh) the MoE layers run the EP dispatch
+under the plan in force, and the engine runs the JAX engine's meshed half:
+the replica store (``MoEConfig.replica_impl="store"``), whose diff is
+filled on a side CUDA stream either layer-staged under the following steps
+(``MoEConfig.overlap_migration``; the chunk budget fits the modelled
+A100-PCIe wire time to the recent migration-free prefill wall) or at
+once; the lever (``ServeConfig.lever``: "reschedule" freezes the first
+adopted plan and only refreshes the quotas, "both" re-plans and refreshes,
+each prefill and decode dispatching through the quotas); Token-to-Expert
+predictions, which the EP prefill dispatches on with a correction round;
+and in-graph re-planning (``in_graph_replan`` under ``dist_only``): the
+prefill step runs Algorithm 1 on the device on its own expert counts
+(``train.steps.make_prefill_replan_step``), and that plan stays on the
+device as the next batch's plan; it reads the home experts (no store). A
+batch's ``history`` entry records its skew, dropped and overflowed pairs,
+the lever's predicted absorption and residual, and each re-plan's
+migration entries and bytes. With a tracer on, its ``prefill`` and
+``decode`` spans end after the device has finished the step (one
+``torch.cuda.synchronize`` each), so they read as step times; with the
+null tracer nothing synchronises.
 
 ``ContinuousEngine`` is the port of the JAX package's
 ``ContinuousEngine`` as it runs without a mesh.
@@ -123,8 +138,8 @@ from repro_torch.obs.accuracy import PredictorAccuracyTracker
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import cost as mig_cost
 from repro_torch.runtime import (LayerStagedExecutor, MigrationExecutor,
-                                 ReplicaStore, make_migrate_step, plan_diff,
-                                 plans_equal)
+                                 ReplicaStore, make_migrate_step, migrate_all,
+                                 plan_diff, plans_equal)
 from repro_torch.runtime.store import EXPERT_WEIGHTS
 from repro_torch.schedule import make_scheduler
 from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
@@ -134,6 +149,7 @@ from repro_torch.serve.metrics import (RequestTiming, ServeMetrics, imbalance,
 from repro_torch.serve.scheduler import (ContinuousScheduler, IterationPlan,
                                          ServeRequest)
 from repro_torch.train.steps import (make_decode_step, make_paged_decode_step,
+                                     make_prefill_replan_step,
                                      make_prefill_step, make_slot_prefill_step)
 
 STRATEGIES = ("none", "dist_only", "token_to_expert")
@@ -182,46 +198,197 @@ def _chunk_stall_split(moved_bytes: float, window_s: float, hw,
     return mig_cost.split_hidden_exposed(stall, window_s)
 
 
+class _StoreMixin:
+    """Replica-store plumbing shared by ``ServeEngine`` and
+    ``ContinuousEngine`` (the JAX package's ``_OverlapStoreMixin``): the
+    plan in force and its device copy with the store's live rows, the view
+    of the store a forward reads, beginning, cancelling and committing a
+    fill, and the lever's quota stack against the plan in force. Expects
+    ``cfg``, ``moe_cfg``, ``ep``, ``ep_ranks``, ``device``, ``tracer``,
+    ``_overlap``, ``_plan_stack``, ``_plan_dev``, ``_store``,
+    ``_executor``, ``_target_dev`` and ``_resched_sched`` on the engine."""
+
+    def _init_store(self, model: Transformer, *, chunk: int,
+                    chunks_per_tick: Optional[int] = None) -> None:
+        """Build the replica store from the identity stack (the model's
+        expert weights become views of its home rows) and its migrate step,
+        on a side CUDA stream on the card. The executor: layer-staged with
+        overlap on, else a ``MigrationExecutor`` under ``chunks_per_tick``
+        (None: no executor, the engine drains each diff through
+        ``migrate_all``)."""
+        m = self.moe_cfg
+        self._store = ReplicaStore.from_model(
+            model, self._identity_stack(), num_experts=m.num_experts,
+            ep_ranks=self.ep_ranks, dup_slots=m.duplication_slots)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._migrate_fn = make_migrate_step(self._store, self._stream)
+        if self._overlap:
+            self._executor = LayerStagedExecutor(
+                self._migrate_fn, self._store, num_layers=self.cfg.num_layers,
+                chunk=chunk, tracer=self.tracer, stream=self._stream)
+        elif chunks_per_tick is not None:
+            self._executor = MigrationExecutor(
+                self._migrate_fn, self._store, chunk=chunk,
+                chunks_per_tick=chunks_per_tick, tracer=self.tracer,
+                stream=self._stream)
+
+    def _identity_stack(self) -> Optional[PlacementPlan]:
+        if not self.cfg.is_moe:
+            return None
+        m = self.moe_cfg
+        return stack_plans([
+            identity_plan(m.num_experts, self.ep_ranks, m.duplication_slots,
+                          m.max_copies) for _ in range(self.cfg.num_layers)])
+
+    def _current_plan(self) -> Optional[PlacementPlan]:
+        if self._plan_stack is None:
+            self._set_plan(self._identity_stack())
+        return self._plan_stack
+
+    def _to_device(self, plan: PlacementPlan, rows=None):
+        m = self.moe_cfg
+        return to_device(plan, m.num_experts, self.ep_ranks,
+                         m.duplication_slots, self.device, rows=rows)
+
+    def _set_plan(self, plan: PlacementPlan) -> None:
+        """Put ``plan`` in force (with the store's live rows under EP). A
+        plan of device tensors (an in-graph plan) stays where it is."""
+        self._plan_stack = plan
+        if self.ep and plan is not None:
+            self._plan_dev = self._to_device(
+                plan, None if self._store is None else self._store.slot_rows())
+
+    def _store_view(self) -> Optional[StoreView]:
+        """What this step's forwards read of the store: its rows, and while
+        a staged fill is in flight its ready mask, target plan and fill
+        events (the JAX engines' ``_overlap_args``)."""
+        if self._store is None:
+            return None
+        ex = self._executor
+        if self._overlap and ex.active:
+            return StoreView(self._store.weights, ex.ready_mask(),
+                             self._target_dev, ex.fill_events())
+        return StoreView(self._store.weights)
+
+    def _begin_migration(self, diff, target: PlacementPlan) -> None:
+        """Start (or restart, abandoning the fill in flight) a fill toward
+        ``target``."""
+        self._executor.begin(diff, target)
+        if self._overlap:
+            self._target_dev = self._to_device(target,
+                                               self._executor.target_rows)
+
+    def _cancel_migration(self) -> None:
+        self._executor.cancel()
+        self._target_dev = None
+
+    def _quota_stack(self, counts: np.ndarray, tokens: int, impl: str):
+        """The lever's (L, E, C_max) quota stack against the plan in force,
+        for ``counts`` (L, E) expected (token, k) pairs of a forward of
+        ``tokens`` tokens, the capacity a rank's share of them summed over
+        the EP ranks. Returns (quota on the device, the per-layer
+        ``ScheduleResult``s)."""
+        m = self.moe_cfg
+        plan = self._current_plan()
+        if self._resched_sched is None:
+            self._resched_sched = make_scheduler(impl)
+        t_local = max(tokens // self.ep_ranks, 1)
+        n_slots_g = (m.num_experts // self.ep_ranks
+                     + m.duplication_slots) * self.ep_ranks
+        cap = capacity(t_local, m.top_k, n_slots_g,
+                       m.capacity_factor) * self.ep_ranks
+        layer_plans = [PlacementPlan(*(np.asarray(a)[l] for a in plan))
+                       for l in range(self.cfg.num_layers)]
+        quota, results = self._resched_sched.plan_stack(
+            counts, layer_plans, ep_ranks=self.ep_ranks,
+            dup_slots=m.duplication_slots, cap=float(cap))
+        return torch.tensor(np.asarray(quota), device=self.device), results
+
+    def _commit_migration(self, commit) -> None:
+        """A fill's commit: its slots swap live and back rows, and its
+        target plan comes into force with the new rows."""
+        filled, plan, se = commit
+        self._store.adopt(se, filled)
+        self._target_dev = None
+        self._set_plan(plan)
+
+
 # ===========================================================================
 # batched engine
 # ===========================================================================
 
 @dataclass
 class ServeConfig:
-    """Knobs of ``ServeEngine``: the fields of the JAX package's
-    ``ServeConfig`` that its mesh-less path reads. A mesh, the replica
-    store, overlapped migration, in-graph re-planning and the reschedule
-    lever (which acts on a meshed EP engine only) are not ported here
-    (ROADMAP.md)."""
+    """Knobs of ``ServeEngine`` (the JAX package's ``ServeConfig``). Under
+    ``ep`` the replica store follows ``MoEConfig.replica_impl`` and its
+    fills ``MoEConfig.overlap_migration``, as the meshed JAX engine's do;
+    ``migrate_chunk`` sizes a fill's chunks. ``in_graph_replan`` plans the
+    next batch on the device inside the prefill step (``dist_only`` only;
+    it reads the home experts, no store). The lever's quotas reach the
+    forward always; only the EP dispatch acts on them."""
     strategy: str = "dist_only"       # none | dist_only | token_to_expert
     predict_interval: int = 1         # batches between re-plans (paper Sec 3.1)
     dup_slots: int = 1                # replica slots per EP rank
     max_copies: int = 4               # Algorithm 1 C_max
     ema: float = 0.9                  # moving-average for the MLE estimator
     max_len: int = 2048               # cache length for generation
+    in_graph_replan: bool = False     # fuse Algorithm 1 into the prefill
+                                      # step (no host round-trip per batch)
+    migrate_chunk: int = 8            # slot entries per fill chunk (store)
+    # Balancing lever (repro_torch.schedule): "duplicate" re-plans and
+    # migrates every interval; "reschedule" freezes the plan after its
+    # first adoption and balances by moving TOKENS across the frozen
+    # copies (quota dispatch + rescue round); "both" does the two.
+    lever: str = "duplicate"          # duplicate | reschedule | both
+    resched_impl: str = "greedy"      # greedy | lp
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
             raise ValueError(f"strategy {self.strategy!r}: one of "
                              f"{STRATEGIES}")
+        if self.lever not in LEVERS:
+            raise ValueError(f"lever {self.lever!r}: one of {LEVERS}")
 
 
-class ServeEngine:
+class ServeEngine(_StoreMixin):
     """Batched prefill + greedy decode with dynamic expert duplication, on
-    the device the model's parameters live on."""
+    the device the model's parameters live on; ``ep=True`` runs the MoE
+    layers' expert-parallel dispatch over ``ep_ranks`` ranks."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
-                 serve: ServeConfig, *, ep_ranks: int = 1, predictor=None,
-                 tracer=None):
+                 serve: ServeConfig, *, ep_ranks: int = 1, ep: bool = False,
+                 predictor=None, tracer=None):
+        if ep and not (cfg.is_moe and cfg.attention == "gqa"):
+            raise ValueError("ep=True serves GQA MoE models")
         self.serve = serve
         self.ep_ranks = ep_ranks
+        self.ep = ep
         self.predictor = predictor            # Token-to-Expert model (optional)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.batches_seen = 0
         self._plan_stack: Optional[PlacementPlan] = None
+        self._plan_dev = None                 # the plan in force (EP), device
         self.history: List[dict] = []         # per-batch balance telemetry
+        # token rescheduling: the (L, E, C_max) quota stack on the device;
+        # None while the duplicate lever runs alone
+        self._resched_stack = None
+        self._resched_sched = None
+        self._resched_frozen = False
+        self._last_prefill_tokens = 0
+        self._store: Optional[ReplicaStore] = None
+        self._executor = None                 # LayerStagedExecutor (overlap)
+        self._target_dev = None               # an in-flight fill's target
+        self._recent_step_s = 0.0             # EMA, feeds the overlap budget
+        self._step_moved = False              # this call issued fill chunks
+        self._window_seeded = False           # first sample skipped
+        self._adopt_ticks = 0
+        self._last_migration: Dict = {}
         if cfg.is_moe:
             dup_slots = serve.dup_slots if serve.strategy != "none" else 0
+            if ep:
+                dup_slots = _clamp_store_dup_slots(cfg, model, ep_ranks,
+                                                   dup_slots)
             self.moe_cfg = dataclasses.replace(
                 cfg.moe, duplication_slots=dup_slots,
                 max_copies=serve.max_copies)
@@ -235,37 +402,152 @@ class ServeEngine:
         self.cfg = cfg
         self.model = model
         self.device = model.device
-        # no mesh: the MoE layers take the exact dense path, which reads no
-        # placement plan, so the steps are not handed one
-        self.rt = Runtime()
-        self._prefill = make_prefill_step(cfg, self.rt)
+        self._overlap = self._store_mode and self.moe_cfg.overlap_migration
+        # without ``ep`` the MoE layers take the exact dense path, which
+        # reads no placement plan, so the steps are not handed one
+        self.rt = Runtime(ep=ep, ep_ranks=ep_ranks)
+        self._in_graph = (serve.in_graph_replan and cfg.is_moe
+                          and serve.strategy == "dist_only")
+        self._prefill = (make_prefill_replan_step if self._in_graph
+                         else make_prefill_step)(cfg, self.rt)
         self._decode = make_decode_step(cfg, self.rt)
+        if self._store_mode:
+            self._init_store(model, chunk=serve.migrate_chunk)
+            self._entry_bytes = self._store.entry_bytes
 
     # ------------------------------------------------------------------ plan
-    def _identity_stack(self) -> Optional[PlacementPlan]:
-        if not self.cfg.is_moe:
-            return None
-        m = self.moe_cfg
-        return stack_plans([
-            identity_plan(m.num_experts, self.ep_ranks, m.duplication_slots,
-                          m.max_copies) for _ in range(self.cfg.num_layers)])
-
     def replan(self) -> Optional[PlacementPlan]:
         """Algorithm 1 per layer from the current distribution estimate
-        (the identity plan for dense models or strategy "none")."""
+        (the identity plan for dense models or strategy "none"). Returns the
+        plan in force afterwards: the new one, or under overlapped
+        migration the old one until the fill toward the new one commits.
+
+        Lever "reschedule" adopts ONE plan and freezes it (later re-plans
+        only refresh the token-scheduler quotas: no migration traffic);
+        "both" re-plans every interval AND refreshes the quotas."""
         if not self.cfg.is_moe or self.serve.strategy == "none":
             return self._identity_stack()
         m = self.moe_cfg
+        if (self.serve.lever == "reschedule" and self._resched_frozen
+                and self._plan_stack is not None):
+            self._replan_resched()
+            return self._plan_stack
         dist = self.estimator.predict()                  # (L, E)
-        # without a mesh there are no replica weights to move: the new
-        # plan is adopted at once
-        self._plan_stack = stack_plans([
+        self._adopt_plan(stack_plans([
             duplicate_experts_host(dist[l], self.ep_ranks,
                                    m.duplication_slots, m.max_copies).plan
-            for l in range(self.cfg.num_layers)])
-        self.tracer.instant("plan.switch", cat="plan", track="plan",
-                            args={"batch": self.batches_seen})
+            for l in range(self.cfg.num_layers)]))
+        if self.serve.lever == "reschedule":
+            self._resched_frozen = True
+        self._replan_resched()
         return self._plan_stack
+
+    def _replan_resched(self) -> None:
+        """Refresh the (L, E, C_max) quota stack against the plan in force
+        (a staged fill's target adopts later; the rescue round covers the
+        transient). Counts are the last prefill's ``B * S`` tokens (1024
+        before the first), the capacity a rank's share of them."""
+        if (self.serve.lever == "duplicate" or not self.cfg.is_moe
+                or self.serve.strategy == "none"):
+            self._resched_stack = None
+            return
+        dist = np.asarray(self.estimator.predict(), np.float64)
+        tokens = float(self._last_prefill_tokens or 1024)
+        self._resched_stack, results = self._quota_stack(
+            dist * tokens * self.moe_cfg.top_k, int(tokens),
+            self.serve.resched_impl)
+        if self.history:
+            self.history[-1]["resched_absorbed_pred"] = float(np.mean(
+                [r.overflow_absorbed_frac for r in results]))
+            self.history[-1]["resched_residual"] = float(np.mean(
+                [r.imbalance_sched for r in results])) - 1.0
+
+    # --------------------------------------------------------- replica store
+    @property
+    def _store_mode(self) -> bool:
+        """Replica slots read the store's rows. In-graph re-planning reads
+        the home experts instead: its plan never leaves the device, and a
+        migration is a host decision."""
+        return (self.cfg.is_moe and self.ep
+                and self.moe_cfg.duplication_slots > 0
+                and self.moe_cfg.replica_impl == "store"
+                and not self.serve.in_graph_replan)
+
+    def _tick_migration(self) -> None:
+        """Enqueue this step's overlapped chunk budget (on the side stream,
+        under the forward that follows); swap plan and store rows on
+        commit. The budget is the chunks whose modelled wire time (the
+        reference's A100-PCIe link) fits the recent prefill wall."""
+        ex = self._executor
+        if ex is None or not ex.active:
+            return
+        window = self._recent_step_s
+        budget = mig_cost.overlap_chunk_budget(
+            window, chunk_entries=ex.chunk, entry_bytes=self._entry_bytes,
+            hw=A100_PCIE)
+        commit, moved = ex.tick(budget)
+        self._adopt_ticks += 1
+        if moved:
+            self._step_moved = True
+            hidden, exposed = _chunk_stall_split(moved, window, A100_PCIE,
+                                                 overlap=True)
+            m = self._last_migration
+            m["moved_bytes"] = m.get("moved_bytes", 0.0) + moved
+            m["hidden_s"] = m.get("hidden_s", 0.0) + hidden
+            m["exposed_s"] = m.get("exposed_s", 0.0) + exposed
+        if commit is not None:
+            self._commit_migration(commit)
+            self._last_migration["steps_to_adopt"] = self._adopt_ticks
+
+    def _adopt_plan(self, target: PlacementPlan) -> None:
+        """Pay weight movement once per re-plan: migrate exactly the slots
+        the plan switch changes. With overlap off the diff is filled and
+        committed at once; with it on a layer-staged fill begins, and
+        serving reads the old plan per layer until each layer's fill is
+        ready. Without a store the plan swaps at once."""
+        if self._store is None:
+            self.tracer.instant("plan.switch", cat="plan", track="plan",
+                                args={"batch": self.batches_seen})
+            self._set_plan(target)
+            return
+        if (self._overlap and self._executor.active
+                and plans_equal(self._executor.target_plan, target)):
+            # the re-plan reproduced the in-flight target: keep filling
+            # (restarting would zero the cursor every batch, and a diff
+            # larger than one interval's budget would never commit)
+            return
+        m = self.moe_cfg
+        diff = plan_diff(self._current_plan(), target, self.ep_ranks,
+                         m.duplication_slots)
+        moved = diff.num_entries * self._entry_bytes
+        self._last_migration = {"entries": diff.num_entries, "bytes": moved}
+        self.tracer.instant("plan.switch", cat="plan", track="plan",
+                            args={"batch": self.batches_seen,
+                                  "entries": int(diff.num_entries),
+                                  "bytes": float(moved)})
+        if diff.num_entries == 0:
+            if self._executor is not None:
+                self._cancel_migration()
+            self._set_plan(target)
+            return
+        if self._overlap:
+            self._begin_migration(diff, target)
+            self._adopt_ticks = 0
+            return
+        migrate_all(self._migrate_fn, self._store, diff,
+                    chunk=self.serve.migrate_chunk, stream=self._stream)
+        self._set_plan(target)
+
+    def _step_inputs(self):
+        """(plan, store view) a forward reads: under EP the plan in force
+        on the device and the store's view, read after the step's tick (a
+        commit swaps plan and rows together, and a new plan over
+        pre-commit rows would serve replica slots holding the wrong
+        expert); the dense path reads neither."""
+        if not self.ep:
+            return None, None
+        self._current_plan()
+        return self._plan_dev, self._store_view()
 
     # --------------------------------------------------------------- predict
     def _predict_tokens(self, tokens) -> Optional[torch.Tensor]:
@@ -296,23 +578,52 @@ class ServeEngine:
         if cache is None:
             cache = init_cache(self.cfg, self.rt, B, self.serve.max_len,
                                device=self.device)
-        logits, cache, stats = self._prefill(self.model, tokens, cache,
-                                             predicted_idx=pred)
-        self._observe(stats)
+        self._step_moved = False
+        self._tick_migration()       # overlapped fills ride this step
+        plan, store = self._step_inputs()
+        self._last_prefill_tokens = B * S
+        if self._in_graph:
+            logits, cache, stats, next_plan = self._prefill(
+                self.model, tokens, cache, plan=plan, predicted_idx=pred)
+            self._set_plan(next_plan)        # stays on the device
+        else:
+            logits, cache, stats = self._prefill(
+                self.model, tokens, cache, plan=plan, predicted_idx=pred,
+                store=store, resched=self._resched_stack)
+        self._observe(stats, skip_replan=self._in_graph)
         self._sync()
         dt = time.perf_counter() - t0
         self.tracer.add_span("prefill", dt,
                              ts_ns=self.tracer.now_ns() - int(dt * 1e9),
                              args={"batch": B, "tokens": B * S})
+        self._note_step_time(dt)
         return logits, cache, stats
 
     def decode(self, tokens, cache, cache_len: int):
         """One greedy decode step for the batch at position ``cache_len``.
         Returns (next tokens (B, 1) int32, logits, cache, stats)."""
+        self._step_moved = False
+        self._tick_migration()
+        plan, store = self._step_inputs()
         with self.tracer.span("decode", args={"cache_len": cache_len}):
-            out = self._decode(self.model, tokens, cache, cache_len)
+            out = self._decode(self.model, tokens, cache, cache_len,
+                               plan=plan, store=store,
+                               resched=self._resched_stack)
             self._sync()
         return out
+
+    def _note_step_time(self, dt: float) -> None:
+        """EMA of the MIGRATION-FREE prefill wall time: the overlap window
+        the chunk budget is sized against. Steps that issued fill chunks
+        are left out (their wall includes the fills), and so is the very
+        first sample (it builds the kernels)."""
+        if self._step_moved:
+            return
+        if not self._window_seeded:
+            self._window_seeded = True
+            return
+        self._recent_step_s = (dt if self._recent_step_s <= 0
+                               else 0.9 * self._recent_step_s + 0.1 * dt)
 
     def generate(self, batch, max_new_tokens: int = 8):
         """Prefill + greedy decode; returns (generated (B, T) int32 tensor,
@@ -327,19 +638,29 @@ class ServeEngine:
         return torch.cat(out, dim=1), self.history[-1] if self.history else {}
 
     # -------------------------------------------------------------- observe
-    def _observe(self, stats):
-        """Feed router histograms to the estimator; replan on the interval."""
+    def _observe(self, stats, skip_replan: bool = False):
+        """Feed router histograms to the estimator; replan on the interval
+        (not after an in-graph plan: the prefill made the next one)."""
         self.batches_seen += 1
         if not self.cfg.is_moe or stats.get("expert_counts") is None:
             return
-        counts = stats["expert_counts"].to("cpu", torch.float64).numpy()
+        counts = stats["expert_counts"]
+        keys = [k for k in ("dropped", "overflow") if k in stats]   # EP
+        # one transfer: the counts and the per-layer drop counters
+        host = torch.cat([counts] + [stats[k].to(counts)[:, None]
+                                     for k in keys], dim=1) \
+            .to("cpu", torch.float64).numpy()
+        E = counts.shape[1]
+        counts = host[:, :E]
         self.estimator.update(counts)
         self.accuracy.observe(counts)
         tele = {"batch": self.batches_seen,
                 "skew": float(counts.sum(0).max()
                               / max(counts.sum(0).mean(), 1e-9))}
+        for i, k in enumerate(keys):
+            tele[k] = float(host[:, E + i].sum())
         self.history.append(tele)
-        if (self.serve.strategy != "none"
+        if (not skip_replan and self.serve.strategy != "none"
                 and self.batches_seen % self.serve.predict_interval == 0):
             wa = self.accuracy.close_window()
             if wa is not None:
@@ -352,6 +673,9 @@ class ServeEngine:
             # against the next window's realized routing
             self.accuracy.begin_window(self.estimator.predict(),
                                        self.serve.strategy)
+            if self._last_migration:
+                tele["migration_entries"] = self._last_migration["entries"]
+                tele["migration_bytes"] = self._last_migration["bytes"]
 
     # ------------------------------------------------------------- telemetry
     def rank_loads(self, slot_counts: np.ndarray) -> np.ndarray:
@@ -437,7 +761,7 @@ class StepEvents:
     decision: Optional[object] = None          # controller Decision, if any
 
 
-class ContinuousEngine:
+class ContinuousEngine(_StoreMixin):
     """Continuous-batching serving engine over a paged KV block pool, on
     the device the model's parameters live on."""
 
@@ -547,63 +871,14 @@ class ContinuousEngine:
         self._entry_bytes = mig_cost.entry_bytes(_model_experts(model))
         m = self.moe_cfg
         if ep and m.duplication_slots > 0 and m.replica_impl == "store":
-            self._store = ReplicaStore.from_model(
-                model, self._identity_stack(), num_experts=m.num_experts,
-                ep_ranks=ep_ranks, dup_slots=m.duplication_slots)
-            stream = (torch.cuda.Stream(self.device)
-                      if self.device.type == "cuda" else None)
-            step_fn = make_migrate_step(self._store, stream)
-            if self._overlap:
-                self._executor = LayerStagedExecutor(
-                    step_fn, self._store, num_layers=cfg.num_layers,
-                    chunk=ccfg.migrate_chunk, tracer=self.tracer,
-                    stream=stream)
-            else:
-                self._executor = MigrationExecutor(
-                    step_fn, self._store, chunk=ccfg.migrate_chunk,
-                    chunks_per_tick=ccfg.migrate_chunks_per_step,
-                    tracer=self.tracer, stream=stream)
+            self._init_store(model, chunk=ccfg.migrate_chunk,
+                             chunks_per_tick=ccfg.migrate_chunks_per_step)
 
     def _dev(self, a) -> torch.Tensor:
         """Host array -> a fresh tensor on the engine's device."""
         return torch.tensor(np.asarray(a), device=self.device)
 
     # ------------------------------------------------------------------ plan
-    def _identity_stack(self) -> PlacementPlan:
-        m = self.moe_cfg
-        return stack_plans([
-            identity_plan(m.num_experts, self.ep_ranks, m.duplication_slots,
-                          m.max_copies) for _ in range(self.cfg.num_layers)])
-
-    def _current_plan(self) -> PlacementPlan:
-        if self._plan_stack is None:
-            self._set_plan(self._identity_stack())
-        return self._plan_stack
-
-    def _to_device(self, plan: PlacementPlan, rows=None):
-        m = self.moe_cfg
-        return to_device(plan, m.num_experts, self.ep_ranks,
-                         m.duplication_slots, self.device, rows=rows)
-
-    def _set_plan(self, plan: PlacementPlan) -> None:
-        """Put ``plan`` in force (with the store's live rows under EP)."""
-        self._plan_stack = plan
-        if self.ep:
-            self._plan_dev = self._to_device(
-                plan, None if self._store is None else self._store.slot_rows())
-
-    def _store_view(self) -> Optional[StoreView]:
-        """What this step's forwards read of the store: its rows, and while
-        a staged fill is in flight its ready mask, target plan and fill
-        events (the JAX engine's ``_overlap_args``)."""
-        if self._store is None:
-            return None
-        ex = self._executor
-        if self._overlap and ex.active:
-            return StoreView(self._store.weights, ex.ready_mask(),
-                             self._target_dev, ex.fill_events())
-        return StoreView(self._store.weights)
-
     def replan(self) -> PlacementPlan:
         """Algorithm 1 per layer from the estimator's current prediction
         (the identity plan under strategy "none"), at most
@@ -665,23 +940,10 @@ class ContinuousEngine:
                 or self.strategy == "none"):
             self._resched_stack = None
             return
-        m = self.moe_cfg
-        plan = self._current_plan()
-        if self._resched_sched is None:
-            self._resched_sched = make_scheduler(self.ccfg.resched_impl)
         dist = np.asarray(self.estimator.predict(), np.float64)   # (L, E)
-        counts = dist * float(self.ccfg.prefill_len * m.top_k)
-        t_local = max(self.ccfg.prefill_len // self.ep_ranks, 1)
-        n_slots_g = (m.num_experts // self.ep_ranks
-                     + m.duplication_slots) * self.ep_ranks
-        cap = capacity(t_local, m.top_k, n_slots_g,
-                       m.capacity_factor) * self.ep_ranks
-        layer_plans = [PlacementPlan(*(np.asarray(a)[l] for a in plan))
-                       for l in range(self.cfg.num_layers)]
-        quota, results = self._resched_sched.plan_stack(
-            counts, layer_plans, ep_ranks=self.ep_ranks,
-            dup_slots=m.duplication_slots, cap=float(cap))
-        self._resched_stack = self._dev(quota)
+        self._resched_stack, results = self._quota_stack(
+            dist * float(self.ccfg.prefill_len * self.moe_cfg.top_k),
+            self.ccfg.prefill_len, self.ccfg.resched_impl)
         self._resched_residual = float(np.mean(
             [r.imbalance_sched for r in results])) - 1.0
         self._resched_absorbed_pred = float(np.mean(
@@ -731,18 +993,6 @@ class ContinuousEngine:
         per_tick = max(self.ccfg.migrate_chunk * self._overlap_budget(), 1)
         drain_steps = -(-entries // per_tick)
         return min(stall_s, drain_steps * window)
-
-    def _begin_migration(self, diff, target: PlacementPlan) -> None:
-        """Start (or restart, abandoning the fill in flight) a fill toward
-        ``target``."""
-        self._executor.begin(diff, target)
-        if self._overlap:
-            self._target_dev = self._to_device(target,
-                                               self._executor.target_rows)
-
-    def _cancel_migration(self) -> None:
-        self._executor.cancel()
-        self._target_dev = None
 
     def _adopt_plan(self, target: PlacementPlan) -> PlacementPlan:
         """serve -> diff -> staged fill -> per-layer swap. Without a store
@@ -849,10 +1099,7 @@ class ContinuousEngine:
             self.metrics.record_migration(bytes_moved=moved, hidden_s=hidden,
                                           exposed_s=exposed)
         if commit is not None:
-            filled, plan, se = commit
-            self._store.adopt(se, filled)
-            self._target_dev = None
-            self._set_plan(plan)
+            self._commit_migration(commit)
             self._prebegun_plan = None
             self.metrics.record_migration(committed=True)
 

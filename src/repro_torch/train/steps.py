@@ -2,15 +2,17 @@
 
 For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
-prefill and the decode step over the prefill's cache at one scalar
-position (greedy next tokens). All pass the engine's live placement plan
-stack through to ``forward``, where the EP path dispatches under it; the
-continuous engine's two steps also pass its replica store view
-(``models.transformer.StoreView``: the store's per-layer rows and, while a
-staged migration is in flight, its ready mask, target plan and fill
-events). Both prefill steps take the Token-to-Expert predictions
-(``predicted_idx`` (L, B, S, K)) the EP dispatch pre-routes on, and every
-step the reschedule quota stack (``resched`` (L, E, C_max) int32) the EP
+prefill, the fused prefill + in-graph re-plan, and the decode step over
+the prefill's cache at one scalar position (greedy next tokens). All pass
+the engine's live placement plan stack through to ``forward``, where the
+EP path dispatches under it; all but the fused step also pass the
+engine's replica store view (``models.transformer.StoreView``: the
+store's per-layer rows and, while a staged migration is in flight, its
+ready mask, target plan and fill events: the JAX package's
+``slot_weights / slot_weights_back / slot_ready / target_plan``). The
+prefill steps take the Token-to-Expert predictions (``predicted_idx``
+(L, B, S, K)) the EP dispatch pre-routes on, and every step but the fused
+one the reschedule quota stack (``resched`` (L, E, C_max) int32) the EP
 dispatch picks replicas through."""
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.duplication import duplicate_experts_device
 from repro_torch.models.transformer import Runtime, Transformer, forward
 
 
@@ -63,11 +66,38 @@ def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     None). Returns (logits at the last position, cache, stats)."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, plan=None,
-                     predicted_idx=None, resched=None):
+                     predicted_idx=None, store=None, resched=None):
         return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
-                       plan=plan, predicted_idx=predicted_idx,
+                       plan=plan, store=store, predicted_idx=predicted_idx,
                        resched=resched)
     return prefill_step
+
+
+def make_prefill_replan_step(cfg: ModelConfig, rt: Runtime):
+    """Fused predict -> plan -> dispatch serving step: the prefill under
+    the CURRENT placement plan, then the NEXT batch's plan from this
+    batch's expert histogram by Algorithm 1 on the device
+    (``duplicate_experts_device``, every layer at once), with no host
+    round-trip. Returns (logits, cache, stats, next plan: a PlacementPlan
+    of (L, ...) int32 tensors on the model's device).
+
+    It reads the home experts (no store): the replica store is filled by a
+    host-orchestrated migration, which would defeat planning on the
+    device."""
+    moe = cfg.moe
+
+    @torch.inference_mode()
+    def step(model: Transformer, tokens, cache=None, plan=None,
+             predicted_idx=None):
+        logits, cache, stats = forward(model, cfg, tokens, rt,
+                                       mode="prefill", cache=cache,
+                                       plan=plan,
+                                       predicted_idx=predicted_idx)
+        next_plan = duplicate_experts_device(
+            stats["expert_counts"], rt.ep_ranks, moe.duplication_slots,
+            moe.max_copies)
+        return logits, cache, stats, next_plan
+    return step
 
 
 def make_decode_step(cfg: ModelConfig, rt: Runtime):
@@ -76,10 +106,11 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime):
     (greedy next tokens (B, 1) int32, logits, cache, stats)."""
     @torch.inference_mode()
     def decode_step(model: Transformer, tokens, cache, cache_len: int,
-                    plan=None, resched=None):
+                    plan=None, store=None, resched=None):
         logits, cache, stats = forward(model, cfg, tokens, rt, mode="decode",
                                        cache=cache, cache_len=cache_len,
-                                       plan=plan, resched=resched)
+                                       plan=plan, store=store,
+                                       resched=resched)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_tok, logits, cache, stats
     return decode_step

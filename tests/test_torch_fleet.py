@@ -14,8 +14,8 @@ the CPU.
   arbiter leg), against the JAX ``FleetEngine`` (meshless, and on a
   ``(1, 4)`` ``AxisType.Auto`` mesh) in one subprocess with
   ``--xla_allow_excess_precision=false``, on weights with wide router and
-  ``lm_head`` margins (``widen_margins``, the construction of
-  ``tests/test_torch_resched.py``) so no route or token sits near a tie.
+  ``lm_head`` margins (``widen_margins``, ``tests/_torch_margins.py``, as
+  in ``tests/test_torch_resched.py``) so no route or token sits near a tie.
   Per model the completed requests, their tokens and SLO attainment, the
   arbiter's moves and the final ledger are equal. The arbiter's cost gate
   runs on a ``HardwareConfig`` whose link is so fast that a dup-slot grant
@@ -34,6 +34,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from tests._torch_margins import SOURCE as MARGINS_SOURCE  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -426,33 +428,10 @@ def test_random_signals_give_equal_moves_and_ledgers():
 # FleetEngine against the JAX FleetEngine
 # --------------------------------------------------------------------------
 
-# Executed by the JAX subprocess and here (the construction of
-# tests/test_torch_resched.py's CAPTURE): weights whose router and lm_head
-# margins are wide, and the fleet run that records what happened.
-CAPTURE = '''
-def widen_margins(tree, cfg):
-    d, V, E = cfg.d_model, cfg.vocab_size, cfg.moe.num_experts
-    v = np.linalg.qr(np.random.default_rng(1234).normal(size=(d, E)))[0].T
-    group = np.arange(V) * E // V
-    pref = np.zeros((E, E))
-    pref[np.arange(E), np.arange(E)] = 2.0
-    pref[np.arange(E), (np.arange(E) + 1) % E] = 1.0
-    nxt = (np.arange(E) + 1) % E * (V // E) + 7
-    out = dict(tree)
-    out["embed"] = {"table": np.asarray(tree["embed"]["table"], np.float32)
-                    + 8.0 * np.sqrt(d) * v[group]}
-    head = np.array(tree["lm_head"]["w"], np.float32)
-    head[:, nxt] += v.T
-    out["lm_head"] = {"w": head}
-    layers = dict(tree["layers"])
-    moe = dict(layers["moe"])
-    moe["router"] = {"w": np.asarray(moe["router"]["w"], np.float32)
-                     + 0.3 * (v.T @ pref)[None].astype(np.float32)}
-    layers["moe"] = moe
-    out["layers"] = layers
-    return out
-
-
+# Executed by the JAX subprocess and here: weights whose router and lm_head
+# margins are wide (tests/_torch_margins.py), and the fleet run that
+# records what happened.
+CAPTURE = MARGINS_SOURCE + '''
 def run_fleet(fleet, adm, reqs, max_iters, dt):
     fleet.warmup()
     for r in sorted(reqs, key=lambda r: r.arrival):

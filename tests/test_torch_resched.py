@@ -77,6 +77,7 @@ from repro_torch.serve import (ContinuousConfig, ContinuousEngine,  # noqa: E402
                                ServeRequest)
 from repro_torch.workloads import (skew_shift_trace,  # noqa: E402
                                    to_serve_requests)
+from tests._torch_margins import SOURCE as MARGINS_SOURCE  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 T, D_MODEL, F, E, K = 32, 32, 64, 8, 2
@@ -334,9 +335,9 @@ def _mixed_requests(vocab):
 
 
 # Executed by the JAX subprocess and here: the weights whose margins are
-# wide by construction, and the serve loop that records what an engine
-# did per iteration.
-CAPTURE = '''
+# wide by construction (tests/_torch_margins.py), and the serve loop that
+# records what an engine did per iteration.
+CAPTURE = MARGINS_SOURCE + '''
 def fit_predictor(cls, cfg, make_routing_trace):
     tr = make_routing_trace(num_sequences=64, seq_len=32,
                             vocab=cfg.vocab_size,
@@ -344,34 +345,6 @@ def fit_predictor(cls, cfg, make_routing_trace):
                             num_layers=cfg.num_layers, skew=1.5, seed=0)
     return cls(cfg.num_layers, cfg.moe.num_experts,
                cfg.vocab_size).fit(tr.experts, tr.tokens)
-
-
-def widen_margins(tree, cfg):
-    """Give every token of group g = t * E // V a large component along a
-    unit vector v_g (the v_g orthonormal): rmsnorm'ed hidden states then
-    point along v_g, the router prefers expert g and then g + 1 by about
-    4.6 logits each, and lm_head prefers the next group's token 7 by about
-    12 logits over the random rest. Arrays in the JAX tree's layout."""
-    d, V, E = cfg.d_model, cfg.vocab_size, cfg.moe.num_experts
-    v = np.linalg.qr(np.random.default_rng(1234).normal(size=(d, E)))[0].T
-    group = np.arange(V) * E // V
-    pref = np.zeros((E, E))
-    pref[np.arange(E), np.arange(E)] = 2.0
-    pref[np.arange(E), (np.arange(E) + 1) % E] = 1.0
-    nxt = (np.arange(E) + 1) % E * (V // E) + 7
-    out = dict(tree)
-    out["embed"] = {"table": np.asarray(tree["embed"]["table"], np.float32)
-                    + 8.0 * np.sqrt(d) * v[group]}
-    head = np.array(tree["lm_head"]["w"], np.float32)
-    head[:, nxt] += v.T
-    out["lm_head"] = {"w": head}
-    layers = dict(tree["layers"])
-    moe = dict(layers["moe"])
-    moe["router"] = {"w": np.asarray(moe["router"]["w"], np.float32)
-                     + 0.3 * (v.T @ pref)[None].astype(np.float32)}
-    layers["moe"] = moe
-    out["layers"] = layers
-    return out
 
 
 def quota_of(eng):
