@@ -9,7 +9,8 @@ non-zero:
                 csrc/`` (one nvcc per source, started together).
   3. kernels  — holds each kernel (paged decode attention, the
                 expert-parallel path's moe_gemm, fused_topk_route and
-                histogram_offsets, and Griffin's rg_lru_scan) against its
+                histogram_offsets, Griffin's rg_lru_scan, and the backward
+                kernels of the router and the scan) against its
                 plain PyTorch version on the card at the main paths'
                 full-width shapes, and times the kernel, the plain version,
                 a library call that computes the same function where one
@@ -31,7 +32,18 @@ non-zero:
                 the same checks); an empty kernel gives the card's launch
                 floor beside them. (moe_gemm's correction-round case runs
                 in phase t2e, its rescue-round cases in phase resched, each
-                on a real round's rows.)
+                on a real round's rows.) Phases router_bwd and rg_lru_bwd
+                hold the training path's backward kernels against their
+                plain versions: fused_topk_route_bwd at the router's shapes
+                and the train step's (1 x 2048 x 8, K 2, tie rows) plus an
+                untimed sweep over T, R, E <= 32, K and every subset of the
+                gradients (a missing one is a null pointer); rg_lru_scan_bwd
+                at the train step's 2 x 1024 x 2560 and the prefill's 8 x
+                3072 x 2560, then ragged shapes and each gradient alone, bit
+                for bit. Each is timed by events, by the profiler, its plain
+                version and (router) the autograd chain through softmax,
+                gather and logsumexp; phase train adds each on a real step's
+                layer-0 inputs.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -207,8 +219,30 @@ non-zero:
                 never. Prints attainment (all and worst tenant), moves,
                 final quotas, fleet step p50 / p99 and peak memory.
 
+ 13. train    — (last, after every serving engine is freed) training on
+                the card. Mixtral-8x7B at published widths cut to 2 of 32
+                layers (fp32 weights, gradients and two moments: 16 bytes a
+                parameter, 50.6 GB; 3 layers would need 73.9 GB before
+                activations), ``make_train_step`` on the single-device MoE
+                path: 10 steps of 4 x 512 Zipf tokens (``token_batches
+                (--seed)``) at the launcher's schedule; per step loss, aux
+                loss, grad norm, lr, window skew and step ms, then tokens/s,
+                peak memory, the model-FLOPs share of peak and the router's
+                forward and backward launches (2 each a step); at fixed
+                weights one batch through the plain step, ``remat`` and 2
+                microbatches (losses held together); one batch repeated at a
+                fixed lr, whose loss must fall. RecurrentGemma-2B at all 26
+                layers through ``repro_torch.launch.train.main`` (10 steps of
+                2 x 1024, return code 0, 18 scans and 18 scan backwards a
+                step). Each run's layer-0 backward inputs of one step are held
+                against the plain version (the kernels line's ``train_step``
+                cases). Then reduced Mixtral and Griffin, one step on the
+                card against the CPU from the same bridged weights.
+
 The last lines are the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Run from the repository root:
+``{"ok": true, "device": {...}}``. The kernels JSON lists the two backward
+kernels beside the five forward ones, with ``gradient_of`` naming the
+forward kernel and their launches from phase train. Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--phases router,histogram,...] [--src DIR]
 
@@ -958,6 +992,194 @@ def rg_lru_phase(flush: torch.Tensor, seed: int):
     torch.cuda.empty_cache()
     return _kernel_row("rg_lru_scan", "src/repro_torch/kernels/csrc/rg_lru.cu",
                        "src/repro/kernels/rg_lru.py:49", rows, "prefill")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the training path's backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# which of (d_gates, d_probs, d_lse) reach the router's backward; a missing
+# one is a null pointer the kernel never reads
+ROUTE_BWD_GRADS = ((True, True, True), (True, False, False),
+                   (False, True, False), (False, False, True),
+                   (True, False, True), (False, True, True),
+                   (True, True, False))
+ROUTE_BWD_SWEEP = dict(T=(1, 8, 63, 64, 65, 2048), R=(1, 4),
+                       E=(1, 2, 5, 8, 16, 17, 32), K=(1, 2, 8))
+ROUTE_BWD_TOL = 1e-6
+TRAIN_CASES = {}                   # the train phase's captured kernel inputs
+
+
+def _route_bwd_check(probs, idx, grads):
+    """One backward launch held against the plain version within
+    ``ROUTE_BWD_TOL`` (the two sum ``probs * dp`` over E in other orders)."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.fused_topk_route_bwd(probs, idx, *grads)
+    torch.cuda.synchronize()
+    want = ref.fused_topk_route_bwd_plain(probs, idx, *grads)
+    err = float((got - want).abs().max())
+    return {"max_abs_err": err, "ok": bool(torch.isfinite(got).all())
+            and err <= ROUTE_BWD_TOL}
+
+
+def _route_bwd_bound(R, T, E, K):
+    # probs, d_probs read and d_logits written (E each), idx and d_gates
+    # read (K each), d_lse read; per element a product, a difference, two
+    # more products, a sum and the reduction's add
+    return _bound(4 * (3 * R * T * E + 2 * R * T * K + R * T),
+                  6 * R * T * E, FP32_FLOPS)
+
+
+def _route_bwd_timed(probs, idx, grads, logits, flush):
+    """The kernel (events and profiler), the plain version and the PyTorch
+    chain that computes the same gradient (``torch.autograd.grad`` through
+    softmax, the gather of the chosen probs and logsumexp, its forward
+    built once outside the timing)."""
+    from repro_torch.kernels import ops, ref
+
+    x = logits.detach().clone().requires_grad_()
+    p = torch.softmax(x, dim=-1)
+    outs = (torch.gather(p, -1, idx.long()), p, torch.logsumexp(x, dim=-1))
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+
+    def library():
+        return torch.autograd.grad([o for o, _ in pairs], x,
+                                   [g for _, g in pairs], retain_graph=True)
+    return dict(
+        ms=time_ms(lambda: ops.fused_topk_route_bwd(probs, idx, *grads),
+                   flush),
+        profiler_ms=device_ms(lambda: ops.fused_topk_route_bwd(
+            probs, idx, *grads), flush, ("topk_route_bwd",)),
+        plain_ms=time_ms(lambda: ref.fused_topk_route_bwd_plain(
+            probs, idx, *grads), flush),
+        library_ms=time_ms(library, flush))
+
+
+def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
+    """``fused_topk_route_bwd`` at the router phase's shapes (decode 1 x 8,
+    prefill 4 x 128) and the training path's (1 x 2048: a 4 x 512 batch),
+    E 8, K 2, every gradient present, the first ``TIE_ROWS`` rows of each
+    rank exact ties; timed by CUDA events (L2 flushed), the profiler, the
+    plain version and the autograd chain (``library_ms``). Then, untimed,
+    every T, R, E and K of ``ROUTE_BWD_SWEEP`` with each subset of the
+    gradients (``ROUTE_BWD_GRADS``). The train phase adds the case of a
+    real train step's layer-0 inputs."""
+    from repro_torch.kernels import ops
+
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+
+    def case(R, T, e, k, use):
+        logits = _route_logits(gen, R, T, e)
+        idx, _, probs, _, _ = ops.fused_topk_route(logits, k)
+        grads = [torch.randn(s, generator=gen, device="cuda") if u else None
+                 for s, u in zip(((R, T, k), (R, T, e), (R, T)), use)]
+        return logits, probs, idx, grads
+    rows = {}
+    for name, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128),
+                         "train": (1, 2048)}.items():
+        logits, probs, idx, grads = case(R, T, E, K, (True,) * 3)
+        row = _route_bwd_check(probs, idx, grads)
+        row["bound_ms"], row["bound_by"] = _route_bwd_bound(R, T, E, K)
+        row.update(_route_bwd_timed(probs, idx, grads, logits, flush))
+        rows[name] = row
+        _log_row("fused_topk_route_bwd", name, f"R{R}xT{T}xE{E}xK{K}", row)
+    sweep = {}
+    for T in ROUTE_BWD_SWEEP["T"]:
+        for R in ROUTE_BWD_SWEEP["R"]:
+            for e in ROUTE_BWD_SWEEP["E"]:
+                for k in ROUTE_BWD_SWEEP["K"]:
+                    if k > e:
+                        continue
+                    for use in ROUTE_BWD_GRADS:
+                        _, probs, idx, grads = case(R, T, e, k, use)
+                        key = (f"R{R}xT{T}xE{e}xK{k}/"
+                               + "".join("gpl"[i] if u else "-"
+                                         for i, u in enumerate(use)))
+                        sweep[key] = _route_bwd_check(probs, idx, grads)
+    _log_sweep("fused_topk_route_bwd", sweep)
+    rows.update(sweep)
+    row = _kernel_row("fused_topk_route_bwd",
+                      "src/repro_torch/kernels/csrc/topk_router.cu",
+                      "src/repro/kernels/topk_router.py:66", rows, "train")
+    row["gradient_of"] = "fused_topk_route"
+    return row
+
+
+def _scan_bwd_inputs(gen, B, S, D):
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.49 + 0.5
+    b = torch.randn((B, S, D), generator=gen, device="cuda") * 0.1
+    h0 = torch.randn((B, D), generator=gen, device="cuda")
+    return a, b, h0
+
+
+def _scan_bwd_check(a, h_all, h0, grads):
+    """One backward launch held against the plain version: all three
+    outputs bit for bit."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.rg_lru_scan_bwd(a, h_all, h0, *grads)
+    torch.cuda.synchronize()
+    want = ref.rg_lru_scan_bwd_plain(a, h_all, h0, *grads)
+    return {"max_abs_err": max(float((g - w).abs().max())
+                               for g, w in zip(got, want)),
+            "ok": all(torch.equal(g, w) for g, w in zip(got, want))}
+
+
+def _scan_bwd_bound(B, S, D):
+    # a, h_all and d_h_all read, d_a and d_b written; h0 and d_h_last read,
+    # d_h0 written; a product, a sum and a product per element
+    return _bound(4 * (5 * B * S * D + 3 * B * D), 3 * B * S * D, FP32_FLOPS)
+
+
+def _scan_bwd_timed(a, h_all, h0, grads, flush):
+    from repro_torch.kernels import ops, ref
+
+    return dict(
+        ms=time_ms(lambda: ops.rg_lru_scan_bwd(a, h_all, h0, *grads), flush),
+        profiler_ms=device_ms(lambda: ops.rg_lru_scan_bwd(
+            a, h_all, h0, *grads), flush, ("rg_lru_scan_bwd",)),
+        plain_ms=time_ms(lambda: ref.rg_lru_scan_bwd_plain(
+            a, h_all, h0, *grads), flush, runs=5),
+        library_ms=None)
+
+
+def rg_lru_bwd_phase(flush: torch.Tensor, seed: int):
+    """``rg_lru_scan_bwd`` at the training path's shape (2 x 1024 x 2560:
+    ``--batch 2 --seq 1024``) and the scan phase's prefill shape (8 x 3072 x
+    2560), both gradients present, timed (events, profiler, plain); then
+    untimed one step, a ragged shape and each gradient alone. Every output
+    must equal the plain version bit for bit. No PyTorch call computes the
+    recurrence's gradient, so there is no library time. The train phase adds
+    the case of a real train step's layer-0 inputs."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    rows = {}
+    for name, (B, S, D, use, timed) in {
+            "train": (2, 1024, 2560, (True, True), True),
+            "prefill": (8, 3072, 2560, (True, True), True),
+            "one_step": (8, 1, 2560, (True, True), False),
+            "ragged": (2, 1025, 257, (True, True), False),
+            "h_all_only": (2, 1024, 2560, (True, False), False),
+            "h_last_only": (2, 1025, 257, (False, True), False)}.items():
+        a, b, h0 = _scan_bwd_inputs(gen, B, S, D)
+        h_all, _ = ops.rg_lru_scan(a, b, h0)
+        grads = [torch.randn(s, generator=gen, device="cuda") if u else None
+                 for s, u in zip(((B, S, D), (B, D)), use)]
+        row = _scan_bwd_check(a, h_all, h0, grads)
+        if timed:
+            row["bound_ms"], row["bound_by"] = _scan_bwd_bound(B, S, D)
+            row.update(_scan_bwd_timed(a, h_all, h0, grads, flush))
+        rows[name] = row
+        _log_row("rg_lru_scan_bwd", name, f"B{B}xS{S}xD{D}", row)
+        del a, b, h0, h_all, grads
+    torch.cuda.empty_cache()
+    row = _kernel_row("rg_lru_scan_bwd", "src/repro_torch/kernels/csrc/rg_lru.cu",
+                      "src/repro/kernels/rg_lru.py:49", rows, "train")
+    row["gradient_of"] = "rg_lru_scan"
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3555,11 +3777,484 @@ def fleet_phase(seed: int) -> None:
     free_engines("fleet")
 
 
+# ---------------------------------------------------------------------------
+# phase train: training full-width Mixtral (2 layers) and RecurrentGemma-2B
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 2                   # 16 B/param: 2 layers 50.6 GB, 3 73.9 GB
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 10, 3e-4
+# fresh moments and a small fixed lr: at the schedule's 3e-4 Adam's early
+# steps (about lr per element along the gradient's sign, on every one of
+# 3.2e9 weights) overshoot a repeated batch (PERF.md, training findings)
+TRAIN_REPEAT_STEPS, TRAIN_REPEAT_LR = 3, 1e-5
+GRIFFIN_TRAIN = dict(batch=2, seq=1024, steps=10)
+CAPTURE_STEP = 5                   # the step whose layer-0 inputs are kept
+# the card against the CPU: the CPU tests' tolerances (tests/test_torch_train.py)
+TRAIN_REL = 1e-3
+TRAIN_PROBE_REL = {"remat": 1e-6, "mb2": 1e-3}
+
+
+class _BwdCapture:
+    """Keeps a copy of the inputs of the last ``kernels.ops.<name>`` call of
+    train step ``CAPTURE_STEP``, counting ``per_step`` calls a step (the
+    backward walks the layers in reverse, so a step's last call is layer
+    0's). Installed around the module's function, which the autograd
+    ``Function``s call through the module."""
+
+    def __init__(self, name: str, per_step: int):
+        from repro_torch.kernels import ops
+
+        self.ops, self.name, self.per_step = ops, name, per_step
+        self.real = getattr(ops, name)
+        self.calls = 0
+        self.inputs = None
+
+    def __enter__(self):
+        def wrapped(*a):
+            if self.calls // self.per_step == CAPTURE_STEP:
+                self.inputs = tuple(None if t is None else t.clone()
+                                    for t in a)
+            self.calls += 1
+            return self.real(*a)
+        setattr(self.ops, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.real)
+
+
+def _skew(counts) -> float:
+    c = counts.float().sum(0)
+    return float(c.max() / c.mean().clamp_min(1e-9))
+
+
+def _train_kernel_case(kernel: str, cap: _BwdCapture, flush) -> None:
+    """A backward kernel on one real train step's layer-0 inputs, held
+    against its plain version at the kernel phase's check and timed as
+    that phase times it; logged as the kernels line's ``train_step`` case
+    (its error joins the row's)."""
+    if cap.inputs is None:
+        raise SystemExit(f"train: no {kernel} call was captured")
+    if kernel == "fused_topk_route_bwd":
+        probs, idx, *grads = cap.inputs
+        R, T, E = probs.shape
+        K = idx.shape[-1]
+        row = _route_bwd_check(probs, idx, grads)
+        row["bound_ms"], row["bound_by"] = _route_bwd_bound(R, T, E, K)
+        # the chain's logits: any whose softmax is probs
+        row.update(_route_bwd_timed(probs, idx, grads, torch.log(probs),
+                                    flush))
+        shape = f"R{R}xT{T}xE{E}xK{K}"
+    else:
+        a, h_all, h0, *grads = cap.inputs
+        B, S, D = a.shape
+        row = _scan_bwd_check(a, h_all, h0, grads)
+        row["bound_ms"], row["bound_by"] = _scan_bwd_bound(B, S, D)
+        row.update(_scan_bwd_timed(a, h_all, h0, grads, flush))
+        shape = f"B{B}xS{S}xD{D}"
+    row["gradients"] = "".join("-" if g is None else "y" for g in grads)
+    _log_row(kernel, "train_step", shape, row)
+    if not row["ok"]:
+        raise SystemExit(f"{kernel} disagrees with its plain version on a "
+                         "train step's inputs")
+    if kernel in KERNEL_ROWS:
+        k = KERNEL_ROWS[kernel]
+        k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
+    cap.inputs = None
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
+
+
+def train_breakdown(label: str, cfg, model, opt, batch) -> dict:
+    """Where a train step's time goes, at the model's current weights: the
+    forward and backward (``make_loss_fn`` then ``backward``) under
+    torch.profiler, its device time split into matrix products (cuBLAS
+    kernels by name), the router's and the scan's kernels (forward and
+    backward) and the rest; the forward and backward and the AdamW update
+    (``adamw_update_`` at lr 0, which leaves the weights as they are) each
+    by CUDA events. The update's moments move; nothing else changes."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim.adamw import adamw_update_
+    from repro_torch.train.steps import (make_loss_fn, param_tree,
+                                         weight_decay_mask)
+
+    loss_fn = make_loss_fn(cfg, Runtime())
+    params = param_tree(model)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def fwd_bwd():
+        for p in params.values():
+            p.grad = None
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    kernels = _kernel_time_by_name(prof, 1)
+    split = {"gemm": 0.0, "router": 0.0, "scan": 0.0, "other": 0.0}
+    for name, (ms, _) in kernels.items():
+        low = name.lower()
+        key = ("router" if "topk_route" in low else "scan" if "rg_lru" in low
+               else "gemm" if any(g in low for g in GEMM_NAMES) else "other")
+        split[key] += ms
+    events = []
+    for fn in (fwd_bwd, lambda: adamw_update_(
+            params, {n: p.grad for n, p in params.items()}, opt, 0.0,
+            decay=weight_decay_mask(model))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
+    for p in params.values():
+        p.grad = None
+    busy = sum(split.values())
+    row = dict(fwd_bwd_device_busy_ms=busy,
+               **{f"{k}_ms": v for k, v in split.items()},
+               gemm_share=split["gemm"] / busy, fwd_bwd_ms=events[0],
+               adamw_ms=events[1])
+    log("train", run=label, breakdown="one step at these weights",
+        **{k: f"{v:.4f}" for k, v in row.items()},
+        top_kernels=";".join(f"{n[:40]}:{ms:.2f}" for n, (ms, _) in sorted(
+            kernels.items(), key=lambda kv: -kv[1][0])[:5]).replace(" ", ""))
+    return row
+
+
+def mixtral_train_run(seed: int, flush) -> dict:
+    """Mixtral-8x7B at published widths, 2 of its 32 layers, fp32 weights
+    (``trainable=True``) from ``seed``: ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on 4 x 512 Zipf batches (``token_batches(seed)``)
+    at the launcher's schedule (``build_lr_fn``, base lr 3e-4), the single-
+    device MoE path. Per step: loss, aux loss, gradient norm, lr, window
+    skew of the expert counts, step ms (host clock, synchronised). Then, at
+    fixed weights (lr 0), one batch through the plain step, ``remat`` and
+    2 microbatches (their losses held together), ``train_breakdown``, and
+    ``TRAIN_REPEAT_STEPS``
+    steps on one batch at a fixed lr from fresh moments, whose loss must
+    fall. Returns the launches of the timed run."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=TRAIN_LAYERS)
+    n_params = cfg.num_params()
+    log("train", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, moe_path="moe_ffn_dense (single device)",
+        reduced=f"num_layers 32->{TRAIN_LAYERS}: 16 B/param of fp32 weights, "
+                "gradients and two moments, 2 layers 50.6 GB, 3 layers "
+                "73.9 GB before activations")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    opt = init_opt_state(model)
+    torch.cuda.synchronize()
+    log("train", init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_and_moments_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    rt = Runtime()
+    L = cfg.num_layers
+    step = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, TRAIN_LR,
+                                                      TRAIN_STEPS))
+    gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _BwdCapture("fused_topk_route_bwd", L) as cap:
+        for i in range(TRAIN_STEPS):
+            batch = next(gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt, m = step(model, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            log("train", run="mixtral", step=i, loss=f"{losses[-1]:.6f}",
+                aux_loss=f"{float(m['aux_loss']):.6g}",
+                z_loss_in_loss="yes", nll=f"{float(m['nll']):.6f}",
+                grad_norm=f"{float(m['grad_norm']):.6g}",
+                lr=f"{float(m['lr']):.6g}",
+                skew=f"{_skew(m['expert_counts']):.4f}",
+                step_ms=f"{step_ms[-1]:.3f}")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mflops = model_flops(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    want = {k: 0 for k in launches}
+    want.update(fused_topk_route=L * TRAIN_STEPS,
+                fused_topk_route_bwd=L * TRAIN_STEPS)
+    log("train", run="mixtral", steps=TRAIN_STEPS,
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms_p50=f"{p50:.3f}", step_ms_first=f"{step_ms[0]:.3f}",
+        tokens_per_s=f"{tokens / p50 * 1e3:.2f}", peak_gb=f"{peak_gb:.3f}",
+        model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        note="6 x active params x tokens; the dense path computes all 8 "
+             "experts per token, 4x the active expert FLOPs",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        failures.append(f"loss {losses[0]} -> {losses[-1]}")
+    _train_kernel_case("fused_topk_route_bwd", cap, flush)
+
+    # the same weights (lr 0 leaves them unchanged) through the three
+    # variants of the step on one batch
+    batch = next(gen)
+    probe = {}
+    for name, kw, fwd, bwd in (("plain", {}, L, L),
+                               ("remat", dict(remat=True), 2 * L, L),
+                               ("mb2", dict(microbatches=2), 2 * L, 2 * L)):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        opt, m = make_train_step(cfg, rt, lr_fn=lambda s: 0.0, **kw)(
+            model, opt, batch)
+        torch.cuda.synchronize()
+        probe[name] = m
+        got = dict(ops.LAUNCHES)
+        ok_l = got == dict(want, fused_topk_route=fwd,
+                           fused_topk_route_bwd=bwd)
+        log("train", run="mixtral", probe=name, loss=f"{float(m['loss']):.8f}",
+            nll=f"{float(m['nll']):.8f}",
+            grad_norm=f"{float(m['grad_norm']):.8g}",
+            step_ms=f"{(time.perf_counter() - t1) * 1e3:.3f}",
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            launches_ok=ok_l)
+        if not ok_l:
+            failures.append(f"{name} launches {got}")
+    for name, rel in TRAIN_PROBE_REL.items():
+        a, b = float(probe[name]["loss"]), float(probe["plain"]["loss"])
+        ok = abs(a - b) <= rel * abs(b)
+        log("train", run="mixtral", compare=f"{name} vs plain",
+            loss_rel_diff=f"{abs(a - b) / abs(b):.3g}", tolerance=rel, ok=ok)
+        if not ok:
+            failures.append(f"{name} loss {a} vs plain {b}")
+
+    train_breakdown("mixtral", cfg, model, opt, batch)
+
+    # gradients move the model: one batch again and again at a fixed lr,
+    # from fresh moments (the old ones freed first: 25 GB)
+    batch = next(gen)
+    del opt
+    opt = init_opt_state(model)
+    rep = make_train_step(cfg, rt, lr_fn=lambda s: TRAIN_REPEAT_LR)
+    rl = []
+    for _ in range(TRAIN_REPEAT_STEPS + 1):
+        opt, m = rep(model, opt, batch)
+        rl.append(float(m["loss"]))
+    log("train", run="mixtral", repeat_batch_losses=",".join(
+        f"{v:.6f}" for v in rl), lr=TRAIN_REPEAT_LR, falls=rl[-1] < rl[0])
+    if not rl[-1] < rl[0]:
+        failures.append(f"the repeated batch's loss did not fall: {rl}")
+    if failures:
+        raise SystemExit("train (mixtral) failed: " + "; ".join(failures))
+    del model, opt, m, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def griffin_train_run(seed: int, flush) -> dict:
+    """RecurrentGemma-2B as configured, all 26 layers, fp32 weights from
+    ``seed``, through the command a user runs
+    (``repro_torch.launch.train.main``): 10 steps of 2 x 1024 Zipf tokens at
+    the launcher's schedule, one span per step in its trace. Its return
+    code must be 0 (the last loss below the first); every recurrent layer of
+    every step must launch the scan and its backward once. Then the same
+    weights again for ``train_breakdown``. Returns the launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "recurrent"
+                for i in range(cfg.num_layers))
+    a = GRIFFIN_TRAIN
+    trace = os.path.join(ROOT, "build", "chip_smoke", "griffin_train.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    argv = ["--arch", cfg.name, "--steps", str(a["steps"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--log-every", "1", "--seed", str(seed), "--device", "cuda",
+            "--trace-out", trace]
+    log("train", model=cfg.name, layers=cfg.num_layers,
+        recurrent_layers=n_rec, params=cfg.num_params(),
+        reduced="none (published widths, all 26 layers; 43.3 GB of fp32 "
+                "weights, gradients and moments)",
+        argv=f"'{' '.join(argv)}'")
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _BwdCapture("rg_lru_scan_bwd", n_rec) as cap:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log("train", run="griffin", stdout=f"'{line}'")
+    with open(trace) as f:
+        spans = [e["dur"] / 1e3 for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e["name"] == "train_step"]
+    p50 = float(np.median(spans[1:]))
+    tokens = a["batch"] * a["seq"]
+    from repro_torch.configs.base import InputShape
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    mflops = model_flops(cfg, InputShape("train", a["seq"], a["batch"],
+                                         "train"))
+    want = {k: 0 for k in launches}
+    want.update(rg_lru_scan=n_rec * a["steps"],
+                rg_lru_scan_bwd=n_rec * a["steps"])
+    log("train", run="griffin", rc=rc, wall_s=f"{wall:.3f}",
+        step_ms=",".join(f"{v:.3f}" for v in spans),
+        step_ms_p50=f"{p50:.3f}", tokens_per_s=f"{tokens / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    failures = []
+    if rc != 0:
+        failures.append(f"launch.train exit {rc} (the loss did not fall)")
+    if len(spans) != a["steps"]:
+        failures.append(f"{len(spans)} step spans")
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    _train_kernel_case("rg_lru_scan_bwd", cap, flush)
+    if failures:
+        raise SystemExit("train (griffin) failed: " + "; ".join(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's weights again (its model is gone with main's frame)
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.steps import init_opt_state
+
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    opt = init_opt_state(model)
+    train_breakdown("griffin", cfg, model, opt, next(token_batches(
+        seed, cfg.vocab_size, a["batch"], a["seq"])))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_card_vs_cpu(seed: int) -> None:
+    """One train step of reduced Mixtral (router weights x 25, as the
+    reference phase, so routes stand clear of the two devices' bf16 noise)
+    and reduced Griffin on the card (kernels) and on the CPU (plain
+    versions) from the same bridged fp32 weights and batch: loss and
+    gradient norm within ``TRAIN_REL``, the updated parameters within 2 lr
+    with at most 2% of a leaf's elements beyond lr / 10 (the CPU tests'
+    tolerances against the JAX step); the card's launches counted."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    lr = 1e-3
+    failures = []
+    for arch in ("mixtral-8x7b", "recurrentgemma-2b"):
+        cfg = get_config(arch).reduced()
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda", trainable=True)
+        if cfg.is_moe:
+            with torch.no_grad():
+                for layer in gpu.layers:
+                    layer.router.mul_(25.0)
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu",
+                              trainable=True)
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        res = {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            ops.reset_launches()
+            _, m = make_train_step(cfg, Runtime(), lr_fn=lambda s: lr)(
+                model, init_opt_state(model), batch)
+            res[name] = (float(m["loss"]), float(m["grad_norm"]),
+                         flatten(params_to_jax(model)), dict(ops.LAUNCHES))
+        (lg, ng, pg, launches), (lc, nc, pc, cpu_l) = res["cuda"], res["cpu"]
+        worst, beyond = 0.0, 0.0
+        for key, want in pc.items():
+            d = np.abs(pg[key] - want)
+            worst = max(worst, float(d.max()))
+            beyond = max(beyond, float((d > lr / 10).mean()))
+        n_rec = sum(layer.kind == "recurrent" for layer in gpu.layers)
+        want_l = {k: 0 for k in launches}
+        if cfg.is_moe:
+            want_l.update(fused_topk_route=cfg.num_layers,
+                          fused_topk_route_bwd=cfg.num_layers)
+        else:
+            want_l.update(rg_lru_scan=n_rec, rg_lru_scan_bwd=n_rec)
+        ok = (abs(lg - lc) <= TRAIN_REL * abs(lc)
+              and abs(ng - nc) <= TRAIN_REL * abs(nc)
+              and worst <= 2 * lr + 1e-6 and beyond <= 0.02
+              and launches == want_l and not any(cpu_l.values()))
+        log("train", card_vs_cpu=cfg.name, loss_cuda=f"{lg:.6f}",
+            loss_cpu=f"{lc:.6f}", grad_norm_cuda=f"{ng:.6g}",
+            grad_norm_cpu=f"{nc:.6g}", param_max_abs_diff=f"{worst:.6g}",
+            share_beyond_lr_over_10=f"{beyond:.4g}",
+            tolerance=f"loss and grad norm {TRAIN_REL} rel; params 2 lr, "
+                      "<= 2% beyond lr/10",
+            launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+            ok=ok)
+        if not ok:
+            failures.append(cfg.name)
+    if failures:
+        raise SystemExit(f"train step on the card disagrees with the CPU: "
+                         f"{failures}")
+
+
+def train_phase(seed: int) -> dict:
+    """Phase ``train``: the full-width Mixtral and Griffin runs, each
+    holding its backward kernel against the plain version on a real step's
+    layer-0 inputs, then reduced models card against CPU. Returns the two
+    runs' launches."""
+    t0 = time.perf_counter()
+    free_engines("train")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    launches = mixtral_train_run(seed, flush)
+    launches.update({k: v for k, v in griffin_train_run(seed, flush).items()
+                     if k.startswith("rg_lru")})
+    del flush
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(seed)
+    log("train", phase_s=f"{time.perf_counter() - t0:.3f}")
+    return launches
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
-                 "rg_lru")
+                 "rg_lru", "router_bwd", "rg_lru_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
-                          "griffin", "reference")
+                          "griffin", "reference", "train")
 
 
 def main() -> int:
@@ -3615,7 +4310,9 @@ def main() -> int:
         "moe_gemm": lambda: moe_gemm_phase(flush, args.seed, mixtral),
         "router": lambda: router_phase(flush, args.seed, mixtral),
         "histogram": lambda: histogram_phase(flush, args.seed),
-        "rg_lru": lambda: rg_lru_phase(flush, args.seed)}
+        "rg_lru": lambda: rg_lru_phase(flush, args.seed),
+        "router_bwd": lambda: router_bwd_phase(flush, args.seed, mixtral),
+        "rg_lru_bwd": lambda: rg_lru_bwd_phase(flush, args.seed)}
     kernels = [kernel_phases[p]() for p in KERNEL_PHASES if p in phases]
     if "floor" in phases:
         launch_floor_phase(flush)
@@ -3649,6 +4346,10 @@ def main() -> int:
     if "reference" in phases:
         reference_phase(args.seed)
         griffin_reference_phase(args.seed)
+    if "train" in phases:
+        train_launches = train_phase(args.seed)
+        launches.update((k, train_launches[k]) for k in
+                        ("fused_topk_route_bwd", "rg_lru_scan_bwd"))
 
     if set(phases) == set(PHASES):
         for k in kernels:

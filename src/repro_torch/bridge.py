@@ -14,7 +14,13 @@ recurrent block's dense weights, ``conv_w`` and ``conv_b`` are stored in
 bf16 (the reference casts each to bf16 at every use, so the values the
 model computes with are unchanged); the router weight, ``lam`` and the
 norm scales stay fp32. A round trip therefore returns the bf16-rounded
-weights the reference computes with, and is exact from then on.
+weights the reference computes with, and is exact from then on. With
+``trainable=True`` every parameter stays fp32 (and requires gradients),
+so the round trip is exact at once.
+
+``opt_state_to_jax`` / ``opt_state_from_jax`` carry the AdamW state (the
+step and the two moments, in the JAX tree layout on the JAX side) across,
+so either package can continue the other's training.
 
 ``predictor_params_from_jax`` / ``predictor_params_to_jax`` carry the
 Token-to-Expert predictors' parameter trees (``FFNPredictor.params``,
@@ -33,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (WEIGHT_DTYPE, Transformer,
                                             _layer_kind, _layer_shapes)
+from repro_torch.optim.adamw import AdamWState
 
 # JAX key path -> port parameter name
 TOP_KEYS = {("embed", "table"): "embed", ("final_norm", "scale"): "final_norm",
@@ -80,61 +87,116 @@ def _tensor(a, dtype, device):
                                                       dtype=dtype)
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda") -> Transformer:
-    """JAX ``init_model`` tree (numpy leaves) -> the port's ``Transformer``."""
-    dev = resolve_device(device)
-    top = {name: _tensor(_get(tree, path), _TOP_DTYPES[name], dev)
-           for path, name in TOP_KEYS.items()}
+def _flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, np.ndarray]:
+    """A tree in the JAX ``init_model`` layout -> {port parameter name
+    (``model.named_parameters()``'s): numpy array}, stacked layer leaves
+    split over L."""
+    out = {name: np.asarray(_get(tree, path)) for path, name in TOP_KEYS.items()}
+    L = cfg.num_layers
     if cfg.family == "hybrid":
-        layers = []
-        for l, sub in enumerate(tree["hybrid_layers"]):
-            kind = _layer_kind(cfg, l)
-            shapes = _layer_shapes(cfg, kind)
-            t = {}
-            for path, name in _hybrid_keys(cfg, kind).items():
-                a = np.asarray(_get(sub, path))
-                if a.shape != shapes[name][0]:
-                    raise ValueError(f"hybrid_layers[{l}].{name}: shape "
-                                     f"{a.shape}, expected {shapes[name][0]}")
-                t[name] = _tensor(a, shapes[name][2], dev)
-            layers.append(t)
-        if len(layers) != cfg.num_layers:
-            raise ValueError(f"{len(layers)} hybrid layers, expected "
-                             f"{cfg.num_layers}")
-        return Transformer(cfg, top, layers)
-    shapes = _layer_shapes(cfg)
-    stacked = {name: np.asarray(_get(tree["layers"], path))
-               for path, name in LAYER_KEYS.items()}
-    for name, a in stacked.items():
-        want = (cfg.num_layers,) + shapes[name][0]
-        if a.shape != want:
-            raise ValueError(f"layers.{name}: shape {a.shape}, expected {want}")
-    layers = [{name: _tensor(a[l], shapes[name][2], dev)
-               for name, a in stacked.items()}
-              for l in range(cfg.num_layers)]
-    return Transformer(cfg, top, layers)
+        subs = tree["hybrid_layers"]
+        if len(subs) != L:
+            raise ValueError(f"{len(subs)} hybrid layers, expected {L}")
+        for l, sub in enumerate(subs):
+            for path, name in _hybrid_keys(cfg, _layer_kind(cfg, l)).items():
+                out[f"layers.{l}.{name}"] = np.asarray(_get(sub, path))
+        return out
+    for path, name in LAYER_KEYS.items():
+        a = np.asarray(_get(tree["layers"], path))
+        if a.shape[:1] != (L,):
+            raise ValueError(f"layers.{name}: shape {a.shape}, expected "
+                             f"({L}, ...)")
+        out.update((f"layers.{l}.{name}", a[l]) for l in range(L))
+    return out
 
 
-def params_to_jax(model: Transformer) -> Dict[str, Any]:
-    """The port's ``Transformer`` -> the JAX tree layout, float32 numpy."""
-    def np32(t):
-        return t.detach().to("cpu", torch.float32).numpy()
+def _jax_from_flat(model: Transformer, leaf) -> Dict[str, Any]:
+    """The JAX tree layout of ``leaf(port parameter name)`` over every
+    parameter of ``model`` (uniform-stack layer leaves stacked over L)."""
     tree: Dict[str, Any] = {}
     for path, name in TOP_KEYS.items():
-        _put(tree, path, np32(getattr(model, name)))
+        _put(tree, path, leaf(name))
     if model.cfg.family == "hybrid":
         tree["hybrid_layers"] = []
-        for layer in model.layers:
+        for l, layer in enumerate(model.layers):
             sub: Dict[str, Any] = {}
             for path, name in _hybrid_keys(model.cfg, layer.kind).items():
-                _put(sub, path, np32(getattr(layer, name)))
+                _put(sub, path, leaf(f"layers.{l}.{name}"))
             tree["hybrid_layers"].append(sub)
         return tree
     for path, name in LAYER_KEYS.items():
         _put(tree, ("layers",) + path,
-             np.stack([np32(getattr(layer, name)) for layer in model.layers]))
+             np.stack([leaf(f"layers.{l}.{name}")
+                       for l in range(len(model.layers))]))
     return tree
+
+
+def _np32(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda", trainable: bool = False) -> Transformer:
+    """JAX ``init_model`` tree (numpy leaves) -> the port's ``Transformer``.
+    ``trainable``: every parameter fp32 with ``requires_grad``, as the JAX
+    package trains them (the default stores the serving dtypes)."""
+    dev = resolve_device(device)
+    flat = _flat_from_jax(tree, cfg)
+
+    def dtype(dt):
+        return torch.float32 if trainable else dt
+    top = {name: _tensor(flat[name], dtype(_TOP_DTYPES[name]), dev)
+           for name in TOP_KEYS.values()}
+    layers = []
+    for l in range(cfg.num_layers):
+        t = {}
+        for name, (shape, _, dt) in _layer_shapes(
+                cfg, _layer_kind(cfg, l)).items():
+            a = flat[f"layers.{l}.{name}"]
+            if a.shape != shape:
+                raise ValueError(f"layers[{l}].{name}: shape {a.shape}, "
+                                 f"expected {shape}")
+            t[name] = _tensor(a, dtype(dt), dev)
+        layers.append(t)
+    return Transformer(cfg, top, layers, trainable)
+
+
+def params_to_jax(model: Transformer) -> Dict[str, Any]:
+    """The port's ``Transformer`` -> the JAX tree layout, float32 numpy."""
+    params = dict(model.named_parameters())
+    return _jax_from_flat(model, lambda name: _np32(params[name]))
+
+
+def opt_state_to_jax(state: AdamWState, model: Transformer) -> AdamWState:
+    """The port's AdamW state over ``model``'s parameters (``mu`` / ``nu``
+    keyed by parameter name, as ``train.steps`` keeps them) -> an
+    ``AdamWState`` whose ``step`` is an int32 numpy scalar and whose
+    ``mu`` / ``nu`` are float32 numpy trees in the JAX parameter layout:
+    ``repro.optim.AdamWState(*...)`` continues from it, and
+    ``train.checkpoint.save`` writes the JAX package's keys."""
+    return AdamWState(
+        step=np.asarray(state.step.cpu(), np.int32),
+        mu=_jax_from_flat(model, lambda name: _np32(state.mu[name])),
+        nu=_jax_from_flat(model, lambda name: _np32(state.nu[name])))
+
+
+def opt_state_from_jax(state, model: Transformer) -> AdamWState:
+    """A JAX ``AdamWState`` (or its checkpoint's {"step", "mu", "nu"}),
+    numpy or jax leaves -> the port's state over ``model``'s parameters:
+    fp32 moments on the model's device, keyed by parameter name."""
+    get = (state.__getitem__ if isinstance(state, dict)
+           else lambda k: getattr(state, k))
+    dev = model.device
+
+    def moments(tree):
+        flat = _flat_from_jax(tree, model.cfg)
+        return {name: _tensor(flat[name], torch.float32, dev)
+                for name, _ in model.named_parameters()}
+    return AdamWState(
+        step=torch.tensor(np.asarray(get("step")), dtype=torch.int32,
+                          device=dev),
+        mu=moments(get("mu")), nu=moments(get("nu")))
 
 
 def predictor_params_from_jax(tree: Dict[str, Any], device="cuda"

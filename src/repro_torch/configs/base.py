@@ -82,6 +82,7 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")
     rnn_width: int = 0                   # RG-LRU recurrence width (0 = d_model)
     local_window: int = 2048             # local-attention window (hybrid)
+    lr_schedule: str = "cosine"          # cosine | wsd (launch.train)
     source: str = ""
 
     def __post_init__(self):

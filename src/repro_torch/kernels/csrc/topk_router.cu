@@ -251,3 +251,111 @@ extern "C" int fused_topk_route(const void* logits, void* idx, void* gates,
                               : &launch<32, 8>;
   return (int)f(logits, idx, gates, probs, lse, counts, R, T, E, K, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The backward: d_logits of the router's differentiable outputs.
+//
+// Not a port of a Pallas kernel: the JAX package trains through the dense
+// route (jax.grad of softmax, top_k and logsumexp). This is that gradient,
+// written by hand because the port's forward is the kernel above. The gates
+// are the probs at the chosen indices and d lse / d logits = probs, so per
+// row (E experts, K picks):
+//
+//   dp_e       = d_probs_e + d_gates_k          (e = idx_k; else d_probs_e)
+//   d_logits_e = p_e * (dp_e - sum_j p_j dp_j) + p_e * d_lse
+//
+// A missing gradient (a null pointer) counts as zeros and is never read.
+//
+// What bounds it on an H100: the bytes, a few dozen per row (probs, d_probs
+// and d_logits of E fp32 each, K indices and gates, one d_lse); on the
+// training path (1, 2048, 8) with K 2 that is ~215 KB, 0.06 us at the memory
+// rate, so the launch bounds it in practice. Design: the forward's packing,
+// a segment of SEG lanes (E rounded up to a power of two, E <= 32) per row,
+// 32 / SEG rows per warp, so a warp's loads of probs, d_probs and its store
+// of d_logits are one contiguous run; the sum over E is a segment shuffle.
+// Warps stride over the rows. Every product, difference and sum rounds once
+// (__fmul_rn / __fsub_rn / __fadd_rn, no contraction into FMA), in the order
+// of the plain version (kernels/ref.py, fused_topk_route_bwd_plain); only the
+// order of the sum over E differs from it.
+
+namespace {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxExperts = 32;
+
+template <int SEG>
+__global__ void __launch_bounds__(kBwdThreads)
+topk_route_bwd_kernel(const float* __restrict__ probs,
+                      const int32_t* __restrict__ idx,
+                      const float* __restrict__ d_gates,
+                      const float* __restrict__ d_probs,
+                      const float* __restrict__ d_lse,
+                      float* __restrict__ d_logits, int64_t rows, int E,
+                      int K) {
+  constexpr int kRows = 32 / SEG;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane & (SEG - 1), seg = lane / SEG;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t r0 = warp * kRows; r0 < rows; r0 += warps * kRows) {  // warp-uniform
+    const int64_t row = r0 + seg;
+    const bool row_live = row < rows;
+    const bool live = row_live && sl < E;
+    const size_t at = (size_t)(row_live ? row : 0) * E + sl;
+    const float p = live ? probs[at] : 0.f;
+    float dp = live && d_probs != nullptr ? d_probs[at] : 0.f;
+    if (d_gates != nullptr && live) {
+      for (int k = 0; k < K; ++k) {
+        if (idx[row * K + k] == sl) dp = __fadd_rn(dp, d_gates[row * K + k]);
+      }
+    }
+    float s = __fmul_rn(p, dp);
+#pragma unroll
+    for (int o = SEG / 2; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o, SEG));
+    float d = __fmul_rn(p, __fsub_rn(dp, s));
+    if (d_lse != nullptr && row_live) d = __fadd_rn(d, __fmul_rn(p, d_lse[row]));
+    if (live) d_logits[at] = d;
+  }
+}
+
+template <int SEG>
+cudaError_t launch_bwd(const void* probs, const void* idx, const void* d_gates,
+                       const void* d_probs, const void* d_lse, void* d_logits,
+                       int64_t rows, int E, int K, void* stream) {
+  constexpr int kRowsPerCta = (kBwdThreads / 32) * (32 / SEG);
+  const int64_t ctas = std::min<int64_t>((rows + kRowsPerCta - 1) / kRowsPerCta,
+                                         132 * 16);
+  topk_route_bwd_kernel<SEG><<<(unsigned)ctas, kBwdThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(probs), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(d_gates), static_cast<const float*>(d_probs),
+      static_cast<const float*>(d_lse), static_cast<float*>(d_logits), rows,
+      E, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// probs, d_probs, d_logits: (rows, E) fp32; idx, d_gates: (rows, K) int32 /
+// fp32; d_lse: (rows,) fp32; d_gates, d_probs and d_lse may be null (zeros).
+// E at most 32, 1 <= K <= min(E, 8). Returns the launch's error code.
+extern "C" int fused_topk_route_bwd(const void* probs, const void* idx,
+                                    const void* d_gates, const void* d_probs,
+                                    const void* d_lse, void* d_logits,
+                                    int64_t rows, int E, int K, void* stream) {
+  if (rows <= 0 || E <= 0 || E > kBwdMaxExperts || K <= 0 || K > kMaxK ||
+      K > E)
+    return cudaErrorInvalidValue;
+  using Launch = cudaError_t (*)(const void*, const void*, const void*,
+                                 const void*, const void*, void*, int64_t, int,
+                                 int, void*);
+  const Launch f = E <= 1    ? &launch_bwd<1>
+                   : E <= 2  ? &launch_bwd<2>
+                   : E <= 4  ? &launch_bwd<4>
+                   : E <= 8  ? &launch_bwd<8>
+                   : E <= 16 ? &launch_bwd<16>
+                             : &launch_bwd<32>;
+  return (int)f(probs, idx, d_gates, d_probs, d_lse, d_logits, rows, E, K,
+                stream);
+}

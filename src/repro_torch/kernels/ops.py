@@ -5,11 +5,20 @@ no fallback). A CPU tensor runs the kernel's plain PyTorch version from
 ``kernels.ref`` — that is how the CPU tests exercise the same interface.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels.
+
+The router and the scan also have a backward kernel, and the autograd
+``Function``s ``FusedTopkRoute`` and ``RgLruScan`` run each forward
+wrapper and, on the way back, the backward wrapper, which dispatches the
+same way: the kernel on a CUDA tensor, the plain version on a CPU tensor.
+Without a graph to record (``torch.no_grad``, ``inference_mode``) a
+``Function`` launches what its forward wrapper launches and nothing else.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import moe_gemm as _mg
@@ -20,7 +29,8 @@ from repro_torch.kernels import topk_router as _tk
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
                             "fused_topk_route": 0, "histogram_offsets": 0,
-                            "rg_lru_scan": 0}
+                            "rg_lru_scan": 0, "fused_topk_route_bwd": 0,
+                            "rg_lru_scan_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -119,3 +129,85 @@ def rg_lru_scan(a, b, h0):
     out = _rg.rg_lru_scan(a, b, h0)
     LAUNCHES["rg_lru_scan"] += 1
     return out
+
+
+def fused_topk_route_bwd(probs, idx, d_gates, d_probs, d_lse):
+    """``d_logits`` (..., T, E) fp32 of ``fused_topk_route``'s gates, probs
+    and lse: ``probs * (dp - sum(probs * dp)) + probs * d_lse`` with ``dp =
+    d_probs + scatter_add(idx, d_gates)``. Any of the three gradients may
+    be None (zeros). Not a port of a Pallas kernel: the gradient ``jax.grad``
+    takes through the JAX package's dense ``route``, written by hand
+    because the forward is a kernel (see ``kernels.topk_router``)."""
+    if probs.device.type == "cpu":
+        _tk.check_bwd_inputs(probs, idx, d_gates, d_probs, d_lse)
+        return _ref.fused_topk_route_bwd_plain(probs, idx, d_gates, d_probs,
+                                               d_lse)
+    out = _tk.fused_topk_route_bwd(probs, idx, d_gates, d_probs, d_lse)
+    LAUNCHES["fused_topk_route_bwd"] += 1
+    return out
+
+
+def rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last):
+    """The gradient of ``rg_lru_scan``: the reverse-time recurrence
+    ``g_t = d_h_all[t] + a_{t+1} * g_{t+1}`` from ``g_{S-1} = d_h_all[S-1]
+    + d_h_last``, giving ``d_a_t = g_t * h_{t-1}``, ``d_b_t = g_t`` and
+    ``d_h0 = a_0 * g_0``; ``d_h_all`` / ``d_h_last`` may be None (zeros).
+    Not a port of a Pallas kernel: the gradient ``jax.grad`` takes through
+    the JAX package's associative scan (see ``kernels.rg_lru``). Returns
+    (d_a, d_b, d_h0), fp32."""
+    if a.device.type == "cpu":
+        _rg.check_bwd_inputs(a, h_all, h0, d_h_all, d_h_last)
+        return _ref.rg_lru_scan_bwd_plain(a, h_all, h0, d_h_all, d_h_last)
+    out = _rg.rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last)
+    LAUNCHES["rg_lru_scan_bwd"] += 1
+    return out
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+class FusedTopkRoute(torch.autograd.Function):
+    """``fused_topk_route`` with a gradient: ``apply(logits, top_k)``
+    returns its five outputs; idx and counts are integers and carry none,
+    and the gradients of gates, probs and lse reach the logits through
+    ``fused_topk_route_bwd``. Saves probs and idx."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k: int):
+        idx, gates, probs, lse, counts = fused_topk_route(logits, top_k)
+        ctx.mark_non_differentiable(idx, counts)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(probs, idx)
+        return idx, gates, probs, lse, counts
+
+    @staticmethod
+    def backward(ctx, _d_idx, d_gates, d_probs, d_lse, _d_counts):
+        if d_gates is None and d_probs is None and d_lse is None:
+            return None, None
+        probs, idx = ctx.saved_tensors
+        return fused_topk_route_bwd(probs, idx, _contiguous(d_gates),
+                                    _contiguous(d_probs),
+                                    _contiguous(d_lse)), None
+
+
+class RgLruScan(torch.autograd.Function):
+    """``rg_lru_scan`` with a gradient: ``apply(a, b, h0)`` returns
+    (h_all, h_last), and the way back runs ``rg_lru_scan_bwd``. Saves a,
+    h_all and h0 (the backward never reads b)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h_all, h_last = rg_lru_scan(a, b, h0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, h_all, h0)
+        return h_all, h_last
+
+    @staticmethod
+    def backward(ctx, d_h_all, d_h_last):
+        if d_h_all is None and d_h_last is None:
+            return None, None, None
+        a, h_all, h0 = ctx.saved_tensors
+        d_a, d_b, d_h0 = rg_lru_scan_bwd(a, h_all, h0, _contiguous(d_h_all),
+                                         _contiguous(d_h_last))
+        return d_a, d_b, d_h0 if ctx.needs_input_grad[2] else None

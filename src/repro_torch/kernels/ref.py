@@ -239,3 +239,61 @@ def rg_lru_scan_plain(a, b, h0):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out, h
+
+
+# ---------------------------------------------------------------------------
+# the backward of the router and of the scan (the training path's kernels)
+# ---------------------------------------------------------------------------
+
+def fused_topk_route_bwd_plain(probs, idx, d_gates, d_probs, d_lse):
+    """The gradient of ``fused_topk_route``'s differentiable outputs with
+    respect to its logits, as ``jax.grad`` takes it through the JAX
+    package's dense ``route``: the gates are the probs at the chosen
+    indices, and the gradient of the logsumexp is ``probs``. Per row:
+
+        dp       = d_probs + scatter_add(idx, d_gates)
+        d_logits = probs * (dp - sum(probs * dp)) + probs * d_lse
+
+    probs, d_probs: (..., T, E) fp32; idx, d_gates: (..., T, K); d_lse:
+    (..., T). A gradient of None counts as zeros. Each product, difference
+    and sum rounds once, in the order the CUDA kernel rounds them; only the
+    sum over E may run in another order there. Returns (..., T, E) fp32."""
+    probs = probs.float()
+    dp = (torch.zeros_like(probs) if d_probs is None
+          else d_probs.float().clone())
+    if d_gates is not None:
+        dp.scatter_add_(-1, idx.long(), d_gates.float())
+    s = (probs * dp).sum(dim=-1, keepdim=True)
+    d_logits = probs * (dp - s)
+    if d_lse is not None:
+        d_logits = d_logits + probs * d_lse.float()[..., None]
+    return d_logits
+
+
+def rg_lru_scan_bwd_plain(a, h_all, h0, d_h_all, d_h_last):
+    """The gradient of ``rg_lru_scan`` (``h_t = a_t * h_{t-1} + b_t``, fp32
+    carry from ``h0``), the reverse-time recurrence, as a sequential loop:
+
+        g_{S-1} = d_h_all[S-1] + d_h_last
+        g_t     = d_h_all[t] + a_{t+1} * g_{t+1}
+        d_b_t   = g_t
+        d_a_t   = g_t * h_{t-1}        (h_{-1} = h0)
+        d_h0    = a_0 * g_0
+
+    a, h_all, d_h_all: (B, S, D) fp32; h0, d_h_last: (B, D) fp32; a
+    gradient of None counts as zeros. Each product and each sum rounds once,
+    in the CUDA kernel's order, so the kernel equals this bit for bit.
+    Returns (d_a, d_b (B, S, D), d_h0 (B, D)), fp32."""
+    S = a.shape[1]
+    g = (torch.zeros_like(h0, dtype=torch.float32) if d_h_last is None
+         else d_h_last.float().clone())
+    d_a = torch.empty_like(a, dtype=torch.float32)
+    d_b = torch.empty_like(a, dtype=torch.float32)
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            g = a[:, t + 1] * g
+        if d_h_all is not None:
+            g = d_h_all[:, t] + g
+        d_b[:, t] = g
+        d_a[:, t] = g * (h_all[:, t - 1] if t > 0 else h0)
+    return d_a, d_b, a[:, 0] * g

@@ -6,6 +6,9 @@ From fp32 ``a`` and ``b`` of shape ``(B, S, D)`` and an fp32 ``h0`` of
 shape ``(B, D)``, one launch computes ``h_t = a_t * h_{t-1} + b_t`` for
 every channel and returns every ``h_t`` and the last one. Every recurrent
 layer of a Griffin prefill calls it through ``kernels.ops.rg_lru_scan``.
+``rg_lru_scan_bwd`` launches its backward (the same source), the
+reverse-time recurrence that ``kernels.ops.RgLruScan`` runs in every
+recurrent layer of a train step's backward.
 """
 
 from __future__ import annotations
@@ -63,3 +66,51 @@ def rg_lru_scan(a, b, h0):
     if err != 0:
         raise RuntimeError(f"rg_lru_scan launch failed: CUDA error {err}")
     return out, h_last
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/rg_lru.cu, rg_lru_scan_bwd)
+# ---------------------------------------------------------------------------
+
+def _bwd_function():
+    fn = build.load("rg_lru").rg_lru_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_bwd_inputs(a, h_all, h0, d_h_all, d_h_last) -> None:
+    """Raise on anything the backward kernel does not take. ``d_h_all``
+    and ``d_h_last`` may be None (zeros)."""
+    check_inputs(a, h_all, h0)
+    B, S, D = a.shape
+    for name, t, shape in (("d_h_all", d_h_all, (B, S, D)),
+                           ("d_h_last", d_h_last, (B, D))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected "
+                             f"{shape} float32")
+        if not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"{name} must be contiguous, on {a.device}")
+
+
+def rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last):
+    """Launch the backward on CUDA tensors. Returns ``(d_a, d_b (B, S, D),
+    d_h0 (B, D))``, fp32."""
+    check_bwd_inputs(a, h_all, h0, d_h_all, d_h_last)
+    if a.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
+    B, S, D = a.shape
+    d_a, d_b, d_h0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _bwd_function()(a.data_ptr(), h_all.data_ptr(), h0.data_ptr(),
+                          ptr(d_h_all), ptr(d_h_last), d_a.data_ptr(),
+                          d_b.data_ptr(), d_h0.data_ptr(), B, S, D, stream)
+    if err != 0:
+        raise RuntimeError(f"rg_lru_scan_bwd launch failed: CUDA error {err}")
+    return d_a, d_b, d_h0

@@ -16,6 +16,11 @@ zeroed first; the five outputs are views of two allocations, one fp32 and
 one int32, each of a size that follows from the shapes alone; the ``ctypes``
 function is looked up once. The launcher never synchronises, so it can be
 captured in a CUDA graph.
+
+``fused_topk_route_bwd`` launches the router's backward (the same
+source): ``d_logits`` of the gates, probs and lse, which
+``kernels.ops.FusedTopkRoute`` runs on the way back through the training
+path's router. It takes up to 32 experts.
 """
 
 from __future__ import annotations
@@ -83,3 +88,68 @@ def fused_topk_route(logits, top_k: int):
     if err != 0:
         raise RuntimeError(f"fused_topk_route launch failed: CUDA error {err}")
     return idx, gates, probs, lse, counts
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/topk_router.cu, fused_topk_route_bwd)
+# ---------------------------------------------------------------------------
+
+MAX_BWD_EXPERTS = 32
+
+
+@functools.cache
+def _bwd_function():
+    fn = build.load("topk_router").fused_topk_route_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_bwd_inputs(probs, idx, d_gates, d_probs, d_lse) -> None:
+    """Raise on anything the backward kernel does not take. The gradients
+    may be None (zeros)."""
+    if probs.dim() < 2:
+        raise ValueError(f"expected probs (..., T, E); got {tuple(probs.shape)}")
+    lead, E = tuple(probs.shape[:-1]), probs.shape[-1]
+    if tuple(idx.shape[:-1]) != lead or idx.dtype != torch.int32:
+        raise ValueError(f"idx {tuple(idx.shape)} {idx.dtype} does not index "
+                         f"probs {tuple(probs.shape)} as int32")
+    K = idx.shape[-1]
+    if not 0 < E <= MAX_BWD_EXPERTS:
+        raise ValueError(f"{E} experts not in [1, {MAX_BWD_EXPERTS}]")
+    if not 0 < K <= min(E, MAX_TOP_K):
+        raise ValueError(f"top_k {K} not in [1, {min(E, MAX_TOP_K)}]")
+    want = {"probs": (probs, lead + (E,)), "d_gates": (d_gates, lead + (K,)),
+            "d_probs": (d_probs, lead + (E,)), "d_lse": (d_lse, lead)}
+    for name, (t, shape) in want.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected "
+                             f"{shape} float32")
+        if not t.is_contiguous() or t.device != probs.device:
+            raise ValueError(f"{name} must be contiguous, on {probs.device}")
+    if not idx.is_contiguous() or idx.device != probs.device:
+        raise ValueError(f"idx must be contiguous, on {probs.device}")
+
+
+def fused_topk_route_bwd(probs, idx, d_gates, d_probs, d_lse):
+    """Launch the backward on CUDA tensors: ``d_logits`` (..., T, E) fp32
+    of the forward's differentiable outputs (gates, probs, lse), any of
+    whose gradients may be None (zeros, not read)."""
+    check_bwd_inputs(probs, idx, d_gates, d_probs, d_lse)
+    if probs.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {probs.device}")
+    E, K = probs.shape[-1], idx.shape[-1]
+    d_logits = torch.empty_like(probs)
+    stream = torch.cuda.current_stream(probs.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _bwd_function()(probs.data_ptr(), idx.data_ptr(), ptr(d_gates),
+                          ptr(d_probs), ptr(d_lse), d_logits.data_ptr(),
+                          probs.numel() // E, E, K, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_topk_route_bwd launch failed: CUDA error {err}")
+    return d_logits

@@ -1,6 +1,7 @@
-"""GQA attention: projection with RoPE, chunked online-softmax prefill,
-paged decode over the shared KV block pool, and decode over a contiguous
-per-batch cache, linear or a rotating window buffer.
+"""GQA attention: projection with RoPE, chunked online-softmax training
+attention and prefill, paged decode over the shared KV block pool, and
+decode over a contiguous per-batch cache, linear or a rotating window
+buffer.
 
 Prefill follows the JAX package's ``chunked_attention`` block for block
 (scores in the activation dtype, probabilities cast to V's dtype before
@@ -114,6 +115,15 @@ def gqa_project(p, cfg: ModelConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_attention(p, cfg: ModelConfig, x, positions, *, window=0):
+    """Train-mode causal self-attention over the whole sequence (the JAX
+    package's ``gqa_attention``): ``gqa_prefill`` without a cache."""
+    q, k, v = gqa_project(p, cfg, x, positions)
+    out = chunked_attention(q, k, v, causal=True, window=window)
+    B, S = x.shape[:2]
+    return dense(p["wo"], out.reshape(B, S, -1))
 
 
 def gqa_prefill(p, cfg: ModelConfig, x, positions, cache, *, window=0):

@@ -11,11 +11,14 @@ RG-LRU:  r_t = sigmoid(W_a x_t),  i_t = sigmoid(W_x x_t)
 ``a`` and ``b`` are computed exactly as the JAX model computes them. The
 scan over time, which the JAX model runs as ``jax.lax.associative_scan``,
 goes through ``kernels.ops.rg_lru_scan``: the hand-written CUDA kernel on
-the card, a sequential loop on the CPU. Both round each step's product and
-sum in fp32; the associative scan rounds in another order, so the fp32
-state agrees with the JAX model's to within 1e-4 (the tolerance of
-``tests/test_kernels.py``), not bit for bit. A one-token call (decode, or a
-one-token prompt) takes ``rg_lru_step`` and launches no kernel.
+the card, a sequential loop on the CPU; while autograd records (training)
+through ``kernels.ops.RgLruScan``, whose backward is the hand-written
+reverse-time scan (``rg_lru_scan_bwd``) on the card. Both round each
+step's product and sum in fp32; the associative scan rounds in another
+order, so the fp32 state agrees with the JAX model's to within 1e-4 (the
+tolerance of ``tests/test_kernels.py``), not bit for bit. A one-token call
+(decode, or a one-token prompt) takes ``rg_lru_step`` and launches no
+kernel.
 
 The block's bf16 arithmetic (the conv, the gelu, ``y * gate``) rounds at
 every operation, in the JAX order, because XLA does: accumulating the conv
@@ -59,11 +62,14 @@ def param_shapes(cfg: ModelConfig):
 
 
 def init_recurrent_block(cfg: ModelConfig, generator: torch.Generator,
-                         device) -> Dict[str, torch.Tensor]:
+                         device, trainable: bool = False
+                         ) -> Dict[str, torch.Tensor]:
     """Random block weights from the JAX package's distributions (a standard
-    normal truncated to [-2, 2] times each scale, ``lam`` shifted by 4)."""
+    normal truncated to [-2, 2] times each scale, ``lam`` shifted by 4);
+    ``trainable``: every weight fp32, as the JAX package stores them."""
     out = {}
     for name, (shape, scale, dtype, offset) in param_shapes(cfg).items():
+        dtype = torch.float32 if trainable else dtype
         if scale == 0.0:
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
             continue
@@ -104,8 +110,9 @@ def rg_lru(p, x, h0):
     """x: (B, S, dr); h0: (B, dr) fp32. Returns (y in x's dtype, h_last
     fp32)."""
     a, b = _decay_and_input(p, x)
-    h, h_last = kernel_ops.rg_lru_scan(a.contiguous(), b.contiguous(),
-                                       h0.float().contiguous())
+    fn = (kernel_ops.RgLruScan.apply if torch.is_grad_enabled()
+          else kernel_ops.rg_lru_scan)
+    h, h_last = fn(a.contiguous(), b.contiguous(), h0.float().contiguous())
     return h.to(x.dtype), h_last
 
 

@@ -7,6 +7,9 @@ package's ``init_model`` tree, for two families:
   layers over a rotating window buffer, each followed by a dense FFN.
 
 Execution modes (``Transformer.forward``):
+  train   — full causal pass, logits over the whole sequence, no cache
+            (hybrid models start every recurrent layer from a zero state);
+            optionally recomputed per layer in the backward (``remat``).
   prefill — causal pass that fills a cache (a linear cache; for hybrid
             models the per-layer recurrent states and window buffers);
             returns logits at the last (or each request's last real)
@@ -35,7 +38,10 @@ the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
 bf16 — the reference casts each of them to the bf16 activation dtype at
 every use, so the bf16 copy computes the same values in half the bytes.
 The router weight, the RG-LRU's ``lam`` and the norm scales stay fp32, as
-they are used in fp32.
+they are used in fp32. A trainable model (``init_model(...,
+trainable=True)``, ``bridge.params_from_jax(..., trainable=True)``) keeps
+every parameter in fp32 with ``requires_grad``, as the JAX package trains
+them, and casts each to bf16 at use exactly as the serving model computes.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -60,6 +67,9 @@ from repro_torch.moe.router import expert_histogram, route
 
 ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
+EP_TRAINING = ("training runs the single-device MoE path; expert-parallel "
+               "training waits for a moe_gemm backward (ROADMAP.md section 1, "
+               "item 1: EP training)")
 
 
 class Runtime(NamedTuple):
@@ -84,8 +94,8 @@ class StoreView(NamedTuple):
     events: Optional[list] = None            # per layer: CUDA event or None
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
@@ -102,11 +112,11 @@ class DecoderLayer(nn.Module):
     local attention + FFN."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
-                 kind: str = "attn"):
+                 kind: str = "attn", trainable: bool = False):
         super().__init__()
         self.kind = kind
         for name, t in tensors.items():
-            setattr(self, name, _param(t))
+            setattr(self, name, _param(t, trainable))
 
     def attn_params(self):
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
@@ -131,10 +141,12 @@ class Transformer(nn.Module):
       under swiglu); recurrent layers rec_w_gate, rec_w_main (d, dr),
       rec_conv_w (4, dr), rec_conv_b (dr,), rec_w_a, rec_w_x (dr, dr),
       rec_lam (dr,), rec_w_out (dr, d); local layers the attention weights.
+    ``trainable``: the parameters require gradients (the tensors given are
+    then fp32).
     """
 
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
-                 layers):
+                 layers, trainable: bool = False):
         super().__init__()
         hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
         moe = cfg.is_moe and cfg.attention == "gqa"
@@ -144,9 +156,10 @@ class Transformer(nn.Module):
                              "rmsnorm GQA MoE and hybrid models only so far")
         self.cfg = cfg
         for name, t in top.items():
-            setattr(self, name, _param(t))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, t, _layer_kind(cfg, l))
-                                    for l, t in enumerate(layers))
+            setattr(self, name, _param(t, trainable))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, t, _layer_kind(cfg, l), trainable)
+            for l, t in enumerate(layers))
 
     @property
     def device(self) -> torch.device:
@@ -155,11 +168,11 @@ class Transformer(nn.Module):
     def forward(self, tokens, rt: Runtime = Runtime(), *, mode: str,
                 cache=None, cache_len=None, block_tables=None,
                 last_pos=None, token_weight=None, plan=None, store=None,
-                resched=None):
+                resched=None, remat=False):
         return forward(self, self.cfg, tokens, rt, mode=mode, cache=cache,
                        cache_len=cache_len, block_tables=block_tables,
                        last_pos=last_pos, token_weight=token_weight,
-                       plan=plan, store=store, resched=resched)
+                       plan=plan, store=store, resched=resched, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -215,32 +228,37 @@ def _draw(shape, scale, dtype, generator, device):
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device="cuda") -> Transformer:
+               device="cuda", trainable: bool = False) -> Transformer:
     """Random weights from the same distributions as the JAX package's
     ``init_model`` (a standard normal truncated to [-2, 2] times the same
     scales), drawn on ``device`` from ``generator`` (which must live on that
     device). The draws differ from JAX's: use ``bridge.params_from_jax``
-    for identical weights."""
+    for identical weights. ``trainable``: every parameter fp32 and
+    requiring gradients (the serving default stores bf16 copies)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     d, V = cfg.d_model, cfg.vocab_size
+
+    def dtype(dt):
+        return torch.float32 if trainable else dt
     top = {
-        "embed": _draw((V, d), 0.02, WEIGHT_DTYPE, generator, dev),
+        "embed": _draw((V, d), 0.02, dtype(WEIGHT_DTYPE), generator, dev),
         "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
-        "lm_head": _draw((d, V), 1 / math.sqrt(d), WEIGHT_DTYPE, generator, dev),
+        "lm_head": _draw((d, V), 1 / math.sqrt(d), dtype(WEIGHT_DTYPE),
+                         generator, dev),
     }
     layers = []
     for l in range(cfg.num_layers):
         kind = _layer_kind(cfg, l)
-        t = {name: _draw(shape, scale, dt, generator, dev)
+        t = {name: _draw(shape, scale, dtype(dt), generator, dev)
              for name, (shape, scale, dt) in _layer_shapes(cfg, kind).items()
              if not name.startswith("rec_")}
         if kind == "recurrent":
             t.update(("rec_" + n, w) for n, w in griffin.init_recurrent_block(
-                cfg, generator, dev).items())
+                cfg, generator, dev, trainable).items())
         layers.append(t)
-    return Transformer(cfg, top, layers)
+    return Transformer(cfg, top, layers, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +380,13 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 resched_l=None):
     """GQA attention + MoE FFN for one layer. ``cache``: this layer's
     {"k", "v"} (linear cache in prefill, block pool in decode), updated in
-    place. Returns (x, (expert_counts (E,), slot_counts, aux, z,
-    dropped, overflow))."""
+    place; None in train mode. Returns (x, (expert_counts (E,),
+    slot_counts, aux, z, dropped, overflow))."""
     h = rmsnorm(layer.ln1, x)
-    if mode == "prefill":
+    if mode == "train":
+        a = attn.gqa_attention(layer.attn_params(), cfg, h, positions,
+                               window=rt.window(cfg))
+    elif mode == "prefill":
         a = attn.gqa_prefill(layer.attn_params(), cfg, h, positions, cache,
                              window=rt.window(cfg))
     elif mode == "decode" and block_tables is not None:
@@ -394,10 +415,19 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
                   mode: str, cache_len):
     """One hybrid block: recurrent block or local attention over the
     rotating window buffer, then the FFN. Window buffers are updated in
-    place; a recurrent layer returns a new state. Returns (x, state)."""
+    place; a recurrent layer returns a new state. In train mode a
+    recurrent layer starts from a zero state and a local layer attends
+    over the whole sequence within its window, with no buffer. Returns (x,
+    state)."""
     h = rmsnorm(layer.ln1, x)
     if layer.kind == "recurrent":
+        if mode == "train":
+            state = griffin.init_recurrent_state(cfg, x.shape[0], x.dtype,
+                                                 x.device)
         a, state = griffin.recurrent_block(layer.rec_params(), cfg, h, state)
+    elif mode == "train":
+        a = attn.gqa_attention(layer.attn_params(), cfg, h, positions,
+                               window=cfg.local_window)
     elif mode == "prefill":
         a = attn.gqa_prefill_windowed(layer.attn_params(), cfg, h, positions,
                                       state, window=cfg.local_window)
@@ -435,9 +465,15 @@ def _migration_view(l: int, plan: Optional[DevicePlan],
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
             last_pos=None, token_weight=None, plan=None, store=None,
-            predicted_idx=None, resched=None):
+            predicted_idx=None, resched=None, remat=False):
     """Returns (logits, cache, stats).
 
+    mode=train:   tokens (B, S); logits (B, S, V) over every position,
+                  cache None, recurrent layers from zero states. The
+                  single-device path only (``rt.ep`` raises: training
+                  through the EP dispatch needs a ``moe_gemm`` backward).
+                  ``remat``: each layer runs under ``torch.utils.checkpoint``
+                  (non-reentrant) and is recomputed in the backward.
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
                   of each request's last real token; default the padded
                   end); fills ``cache`` (a fresh one when None).
@@ -466,6 +502,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     "overflow": (L,) round-1 overflows the rescue round took (without
     ``resched`` a host vector of zeros: nothing is launched for it).
     """
+    if mode == "train" and rt.ep:
+        raise NotImplementedError(EP_TRAINING)
     x = embed(model.embed, tokens).to(ACT_DTYPE)
     B, S = tokens.shape
     if mode == "decode" and torch.is_tensor(cache_len):
@@ -475,15 +513,17 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
                                device=x.device)
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
-        if cache is None:
+        if cache is None and mode != "train":
             cache = init_cache(cfg, rt, B, S, device=x.device)
     if cfg.family == "hybrid":
-        cache = list(cache)
+        cache = [None] * cfg.num_layers if cache is None else list(cache)
         for l, layer in enumerate(model.layers):
-            x, cache[l] = _hybrid_layer(layer, cfg, x, positions, cache[l],
-                                        mode, cache_len)
+            x, cache[l] = _run_layer(
+                remat, _hybrid_layer, layer, cfg, x, positions, cache[l],
+                mode, cache_len)
         stats = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
-        return _last_logits(model, x, mode, last_pos), cache, stats
+        return (_last_logits(model, x, mode, last_pos),
+                None if mode == "train" else cache, stats)
     if store is not None and not isinstance(plan, DevicePlan):
         raise ValueError("a store view needs a DevicePlan of its rows")
     if plan is not None and not isinstance(plan, DevicePlan):
@@ -492,9 +532,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
                          m.duplication_slots, x.device)
     counts, slots, dropped, overflow, aux, z = [], [], [], [], 0.0, 0.0
     for l, layer in enumerate(model.layers):
-        cache_l = {"k": cache["k"][l], "v": cache["v"][l]}
+        cache_l = (None if cache is None
+                   else {"k": cache["k"][l], "v": cache["v"][l]})
         plan_l, experts_l, event = _migration_view(l, plan, store)
-        x, (c, sc, a_l, z_l, dr, ov) = _attn_layer(
+        x, (c, sc, a_l, z_l, dr, ov) = _run_layer(
+            remat, _attn_layer,
             layer, cfg, x, positions, rt, cache=cache_l, cache_len=cache_len,
             mode=mode, block_tables=block_tables, token_weight=token_weight,
             plan_l=plan_l, experts_l=experts_l, fill_event=event,
@@ -515,9 +557,20 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     return _last_logits(model, x, mode, last_pos), cache, stats
 
 
+def _run_layer(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under a non-reentrant activation checkpoint
+    when ``remat``: only the layer's inputs are kept, and the layer runs
+    again in the backward (the JAX package's ``jax.checkpoint``)."""
+    if not remat:
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kwargs)
+
+
 def _last_logits(model: Transformer, x, mode: str, last_pos):
     """Logits at each row's last real position in prefill (``last_pos``,
-    default the padded end), at the one position in decode."""
+    default the padded end), at the one position in decode, at every
+    position in train mode."""
     if mode == "prefill":
         if last_pos is not None:
             x = x[torch.arange(x.shape[0], device=x.device),

@@ -1,6 +1,6 @@
 """Top-k MoE router with load-balance auxiliary loss and router z-loss
 (the JAX package's ``moe/router.py``), on the ``fused_topk_route``
-kernel."""
+kernel and its backward."""
 
 from __future__ import annotations
 
@@ -29,12 +29,20 @@ def route(w_router, moe: MoEConfig, x) -> RouterOutput:
     The fused softmax / top-k / histogram kernel
     (``kernels.ops.fused_topk_route``, ties to the lowest index as
     ``lax.top_k``) routes every row, and the losses come from its counts
-    and logsumexp, as in the JAX package's ``route(impl="fused")``."""
+    and logsumexp, as in the JAX package's ``route(impl="fused")``.
+    Gradients reach ``x`` and the router weight through the gates, the
+    aux loss (through ``probs``) and the z loss (through the logsumexp),
+    as ``jax.grad`` takes them through the JAX package's dense ``route``:
+    ``kernels.ops.FusedTopkRoute`` runs the backward kernel."""
     logits = torch.matmul(x.float(), w_router.float())
     batched = logits.dim() == 3
     lg = logits if batched else logits[None]
-    expert_idx, gates, probs, lse, counts = kernel_ops.fused_topk_route(
-        lg.contiguous(), moe.top_k)
+    # without a graph to record (serving), the wrapper alone: a Function's
+    # apply adds microseconds of host work to every call of a host-bound
+    # decode step
+    fn = (kernel_ops.FusedTopkRoute.apply if torch.is_grad_enabled()
+          else kernel_ops.fused_topk_route)
+    expert_idx, gates, probs, lse, counts = fn(lg.contiguous(), moe.top_k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     f = counts.float() / (expert_idx.shape[-2] * expert_idx.shape[-1])

@@ -11,7 +11,7 @@ sums its terms in the reference's order.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -87,3 +87,50 @@ def adamw_update(params: Dict, grads: Dict, state: AdamWState, lr, *,
     new_params, mu, nu = (tree_map(lambda t, i=i: t[i], out)
                           for i in range(3))
     return new_params, AdamWState(step=step, mu=mu, nu=nu), gnorm
+
+
+@torch.no_grad()
+def adamw_update_(params: Dict, grads: Dict, state: AdamWState, lr, *,
+                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                  decay: Optional[Dict] = None):
+    """``adamw_update`` in place: ``grads`` are clipped and ``params``,
+    ``state.mu`` and ``state.nu`` updated where they lie, one leaf at a
+    time, so the update holds 16 bytes per fp32 parameter (the parameter,
+    its gradient and two moments) plus one leaf's temporaries, where the
+    functional form holds old and new trees at once. The same fp32
+    operations in the same order, the global norm over the leaves in
+    sorted-key order, so both give the same bits. ``decay``: None (decay
+    the leaves of ndim >= 2, as ``adamw_update``) or a tree of bools
+    matching ``params``. Returns (the state with the new step, the
+    gradients' global norm before clipping)."""
+    decays = (tree_leaves(decay) if decay is not None
+              else [p.dim() >= 2 for p in tree_leaves(params)])
+    leaves = list(zip(tree_leaves(params), tree_leaves(grads),
+                      tree_leaves(state.mu), tree_leaves(state.nu), decays))
+    total = None
+    for _, g, _, _, _ in leaves:
+        sq = g.float().square().sum()
+        total = sq if total is None else total + sq
+    gn = torch.sqrt(total)
+    scale = torch.clamp(max_grad_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    step = state.step + 1
+    stepf = step.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    for p, g, m, v, dec in leaves:
+        g = g.mul_(scale).float()
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(g.square().mul_(1 - b2))
+        del g
+        # mh / (sqrt(vh) + eps) + wd * p, each step rounded as adamw_update
+        upd = m / bc1
+        upd.div_((v / bc2).sqrt_().add_(eps))
+        pf = p.float()
+        upd.add_(pf * (weight_decay if dec else 0.0))
+        pf = pf.sub_(upd.mul_(lr))
+        if pf is not p:
+            p.copy_(pf)
+    return AdamWState(step=step, mu=state.mu, nu=state.nu), gn

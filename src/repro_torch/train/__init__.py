@@ -1,1 +1,2 @@
-"""Step functions (the serving steps only, so far)."""
+"""Training (the train step, the LM loss, checkpoints) and the serving
+step functions."""

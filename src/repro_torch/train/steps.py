@@ -1,4 +1,10 @@
-"""Serving step functions.
+"""Step functions: the train step, and the serving steps.
+
+``make_train_step`` is the port of the JAX package's: the LM loss (plus
+the MoE aux and z losses) through the train-mode forward, gradients by
+autograd (through the router's and the scan's backward kernels on the
+card), optional per-layer recompute (``remat``) and sequential
+microbatches, then AdamW applied in place to the model's fp32 parameters.
 
 For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
@@ -21,7 +27,115 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.duplication import duplicate_experts_device
-from repro_torch.models.transformer import Runtime, Transformer, forward
+from repro_torch.models.transformer import (EP_TRAINING, Runtime,
+                                            Transformer, forward)
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update_
+from repro_torch.train.loss import lm_loss
+
+
+def param_tree(model: Transformer):
+    """The model's parameters as the optimizer sees them: {name (as
+    ``model.named_parameters()`` gives it): parameter}."""
+    return dict(model.named_parameters())
+
+
+def weight_decay_mask(model: Transformer):
+    """Which parameters AdamW decays, keyed like ``param_tree``: the JAX
+    package decays the leaves of ndim >= 2 of its own tree, where a uniform
+    stack's layer leaves carry a leading L, so there every layer parameter
+    decays, the norm scales included; a hybrid model's layers are a list,
+    and their vectors do not."""
+    stacked = model.cfg.family != "hybrid"
+    return {name: p.dim() + (stacked and name.startswith("layers.")) >= 2
+            for name, p in model.named_parameters()}
+
+
+def init_opt_state(model: Transformer) -> AdamWState:
+    """Zero AdamW moments for ``model``'s parameters (fp32, on its device),
+    keyed like ``param_tree``."""
+    return adamw_init(param_tree(model))
+
+
+def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
+    """``loss_fn(model, batch) -> (loss, metrics)``: the train-mode forward
+    over ``batch["tokens"]``, ``lm_loss`` against ``batch["labels"]`` (and
+    ``batch["loss_mask"]`` if given), plus the aux and z losses for MoE
+    models, whose ``aux_loss`` and ``expert_counts`` join the metrics (the
+    JAX ``make_train_step``'s inner ``loss_fn``)."""
+    if rt.ep:
+        raise NotImplementedError(EP_TRAINING)
+
+    def loss_fn(model: Transformer, batch):
+        logits, _, stats = forward(model, cfg, batch["tokens"], rt,
+                                   mode="train", remat=remat)
+        loss, metrics = lm_loss(logits, batch["labels"],
+                                batch.get("loss_mask"))
+        if cfg.is_moe:
+            loss = loss + stats["aux_loss"] + stats["z_loss"]
+            metrics["aux_loss"] = stats["aux_loss"]
+            metrics["expert_counts"] = stats["expert_counts"]
+        return loss, metrics
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
+                    remat: bool = False, microbatches: int = 1):
+    """Returns ``train_step(model, opt_state, batch) -> (opt_state,
+    metrics)``; the model's parameters (fp32, ``requires_grad``) are
+    updated in place, and so are the state's moments.
+
+    ``batch``: {"tokens", "labels"[, "loss_mask"]}, (B, S) tensors or numpy
+    arrays. ``lr_fn(step)``: the learning rate at the state's step
+    (default 3e-4). ``remat``: each layer recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant; the values are the plain
+    step's). ``microbatches``: the batch split into that many sequential
+    microbatches, each one's fp32 gradients added to the running sum in
+    order, the sum divided by the count; loss and metrics are the
+    microbatches' means. Metrics: loss, nll, accuracy, grad_norm, lr, and
+    for MoE aux_loss and expert_counts (L, E). Weight decay falls where the
+    JAX step's does (``weight_decay_mask``). ``rt.ep`` raises: the EP
+    dispatch has no backward yet."""
+    loss_fn = make_loss_fn(cfg, rt, remat)
+    lr_fn = lr_fn or (lambda s: 3e-4)
+
+    def train_step(model: Transformer, opt_state: AdamWState, batch):
+        params, decay = param_tree(model), weight_decay_mask(model)
+        dev = model.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        if B % microbatches:
+            raise ValueError(f"batch {B} does not split into {microbatches} "
+                             "microbatches")
+        for p in params.values():
+            p.grad = None
+        parts = ([batch] if microbatches == 1 else
+                 [{k: v[i * (B // microbatches):(i + 1) * (B // microbatches)]
+                   for k, v in batch.items()} for i in range(microbatches)])
+        losses, mets = [], []
+        for part in parts:
+            loss, metrics = loss_fn(model, part)
+            loss.backward()
+            losses.append(loss.detach())
+            mets.append({k: torch.as_tensor(v).detach()
+                         for k, v in metrics.items()})
+        if microbatches == 1:
+            loss, metrics = losses[0], mets[0]
+        else:
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mets]).mean(dim=0)
+                       for k in mets[0]}
+        grads = {}
+        for name, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[name] = g.div_(microbatches) if microbatches > 1 else g
+        lr = lr_fn(opt_state.step)
+        opt_state, gnorm = adamw_update_(params, grads, opt_state, lr,
+                                         decay=decay)
+        for p in params.values():
+            p.grad = None
+        return opt_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+
+    return train_step
 
 
 def make_slot_prefill_step(cfg: ModelConfig, rt: Runtime):

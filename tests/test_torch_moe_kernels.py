@@ -146,7 +146,8 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     ops.histogram_offsets(torch.zeros((2, 6), dtype=torch.int32), 3)
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
     assert {"moe_gemm", "fused_topk_route", "histogram_offsets",
-            "paged_decode_attention", "rg_lru_scan"} == set(ops.LAUNCHES)
+            "paged_decode_attention", "rg_lru_scan", "fused_topk_route_bwd",
+            "rg_lru_scan_bwd"} == set(ops.LAUNCHES)
 
 
 @pytest.mark.parametrize("case", [
