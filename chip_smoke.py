@@ -10,7 +10,7 @@ non-zero:
   3. kernels  — holds each kernel (paged decode attention, the
                 expert-parallel path's moe_gemm, fused_topk_route and
                 histogram_offsets, Griffin's rg_lru_scan, and the backward
-                kernels of the router and the scan) against its
+                kernels of the router, the scan and moe_gemm) against its
                 plain PyTorch version on the card at the main paths'
                 full-width shapes, and times the kernel, the plain version,
                 a library call that computes the same function where one
@@ -43,7 +43,14 @@ non-zero:
                 for bit. Each is timed by events, by the profiler, its plain
                 version and (router) the autograd chain through softmax,
                 gather and logsumexp; phase train adds each on a real step's
-                layer-0 inputs.
+                layer-0 inputs. Phase moe_gemm_bwd holds moe_gemm's
+                backward against its plain version at the EP train step's
+                layer (8 slots x 4 x 160 rows with the packer's counts, d
+                4096, F 14336, bf16), the serving layout (12 slots naming 8
+                experts), garbage in the dead rows, gelu and relu at d 1024
+                / F 2048 and fp32 there, each timed by events and the
+                profiler beside its plain version and the autograd chain
+                through the weights' gather and bmm.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -231,16 +238,24 @@ non-zero:
                 forward and backward launches (2 each a step); at fixed
                 weights one batch through the plain step, ``remat`` and 2
                 microbatches (losses held together); one batch repeated at a
-                fixed lr, whose loss must fall. RecurrentGemma-2B at all 26
+                fixed lr, whose loss must fall. The same model through the
+                expert-parallel dispatch (4 EP ranks, the identity plan, cf
+                1.25): 10 steps with dropped pairs per step, exact launches
+                of moe_gemm, moe_gemm_bwd, histogram_offsets and the router
+                and its backward (one each a layer and step), the breakdown
+                with moe_gemm_bwd's share, and one batch of a fresh model
+                EP against dense at a capacity factor where nothing drops.
+                RecurrentGemma-2B at all 26
                 layers through ``repro_torch.launch.train.main`` (10 steps of
                 2 x 1024, return code 0, 18 scans and 18 scan backwards a
                 step). Each run's layer-0 backward inputs of one step are held
                 against the plain version (the kernels line's ``train_step``
-                cases). Then reduced Mixtral and Griffin, one step on the
-                card against the CPU from the same bridged weights.
+                cases). Then reduced Mixtral (single-device and EP) and
+                Griffin, one step on the card against the CPU from the same
+                bridged weights.
 
 The last lines are the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. The kernels JSON lists the two backward
+``{"ok": true, "device": {...}}``. The kernels JSON lists the three backward
 kernels beside the five forward ones, with ``gradient_of`` naming the
 forward kernel and their launches from phase train. Run from the repository root:
 
@@ -1104,6 +1119,193 @@ def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
                       "src/repro_torch/kernels/csrc/topk_router.cu",
                       "src/repro/kernels/topk_router.py:66", rows, "train")
     row["gradient_of"] = "fused_topk_route"
+    return row
+
+
+# moe_gemm_bwd against its plain version, each output against its largest
+# element: bf16 within 2 bf16 ulps of it (h, dg and du round to bf16 after
+# fp32 sums that the two add in other orders; observed 1 ulp), fp32 within
+# 1e-4 of it (the forward's fp32 tolerance)
+MOE_BWD_ULPS, MOE_BWD_F32_REL = 2, 1e-4
+MOE_BWD_KERNELS = ("moe_bwd_",)          # its five launches' kernel names
+MOE_BWD_REDUCED = dict(d=1024, F=2048)   # the gelu / relu / fp32 cases
+
+
+def ep_train_layer(cfg, gen, dup_slots: int):
+    """One EP train layer's ``moe_gemm`` inputs at the train step's shape:
+    ``TRAIN_BATCH * TRAIN_SEQ`` random tokens over ``EP_RANKS`` ranks through
+    a random router at the model's top-k, then the dispatch's replica choice
+    and packer at the model's capacity factor under the identity plan
+    (``dup_slots`` 0, the training layout: 8 slots x 4 x 160 rows) or
+    ``ep_plan`` (one replica slot a rank, the serving layout: 12 slots
+    naming 8 experts). Returns (x (S, R cap, d) bf16, zero where the packer
+    left rows empty, row_counts (S, R), slot map (S,))."""
+    from repro_torch.core.placement import identity_plan, to_device
+    from repro_torch.moe import dispatch as ep
+    from repro_torch.moe.router import route
+
+    E, K, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    R, T = EP_RANKS, TRAIN_BATCH * TRAIN_SEQ // EP_RANKS
+    host = ep_plan(E) if dup_slots else identity_plan(E, R, 0, 4)
+    plan = to_device(host, E, R, dup_slots, "cuda")
+    n_slots = E // R + dup_slots
+    S = R * n_slots
+    cap = ep.capacity(T, K, S, cfg.moe.capacity_factor)
+    x = torch.randn((R, T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w_router = torch.randn((d, E), generator=gen, device="cuda") * d ** -0.5
+    with torch.no_grad():
+        ro = route(w_router, cfg.moe, x)
+        gslot = ep.choose_replica(plan, ro.expert_idx.reshape(R, T * K),
+                                  ep._salt(T, K, "cuda"))
+        send, _, _, counts, _ = ep._pack_sort(
+            x, torch.arange(T * K, device="cuda") // K, gslot,
+            torch.ones_like(gslot, dtype=torch.bool), num_classes=S, cap=cap)
+    recv = send.reshape(R, R, n_slots, cap, d).transpose(0, 1) \
+               .transpose(1, 2).reshape(S, R * cap, d).contiguous()
+    return (recv, counts.T.contiguous(),
+            ep._slot_map(plan, E, dup_slots, S, "cuda"))
+
+
+def _moe_bwd_weights(gen, E, d, F, dtype):
+    return {n: (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+            for n, shape, scale in (("w_gate", (E, d, F), d ** -0.5),
+                                    ("w_up", (E, d, F), d ** -0.5),
+                                    ("w_down", (E, F, d), F ** -0.5))}
+
+
+def moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush,
+                 runs: int = 10) -> dict:
+    """``moe_gemm_bwd`` on one set of inputs held against its plain version
+    (``MOE_BWD_ULPS`` / ``MOE_BWD_F32_REL``; two calls bit-equal), timed by CUDA events and the profiler (L2 flushed), beside
+    its plain version, the library chain (``torch.autograd.grad`` through
+    the weights' gather and ``bmm``, the forward's library column, built
+    once outside the timing) and its bound: each input read once (the live
+    rows of x and dy, every live expert's matrices, the counts), each
+    output written once (dx and the whole weight gradients), 8 products of
+    2 rows d F operations a live row (5 without a gate)."""
+    from repro_torch.kernels import ops, ref
+
+    args = (x, wg, wu, wd, slot_map, dy, act, counts)
+    before = ops.LAUNCHES["moe_gemm_bwd"]
+    got = ops.moe_gemm_bwd(*args)
+    again = ops.moe_gemm_bwd(*args)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["moe_gemm_bwd"] - before
+    want = ref.moe_gemm_bwd_plain(*args)
+    dtype = x.dtype
+    ok, errs = True, {}
+    for name, g, a, w in zip(("dx", "d_w_gate", "d_w_up", "d_w_down"), got,
+                             again, want):
+        if w is None:
+            ok = ok and g is None
+            continue
+        err = float((g.float() - w.float()).abs().max())
+        scale = max(float(w.float().abs().max()), 1e-30)
+        tol = (MOE_BWD_ULPS * 2.0 ** (np.floor(np.log2(scale)) - 7)
+               if dtype == torch.bfloat16 else MOE_BWD_F32_REL * scale)
+        errs[name] = err
+        ok = (ok and torch.equal(g, a) and bool(torch.isfinite(g).all())
+              and err <= tol)
+    del got, again, want
+    S, T, d = x.shape
+    E, _, F = wu.shape
+    live = ref.live_rows_mask(counts, T)
+    n_live = int(live.sum())
+    live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
+    elem = x.element_size()
+    n_mat = 3 if act == "swiglu" else 2
+    nbytes = (2 * n_live * d + live_experts * n_mat * d * F + S * T * d
+              + E * n_mat * d * F) * elem + counts.numel() * 4 + S * 4
+    flops = (8 if act == "swiglu" else 5) * 2.0 * n_live * d * F
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+
+    leaves = [x.detach().clone().requires_grad_()] + [
+        t.detach().clone().requires_grad_() for t in (wg, wu, wd)
+        if t is not None]
+    sm = slot_map.long()
+    xs, *ws = leaves
+    u = torch.bmm(xs, ws[-2][sm])
+    if act == "swiglu":
+        h = torch.nn.functional.silu(torch.bmm(xs, ws[0][sm])) * u
+    elif act == "gelu":
+        h = torch.nn.functional.gelu(u, approximate="tanh")
+    else:
+        h = torch.relu(u)
+    y = torch.bmm(h, ws[-1][sm])
+
+    def library():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    row = {"max_abs_err": max(errs.values()), "ok": ok,
+           "errors": ";".join(f"{k}:{v:.4g}" for k, v in errs.items()),
+           "live_rows": n_live, "live_experts": live_experts,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "launches": launches,
+           "ms": time_ms(lambda: ops.moe_gemm_bwd(*args), flush, runs=runs),
+           "profiler_ms": device_ms(lambda: ops.moe_gemm_bwd(*args), flush,
+                                    MOE_BWD_KERNELS, runs=runs),
+           "plain_ms": time_ms(lambda: ref.moe_gemm_bwd_plain(*args), flush,
+                               runs=3),
+           "library_ms": time_ms(library, flush, runs=5)}
+    row["device_tflops"] = flops / row["profiler_ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    del y, h, u, leaves
+    return row
+
+
+def moe_gemm_bwd_phase(flush: torch.Tensor, seed: int, cfg):
+    """``moe_gemm_bwd`` at the EP train step's layer (``train``: 8 slots x
+    4 x 160 rows with the packer's counts, d 4096, F 14336, bf16 swiglu),
+    the serving layout (``dup``: 12 slots naming 8 experts, 4 x 112 rows),
+    the train layout with garbage in every dead row of x and dy (``dead``),
+    gelu and relu at ``MOE_BWD_REDUCED`` widths, and fp32 swiglu there too;
+    every case held against the plain version and timed. The train phase
+    adds the case of a real EP train step's layer-0 inputs."""
+    from repro_torch.kernels import ref
+
+    E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    rows = {}
+
+    def run(key, x, counts, slot_map, w, act, garbage=False):
+        dy = (torch.randn(x.shape, generator=gen, device="cuda")
+              * 0.1).to(x.dtype)
+        if garbage:
+            dead = ~ref.live_rows_mask(counts, x.shape[1])[..., None]
+            x = x.masked_fill(dead, 3e4)
+            dy = dy.masked_fill(dead, -3e4)
+        row = moe_bwd_case(x, w["w_gate"] if act == "swiglu" else None,
+                           w["w_up"], w["w_down"], slot_map, dy, act, counts,
+                           flush)
+        rows[key] = row
+        S, T, dd = x.shape
+        _log_row("moe_gemm_bwd", key,
+                 f"S{S}xT{T}xd{dd}xF{w['w_up'].shape[-1]}/{act}", row)
+
+    w = _moe_bwd_weights(gen, E, d, F, torch.bfloat16)
+    x, counts, sm = ep_train_layer(cfg, gen, 0)
+    live = ref.live_rows_mask(counts, x.shape[1])
+    run("bfloat16/train", x, counts, sm, w, "swiglu")
+    run("bfloat16/dead", x, counts, sm, w, "swiglu", garbage=True)
+    x, counts_dup, sm_dup = ep_train_layer(cfg, gen, DUP_SLOTS)
+    run("bfloat16/dup", x, counts_dup, sm_dup, w, "swiglu")
+    del w, x
+    rd, rf = MOE_BWD_REDUCED["d"], MOE_BWD_REDUCED["F"]
+    for dtype, acts in ((torch.bfloat16, ("gelu", "relu")),
+                        (torch.float32, ("swiglu",))):
+        w = _moe_bwd_weights(gen, E, rd, rf, dtype)
+        xr = torch.randn((len(sm), live.shape[1], rd), generator=gen,
+                         device="cuda").to(dtype) * live[..., None]
+        for act in acts:
+            run(f"{str(dtype).split('.')[-1]}/{act}", xr, counts, sm, w, act)
+        del w, xr
+    torch.cuda.empty_cache()
+    row = _kernel_row("moe_gemm_bwd",
+                      "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
+                      "src/repro/kernels/moe_gemm.py:60", rows,
+                      "bfloat16/train")
+    row["gradient_of"] = "moe_gemm"
     return row
 
 
@@ -3812,7 +4014,7 @@ class _BwdCapture:
     def __enter__(self):
         def wrapped(*a):
             if self.calls // self.per_step == CAPTURE_STEP:
-                self.inputs = tuple(None if t is None else t.clone()
+                self.inputs = tuple(t.clone() if torch.is_tensor(t) else t
                                     for t in a)
             self.calls += 1
             return self.real(*a)
@@ -3835,6 +4037,20 @@ def _train_kernel_case(kernel: str, cap: _BwdCapture, flush) -> None:
     (its error joins the row's)."""
     if cap.inputs is None:
         raise SystemExit(f"train: no {kernel} call was captured")
+    if kernel == "moe_gemm_bwd":
+        x, wg, wu, wd, slot_map, dy, act, counts = cap.inputs
+        row = moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush)
+        S, T, d = x.shape
+        _log_row(kernel, "train_step", f"S{S}xT{T}xd{d}xF{wu.shape[-1]}/{act}",
+                 row)
+        if not row["ok"]:
+            raise SystemExit(f"{kernel} disagrees with its plain version on "
+                             "a train step's inputs")
+        k = KERNEL_ROWS.get(kernel)
+        if k is not None:
+            k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
+        cap.inputs = None
+        return
     if kernel == "fused_topk_route_bwd":
         probs, idx, *grads = cap.inputs
         R, T, E = probs.shape
@@ -3866,14 +4082,17 @@ def _train_kernel_case(kernel: str, cap: _BwdCapture, flush) -> None:
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 
 
-def train_breakdown(label: str, cfg, model, opt, batch) -> dict:
+def train_breakdown(label: str, cfg, model, opt, batch, rt=None,
+                    plan=None) -> dict:
     """Where a train step's time goes, at the model's current weights: the
-    forward and backward (``make_loss_fn`` then ``backward``) under
-    torch.profiler, its device time split into matrix products (cuBLAS
-    kernels by name), the router's and the scan's kernels (forward and
-    backward) and the rest; the forward and backward and the AdamW update
-    (``adamw_update_`` at lr 0, which leaves the weights as they are) each
-    by CUDA events. The update's moments move; nothing else changes."""
+    forward and backward (``make_loss_fn`` under ``rt``, default the single
+    device's, then ``backward``) under torch.profiler, its device time split
+    into matrix products (cuBLAS kernels by name), the router's and the
+    scan's kernels (forward and backward), ``moe_gemm`` and
+    ``moe_gemm_bwd`` (with the latter's share of busy time) and the rest;
+    the forward and backward and the AdamW update (``adamw_update_`` at lr
+    0, which leaves the weights as they are) each by CUDA events. The
+    update's moments move; nothing else changes."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from repro_torch.models.transformer import Runtime
@@ -3881,14 +4100,14 @@ def train_breakdown(label: str, cfg, model, opt, batch) -> dict:
     from repro_torch.train.steps import (make_loss_fn, param_tree,
                                          weight_decay_mask)
 
-    loss_fn = make_loss_fn(cfg, Runtime())
+    loss_fn = make_loss_fn(cfg, rt or Runtime())
     params = param_tree(model)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
     def fwd_bwd():
         for p in params.values():
             p.grad = None
-        loss, _ = loss_fn(model, batch)
+        loss, _ = loss_fn(model, batch, plan)
         loss.backward()
     fwd_bwd()
     torch.cuda.synchronize()
@@ -3896,10 +4115,13 @@ def train_breakdown(label: str, cfg, model, opt, batch) -> dict:
         fwd_bwd()
         torch.cuda.synchronize()
     kernels = _kernel_time_by_name(prof, 1)
-    split = {"gemm": 0.0, "router": 0.0, "scan": 0.0, "other": 0.0}
+    split = {"gemm": 0.0, "router": 0.0, "scan": 0.0, "moe_gemm": 0.0,
+             "moe_gemm_bwd": 0.0, "other": 0.0}
     for name, (ms, _) in kernels.items():
         low = name.lower()
         key = ("router" if "topk_route" in low else "scan" if "rg_lru" in low
+               else "moe_gemm_bwd" if "moe_bwd_" in low
+               else "moe_gemm" if "moe_gemm" in low
                else "gemm" if any(g in low for g in GEMM_NAMES) else "other")
         split[key] += ms
     events = []
@@ -3919,8 +4141,9 @@ def train_breakdown(label: str, cfg, model, opt, batch) -> dict:
     busy = sum(split.values())
     row = dict(fwd_bwd_device_busy_ms=busy,
                **{f"{k}_ms": v for k, v in split.items()},
-               gemm_share=split["gemm"] / busy, fwd_bwd_ms=events[0],
-               adamw_ms=events[1])
+               gemm_share=split["gemm"] / busy,
+               moe_gemm_bwd_share=split["moe_gemm_bwd"] / busy,
+               fwd_bwd_ms=events[0], adamw_ms=events[1])
     log("train", run=label, breakdown="one step at these weights",
         **{k: f"{v:.4f}" for k, v in row.items()},
         top_kernels=";".join(f"{n[:40]}:{ms:.2f}" for n, (ms, _) in sorted(
@@ -4073,6 +4296,159 @@ def mixtral_train_run(seed: int, flush) -> dict:
     return launches
 
 
+TRAIN_EP_KERNELS = ("fused_topk_route", "fused_topk_route_bwd",
+                    "histogram_offsets", "moe_gemm", "moe_gemm_bwd")
+
+
+def _train_ep_cfg(capacity_factor=None):
+    """Full-width Mixtral cut to ``TRAIN_LAYERS`` layers for the EP runs,
+    without replica slots (the JAX launcher's ``use_duplication=False``),
+    at its own capacity factor (1.25) or the one given."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("mixtral-8x7b")
+    moe = dataclasses.replace(base.moe, duplication_slots=0)
+    if capacity_factor is not None:
+        moe = dataclasses.replace(moe, capacity_factor=capacity_factor)
+    return dataclasses.replace(base, num_layers=TRAIN_LAYERS, moe=moe)
+
+
+def mixtral_ep_train_run(seed: int, flush) -> dict:
+    """Mixtral-8x7B at published widths, ``TRAIN_LAYERS`` layers, fp32
+    weights from ``seed``, through the expert-parallel dispatch:
+    ``Runtime(ep=True, ep_ranks=EP_RANKS)``, the identity plan stack,
+    capacity factor 1.25, ``TRAIN_STEPS`` steps of ``make_train_step`` on
+    4 x 512 Zipf batches at the launcher's schedule. Per step: loss, aux
+    loss, gradient norm, dropped pairs, step ms; then step p50, tokens/s,
+    peak memory, exact launches of the EP kernels (one of each per layer
+    and step), ``train_breakdown`` with ``moe_gemm_bwd``'s share, and the
+    kernel on one real step's layer-0 inputs against its plain version.
+    The loss must fall. Returns the launches of the timed run."""
+    from repro_torch.core.placement import identity_plan, stack_plans, to_device
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = _train_ep_cfg()
+    m_cfg, L = cfg.moe, cfg.num_layers
+    rt = Runtime(ep=True, ep_ranks=EP_RANKS)
+    plan = to_device(stack_plans([identity_plan(
+        m_cfg.num_experts, EP_RANKS, 0, m_cfg.max_copies)] * L),
+        m_cfg.num_experts, EP_RANKS, 0, "cuda")
+    log("train", run="mixtral_ep", model=cfg.name, layers=L,
+        ep_ranks=EP_RANKS, capacity_factor=m_cfg.capacity_factor,
+        plan="identity (no replica slots)", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, moe_path="ep_moe_ffn (moe_gemm + moe_gemm_bwd)")
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, TRAIN_LR,
+                                                      TRAIN_STEPS))
+    gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    losses, step_ms, drops = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _BwdCapture("moe_gemm_bwd", L) as cap:
+        for i in range(TRAIN_STEPS):
+            batch = next(gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt, m = step(model, opt, batch, plan)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            drops.append(int(m["dropped"].sum()))
+            log("train", run="mixtral_ep", step=i, loss=f"{losses[-1]:.6f}",
+                aux_loss=f"{float(m['aux_loss']):.6g}",
+                grad_norm=f"{float(m['grad_norm']):.6g}",
+                lr=f"{float(m['lr']):.6g}", dropped_pairs=drops[-1],
+                dropped_per_layer=",".join(
+                    str(int(v)) for v in m["dropped"].tolist()),
+                skew=f"{_skew(m['expert_counts']):.4f}",
+                step_ms=f"{step_ms[-1]:.3f}")
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(step_ms[1:]))
+    want = {k: 0 for k in launches}
+    want.update({k: L * TRAIN_STEPS for k in TRAIN_EP_KERNELS})
+    pairs = TRAIN_BATCH * TRAIN_SEQ * m_cfg.top_k * L
+    log("train", run="mixtral_ep", steps=TRAIN_STEPS,
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms_p50=f"{p50:.3f}", step_ms_first=f"{step_ms[0]:.3f}",
+        tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}",
+        dropped_pairs_per_step=",".join(map(str, drops)),
+        dropped_share=f"{np.mean(drops) / pairs:.4f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        launches_ok=launches == want)
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        failures.append(f"loss {losses[0]} -> {losses[-1]}")
+    _train_kernel_case("moe_gemm_bwd", cap, flush)
+    train_breakdown("mixtral_ep", cfg, model, opt, next(gen), rt, plan)
+    if failures:
+        raise SystemExit("train (mixtral_ep) failed: " + "; ".join(failures))
+    del model, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ep_vs_dense_check(seed: int) -> None:
+    """One batch through the EP and the single-device loss of one fresh
+    model (no optimizer moments: two 2-layer trainable models with theirs
+    would need 101 GB) at capacity factor E / K, where a slot's capacity is
+    the rank's token count and nothing drops: the losses within
+    ``TRAIN_REL``, every gradient leaf within 3e-2 relative in norm (the
+    CPU test's tolerances: the dense path's cuBLAS products round ``g`` and
+    ``u`` to bf16 where ``moe_gemm`` keeps them fp32)."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.train.steps import make_loss_fn
+
+    base = _train_ep_cfg()
+    cfg = _train_ep_cfg(base.moe.num_experts / base.moe.top_k)
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(
+        token_batches(seed + 1, cfg.vocab_size, TRAIN_BATCH,
+                      TRAIN_SEQ)).items()}
+    res = {}
+    t0 = time.perf_counter()
+    for name, rt in (("ep", Runtime(ep=True, ep_ranks=EP_RANKS)),
+                     ("dense", Runtime())):
+        loss, m = make_loss_fn(cfg, rt)(model, batch)
+        loss.backward()
+        res[name] = (float(loss), {n: p.grad for n, p in
+                                   model.named_parameters()},
+                     int(m["dropped"].sum()) if "dropped" in m else 0)
+        for p in model.parameters():
+            p.grad = None
+    torch.cuda.synchronize()
+    (le, ge, dropped), (ld, gd, _) = res["ep"], res["dense"]
+    worst = max((float((ge[n] - gd[n]).norm() / gd[n].norm().clamp_min(1e-30)),
+                 n) for n in gd)
+    ok = (dropped == 0 and abs(le - ld) <= TRAIN_REL * abs(ld)
+          and worst[0] <= 3e-2)
+    log("train", ep_vs_dense=cfg.name, capacity_factor=cfg.moe.capacity_factor,
+        loss_ep=f"{le:.6f}", loss_dense=f"{ld:.6f}", dropped=dropped,
+        worst_grad_rel=f"{worst[0]:.4g}", worst_leaf=worst[1],
+        tolerance=f"loss {TRAIN_REL} rel; each gradient 3e-2 rel in norm",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        seconds=f"{time.perf_counter() - t0:.3f}", ok=ok)
+    del model, ge, gd, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("the EP train step disagrees with the dense one "
+                         "where nothing drops")
+
+
 def griffin_train_run(seed: int, flush) -> dict:
     """RecurrentGemma-2B as configured, all 26 layers, fp32 weights from
     ``seed``, through the command a user runs
@@ -4166,10 +4542,11 @@ def griffin_train_run(seed: int, flush) -> dict:
 def train_card_vs_cpu(seed: int) -> None:
     """One train step of reduced Mixtral (router weights x 25, as the
     reference phase, so routes stand clear of the two devices' bf16 noise)
-    and reduced Griffin on the card (kernels) and on the CPU (plain
-    versions) from the same bridged fp32 weights and batch: loss and
-    gradient norm within ``TRAIN_REL``, the updated parameters within 2 lr
-    with at most 2% of a leaf's elements beyond lr / 10 (the CPU tests'
+    on the single-device path and through the EP dispatch (4 ranks, the
+    identity plan), and of reduced Griffin, on the card (kernels) and on the
+    CPU (plain versions) from the same bridged fp32 weights and batch: loss
+    and gradient norm within ``TRAIN_REL``, the updated parameters within 2
+    lr with at most 2% of a leaf's elements beyond lr / 10 (the CPU tests'
     tolerances against the JAX step); the card's launches counted."""
     from repro_torch.bridge import params_from_jax, params_to_jax
     from repro_torch.configs.registry import get_config
@@ -4180,7 +4557,9 @@ def train_card_vs_cpu(seed: int) -> None:
 
     lr = 1e-3
     failures = []
-    for arch in ("mixtral-8x7b", "recurrentgemma-2b"):
+    for arch, rt in (("mixtral-8x7b", Runtime()),
+                     ("mixtral-8x7b", Runtime(ep=True, ep_ranks=EP_RANKS)),
+                     ("recurrentgemma-2b", Runtime())):
         cfg = get_config(arch).reduced()
         gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                          device="cuda", trainable=True)
@@ -4196,7 +4575,7 @@ def train_card_vs_cpu(seed: int) -> None:
         res = {}
         for name, model in (("cuda", gpu), ("cpu", cpu)):
             ops.reset_launches()
-            _, m = make_train_step(cfg, Runtime(), lr_fn=lambda s: lr)(
+            _, m = make_train_step(cfg, rt, lr_fn=lambda s: lr)(
                 model, init_opt_state(model), batch)
             res[name] = (float(m["loss"]), float(m["grad_norm"]),
                          flatten(params_to_jax(model)), dict(ops.LAUNCHES))
@@ -4208,7 +4587,9 @@ def train_card_vs_cpu(seed: int) -> None:
             beyond = max(beyond, float((d > lr / 10).mean()))
         n_rec = sum(layer.kind == "recurrent" for layer in gpu.layers)
         want_l = {k: 0 for k in launches}
-        if cfg.is_moe:
+        if rt.ep:
+            want_l.update({k: cfg.num_layers for k in TRAIN_EP_KERNELS})
+        elif cfg.is_moe:
             want_l.update(fused_topk_route=cfg.num_layers,
                           fused_topk_route_bwd=cfg.num_layers)
         else:
@@ -4217,7 +4598,8 @@ def train_card_vs_cpu(seed: int) -> None:
               and abs(ng - nc) <= TRAIN_REL * abs(nc)
               and worst <= 2 * lr + 1e-6 and beyond <= 0.02
               and launches == want_l and not any(cpu_l.values()))
-        log("train", card_vs_cpu=cfg.name, loss_cuda=f"{lg:.6f}",
+        log("train", card_vs_cpu=cfg.name, ep_ranks=rt.ep_ranks if rt.ep
+            else 0, loss_cuda=f"{lg:.6f}",
             loss_cpu=f"{lc:.6f}", grad_norm_cuda=f"{ng:.6g}",
             grad_norm_cpu=f"{nc:.6g}", param_max_abs_diff=f"{worst:.6g}",
             share_beyond_lr_over_10=f"{beyond:.4g}",
@@ -4226,21 +4608,27 @@ def train_card_vs_cpu(seed: int) -> None:
             launches=",".join(f"{k}:{v}" for k, v in launches.items()),
             ok=ok)
         if not ok:
-            failures.append(cfg.name)
+            failures.append(f"{cfg.name} (ep={rt.ep})")
     if failures:
         raise SystemExit(f"train step on the card disagrees with the CPU: "
                          f"{failures}")
 
 
 def train_phase(seed: int) -> dict:
-    """Phase ``train``: the full-width Mixtral and Griffin runs, each
+    """Phase ``train``: the full-width Mixtral runs (single-device, then
+    EP), EP against dense where nothing drops, and Griffin, each run
     holding its backward kernel against the plain version on a real step's
-    layer-0 inputs, then reduced models card against CPU. Returns the two
-    runs' launches."""
+    layer-0 inputs, then reduced models card against CPU. Returns the
+    runs' launches (the EP kernels' from the EP run)."""
     t0 = time.perf_counter()
     free_engines("train")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     launches = mixtral_train_run(seed, flush)
+    t1 = time.perf_counter()
+    launches.update({k: v for k, v in mixtral_ep_train_run(seed, flush)
+                     .items() if k in TRAIN_EP_KERNELS})
+    ep_vs_dense_check(seed)
+    log("train", ep_runs_s=f"{time.perf_counter() - t1:.3f}")
     launches.update({k: v for k, v in griffin_train_run(seed, flush).items()
                      if k.startswith("rg_lru")})
     del flush
@@ -4251,7 +4639,7 @@ def train_phase(seed: int) -> dict:
 
 
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
-                 "rg_lru", "router_bwd", "rg_lru_bwd")
+                 "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "train")
@@ -4312,7 +4700,9 @@ def main() -> int:
         "histogram": lambda: histogram_phase(flush, args.seed),
         "rg_lru": lambda: rg_lru_phase(flush, args.seed),
         "router_bwd": lambda: router_bwd_phase(flush, args.seed, mixtral),
-        "rg_lru_bwd": lambda: rg_lru_bwd_phase(flush, args.seed)}
+        "rg_lru_bwd": lambda: rg_lru_bwd_phase(flush, args.seed),
+        "moe_gemm_bwd": lambda: moe_gemm_bwd_phase(flush, args.seed,
+                                                   mixtral)}
     kernels = [kernel_phases[p]() for p in KERNEL_PHASES if p in phases]
     if "floor" in phases:
         launch_floor_phase(flush)
@@ -4349,7 +4739,8 @@ def main() -> int:
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in
-                        ("fused_topk_route_bwd", "rg_lru_scan_bwd"))
+                        ("fused_topk_route_bwd", "rg_lru_scan_bwd",
+                         "moe_gemm_bwd"))
 
     if set(phases) == set(PHASES):
         for k in kernels:

@@ -17,6 +17,12 @@ host reads no count. See the source's header for the two main loops (a
 ``cp.async`` + ``mma.sync`` loop over rows gathered per expert for the
 decode shape, ``T <= 64``; TMA + ``wgmma`` tiles for the prefill shape).
 ``kernels.ops.moe_gemm`` is the wrapper the dispatch calls.
+
+``moe_gemm_bwd`` launches its gradient (``csrc/moe_gemm_bwd.cu``): ``dx``
+and the three weight gradients from ``dy``, recomputing the hidden
+activations rather than keeping them, which ``kernels.ops.MoeGemm`` runs on
+the way back through the training path's EP dispatch. See that source's
+header for its five launches.
 """
 
 from __future__ import annotations
@@ -36,6 +42,15 @@ def _function():
     fn = build.load("moe_gemm").moe_gemm
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_function():
+    fn = build.load("moe_gemm_bwd").moe_gemm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -121,3 +136,66 @@ def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu",
     if err != 0:
         raise RuntimeError(f"moe_gemm launch failed: CUDA error {err}")
     return out
+
+
+def check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy, activation,
+                     row_counts=None) -> None:
+    """``check_inputs`` of the forward, and ``dy`` of x's shape, dtype and
+    device, contiguous."""
+    check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
+                 row_counts)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
+                         f"does not match x {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    if not dy.is_contiguous():
+        raise ValueError("dy must be contiguous")
+
+
+def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
+                 activation="swiglu", row_counts=None):
+    """Launch the backward on CUDA tensors: the forward's arguments and
+    ``dy`` (S, T, d). Returns (dx (S, T, d), d_w_gate (E, d, F) or None
+    without swiglu, d_w_up (E, d, F), d_w_down (E, F, d)), all in x's
+    dtype. Five launches on PyTorch's current stream; h, dg and du (S, T,
+    F) and the row lists are scratch allocated here; the host reads no
+    count."""
+    check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy, activation,
+                     row_counts)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x.device}")
+    gated = activation == "swiglu"
+    S, T, d = x.shape
+    E, _, F = w_up.shape
+    dx = torch.empty_like(x)
+    d_up, d_down = torch.empty_like(w_up), torch.empty_like(w_down)
+    d_gate = torch.empty_like(w_up) if gated else None
+    if S == 0 or T == 0:
+        for t in (dx, d_up, d_down, d_gate):
+            if t is not None:
+                t.zero_()
+        return dx, d_gate, d_up, d_down
+    scratch = torch.empty((3 if gated else 2, S, T, F), dtype=x.dtype,
+                          device=x.device)
+    h, du = scratch[0], scratch[1]
+    dg = scratch[2] if gated else du
+    index = torch.empty(2 * S + E + 1 + S * T, dtype=torch.int32,
+                        device=x.device)
+    w_gate = w_gate if gated else w_up
+    d_gate_out = d_gate if gated else d_up
+    tensors = (x, w_gate, w_up, w_down, dy, h, dg, du, dx, d_gate_out, d_up,
+               d_down)
+    aligned = int(d % 8 == 0 and F % 8 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in tensors))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counts_ptr, B = ((None, 1) if row_counts is None
+                     else (row_counts.data_ptr(), row_counts.shape[1]))
+    err = _bwd_function()(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+        slot_experts.data_ptr(), counts_ptr, dy.data_ptr(), h.data_ptr(),
+        dg.data_ptr(), du.data_ptr(), index.data_ptr(), dx.data_ptr(),
+        d_gate_out.data_ptr(), d_up.data_ptr(), d_down.data_ptr(), S, T, d,
+        F, E, B, ACTIVATIONS[activation], _DTYPES[x.dtype], aligned, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm_bwd launch failed: CUDA error {err}")
+    return dx, d_gate, d_up, d_down

@@ -6,12 +6,13 @@ no fallback). A CPU tensor runs the kernel's plain PyTorch version from
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels.
 
-The router and the scan also have a backward kernel, and the autograd
-``Function``s ``FusedTopkRoute`` and ``RgLruScan`` run each forward
-wrapper and, on the way back, the backward wrapper, which dispatches the
-same way: the kernel on a CUDA tensor, the plain version on a CPU tensor.
-Without a graph to record (``torch.no_grad``, ``inference_mode``) a
-``Function`` launches what its forward wrapper launches and nothing else.
+The router, the scan and the grouped expert FFN also have a backward
+kernel, and the autograd ``Function``s ``FusedTopkRoute``, ``RgLruScan``
+and ``MoeGemm`` run each forward wrapper and, on the way back, the backward
+wrapper, which dispatches the same way: the kernel on a CUDA tensor, the
+plain version on a CPU tensor. Without a graph to record (``torch.no_grad``,
+``inference_mode``) a ``Function`` launches what its forward wrapper
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.kernels import topk_router as _tk
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
                             "fused_topk_route": 0, "histogram_offsets": 0,
                             "rg_lru_scan": 0, "fused_topk_route_bwd": 0,
-                            "rg_lru_scan_bwd": 0}
+                            "rg_lru_scan_bwd": 0, "moe_gemm_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -72,7 +73,21 @@ def moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation="swiglu",
     (S, B) int32 with B dividing T, where rows ``[b*T/B, b*T/B +
     row_counts[s, b])`` of slot s are live and every other row gives zeros.
     Returns (S, T, d) in x's dtype. Bound by the weight bytes read, each
-    live expert's once (see ``kernels.moe_gemm``)."""
+    live expert's once (see ``kernels.moe_gemm``). While autograd records
+    and x or a weight requires a gradient, the call goes through
+    ``MoeGemm`` (its way back is ``moe_gemm_bwd``); otherwise, as in
+    serving, the forward alone."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w_gate, w_up, w_down)):
+        return MoeGemm.apply(x, w_gate, w_up, w_down, slot_experts,
+                             activation, row_counts)
+    return _moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
+                     row_counts)
+
+
+def _moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
+              row_counts):
     if x.device.type == "cpu":
         _mg.check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
                          row_counts)
@@ -163,6 +178,31 @@ def rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last):
     return out
 
 
+def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
+                 activation="swiglu", row_counts=None):
+    """The gradient of ``moe_gemm`` given ``dy`` (S, T, d): (dx (S, T, d),
+    d_w_gate (E, d, F) or None without swiglu, d_w_up, d_w_down), in x's
+    dtype. The hidden activations are recomputed, not kept; the weight
+    gradients sum over every live row of every slot that names the row, in
+    slot order (no atomics: repeated calls are bit-identical); dead rows
+    give ``dx = 0`` and add nothing. Not a port of a Pallas kernel: the
+    gradient ``jax.grad`` takes through the JAX package's einsum
+    ``grouped_ffn``, written by hand because the forward is a kernel. On the
+    card one call is five device launches (the row lists, the hidden
+    gradient, dx, the gate / up weight gradients and the down weight
+    gradient; see ``csrc/moe_gemm_bwd.cu``), counted once in
+    ``LAUNCHES``."""
+    if x.device.type == "cpu":
+        _mg.check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy,
+                             activation, row_counts)
+        return _ref.moe_gemm_bwd_plain(x, w_gate, w_up, w_down, slot_experts,
+                                       dy, activation, row_counts)
+    out = _mg.moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
+                           activation, row_counts)
+    LAUNCHES["moe_gemm_bwd"] += 1
+    return out
+
+
 def _contiguous(t):
     return None if t is None else t.contiguous()
 
@@ -211,3 +251,37 @@ class RgLruScan(torch.autograd.Function):
         d_a, d_b, d_h0 = rg_lru_scan_bwd(a, h_all, h0, _contiguous(d_h_all),
                                          _contiguous(d_h_last))
         return d_a, d_b, d_h0 if ctx.needs_input_grad[2] else None
+
+
+class MoeGemm(torch.autograd.Function):
+    """``moe_gemm`` with a gradient: ``apply(x, w_gate, w_up, w_down,
+    slot_experts, activation, row_counts)`` returns its output, and the way
+    back runs ``moe_gemm_bwd``, which returns the gradients of x and the
+    three weight tensors (``w_gate`` None: none for it); the slot map and
+    the counts are integers and get none. Saves the inputs only: the
+    backward recomputes the (S, T, F) hidden activations."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, slot_experts, activation,
+                row_counts):
+        ctx.set_materialize_grads(False)
+        ctx.activation = activation
+        ctx.save_for_backward(x, w_gate, w_up, w_down, slot_experts,
+                              row_counts)
+        return _moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
+                         row_counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return (None,) * 7
+        x, w_gate, w_up, w_down, slot_experts, row_counts = ctx.saved_tensors
+        dx, d_gate, d_up, d_down = moe_gemm_bwd(
+            x, w_gate, w_up, w_down, slot_experts, dy.contiguous(),
+            ctx.activation, row_counts)
+        need = ctx.needs_input_grad
+        if w_gate is None:
+            d_gate = None
+        return (dx if need[0] else None, d_gate if need[1] else None,
+                d_up if need[2] else None, d_down if need[3] else None,
+                None, None, None)

@@ -180,6 +180,74 @@ def moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
     return out
 
 
+def _hidden_grad(g, u, dh, activation: str):
+    """fp32 ``(h, dg, du)`` of the grouped FFN's hidden layer from the sums
+    ``g = x Wg``, ``u = x Wu`` and ``dh = dy Wd^T``, in the CUDA kernel's
+    order (``csrc/moe_gemm_bwd.cu``, ``hidden_grad``); ``dg`` is None
+    unless swiglu. The gelu is the tanh form (``jax.nn.gelu``), and relu's
+    gradient at 0 is 0, as in JAX."""
+    if activation == "swiglu":
+        sg = torch.sigmoid(g)
+        a = g * sg
+        return a * u, dh * u * (sg * (1 + g * (1 - sg))), dh * a
+    if activation == "gelu":
+        k0, k1 = 0.7978845608028654, 0.044715
+        t = torch.tanh(k0 * (u + k1 * u * u * u))
+        return (0.5 * u * (1 + t), None,
+                dh * (0.5 * (1 + t)
+                      + 0.5 * u * (1 - t * t) * k0 * (1 + 3 * k1 * u * u)))
+    if activation == "relu":
+        return torch.relu(u), None, torch.where(u > 0, dh, 0.0)
+    raise ValueError(f"activation {activation!r}")
+
+
+def moe_gemm_bwd_plain(x, w_gate, w_up, w_down, slot_experts, dy,
+                       activation: str = "swiglu", row_counts=None):
+    """The gradient of ``moe_gemm_plain`` with respect to x and the three
+    weight tensors, given ``dy`` (S, T, d), in the CUDA kernel's order of
+    operations and rounding points (``csrc/moe_gemm_bwd.cu``): per slot,
+    over its live rows only, the fp32 sums ``g = x Wg[e]``, ``u = x Wu[e]``
+    and ``dh = dy Wd[e]^T``; ``h``, ``dg`` and ``du`` (``_hidden_grad``)
+    rounded to x's dtype; ``dx = dg Wg[e]^T + du Wu[e]^T`` summed in fp32
+    and rounded; and the fp32 weight sums ``dWg[e] += x^T dg``, ``dWu[e] +=
+    x^T du``, ``dWd[e] += h^T dy`` over the slots that name row e, in slot
+    order, rounded to the weights' dtype at the end. A dead row gives ``dx
+    = 0`` and adds nothing, whatever it holds; a slot outside [0, E) gives
+    zeros; a weight row that no live row names gets zeros.
+
+    Same arguments as ``moe_gemm_plain`` plus ``dy``. Returns (dx (S, T,
+    d), d_w_gate (E, d, F) or None unless swiglu, d_w_up (E, d, F),
+    d_w_down (E, F, d))."""
+    gated = activation == "swiglu"
+    S, T, _ = x.shape
+    E = w_up.shape[0]
+    live = (torch.ones((S, T), dtype=torch.bool, device=x.device)
+            if row_counts is None else live_rows_mask(row_counts, T))
+    dx = torch.zeros_like(x)
+    sums = {n: torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+            for n, w in (("w_gate", w_up), ("w_up", w_up),
+                         ("w_down", w_down)) if n != "w_gate" or gated}
+    for s, e in enumerate(slot_experts.tolist()):
+        if not 0 <= e < E:
+            continue
+        rows = live[s].nonzero()[:, 0]
+        xs, dys = x[s, rows].float(), dy[s, rows].float()
+        g = xs @ w_gate[e].float() if gated else None
+        u = xs @ w_up[e].float()
+        dh = dys @ w_down[e].float().T
+        h, dg, du = (None if t is None else t.to(x.dtype)
+                     for t in _hidden_grad(g, u, dh, activation))
+        dxs = du.float() @ w_up[e].float().T
+        if gated:
+            dxs = dg.float() @ w_gate[e].float().T + dxs
+            sums["w_gate"][e] += xs.T @ dg.float()
+        dx[s, rows] = dxs.to(x.dtype)
+        sums["w_up"][e] += xs.T @ du.float()
+        sums["w_down"][e] += h.float().T @ dys
+    out = {n: t.to(w_up.dtype) for n, t in sums.items()}
+    return dx, out.get("w_gate"), out["w_up"], out["w_down"]
+
+
 def fused_topk_route_plain(logits, top_k: int):
     """Softmax, ``top_k`` rounds of max / argmax (ties to the lowest index),
     logsumexp and per-batch expert counts, in the Pallas body's order

@@ -10,20 +10,26 @@ It takes the JAX launcher's flags, prints its lines and returns its code:
 cuda) picks the card or, with ``cpu``, the kernels' plain versions;
 ``--trace-out`` writes one span per step (host clock, each step ending on
 its loss's read-back) as Chrome trace-event JSON. ``--data-mesh 1
---model-mesh R`` asks for the expert-parallel path for an MoE model,
-which has no backward yet, so it raises, as the train step does under
-``rt.ep``; one device has no data axis, so any other ``--data-mesh``
-raises too.
+--model-mesh R`` trains an MoE model through the expert-parallel dispatch
+over R ranks on the one device (``Runtime(ep=True, ep_ranks=R)``, the
+identity plan stack, no replica slots: the JAX launcher's
+``use_duplication=False``); a dense model trains as without it. One device
+has no data axis, so any other ``--data-mesh`` raises.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --reduced --device cpu --data-mesh 1 --model-mesh 4
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.placement import identity_plan, stack_plans, to_device
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Runtime, init_model
@@ -57,9 +63,11 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt", default="", help="save checkpoint here at the end")
     ap.add_argument("--data-mesh", type=int, default=0,
-                    help="1, with --model-mesh: the expert-parallel path "
-                         "(not trainable yet: raises for MoE models)")
-    ap.add_argument("--model-mesh", type=int, default=0)
+                    help="1, with --model-mesh R: an MoE model trains "
+                         "through the expert-parallel dispatch over R ranks "
+                         "on the one device (0 = the single-device path)")
+    ap.add_argument("--model-mesh", type=int, default=0,
+                    help="EP ranks R, with --data-mesh 1")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -78,9 +86,23 @@ def main(argv=None) -> int:
                 "(training across cards waits for a torch.distributed "
                 "backend: ROADMAP.md section 1, item 4)")
         rt = Runtime(ep=cfg.is_moe, ep_ranks=args.model_mesh)
+    if rt.ep:
+        if cfg.moe.num_experts % rt.ep_ranks:
+            raise ValueError(f"--model-mesh {rt.ep_ranks} does not divide "
+                             f"{cfg.moe.num_experts} experts")
+        # the JAX launcher's use_duplication=False: no replica slots
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, duplication_slots=0))
     step_fn = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, args.lr,
                                                          args.steps))
     dev = resolve_device(args.device)
+    plan = None
+    if rt.ep:
+        m = cfg.moe
+        plan = to_device(stack_plans([
+            identity_plan(m.num_experts, rt.ep_ranks, 0, m.max_copies)
+            for _ in range(cfg.num_layers)]), m.num_experts, rt.ep_ranks, 0,
+            dev)
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                        device=dev, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
@@ -97,7 +119,7 @@ def main(argv=None) -> int:
     for step in range(args.steps):
         batch = next(gen)
         with tracer.span("train_step", cat="train", args={"step": step}):
-            opt, metrics = step_fn(model, opt, batch)
+            opt, metrics = step_fn(model, opt, batch, plan)
             losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:
             extra = ""

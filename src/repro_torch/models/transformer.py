@@ -67,9 +67,6 @@ from repro_torch.moe.router import expert_histogram, route
 
 ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
-EP_TRAINING = ("training runs the single-device MoE path; expert-parallel "
-               "training waits for a moe_gemm backward (ROADMAP.md section 1, "
-               "item 1: EP training)")
 
 
 class Runtime(NamedTuple):
@@ -333,8 +330,13 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                            x.device)
     if fill_event is not None:
         torch.cuda.current_stream(x.device).wait_event(fill_event)
-    experts = experts_l or {"w_gate": layer.w_gate, "w_up": layer.w_up,
-                            "w_down": layer.w_down}
+    # the home experts at the activation dtype: a no-op for the bf16
+    # serving weights, the per-use cast of a trainable model's fp32 ones
+    # (``models.moe.routed_dense`` casts them the same way), through which
+    # the kernel's bf16 gradients reach the fp32 parameters
+    experts = experts_l or {"w_gate": layer.w_gate.to(x.dtype),
+                            "w_up": layer.w_up.to(x.dtype),
+                            "w_down": layer.w_down.to(x.dtype)}
     kw = dict(ep_ranks=R, activation=cfg.activation, resched_quota=resched_l)
     if decode:
         # decode batches are too small to shard: every rank sees every
@@ -469,9 +471,12 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     """Returns (logits, cache, stats).
 
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
-                  cache None, recurrent layers from zero states. The
-                  single-device path only (``rt.ep`` raises: training
-                  through the EP dispatch needs a ``moe_gemm`` backward).
+                  cache None, recurrent layers from zero states. Under
+                  ``rt.ep`` each MoE layer runs the prefill's sequence split
+                  through the EP dispatch under ``plan`` (None: the
+                  identity plan), its grouped FFN through
+                  ``kernels.ops.MoeGemm``; a ``store``, ``predicted_idx``
+                  or ``resched`` raises, as the JAX train step takes none.
                   ``remat``: each layer runs under ``torch.utils.checkpoint``
                   (non-reentrant) and is recomputed in the backward.
     mode=prefill: tokens (B, S); logits (B, 1, V) at ``last_pos`` (the index
@@ -502,8 +507,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     "overflow": (L,) round-1 overflows the rescue round took (without
     ``resched`` a host vector of zeros: nothing is launched for it).
     """
-    if mode == "train" and rt.ep:
-        raise NotImplementedError(EP_TRAINING)
+    if mode == "train" and rt.ep and (store is not None or predicted_idx
+                                      is not None or resched is not None):
+        raise ValueError("EP training takes a plan only: no store, "
+                         "predicted_idx or resched (the JAX train step "
+                         "takes none of them)")
     x = embed(model.embed, tokens).to(ACT_DTYPE)
     B, S = tokens.shape
     if mode == "decode" and torch.is_tensor(cache_len):

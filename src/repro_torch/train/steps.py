@@ -1,10 +1,13 @@
 """Step functions: the train step, and the serving steps.
 
 ``make_train_step`` is the port of the JAX package's: the LM loss (plus
-the MoE aux and z losses) through the train-mode forward, gradients by
-autograd (through the router's and the scan's backward kernels on the
-card), optional per-layer recompute (``remat``) and sequential
-microbatches, then AdamW applied in place to the model's fp32 parameters.
+the MoE aux and z losses) through the train-mode forward, on the
+single-device MoE path or, under ``Runtime(ep=True)``, through the EP
+dispatch under a placement plan stack (the JAX step's ``plan``), gradients
+by autograd (through the router's, the scan's and the grouped FFN's
+backward kernels on the card), optional per-layer recompute (``remat``)
+and sequential microbatches, then AdamW applied in place to the model's
+fp32 parameters.
 
 For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
@@ -27,8 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.duplication import duplicate_experts_device
-from repro_torch.models.transformer import (EP_TRAINING, Runtime,
-                                            Transformer, forward)
+from repro_torch.models.transformer import Runtime, Transformer, forward
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update_
 from repro_torch.train.loss import lm_loss
 
@@ -57,32 +59,38 @@ def init_opt_state(model: Transformer) -> AdamWState:
 
 
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
-    """``loss_fn(model, batch) -> (loss, metrics)``: the train-mode forward
-    over ``batch["tokens"]``, ``lm_loss`` against ``batch["labels"]`` (and
-    ``batch["loss_mask"]`` if given), plus the aux and z losses for MoE
-    models, whose ``aux_loss`` and ``expert_counts`` join the metrics (the
-    JAX ``make_train_step``'s inner ``loss_fn``)."""
-    if rt.ep:
-        raise NotImplementedError(EP_TRAINING)
+    """``loss_fn(model, batch, plan=None) -> (loss, metrics)``: the
+    train-mode forward over ``batch["tokens"]`` (under ``rt.ep`` dispatched
+    under ``plan``, None the identity plan), ``lm_loss`` against
+    ``batch["labels"]`` (and ``batch["loss_mask"]`` if given), plus the aux
+    and z losses for MoE models, whose ``aux_loss`` and ``expert_counts``
+    join the metrics (the JAX ``make_train_step``'s inner ``loss_fn``);
+    under ``rt.ep`` also ``dropped``, each layer's capacity drops."""
 
-    def loss_fn(model: Transformer, batch):
+    def loss_fn(model: Transformer, batch, plan=None):
         logits, _, stats = forward(model, cfg, batch["tokens"], rt,
-                                   mode="train", remat=remat)
+                                   mode="train", plan=plan, remat=remat)
         loss, metrics = lm_loss(logits, batch["labels"],
                                 batch.get("loss_mask"))
         if cfg.is_moe:
             loss = loss + stats["aux_loss"] + stats["z_loss"]
             metrics["aux_loss"] = stats["aux_loss"]
             metrics["expert_counts"] = stats["expert_counts"]
+        if rt.ep:
+            metrics["dropped"] = stats["dropped"].float()
         return loss, metrics
     return loss_fn
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
                     remat: bool = False, microbatches: int = 1):
-    """Returns ``train_step(model, opt_state, batch) -> (opt_state,
-    metrics)``; the model's parameters (fp32, ``requires_grad``) are
-    updated in place, and so are the state's moments.
+    """Returns ``train_step(model, opt_state, batch, plan=None) ->
+    (opt_state, metrics)``; the model's parameters (fp32,
+    ``requires_grad``) are updated in place, and so are the state's
+    moments. ``plan``: the (L, ...) placement plan stack the EP path
+    dispatches under (a host ``PlacementPlan`` stack or a ``DevicePlan``;
+    None: the identity plan), as the JAX step takes it; the single-device
+    path ignores it.
 
     ``batch``: {"tokens", "labels"[, "loss_mask"]}, (B, S) tensors or numpy
     arrays. ``lr_fn(step)``: the learning rate at the state's step
@@ -93,12 +101,14 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
     order, the sum divided by the count; loss and metrics are the
     microbatches' means. Metrics: loss, nll, accuracy, grad_norm, lr, and
     for MoE aux_loss and expert_counts (L, E). Weight decay falls where the
-    JAX step's does (``weight_decay_mask``). ``rt.ep`` raises: the EP
-    dispatch has no backward yet."""
+    JAX step's does (``weight_decay_mask``). Under ``rt.ep`` the metrics
+    also hold ``dropped`` (L,) fp32, the pairs each layer dropped at
+    capacity (the microbatches' mean, as every metric)."""
     loss_fn = make_loss_fn(cfg, rt, remat)
     lr_fn = lr_fn or (lambda s: 3e-4)
 
-    def train_step(model: Transformer, opt_state: AdamWState, batch):
+    def train_step(model: Transformer, opt_state: AdamWState, batch,
+                   plan=None):
         params, decay = param_tree(model), weight_decay_mask(model)
         dev = model.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -113,7 +123,7 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
                    for k, v in batch.items()} for i in range(microbatches)])
         losses, mets = [], []
         for part in parts:
-            loss, metrics = loss_fn(model, part)
+            loss, metrics = loss_fn(model, part, plan)
             loss.backward()
             losses.append(loss.detach())
             mets.append({k: torch.as_tensor(v).detach()

@@ -147,7 +147,7 @@ def test_cpu_tensors_run_the_plain_versions_without_launches():
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
     assert {"moe_gemm", "fused_topk_route", "histogram_offsets",
             "paged_decode_attention", "rg_lru_scan", "fused_topk_route_bwd",
-            "rg_lru_scan_bwd"} == set(ops.LAUNCHES)
+            "rg_lru_scan_bwd", "moe_gemm_bwd"} == set(ops.LAUNCHES)
 
 
 @pytest.mark.parametrize("case", [

@@ -464,14 +464,26 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
 
 
 def test_train_step_rejects_the_ep_path():
+    """The name dates from before EP training: the EP path now trains (one
+    step of reduced Mixtral over 4 EP ranks, its loss and gradient norm
+    finite, every parameter moved by AdamW, the layers' drops reported);
+    the EP forward still refuses what the JAX train step takes none of,
+    and a batch that does not split into the microbatches raises."""
     cfg = get_config("mixtral-8x7b").reduced()
-    with pytest.raises(NotImplementedError, match="EP training"):
-        make_train_step(cfg, Runtime(ep=True, ep_ranks=4))
+    rt = Runtime(ep=True, ep_ranks=4)
     model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
                        trainable=True)
-    with pytest.raises(NotImplementedError, match="EP training"):
-        forward(model, cfg, torch.zeros((1, 8), dtype=torch.long),
-                Runtime(ep=True, ep_ranks=4), mode="train")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt, m = make_train_step(cfg, rt, lr_fn=lambda s: LR)(
+        model, init_opt_state(model), _batch(cfg))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert m["dropped"].shape == (cfg.num_layers,) and int(opt.step) == 1
+    for n, p in model.named_parameters():
+        assert not torch.equal(p, before[n]), n
+    with pytest.raises(ValueError, match="EP training takes a plan only"):
+        forward(model, cfg, torch.zeros((1, 8), dtype=torch.long), rt,
+                mode="train", resched=torch.zeros((2, 4, 4),
+                                                  dtype=torch.int32))
     with pytest.raises(ValueError, match="microbatches"):
         make_train_step(cfg, Runtime(), microbatches=3)(
             model, init_opt_state(model), _batch(cfg))
@@ -632,8 +644,8 @@ def test_launch_train_prints_the_jax_launchers_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--arch", "mixtral-8x7b", "--data-mesh", "1", "--model-mesh", "4"],
-     NotImplementedError),
+    (["--arch", "mixtral-8x7b", "--data-mesh", "1", "--model-mesh", "3"],
+     ValueError),
     (["--arch", "recurrentgemma-2b", "--data-mesh", "2", "--model-mesh", "2"],
      ValueError),
     (["--arch", "qwen1.5-0.5b"], KeyError)])
