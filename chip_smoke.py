@@ -35,9 +35,10 @@ non-zero:
                 on a real round's rows.) Phases router_bwd and rg_lru_bwd
                 hold the training path's backward kernels against their
                 plain versions: fused_topk_route_bwd at the router's shapes
-                and the train step's (1 x 2048 x 8, K 2, tie rows) plus an
-                untimed sweep over T, R, E <= 32, K and every subset of the
-                gradients (a missing one is a null pointer); rg_lru_scan_bwd
+                and the train step's (1 x 2048 x 8, K 2, tie rows; and at
+                E 16 / K 4, E 128 / K 1 and K 2) plus an untimed sweep over
+                T, R, E <= 256, K and every subset of the gradients (a
+                missing one is a null pointer); rg_lru_scan_bwd
                 at the train step's 2 x 1024 x 2560 and the prefill's 8 x
                 3072 x 2560, then ragged shapes and each gradient alone, bit
                 for bit. Each is timed by events, by the profiler, its plain
@@ -50,7 +51,15 @@ non-zero:
                 experts), garbage in the dead rows, gelu and relu at d 1024
                 / F 2048 and fp32 there, each timed by events and the
                 profiler beside its plain version and the autograd chain
-                through the weights' gather and bmm.
+                through the weights' gather and bmm; and the train layer at
+                llama-moe-3.5b's (swiglu, F 688) and switch-base-128's (relu,
+                d 768, F 3072) widths. The paper's other MoE models' shapes
+                run in the forward phases too: paged attention at G 1 (hd
+                128, 32 KV heads; hd 64, 12 KV heads) and G 7; moe_gemm's
+                decode and prefill blocks at llama-moe's and switch's
+                widths; the router at E 16 / K 4, E 128 / K 1 and K 2; the
+                histogram at the packer's 6, 21, 34 and 133 classes and at
+                128.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
@@ -226,7 +235,27 @@ non-zero:
                 never. Prints attainment (all and worst tenant), moves,
                 final quotas, fleet step p50 / p99 and peak memory.
 
- 13. train    — (last, after every serving engine is freed) training on
+ 13. models   — (after reference, before train; alone with ``--phases
+                models``) the paper's other MoE models at published widths,
+                random weights from ``--seed``: llama-moe-3.5b (all 32
+                layers; 16 experts, top-4, MHA, F 688), switch-base-128 (all
+                12 layers; 128 experts, top-1, relu, MHA, d 768) and
+                arctic-480b (2 of 35 layers: 27.2 GB a layer; 128 experts,
+                top-2, G 7, the dense residual branch), each through
+                ``ContinuousEngine`` (8 slots, bucket 128, 8 requests of
+                32..128 tokens, 16 new each) on the dense path, then the EP
+                path (4 ranks, one replica slot, the store) under dist_only
+                and under none; per run the card, step p50, decode tokens/s,
+                peak memory, measured and modelled imbalance, drops and the
+                four serving kernels' exact launches; the dist_only run's
+                first prefill's layer-0 router, histogram and moe_gemm
+                inputs against their plain versions (``models_<arch>``);
+                Algorithm 1's host and in-graph times at E 128; then 10
+                train steps of 4 x 512 for llama-moe and switch at 2
+                layers, dense and EP (4 ranks), with exact launches. Arctic
+                trains on the CPU parity tests only (218 GB of fp32 state a
+                layer); the phase prints why.
+ 14. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -270,6 +299,7 @@ sources, so that two versions are measured in one run on one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -355,33 +385,33 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
 PAGED_KERNELS = ("split_kernel", "combine_kernel")   # the pair one call launches
 
 
-def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
-    """The phase's shape (B 8, K 8, G 4, hd 128, bs 16, M 64 from max_len
-    1024) at lengths 0..1023 in fp32 and bf16 under three windows, then two
-    more bf16-timed cases: one slot alone at length 1023 (B = 1) and all 8
-    slots at 1023. Prints each case's split plan, and the profiler's device
-    time of the kernel pair for the path row (bf16, ``path_window``)."""
+# the paper's other MoE models' decode shapes, no window (label: KV heads,
+# query heads per KV head, head dim): llama-moe-3.5b and switch-base-128
+# are MHA (G 1), arctic-480b 56 query heads over 8 KV heads (G 7)
+PAGED_MODEL_CASES = {"llama_moe_g1": (32, 1, 128), "switch_g1_hd64": (12, 1, 64),
+                     "arctic_g7": (8, 7, 128)}
+
+
+def _paged_case(q, kp, vp, tab, lengths, lens, window, flush, timed: bool):
+    """One ``paged_decode_attention`` call held against the plain version
+    and the kernel's own two passes in plain PyTorch (same split plan); the
+    bound from the live K / V rows; with ``timed`` (bf16) also the kernel's
+    events and profiler time, the plain version's and the library call's
+    (gather the view, expand KV heads, one fused attention)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import smem_bytes, split_plan
 
-    B, K, G, hd, bs, M = 8, 8, 4, 128, 16, 64
-    N = 1 + B * M                                        # block 0 = null
-    lengths_l = [0, 15, 16, 200, 511, 777, 1000, 1023]   # 0, block edges, ~1023
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    dev = torch.device("cuda")
-    perm = torch.randperm(B * M, generator=gen, device=dev).to(torch.int32)
-    tables = (1 + perm).reshape(B, M).contiguous()
-    base = {n: torch.randn(shape, generator=gen, device=dev)
-            for n, shape in (("q", (B, K, G, hd)), ("k", (N, bs, K, hd)),
-                             ("v", (N, bs, K, hd)))}
+    b, K, G, hd = q.shape
+    bs, M = kp.shape[1], tab.shape[1]
+    dtype, elem = q.dtype, q.element_size()
+    tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+    splits, P = split_plan(b, K, M, bs, hd, elem, G)
 
     def library(q, kp, vp, tables, lengths, window):
-        # yardstick: gather the view, expand KV heads, one fused attention
-        b = q.shape[0]
         kv = [ref.gather_view(p, tables).permute(0, 2, 1, 3)
               .repeat_interleave(G, dim=1) for p in (kp, vp)]
         S = kv[0].shape[2]
-        pos = torch.arange(S, device=dev)[None, :]
+        pos = torch.arange(S, device=q.device)[None, :]
         cl = (lengths + 1)[:, None]
         mask = pos < cl
         if window > 0:
@@ -391,77 +421,99 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
             attn_mask=mask[:, None, None, :])
         return out.reshape(b, K, G, hd)
 
-    # (label, slots, lengths, windows): the first is the path's case
-    cases = [("path", B, lengths_l, (0, 18, path_window)),
-             ("one_slot_1023", 1, [1023], (path_window,)),
-             ("all_1023", B, [1023] * B, (path_window,))]
-    tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
-    results = {}
-    for label, b, lens, windows in cases:
+    got = ops.paged_decode_attention(q, kp, vp, tab, lengths, window=window)
+    want = ref.paged_decode_plain(q, kp, vp, tab, lengths, window=window)
+    want_split = ref.paged_decode_split_plain(q, kp, vp, tab, lengths,
+                                              window=window,
+                                              blocks_per_split=P)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    err_split = (got.float() - want_split.float()).abs()
+    atol, rtol = tol[dtype]
+    ok = bool((err <= atol + rtol * want.float().abs()).all()
+              and (err_split <= atol + rtol * want_split.float().abs()).all()
+              and torch.isfinite(got.float()).all())
+    cl = np.asarray(lens) + 1
+    live = (np.minimum(cl, window) if window > 0 else cl).sum()
+    m_lo = np.where((window > 0) & (cl > window), (cl - window) // bs, 0)
+    m_hi = np.minimum(-(-cl // bs) - 1, M - 1)
+    live_ctas = K * int(sum(hi // P - lo // P + 1
+                            for lo, hi in zip(m_lo, m_hi)))
+    nbytes = (live * K * hd * 2 * elem      # live K and V rows
+              + 2 * q.numel() * elem        # q in, out
+              + lengths.numel() * 4
+              + sum(-(-int(c) // bs) for c in cl) * 4)
+    flops = live * K * G * hd * 4           # QK^T and PV
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    row = {"max_abs_err": float(err.max()),
+           "max_abs_err_split": float(err_split.max()), "ok": ok,
+           "bound_ms": bound_ms,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / FP32_FLOPS else "operations"),
+           "splits": splits, "blocks_per_split": P,
+           "ctas": splits * K * b, "live_ctas": live_ctas,
+           "smem_bytes": smem_bytes(P, bs, hd, G, elem)}
+    if timed:
+        args = (q, kp, vp, tab, lengths)
+        row["ms"] = time_ms(lambda: ops.paged_decode_attention(
+            *args, window=window), flush)
+        row["plain_ms"] = time_ms(lambda: ref.paged_decode_plain(
+            *args, window=window), flush)
+        row["library_ms"] = time_ms(lambda: library(*args, window), flush)
+        row["profiler_ms"] = device_ms(lambda: ops.paged_decode_attention(
+            *args, window=window), flush)
+    return row
+
+
+def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
+    """The phase's shape (B 8, K 8, G 4, hd 128, bs 16, M 64 from max_len
+    1024) at lengths 0..1023 in fp32 and bf16 under three windows, then two
+    more bf16-timed cases: one slot alone at length 1023 (B = 1) and all 8
+    slots at 1023. Then the paper's other MoE models' decode shapes
+    (``PAGED_MODEL_CASES``: G 1 at hd 128 and 64, G 7) at the same lengths
+    with no window, fp32 and bf16 (bf16 timed). Prints each case's split
+    plan, and the profiler's device time of the kernel pair for the path
+    row (bf16, ``path_window``)."""
+    B, K, G, hd, bs, M = 8, 8, 4, 128, 16, 64
+    N = 1 + B * M                                        # block 0 = null
+    lengths_l = [0, 15, 16, 200, 511, 777, 1000, 1023]   # 0, block edges, ~1023
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    perm = torch.randperm(B * M, generator=gen, device=dev).to(torch.int32)
+    tables = (1 + perm).reshape(B, M).contiguous()
+    shapes = {"": (K, G, hd)}
+    shapes.update(PAGED_MODEL_CASES)
+    # (label, shape key, slots, lengths, windows): the first is the path's case
+    cases = [("path", "", B, lengths_l, (0, 18, path_window)),
+             ("one_slot_1023", "", 1, [1023], (path_window,)),
+             ("all_1023", "", B, [1023] * B, (path_window,))]
+    cases += [(label, label, B, lengths_l, (0,)) for label in PAGED_MODEL_CASES]
+    results, bases = {}, {}
+    for label, key, b, lens, windows in cases:
+        k_, g_, hd_ = shapes[key]
+        if key not in bases:
+            bases = {key: {n: torch.randn(shape, generator=gen, device=dev)
+                           for n, shape in (("q", (B, k_, g_, hd_)),
+                                            ("k", (N, bs, k_, hd_)),
+                                            ("v", (N, bs, k_, hd_)))}}
+        base = bases[key]
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         tab = tables[:b].contiguous()
         for dtype in (torch.float32, torch.bfloat16):
             q = base["q"][:b].to(dtype).contiguous()
             kp, vp = (base[n].to(dtype) for n in ("k", "v"))
-            elem = q.element_size()
-            splits, P = split_plan(b, K, M, bs, hd, elem, G)
             for window in windows:
-                got = ops.paged_decode_attention(q, kp, vp, tab, lengths,
-                                                 window=window)
-                want = ref.paged_decode_plain(q, kp, vp, tab, lengths,
-                                              window=window)
-                # the kernel's own two passes in plain PyTorch, same plan
-                want_split = ref.paged_decode_split_plain(
-                    q, kp, vp, tab, lengths, window=window,
-                    blocks_per_split=P)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                err_split = (got.float() - want_split.float()).abs()
-                atol, rtol = tol[dtype]
-                ok = bool((err <= atol + rtol * want.float().abs()).all()
-                          and (err_split <= atol + rtol
-                               * want_split.float().abs()).all())
-                if not torch.isfinite(got.float()).all():
-                    ok = False
-                cl = np.asarray(lens) + 1
-                live = (np.minimum(cl, window) if window > 0 else cl).sum()
-                m_lo = np.where((window > 0) & (cl > window),
-                                (cl - window) // bs, 0)
-                m_hi = np.minimum(-(-cl // bs) - 1, M - 1)
-                live_ctas = K * int(sum(hi // P - lo // P + 1
-                                        for lo, hi in zip(m_lo, m_hi)))
-                nbytes = (live * K * hd * 2 * elem      # live K and V rows
-                          + 2 * q.numel() * elem        # q in, out
-                          + lengths.numel() * 4
-                          + sum(-(-int(c) // bs) for c in cl) * 4)
-                flops = live * K * G * hd * 4           # QK^T and PV
-                bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                               flops / FP32_FLOPS) * 1e3
-                row = {"max_abs_err": float(err.max()),
-                       "max_abs_err_split": float(err_split.max()), "ok": ok,
-                       "bound_ms": bound_ms,
-                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                    >= flops / FP32_FLOPS else "operations"),
-                       "splits": splits, "blocks_per_split": P,
-                       "ctas": splits * K * b, "live_ctas": live_ctas,
-                       "smem_bytes": smem_bytes(P, bs, hd, G, elem)}
-                if dtype == torch.bfloat16 and window == path_window:
-                    args = (q, kp, vp, tab, lengths)
-                    row["ms"] = time_ms(lambda: ops.paged_decode_attention(
-                        *args, window=window), flush)
-                    row["plain_ms"] = time_ms(lambda: ref.paged_decode_plain(
-                        *args, window=window), flush)
-                    row["library_ms"] = time_ms(
-                        lambda: library(*args, window), flush)
-                    row["profiler_ms"] = device_ms(
-                        lambda: ops.paged_decode_attention(
-                            *args, window=window), flush)
+                timed = dtype == torch.bfloat16 and (
+                    window == path_window or key != "")
+                row = _paged_case(q, kp, vp, tab, lengths, lens, window,
+                                  flush, timed)
                 results[(label, str(dtype).split(".")[-1], window)] = row
                 log("kernels", kernel="paged_decode_attention", case=label,
                     dtype=str(dtype).split(".")[-1], window=window,
-                    shape=f"B{b}xK{K}xG{G}xhd{hd}xbs{bs}xM{M}",
+                    shape=f"B{b}xK{k_}xG{g_}xhd{hd_}xbs{bs}xM{M}",
                     **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                        for k, v in row.items()})
+    del bases, base
     bad = [k for k, r in results.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"paged_decode_attention disagrees with its plain "
@@ -643,10 +695,17 @@ def store_slot_rows(num_experts: int):
 
 
 MOE_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the paper's other MoE models' expert shapes, at the main path's decode and
+# prefill row blocks under their own Zipf plan (4 ranks, 1 replica slot):
+# llama-moe-3.5b d 4096, F 688 (not whole 64- or 128-column tiles), swiglu,
+# 16 experts in 20 slots; switch-base-128 d 768, F 3072, relu, 128 experts
+# in 132 slots
+MOE_GEMM_MODELS = {"llama_moe": "llama-moe-3.5b", "switch": "switch-base-128"}
 KERNEL_ROWS = {}                   # the kernels line's rows, by kernel name
 
 
-def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor):
+def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor,
+                  activation: str = "swiglu"):
     """One ``moe_gemm`` case held against its plain version: x (S, T, d),
     ``counts`` (S, B) live rows per block, ``slot_map`` (S,) weight rows
     of ``cw`` ({"w_gate", "w_up", "w_down"}). In bf16 also its time, device
@@ -655,13 +714,17 @@ def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor):
     read and written once, 3 products of 2 d F operations per live row).
     fp32 is the same arithmetic summed over up to 14336 terms in another
     order; in bf16 h is rounded to bf16, so a last-bit difference of its
-    fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2)."""
+    fp32 sum moves a product by one bf16 ulp (test_kernels.py's 3e-2).
+    ``activation``: swiglu, or relu / gelu (two matrices a live expert;
+    ``w_gate`` is passed as the dispatch passes it, and never read)."""
     from repro_torch.kernels import ops, ref
 
     S, T, d = x.shape
     F = cw["w_up"].shape[-1]
     dtype = x.dtype
-    args = (x, cw["w_gate"], cw["w_up"], cw["w_down"], slot_map)
+    gated = activation == "swiglu"
+    args = (x, cw.get("w_gate"), cw["w_up"], cw["w_down"], slot_map,
+            activation)
     got = ops.moe_gemm(*args, row_counts=counts)
     torch.cuda.synchronize()
     want = ref.moe_gemm_plain(*args, row_counts=counts)
@@ -674,10 +737,10 @@ def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor):
     n_live = int(live.sum())
     live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
     named = len(set(slot_map.tolist()))
-    matrix = 3 * d * F * elem
+    matrix = (3 if gated else 2) * d * F * elem
     nbytes = live_experts * matrix + 2 * n_live * d * elem \
         + counts.numel() * 4 + S * 4
-    flops = 6.0 * n_live * d * F
+    flops = (6.0 if gated else 4.0) * n_live * d * F
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
     row = {"max_abs_err": float(err.max()), "ok": ok,
@@ -688,10 +751,15 @@ def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor):
     del got, want, err
     if dtype == torch.bfloat16:
         def library():
-            wg, wu, wd = (cw[n][slot_map.long()] for n in
-                          ("w_gate", "w_up", "w_down"))
-            return torch.bmm(torch.nn.functional.silu(
-                torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+            sm = slot_map.long()
+            u = torch.bmm(x, cw["w_up"][sm])
+            if gated:
+                h = torch.nn.functional.silu(torch.bmm(x, cw["w_gate"][sm])) * u
+            elif activation == "relu":
+                h = torch.relu(u)
+            else:
+                h = torch.nn.functional.gelu(u, approximate="tanh")
+            return torch.bmm(h, cw["w_down"][sm])
         row["ms"] = time_ms(lambda: ops.moe_gemm(*args, row_counts=counts),
                             flush)
         row["profiler_ms"] = device_ms(
@@ -715,7 +783,8 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
     slot map names 8 distinct experts in 12 slots: the plan puts every
     rank's replica slot on the hottest expert, which 4 slots then share.
     The Token-to-Expert correction round's shape (``prefill_correction``)
-    is held in the t2e phase, on a real round's rows and counts."""
+    is held in the t2e phase, on a real round's rows and counts. Then, in
+    bf16, the decode and prefill blocks at ``MOE_GEMM_MODELS``' widths."""
     E, d, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     se_np = ep_slot_experts(E)
     S = len(se_np)
@@ -755,15 +824,55 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
             _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}", row)
         del w, cases, store_w
         torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_config
+    for label, arch in MOE_GEMM_MODELS.items():
+        mc = get_config(arch)
+        E, d, F = mc.moe.num_experts, mc.d_model, mc.moe.d_ff_expert
+        sm = torch.tensor(ep_slot_experts(E), device="cuda")
+        S = len(sm)
+        w = {n: (torch.randn(shape, generator=gen, device="cuda")
+                 * scale).to(torch.bfloat16)
+             for n, shape, scale in (("w_gate", (E, d, F), d ** -0.5),
+                                     ("w_up", (E, d, F), d ** -0.5),
+                                     ("w_down", (E, F, d), F ** -0.5))}
+        for case, (T, B) in blocks.items():
+            x = torch.randn((S, T, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            counts = torch.full((S, B), T // B, dtype=torch.int32,
+                                device="cuda")
+            row = moe_gemm_case(x, counts, sm, w, flush, mc.activation)
+            key = f"bfloat16/{label}_{case}"
+            rows[key] = row
+            _log_row("moe_gemm", key, f"S{S}xT{T}xd{d}xF{F}/{mc.activation}",
+                     row)
+            del x
+        del w
+        torch.cuda.empty_cache()
     MEASURED["moe_gemm_rows"] = rows
     return _kernel_row("moe_gemm", "src/repro_torch/kernels/csrc/moe_gemm.cu",
                        "src/repro/kernels/moe_gemm.py:60", rows,
                        "bfloat16/decode")
 
 
+# the paper's other MoE models' routers: E 16 with K 4, E 128 with K 1 and
+# with K 2, at the main path's decode and prefill row counts
+ROUTER_MODELS = {"llama_moe": "llama-moe-3.5b", "switch": "switch-base-128",
+                 "arctic": "arctic-480b"}
 ROUTER_SWEEP = dict(T=(1, 8, 63, 64, 65, 128, 512, 4096), R=(1, 4),
-                    E=(8, 16, 17, 256), K=range(1, 9))
-HIST_SWEEP = dict(C=(4, 13, 32, 33), N=(0, 16, 256, 40000), R=(1, 4, 33))
+                    E=(8, 16, 17, 128, 256), K=range(1, 9))
+HIST_SWEEP = dict(C=(4, 13, 32, 33, 128, 133), N=(0, 16, 256, 40000),
+                  R=(1, 4, 33))
+# the packer's shapes for the paper's other MoE models (4 ranks, one replica
+# slot a rank): (ranks, pairs a rank, classes). Decode packs a rank's
+# slots plus the overflow class (8 tokens x K pairs), prefill every slot
+# plus overflow (128 tokens a rank x K); C 128 the router's count width
+HIST_MODEL_CASES = {"llama_moe_decode": (EP_RANKS, 8 * 4, 4 + 1 + 1),
+                    "llama_moe_prefill": (EP_RANKS, 128 * 4, 4 * 5 + 1),
+                    "switch_decode": (EP_RANKS, 8, 32 + 1 + 1),
+                    "switch_prefill": (EP_RANKS, 128, 4 * 33 + 1),
+                    "arctic_decode": (EP_RANKS, 8 * 2, 32 + 1 + 1),
+                    "arctic_prefill": (EP_RANKS, 128 * 2, 4 * 33 + 1),
+                    "c128": (EP_RANKS, 256, 128)}
 TIE_ROWS = 3                       # rows of equal logits at each rank's start
 # the flush before each pair timing: 1 GiB keeps the device busy for about
 # 0.35 ms, long enough for the host to queue the predecessor and the kernel
@@ -814,19 +923,27 @@ def router_phase(flush: torch.Tensor, seed: int, cfg):
     (``pair_ms`` by events around both, ``after_ms`` from the profiler;
     ``PAIR_LEAD_BYTES`` flushed first), where a programmatic dependent
     launch can overlap the two, and by the wrapper's host time
-    (``host_ms``). Then, untimed, every T of 1, 8, 63, 64, 65, 128, 512 and
+    (``host_ms``); the decode and prefill cases also at ``ROUTER_MODELS``'
+    widths (E 16 / K 4, E 128 / K 1, E 128 / K 2). Then, untimed, every T of 1, 8, 63, 64, 65, 128, 512 and
     4096 with R of 1 and 4, E of 8, 16, 17 and 256 and K of 1..8: packed
     rows (E <= 16) and one warp per row (E > 16), one CTA or a cluster of
     3 to 8 CTAs per rank, warps that loop over rows. Every case is held to
     ``_route_check``; near-tie rows are counted and printed."""
     from repro_torch.kernels import ops, ref
 
-    E, K, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    from repro_torch.configs.registry import get_config
+
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     lead = torch.empty(PAIR_LEAD_BYTES, dtype=torch.uint8, device="cuda")
     rows = {}
-    for case, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128),
-                         "long": (1, 4096)}.items():
+    shapes = {"decode": (1, 8), "prefill": (EP_RANKS, 128),
+              "long": (1, 4096)}
+    cases = [(c, R, T, cfg) for c, (R, T) in shapes.items()]
+    cases += [(f"{label}_{c}", R, T, get_config(arch))
+              for label, arch in ROUTER_MODELS.items()
+              for c, (R, T) in shapes.items() if c != "long"]
+    for case, R, T, mc in cases:
+        E, K, d = mc.moe.num_experts, mc.moe.top_k, mc.d_model
         logits = _route_logits(gen, R, T, E)
         row = _route_check(logits, K)
         nbytes = 4 * (2 * R * T * E + 2 * R * T * K + R * T + R * E)
@@ -900,10 +1017,13 @@ def histogram_phase(flush: torch.Tensor, seed: int):
     1), each also after the stable argsort that precedes it in
     ``moe/dispatch.py::_pack_sort`` (``pair_ms`` by events, ``after_ms``
     from the profiler; ``PAIR_LEAD_BYTES`` flushed first) and by the
-    wrapper's host time (``host_ms``); and the most classes the kernel
-    takes, where its shared memory is full. Then, untimed, C of 4, 13, 32 (the warp-per-row kernel's last) and 33
-    (the CTA-per-row kernel's first), N of 0, 16, 256 and 40000 and R of 1,
-    4 and 33 (two CTAs of warps), ids from -2 to C + 2. Exact."""
+    wrapper's host time (``host_ms``); the most classes the kernel
+    takes, where its shared memory is full; and the packer's shapes for
+    the paper's other MoE models (``HIST_MODEL_CASES``: 6 and 21 classes
+    on the warp path, 34, 128 and 133 on the CTA-per-row path). Then,
+    untimed, C of 4, 13, 32 (the warp-per-row kernel's last), 33 (the
+    CTA-per-row kernel's first), 128 and 133, N of 0, 16, 256 and 40000 and
+    R of 1, 4 and 33 (two CTAs of warps), ids from -2 to C + 2. Exact."""
     from repro_torch.kernels import histogram, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
@@ -912,7 +1032,8 @@ def histogram_phase(flush: torch.Tensor, seed: int):
     for case, (R, N, C) in {"decode": (EP_RANKS, 16, 4),
                             "prefill": (EP_RANKS, 256, 13),
                             "max_classes": (1, 40000,
-                                            histogram.MAX_CLASSES)}.items():
+                                            histogram.MAX_CLASSES),
+                            **HIST_MODEL_CASES}.items():
         ids = torch.randint(0, C, (R, N), generator=gen, device="cuda",
                             dtype=torch.int32)
         row = _hist_check(ids, C)
@@ -1020,7 +1141,11 @@ ROUTE_BWD_GRADS = ((True, True, True), (True, False, False),
                    (True, False, True), (False, True, True),
                    (True, True, False))
 ROUTE_BWD_SWEEP = dict(T=(1, 8, 63, 64, 65, 2048), R=(1, 4),
-                       E=(1, 2, 5, 8, 16, 17, 32), K=(1, 2, 8))
+                       E=(1, 2, 5, 8, 16, 17, 32, 64, 128, 256), K=(1, 2, 8))
+# the train step's router at the paper's other MoE models' widths: (1 x 2048
+# rows, E, K) of llama-moe-3.5b, switch-base-128 and arctic-480b
+ROUTE_BWD_MODELS = {"llama_moe_train": (16, 4), "switch_train": (128, 1),
+                    "arctic_train": (128, 2)}
 ROUTE_BWD_TOL = 1e-6
 TRAIN_CASES = {}                   # the train phase's captured kernel inputs
 
@@ -1078,8 +1203,11 @@ def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
     rank exact ties; timed by CUDA events (L2 flushed), the profiler, the
     plain version and the autograd chain (``library_ms``). Then, untimed,
     every T, R, E and K of ``ROUTE_BWD_SWEEP`` with each subset of the
-    gradients (``ROUTE_BWD_GRADS``). The train phase adds the case of a
-    real train step's layer-0 inputs."""
+    gradients (``ROUTE_BWD_GRADS``), E up to 256 (one warp a row, PER
+    experts a lane past 32). The train step's shape is timed at the other
+    models' widths too (``ROUTE_BWD_MODELS``: E 16 / K 4, E 128 / K 1 and
+    K 2). The train phase adds the case of a real train step's layer-0
+    inputs."""
     from repro_torch.kernels import ops
 
     E, K = cfg.moe.num_experts, cfg.moe.top_k
@@ -1092,8 +1220,12 @@ def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
                  for s, u in zip(((R, T, k), (R, T, e), (R, T)), use)]
         return logits, probs, idx, grads
     rows = {}
-    for name, (R, T) in {"decode": (1, 8), "prefill": (EP_RANKS, 128),
-                         "train": (1, 2048)}.items():
+    named = {name: (R, T, E, K) for name, (R, T) in {
+        "decode": (1, 8), "prefill": (EP_RANKS, 128),
+        "train": (1, 2048)}.items()}
+    named.update({name: (1, 2048, e, k)
+                  for name, (e, k) in ROUTE_BWD_MODELS.items()})
+    for name, (R, T, E, K) in named.items():
         logits, probs, idx, grads = case(R, T, E, K, (True,) * 3)
         row = _route_bwd_check(probs, idx, grads)
         row["bound_ms"], row["bound_by"] = _route_bwd_bound(R, T, E, K)
@@ -1129,6 +1261,12 @@ def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
 MOE_BWD_ULPS, MOE_BWD_F32_REL = 2, 1e-4
 MOE_BWD_KERNELS = ("moe_bwd_",)          # its five launches' kernel names
 MOE_BWD_REDUCED = dict(d=1024, F=2048)   # the gelu / relu / fp32 cases
+# the EP train step's layer at the paper's other MoE models' widths (4 x 512
+# tokens over 4 ranks, identity plan): llama-moe-3.5b swiglu at F 688 (16
+# slots x 4 x 160 rows, K 4), switch-base-128 relu at d 768 / F 3072 (128
+# slots x 4 x 8 rows, K 1)
+MOE_BWD_MODELS = {"llama_moe_train": "llama-moe-3.5b",
+                  "switch_train": "switch-base-128"}
 
 
 def ep_train_layer(cfg, gen, dup_slots: int):
@@ -1259,8 +1397,10 @@ def moe_gemm_bwd_phase(flush: torch.Tensor, seed: int, cfg):
     4 x 160 rows with the packer's counts, d 4096, F 14336, bf16 swiglu),
     the serving layout (``dup``: 12 slots naming 8 experts, 4 x 112 rows),
     the train layout with garbage in every dead row of x and dy (``dead``),
-    gelu and relu at ``MOE_BWD_REDUCED`` widths, and fp32 swiglu there too;
-    every case held against the plain version and timed. The train phase
+    gelu and relu at ``MOE_BWD_REDUCED`` widths, and fp32 swiglu there too,
+    then the train layer at ``MOE_BWD_MODELS``' widths (swiglu at F 688,
+    relu at d 768 / F 3072); every case held against the plain version
+    and timed. The train phase
     adds the case of a real EP train step's layer-0 inputs."""
     from repro_torch.kernels import ref
 
@@ -1301,6 +1441,15 @@ def moe_gemm_bwd_phase(flush: torch.Tensor, seed: int, cfg):
             run(f"{str(dtype).split('.')[-1]}/{act}", xr, counts, sm, w, act)
         del w, xr
     torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_config
+    for label, arch in MOE_BWD_MODELS.items():
+        mc = get_config(arch)
+        w = _moe_bwd_weights(gen, mc.moe.num_experts, mc.d_model,
+                             mc.moe.d_ff_expert, torch.bfloat16)
+        x, counts_m, sm_m = ep_train_layer(mc, gen, 0)
+        run(f"bfloat16/{label}", x, counts_m, sm_m, w, mc.activation)
+        del w, x
+        torch.cuda.empty_cache()
     row = _kernel_row("moe_gemm_bwd",
                       "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
                       "src/repro/kernels/moe_gemm.py:60", rows,
@@ -1418,9 +1567,13 @@ def count_quota_forwards(eng):
     return counts
 
 
+MAIN_TRACE = dict(requests=16, prompt=(64, 501), new_tokens=64, gap=0.02)
+
+
 def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
                 phase: str = "main", predictor=None, on_start=None,
-                lever: str = "duplicate", resched_impl: str = "greedy"):
+                lever: str = "duplicate", resched_impl: str = "greedy",
+                ccfg=None, trace=None, strategy=None, capture=None):
     """Serve the main trace (16 requests of 64..500 prompt tokens, 64 new
     tokens each, 20 ms apart) with every kernel count set to 0 just
     before and read just after, at the engine's defaults (under EP: the
@@ -1429,14 +1582,20 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
     EP prefill layer then runs two dispatch rounds); under ``lever``
     "reschedule" or "both", with ``resched_impl``'s quotas (each EP layer
     then runs a rescue round). ``on_start``: called just before the trace
-    starts. Returns (engine, launches)."""
+    starts. ``ccfg`` / ``trace``: the engine's config and the trace's
+    shape in place of ``MAIN_CCFG`` / ``MAIN_TRACE``; ``strategy``: in
+    place of dist_only (under "none" nothing re-plans, so no replica is
+    required); ``capture``: a ``_PrefillCapture`` armed for the run.
+    Returns (engine, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
                                    ServeRequest)
 
-    strategy = "token_to_expert" if predictor is not None else "dist_only"
+    strategy = strategy or ("token_to_expert" if predictor is not None
+                            else "dist_only")
+    trace = trace or MAIN_TRACE
     eng = ContinuousEngine(cfg, model, ContinuousConfig(
-        **dict(MAIN_CCFG, strategy=strategy, lever=lever,
+        **dict(ccfg or MAIN_CCFG, strategy=strategy, lever=lever,
                resched_impl=resched_impl)), ep_ranks=EP_RANKS, ep=ep,
         predictor=predictor)
     quota_forwards = count_quota_forwards(eng)
@@ -1458,19 +1617,24 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
     rng = np.random.default_rng(seed)
     reqs = [ServeRequest(rid=i,
                          tokens=rng.integers(0, cfg.vocab_size,
-                                             int(rng.integers(64, 501))
+                                             int(rng.integers(*trace["prompt"]))
                                              ).astype(np.int32),
-                         max_new_tokens=64, arrival=0.02 * i)
-            for i in range(16)]
+                         max_new_tokens=trace["new_tokens"],
+                         arrival=trace["gap"] * i)
+            for i in range(trace["requests"])]
     torch.cuda.reset_peak_memory_stats()
     if on_start is not None:
         on_start()
     quota_forwards.update(prefill=0, decode=0)
     ops.reset_launches()
+    if capture is not None:
+        capture.armed = True
     t0 = time.perf_counter()
     eng.run_trace(reqs)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    if capture is not None:
+        capture.armed = False
 
     done = eng.scheduler.completed
     s = eng.metrics.summary()
@@ -1539,8 +1703,9 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
         failures.append(f"forwards with a quota {quota_forwards} != "
                         f"{prefills} prefills, {eng.decode_steps} decodes")
     # "reschedule" freezes the warmup's identity plan: only the
-    # prefetcher's pre-begun fills, if the gate lets one through, move it
-    duplicating = lever != "reschedule"
+    # prefetcher's pre-begun fills, if the gate lets one through, move it;
+    # "none" never re-plans
+    duplicating = lever != "reschedule" and strategy != "none"
     if s["replicated_replans"] < 1 and duplicating:
         failures.append("no re-plan replicated an expert")
     if ep:
@@ -2455,9 +2620,10 @@ def round_case(label: str, captured) -> None:
     ``prefill_rescue`` or ``decode_rescue`` case. A round with no live row
     checks no arithmetic, only the launch and its cost: the log says so
     (``arithmetic_checked``)."""
-    x, counts, slot_rows, experts = captured
+    x, counts, slot_rows, experts, *act = captured
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    row = moe_gemm_case(x, counts, slot_rows, experts, flush)
+    row = moe_gemm_case(x, counts, slot_rows, experts, flush,
+                        act[0] if act else "swiglu")
     S, T, d = x.shape
     row["live_rows_per_block"] = ",".join(
         str(c) for c in counts.flatten().tolist())
@@ -2496,7 +2662,8 @@ class _PrefillCapture:
         if name == "moe_gemm":
             x, w_gate, w_up, w_down, slot_rows = a[:5]
             return (x.clone(), kw["row_counts"].clone(), slot_rows.clone(),
-                    {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+                    {"w_gate": w_gate, "w_up": w_up, "w_down": w_down},
+                    a[5] if len(a) > 5 else kw.get("activation", "swiglu"))
         return (a[0].clone(), a[1])          # (logits, K) / (ids, C)
 
     def _wrap(self, name):
@@ -2518,33 +2685,40 @@ class _PrefillCapture:
             setattr(self.ops, k, fn)
 
 
-def prefill_cases(label: str, cap: _PrefillCapture) -> None:
+def prefill_cases(label: str, cap: _PrefillCapture, prefix: str = "serve_ep",
+                  max_slots: int = 0) -> None:
     """The three kernels on one real EP prefill's inputs
     (``_PrefillCapture``) against their plain versions, at the kernel
     phases' tolerances: ``_route_check`` (no planted tie rows),
     ``_hist_check`` and ``moe_gemm_case`` (``round_case``). Logs each row
-    as the kernels line's ``serve_ep_<label>`` case; a mismatch fails the
-    phase."""
+    as the kernels line's ``<prefix>_<label>`` case; a mismatch fails the
+    phase. ``max_slots``: hold ``moe_gemm`` on the first that many slots
+    only (the plain version gathers every slot's weights: at arctic's
+    widths 70 MB a matrix)."""
+    case = f"{prefix}_{label}"
     missing = [k for k in cap.KERNELS if k not in cap.inputs]
     if missing:
-        raise SystemExit(f"serve_ep ({label}): the prefill ran no {missing}")
+        raise SystemExit(f"{prefix} ({label}): the prefill ran no {missing}")
     logits, K = cap.inputs["fused_topk_route"]
     R, T, E = logits.shape
     row = _route_check(logits, K, tie_rows=0)
-    _log_row("fused_topk_route", f"serve_ep_{label}", f"R{R}xT{T}xE{E}xK{K}",
-             row)
+    _log_row("fused_topk_route", case, f"R{R}xT{T}xE{E}xK{K}", row)
     ids, C = cap.inputs["histogram_offsets"]
     hrow = _hist_check(ids, C)
-    _log_row("histogram_offsets", f"serve_ep_{label}",
+    _log_row("histogram_offsets", case,
              f"R{ids.shape[0]}xN{ids.shape[1]}xC{C}", hrow)
     for name, r in (("fused_topk_route", row), ("histogram_offsets", hrow)):
         if not r["ok"]:
             raise SystemExit(f"{name} disagrees with its plain version at "
-                             f"serve_ep_{label}")
+                             f"{case}")
         if name in KERNEL_ROWS:
             k = KERNEL_ROWS[name]
             k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
-    round_case(f"serve_ep_{label}", cap.inputs["moe_gemm"])
+    x, counts, slot_rows, experts, act = cap.inputs["moe_gemm"]
+    if max_slots:
+        x, counts, slot_rows = (t[:max_slots].contiguous()
+                                for t in (x, counts, slot_rows))
+    round_case(case, (x, counts, slot_rows, experts, act))
     cap.inputs.clear()
 
 
@@ -4638,11 +4812,257 @@ def train_phase(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase models: the paper's other MoE models at published widths
+# ---------------------------------------------------------------------------
+
+MODEL_LAYERS = {"llama-moe-3.5b": 32, "switch-base-128": 12, "arctic-480b": 2}
+MODEL_CUTS = {
+    "llama-moe-3.5b": "none: all 32 layers (6.74e9 parameters, 13.5 GB bf16)",
+    "switch-base-128": "none: all 12 layers (10.95e9 parameters held, the "
+                       "experts' unread w_gate among them, 21.9 GB bf16)",
+    "arctic-480b": "num_layers 35->2: 13.61e9 parameters a layer (27.2 GB "
+                   "bf16); 2 layers with the embedding and the head 55.4 GB, "
+                   "the store's 8 replica rows a layer 1.7 GB more, and "
+                   "building a store holds one more weight's 136 rows (9.5 "
+                   "GB) at a time; 3 layers would need 83 GB before the "
+                   "store, more than the card's 80 GB"}
+MODELS_CCFG = dict(max_slots=8, prefill_len=128, block_size=16, max_len=192,
+                   strategy="dist_only", predict_interval=2,
+                   dup_slots=DUP_SLOTS)
+MODELS_TRACE = dict(requests=8, prompt=(32, 129), new_tokens=16, gap=0.02)
+# the moe_gemm case of a real EP prefill's layer 0: arctic's plain version
+# gathers 70 MB a matrix per slot, so it holds the first 8 slots only
+MODELS_CASE_SLOTS = {"arctic-480b": 8}
+MODELS_TRAIN = ("llama-moe-3.5b", "switch-base-128")
+SERVING_KERNELS = ("paged_decode_attention", "fused_topk_route",
+                   "histogram_offsets", "moe_gemm")
+
+
+def _model_cfg(arch: str, layers: int):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def models_serve(arch: str, seed: int, smi: str) -> dict:
+    """One of the paper's other MoE models at published widths, cut to
+    ``MODEL_LAYERS`` layers (``MODEL_CUTS`` says why), random weights from
+    ``seed``, through ``ContinuousEngine`` on ``MODELS_CCFG`` and a trace of
+    ``MODELS_TRACE``: the dense path, then the EP path (4 ranks, one replica
+    slot a rank, the replica store at the engine's defaults) under
+    dist_only and under none. ``serve_trace`` checks completions, tokens
+    and exact launches; per run a line with the card, step p50, decode
+    tokens/s, peak memory, imbalance, drops and the four serving kernels'
+    launches. The dist_only run's first prefill's layer-0 kernel inputs are
+    held against the plain versions (the kernels line's ``models_<arch>``
+    cases). Returns the launches of every run."""
+    from repro_torch.models.transformer import init_model
+
+    cfg = _model_cfg(arch, MODEL_LAYERS[arch])
+    m = cfg.moe
+    log("models", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, experts=m.num_experts, top_k=m.top_k,
+        d_ff_expert=m.d_ff_expert, activation=cfg.activation,
+        dense_residual=(m.d_ff_dense or cfg.d_ff) if m.dense_residual else 0,
+        vocab=cfg.vocab_size, capacity_factor=m.capacity_factor,
+        ep_ranks=EP_RANKS, dup_slots=DUP_SLOTS,
+        reduced=f"'{MODEL_CUTS[arch]}'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log("models", model=cfg.name, init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    out = {}
+    for leg, ep, strategy in (("dense", False, "dist_only"),
+                              ("ep", True, "dist_only"),
+                              ("ep_none", True, "none")):
+        label = f"{cfg.name}/{leg}"
+        with (_PrefillCapture() if leg == "ep"
+              else contextlib.nullcontext()) as cap:
+            eng, launches = serve_trace(label, model, cfg, seed, ep=ep,
+                                        phase="models", ccfg=MODELS_CCFG,
+                                        trace=MODELS_TRACE,
+                                        strategy=strategy, capture=cap)
+        n = MEASURED[f"serve/{label}"]
+        log("models", run=label, card=f"'{smi}'", strategy=strategy,
+            step_p50_ms=f"{n['step_p50_ms']:.3f}",
+            ttft_p50_ms=f"{n['ttft_p50_ms']:.3f}",
+            decode_toks_per_s=f"{n['decode_toks_per_s']:.2f}",
+            peak_gb=f"{n['peak_gb']:.3f}",
+            measured_imbalance=(f"{n['measured_imbalance']:.4f}" if ep
+                                else "n/a (dense path)"),
+            modelled_imbalance=f"{n['modelled_imbalance']:.4f}",
+            dropped_pairs=n["dropped_pairs"],
+            launches=",".join(f"{k}:{launches.get(k, 0)}"
+                              for k in SERVING_KERNELS),
+            launches_exact=True)
+        out[label] = launches
+        del eng
+        free_engines("models")
+        if cap is not None:
+            prefill_cases(cfg.name, cap, prefix="models",
+                          max_slots=MODELS_CASE_SLOTS.get(arch, 0))
+    del model
+    free_engines("models")
+    return out
+
+
+def models_planner_times(seed: int) -> None:
+    """Algorithm 1 at E 128 (switch-base-128's 12 layers, 4 ranks, one
+    replica slot): the host planner ``duplicate_experts_host`` per layer
+    (host ms) and the in-graph ``duplicate_experts_device`` over every
+    layer at once (CUDA events), on Zipf-skewed histograms. Recorded, not
+    tuned."""
+    from repro_torch.core.duplication import (duplicate_experts_device,
+                                              duplicate_experts_host)
+
+    cfg = _model_cfg("switch-base-128", MODEL_LAYERS["switch-base-128"])
+    E, L = cfg.moe.num_experts, cfg.num_layers
+    rng = np.random.default_rng(seed)
+    hist = np.stack([rng.permutation(1.0 / np.arange(1, E + 1) ** 1.2)
+                     for _ in range(L)]) * 4096
+    t0 = time.perf_counter()
+    for l in range(L):
+        duplicate_experts_host(hist[l] / hist[l].sum(), EP_RANKS, DUP_SLOTS,
+                               cfg.moe.max_copies)
+    host_ms = (time.perf_counter() - t0) * 1e3 / L
+    counts = torch.tensor(hist, dtype=torch.float32, device="cuda")
+
+    def device():
+        return duplicate_experts_device(counts, EP_RANKS, DUP_SLOTS,
+                                        cfg.moe.max_copies)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    log("models", planner="algorithm_1", experts=E, layers=L,
+        ep_ranks=EP_RANKS, dup_slots=DUP_SLOTS,
+        host_ms_per_layer=f"{host_ms:.4f}",
+        device_ms_all_layers=f"{time_ms(device, flush, runs=10):.4f}")
+    del flush
+
+
+def models_train(arch: str, seed: int, ep: bool, smi: str) -> dict:
+    """``make_train_step`` on the model at published widths cut to
+    ``TRAIN_LAYERS`` layers (fp32 parameters, gradients and two moments),
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf tokens at
+    the launcher's schedule (as the Mixtral runs), on the single-device MoE
+    path or (``ep``) through the EP dispatch over 4 ranks under the
+    identity plan with no replica slot (what ``launch.train --data-mesh 1
+    --model-mesh 4`` runs). Per step loss, grad norm, drops (EP) and step
+    ms; then step p50 (steps 1 on), tokens/s, peak memory and exact
+    launches (one router forward and backward a layer and step, and under
+    EP one ``histogram_offsets``, ``moe_gemm`` and ``moe_gemm_bwd``). The
+    loss must be finite and fall. Returns the launches."""
+    from repro_torch.core.placement import identity_plan, stack_plans, to_device
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = _model_cfg(arch, TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, duplication_slots=0))
+    L, mc = cfg.num_layers, cfg.moe
+    rt = Runtime(ep=True, ep_ranks=EP_RANKS) if ep else Runtime()
+    plan = (to_device(stack_plans([identity_plan(
+        mc.num_experts, EP_RANKS, 0, mc.max_copies)] * L), mc.num_experts,
+        EP_RANKS, 0, "cuda") if ep else None)
+    run = f"{cfg.name}/{'ep' if ep else 'dense'}"
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("models", train=run, layers=L, params=n_params,
+        state_gb=f"{16 * n_params / 1e9:.3f}", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
+        reduced=f"'num_layers {MODEL_LAYERS[arch]}->{L}: fp32 parameters, "
+                f"gradients and two AdamW moments, 16 B a parameter'")
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, TRAIN_LR,
+                                                      TRAIN_STEPS))
+    gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    losses, step_ms, drops = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(TRAIN_STEPS):
+        batch = next(gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt, m = step(model, opt, batch, plan)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        drops.append(int(m["dropped"].sum()) if ep else 0)
+        log("models", train=run, step=i, loss=f"{losses[-1]:.6f}",
+            grad_norm=f"{float(m['grad_norm']):.6g}",
+            lr=f"{float(m['lr']):.6g}", dropped_pairs=drops[-1],
+            skew=f"{_skew(m['expert_counts']):.4f}",
+            step_ms=f"{step_ms[-1]:.3f}")
+    launches = dict(ops.LAUNCHES)
+    kernels = TRAIN_EP_KERNELS if ep else ("fused_topk_route",
+                                           "fused_topk_route_bwd")
+    want = {k: 0 for k in launches}
+    want.update({k: L * TRAIN_STEPS for k in kernels})
+    p50 = float(np.median(step_ms[1:]))
+    pairs = TRAIN_BATCH * TRAIN_SEQ * mc.top_k * L
+    log("models", train=run, card=f"'{smi}'",
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms_p50=f"{p50:.3f}", step_ms_first=f"{step_ms[0]:.3f}",
+        tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        dropped_share=f"{np.mean(drops) / pairs:.4f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        launches_exact=launches == want)
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        failures.append(f"loss {losses[0]} -> {losses[-1]}")
+    del model, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"models (train {run}) failed: " + "; ".join(failures))
+    return launches
+
+
+def models_phase(seed: int, smi: str) -> dict:
+    """Phase models: serving for each of ``MODEL_LAYERS`` (``models_serve``),
+    Algorithm 1's times at E 128, then training for ``MODELS_TRAIN``, dense
+    and EP (``models_train``). Frees what earlier phases hold first.
+    Returns every run's launches, by run."""
+    free_engines("models")
+    t0 = time.perf_counter()
+    out = {}
+    for arch in MODEL_LAYERS:
+        t1 = time.perf_counter()
+        out.update(models_serve(arch, seed, smi))
+        log("models", model=arch, serve_s=f"{time.perf_counter() - t1:.3f}")
+    models_planner_times(seed)
+    for arch in MODELS_TRAIN:
+        for ep in (False, True):
+            t1 = time.perf_counter()
+            out[f"{arch}/train_{'ep' if ep else 'dense'}"] = models_train(
+                arch, seed, ep, smi)
+            log("models", model=arch, train_ep=ep,
+                train_s=f"{time.perf_counter() - t1:.3f}")
+    log("models", train="arctic-480b", card_run="none",
+        reason="'one full-width layer holds 13.61e9 parameters: 16 B each "
+               "of fp32 parameters, gradients and two AdamW moments is 218 "
+               "GB, beyond one 80 GB card; arctic's train step is held "
+               "against the JAX package on the CPU at reduced() "
+               "(tests/test_torch_moe_models_train.py)'")
+    log("models", phase_s=f"{time.perf_counter() - t0:.3f}")
+    return out
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
-                          "griffin", "reference", "train")
+                          "griffin", "reference", "models", "train")
 
 
 def main() -> int:
@@ -4736,6 +5156,8 @@ def main() -> int:
     if "reference" in phases:
         reference_phase(args.seed)
         griffin_reference_phase(args.seed)
+    if "models" in phases:
+        models_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in

@@ -4,7 +4,10 @@
 example ``jax.tree.map(np.asarray, params)``) and builds the port's
 ``Transformer``; ``params_to_jax`` is its inverse, returning the same key
 paths as float32 numpy arrays. Uniform-stack layer leaves are stacked over
-L in the JAX tree (``layers``) and split into ``layers[l]`` here; hybrid
+L in the JAX tree (``layers``) and split into ``layers[l]`` here (the MoE
+block's ``dense`` branch, where a config has one, as ``dense_w_*``; a relu
+or gelu model's experts keep the ``w_gate`` the JAX tree holds and never
+reads); hybrid
 models keep a list of per-layer trees (``hybrid_layers``: ``rec.*`` or
 ``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps its
 ``(d_in, d_out)`` layout.
@@ -52,6 +55,10 @@ LAYER_KEYS = {
     ("moe", "experts", "w_gate"): "w_gate",
     ("moe", "experts", "w_up"): "w_up",
     ("moe", "experts", "w_down"): "w_down",
+    # arctic's dense residual branch (no w_gate under relu / gelu)
+    ("moe", "dense", "w_gate"): "dense_w_gate",
+    ("moe", "dense", "w_up"): "dense_w_up",
+    ("moe", "dense", "w_down"): "dense_w_down",
 }
 _TOP_DTYPES = {"embed": WEIGHT_DTYPE, "final_norm": torch.float32,
                "lm_head": WEIGHT_DTYPE}
@@ -60,6 +67,13 @@ _REC_KEYS = {("rec", n, "w") if n.startswith("w_") else ("rec", n): "rec_" + n
              for n in ("w_gate", "w_main", "conv_w", "conv_b", "w_a", "w_x",
                        "lam", "w_out")}
 _FFN_KEYS = {("ffn", n): n for n in ("w_gate", "w_up", "w_down")}
+
+
+def _stack_keys(cfg: ModelConfig):
+    """JAX key path (under ``layers``) -> port name for a uniform stack's
+    layer: the MoE block's keys that the config has."""
+    names = _layer_shapes(cfg)
+    return {path: name for path, name in LAYER_KEYS.items() if name in names}
 
 
 def _hybrid_keys(cfg: ModelConfig, kind: str):
@@ -102,7 +116,7 @@ def _flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig
             for path, name in _hybrid_keys(cfg, _layer_kind(cfg, l)).items():
                 out[f"layers.{l}.{name}"] = np.asarray(_get(sub, path))
         return out
-    for path, name in LAYER_KEYS.items():
+    for path, name in _stack_keys(cfg).items():
         a = np.asarray(_get(tree["layers"], path))
         if a.shape[:1] != (L,):
             raise ValueError(f"layers.{name}: shape {a.shape}, expected "
@@ -125,7 +139,7 @@ def _jax_from_flat(model: Transformer, leaf) -> Dict[str, Any]:
                 _put(sub, path, leaf(f"layers.{l}.{name}"))
             tree["hybrid_layers"].append(sub)
         return tree
-    for path, name in LAYER_KEYS.items():
+    for path, name in _stack_keys(model.cfg).items():
         _put(tree, ("layers",) + path,
              np.stack([leaf(f"layers.{l}.{name}")
                        for l in range(len(model.layers))]))

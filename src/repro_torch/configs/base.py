@@ -8,7 +8,8 @@ config means the same model in both packages. Configs are plain frozen
 dataclasses.
 
 ``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
-pattern; d_model<=256, <=4 experts) used by the tests; it shrinks exactly
+pattern; d_model<=256, <=4 experts, <=1 shared expert, a dense residual
+branch <=256 wide) used by the tests; it shrinks exactly
 the dimensions the JAX package's ``reduced()`` shrinks. ``num_params()`` /
 ``active_params()`` are the JAX package's analytic counts, and
 ``INPUT_SHAPES`` its four assigned step shapes (the roofline's inputs).
@@ -150,6 +151,9 @@ class ModelConfig:
                 num_experts=min(self.moe.num_experts, 4),
                 top_k=min(self.moe.top_k, 2),
                 d_ff_expert=min(self.moe.d_ff_expert, 256),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_ff_dense=(min(self.moe.d_ff_dense, 256)
+                            if self.moe.d_ff_dense else 0),
             )
         if self.block_pattern:
             changes["num_layers"] = len(self.block_pattern)

@@ -11,6 +11,10 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    # the paper's Appendix C generality models
+    "llama-moe-3.5b": "repro_torch.configs.llama_moe_3_5b",
+    "switch-base-128": "repro_torch.configs.switch_base_128",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -269,11 +269,14 @@ extern "C" int fused_topk_route(const void* logits, void* idx, void* gates,
 // What bounds it on an H100: the bytes, a few dozen per row (probs, d_probs
 // and d_logits of E fp32 each, K indices and gates, one d_lse); on the
 // training path (1, 2048, 8) with K 2 that is ~215 KB, 0.06 us at the memory
-// rate, so the launch bounds it in practice. Design: the forward's packing,
-// a segment of SEG lanes (E rounded up to a power of two, E <= 32) per row,
-// 32 / SEG rows per warp, so a warp's loads of probs, d_probs and its store
-// of d_logits are one contiguous run; the sum over E is a segment shuffle.
-// Warps stride over the rows. Every product, difference and sum rounds once
+// rate, so the launch bounds it in practice. Design: the forward's layout.
+// For E <= 32 a row takes a segment of SEG lanes (E rounded up to a power of
+// two), 32 / SEG rows per warp, so a warp's loads of probs, d_probs and its
+// store of d_logits are one contiguous run; for 32 < E <= 256 a warp takes
+// one row and each lane holds experts lane, lane + 32, ... in PER registers
+// (each of the PER loads and stores one contiguous run of 32 lanes). The
+// sum over E is a lane's own partial sum, then a segment shuffle. Warps
+// stride over the rows. Every product, difference and sum rounds once
 // (__fmul_rn / __fsub_rn / __fadd_rn, no contraction into FMA), in the order
 // of the plain version (kernels/ref.py, fused_topk_route_bwd_plain); only the
 // order of the sum over E differs from it.
@@ -281,9 +284,8 @@ extern "C" int fused_topk_route(const void* logits, void* idx, void* gates,
 namespace {
 
 constexpr int kBwdThreads = 256;
-constexpr int kBwdMaxExperts = 32;
 
-template <int SEG>
+template <int SEG, int PER>
 __global__ void __launch_bounds__(kBwdThreads)
 topk_route_bwd_kernel(const float* __restrict__ probs,
                       const int32_t* __restrict__ idx,
@@ -300,34 +302,50 @@ topk_route_bwd_kernel(const float* __restrict__ probs,
   for (int64_t r0 = warp * kRows; r0 < rows; r0 += warps * kRows) {  // warp-uniform
     const int64_t row = r0 + seg;
     const bool row_live = row < rows;
-    const bool live = row_live && sl < E;
-    const size_t at = (size_t)(row_live ? row : 0) * E + sl;
-    const float p = live ? probs[at] : 0.f;
-    float dp = live && d_probs != nullptr ? d_probs[at] : 0.f;
-    if (d_gates != nullptr && live) {
+    const size_t base = (size_t)(row_live ? row : 0) * E;
+    float p[PER], dp[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = sl + SEG * j;
+      const bool live = row_live && e < E;
+      p[j] = live ? probs[base + e] : 0.f;
+      dp[j] = live && d_probs != nullptr ? d_probs[base + e] : 0.f;
+    }
+    if (d_gates != nullptr && row_live) {
       for (int k = 0; k < K; ++k) {
-        if (idx[row * K + k] == sl) dp = __fadd_rn(dp, d_gates[row * K + k]);
+        const int i = idx[row * K + k];
+#pragma unroll
+        for (int j = 0; j < PER; ++j)
+          if (sl + SEG * j == i && i < E)
+            dp[j] = __fadd_rn(dp[j], d_gates[row * K + k]);
       }
     }
-    float s = __fmul_rn(p, dp);
+    float s = __fmul_rn(p[0], dp[0]);
+#pragma unroll
+    for (int j = 1; j < PER; ++j) s = __fadd_rn(s, __fmul_rn(p[j], dp[j]));
 #pragma unroll
     for (int o = SEG / 2; o > 0; o >>= 1)
       s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o, SEG));
-    float d = __fmul_rn(p, __fsub_rn(dp, s));
-    if (d_lse != nullptr && row_live) d = __fadd_rn(d, __fmul_rn(p, d_lse[row]));
-    if (live) d_logits[at] = d;
+    const float dl = d_lse != nullptr && row_live ? d_lse[row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = sl + SEG * j;
+      float d = __fmul_rn(p[j], __fsub_rn(dp[j], s));
+      if (d_lse != nullptr) d = __fadd_rn(d, __fmul_rn(p[j], dl));
+      if (row_live && e < E) d_logits[base + e] = d;
+    }
   }
 }
 
-template <int SEG>
+template <int SEG, int PER>
 cudaError_t launch_bwd(const void* probs, const void* idx, const void* d_gates,
                        const void* d_probs, const void* d_lse, void* d_logits,
                        int64_t rows, int E, int K, void* stream) {
   constexpr int kRowsPerCta = (kBwdThreads / 32) * (32 / SEG);
   const int64_t ctas = std::min<int64_t>((rows + kRowsPerCta - 1) / kRowsPerCta,
                                          132 * 16);
-  topk_route_bwd_kernel<SEG><<<(unsigned)ctas, kBwdThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  topk_route_bwd_kernel<SEG, PER><<<(unsigned)ctas, kBwdThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(probs), static_cast<const int32_t*>(idx),
       static_cast<const float*>(d_gates), static_cast<const float*>(d_probs),
       static_cast<const float*>(d_lse), static_cast<float*>(d_logits), rows,
@@ -339,23 +357,27 @@ cudaError_t launch_bwd(const void* probs, const void* idx, const void* d_gates,
 
 // probs, d_probs, d_logits: (rows, E) fp32; idx, d_gates: (rows, K) int32 /
 // fp32; d_lse: (rows,) fp32; d_gates, d_probs and d_lse may be null (zeros).
-// E at most 32, 1 <= K <= min(E, 8). Returns the launch's error code.
+// E at most 256 (the forward's kMaxExperts), 1 <= K <= min(E, 8). Returns
+// the launch's error code.
 extern "C" int fused_topk_route_bwd(const void* probs, const void* idx,
                                     const void* d_gates, const void* d_probs,
                                     const void* d_lse, void* d_logits,
                                     int64_t rows, int E, int K, void* stream) {
-  if (rows <= 0 || E <= 0 || E > kBwdMaxExperts || K <= 0 || K > kMaxK ||
+  if (rows <= 0 || E <= 0 || E > kMaxExperts || K <= 0 || K > kMaxK ||
       K > E)
     return cudaErrorInvalidValue;
   using Launch = cudaError_t (*)(const void*, const void*, const void*,
                                  const void*, const void*, void*, int64_t, int,
                                  int, void*);
-  const Launch f = E <= 1    ? &launch_bwd<1>
-                   : E <= 2  ? &launch_bwd<2>
-                   : E <= 4  ? &launch_bwd<4>
-                   : E <= 8  ? &launch_bwd<8>
-                   : E <= 16 ? &launch_bwd<16>
-                             : &launch_bwd<32>;
+  const Launch f = E <= 1     ? &launch_bwd<1, 1>
+                   : E <= 2   ? &launch_bwd<2, 1>
+                   : E <= 4   ? &launch_bwd<4, 1>
+                   : E <= 8   ? &launch_bwd<8, 1>
+                   : E <= 16  ? &launch_bwd<16, 1>
+                   : E <= 32  ? &launch_bwd<32, 1>
+                   : E <= 64  ? &launch_bwd<32, 2>
+                   : E <= 128 ? &launch_bwd<32, 4>
+                              : &launch_bwd<32, 8>;
   return (int)f(probs, idx, d_gates, d_probs, d_lse, d_logits, rows, E, K,
                 stream);
 }

@@ -20,7 +20,7 @@ captured in a CUDA graph.
 ``fused_topk_route_bwd`` launches the router's backward (the same
 source): ``d_logits`` of the gates, probs and lse, which
 ``kernels.ops.FusedTopkRoute`` runs on the way back through the training
-path's router. It takes up to 32 experts.
+path's router. It takes up to 256 experts, as the forward does.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def fused_topk_route(logits, top_k: int):
 # the backward (csrc/topk_router.cu, fused_topk_route_bwd)
 # ---------------------------------------------------------------------------
 
-MAX_BWD_EXPERTS = 32
+MAX_BWD_EXPERTS = MAX_EXPERTS
 
 
 @functools.cache

@@ -1,8 +1,11 @@
-"""MoE FFN block: router + routed experts, single-device exact path
-(``moe_ffn_dense`` of the JAX package's ``models/moe.py``): every expert
-runs on every token and the results are combined by the gates. It never
-drops a token. The expert products are ordinary batched matrix products,
-as in the JAX package, where XLA computes them outside any Pallas kernel.
+"""MoE FFN block: router + routed experts (+ the dense residual branch),
+single-device exact path (``moe_ffn_dense`` of the JAX package's
+``models/moe.py``): every expert runs on every token and the results are
+combined by the gates. It never drops a token. A config with
+``dense_residual`` (arctic) adds a dense FFN on every token to the routed
+output (``dense_branch``), on this path and after the EP dispatch. The
+expert products are ordinary batched matrix products, as in the JAX
+package, where XLA computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import ffn
 from repro_torch.moe.router import RouterOutput, route
 
 
@@ -38,12 +42,27 @@ def routed_dense(w_gate, w_up, w_down, router_out: RouterOutput, x,
     return torch.einsum("te,etd->td", gates_full, y_all)
 
 
+def dense_branch(moe_p, cfg: ModelConfig, x):
+    """The dense residual branch (the JAX MoE block's ``dense`` FFN) on
+    every token of x (..., d), or None when the block has none.
+    ``moe_p``'s "dense_w_up", "dense_w_down" (and "dense_w_gate" under
+    swiglu)."""
+    if "dense_w_up" not in moe_p:
+        return None
+    return ffn(moe_p.get("dense_w_gate"), moe_p["dense_w_up"],
+               moe_p["dense_w_down"], x, cfg.activation)
+
+
 def moe_ffn_dense(moe_p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, RouterOutput]:
     """Single-device exact MoE FFN. x: (..., d) -> same shape.
-    ``moe_p``: {"router", "w_gate", "w_up", "w_down"}."""
+    ``moe_p``: {"router", "w_gate", "w_up", "w_down"} and, with a dense
+    residual branch, its ``dense_*`` weights."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
     router_out = route(moe_p["router"], cfg.moe, xt)
     y = routed_dense(moe_p["w_gate"], moe_p["w_up"], moe_p["w_down"],
                      router_out, xt, cfg.activation)
+    dense = dense_branch(moe_p, cfg, xt)
+    if dense is not None:
+        y = y + dense
     return y.reshape(shape), router_out

@@ -1,7 +1,10 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
 package's ``init_model`` tree, for two families:
 
-* the uniform-stack decoder-only GQA MoE models (Mixtral);
+* the uniform-stack decoder-only GQA MoE models (Mixtral, the paper's
+  Appendix C models llama-moe-3.5b and switch-base-128, and arctic-480b,
+  whose MoE block adds a dense residual FFN on every token; shared experts
+  are refused until they are ported);
 * the hybrid family (Griffin / RecurrentGemma): a repeating block pattern
   of recurrent layers (``models.griffin``, RG-LRU) and local-attention
   layers over a rotating window buffer, each followed by a dense FFN.
@@ -61,7 +64,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import griffin
 from repro_torch.models.layers import (dense, embed, ffn, rmsnorm,
                                        truncated_normal_init)
-from repro_torch.models.moe import moe_ffn_dense
+from repro_torch.models.moe import dense_branch, moe_ffn_dense
 from repro_torch.moe import dispatch as ep_dispatch
 from repro_torch.moe.router import expert_histogram, route
 
@@ -119,8 +122,13 @@ class DecoderLayer(nn.Module):
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
     def moe_params(self):
-        return {"router": self.router, "w_gate": self.w_gate,
-                "w_up": self.w_up, "w_down": self.w_down}
+        """The MoE block's weights: router and experts, and the dense
+        residual branch's ``dense_*`` where the config has one."""
+        p = {"router": self.router, "w_gate": self.w_gate,
+             "w_up": self.w_up, "w_down": self.w_down}
+        p.update((n, t) for n, t in self.named_parameters()
+                 if n.startswith("dense_"))
+        return p
 
     def rec_params(self):
         return {name[4:]: t for name, t in self.named_parameters()
@@ -133,7 +141,9 @@ class Transformer(nn.Module):
 
       embed (V, d), final_norm (d,), lm_head (d, V); every layer ln1, ln2
       (d,); attention layers wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d).
-      MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d).
+      MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d);
+      with a dense residual branch (arctic) also dense_w_up (d, Fd),
+      dense_w_down (Fd, d) (and dense_w_gate (d, Fd) under swiglu).
       Hybrid layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
       under swiglu); recurrent layers rec_w_gate, rec_w_main (d, dr),
       rec_conv_w (4, dr), rec_conv_b (dr,), rec_w_a, rec_w_x (dr, dr),
@@ -151,6 +161,9 @@ class Transformer(nn.Module):
                 or cfg.norm != "rmsnorm":
             raise ValueError(f"{cfg.name}: the port serves untied, bias-free "
                              "rmsnorm GQA MoE and hybrid models only so far")
+        if moe and cfg.moe.num_shared_experts > 0:
+            raise ValueError(f"{cfg.name}: the MoE block's shared experts "
+                             "are not ported yet (ROADMAP.md §1 item 2c)")
         self.cfg = cfg
         for name, t in top.items():
             setattr(self, name, _param(t, trainable))
@@ -196,6 +209,16 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
             "w_gate": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "w_up": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "w_down": ((E, F, d), 1 / math.sqrt(F), WEIGHT_DTYPE)})
+        if cfg.moe.dense_residual:
+            # the dense residual branch: the JAX block's init_ffn at width
+            # d_ff_dense or d_ff, under the model's activation
+            Fd = cfg.moe.d_ff_dense or cfg.d_ff
+            if cfg.activation == "swiglu":
+                shapes["dense_w_gate"] = ((d, Fd), 1 / math.sqrt(d),
+                                          WEIGHT_DTYPE)
+            shapes["dense_w_up"] = ((d, Fd), 1 / math.sqrt(d), WEIGHT_DTYPE)
+            shapes["dense_w_down"] = ((Fd, d), 1 / math.sqrt(Fd),
+                                      WEIGHT_DTYPE)
         return shapes
     if kind == "recurrent":
         shapes.update({"rec_" + n: (shape, scale, dt) for n, (shape, scale, dt, _)
@@ -366,6 +389,11 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                                           moe, predicted_idx=pred, **kw)
         y = y.reshape(R, B, S // R, d).transpose(0, 1).reshape(B, S, d)
         w = None if token_weight is None else split(token_weight)
+    # the dense residual branch on every token, outside the ranks (the JAX
+    # package adds it after the shard_map)
+    dense = dense_branch(layer.moe_params(), cfg, x)
+    if dense is not None:
+        y = y + dense
     counts = stats.expert_counts
     if w is not None:
         counts = expert_histogram(

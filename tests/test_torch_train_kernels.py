@@ -272,7 +272,7 @@ def test_functions_without_autograd_run_the_forward_wrappers():
 @pytest.mark.parametrize("case", ["e_too_wide", "idx_dtype", "gates_shape",
                                   "probs_dtype", "lse_shape", "noncontiguous"])
 def test_route_bwd_rejects_what_the_kernel_does_not_take(case):
-    E = 40 if case == "e_too_wide" else 8
+    E = 257 if case == "e_too_wide" else 8
     probs = torch.softmax(torch.randn(1, 6, E), -1)
     idx = torch.zeros(1, 6, 2, dtype=torch.int32)
     d_gates, d_probs, d_lse = (torch.ones(1, 6, 2), torch.ones(1, 6, E),
@@ -331,7 +331,7 @@ def test_cuda_route_bwd_equals_plain_version():
             n += 1
     assert ops.LAUNCHES["fused_topk_route_bwd"] == n
     with pytest.raises(ValueError):
-        tk_kernel.check_bwd_inputs(torch.zeros(1, 2, 33, device="cuda"),
+        tk_kernel.check_bwd_inputs(torch.zeros(1, 2, 257, device="cuda"),
                                    torch.zeros(1, 2, 2, dtype=torch.int32,
                                                device="cuda"), None, None,
                                    None)
