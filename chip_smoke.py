@@ -53,7 +53,12 @@ non-zero:
                 profiler beside its plain version and the autograd chain
                 through the weights' gather and bmm; and the train layer at
                 llama-moe-3.5b's (swiglu, F 688) and switch-base-128's (relu,
-                d 768, F 3072) widths. The paper's other MoE models' shapes
+                d 768, F 3072) widths. Each of its cases also prints the
+                device time of each launch by kernel name (rows, pack, dh,
+                hidden, input, weight_gu, weight_down) beside that part's
+                own bound; the kernels line's row carries the train case's
+                split as "parts". With --src another commit's src/, the
+                same phase times that commit's design on the same card. The paper's other MoE models' shapes
                 run in the forward phases too: paged attention at G 1 (hd
                 128, 32 KV heads; hd 64, 12 KV heads) and G 7; moe_gemm's
                 decode and prefill blocks at llama-moe's and switch's
@@ -640,7 +645,7 @@ def _kernel_row(name, source, replaces, rows, main):
 def _log_row(kernel, key, shape, row):
     log("kernels", kernel=kernel, case=key, shape=shape,
         **{k: (f"{v:.6g}" if isinstance(v, float) else v)
-           for k, v in row.items()})
+           for k, v in row.items() if not isinstance(v, dict)})
 
 
 def ep_plan(num_experts: int):
@@ -1259,7 +1264,15 @@ def router_bwd_phase(flush: torch.Tensor, seed: int, cfg):
 # fp32 sums that the two add in other orders; observed 1 ulp), fp32 within
 # 1e-4 of it (the forward's fp32 tolerance)
 MOE_BWD_ULPS, MOE_BWD_F32_REL = 2, 1e-4
-MOE_BWD_KERNELS = ("moe_bwd_",)          # its five launches' kernel names
+MOE_BWD_KERNELS = ("moe_bwd_",)          # its launches' kernel names
+# its parts, by kernel name (the earlier mma.sync design's too: weight<2> /
+# weight<1>, no pack; the FMA path's two weight kernels share one name)
+MOE_BWD_PARTS = {"rows": ("moe_bwd_rows",), "pack": ("moe_bwd_pack",),
+                 "dh": ("moe_bwd_dh",), "hidden": ("moe_bwd_hidden",),
+                 "input": ("moe_bwd_input",),
+                 "weight_gu": ("moe_bwd_weight_gu", "moe_bwd_weight<2"),
+                 "weight_down": ("moe_bwd_weight_down", "moe_bwd_weight<1"),
+                 "weight_fma": ("moe_bwd_weight_fma",)}
 MOE_BWD_REDUCED = dict(d=1024, F=2048)   # the gelu / relu / fp32 cases
 # the EP train step's layer at the paper's other MoE models' widths (4 x 512
 # tokens over 4 ranks, identity plan): llama-moe-3.5b swiglu at F 688 (16
@@ -1310,6 +1323,76 @@ def _moe_bwd_weights(gen, E, d, F, dtype):
             for n, shape, scale in (("w_gate", (E, d, F), d ** -0.5),
                                     ("w_up", (E, d, F), d ** -0.5),
                                     ("w_down", (E, F, d), F ** -0.5))}
+
+
+def device_parts_ms(fn, flush: torch.Tensor, parts: dict,
+                    runs: int = 25) -> tuple:
+    """Device time per call of each part (kernel names matching one of its
+    patterns; the first part that matches takes a kernel) under
+    torch.profiler, the L2 cache flushed before each call, as
+    ``device_ms``; and the share of the expected kernel events the
+    profiler kept. A session deep in a long run can keep only some of a
+    kernel's launches (PERF.md), so each part is its mean time a
+    launch times its launches a call (rounded from the events seen, at
+    least one), not the sum over the session divided by ``runs``."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = {k: 0.0 for k in parts}
+        events = {k: 0 for k in parts}
+        for name, (t, n) in _kernel_time_by_name(prof, 1).items():
+            part = next((k for k, pats in parts.items()
+                         if any(p in name for p in pats)), None)
+            if part is not None:
+                total[part] += t
+                events[part] += n
+        out, kept, want = {}, 0, 0
+        for k in parts:
+            per_call = max(1, round(events[k] / runs)) if events[k] else 0
+            out[k] = total[k] / events[k] * per_call if events[k] else 0.0
+            kept += events[k]
+            want += per_call * runs
+        if sum(out.values()) > 0:
+            return out, kept / want
+        log("profile", retry=f"the profiler saw none of {sorted(parts)}")
+    raise SystemExit(f"the profiler saw none of {sorted(parts)}")
+
+
+def moe_bwd_part_bounds(n_live, live_experts, S, T, d, F, E, act, elem,
+                        peak, n_counts) -> dict:
+    """Each part's bound, (ms, "bytes" or "operations"), from the shapes as
+    ``_bound`` reckons them: each input read once, each output written
+    once, the operations of the live rows only (the packing's padding is
+    the kernel's own work). pack reads the live rows of x and dy and writes
+    them packed, and zeros into dx's dead rows; rows reads the counts and
+    the slot map and writes a packed row's index; dh writes fp32, which
+    hidden reads. The earlier mma.sync design had no pack or dh launch (its
+    hidden part computed dh)."""
+    gated = act == "swiglu"
+    k = 2 if gated else 1                # dg, du: gate and up parts
+    w = d * F * live_experts * elem      # one live expert matrix set
+    ops = 2.0 * n_live * d * F
+    parts = {
+        "rows": ((n_counts + S + n_live) * 4, 0.0),
+        "pack": ((4 * n_live * d + (S * T - n_live) * d) * elem, 0.0),
+        "dh": ((n_live * d + n_live * F * 2) * elem + w, ops),
+        "hidden": ((n_live * d + (k + 1) * n_live * F) * elem
+                   + n_live * F * 4 + k * w, k * ops),
+        "input": ((k * n_live * F + n_live * d) * elem + k * w, k * ops),
+        "weight_gu": ((n_live * d + k * n_live * F) * elem
+                      + k * E * d * F * elem, k * ops),
+        "weight_down": ((n_live * F + n_live * d) * elem + E * d * F * elem,
+                        ops)}
+    parts["weight_fma"] = tuple(parts["weight_gu"][i] + parts["weight_down"][i]
+                                for i in range(2))
+    return {name: _bound(b, f, peak) for name, (b, f) in parts.items()}
 
 
 def moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush,
@@ -1381,11 +1464,19 @@ def moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches,
            "ms": time_ms(lambda: ops.moe_gemm_bwd(*args), flush, runs=runs),
-           "profiler_ms": device_ms(lambda: ops.moe_gemm_bwd(*args), flush,
-                                    MOE_BWD_KERNELS, runs=runs),
            "plain_ms": time_ms(lambda: ref.moe_gemm_bwd_plain(*args), flush,
                                runs=3),
            "library_ms": time_ms(library, flush, runs=5)}
+    parts, row["profiler_kept"] = device_parts_ms(
+        lambda: ops.moe_gemm_bwd(*args), flush, MOE_BWD_PARTS, runs=runs)
+    row["profiler_ms"] = sum(parts.values())
+    bounds = moe_bwd_part_bounds(n_live, live_experts, S, T, d, F, E, act,
+                                 elem, peak, counts.numel())
+    row["parts"] = {k: {"ms": parts[k], "bound_ms": bounds[k][0],
+                        "bound_by": bounds[k][1]} for k in parts}
+    for k, v in parts.items():
+        row[f"{k}_ms"] = v
+        row[f"{k}_bound_ms"] = bounds[k][0]
     row["device_tflops"] = flops / row["profiler_ms"] / 1e9
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     del y, h, u, leaves
@@ -1455,6 +1546,7 @@ def moe_gemm_bwd_phase(flush: torch.Tensor, seed: int, cfg):
                       "src/repro/kernels/moe_gemm.py:60", rows,
                       "bfloat16/train")
     row["gradient_of"] = "moe_gemm"
+    row["parts"] = rows["bfloat16/train"]["parts"]
     return row
 
 

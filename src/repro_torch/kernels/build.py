@@ -4,8 +4,9 @@ Every ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``. Builds run at first
 use, from the repository's sources only, into ``build/torch_kernels/`` at
 the repository root (listed in ``.gitignore``). A library's file name
-carries a hash of its source and flags, so an edited source never loads a
-stale build. ``build_all`` starts one ``nvcc`` per source at once.
+carries a hash of its source, of the shared headers (``csrc/*.cuh``) and of
+the flags, so an edited source or header never loads a stale build.
+``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's file: its name and a hash of its source, of every
+    shared header beside it (``csrc/*.cuh``) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

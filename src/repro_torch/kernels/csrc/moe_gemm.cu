@@ -64,14 +64,10 @@
 // Not done yet: a persistent tile scheduler, TMA stores in the epilogue,
 // and wgmma with swapped operands for the decode shape.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
 
@@ -96,9 +92,7 @@ constexpr int kWThreads = 384;         // producer + 2 consumer warpgroups
 constexpr int kWM = 128;               // rows per CTA, 64 per consumer
 constexpr int kWN = 128;               // output columns per CTA
 constexpr int kWK = 64;                // reduction depth per stage (128 bytes)
-constexpr int kBox = 64 * 64 * 2;      // bytes of one 64 x 64 TMA box
 constexpr int kSortSlots = 256;        // slots ordered by expert up to this
-constexpr int kMapCache = 256;         // weight tensor maps kept
 // fp32 kernel
 constexpr int kFThreads = 128;         // columns per CTA
 constexpr int kFRows = 8;              // rows per thread
@@ -127,10 +121,6 @@ __device__ __forceinline__ int block_live(const int32_t* counts, int s, int b,
 __device__ __forceinline__ bool row_live(const int32_t* counts, int s, int t,
                                          int B, int Tb) {
   return counts == nullptr || t % Tb < block_live(counts, s, t / Tb, B, Tb);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---------------------------------------------------------------------------
@@ -382,122 +372,13 @@ moe_gemm_rows(const bf16* __restrict__ a, const bf16* __restrict__ b0,
 // prefill loop: TMA ring + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// One TMA box of a 3-D tensor map at (c0, c1, c2), innermost first.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma descriptor of a tile in 128-byte-swizzled shared memory (layout
-// type 1): start address, leading and stride byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across a wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x N, fp32, registers) += A (64 x 16, K-major) @ B (16 x N,
-// MN-major), both in shared memory; the B operand is transposed (last
-// immediate).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // One consumer's products for one k16 step and one weight matrix: the
 // 128 columns are two 64-column boxes, 8192 bytes apart (the MN-major
 // operand's leading byte offset), whose 8-row k groups are 1024 bytes
 // apart (its stride byte offset).
 __device__ __forceinline__ void wgmma_tile(float (&d)[64], uint64_t da,
                                            const unsigned char* b) {
-  wgmma_n128(d, da, gmma_desc(b, kBox, 1024));
+  wgmma_n128<0, 1>(d, da, gmma_desc(b, kBox, 1024));
 }
 
 // The prefill loop's ring: 4 stages with gate and up (48 KB each), 6 with
@@ -723,88 +604,6 @@ moe_gemm_f32(const float* __restrict__ a, const float* __restrict__ b0,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// The bf16 tensor (depth, rows, inner) as a 3-D TMA map of 64 x box_rows
-// boxes, 128-byte swizzled; boxes past its end are zero-filled.
-bool encode(CUtensorMap* map, const void* ptr, int inner, int rows, int depth,
-            int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)inner * rows * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// A weight tensor's map, encoded on its first use and kept: a map names
-// memory, not contents, so one (pointer, shape) keeps its map.
-bool weight_map(CUtensorMap* map, const void* ptr, int inner, int rows,
-                int depth) {
-  struct Entry {
-    const void* ptr;
-    int inner, rows, depth;
-    CUtensorMap map;
-  };
-  static std::mutex mu;
-  static Entry cache[kMapCache];
-  static int used = 0, next = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const Entry& c = cache[i];
-    if (c.ptr == ptr && c.inner == inner && c.rows == rows &&
-        c.depth == depth) {
-      *map = c.map;
-      return true;
-    }
-  }
-  if (!encode(map, ptr, inner, rows, depth, 64)) return false;
-  Entry& c = cache[used < kMapCache ? used++ : next++ % kMapCache];
-  c.ptr = ptr;
-  c.inner = inner;
-  c.rows = rows;
-  c.depth = depth;
-  c.map = *map;
-  return true;
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = err == cudaSuccess;
-  return err;
-}
 
 template <int NB, int EPI>
 cudaError_t launch_rows(const void* a, const void* b0, const void* b1,

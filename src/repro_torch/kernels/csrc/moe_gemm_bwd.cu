@@ -23,67 +23,120 @@
 // What bounds it on an H100. The training step's layer (8 slots of 4 x 160
 // rows, ~4096 live, d = 4096, F = 14336) does 8 products of 2 rows d F
 // flops, 3.85 TFLOP, 3.9 ms at the dense bf16 peak, against ~5.7 GB of
-// weights, activations and gradients, 1.7 ms: bound by operations.
+// weights, activations and gradients, 1.7 ms: bound by operations. A real
+// step's layer (~1534 live rows) is bound by the 2.8 GB of weight
+// gradients it writes.
 //
-// Design (simple first: mma.sync, not wgmma). Five launches per call:
-//  0. moe_bwd_rows (one CTA): each slot's live rows, and each weight row's live
-//     rows in slot order, as lists of (s * T + t) in an int32 scratch, so
-//     the product kernels gather rows by index and never see a dead one.
-//  1. moe_bwd_hidden: per (128 live rows of a slot, 64 columns of F) the three
-//     products over d that share the output tile (x Wg, x Wu, dy Wd^T),
-//     then the epilogue writes h, dg and du in x's dtype to (S, T, F)
-//     scratch the wrapper allocates.
-//  2. moe_bwd_input: per (128 row positions of a slot, 64 columns of d): zeros
-//     into the dead rows of those positions, then dx of 128 live rows as
-//     one sum over (dg, Wg) and (du, Wu).
-//  3. moe_bwd_weight<2>: per (weight row e, 128 x 64 tile of (d, F)) x^T dg and
-//     x^T du over e's row list (the A tile arrives k-major and loads with
-//     ldmatrix.trans); 4. moe_bwd_weight<1>: h^T dy into dWd the same way.
-// Every product kernel is one tile loop: 8 warps as 4 x 2 warp tiles of 32
-// x 32, k steps of 64 (hidden, input: 3 stages) or 32 (weights, whose row
-// lists are short: 4 stages) through a cp.async ring (16-byte copies, L2
-// only; rows padded by 16 bytes so ldmatrix hits 8 bank groups), mma.sync
-// m16n8k16 bf16 -> fp32. Each operand tile is a list of rows times a
-// column window, loaded with ldmatrix or ldmatrix.trans as its layout
-// needs: x, dy, dg and du as rows (K contiguous), Wg / Wu in the forward
-// direction as (k, n) rows and Wd (for dh) and Wg / Wu (for dx) as (n, k)
-// rows, x and h as (k, m) rows for the weight gradients. A thread's copies
-// keep their source addresses from one k step to the next (address
-// arithmetic per chunk and step would take more instruction slots than the
-// products), and the epilogues store column pairs. No atomics: each output
-// element is written by one CTA, in a fixed order, so repeated calls are
-// bit-identical. fp32 inputs (used only to check the arithmetic) take plain
-// FMA kernels over the same row lists.
-// On an H100 SXM (700 W) at the train step's layer: 19.0 ms, ~205 TFLOP/s,
-// 0.20 of the bound (chip_smoke.py, PERF.md).
-// Not done yet: wgmma and TMA, a persistent scheduler, larger warp tiles.
+// Design. The live rows are packed per weight row first, so that every
+// product is a dense grouped GEMM over contiguous rows that TMA can load.
+// Seven launches:
+//  0. moe_bwd_rows (one CTA): for each weight row e, a segment of packed
+//     rows holding the live rows of every slot that names e (slots
+//     ascending, then rows), padded with zero rows to a multiple of kTile;
+//     the list packed row -> s * T + t (-1 for padding), each slot's place
+//     in it, and the 128-row tiles of the segments. The host reads no
+//     count: the scratch is sized for S T + E (kTile - 1) rows.
+//  1. moe_bwd_pack: packed x and dy (16-byte copies, zeros in the
+//     padding), and zeros into dx's dead rows.
+//  2. moe_bwd_dh: per (128 packed rows of one expert, 256 columns of F),
+//     dh = dy @ Wd^T over d (both operands K-major), kept in fp32.
+//  3. moe_bwd_hidden: per (128 packed rows, 128 columns of F), g and u
+//     (x @ Wg / Wu, the weights MN-major as in the forward) over d, then
+//     h, dg, du from g, u and dh in x's dtype into packed (P, F) scratch.
+//     dh has its own pass because three 64 x 128 fp32 accumulators (192
+//     registers a thread) left room for two 64-deep stages of 80 KB: on an
+//     H100 the fused kernel ran at 315 TFLOP/s (341 with 32-deep stages),
+//     the two passes at the other products' rate for 0.5 GB of fp32 dh
+//     traffic at the train step's layer.
+//  4. moe_bwd_input: per (128 packed rows, 256 columns of d), dx = [dg du]
+//     @ [Wg; Wu]^T as one K = 2F loop (both operands K-major), scattered
+//     to each packed row's (s, t).
+//  5. moe_bwd_weight_gu / 6. moe_bwd_weight_down: persistent, one CTA an
+//     SM walking (expert, m, n) tiles expert by expert: dWg[e] = X_e^T
+//     dG_e and dWu[e] = X_e^T dU_e (sharing the A tile), dWd[e] = H_e^T
+//     dY_e, K the expert's padded segment; A is the packed rows read
+//     transposed (MN-major), B MN-major. The producer streams the next
+//     tile's stages while the consumers store the last one. An expert
+//     with no live row writes zeros and reads nothing.
+// Products 2-6 share one shape: 384 threads, a producer warp issuing
+// 64-deep TMA boxes (128-byte swizzle; past the end zero-filled) into a
+// ring of full / empty mbarriers, and two consumer warpgroups of 64 rows
+// issuing wgmma (bf16 in, fp32 out), one group in flight; setmaxnreg gives
+// the producer's registers to the consumers. Epilogues store 16 bytes a
+// thread (a transpose inside each quad of lanes; dh 8). One expert's slots
+// share one weight stream. No atomics: each output element is written by
+// one CTA, its sums in a fixed order, so repeated calls are bit-identical.
+// fp32 inputs (used only to check the arithmetic), and bf16 rows that are
+// not whole 16-byte chunks (d or F not a multiple of 8, or a pointer not
+// 16-byte aligned; test shapes only), take FMA kernels over the same row
+// lists, five launches; the host picks the path from shapes alone.
+// The TMA / wgmma / mbarrier pieces are in hopper.cuh, shared with
+// moe_gemm.cu.
+// On an H100 SXM (700 W; chip_smoke.py, PERF.md): 8.5-8.8 ms at the train
+// step's layer (device 8.2-8.5, ~460 TFLOP/s, 0.44-0.46 of the bound; each
+// GEMM at 0.43-0.55 of its own), 4.2 ms at a real EP step's layer (1534
+// live rows; 0.38 of its bytes bound), 1.1-1.2 ms at llama-moe's F 688 and
+// 1.5-1.6 ms at switch's relu layer, where 64-row padding of ~16-row
+// segments quadruples dh and hidden.
+// Not done yet: programmatic dependent launch between the seven launches,
+// weight tiles multicast across a cluster, ping-pong consumers for the
+// weight gradients' epilogues.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;          // 8 warps: 4 (rows) x 2 (columns)
-constexpr int kBM = 128;               // output rows per CTA
-constexpr int kBN = 64;                // output columns per CTA
-constexpr int kPad = 8;                // bf16 of padding per shared row
-// reduction depth per stage and ring stages, per kernel: 64 for the hidden
-// and input kernels, whose reductions run over d and 2F; 32 for the weight
-// kernels, whose reductions run over one expert's rows (~500 at the train
-// step's layer), so that their rings fill in fewer rows
-constexpr int kHiddenBK = 64, kHiddenStages = 3;
-constexpr int kInputBK = 64, kInputStages = 3;
-constexpr int kWeightBK = 32, kWeightStages = 4;
+constexpr int kTile = 64;              // segments pad to this many rows
+constexpr int kTM = 128;               // packed rows a hidden / input CTA
+constexpr int kHN = 128;               // F columns a hidden CTA
+constexpr int kRN = 256;               // columns a dh / input CTA
+constexpr int kWM = 128;               // weight-gradient rows a tile
+constexpr int kWThreads = 384;         // producer + 2 consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kRingBytes = 200 * 1024; // each product kernel's ring fits this
 constexpr int kPrepThreads = 1024;
-constexpr int kFThreads = 128;         // fp32 kernels: columns per CTA
-constexpr int kFRows = 8;              // fp32 kernels: rows per thread
+constexpr int kPackThreads = 256;      // 8 warps, a row each
+constexpr int kFThreads = 128;         // FMA kernels: columns per CTA
+constexpr int kFRows = 8;              // FMA kernels: rows per thread
 
 enum Act { kSwiglu = 0, kGelu = 1, kRelu = 2 };
+
+__host__ __device__ inline int pack_rows(int S, int T, int E) {
+  return S * T + E * (kTile - 1);
+}
+__host__ __device__ inline int max_tiles(int P) {
+  return (P + kTile - 1) / kTile;
+}
+
+// The int32 index scratch, in this order (kernels/moe_gemm.py::
+// split_bwd_index reads it): slot_start (S), each slot's first packed row;
+// slot_n (S), its live rows; seg_off (E + 1), each weight row's first
+// packed row (seg_off[E]: the packed rows in all); seg_n (E), its live
+// rows; n_tiles (1); tile_row0, tile_rows, tile_e (max_tiles each), each
+// 128-row tile's first packed row, its rows (64 or 128) and its weight
+// row; packed (pack_rows), s * T + t of each packed row, -1 for padding.
+struct Index {
+  int32_t *slot_start, *slot_n, *seg_off, *seg_n, *n_tiles, *tile_row0,
+      *tile_rows, *tile_e, *packed;
+  __host__ __device__ Index(const int32_t* base, int S, int T, int E) {
+    int32_t* p = const_cast<int32_t*>(base);
+    const int tm = max_tiles(pack_rows(S, T, E));
+    slot_start = p;
+    slot_n = slot_start + S;
+    seg_off = slot_n + S;
+    seg_n = seg_off + E + 1;
+    n_tiles = seg_n + E;
+    tile_row0 = n_tiles + 1;
+    tile_rows = tile_row0 + tm;
+    tile_e = tile_rows + tm;
+    packed = tile_e + tm;
+  }
+};
 
 __device__ __forceinline__ int block_live(const int32_t* counts, int s, int b,
                                           int B, int Tb) {
@@ -123,672 +176,561 @@ __device__ __forceinline__ void hidden_grad(float g, float u, float dh,
 }
 
 // ---------------------------------------------------------------------------
-// 0. row lists
+// 0. the packed layout
 // ---------------------------------------------------------------------------
 
-// index = [slot_start (S) | slot_n (S) | exp_off (E + 1) | rows (S * T)]:
-// slot s's live rows are rows[slot_start[s] .. + slot_n[s]); weight row e's
-// are rows[exp_off[e] .. exp_off[e + 1]), the runs of the slots naming it
-// in slot order. A row is s * T + t.
 __global__ void __launch_bounds__(kPrepThreads)
 moe_bwd_rows(const int32_t* __restrict__ se, const int32_t* __restrict__ counts,
-         int32_t* __restrict__ index, int S, int T, int E, int B) {
-  int32_t* slot_start = index;
-  int32_t* slot_n = index + S;
-  int32_t* exp_off = index + 2 * S;
-  int32_t* rows = index + 2 * S + E + 1;
+             int32_t* __restrict__ index, int S, int T, int E, int B) {
+  const Index ix(index, S, T, E);
   const int Tb = T / B;
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     const int e = se[s];
     int n = 0;
     if (e >= 0 && e < E)
       for (int b = 0; b < B; ++b) n += block_live(counts, s, b, B, Tb);
-    slot_n[s] = n;
+    ix.slot_n[s] = n;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int e = 0; e <= E; ++e) exp_off[e] = 0;
+    for (int e = 0; e < E; ++e) ix.seg_n[e] = 0;
     for (int s = 0; s < S; ++s) {
       const int e = se[s];
-      if (e >= 0 && e < E) exp_off[e + 1] += slot_n[s];
+      if (e >= 0 && e < E) ix.seg_n[e] += ix.slot_n[s];
     }
-    for (int e = 0; e < E; ++e) exp_off[e + 1] += exp_off[e];
-    for (int s = 0; s < S; ++s) {       // exp_off[e] walks to e's end
-      const int e = se[s];
-      slot_start[s] = 0;
-      if (e >= 0 && e < E) {
-        slot_start[s] = exp_off[e];
-        exp_off[e] += slot_n[s];
+    int off = 0, nt = 0;
+    for (int e = 0; e < E; ++e) {
+      const int len = (ix.seg_n[e] + kTile - 1) / kTile * kTile;
+      ix.seg_off[e] = off;
+      for (int r = 0; r < len; r += kTM) {
+        ix.tile_row0[nt] = off + r;
+        ix.tile_rows[nt] = min(kTM, len - r);
+        ix.tile_e[nt] = e;
+        ++nt;
       }
+      off += len;
     }
-    for (int e = E; e > 0; --e) exp_off[e] = exp_off[e - 1];
-    exp_off[0] = 0;
+    ix.seg_off[E] = off;
+    *ix.n_tiles = nt;
+  }
+  __syncthreads();
+  // each slot's place: its expert's segment, after the earlier slots of it
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const int e = se[s];
+    int at = 0;
+    if (e >= 0 && e < E) {
+      at = ix.seg_off[e];
+      for (int s2 = 0; s2 < s; ++s2) at += se[s2] == e ? ix.slot_n[s2] : 0;
+    }
+    ix.slot_start[s] = at;
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int s = warp; s < S; s += blockDim.x >> 5) {
-    if (slot_n[s] == 0) continue;
-    int at = slot_start[s];
+  const int warps = blockDim.x >> 5;
+  for (int s = warp; s < S; s += warps) {
+    if (ix.slot_n[s] == 0) continue;
+    int at = ix.slot_start[s];
     for (int b = 0; b < B; ++b) {
       const int c = block_live(counts, s, b, B, Tb);
-      for (int i = lane; i < c; i += 32) rows[at + i] = s * T + b * Tb + i;
+      for (int i = lane; i < c; i += 32) ix.packed[at + i] = s * T + b * Tb + i;
       at += c;
     }
   }
+  for (int e = warp; e < E; e += warps)
+    for (int p = ix.seg_off[e] + ix.seg_n[e] + lane; p < ix.seg_off[e + 1];
+         p += 32)
+      ix.packed[p] = -1;
+}
+
+// 1. Packed x and dy, a warp a row (blockIdx.y 0), and zeros into dx's dead
+// rows (blockIdx.y 1). d is a multiple of 8 and every pointer 16-byte
+// aligned here.
+__global__ void __launch_bounds__(kPackThreads)
+moe_bwd_pack(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+             const int32_t* __restrict__ se, const int32_t* __restrict__ counts,
+             const int32_t* __restrict__ index, bf16* __restrict__ xp,
+             bf16* __restrict__ dyp, bf16* __restrict__ dx, int S, int T,
+             int d, int E, int B) {
+  const Index ix(index, S, T, E);
+  const int row = (blockIdx.x * kPackThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31, chunks = d / 8;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  if (blockIdx.y == 0) {
+    if (row >= ix.seg_off[E]) return;
+    const int src = ix.packed[row];
+    uint4* xo = reinterpret_cast<uint4*>(xp + (size_t)row * d);
+    uint4* dyo = reinterpret_cast<uint4*>(dyp + (size_t)row * d);
+    if (src < 0) {
+      for (int c = lane; c < chunks; c += 32) xo[c] = dyo[c] = zero;
+      return;
+    }
+    const uint4* xs = reinterpret_cast<const uint4*>(x + (size_t)src * d);
+    const uint4* dys = reinterpret_cast<const uint4*>(dy + (size_t)src * d);
+    for (int c = lane; c < chunks; c += 32) {
+      xo[c] = xs[c];
+      dyo[c] = dys[c];
+    }
+    return;
+  }
+  if (row >= S * T) return;
+  const int s = row / T, t = row % T, e = se[s];
+  if (e >= 0 && e < E && row_live(counts, s, t, B, T / B)) return;
+  uint4* o = reinterpret_cast<uint4*>(dx + (size_t)row * d);
+  for (int c = lane; c < chunks; c += 32) o[c] = zero;
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 tile loop: cp.async ring + ldmatrix + mma.sync
+// products 2-5: TMA ring + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int clamp8(int n) {
-  return n < 0 ? 0 : (n > 8 ? 8 : n);
-}
-
-// One 16-byte shared chunk from src[0 .. valid), zeros after it. Aligned
-// tensors copy with cp.async (valid is then 0 or 8); others element-wise.
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
-                                           int valid, bool aligned) {
-  if (aligned) {
-    cp_async16(dst, src, valid > 0 ? 16 : 0);
-  } else {
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = i < valid ? src[i] : __float2bfloat16(0.f);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+// A ring of kStages stages of STAGE bytes, then its full and empty barriers,
+// 1024-byte aligned for the 128-byte swizzle.
+template <int STAGE>
+struct Ring {
+  static constexpr int kStages = kRingBytes / STAGE < 6 ? kRingBytes / STAGE
+                                                        : 6;
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * STAGE +
+                                  2 * kStages * sizeof(uint64_t);
+  unsigned char* base;
+  uint64_t *full, *empty;
+  __device__ explicit Ring(unsigned char* raw) {
+    base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    full = reinterpret_cast<uint64_t*>(base + kStages * STAGE);
+    empty = full + kStages;
   }
-}
-
-// The 16-byte chunks a thread copies of a ROWS x COLS shared tile (row
-// stride COLS + kPad): chunk j is tile row row(j), columns col(j) .. + 8.
-// Each loader below keeps what a k step cannot change (the chunk's source
-// address at k = 0, how far it may read), so that a k step costs an add, a
-// compare and the copy per chunk.
-template <int ROWS, int COLS>
-struct Chunks {
-  static constexpr int kTotal = ROWS * COLS / 8;
-  static constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
-  __device__ static int index(int j) { return threadIdx.x + j * kThreads; }
-  __device__ static bool has(int j) {
-    return kTotal % kThreads == 0 || index(j) < kTotal;
+  __device__ unsigned char* stage(int it) const {
+    return base + (it % kStages) * STAGE;
   }
-  __device__ static int row(int j) { return index(j) / (COLS / 8); }
-  __device__ static int col(int j) { return index(j) % (COLS / 8) * 8; }
-  __device__ static int dst(int j) { return row(j) * (COLS + kPad) + col(j); }
-};
-
-// Rows fixed, k along them: tile row r holds columns [k0, k0 + COLS) of
-// the row row(r) points to (ncols long; null: zeros).
-template <int ROWS, int COLS>
-struct AlongRows {
-  using C = Chunks<ROWS, COLS>;
-  const bf16* src[C::kPer];
-  int lim[C::kPer];                    // columns left to read at k0 = 0
-  template <class Row>
-  __device__ void init(Row row, int ncols, const bf16* any) {
-#pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      const bf16* p = C::has(j) ? row(C::row(j)) : nullptr;
-      src[j] = p != nullptr ? p + C::col(j) : any;
-      lim[j] = p != nullptr ? ncols - C::col(j) : 0;
+  // one arrival a consumer warpgroup empties a stage; the producer's
+  // expect_tx fills it
+  __device__ void init(int consumers) const {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __device__ void load(bf16* tile, int k0, bool aligned) const {
-#pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      if (!C::has(j)) continue;
-      const int valid = clamp8(lim[j] - k0);
-      load_chunk(tile + C::dst(j), valid ? src[j] + k0 : src[j], valid,
-                 aligned);
-    }
+  // the producer's wait for ring step it, then its byte count
+  __device__ unsigned char* fill(int it) const {
+    const int st = it % kStages;
+    mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(&full[st], STAGE);
+    return base + st * STAGE;
+  }
+  __device__ void wait_full(int it) const {
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+  }
+  __device__ void release(int it, int tid) const {
+    if (tid % 128 == 0) mbar_arrive(&empty[it % kStages]);
   }
 };
 
-// k down the rows: tile row r is row k0 + r of a (nrows, ld) matrix,
-// columns [c0, c0 + COLS) of its ncols.
-template <int ROWS, int COLS>
-struct DownRows {
-  using C = Chunks<ROWS, COLS>;
-  const bf16* src[C::kPer];
-  int rows_left[C::kPer], valid[C::kPer];
-  size_t ld;
-  __device__ void init(const bf16* m, int nrows, size_t ld_, int c0,
-                       int ncols) {
-    ld = ld_;
+template <int N, int R>
+__device__ __forceinline__ void zero_acc(float (&acc)[R][N / 2]) {
 #pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      src[j] = m + C::row(j) * ld + c0 + C::col(j);
-      rows_left[j] = C::has(j) ? nrows - C::row(j) : 0;
-      valid[j] = clamp8(ncols - (c0 + C::col(j)));
-    }
-  }
-  __device__ void load(bf16* tile, int k0, const bf16* any,
-                       bool aligned) const {
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      if (!C::has(j)) continue;
-      const int v = k0 < rows_left[j] ? valid[j] : 0;
-      load_chunk(tile + C::dst(j), v ? src[j] + k0 * ld : any, v, aligned);
-    }
-  }
-};
-
-// k down a row list: tile row r is row list[k0 + r] (k0 + r < n) of a
-// matrix of ld-long rows, columns [c0, c0 + COLS) of its ncols.
-template <int ROWS, int COLS>
-struct ListedRows {
-  using C = Chunks<ROWS, COLS>;
-  const bf16* src[C::kPer];
-  int rows_left[C::kPer], valid[C::kPer];
-  const int32_t* list;
-  size_t ld;
-  __device__ void init(const bf16* m, const int32_t* list_, int n, size_t ld_,
-                       int c0, int ncols) {
-    list = list_;
-    ld = ld_;
-#pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      src[j] = m + c0 + C::col(j);
-      rows_left[j] = C::has(j) ? n - C::row(j) : 0;
-      valid[j] = clamp8(ncols - (c0 + C::col(j)));
-    }
-  }
-  __device__ void load(bf16* tile, int k0, const bf16* any,
-                       bool aligned) const {
-#pragma unroll
-    for (int j = 0; j < C::kPer; ++j) {
-      if (!C::has(j)) continue;
-      const int v = k0 < rows_left[j] ? valid[j] : 0;
-      load_chunk(tile + C::dst(j),
-                 v ? src[j] + (size_t)list[k0 + C::row(j)] * ld : any, v,
-                 aligned);
-    }
-  }
-};
-
-// A fragments of the warp's two 16-row blocks from m0, depth kk..kk+16:
-// from an (m, k) tile, or with KM from a (k, m) tile through ldmatrix.trans.
-template <bool KM, int STRIDE>
-__device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], const bf16* tile,
-                                        int m0, int kk, int lane) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int m = m0 + mi * 16;
-    if (!KM)
-      ldmatrix_x4(a[mi], tile + (m + (lane & 15)) * STRIDE + kk +
-                             (lane >> 4) * 8);
-    else
-      ldmatrix_x4_trans(a[mi], tile + (kk + (lane & 7) + ((lane >> 4) << 3)) *
-                                          STRIDE +
-                                   m + ((lane >> 3) & 1) * 8);
-  }
+    for (int i = 0; i < N / 2; ++i) acc[r][i] = 0.f;
 }
 
-// B fragments of the warp's four 8-column blocks from n0, depth kk..kk+16:
-// from a (k, n) tile through ldmatrix.trans, or with NK from an (n, k) tile.
-template <bool NK, int STRIDE>
-__device__ __forceinline__ void b_frags(uint32_t (&b)[4][2], const bf16* tile,
-                                        int n0, int kk, int lane) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    uint32_t r[4];
-    const int n = n0 + p * 16;
-    if (!NK)
-      ldmatrix_x4_trans(r, tile + (kk + (lane & 15)) * STRIDE + n +
-                               (lane >> 4) * 8);
-    else
-      ldmatrix_x4(r, tile + (n + (lane & 7) + ((lane >> 4) << 3)) * STRIDE +
-                         kk + ((lane >> 3) & 1) * 8);
-    b[2 * p][0] = r[0];
-    b[2 * p][1] = r[1];
-    b[2 * p + 1][0] = r[2];
-    b[2 * p + 1][1] = r[3];
+// x 128 x 64 packed rows of dy, dg or du, then 256 weight rows x 64: 48
+// KB, 4 stages
+using RowsRing = Ring<kTM * 128 + kRN * 128>;
+
+// out = sum over PARTS of A_p @ B_p[e]^T for one 128-row packed tile over
+// columns [n0, n0 + 256): A_p (P, K) packed rows, B_p (E, N, K) weight rows,
+// both K-major; part p's k runs over [0, K) before part p + 1's. store(row
+// in the tile, column in the tile, v0, v1) takes two fp32 columns.
+template <int PARTS, class Store>
+__device__ __forceinline__ void rows_gemm(const CUtensorMap& tm_a0,
+                                          const CUtensorMap& tm_a1,
+                                          const CUtensorMap& tm_b0,
+                                          const CUtensorMap& tm_b1,
+                                          const Index& ix, int K, Store store) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RowsRing ring(smem_raw);
+  const int tile = blockIdx.x;
+  if (tile >= *ix.n_tiles) return;
+  const int row0 = ix.tile_row0[tile], e = ix.tile_e[tile];
+  const int consumers = ix.tile_rows[tile] > 64 ? 2 : 1;
+  const int n0 = blockIdx.y * kRN, tid = threadIdx.x;
+  if (tid == 0) ring.init(consumers);
+  __syncthreads();
+  const int nkp = (K + 63) / 64, nk = PARTS * nkp;
+  const int wg = tid / 128;
+  if (wg == 0) {                       // producer: one thread issues TMA
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        unsigned char* st = ring.fill(kt);
+        uint64_t* bar = &ring.full[kt % RowsRing::kStages];
+        const bool first = PARTS == 1 || kt < nkp;
+        const int k0 = (kt % nkp) * 64;
+        tma_load(st, first ? &tm_a0 : &tm_a1, bar, k0, row0, 0);
+        tma_load(st + kTM * 128, first ? &tm_b0 : &tm_b1, bar, k0, n0, e);
+      }
+    }
+    return;
   }
-}
-
-using Acc = float[2][4][4];            // a warp's 32 x 32 fp32 tile
-
-__device__ __forceinline__ void zero_acc(Acc& c) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[i][j][q] = 0.f;
-}
-
-__device__ __forceinline__ void mma_tile(Acc& c, const uint32_t (&a)[2][4],
-                                         const uint32_t (&b)[4][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mma_bf16(c[i][j], a[i], b[j][0], b[j][1]);
-}
-
-// The ring: load(stage, kt) starts the copies of k step kt, compute(stage)
-// consumes a landed stage.
-template <int kStages, class Load, class Compute>
-__device__ __forceinline__ void pipeline(int nk, Load load, Compute compute) {
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load(st, st);
-    cp_async_commit();
-  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;               // rows 64 cw .. 64 cw + 63 of the tile
+  if (cw >= consumers) return;
+  float acc[1][kRN / 2];
+  zero_acc<kRN>(acc);
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();                   // stage kt landed; kt - 1 is free
-    const int pf = kt + kStages - 1;
-    if (pf < nk) load(pf % kStages, pf);
-    cp_async_commit();
-    compute(kt % kStages);
+    ring.wait_full(kt);
+    const unsigned char* st = ring.stage(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<kRN, 0, 0>(acc[0], kmajor_desc(st + cw * 64 * 128, kk),
+                       kmajor_desc(st + kTM * 128, kk));
+    wgmma_commit();
+    wgmma_wait<1>();                   // the previous stage's products ended
+    if (kt > 0) ring.release(kt - 1, tid);
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  store(row0 + cw * 64, n0, acc[0]);
 }
 
-// Element (i, j, q) of a warp's accumulators: row and column in the CTA tile.
-__device__ __forceinline__ int acc_row(int wm, int lane, int i, int q) {
-  return wm * 32 + i * 16 + (lane >> 2) + (q >> 1) * 8;
+// 2. dh = dy @ Wd[e]^T of one 128-row packed tile over F columns [n0, n0 +
+// 256), kept in fp32 (packed (P, F) scratch) for the hidden epilogue.
+__global__ void __launch_bounds__(kWThreads, 1)
+moe_bwd_dh(const __grid_constant__ CUtensorMap tm_dy,
+           const __grid_constant__ CUtensorMap tm_wd,
+           const int32_t* __restrict__ index, float* __restrict__ dhp, int S,
+           int T, int d, int F, int E) {
+  const Index ix(index, S, T, E);
+  rows_gemm<1>(tm_dy, tm_dy, tm_wd, tm_wd, ix, d,
+               [&](int row0, int n0, const float (&acc)[kRN / 2]) {
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int r0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float* o = dhp + (size_t)(row0 + r0 + 8 * half) * F + n0;
+#pragma unroll
+      for (int j = 0; j < kRN / 8; ++j) {
+        const int c = 8 * j + 2 * (lane & 3);
+        if (n0 + c < F)
+          *reinterpret_cast<float2*>(o + c) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  });
 }
-__device__ __forceinline__ int acc_col(int wn, int lane, int j, int q) {
-  return wn * 32 + j * 8 + (lane & 3) * 2 + (q & 1);
-}
-
-// Columns c and c + 1 of one output row from two fp32 values: one 4-byte
-// store where both are in range and p is 4-byte aligned, else one each.
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1,
-                                       bool both) {
-  if (both && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    p[0] = __float2bfloat16(v0);
-    if (both) p[1] = __float2bfloat16(v1);
-  }
-}
-
-// shared tile sizes (bf16) at depth BK
-template <int BK>
-struct Tile {
-  static constexpr int kAK = kBM * (BK + kPad);   // (m, k) row tile
-  static constexpr int kKN = BK * (kBN + kPad);   // (k, n) tile
-  static constexpr int kNK = kBN * (BK + kPad);   // (n, k) tile
-  static constexpr int kKM = BK * (kBM + kPad);   // (k, m) tile
-};
 
 template <int ACT>
 struct Hidden {
-  static constexpr int kGates = ACT == kSwiglu ? 2 : 1;    // (Wg,) Wu tiles
-  using Tl = Tile<kHiddenBK>;
-  static constexpr int kStage = 2 * Tl::kAK + kGates * Tl::kKN + Tl::kNK;
-  static constexpr size_t kSmem = (size_t)kHiddenStages * kStage *
-                                  sizeof(bf16);
+  static constexpr int kNB = ACT == kSwiglu ? 2 : 1;   // (Wg,) Wu
+  // x 128 x 64, then Wu (and Wg) as two 64 x 64 boxes: 48 KB with a gate
+  // (4 stages), 32 KB without (6)
+  using Rg = Ring<kTM * 128 + kNB * 2 * kBox>;
 };
 
-// 1. h, dg and du of 128 live rows of slot blockIdx.z over columns
-// [n0, n0 + 64) of F: x Wu[e] (and x Wg[e]) and dy Wd[e]^T over d.
+// 3. h, dg and du of one 128-row packed tile over F columns [n0, n0 +
+// 128): g and u (x @ Wg / Wu[e], the weights MN-major) over d, then the
+// epilogue with dh from moe_bwd_dh.
 template <int ACT>
-__global__ void __launch_bounds__(kThreads, 1)
-moe_bwd_hidden(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-           const bf16* __restrict__ wg, const bf16* __restrict__ wu,
-           const bf16* __restrict__ wd, const int32_t* __restrict__ se,
-           const int32_t* __restrict__ index, bf16* __restrict__ h,
-           bf16* __restrict__ dg, bf16* __restrict__ du, int S, int d, int F,
-           int E, int aligned_flag) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_rows[kBM];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+__global__ void __launch_bounds__(kWThreads, 1)
+moe_bwd_hidden(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_wg,
+               const __grid_constant__ CUtensorMap tm_wu,
+               const int32_t* __restrict__ index,
+               const float* __restrict__ dhp, bf16* __restrict__ hp,
+               bf16* __restrict__ dgp, bf16* __restrict__ dup, int S, int T,
+               int d, int F, int E) {
   constexpr bool kGate = ACT == kSwiglu;
-  constexpr int kStage = Hidden<ACT>::kStage, kBK = kHiddenBK;
-  constexpr int kAK = Tile<kBK>::kAK, kKN = Tile<kBK>::kKN;
-  const int s = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int e = se[s];
-  const int n_live = index[S + s];
-  if (e < 0 || e >= E || m0 >= n_live) return;
-  const int rows = min(kBM, n_live - m0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const bool aligned = aligned_flag != 0;
-  for (int r = tid; r < rows; r += kThreads)
-    s_rows[r] = index[2 * S + E + 1 + index[s] + m0 + r];
+  constexpr int kNB = Hidden<ACT>::kNB;
+  using Rg = typename Hidden<ACT>::Rg;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Rg ring(smem_raw);
+  const Index ix(index, S, T, E);
+  const int tile = blockIdx.x;
+  if (tile >= *ix.n_tiles) return;
+  const int row0 = ix.tile_row0[tile], e = ix.tile_e[tile];
+  const int consumers = ix.tile_rows[tile] > 64 ? 2 : 1;
+  const int n0 = blockIdx.y * kHN, tid = threadIdx.x;
+  if (tid == 0) ring.init(consumers);
   __syncthreads();
-
-  const bf16* Wu = wu + (size_t)e * d * F;
-  const bf16* Wg = kGate ? wg + (size_t)e * d * F : Wu;
-  const bf16* Wd = wd + (size_t)e * F * d;
-  Acc acc_g, acc_u, acc_h;
-  zero_acc(acc_g);
-  zero_acc(acc_u);
-  zero_acc(acc_h);
-
-  AlongRows<kBM, kBK> lx, ldy;
-  lx.init([&](int r) {
-    return r < rows ? x + (size_t)s_rows[r] * d : nullptr;
-  }, d, x);
-  ldy.init([&](int r) {
-    return r < rows ? dy + (size_t)s_rows[r] * d : nullptr;
-  }, d, dy);
-  DownRows<kBK, kBN> lu, lg;
-  lu.init(Wu, d, F, n0, F);
-  if (kGate) lg.init(Wg, d, F, n0, F);
-  AlongRows<kBN, kBK> lwd;
-  lwd.init([&](int r) {
-    return n0 + r < F ? Wd + (size_t)(n0 + r) * d : nullptr;
-  }, d, Wd);
-  auto load = [&](int st, int kt) {
-    bf16* base = smem + st * kStage;
-    const int k0 = kt * kBK;
-    lx.load(base, k0, aligned);
-    ldy.load(base + kAK, k0, aligned);
-    lu.load(base + 2 * kAK, k0, Wu, aligned);
-    if (kGate) lg.load(base + 2 * kAK + kKN, k0, Wg, aligned);
-    lwd.load(base + 2 * kAK + Hidden<ACT>::kGates * kKN, k0, aligned);
-  };
-  auto compute = [&](int st) {
-    const bf16* base = smem + st * kStage;
+  const int nk = (d + 63) / 64;
+  const int wg = tid / 128;
+  if (wg == 0) {                       // producer: one thread issues TMA
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        unsigned char* st = ring.fill(kt);
+        uint64_t* bar = &ring.full[kt % Rg::kStages];
+        tma_load(st, &tm_x, bar, kt * 64, row0, 0);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t ax[2][4], ad[2][4], b[4][2];
-      a_frags<false, kBK + kPad>(ax, base, wm * 32, kk, lane);
-      a_frags<false, kBK + kPad>(ad, base + kAK, wm * 32, kk, lane);
-      b_frags<false, kBN + kPad>(b, base + 2 * kAK, wn * 32, kk, lane);
-      mma_tile(acc_u, ax, b);
-      if (kGate) {
-        b_frags<false, kBN + kPad>(b, base + 2 * kAK + kKN, wn * 32, kk, lane);
-        mma_tile(acc_g, ax, b);
+        for (int b = 0; b < kNB; ++b)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tma_load(st + kTM * 128 + (2 * b + h) * kBox, b ? &tm_wg : &tm_wu,
+                     bar, n0 + 64 * h, kt * 64, e);
       }
-      b_frags<true, kBK + kPad>(b, base + 2 * kAK + Hidden<ACT>::kGates * kKN,
-                                wn * 32, kk, lane);
-      mma_tile(acc_h, ad, b);
     }
-  };
-  pipeline<kHiddenStages>((d + kBK - 1) / kBK, load, compute);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;               // rows 64 cw .. 64 cw + 63 of the tile
+  if (cw >= consumers) return;
+  float acc[kNB][64];                  // u (, g)
+  zero_acc<128>(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    ring.wait_full(kt);
+    const unsigned char* st = ring.stage(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = kmajor_desc(st + cw * 64 * 128, kk);
+#pragma unroll
+      for (int b = 0; b < kNB; ++b)
+        wgmma<128, 0, 1>(acc[b], da,
+                         mnmajor_desc(st + kTM * 128 + 2 * b * kBox, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                   // the previous stage's products ended
+    if (kt > 0) ring.release(kt - 1, tid);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < kNB; ++b) fence_regs(acc[b]);
 
+  // in place: acc[0] <- du, acc[1] <- dg; h into a third array as it goes
+  const int lane = tid & 31;
+  const size_t r0 = (size_t)row0 + cw * 64 + ((tid & 127) >> 5) * 16 +
+                    (lane >> 2);
+  float hv[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; i += 2) {
+    const int c = n0 + 8 * (i / 4) + 2 * (lane & 3);
+    float2 dh = make_float2(0.f, 0.f);
+    if (c < F)
+      dh = *reinterpret_cast<const float2*>(
+          dhp + (r0 + 8 * ((i / 2) % 2)) * F + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; q += 2) {
-        const int r = acc_row(wm, lane, i, q);
-        const int c = n0 + acc_col(wn, lane, j, q);
-        if (r >= rows || c >= F) continue;
-        float hv[2], dgv[2], duv[2];
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          hidden_grad<ACT>(acc_g[i][j][q + p], acc_u[i][j][q + p],
-                           acc_h[i][j][q + p], hv[p], dgv[p], duv[p]);
-        const size_t o = (size_t)s_rows[r] * F + c;
-        store2(h + o, hv[0], hv[1], c + 1 < F);
-        store2(du + o, duv[0], duv[1], c + 1 < F);
-        if (kGate) store2(dg + o, dgv[0], dgv[1], c + 1 < F);
-      }
+    for (int q = 0; q < 2; ++q) {
+      float dg, du;
+      hidden_grad<ACT>(acc[kNB - 1][i + q], acc[0][i + q], q ? dh.y : dh.x,
+                       hv[i + q], dg, du);
+      acc[0][i + q] = du;
+      if constexpr (kGate) acc[1][i + q] = dg;
+    }
+  }
+  const size_t base = (size_t)row0 + cw * 64;
+  auto put = [&](bf16* out) {
+    return [=](int r, int c, uint4 v) {
+      if (n0 + c < F)
+        *reinterpret_cast<uint4*>(out + (base + r) * F + n0 + c) = v;
+    };
+  };
+  store_acc16<128>(hv, tid, put(hp));
+  store_acc16<128>(acc[0], tid, put(dup));
+  if constexpr (kGate) store_acc16<128>(acc[1], tid, put(dgp));
 }
 
-// 2. dx of slot blockIdx.z over columns [n0, n0 + 64) of d: zeros into the
-// dead rows among positions [p0, p0 + 128), then the live rows p0 .. p0 +
-// 128 of the slot's list: dg Wg[e]^T + du Wu[e]^T, one sum over 2F.
+// 4. dx of one 128-row packed tile over d columns [n0, n0 + 256): the sum
+// over k in [0, F) of dg Wg^T (with a gate), then of du Wu^T, scattered to
+// each packed row's (s, t).
 template <int ACT>
-__global__ void __launch_bounds__(kThreads, 2)
-moe_bwd_input(const bf16* __restrict__ dg, const bf16* __restrict__ du,
-          const bf16* __restrict__ wg, const bf16* __restrict__ wu,
-          const int32_t* __restrict__ se, const int32_t* __restrict__ counts,
-          const int32_t* __restrict__ index, bf16* __restrict__ dx, int S,
-          int T, int d, int F, int E, int B, int aligned_flag) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_rows[kBM];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int kParts = ACT == kSwiglu ? 2 : 1;   // (dg, Wg), (du, Wu)
-  constexpr int kBK = kInputBK, kAK = Tile<kBK>::kAK;
-  constexpr int kStage = kAK + Tile<kBK>::kNK;
-  const int s = blockIdx.z, p0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int e = se[s];
-  const bool expert = e >= 0 && e < E;
-  const int Tb = T / B;
-  for (int i = tid; i < kBM * kBN; i += kThreads) {
-    const int t = p0 + i / kBN, c = n0 + i % kBN;
-    if (t < T && c < d && !(expert && row_live(counts, s, t, B, Tb)))
-      dx[((size_t)s * T + t) * d + c] = __float2bfloat16(0.f);
-  }
-  const int n_live = expert ? index[S + s] : 0;
-  if (p0 >= n_live) return;
-  const int rows = min(kBM, n_live - p0);
-  const int wm = warp >> 1, wn = warp & 1;
-  const bool aligned = aligned_flag != 0;
-  for (int r = tid; r < rows; r += kThreads)
-    s_rows[r] = index[2 * S + E + 1 + index[s] + p0 + r];
-  __syncthreads();
-
-  const bf16* Wu = wu + (size_t)e * d * F;
-  const bf16* W0 = kParts == 2 ? wg + (size_t)e * d * F : Wu;
-  const bf16* G0 = kParts == 2 ? dg : du;
-  const int nkf = (F + kBK - 1) / kBK;
-  Acc acc;
-  zero_acc(acc);
-  // part 0: (dg, Wg) with a gate, else (du, Wu); part 1: (du, Wu)
-  AlongRows<kBM, kBK> lg0, lg1;
-  AlongRows<kBN, kBK> lw0, lw1;
-  lg0.init([&](int r) {
-    return r < rows ? G0 + (size_t)s_rows[r] * F : nullptr;
-  }, F, G0);
-  lw0.init([&](int r) {
-    return n0 + r < d ? W0 + (size_t)(n0 + r) * F : nullptr;
-  }, F, W0);
-  if (kParts == 2) {
-    lg1.init([&](int r) {
-      return r < rows ? du + (size_t)s_rows[r] * F : nullptr;
-    }, F, du);
-    lw1.init([&](int r) {
-      return n0 + r < d ? Wu + (size_t)(n0 + r) * F : nullptr;
-    }, F, Wu);
-  }
-  auto load = [&](int st, int kt) {
-    bf16* base = smem + st * kStage;
-    const int k0 = (kt % nkf) * kBK;
-    if (kParts == 1 || kt < nkf) {
-      lg0.load(base, k0, aligned);
-      lw0.load(base + kAK, k0, aligned);
-    } else {
-      lg1.load(base, k0, aligned);
-      lw1.load(base + kAK, k0, aligned);
-    }
-  };
-  auto compute = [&](int st) {
-    const bf16* base = smem + st * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-      a_frags<false, kBK + kPad>(a, base, wm * 32, kk, lane);
-      b_frags<true, kBK + kPad>(b, base + kAK, wn * 32, kk, lane);
-      mma_tile(acc, a, b);
-    }
-  };
-  pipeline<kInputStages>(kParts * nkf, load, compute);
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; q += 2) {
-        const int r = acc_row(wm, lane, i, q);
-        const int c = n0 + acc_col(wn, lane, j, q);
-        if (r < rows && c < d)
-          store2(dx + (size_t)s_rows[r] * d + c, acc[i][j][q],
-                 acc[i][j][q + 1], c + 1 < d);
-      }
+__global__ void __launch_bounds__(kWThreads, 1)
+moe_bwd_input(const __grid_constant__ CUtensorMap tm_dg,
+              const __grid_constant__ CUtensorMap tm_du,
+              const __grid_constant__ CUtensorMap tm_wg,
+              const __grid_constant__ CUtensorMap tm_wu,
+              const int32_t* __restrict__ index, bf16* __restrict__ dx,
+              int S, int T, int d, int F, int E) {
+  const Index ix(index, S, T, E);
+  constexpr int kParts = ACT == kSwiglu ? 2 : 1;
+  rows_gemm<kParts>(kParts == 2 ? tm_dg : tm_du, tm_du,
+                    kParts == 2 ? tm_wg : tm_wu, tm_wu, ix, F,
+                    [&](int row0, int n0, const float (&acc)[kRN / 2]) {
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int r0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int dst[2] = {ix.packed[row0 + r0], ix.packed[row0 + r0 + 8]};
+    store_acc16<kRN>(acc, tid, [&](int r, int c, uint4 v) {
+      const int row = dst[r != r0];
+      if (row >= 0 && n0 + c < d)
+        *reinterpret_cast<uint4*>(dx + (size_t)row * d + n0 + c) = v;
+    });
+  });
 }
 
-template <int NB>
-struct Weight {
-  using Tl = Tile<kWeightBK>;
-  static constexpr int kStage = Tl::kKM + NB * Tl::kKN;
-  static constexpr size_t kSmem = (size_t)kWeightStages * kStage *
-                                  sizeof(bf16);
-};
+// A (two 64-wide boxes of 64 packed rows), then NB B tiles of BN / 64 boxes
+template <int NB, int BN>
+using WeightRing = Ring<2 * kBox + NB * (BN / 64) * kBox>;
 
-// 3./4. out_b[e] (M x N) = sum over weight row e's live rows of a[row]^T
-// b_b[row], for one 128 x 64 tile; a: rows of M elements, b_b: rows of N.
-template <int NB>
-__global__ void __launch_bounds__(kThreads, 2)
-moe_bwd_weight(const bf16* __restrict__ a, const bf16* __restrict__ b0,
-           const bf16* __restrict__ b1, const int32_t* __restrict__ index,
-           bf16* __restrict__ out0, bf16* __restrict__ out1, int S, int E,
-           int M, int N, int aligned_flag) {
+// 4./5. out_b[e] (M x N) = A_e^T B_b,e over weight row e's padded segment,
+// for every (e, 128-row m tile, BN-column n tile), CTA blockIdx.x taking
+// every gridDim.x-th tile. A: packed (P, M); B_b: packed (P, N).
+template <int NB, int BN>
+__device__ __forceinline__ void weight_grad(const CUtensorMap& tm_a,
+                                            const CUtensorMap& tm_b0,
+                                            const CUtensorMap& tm_b1,
+                                            const int32_t* __restrict__ index,
+                                            bf16* __restrict__ out0,
+                                            bf16* __restrict__ out1, int S,
+                                            int T, int E, int M, int N) {
+  using Rg = WeightRing<NB, BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int kStage = Weight<NB>::kStage, kBK = kWeightBK;
-  constexpr int kKM = Tile<kBK>::kKM, kKN = Tile<kBK>::kKN;
-  const int e = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const bool aligned = aligned_flag != 0;
-  const int32_t* exp_off = index + 2 * S;
-  const int32_t* rows = index + 2 * S + E + 1 + exp_off[e];
-  const int n_rows = exp_off[e + 1] - exp_off[e];
-  Acc acc0, acc1;
-  zero_acc(acc0);
-  zero_acc(acc1);
-  ListedRows<kBK, kBM> la;
-  ListedRows<kBK, kBN> lb0, lb1;
-  la.init(a, rows, n_rows, M, m0, M);
-  lb0.init(b0, rows, n_rows, N, n0, N);
-  if (NB == 2) lb1.init(b1, rows, n_rows, N, n0, N);
-  auto load = [&](int st, int kt) {
-    bf16* base = smem + st * kStage;
-    const int k0 = kt * kBK;
-    la.load(base, k0, a, aligned);
-    lb0.load(base + kKM, k0, b0, aligned);
-    if (NB == 2) lb1.load(base + kKM + kKN, k0, b1, aligned);
-  };
-  auto compute = [&](int st) {
-    const bf16* base = smem + st * kStage;
+  const Rg ring(smem_raw);
+  const Index ix(index, S, T, E);
+  const int tid = threadIdx.x;
+  if (tid == 0) ring.init(2);
+  __syncthreads();
+  const int mt = (M + kWM - 1) / kWM, nt = (N + BN - 1) / BN;
+  const int per_e = mt * nt, total = E * per_e;
+  const int wg = tid / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int e = t / per_e, m0 = (t % per_e) / nt * kWM;
+        const int n0 = (t % nt) * BN;
+        const int seg = ix.seg_off[e], nk = (ix.seg_n[e] + 63) / 64;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          unsigned char* st = ring.fill(it);
+          uint64_t* bar = &ring.full[it % Rg::kStages];
+          const int k0 = seg + kt * 64;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4], b[4][2];
-      a_frags<true, kBM + kPad>(af, base, wm * 32, kk, lane);
-      b_frags<false, kBN + kPad>(b, base + kKM, wn * 32, kk, lane);
-      mma_tile(acc0, af, b);
-      if (NB == 2) {
-        b_frags<false, kBN + kPad>(b, base + kKM + kKN, wn * 32, kk, lane);
-        mma_tile(acc1, af, b);
-      }
-    }
-  };
-  pipeline<kWeightStages>((n_rows + kBK - 1) / kBK, load, compute);
-
-  const size_t off = (size_t)e * M * N;
+          for (int h = 0; h < 2; ++h)
+            tma_load(st + h * kBox, &tm_a, bar, m0 + 64 * h, k0, 0);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+          for (int b = 0; b < NB; ++b)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; q += 2) {
-        const int m = m0 + acc_row(wm, lane, i, q);
-        const int n = n0 + acc_col(wn, lane, j, q);
-        if (m < M && n < N) {
-          const size_t o = off + (size_t)m * N + n;
-          store2(out0 + o, acc0[i][j][q], acc0[i][j][q + 1], n + 1 < N);
-          if (NB == 2)
-            store2(out1 + o, acc1[i][j][q], acc1[i][j][q + 1], n + 1 < N);
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(st + (2 + b * (BN / 64) + j) * kBox, b ? &tm_b1 : &tm_b0,
+                       bar, n0 + 64 * j, k0, 0);
         }
       }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;               // rows 64 cw .. 64 cw + 63 of the tile
+  int it = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int e = t / per_e, m0 = (t % per_e) / nt * kWM;
+    const int n0 = (t % nt) * BN;
+    const int nk = (ix.seg_n[e] + 63) / 64;
+    float acc[NB][BN / 2];
+    zero_acc<BN>(acc);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      ring.wait_full(it);
+      const unsigned char* st = ring.stage(it);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = mnmajor_desc(st + cw * kBox, kk);
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          wgmma<BN, 1, 1>(acc[b], da,
+                          mnmajor_desc(st + (2 + b * (BN / 64)) * kBox, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0) ring.release(it - 1, tid);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    if (nk > 0) ring.release(it - 1, tid);  // the next tile's loads go on
+    const size_t m_row = (size_t)m0 + cw * 64;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      bf16* out = (b ? out1 : out0) + (size_t)e * M * N;
+      store_acc16<BN>(acc[b], tid, [&](int r, int c, uint4 v) {
+        if (m_row + r < (size_t)M && n0 + c < N)
+          *reinterpret_cast<uint4*>(out + (m_row + r) * N + n0 + c) = v;
+      });
+    }
+  }
+}
+
+// dWg and dWu (swiglu: NB 2, BN 128) or dWu alone (NB 1, BN 256)
+template <int NB, int BN>
+__global__ void __launch_bounds__(kWThreads, 1)
+moe_bwd_weight_gu(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_b0,
+                  const __grid_constant__ CUtensorMap tm_b1,
+                  const int32_t* __restrict__ index, bf16* __restrict__ out0,
+                  bf16* __restrict__ out1, int S, int T, int E, int d, int F) {
+  weight_grad<NB, BN>(tm_x, tm_b0, tm_b1, index, out0, out1, S, T, E, d, F);
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+moe_bwd_weight_down(const __grid_constant__ CUtensorMap tm_h,
+                    const __grid_constant__ CUtensorMap tm_dy,
+                    const int32_t* __restrict__ index, bf16* __restrict__ out,
+                    int S, int T, int E, int d, int F) {
+  weight_grad<1, 256>(tm_h, tm_dy, tm_dy, index, out, out, S, T, E, F, d);
 }
 
 // ---------------------------------------------------------------------------
-// fp32: plain FMA kernels over the same row lists
+// fp32, and bf16 rows that are not whole 16-byte chunks: FMA kernels over
+// the same row lists, h, dg and du at each row's s * T + t
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename V>
+__device__ __forceinline__ V from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
 // h, dg, du of kFRows live rows of slot blockIdx.z, one column of F a thread.
-template <int ACT>
+template <typename V, int ACT>
 __global__ void __launch_bounds__(kFThreads)
-moe_bwd_hidden_f32(const float* __restrict__ x, const float* __restrict__ dy,
-               const float* __restrict__ wg, const float* __restrict__ wu,
-               const float* __restrict__ wd, const int32_t* __restrict__ se,
-               const int32_t* __restrict__ index, float* __restrict__ h,
-               float* __restrict__ dg, float* __restrict__ du, int S, int d,
-               int F, int E) {
+moe_bwd_hidden_fma(const V* __restrict__ x, const V* __restrict__ dy,
+                   const V* __restrict__ wg, const V* __restrict__ wu,
+                   const V* __restrict__ wd, const int32_t* __restrict__ se,
+                   const int32_t* __restrict__ index, V* __restrict__ h,
+                   V* __restrict__ dg, V* __restrict__ du, int S, int T,
+                   int d, int F, int E) {
+  const Index ix(index, S, T, E);
   const int s = blockIdx.z, m0 = blockIdx.x * kFRows;
   const int f = blockIdx.y * kFThreads + threadIdx.x;
   const int e = se[s];
-  const int n_live = index[S + s];
+  const int n_live = ix.slot_n[s];
   if (e < 0 || e >= E || m0 >= n_live || f >= F) return;
   const int rows = min(kFRows, n_live - m0);
-  const int32_t* list = index + 2 * S + E + 1 + index[s] + m0;
-  const float* Wu = wu + (size_t)e * d * F + f;
-  const float* Wg = (ACT == kSwiglu ? wg : wu) + (size_t)e * d * F + f;
-  const float* Wd = wd + (size_t)e * F * d + (size_t)f * d;
+  const int32_t* list = ix.packed + ix.slot_start[s] + m0;
+  const V* Wu = wu + (size_t)e * d * F + f;
+  const V* Wg = (ACT == kSwiglu ? wg : wu) + (size_t)e * d * F + f;
+  const V* Wd = wd + (size_t)e * F * d + (size_t)f * d;
   for (int r = 0; r < rows; ++r) {
-    const float* xr = x + (size_t)list[r] * d;
-    const float* dyr = dy + (size_t)list[r] * d;
+    const V* xr = x + (size_t)list[r] * d;
+    const V* dyr = dy + (size_t)list[r] * d;
     float g = 0.f, u = 0.f, dh = 0.f;
     for (int k = 0; k < d; ++k) {
-      u = fmaf(xr[k], Wu[(size_t)k * F], u);
-      if (ACT == kSwiglu) g = fmaf(xr[k], Wg[(size_t)k * F], g);
-      dh = fmaf(dyr[k], Wd[k], dh);
+      u = fmaf(to_f(xr[k]), to_f(Wu[(size_t)k * F]), u);
+      if (ACT == kSwiglu) g = fmaf(to_f(xr[k]), to_f(Wg[(size_t)k * F]), g);
+      dh = fmaf(to_f(dyr[k]), to_f(Wd[k]), dh);
     }
     float hv, dgv, duv;
     hidden_grad<ACT>(g, u, dh, hv, dgv, duv);
     const size_t o = (size_t)list[r] * F + f;
-    h[o] = hv;
-    du[o] = duv;
-    if (ACT == kSwiglu) dg[o] = dgv;
+    h[o] = from_f<V>(hv);
+    du[o] = from_f<V>(duv);
+    if (ACT == kSwiglu) dg[o] = from_f<V>(dgv);
   }
 }
 
 // dx of kFRows row positions of slot blockIdx.z, one column of d a thread;
 // dead rows and slots without an expert get zeros.
-template <int ACT>
+template <typename V, int ACT>
 __global__ void __launch_bounds__(kFThreads)
-moe_bwd_input_f32(const float* __restrict__ dg, const float* __restrict__ du,
-              const float* __restrict__ wg, const float* __restrict__ wu,
-              const int32_t* __restrict__ se,
-              const int32_t* __restrict__ counts, float* __restrict__ dx,
-              int T, int d, int F, int E, int B) {
+moe_bwd_input_fma(const V* __restrict__ dg, const V* __restrict__ du,
+                  const V* __restrict__ wg, const V* __restrict__ wu,
+                  const int32_t* __restrict__ se,
+                  const int32_t* __restrict__ counts, V* __restrict__ dx,
+                  int T, int d, int F, int E, int B) {
   const int s = blockIdx.z, t0 = blockIdx.x * kFRows;
   const int c = blockIdx.y * kFThreads + threadIdx.x;
   if (c >= d) return;
@@ -799,42 +741,44 @@ moe_bwd_input_f32(const float* __restrict__ dg, const float* __restrict__ du,
     const size_t row = (size_t)s * T + t;
     float acc = 0.f;
     if (expert && row_live(counts, s, t, B, Tb)) {
-      const float* Wu = wu + (size_t)e * d * F + (size_t)c * F;
+      const V* Wu = wu + (size_t)e * d * F + (size_t)c * F;
       if (ACT == kSwiglu) {
-        const float* Wg = wg + (size_t)e * d * F + (size_t)c * F;
-        for (int k = 0; k < F; ++k) acc = fmaf(dg[row * F + k], Wg[k], acc);
+        const V* Wg = wg + (size_t)e * d * F + (size_t)c * F;
+        for (int k = 0; k < F; ++k)
+          acc = fmaf(to_f(dg[row * F + k]), to_f(Wg[k]), acc);
       }
-      for (int k = 0; k < F; ++k) acc = fmaf(du[row * F + k], Wu[k], acc);
+      for (int k = 0; k < F; ++k)
+        acc = fmaf(to_f(du[row * F + k]), to_f(Wu[k]), acc);
     }
-    dx[row * d + c] = acc;
+    dx[row * d + c] = from_f<V>(acc);
   }
 }
 
-// out_b[e][m][n] = sum over weight row e's rows of a[row][m] b_b[row][n];
+// out_b[e][m][n] = sum over weight row e's live rows of a[row][m] b_b[row][n];
 // one column n a thread, kFRows values of m.
-template <int NB>
+template <typename V, int NB>
 __global__ void __launch_bounds__(kFThreads)
-moe_bwd_weight_f32(const float* __restrict__ a, const float* __restrict__ b0,
-               const float* __restrict__ b1, const int32_t* __restrict__ index,
-               float* __restrict__ out0, float* __restrict__ out1, int S,
-               int E, int M, int N) {
+moe_bwd_weight_fma(const V* __restrict__ a, const V* __restrict__ b0,
+                   const V* __restrict__ b1, const int32_t* __restrict__ index,
+                   V* __restrict__ out0, V* __restrict__ out1, int S, int T,
+                   int E, int M, int N) {
+  const Index ix(index, S, T, E);
   const int e = blockIdx.z, m0 = blockIdx.y * kFRows;
   const int n = blockIdx.x * kFThreads + threadIdx.x;
   if (n >= N) return;
-  const int32_t* exp_off = index + 2 * S;
-  const int32_t* rows = index + 2 * S + E + 1 + exp_off[e];
-  const int n_rows = exp_off[e + 1] - exp_off[e];
+  const int32_t* rows = ix.packed + ix.seg_off[e];
+  const int n_rows = ix.seg_n[e];
   float c0[kFRows], c1[kFRows];
 #pragma unroll
   for (int i = 0; i < kFRows; ++i) c0[i] = c1[i] = 0.f;
   for (int j = 0; j < n_rows; ++j) {
     const size_t row = rows[j];
-    const float v0 = b0[row * N + n];
-    const float v1 = NB == 2 ? b1[row * N + n] : 0.f;
+    const float v0 = to_f(b0[row * N + n]);
+    const float v1 = NB == 2 ? to_f(b1[row * N + n]) : 0.f;
 #pragma unroll
     for (int i = 0; i < kFRows; ++i) {
       if (m0 + i < M) {
-        const float av = a[row * M + m0 + i];
+        const float av = to_f(a[row * M + m0 + i]);
         c0[i] = fmaf(av, v0, c0[i]);
         if (NB == 2) c1[i] = fmaf(av, v1, c1[i]);
       }
@@ -843,8 +787,9 @@ moe_bwd_weight_f32(const float* __restrict__ a, const float* __restrict__ b0,
 #pragma unroll
   for (int i = 0; i < kFRows; ++i) {
     if (m0 + i < M) {
-      out0[(size_t)e * M * N + (size_t)(m0 + i) * N + n] = c0[i];
-      if (NB == 2) out1[(size_t)e * M * N + (size_t)(m0 + i) * N + n] = c1[i];
+      const size_t o = (size_t)e * M * N + (size_t)(m0 + i) * N + n;
+      out0[o] = from_f<V>(c0[i]);
+      if (NB == 2) out1[o] = from_f<V>(c1[i]);
     }
   }
 }
@@ -853,94 +798,145 @@ moe_bwd_weight_f32(const float* __restrict__ a, const float* __restrict__ b0,
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = err == cudaSuccess;
-  return err;
-}
-
 inline unsigned cdiv(int a, int b) { return (unsigned)((a + b - 1) / b); }
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
+}
 
 // One call's tensors and shapes. Without a gate, wg, dg and dwg alias wu,
 // du and dwu (the kernels then read and write only the latter).
 struct Args {
   const void *x, *wg, *wu, *wd, *dy;
   const int32_t *se, *counts, *index;
-  void *h, *dg, *du, *dx, *dwg, *dwu, *dwd;
-  int S, T, d, F, E, B, aligned;
+  void *h, *dg, *du, *xp, *dyp, *dh, *dx, *dwg, *dwu, *dwd;
+  int S, T, d, F, E, B;
   cudaStream_t st;
 };
 
-template <typename T>
-const T* in(const void* p) { return static_cast<const T*>(p); }
-template <typename T>
-T* out(void* p) { return static_cast<T*>(p); }
+template <typename V>
+const V* in(const void* p) { return static_cast<const V*>(p); }
+template <typename V>
+V* out(void* p) { return static_cast<V*>(p); }
 
 template <int ACT>
-cudaError_t run_bf16(const Args& a) {
-  constexpr int kGU = ACT == kSwiglu ? 2 : 1;
-  constexpr size_t kInputSmem = (size_t)kInputStages *
-      (Tile<kInputBK>::kAK + Tile<kInputBK>::kNK) * sizeof(bf16);
-  static bool attr[4] = {false, false, false, false};
-  cudaError_t err;
-  if ((err = set_smem(moe_bwd_hidden<ACT>, Hidden<ACT>::kSmem, attr[0])) ||
-      (err = set_smem(moe_bwd_input<ACT>, kInputSmem, attr[1])) ||
-      (err = set_smem(moe_bwd_weight<kGU>, Weight<kGU>::kSmem, attr[2])) ||
-      (err = set_smem(moe_bwd_weight<1>, Weight<1>::kSmem, attr[3])))
-    return err;
+cudaError_t run_wgmma(const Args& a) {
+  constexpr bool kGate = ACT == kSwiglu;
+  constexpr int kGU = kGate ? 2 : 1, kGUN = kGate ? 128 : 256;
+  using HR = typename Hidden<ACT>::Rg;
+  using GR = WeightRing<kGU, kGUN>;
+  using DR = WeightRing<1, 256>;
   const int S = a.S, T = a.T, d = a.d, F = a.F, E = a.E;
-  moe_bwd_hidden<ACT><<<dim3(cdiv(T, kBM), cdiv(F, kBN), S), kThreads,
-                        Hidden<ACT>::kSmem, a.st>>>(
-      in<bf16>(a.x), in<bf16>(a.dy), in<bf16>(a.wg), in<bf16>(a.wu),
-      in<bf16>(a.wd), a.se, a.index, out<bf16>(a.h), out<bf16>(a.dg),
-      out<bf16>(a.du), S, d, F, E, a.aligned);
+  const int P = pack_rows(S, T, E);
+  // packed scratch: encoded each call; weights: cached by pointer and box
+  CUtensorMap x128, dy128, dg128, du128, x64, dy64, h64, dg64, du64;
+  CUtensorMap wg_n, wu_n, wd_k, wg_k, wu_k;
+  if (!encode(&x128, a.xp, d, P, 1, kTM) ||
+      !encode(&dy128, a.dyp, d, P, 1, kTM) ||
+      !encode(&du128, a.du, F, P, 1, kTM) || !encode(&x64, a.xp, d, P, 1, 64) ||
+      !encode(&dy64, a.dyp, d, P, 1, 64) || !encode(&h64, a.h, F, P, 1, 64) ||
+      !encode(&du64, a.du, F, P, 1, 64) ||
+      !weight_map(&wu_n, a.wu, F, d, E, 64) ||
+      !weight_map(&wd_k, a.wd, d, F, E, kRN) ||
+      !weight_map(&wu_k, a.wu, F, d, E, kRN))
+    return cudaErrorInvalidValue;
+  if (kGate && (!encode(&dg128, a.dg, F, P, 1, kTM) ||
+                !encode(&dg64, a.dg, F, P, 1, 64) ||
+                !weight_map(&wg_n, a.wg, F, d, E, 64) ||
+                !weight_map(&wg_k, a.wg, F, d, E, kRN)))
+    return cudaErrorInvalidValue;
+  if (!kGate) {
+    dg128 = du128;
+    dg64 = du64;
+    wg_n = wu_n;
+    wg_k = wu_k;
+  }
+  static bool attr[5] = {false, false, false, false, false};
+  cudaError_t err;
+  if ((err = set_smem(moe_bwd_dh, RowsRing::kSmem, attr[0])) ||
+      (err = set_smem(moe_bwd_hidden<ACT>, HR::kSmem, attr[1])) ||
+      (err = set_smem(moe_bwd_input<ACT>, RowsRing::kSmem, attr[2])) ||
+      (err = set_smem(moe_bwd_weight_gu<kGU, kGUN>, GR::kSmem, attr[3])) ||
+      (err = set_smem(moe_bwd_weight_down, DR::kSmem, attr[4])))
+    return err;
+  const int pack_rows_max = P > S * T ? P : S * T;
+  moe_bwd_pack<<<dim3(cdiv(pack_rows_max, kPackThreads / 32), 2),
+                 kPackThreads, 0, a.st>>>(
+      in<bf16>(a.x), in<bf16>(a.dy), a.se, a.counts, a.index, out<bf16>(a.xp),
+      out<bf16>(a.dyp), out<bf16>(a.dx), S, T, d, E, a.B);
   if ((err = cudaGetLastError())) return err;
-  moe_bwd_input<ACT><<<dim3(cdiv(T, kBM), cdiv(d, kBN), S), kThreads,
-                       kInputSmem, a.st>>>(
-      out<bf16>(a.dg), out<bf16>(a.du), in<bf16>(a.wg), in<bf16>(a.wu), a.se,
-      a.counts, a.index, out<bf16>(a.dx), S, T, d, F, E, a.B, a.aligned);
+  const unsigned tiles = (unsigned)max_tiles(P);
+  moe_bwd_dh<<<dim3(tiles, cdiv(F, kRN)), kWThreads, RowsRing::kSmem, a.st>>>(
+      dy128, wd_k, a.index, out<float>(a.dh), S, T, d, F, E);
   if ((err = cudaGetLastError())) return err;
-  moe_bwd_weight<kGU><<<dim3(cdiv(d, kBM), cdiv(F, kBN), E), kThreads,
-                        Weight<kGU>::kSmem, a.st>>>(
-      in<bf16>(a.x), out<bf16>(a.dg), out<bf16>(a.du), a.index,
-      out<bf16>(a.dwg), out<bf16>(a.dwu), S, E, d, F, a.aligned);
+  moe_bwd_hidden<ACT><<<dim3(tiles, cdiv(F, kHN)), kWThreads, HR::kSmem,
+                        a.st>>>(x128, wg_n, wu_n, a.index, in<float>(a.dh),
+                                out<bf16>(a.h), out<bf16>(a.dg),
+                                out<bf16>(a.du), S, T, d, F, E);
   if ((err = cudaGetLastError())) return err;
-  moe_bwd_weight<1><<<dim3(cdiv(F, kBM), cdiv(d, kBN), E), kThreads,
-                      Weight<1>::kSmem, a.st>>>(
-      out<bf16>(a.h), in<bf16>(a.dy), in<bf16>(a.dy), a.index,
-      out<bf16>(a.dwd), out<bf16>(a.dwd), S, E, F, d, a.aligned);
+  moe_bwd_input<ACT><<<dim3(tiles, cdiv(d, kRN)), kWThreads, RowsRing::kSmem,
+                       a.st>>>(dg128, du128, wg_k, wu_k, a.index,
+                               out<bf16>(a.dx), S, T, d, F, E);
+  if ((err = cudaGetLastError())) return err;
+  const long long gu_tiles = (long long)E * cdiv(d, kWM) * cdiv(F, kGUN);
+  const long long down_tiles = (long long)E * cdiv(F, kWM) * cdiv(d, 256);
+  if (gu_tiles > INT_MAX || down_tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int sms = num_sms();
+  moe_bwd_weight_gu<kGU, kGUN>
+      <<<(unsigned)(gu_tiles < sms ? gu_tiles : sms), kWThreads, GR::kSmem,
+         a.st>>>(x64, kGate ? dg64 : du64, du64, a.index, out<bf16>(a.dwg),
+                 out<bf16>(a.dwu), S, T, E, d, F);
+  if ((err = cudaGetLastError())) return err;
+  moe_bwd_weight_down<<<(unsigned)(down_tiles < sms ? down_tiles : sms),
+                        kWThreads, DR::kSmem, a.st>>>(
+      h64, dy64, a.index, out<bf16>(a.dwd), S, T, E, d, F);
+  return cudaGetLastError();
+}
+
+template <typename V, int ACT>
+cudaError_t run_fma(const Args& a) {
+  constexpr int kGU = ACT == kSwiglu ? 2 : 1;
+  const int S = a.S, T = a.T, d = a.d, F = a.F, E = a.E;
+  cudaError_t err;
+  moe_bwd_hidden_fma<V, ACT>
+      <<<dim3(cdiv(T, kFRows), cdiv(F, kFThreads), S), kFThreads, 0, a.st>>>(
+          in<V>(a.x), in<V>(a.dy), in<V>(a.wg), in<V>(a.wu), in<V>(a.wd),
+          a.se, a.index, out<V>(a.h), out<V>(a.dg), out<V>(a.du), S, T, d, F,
+          E);
+  if ((err = cudaGetLastError())) return err;
+  moe_bwd_input_fma<V, ACT>
+      <<<dim3(cdiv(T, kFRows), cdiv(d, kFThreads), S), kFThreads, 0, a.st>>>(
+          out<V>(a.dg), out<V>(a.du), in<V>(a.wg), in<V>(a.wu), a.se,
+          a.counts, out<V>(a.dx), T, d, F, E, a.B);
+  if ((err = cudaGetLastError())) return err;
+  moe_bwd_weight_fma<V, kGU>
+      <<<dim3(cdiv(F, kFThreads), cdiv(d, kFRows), E), kFThreads, 0, a.st>>>(
+          in<V>(a.x), out<V>(a.dg), out<V>(a.du), a.index, out<V>(a.dwg),
+          out<V>(a.dwu), S, T, E, d, F);
+  if ((err = cudaGetLastError())) return err;
+  moe_bwd_weight_fma<V, 1>
+      <<<dim3(cdiv(d, kFThreads), cdiv(F, kFRows), E), kFThreads, 0, a.st>>>(
+          out<V>(a.h), in<V>(a.dy), in<V>(a.dy), a.index, out<V>(a.dwd),
+          out<V>(a.dwd), S, T, E, F, d);
   return cudaGetLastError();
 }
 
 template <int ACT>
-cudaError_t run_f32(const Args& a) {
-  constexpr int kGU = ACT == kSwiglu ? 2 : 1;
-  const int S = a.S, T = a.T, d = a.d, F = a.F, E = a.E;
-  cudaError_t err;
-  moe_bwd_hidden_f32<ACT>
-      <<<dim3(cdiv(T, kFRows), cdiv(F, kFThreads), S), kFThreads, 0, a.st>>>(
-          in<float>(a.x), in<float>(a.dy), in<float>(a.wg), in<float>(a.wu),
-          in<float>(a.wd), a.se, a.index, out<float>(a.h), out<float>(a.dg),
-          out<float>(a.du), S, d, F, E);
-  if ((err = cudaGetLastError())) return err;
-  moe_bwd_input_f32<ACT>
-      <<<dim3(cdiv(T, kFRows), cdiv(d, kFThreads), S), kFThreads, 0, a.st>>>(
-          out<float>(a.dg), out<float>(a.du), in<float>(a.wg), in<float>(a.wu),
-          a.se, a.counts, out<float>(a.dx), T, d, F, E, a.B);
-  if ((err = cudaGetLastError())) return err;
-  moe_bwd_weight_f32<kGU>
-      <<<dim3(cdiv(F, kFThreads), cdiv(d, kFRows), E), kFThreads, 0, a.st>>>(
-          in<float>(a.x), out<float>(a.dg), out<float>(a.du), a.index,
-          out<float>(a.dwg), out<float>(a.dwu), S, E, d, F);
-  if ((err = cudaGetLastError())) return err;
-  moe_bwd_weight_f32<1>
-      <<<dim3(cdiv(d, kFThreads), cdiv(F, kFRows), E), kFThreads, 0, a.st>>>(
-          out<float>(a.h), in<float>(a.dy), in<float>(a.dy), a.index,
-          out<float>(a.dwd), out<float>(a.dwd), S, E, F, d);
-  return cudaGetLastError();
+cudaError_t run(const Args& a, int dtype, int aligned) {
+  if (dtype == 0) return run_fma<float, ACT>(a);
+  if (aligned) return run_wgmma<ACT>(a);
+  return run_fma<bf16, ACT>(a);
+}
+
+bool bad_shape(int S, int T, int E, int B) {
+  return S <= 0 || T <= 0 || E <= 0 || S > 65535 || E > 65535 || B <= 0 ||
+         T % B != 0 || (long long)S * T + (long long)E * kTile >= INT_MAX;
 }
 
 }  // namespace
@@ -948,44 +944,59 @@ cudaError_t run_f32(const Args& a) {
 // x, dy: (S, T, d); w_gate, w_up: (E, d, F) (w_gate read for swiglu only);
 // w_down: (E, F, d); all of one dtype (0 = float32, 1 = bfloat16);
 // slot_experts: (S,) int32; row_counts: (S, B) int32, T % B == 0, or null
-// (every row live); h, dg, du: (S, T, F) scratch of x's dtype (dg unused
-// unless swiglu); index: int32 scratch of 2 S + E + 1 + S T; dx: (S, T, d);
-// dw_gate (swiglu only), dw_up: (E, d, F); dw_down: (E, F, d). activation:
-// 0 = swiglu, 1 = gelu, 2 = relu. aligned = 1 when d and F are multiples of
-// 8 and every pointer is 16-byte aligned (bf16 tiles then load with
-// cp.async). Returns the first launch error (0 = all five launched).
+// (every row live). Scratch, with P = S T + E (64 - 1) packed rows: h, dg,
+// du (P, F) of x's dtype (dg unused unless swiglu); packed: the packed x
+// and dy (2, P, d) in bf16, then dh (P, F) in fp32, 4 P (d + F) bytes
+// (null on the FMA path); index: int32 of 2 S + 2 E + 2 + 3 ceil(P / 64) +
+// P (moe_gemm.py::bwd_index_size). dx: (S, T, d); dw_gate (swiglu only),
+// dw_up: (E, d, F); dw_down: (E, F, d). activation: 0 = swiglu, 1 = gelu,
+// 2 = relu. aligned = 1 when d and F are multiples of 8 and every pointer
+// is 16-byte aligned (bf16 then takes the TMA + wgmma kernels, seven
+// launches; otherwise the FMA kernels, five).
+// Returns the first launch error (0 = all launched).
 extern "C" int moe_gemm_bwd(const void* x, const void* w_gate,
                             const void* w_up, const void* w_down,
                             const void* slot_experts, const void* row_counts,
                             const void* dy, void* h, void* dg, void* du,
-                            void* index, void* dx, void* dw_gate, void* dw_up,
-                            void* dw_down, int S, int T, int d, int F, int E,
-                            int B, int activation, int dtype, int aligned,
-                            void* stream) {
-  if (S <= 0 || T <= 0 || d <= 0 || F <= 0 || E <= 0 || S > 65535 ||
-      E > 65535 || B <= 0 || T % B != 0 || activation < 0 || activation > 2 ||
-      (long long)S * T >= INT_MAX || cdiv(F, kBN) > 65535 ||
-      cdiv(d, kBN) > 65535 || cdiv(d, kFRows) > 65535 ||
-      cdiv(F, kFRows) > 65535)
+                            void* packed, void* index, void* dx,
+                            void* dw_gate, void* dw_up, void* dw_down, int S,
+                            int T, int d, int F, int E, int B, int activation,
+                            int dtype, int aligned, void* stream) {
+  if (bad_shape(S, T, E, B) || d <= 0 || F <= 0 || activation < 0 ||
+      activation > 2 || cdiv(F, kFThreads) > 65535 ||
+      cdiv(d, kFThreads) > 65535 || cdiv(d, kFRows) > 65535 ||
+      cdiv(F, kFRows) > 65535 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const bool gate = activation == kSwiglu;
+  const size_t P = (size_t)pack_rows(S, T, E);
+  bf16* xp = static_cast<bf16*>(packed);
+  bf16* dyp = xp == nullptr ? nullptr : xp + P * d;
+  float* dhp = xp == nullptr ? nullptr
+                             : reinterpret_cast<float*>(xp + 2 * P * d);
   const Args a{x, gate ? w_gate : w_up, w_up, w_down, dy,
                static_cast<const int32_t*>(slot_experts),
                static_cast<const int32_t*>(row_counts),
-               static_cast<const int32_t*>(index), h, gate ? dg : du, du, dx,
-               gate ? dw_gate : dw_up, dw_up, dw_down, S, T, d, F, E, B,
-               aligned, static_cast<cudaStream_t>(stream)};
+               static_cast<const int32_t*>(index), h, gate ? dg : du, du,
+               xp, dyp, dhp, dx, gate ? dw_gate : dw_up, dw_up, dw_down,
+               S, T, d, F, E, B, static_cast<cudaStream_t>(stream)};
   moe_bwd_rows<<<1, kPrepThreads, 0, a.st>>>(
       a.se, a.counts, static_cast<int32_t*>(index), S, T, E, B);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (dtype == 1)
-    return activation == kSwiglu ? run_bf16<kSwiglu>(a)
-           : activation == kGelu ? run_bf16<kGelu>(a)
-                                 : run_bf16<kRelu>(a);
-  if (dtype == 0)
-    return activation == kSwiglu ? run_f32<kSwiglu>(a)
-           : activation == kGelu ? run_f32<kGelu>(a)
-                                 : run_f32<kRelu>(a);
-  return cudaErrorInvalidValue;
+  return activation == kSwiglu ? run<kSwiglu>(a, dtype, aligned)
+         : activation == kGelu ? run<kGelu>(a, dtype, aligned)
+                               : run<kRelu>(a, dtype, aligned);
+}
+
+// The packed layout alone: moe_bwd_rows into index (sized as above), for
+// the tests that hold it against its plain mirror.
+extern "C" int moe_gemm_bwd_index(const void* slot_experts,
+                                  const void* row_counts, void* index, int S,
+                                  int T, int E, int B, void* stream) {
+  if (bad_shape(S, T, E, B)) return cudaErrorInvalidValue;
+  moe_bwd_rows<<<1, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(slot_experts),
+      static_cast<const int32_t*>(row_counts), static_cast<int32_t*>(index),
+      S, T, E, B);
+  return cudaGetLastError();
 }

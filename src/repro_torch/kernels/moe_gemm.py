@@ -21,8 +21,11 @@ decode shape, ``T <= 64``; TMA + ``wgmma`` tiles for the prefill shape).
 ``moe_gemm_bwd`` launches its gradient (``csrc/moe_gemm_bwd.cu``): ``dx``
 and the three weight gradients from ``dy``, recomputing the hidden
 activations rather than keeping them, which ``kernels.ops.MoeGemm`` runs on
-the way back through the training path's EP dispatch. See that source's
-header for its five launches.
+the way back through the training path's EP dispatch. It first packs each
+weight row's live rows into one segment padded to ``PACK_TILE`` rows
+(``split_bwd_index`` reads the layout; ``ref.moe_bwd_pack_plain`` is its
+plain mirror), then runs grouped products over the segments; see that
+source's header for its seven launches.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTIVATIONS = {"swiglu": 0, "gelu": 1, "relu": 2}
 MAX_SLOTS = 65535
+PACK_TILE = 64          # the backward's segments pad to this many rows
+TILE_ROWS = 128         # packed rows a hidden / input CTA of the backward
 
 
 def _function():
@@ -50,10 +55,78 @@ def _function():
 def _bwd_function():
     fn = build.load("moe_gemm_bwd").moe_gemm_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_index_function():
+    fn = build.load("moe_gemm_bwd").moe_gemm_bwd_index
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_rows_bound(S: int, T: int, E: int) -> int:
+    """Packed rows the backward's scratch holds: every row live, each of
+    the E segments padded by up to ``PACK_TILE - 1`` rows."""
+    return S * T + E * (PACK_TILE - 1)
+
+
+def _max_tiles(S: int, T: int, E: int) -> int:
+    return -(-pack_rows_bound(S, T, E) // PACK_TILE)
+
+
+def bwd_index_size(S: int, T: int, E: int) -> int:
+    """int32 elements of the backward's index scratch."""
+    return 2 * S + 2 * E + 2 + 3 * _max_tiles(S, T, E) + pack_rows_bound(
+        S, T, E)
+
+
+def split_bwd_index(index, S: int, T: int, E: int) -> dict:
+    """The backward's flat index (``csrc/moe_gemm_bwd.cu``, ``Index``) as
+    the dict ``ref.moe_bwd_pack_plain`` returns: ``slot_start`` and
+    ``slot_n`` (S,), ``seg_off`` (E + 1,), ``seg_n`` (E,), ``tiles`` (n,
+    3) of (first packed row, rows, weight row) and ``packed``
+    (``seg_off[E]``,) of ``s * T + t``, -1 for padding; int64 on the
+    CPU."""
+    index = index.cpu().long()
+    tm = _max_tiles(S, T, E)
+    parts, at = {}, 0
+    for name, n in (("slot_start", S), ("slot_n", S), ("seg_off", E + 1),
+                    ("seg_n", E), ("n_tiles", 1), ("tile_row0", tm),
+                    ("tile_rows", tm), ("tile_e", tm)):
+        parts[name] = index[at:at + n]
+        at += n
+    nt = int(parts.pop("n_tiles")[0])
+    parts["tiles"] = torch.stack([parts.pop(k)[:nt] for k in
+                                  ("tile_row0", "tile_rows", "tile_e")], 1)
+    parts["packed"] = index[at:at + int(parts["seg_off"][E])]
+    return parts
+
+
+def moe_bwd_index(slot_experts, row_counts, T: int, E: int):
+    """The backward's packed layout alone on the card (its first launch):
+    the flat int32 index for ``split_bwd_index``. slot_experts: (S,)
+    int32; row_counts: None or (S, B) int32."""
+    S = slot_experts.shape[0]
+    if slot_experts.device.type != "cuda":
+        raise ValueError("the CUDA kernel needs CUDA tensors, got "
+                         f"{slot_experts.device}")
+    index = torch.empty(bwd_index_size(S, T, E), dtype=torch.int32,
+                        device=slot_experts.device)
+    counts_ptr, B = ((None, 1) if row_counts is None
+                     else (row_counts.data_ptr(), row_counts.shape[1]))
+    stream = torch.cuda.current_stream(slot_experts.device).cuda_stream
+    err = _bwd_index_function()(slot_experts.data_ptr(), counts_ptr,
+                                index.data_ptr(), S, T, E, B, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm_bwd_index launch failed: CUDA error "
+                           f"{err}")
+    return index
 
 
 def check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
@@ -157,9 +230,10 @@ def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
     """Launch the backward on CUDA tensors: the forward's arguments and
     ``dy`` (S, T, d). Returns (dx (S, T, d), d_w_gate (E, d, F) or None
     without swiglu, d_w_up (E, d, F), d_w_down (E, F, d)), all in x's
-    dtype. Five launches on PyTorch's current stream; h, dg and du (S, T,
-    F) and the row lists are scratch allocated here; the host reads no
-    count."""
+    dtype. Seven launches on PyTorch's current stream (five on the FMA path
+    of fp32 or of rows that are not whole 16-byte chunks); the packed rows
+    (``pack_rows_bound``: x and dy, the fp32 dh, then h, dg and du) and the
+    index are scratch allocated here; the host reads no count."""
     check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy, activation,
                      row_counts)
     if x.device.type != "cuda":
@@ -175,27 +249,32 @@ def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
             if t is not None:
                 t.zero_()
         return dx, d_gate, d_up, d_down
-    scratch = torch.empty((3 if gated else 2, S, T, F), dtype=x.dtype,
+    P = pack_rows_bound(S, T, E)
+    w_gate = w_gate if gated else w_up
+    d_gate_out = d_gate if gated else d_up
+    tensors = (x, w_gate, w_up, w_down, dy, dx, d_gate_out, d_up, d_down)
+    aligned = int(d % 8 == 0 and F % 8 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in tensors))
+    scratch = torch.empty((3 if gated else 2, P, F), dtype=x.dtype,
                           device=x.device)
     h, du = scratch[0], scratch[1]
     dg = scratch[2] if gated else du
-    index = torch.empty(2 * S + E + 1 + S * T, dtype=torch.int32,
+    packed = (torch.empty(4 * P * (d + F), dtype=torch.uint8,
+                          device=x.device)
+              if aligned and x.dtype == torch.bfloat16 else None)
+    index = torch.empty(bwd_index_size(S, T, E), dtype=torch.int32,
                         device=x.device)
-    w_gate = w_gate if gated else w_up
-    d_gate_out = d_gate if gated else d_up
-    tensors = (x, w_gate, w_up, w_down, dy, h, dg, du, dx, d_gate_out, d_up,
-               d_down)
-    aligned = int(d % 8 == 0 and F % 8 == 0
-                  and all(t.data_ptr() % 16 == 0 for t in tensors))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     counts_ptr, B = ((None, 1) if row_counts is None
                      else (row_counts.data_ptr(), row_counts.shape[1]))
     err = _bwd_function()(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
         slot_experts.data_ptr(), counts_ptr, dy.data_ptr(), h.data_ptr(),
-        dg.data_ptr(), du.data_ptr(), index.data_ptr(), dx.data_ptr(),
-        d_gate_out.data_ptr(), d_up.data_ptr(), d_down.data_ptr(), S, T, d,
-        F, E, B, ACTIVATIONS[activation], _DTYPES[x.dtype], aligned, stream)
+        dg.data_ptr(), du.data_ptr(),
+        None if packed is None else packed.data_ptr(), index.data_ptr(),
+        dx.data_ptr(), d_gate_out.data_ptr(), d_up.data_ptr(),
+        d_down.data_ptr(), S, T, d, F, E, B, ACTIVATIONS[activation],
+        _DTYPES[x.dtype], aligned, stream)
     if err != 0:
         raise RuntimeError(f"moe_gemm_bwd launch failed: CUDA error {err}")
     return dx, d_gate, d_up, d_down

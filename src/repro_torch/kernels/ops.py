@@ -188,10 +188,11 @@ def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
     give ``dx = 0`` and add nothing. Not a port of a Pallas kernel: the
     gradient ``jax.grad`` takes through the JAX package's einsum
     ``grouped_ffn``, written by hand because the forward is a kernel. On the
-    card one call is five device launches (the row lists, the hidden
-    gradient, dx, the gate / up weight gradients and the down weight
-    gradient; see ``csrc/moe_gemm_bwd.cu``), counted once in
-    ``LAUNCHES``."""
+    card one call is seven device launches (the packed layout, the packed
+    x and dy, dh, the hidden gradient, dx, the gate / up weight gradients
+    and the down weight gradient; five on the FMA path of fp32 or unaligned
+    rows, which packs nothing; see ``csrc/moe_gemm_bwd.cu``), counted once
+    in ``LAUNCHES``."""
     if x.device.type == "cpu":
         _mg.check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy,
                              activation, row_counts)

@@ -248,6 +248,47 @@ def moe_gemm_bwd_plain(x, w_gate, w_up, w_down, slot_experts, dy,
     return dx, out.get("w_gate"), out["w_up"], out["w_down"]
 
 
+def moe_bwd_pack_plain(slot_experts, row_counts, T: int, E: int,
+                       tile: int = 64, tile_rows: int = 128) -> dict:
+    """The packed layout ``moe_gemm_bwd``'s kernels work on
+    (``csrc/moe_gemm_bwd.cu``, ``moe_bwd_rows``), as plain loops: for each
+    weight row e, one segment of the live rows (``live_rows_mask``) of every
+    slot that names e, slots ascending, then rows, padded with -1 rows to a
+    multiple of ``tile``; the segments in the order of e; the
+    ``tile_rows``-row tiles of each segment.
+
+    slot_experts: (S,) int; row_counts: None or (S, B) int. Returns
+    ``slot_start`` and ``slot_n`` (S,) (a slot's first packed row and live
+    rows; 0 and 0 for a slot outside [0, E)), ``seg_off`` (E + 1,) and
+    ``seg_n`` (E,), ``tiles`` (n, 3) of (first packed row, rows, e) and
+    ``packed`` (``seg_off[E]``,) of ``s * T + t``, all int64."""
+    se = [int(e) for e in slot_experts.tolist()]
+    S = len(se)
+    live = (torch.ones((S, T), dtype=torch.bool) if row_counts is None
+            else live_rows_mask(row_counts.cpu(), T))
+    slot_start, slot_n = [0] * S, [0] * S
+    seg_off, seg_n, tiles, packed = [], [], [], []
+    for e in range(E):
+        seg_off.append(len(packed))
+        for s in range(S):
+            if se[s] != e:
+                continue
+            rows = live[s].nonzero()[:, 0].tolist()
+            slot_start[s], slot_n[s] = len(packed), len(rows)
+            packed += [s * T + t for t in rows]
+        seg_n.append(len(packed) - seg_off[e])
+        packed += [-1] * (-seg_n[e] % tile)
+        length = len(packed) - seg_off[e]
+        tiles += [(seg_off[e] + r, min(tile_rows, length - r), e)
+                  for r in range(0, length, tile_rows)]
+    seg_off.append(len(packed))
+    as_t = lambda v: torch.tensor(v, dtype=torch.int64)   # noqa: E731
+    return dict(slot_start=as_t(slot_start), slot_n=as_t(slot_n),
+                seg_off=as_t(seg_off), seg_n=as_t(seg_n),
+                tiles=torch.tensor(tiles, dtype=torch.int64).reshape(-1, 3),
+                packed=as_t(packed))
+
+
 def fused_topk_route_plain(logits, top_k: int):
     """Softmax, ``top_k`` rounds of max / argmax (ties to the lowest index),
     logsumexp and per-batch expert counts, in the Pallas body's order
