@@ -41,7 +41,13 @@ non-zero:
                 missing one is a null pointer); rg_lru_scan_bwd
                 at the train step's 2 x 1024 x 2560 and the prefill's 8 x
                 3072 x 2560, then ragged shapes and each gradient alone, bit
-                for bit. Each is timed by events, by the profiler, its plain
+                for bit. Both scan phases also run, untimed and bit for bit,
+                shapes at the edges of the kernels' ring of time tiles
+                (S ragged below and past the whole ring, D ragged by the
+                64-channel strip with D % 4 == 0 and not, fewer and more
+                strips than 2 x 132, rows not 16-byte aligned); phase
+                rg_lru times the forward at the train shape too, with its
+                device time. Each is timed by events, by the profiler, its plain
                 version and (router) the autograd chain through softmax,
                 gather and logsumexp; phase train adds each on a real step's
                 layer-0 inputs. Phase moe_gemm_bwd holds moe_gemm's
@@ -1093,40 +1099,83 @@ def launch_floor_phase(flush: torch.Tensor) -> None:
         host_ms=f"{host_ms(histogram.launch_empty):.6g}")
 
 
+# Griffin's rnn width and the training path's (batch, seq)
+SCAN_D, SCAN_TRAIN = 2560, (2, 1024)
+
+
+# Untimed shapes (B, S, D, aligned) at the edges of the scan kernels' ring
+# (csrc/rg_lru.cu: 64-channel strips, 32-step tiles, rings of 4 tiles in the
+# forward and 3 in the backward): S ragged and shorter than either ring, S
+# ragged past both, D ragged by the strip with D % 4 == 0 (TMA boxes past D)
+# and with D % 4 == 2 (the 4-byte copies), fewer strips than 2 x 132 and more
+# than three CTAs a SM hold at once, and rows that start 4 bytes past a
+# 16-byte boundary (the 4-byte copies at an aligned D).
+SCAN_EDGE_CASES = {"s_under_ring": (2, 77, SCAN_D, True),
+                   "s_past_ring": (2, 1191, SCAN_D, True),
+                   "d_strip_ragged": (2, 131, SCAN_D + 8, True),
+                   "d_mod4_ragged": (3, 131, SCAN_D + 10, True),
+                   "few_strips": (1, 65, 1600, True),
+                   "many_strips": (12, 65, SCAN_D, True),
+                   "misaligned": (2, 389, SCAN_D, False)}
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def rg_lru_phase(flush: torch.Tensor, seed: int):
     """Griffin's prefill shapes (batch 8, 3072- and 2048-token prompts, rnn
-    width 2560; h0 zero, as a prefill starts), one step, a ragged shape and
-    a long one with a nonzero h0. Both outputs must equal the plain version
-    bit for bit: the kernel rounds the product and the sum apart, as the
-    plain version does. No single PyTorch call computes a first-order
-    linear recurrence, so there is no library time."""
+    width 2560; h0 zero, as a prefill starts), the train step's (2 x 1024),
+    one step, a ragged shape and a long one with a nonzero h0, all timed
+    (the train and prefill shapes also by the profiler); then, untimed, the
+    ring's edges (``SCAN_EDGE_CASES``). Both outputs must equal the plain
+    version bit for bit: the kernel rounds the product and the sum apart,
+    as the plain version does. No single PyTorch call computes a
+    first-order linear recurrence, so there is no library time."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     rows = {}
-    for case, (B, S, D, zero_h0) in {
-            "prefill": (8, 3072, 2560, True), "prefill_2048": (8, 2048, 2560, True),
-            "one_step": (8, 1, 2560, False), "ragged": (2, 1025, 257, False),
-            "long_h0": (4, 2000, 256, False)}.items():
+    cases = {"prefill": (8, 3072, SCAN_D, True, True),
+             "prefill_2048": (8, 2048, SCAN_D, True, True),
+             "train": (*SCAN_TRAIN, SCAN_D, False, True),
+             "one_step": (8, 1, SCAN_D, False, True),
+             "ragged": (2, 1025, 257, False, True),
+             "long_h0": (4, 2000, 256, False, True)}
+    cases.update((k, (B, S, D, False, False))
+                 for k, (B, S, D, _) in SCAN_EDGE_CASES.items())
+    for case, (B, S, D, zero_h0, timed) in cases.items():
         a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.49 + 0.5
         b = torch.randn((B, S, D), generator=gen, device="cuda") * 0.1
         h0 = (torch.zeros((B, D), device="cuda") if zero_h0 else
               torch.randn((B, D), generator=gen, device="cuda"))
+        if case == "misaligned":
+            a, b = _off16(a), _off16(b)
         got = ops.rg_lru_scan(a, b, h0)
         torch.cuda.synchronize()
         want = ref.rg_lru_scan_plain(a, b, h0)
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        # a and b read once, every h written once, h0 read, h_last written;
-        # one product and one sum per element
-        bound_ms, bound_by = _bound(4 * (3 * B * S * D + 2 * B * D),
-                                    2 * B * S * D, FP32_FLOPS)
-        row = {"max_abs_err": err, "ok": ok, "bound_ms": bound_ms,
-               "bound_by": bound_by,
-               "ms": time_ms(lambda: ops.rg_lru_scan(a, b, h0), flush),
-               "plain_ms": time_ms(lambda: ref.rg_lru_scan_plain(a, b, h0),
-                                   flush, runs=5),
-               "library_ms": None}
+        row = {"max_abs_err": err, "ok": ok}
+        if timed:
+            # a and b read once, every h written once, h0 read, h_last
+            # written; one product and one sum per element
+            row["bound_ms"], row["bound_by"] = _bound(
+                4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D, FP32_FLOPS)
+            row["ms"] = time_ms(lambda: ops.rg_lru_scan(a, b, h0), flush)
+            if case in ("train", "prefill", "prefill_2048"):
+                row["profiler_ms"] = device_ms(
+                    lambda: ops.rg_lru_scan(a, b, h0), flush,
+                    ("rg_lru_scan_kernel",))
+            row["plain_ms"] = time_ms(
+                lambda: ref.rg_lru_scan_plain(a, b, h0), flush, runs=5)
+            row["library_ms"] = None
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows[case] = row
         _log_row("rg_lru_scan", case, f"B{B}xS{S}xD{D}", row)
         del a, b, h0, got, want
@@ -1592,7 +1641,8 @@ def rg_lru_bwd_phase(flush: torch.Tensor, seed: int):
     """``rg_lru_scan_bwd`` at the training path's shape (2 x 1024 x 2560:
     ``--batch 2 --seq 1024``) and the scan phase's prefill shape (8 x 3072 x
     2560), both gradients present, timed (events, profiler, plain); then
-    untimed one step, a ragged shape and each gradient alone. Every output
+    untimed one step, a ragged shape, each gradient alone and the ring's
+    edges (``SCAN_EDGE_CASES``; each gradient alone past it). Every output
     must equal the plain version bit for bit. No PyTorch call computes the
     recurrence's gradient, so there is no library time. The train phase adds
     the case of a real train step's layer-0 inputs."""
@@ -1600,21 +1650,31 @@ def rg_lru_bwd_phase(flush: torch.Tensor, seed: int):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     rows = {}
-    for name, (B, S, D, use, timed) in {
-            "train": (2, 1024, 2560, (True, True), True),
-            "prefill": (8, 3072, 2560, (True, True), True),
-            "one_step": (8, 1, 2560, (True, True), False),
-            "ragged": (2, 1025, 257, (True, True), False),
-            "h_all_only": (2, 1024, 2560, (True, False), False),
-            "h_last_only": (2, 1025, 257, (False, True), False)}.items():
+    cases = {"train": (*SCAN_TRAIN, SCAN_D, (True, True), True),
+             "prefill": (8, 3072, SCAN_D, (True, True), True),
+             "one_step": (8, 1, SCAN_D, (True, True), False),
+             "ragged": (2, 1025, 257, (True, True), False),
+             "h_all_only": (*SCAN_TRAIN, SCAN_D, (True, False), False),
+             "h_last_only": (2, 1025, 257, (False, True), False)}
+    cases.update((k, (B, S, D, (True, True), False))
+                 for k, (B, S, D, _) in SCAN_EDGE_CASES.items())
+    # each gradient alone past the ring, on the TMA path
+    B, S, D, _ = SCAN_EDGE_CASES["s_past_ring"]
+    cases["h_all_only_long"] = (B, S, D, (True, False), False)
+    cases["h_last_only_long"] = (B, S, D, (False, True), False)
+    for name, (B, S, D, use, timed) in cases.items():
         a, b, h0 = _scan_bwd_inputs(gen, B, S, D)
         h_all, _ = ops.rg_lru_scan(a, b, h0)
         grads = [torch.randn(s, generator=gen, device="cuda") if u else None
                  for s, u in zip(((B, S, D), (B, D)), use)]
+        if name == "misaligned":
+            a, h_all, h0 = _off16(a), _off16(h_all), _off16(h0)
+            grads = [_off16(g) for g in grads]
         row = _scan_bwd_check(a, h_all, h0, grads)
         if timed:
             row["bound_ms"], row["bound_by"] = _scan_bwd_bound(B, S, D)
             row.update(_scan_bwd_timed(a, h_all, h0, grads, flush))
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows[name] = row
         _log_row("rg_lru_scan_bwd", name, f"B{B}xS{S}xD{D}", row)
         del a, b, h0, h_all, grads

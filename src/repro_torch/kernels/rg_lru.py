@@ -9,6 +9,16 @@ layer of a Griffin prefill calls it through ``kernels.ops.rg_lru_scan``.
 ``rg_lru_scan_bwd`` launches its backward (the same source), the
 reverse-time recurrence that ``kernels.ops.RgLruScan`` runs in every
 recurrent layer of a train step's backward.
+
+Both are bound by the bytes they move. Each CTA owns a strip of 64
+channels of one batch row (grid: strips x B), one thread per channel, and
+streams the strip's inputs through a ring of 32-step time tiles in shared
+memory, filled ahead of the serial chain, so the card keeps enough bytes
+in flight even at the training shape's 2 x 2560 channels. Time is never
+split over CTAs: combining carries would round in another order, and both
+kernels equal their plain versions bit for bit. The C side fills the ring
+with TMA where D % 4 == 0 and the inputs are 16-byte aligned, with 4-byte
+``cp.async`` copies otherwise.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ tolerance of ``tests/test_kernels.py``: the same recurrence, the sum and
 product possibly contracted differently by XLA). Inputs the kernel does not
 take raise. The CUDA kernel runs only on a card: its test is marked
 ``cuda`` and skips here; on the card it must equal the plain version bit
-for bit.
+for bit, at the training and prefill shapes and at the edges of its ring
+of time tiles (``RING_EDGE_SHAPES``).
 """
 
 import numpy as np
@@ -26,6 +27,25 @@ from repro_torch.kernels import rg_lru as rg_kernel  # noqa: E402
 SHAPES = [(1, 16, 128), (2, 64, 128), (1, 300, 500),     # ragged D
           (4, 2000, 256),                                 # multi time-chunk carry
           (2, 1025, 257)]                                 # both dims ragged
+# (B, S, D, aligned) at the edges of the CUDA kernels' ring (csrc/rg_lru.cu:
+# 64-channel strips, 32-step tiles, rings of 4 tiles forward and 3
+# backward): S ragged under either ring and past both, D ragged by the strip
+# with D % 4 == 0 (TMA boxes past D) and D % 4 == 2 (4-byte copies), fewer
+# strips than 2 x 132 and more than the card holds at once, and rows 4 bytes
+# past a 16-byte boundary (the 4-byte copies at an aligned D)
+RING_EDGE_SHAPES = [(2, 77, 2560, True), (2, 1191, 2560, True),
+                    (2, 131, 2568, True), (3, 131, 2570, True),
+                    (1, 65, 1600, True), (12, 65, 2560, True),
+                    (2, 389, 2560, False)]
+
+
+def off16(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (the allocator's blocks start on one)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _inputs(B, S, D, seed=0):
@@ -95,13 +115,18 @@ def test_cuda_rg_lru_scan_equals_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     ops.reset_launches()
-    for B, S, D in ((8, 2048, 2560), (2, 1025, 257), (3, 1, 70)):
+    shapes = [(8, 2048, 2560, True), (2, 1025, 257, True), (3, 1, 70, True),
+              (2, 1024, 2560, True)] + RING_EDGE_SHAPES
+    for B, S, D, aligned in shapes:
         a, b, h0 = (torch.tensor(x).cuda() for x in _inputs(B, S, D))
+        if not aligned:
+            a, b = off16(a), off16(b)
+            assert a.data_ptr() % 16 == 4
         got = ops.rg_lru_scan(a, b, h0)
         torch.cuda.synchronize()
         want = ref.rg_lru_scan_plain(a, b, h0)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert ops.LAUNCHES["rg_lru_scan"] == 3
+    assert ops.LAUNCHES["rg_lru_scan"] == len(shapes)
     with pytest.raises(ValueError):                    # B beyond the grid
         rg_kernel.check_inputs(*(torch.zeros(s, device="cuda") for s in (
             (rg_kernel.MAX_BATCH + 1, 1, 1), (rg_kernel.MAX_BATCH + 1, 1, 1),

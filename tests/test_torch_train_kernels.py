@@ -21,7 +21,8 @@ Tolerances, each with its reason:
 
 The CUDA kernels run only on a card: their tests carry the ``cuda`` marker
 and skip here. There the scan's backward must equal its plain version bit
-for bit, and the router's within 1e-6.
+for bit (also at the edges of its ring of time tiles, the forward's test's
+``RING_EDGE_SHAPES``), and the router's within 1e-6.
 """
 
 import dataclasses
@@ -42,6 +43,7 @@ from repro_torch.kernels import rg_lru as rg_kernel  # noqa: E402
 from repro_torch.kernels import topk_router as tk_kernel  # noqa: E402
 from repro_torch.models import griffin as tgriffin  # noqa: E402
 from repro_torch.moe.router import route  # noqa: E402
+from test_torch_rg_lru import RING_EDGE_SHAPES, off16  # noqa: E402
 
 # (R, T, E, K): the training path's (1, T, 8, 2), ragged E, one expert
 ROUTE_SHAPES = [(1, 64, 8, 2), (3, 17, 8, 2), (2, 33, 5, 3), (1, 9, 32, 8),
@@ -343,10 +345,14 @@ def test_cuda_rg_lru_bwd_equals_plain_version():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     ops.reset_launches()
     n = 0
-    for B, S, D in SCAN_SHAPES + [(2, 1024, 2560)]:
+    shapes = [(*s, True) for s in SCAN_SHAPES + [(2, 1024, 2560)]]
+    for B, S, D, aligned in shapes + RING_EDGE_SHAPES:
         a, b, h0, dh, dl = (torch.tensor(v).cuda()
                             for v in _scan_inputs(B, S, D))
         h_all, _ = ops.rg_lru_scan(a, b, h0)
+        if not aligned:
+            a, h_all, h0, dh, dl = (off16(t) for t in (a, h_all, h0, dh, dl))
+            assert a.data_ptr() % 16 == 4
         for use in ((True, True), (True, False), (False, True)):
             grads = [g if u else None for g, u in zip((dh, dl), use)]
             got = ops.rg_lru_scan_bwd(a, h_all, h0, *grads)
