@@ -266,7 +266,29 @@ non-zero:
                 layers, dense and EP (4 ranks), with exact launches. Arctic
                 trains on the CPU parity tests only (218 GB of fp32 state a
                 layer); the phase prints why.
- 14. train    — (last, after every serving engine is freed) training on
+ 14. dense    — (after models, before train; alone with ``--phases dense``)
+                the dense family at published widths and every layer,
+                random weights from ``--seed`` (qwen's QKV biases drawn
+                nonzero): qwen1.5-0.5b (24 layers, QKV bias), olmo-1b (16,
+                the non-parametric LayerNorm), stablelm-3b (32, head_dim
+                80) and minicpm-2b (40, 36 KV heads, tied embeddings, WSD).
+                Each through ``ContinuousEngine`` on phase 4's trace
+                (completions, tokens, exact launches: paged attention once
+                a layer a decode step, nothing else), step p50, TTFT p50,
+                decode tokens/s, peak memory, and profiled decode steps
+                (the device's idle share); qwen and minicpm also through
+                ``repro_torch.launch.serve.main`` (one batch of 8 x 512, 64
+                new tokens, exit 0); then 10 train steps of 4 x 512 Zipf
+                tokens at the launcher's schedule (stablelm and minicpm
+                with ``remat``; minicpm through
+                ``repro_torch.launch.train.main``, its WSD lr checked step
+                by step), step ms, tokens/s, peak memory, the model-FLOPs
+                share, a repeated batch whose loss must fall and the step's
+                breakdown; last, each reduced config (stablelm also at
+                head_dim 80) card against CPU for a prefill and a decode
+                step. The four geometries' paged attention cases run in
+                phase 3 (``PAGED_MODEL_CASES``).
+ 15. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -396,11 +418,16 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 25) -> float:
 PAGED_KERNELS = ("split_kernel", "combine_kernel")   # the pair one call launches
 
 
-# the paper's other MoE models' decode shapes, no window (label: KV heads,
-# query heads per KV head, head dim): llama-moe-3.5b and switch-base-128
-# are MHA (G 1), arctic-480b 56 query heads over 8 KV heads (G 7)
+# the other models' decode shapes, no window (label: KV heads, query heads
+# per KV head, head dim): llama-moe-3.5b and switch-base-128 are MHA (G 1),
+# arctic-480b 56 query heads over 8 KV heads (G 7); the dense family is MHA
+# too: qwen1.5-0.5b, olmo-1b (hd 128), stablelm-3b (hd 80: ten 16-byte
+# chunks a bf16 row, twenty in fp32) and minicpm-2b (36 KV heads)
 PAGED_MODEL_CASES = {"llama_moe_g1": (32, 1, 128), "switch_g1_hd64": (12, 1, 64),
-                     "arctic_g7": (8, 7, 128)}
+                     "arctic_g7": (8, 7, 128),
+                     "qwen_g1_hd64": (16, 1, 64), "olmo_g1_hd128": (16, 1, 128),
+                     "stablelm_g1_hd80": (32, 1, 80),
+                     "minicpm_g1_k36": (36, 1, 64)}
 
 
 def _paged_case(q, kp, vp, tab, lengths, lens, window, flush, timed: bool):
@@ -480,9 +507,10 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
     """The phase's shape (B 8, K 8, G 4, hd 128, bs 16, M 64 from max_len
     1024) at lengths 0..1023 in fp32 and bf16 under three windows, then two
     more bf16-timed cases: one slot alone at length 1023 (B = 1) and all 8
-    slots at 1023. Then the paper's other MoE models' decode shapes
-    (``PAGED_MODEL_CASES``: G 1 at hd 128 and 64, G 7) at the same lengths
-    with no window, fp32 and bf16 (bf16 timed). Prints each case's split
+    slots at 1023. Then the other models' decode shapes
+    (``PAGED_MODEL_CASES``: G 1 at hd 128, 80 and 64 over 12 to 36 KV
+    heads, G 7) at the same lengths with no window, fp32 and bf16 (bf16
+    timed). Prints each case's split
     plan, and the profiler's device time of the kernel pair for the path
     row (bf16, ``path_window``)."""
     B, K, G, hd, bs, M = 8, 8, 4, 128, 16, 64
@@ -549,32 +577,69 @@ def paged_attention_phase(flush: torch.Tensor, seed: int, path_window: int):
     }
 
 
+PROFILE_SESSIONS = 5
+NOT_MEASURED = float("nan")     # a profiler time no session kept
+
+
+def _device_event_count(prof) -> int:
+    from torch.autograd import DeviceType
+
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def profiled(body, what: str, cpu: bool = False, seen=None, again=None):
+    """Runs ``body()`` under torch.profiler (device activity, and the host's
+    too with ``cpu``) and returns (profile, body's result) of the first
+    session that kept device events and for which ``seen(prof)`` holds, at
+    most ``PROFILE_SESSIONS`` sessions; ``again()`` runs before each
+    session after the first. Deep in a long run the tracer now and then
+    keeps no device event of a whole session, several in a row at times
+    (PERF.md), so an empty session is logged and taken again, not counted
+    as a time. After the last session it returns (None, result), and the
+    caller writes "not measured"."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    out = None
+    for session in range(PROFILE_SESSIONS):
+        if session and again is not None:
+            again()
+        with torch_profile(activities=acts) as prof:
+            out = body()
+            torch.cuda.synchronize()
+        n = _device_event_count(prof)
+        if n and (seen is None or seen(prof)):
+            return prof, out
+        log("profile", retry=f"session {session + 1} of {PROFILE_SESSIONS} "
+            f"kept {n} device events, not enough for {what}")
+    log("profile", not_measured=what,
+        reason=f"{PROFILE_SESSIONS} profiler sessions kept too few events")
+    return None, out
+
+
+def _repeat(fn, flush: torch.Tensor, runs: int):
+    def body():
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+    return body
+
+
 def device_ms(fn, flush: torch.Tensor, kernels=PAGED_KERNELS,
               runs: int = 25) -> float:
     """Device time per call of the named kernels (paged attention's pair by
     default) under torch.profiler, the L2 cache flushed before each call:
     what the CUDA event window of ``time_ms`` holds without the host's
-    share."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    share. NaN when no session kept them (``profiled``)."""
+    def ms(prof):
+        return sum(t for name, (t, _) in _kernel_time_by_name(prof, runs)
+                   .items() if any(k in name for k in kernels))
 
     fn()
     torch.cuda.synchronize()
-    # a profiler session can come back without the device events of the
-    # kernels it ran: one more session before failing
-    for _ in range(2):
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        times = _kernel_time_by_name(prof, runs)
-        ms = sum(t for name, (t, _) in times.items()
-                 if any(k in name for k in kernels))
-        if ms > 0:
-            return ms
-        log("profile", retry="the profiler saw none of "
-            f"{','.join(kernels)}; device events seen: {len(times)}")
-    raise SystemExit(f"the profiler saw none of {kernels}")
+    prof, _ = profiled(_repeat(fn, flush, runs), ",".join(kernels),
+                       seen=lambda p: ms(p) > 0)
+    return NOT_MEASURED if prof is None else ms(prof)
 
 
 def after_ms(fn, flush: torch.Tensor, kernels, runs: int = 25) -> float:
@@ -583,30 +648,30 @@ def after_ms(fn, flush: torch.Tensor, kernels, runs: int = 25) -> float:
     the end of the last kernel before it that is not a fill, from
     torch.profiler's device timestamps: what the kernel adds after the
     kernel it follows on the main path, a memset the wrapper launches
-    included. A programmatic dependent launch hides part of it."""
+    included. A programmatic dependent launch hides part of it. NaN when
+    no session kept every launch (``profiled``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    def gaps(prof):
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        out, prev = [], None    # prev: end of the last other non-fill kernel
+        for _, end, name in ev:
+            mine = any(k in name for k in kernels)
+            if mine and prev is not None:
+                out.append(end - prev)
+            if "Fill" not in name:
+                prev = None if mine else end
+        return out
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end, e.name)
-                for e in prof.events() if e.device_type == DeviceType.CUDA)
-    gaps, prev = [], None      # prev: end of the last other non-fill kernel
-    for _, end, name in ev:
-        mine = any(k in name for k in kernels)
-        if mine and prev is not None:
-            gaps.append(end - prev)
-        if "Fill" not in name:
-            prev = None if mine else end
-    if len(gaps) != runs:
-        raise SystemExit(f"the profiler saw {len(gaps)} of {runs} {kernels} "
-                         "launches after another kernel")
-    return float(np.median(gaps)) / 1e3
+    prof, _ = profiled(_repeat(fn, flush, runs),
+                       f"{runs} launches of {','.join(kernels)} after another "
+                       "kernel", seen=lambda p: len(gaps(p)) == runs)
+    return (NOT_MEASURED if prof is None
+            else float(np.median(gaps(prof))) / 1e3)
 
 
 def host_ms(fn, runs: int = 200) -> float:
@@ -1383,17 +1448,9 @@ def device_parts_ms(fn, flush: torch.Tensor, parts: dict,
     profiler kept. A session deep in a long run can keep only some of a
     kernel's launches (PERF.md), so each part is its mean time a
     launch times its launches a call (rounded from the events seen, at
-    least one), not the sum over the session divided by ``runs``."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+    least one), not the sum over the session divided by ``runs``. NaN
+    parts and a share of 0 when no session kept them (``profiled``)."""
+    def split(prof):
         total = {k: 0.0 for k in parts}
         events = {k: 0 for k in parts}
         for name, (t, n) in _kernel_time_by_name(prof, 1).items():
@@ -1408,10 +1465,15 @@ def device_parts_ms(fn, flush: torch.Tensor, parts: dict,
             out[k] = total[k] / events[k] * per_call if events[k] else 0.0
             kept += events[k]
             want += per_call * runs
-        if sum(out.values()) > 0:
-            return out, kept / want
-        log("profile", retry=f"the profiler saw none of {sorted(parts)}")
-    raise SystemExit(f"the profiler saw none of {sorted(parts)}")
+        return out, (kept / want if want else 0.0)
+
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = profiled(_repeat(fn, flush, runs), ",".join(sorted(parts)),
+                       seen=lambda p: sum(split(p)[0].values()) > 0)
+    if prof is None:
+        return {k: NOT_MEASURED for k in parts}, 0.0
+    return split(prof)
 
 
 def moe_bwd_part_bounds(n_live, live_experts, S, T, d, F, E, act, elem,
@@ -1897,12 +1959,13 @@ def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
     ``histogram_offsets``), and in decode the global first-come positions
     (one more ``histogram_offsets``), whether or not a pair overflowed.
     ``paged``: decode attends over the paged pool (``ContinuousEngine``;
-    ``ServeEngine``'s linear cache launches no attention kernel)."""
+    ``ServeEngine``'s linear cache launches no attention kernel). A model
+    without MoE launches paged attention only."""
     L = cfg.num_layers
     forwards = (prefills + decode_steps) * L
     want = {k: 0 for k in launches}
     want.update(paged_decode_attention=decode_steps * L if paged else 0,
-                fused_topk_route=forwards)
+                fused_topk_route=forwards if cfg.is_moe else 0)
     if ep:
         rescue = (t2e_prefills + resched_prefills + resched_decodes) * L
         want.update(moe_gemm=forwards + rescue,
@@ -2077,9 +2140,9 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     requests, time ``iters`` decode-only iterations on the host clock, then
     ``iters`` more under torch.profiler. Prints the device's busy time by
     kernel and its idle share of the profiled window. Re-planning is off
-    (strategy "none"), so the plan in force stays and nothing migrates."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    (strategy "none"), so the plan in force stays and nothing migrates.
+    A session the tracer kept empty is taken again on slots drained and
+    filled anew (``profiled``)."""
     strategy, eng.strategy = eng.strategy, "none"
     in_flight = eng._executor is not None and eng._executor.active
     now = _fill_slots(eng, cfg, seed + 1, 2 * iters + 8, 0.0)
@@ -2088,18 +2151,28 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
         eng.step(now)
         now += 1.0
     plain_ms = (time.perf_counter() - t0) * 1e3 / iters
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    refills = iter(range(2, PROFILE_SESSIONS + 1))
+
+    def steps():
+        nonlocal now
         t0 = time.perf_counter()
         for _ in range(iters):
             eng.step(now)
             now += 1.0
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def refill():
+        nonlocal now
+        now = _fill_slots(eng, cfg, seed + next(refills), iters + 8,
+                          _drain(eng, now))
+
+    prof, wall_ms = profiled(steps, f"the {label} decode step", cpu=True,
+                             again=refill)
     _drain(eng, now)
     eng.strategy = strategy
-    kernels = _kernel_time_by_name(prof, iters)
-    busy = sum(ms for ms, _ in kernels.values())
+    kernels = {} if prof is None else _kernel_time_by_name(prof, iters)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
     MEASURED[f"profile/{label}"] = {"step_ms": plain_ms, "busy_ms": busy,
                                     "profiled_step_ms": wall_ms}
     log("profile", path=label, decode_iterations=iters,
@@ -2135,48 +2208,64 @@ def migration_profile_phase(eng, cfg, seed: int, max_steps: int = 8) -> None:
     torch.profiler until it commits. Prints the copies' device time per
     entry (three row copies each) and their rate, the main stream's busy
     time per step beside them, and the reference's modelled stall for the
-    same entries (an A100-PCIe link, not this card)."""
+    same entries (an A100-PCIe link, not this card). A session in which
+    the tracer kept none, or only some, of the fill's copies (one commit,
+    no other side-stream event) is taken again, at most
+    ``PROFILE_SESSIONS``: slots filled anew and a fill toward the next
+    shift."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from torch.profiler import record_function
 
     from repro_torch.runtime import migration_stall_s
 
     strategy, eng.strategy = eng.strategy, "none"
-    now = _fill_slots(eng, cfg, seed + 2, max_steps + 8, 0.0)
-    for _ in range(2):                            # decode-only windows
-        eng.step(now)
-        now += 1.0
-    commits = eng.metrics.migration["commits"]
-    steps = 0
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        # a step before the fill: the tracer can miss the first device
-        # events of a window, and only events after its end are counted
-        eng.step(now)
-        now += 1.0
-        torch.cuda.synchronize()
-        with record_function(FILL_RANGE):
-            diff = begin_fill(eng, shifted_plan(eng, 2))
-            t0 = time.perf_counter()
-            while eng._executor.active and steps < max_steps:
-                eng.step(now)
-                now += 1.0
-                steps += 1
+    now = 0.0
+    for session in range(PROFILE_SESSIONS):
+        now = _fill_slots(eng, cfg, seed + 2 + session, max_steps + 8, now)
+        for _ in range(2):                        # decode-only windows
+            eng.step(now)
+            now += 1.0
+        commits = eng.metrics.migration["commits"]
+        steps = 0
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            # a step before the fill: the tracer can miss the first device
+            # events of a window, and only events after its end are counted
+            eng.step(now)
+            now += 1.0
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
-    committed = eng.metrics.migration["commits"] - commits
-    _drain(eng, now)
+            with record_function(FILL_RANGE):
+                diff = begin_fill(eng, shifted_plan(eng, 2 + session))
+                t0 = time.perf_counter()
+                while eng._executor.active and steps < max_steps:
+                    eng.step(now)
+                    now += 1.0
+                    steps += 1
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+        committed = eng.metrics.migration["commits"] - commits
+        now = _drain(eng, now)
+        start = next((e.time_range.start for e in prof.events()
+                      if e.name == FILL_RANGE), None)
+        by_stream = {} if start is None else _events_by_stream(prof, start)
+        busy = {res: sum(ms for _, ms in evs)
+                for res, evs in by_stream.items()}
+        main = max(busy, key=busy.get, default=None)   # the forward's stream
+        side = [(name, ms) for res, evs in by_stream.items() if res != main
+                for name, ms in evs]
+        copies = [ms for name, ms in side if _is_copy(name)]
+        n = diff.num_entries
+        if by_stream and not (committed == 1 and len(copies) < 3 * n
+                              and len(side) == len(copies)):
+            break
+        log("profile", retry=f"session {session + 1} of {PROFILE_SESSIONS} "
+            f"kept {len(copies)} of the fill's {3 * n} copies and "
+            f"{sum(map(len, by_stream.values()))} device events in its window")
     eng.strategy = strategy
-    start = next(e.time_range.start for e in prof.events()
-                 if e.name == FILL_RANGE)
-    by_stream = _events_by_stream(prof, start)
-    busy = {res: sum(ms for _, ms in evs) for res, evs in by_stream.items()}
-    main = max(busy, key=busy.get)               # the forward's stream
-    side = [(name, ms) for res, evs in by_stream.items() if res != main
-            for name, ms in evs]
-    copies = [ms for name, ms in side if _is_copy(name)]
+    if not by_stream:
+        raise SystemExit(f"migration profile: {PROFILE_SESSIONS} profiler "
+                         "sessions kept no device event of the fill")
     copy_ms = sum(copies)
-    n = diff.num_entries
     eb = eng._store.entry_bytes
     per_step = max(steps, 1)
     for res in sorted(busy):
@@ -3606,6 +3695,16 @@ def _events_by_stream(prof, start_us: float = float("-inf")):
     return out
 
 
+def _measured(x):
+    """``x`` with every NaN (a profiler time no session kept) as None, so
+    that the line stays JSON."""
+    if isinstance(x, dict):
+        return {k: _measured(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_measured(v) for v in x]
+    return None if isinstance(x, float) and x != x else x
+
+
 def _kernel_time_by_name(prof, iters: int):
     """{kernel name: [device ms per iteration, launches]} of a profile."""
     from torch.autograd import DeviceType
@@ -3702,8 +3801,6 @@ def griffin_profile_phase(seed: int, steps: int = 6) -> None:
     ``steps`` more under torch.profiler: device busy time by kernel and the
     idle share of the profiled window; the next tokens must lie in the
     vocabulary."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.models.transformer import init_model
@@ -3725,18 +3822,22 @@ def griffin_profile_phase(seed: int, steps: int = 6) -> None:
         tok, _, cache, _ = eng.decode(tok, cache, pos)
         pos += 1
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+
+    def decode_steps():
+        nonlocal tok, cache, pos
         t0 = time.perf_counter()
         for _ in range(steps):
             tok, _, cache, _ = eng.decode(tok, cache, pos)
             pos += 1
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    prof, wall_ms = profiled(decode_steps, "the Griffin decode step",
+                             cpu=True)
     host = tok.cpu()
     ok = ok and bool(((host >= 0) & (host < cfg.vocab_size)).all())
-    kernels = _kernel_time_by_name(prof, steps)
-    busy = sum(ms for ms, _ in kernels.values())
+    kernels = {} if prof is None else _kernel_time_by_name(prof, steps)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
     log("griffin_profile", decode_steps=steps, batch=a["batch"],
         cache_len=pos, profiled_step_ms=f"{wall_ms:.3f}",
         device_busy_ms_per_step=f"{busy:.3f}",
@@ -4409,7 +4510,7 @@ GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 
 
 def train_breakdown(label: str, cfg, model, opt, batch, rt=None,
-                    plan=None) -> dict:
+                    plan=None, remat: bool = False) -> dict:
     """Where a train step's time goes, at the model's current weights: the
     forward and backward (``make_loss_fn`` under ``rt``, default the single
     device's, then ``backward``) under torch.profiler, its device time split
@@ -4418,15 +4519,15 @@ def train_breakdown(label: str, cfg, model, opt, batch, rt=None,
     ``moe_gemm_bwd`` (with the latter's share of busy time) and the rest;
     the forward and backward and the AdamW update (``adamw_update_`` at lr
     0, which leaves the weights as they are) each by CUDA events. The
-    update's moments move; nothing else changes."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    update's moments move; nothing else changes. ``remat``: the forward
+    and backward with each layer recomputed, as the run took it. The
+    device times are NaN when no profiler session kept them."""
     from repro_torch.models.transformer import Runtime
     from repro_torch.optim.adamw import adamw_update_
     from repro_torch.train.steps import (make_loss_fn, param_tree,
                                          weight_decay_mask)
 
-    loss_fn = make_loss_fn(cfg, rt or Runtime())
+    loss_fn = make_loss_fn(cfg, rt or Runtime(), remat)
     params = param_tree(model)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
@@ -4437,12 +4538,11 @@ def train_breakdown(label: str, cfg, model, opt, batch, rt=None,
         loss.backward()
     fwd_bwd()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fwd_bwd()
-        torch.cuda.synchronize()
-    kernels = _kernel_time_by_name(prof, 1)
-    split = {"gemm": 0.0, "router": 0.0, "scan": 0.0, "moe_gemm": 0.0,
-             "moe_gemm_bwd": 0.0, "other": 0.0}
+    prof, _ = profiled(fwd_bwd, f"the {label} train step")
+    kernels = {} if prof is None else _kernel_time_by_name(prof, 1)
+    split = dict.fromkeys(("gemm", "router", "scan", "moe_gemm",
+                           "moe_gemm_bwd", "other"),
+                          0.0 if kernels else NOT_MEASURED)
     for name, (ms, _) in kernels.items():
         low = name.lower()
         key = ("router" if "topk_route" in low else "scan" if "rg_lru" in low
@@ -5210,11 +5310,357 @@ def models_phase(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase dense: the dense family at published widths
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen1.5-0.5b", "olmo-1b", "stablelm-3b", "minicpm-2b")
+# launch.serve's ServeEngine run: one batch of 8 x 512, 64 new tokens each
+DENSE_LAUNCH_SERVE = ("qwen1.5-0.5b", "minicpm-2b")
+DENSE_SERVE_ARGS = dict(requests=8, batch=8, seq=512, new_tokens=64)
+# fp32 state (weights, gradients, two moments: 16 B a parameter) of 44.7 and
+# 43.6 GB: with 4 x 512 tokens' activations of every layer held for the
+# backward the step would not stay inside 80 GB, so each layer is recomputed
+DENSE_REMAT = ("stablelm-3b", "minicpm-2b")
+DENSE_PROFILE_ITERS = 6
+# minicpm-2b trains through the launcher, so its WSD schedule runs here
+DENSE_LAUNCH_TRAIN = "minicpm-2b"
+
+
+def _launch(module, argv, phase: str, trace: str):
+    """``module.main(argv)`` with its stdout logged line by line; returns
+    (return code, stdout, the trace's complete spans by name)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    for line in out.getvalue().splitlines():
+        log(phase, stdout=f"'{line}'")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return rc, out.getvalue(), spans
+
+
+def dense_serve(arch: str, seed: int, smi: str) -> list:
+    """One dense model at published widths, every layer, random bf16
+    weights from ``seed`` (qwen's QKV biases drawn nonzero, N(0, 0.5)):
+    ``ContinuousEngine`` on phase 4's trace (``serve_trace``: completions,
+    tokens, exact launches, paged attention once a layer a decode step),
+    then ``profile_phase``'s decode steps (the device's idle share); for
+    ``DENSE_LAUNCH_SERVE`` then ``repro_torch.launch.serve.main`` (a fresh
+    model from the same seed through ``ServeEngine``). Returns failures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_model
+
+    cfg = get_config(arch)
+    log("dense", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        qkv_bias=cfg.qkv_bias, norm=cfg.norm,
+        tie_embeddings=cfg.tie_embeddings, lr_schedule=cfg.lr_schedule,
+        params=cfg.num_params(), reduced="'none: published widths, all "
+        f"{cfg.num_layers} layers'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    if cfg.qkv_bias:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        with torch.no_grad():
+            for layer in model.layers:
+                for n in ("bq", "bk", "bv"):
+                    b = getattr(layer, n)
+                    b.copy_(torch.randn(b.shape, generator=gen, device="cuda")
+                            * 0.5)
+    torch.cuda.synchronize()
+    log("dense", model=cfg.name, init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    label = f"dense/{cfg.name}"
+    eng, launches = serve_trace(label, model, cfg, seed, ep=False,
+                                phase="dense", strategy="none")
+    n = MEASURED[f"serve/{label}"]
+    log("dense", run=label, card=f"'{smi}'",
+        step_p50_ms=f"{n['step_p50_ms']:.3f}",
+        ttft_p50_ms=f"{n['ttft_p50_ms']:.3f}",
+        decode_toks_per_s=f"{n['decode_toks_per_s']:.2f}",
+        peak_gb=f"{n['peak_gb']:.3f}", decode_steps=eng.decode_steps,
+        paged_decode_attention_calls=launches["paged_decode_attention"],
+        device_launches=2 * launches["paged_decode_attention"],
+        expected_calls=f"{eng.decode_steps}x{cfg.num_layers}",
+        launches_exact=True)
+    profile_phase(eng, cfg, seed, label, iters=DENSE_PROFILE_ITERS)
+    del eng
+    del model
+    free_engines("dense")
+    failures = []
+    if arch in DENSE_LAUNCH_SERVE:
+        a = DENSE_SERVE_ARGS
+        trace = os.path.join(ROOT, "build", "chip_smoke",
+                             f"dense_serve_{arch}.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        argv = ["--arch", arch, "--requests", str(a["requests"]),
+                "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+                "--new-tokens", str(a["new_tokens"]), "--seed", str(seed),
+                "--device", "cuda", "--trace-out", trace]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        rc, out, spans = _launch(launch_serve, argv, "dense", trace)
+        launches = dict(ops.LAUNCHES)
+        decode = spans.get("decode", [])
+        log("dense", run=f"launch.serve/{arch}", card=f"'{smi}'",
+            argv=f"'{' '.join(argv)}'", rc=rc,
+            prefill_ms=",".join(f"{v:.3f}" for v in spans.get("prefill", [])),
+            decode_steps=len(decode),
+            decode_ms_p50=f"{np.median(decode):.3f}" if decode else "n/a",
+            decode_toks_per_s=(f"{a['batch'] / np.median(decode) * 1e3:.2f}"
+                               if decode else "n/a"),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+        if rc != 0 or f"served {a['requests']} requests" not in out:
+            failures.append(f"launch.serve {arch}: exit {rc}")
+        if any(launches.values()):
+            # the linear cache decodes without the paged kernel
+            failures.append(f"launch.serve {arch}: launches {launches}")
+        if len(decode) != a["new_tokens"] - 1:
+            failures.append(f"launch.serve {arch}: {len(decode)} decode steps")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return failures
+
+
+def _dense_repeat(cfg, model, batch, remat: bool) -> list:
+    """``TRAIN_REPEAT_STEPS + 1`` steps on one batch at a fixed lr from
+    fresh moments: the losses."""
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    opt = init_opt_state(model)
+    rep = make_train_step(cfg, Runtime(), lr_fn=lambda s: TRAIN_REPEAT_LR,
+                          remat=remat)
+    losses = []
+    for _ in range(TRAIN_REPEAT_STEPS + 1):
+        opt, m = rep(model, opt, batch)
+        losses.append(float(m["loss"]))
+    del opt
+    return losses
+
+
+def dense_train(arch: str, seed: int, smi: str) -> list:
+    """``TRAIN_STEPS`` train steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf
+    tokens (``token_batches(seed)``) at the launcher's schedule, every layer
+    at published widths, fp32 weights from ``seed``, each layer recomputed
+    for ``DENSE_REMAT``: minicpm-2b through ``repro_torch.launch.train.main``
+    (its WSD schedule, step times from its trace), the others through
+    ``make_train_step``. Per step loss, lr, grad norm and ms; then step p50,
+    tokens/s, peak memory, the model-FLOPs share of peak; the loss must fall
+    (the launcher's exit 0), nothing may launch a kernel (the dense path has
+    none in training), and one batch repeated at a fixed lr from fresh
+    moments must lose loss. Then ``train_breakdown`` at those weights.
+    Returns failures."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = get_config(arch)
+    remat = arch in DENSE_REMAT
+    run = f"dense/{cfg.name}"
+    n_params = cfg.num_params()
+    log("dense", train=run, layers=cfg.num_layers, params=n_params,
+        state_gb=f"{16 * n_params / 1e9:.3f}", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
+        schedule=cfg.lr_schedule, remat=remat,
+        reduced="'none: published widths, all layers'")
+    failures, lrs, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    if arch == DENSE_LAUNCH_TRAIN:
+        trace = os.path.join(ROOT, "build", "chip_smoke",
+                             f"dense_train_{arch}.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--lr", str(TRAIN_LR), "--log-every", "1",
+                "--seed", str(seed), "--device", "cuda",
+                "--trace-out", trace] + (["--remat"] if remat else [])
+        log("dense", train=run, argv=f"'{' '.join(argv)}'")
+        rc, out, spans = _launch(launch_train, argv, "dense", trace)
+        step_ms = spans.get("train_step", [])
+        for line in out.splitlines():
+            if line.startswith("step "):
+                losses.append(float(line.split("loss=")[1].split()[0]))
+                lrs.append(float(line.split("lr=")[1].split()[0]))
+        want_lr = [float(build_lr_fn(cfg, TRAIN_LR, TRAIN_STEPS)(s))
+                   for s in range(TRAIN_STEPS)]
+        log("dense", train=run, rc=rc, lr_per_step=",".join(
+            f"{v:.3g}" for v in lrs), wsd_lr_per_step=",".join(
+            f"{v:.3g}" for v in want_lr))
+        if rc != 0:
+            failures.append(f"launch.train {arch}: exit {rc}")
+        if len(step_ms) != TRAIN_STEPS or [f"{v:.2e}" for v in lrs] != \
+                [f"{v:.2e}" for v in want_lr]:
+            failures.append(f"launch.train {arch}: {len(step_ms)} steps, lr "
+                            f"{lrs} != {want_lr}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model = init_model(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda", trainable=True)
+    else:
+        model = init_model(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda", trainable=True)
+        opt = init_opt_state(model)
+        step = make_train_step(cfg, Runtime(), lr_fn=build_lr_fn(
+            cfg, TRAIN_LR, TRAIN_STEPS), remat=remat)
+        gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        step_ms = []
+        for i in range(TRAIN_STEPS):
+            batch = next(gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt, m = step(model, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
+            log("dense", train=run, step=i, loss=f"{losses[-1]:.6f}",
+                nll=f"{float(m['nll']):.6f}",
+                grad_norm=f"{float(m['grad_norm']):.6g}",
+                lr=f"{lrs[-1]:.6g}", step_ms=f"{step_ms[-1]:.3f}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del opt, m
+        if not losses[-1] < losses[0]:
+            failures.append(f"loss {losses[0]} -> {losses[-1]}")
+    launches = dict(ops.LAUNCHES)
+    p50 = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mflops = model_flops(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    log("dense", train=run, card=f"'{smi}'", steps=len(step_ms),
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms=",".join(f"{v:.3f}" for v in step_ms),
+        step_ms_p50=f"{p50:.3f}", tokens_per_s=f"{tokens / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        note="6 x params x tokens (remat adds a forward the yardstick does "
+             "not count)" if remat else "6 x params x tokens",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    if any(launches.values()):
+        failures.append(f"train launches {launches}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"loss not finite: {losses}")
+    # one batch again and again at a fixed lr, from fresh moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = next(token_batches(seed + 1, cfg.vocab_size, TRAIN_BATCH,
+                               TRAIN_SEQ))
+    rl = _dense_repeat(cfg, model, batch, remat)
+    log("dense", train=run, repeat_batch_losses=",".join(
+        f"{v:.6f}" for v in rl), lr=TRAIN_REPEAT_LR, falls=rl[-1] < rl[0])
+    if not rl[-1] < rl[0]:
+        failures.append(f"the repeated batch's loss did not fall: {rl}")
+    opt = init_opt_state(model)
+    train_breakdown(run, cfg, model, opt, batch, remat=remat)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def dense_card_vs_cpu(seed: int) -> None:
+    """Each reduced dense config (stablelm's also at head_dim 80; qwen's QKV
+    biases drawn nonzero) on the card (the paged kernel) against the same
+    bridged weights on the CPU (plain versions): a slot prefill and one
+    paged decode step, logits within 5e-2 x max|logit| (bf16 activations,
+    sums in other orders), one paged attention launch a layer on the card
+    and none on the CPU."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_model
+
+    failures = []
+    for arch, hd in [(a, 0) for a in DENSE_ARCHS] + [("stablelm-3b", 80)]:
+        cfg = get_config(arch).reduced()
+        if hd:
+            cfg = dataclasses.replace(cfg, head_dim=hd)
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+        if cfg.qkv_bias:
+            with torch.no_grad():
+                for layer in gpu.layers:
+                    for n in ("bq", "bk", "bv"):
+                        getattr(layer, n).normal_(0.0, 0.5)
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+        rng = np.random.default_rng(seed)
+        prompt = rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
+        forced = rng.integers(0, cfg.vocab_size, 1).astype(np.int32)
+        rt = Runtime(window_override=64)
+        logits, launches = {}, {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            ops.reset_launches()
+            logits[name], _ = _reference_run(model, cfg, rt, None, prompt,
+                                             forced, 32, 8)
+            launches[name] = dict(ops.LAUNCHES)
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        want = {k: 0 for k in launches["cuda"]}
+        want["paged_decode_attention"] = cfg.num_layers
+        ok = (bool(torch.isfinite(logits["cuda"]).all())
+              and err <= 5e-2 * max(scale, 1.0)
+              and launches["cuda"] == want
+              and not any(launches["cpu"].values()))
+        log("dense", card_vs_cpu=cfg.name, head_dim=cfg.head_dim,
+            steps="prefill+1decode", max_abs_err=f"{err:.6g}",
+            logit_scale=f"{scale:.6g}",
+            tolerance="5e-2 x max|logit| (bf16 activations, CPU vs GPU sums)",
+            kernel_launches=",".join(f"{k}:{v}" for k, v in
+                                     launches["cuda"].items()), ok=ok)
+        if not ok:
+            failures.append(f"{cfg.name} hd {cfg.head_dim}")
+    if failures:
+        raise SystemExit(f"reduced dense model on the card disagrees with the "
+                         f"CPU path: {failures}")
+
+
+def dense_phase(seed: int, smi: str) -> None:
+    """Phase dense: for each of ``DENSE_ARCHS`` at published widths and all
+    layers, serving (``dense_serve``) then training (``dense_train``);
+    then the reduced models card against CPU. Frees what earlier phases
+    hold first."""
+    free_engines("dense")
+    t0 = time.perf_counter()
+    failures = []
+    for arch in DENSE_ARCHS:
+        t1 = time.perf_counter()
+        failures += dense_serve(arch, seed, smi)
+        t2 = time.perf_counter()
+        failures += dense_train(arch, seed, smi)
+        log("dense", model=arch, serve_s=f"{t2 - t1:.3f}",
+            train_s=f"{time.perf_counter() - t2:.3f}")
+    dense_card_vs_cpu(seed)
+    log("dense", phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("dense failed: " + "; ".join(failures))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
-                          "griffin", "reference", "models", "train")
+                          "griffin", "reference", "models", "dense", "train")
 
 
 def main() -> int:
@@ -5310,6 +5756,8 @@ def main() -> int:
         griffin_reference_phase(args.seed)
     if "models" in phases:
         models_phase(args.seed, smi)
+    if "dense" in phases:
+        dense_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in
@@ -5319,7 +5767,7 @@ def main() -> int:
     if set(phases) == set(PHASES):
         for k in kernels:
             k["launches"] = launches[k["name"]]
-        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"kernels": _measured(kernels)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

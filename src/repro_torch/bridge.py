@@ -7,13 +7,19 @@ paths as float32 numpy arrays. Uniform-stack layer leaves are stacked over
 L in the JAX tree (``layers``) and split into ``layers[l]`` here (the MoE
 block's ``dense`` branch, where a config has one, as ``dense_w_*``; a relu
 or gelu model's experts keep the ``w_gate`` the JAX tree holds and never
-reads); hybrid
-models keep a list of per-layer trees (``hybrid_layers``: ``rec.*`` or
-``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps its
-``(d_in, d_out)`` layout.
+reads; the dense family's ``ffn.*`` as ``w_gate`` / ``w_up`` /
+``w_down``, its Q/K/V biases ``attn.w*.b`` as ``bq`` / ``bk`` / ``bv``);
+hybrid models keep a list of per-layer trees (``hybrid_layers``:
+``rec.*`` or ``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps
+its ``(d_in, d_out)`` layout. Two of the JAX tree's shapes have no
+parameter here: a non-parametric norm (OLMo) is an empty dict at
+``final_norm``, ``ln1`` and ``ln2``, which ``params_to_jax`` emits and
+``params_from_jax`` accepts, and a tied model (MiniCPM) has no
+``lm_head`` on either side.
 
-The embedding, ``lm_head``, attention, expert and FFN weights, and the
-recurrent block's dense weights, ``conv_w`` and ``conv_b`` are stored in
+The embedding, ``lm_head``, attention weights and biases, expert and FFN
+weights, and the recurrent block's dense weights, ``conv_w`` and ``conv_b``
+are stored in
 bf16 (the reference casts each to bf16 at every use, so the values the
 model computes with are unchanged); the router weight, ``lam`` and the
 norm scales stay fp32. A round trip therefore returns the bf16-rounded
@@ -51,6 +57,9 @@ LAYER_KEYS = {
     ("ln1", "scale"): "ln1", ("ln2", "scale"): "ln2",
     ("attn", "wq", "w"): "wq", ("attn", "wk", "w"): "wk",
     ("attn", "wv", "w"): "wv", ("attn", "wo", "w"): "wo",
+    # qkv_bias (qwen)
+    ("attn", "wq", "b"): "bq", ("attn", "wk", "b"): "bk",
+    ("attn", "wv", "b"): "bv",
     ("moe", "router", "w"): "router",
     ("moe", "experts", "w_gate"): "w_gate",
     ("moe", "experts", "w_up"): "w_up",
@@ -59,28 +68,41 @@ LAYER_KEYS = {
     ("moe", "dense", "w_gate"): "dense_w_gate",
     ("moe", "dense", "w_up"): "dense_w_up",
     ("moe", "dense", "w_down"): "dense_w_down",
+    # the dense family's FFN
+    ("ffn", "w_gate"): "w_gate", ("ffn", "w_up"): "w_up",
+    ("ffn", "w_down"): "w_down",
 }
+# the norms a non-parametric config holds as empty dicts in the JAX tree
+_EMPTY_NORMS = ("ln1", "ln2")
 _TOP_DTYPES = {"embed": WEIGHT_DTYPE, "final_norm": torch.float32,
                "lm_head": WEIGHT_DTYPE}
 # one hybrid layer's JAX key path -> port parameter name
 _REC_KEYS = {("rec", n, "w") if n.startswith("w_") else ("rec", n): "rec_" + n
              for n in ("w_gate", "w_main", "conv_w", "conv_b", "w_a", "w_x",
                        "lam", "w_out")}
-_FFN_KEYS = {("ffn", n): n for n in ("w_gate", "w_up", "w_down")}
+
+
+def _top_keys(cfg: ModelConfig):
+    """JAX key path -> port name of the top-level leaves the config has."""
+    return {path: name for path, name in TOP_KEYS.items()
+            if not (name == "final_norm" and cfg.norm != "rmsnorm")
+            and not (name == "lm_head" and cfg.tie_embeddings)}
 
 
 def _stack_keys(cfg: ModelConfig):
     """JAX key path (under ``layers``) -> port name for a uniform stack's
-    layer: the MoE block's keys that the config has."""
+    layer: the keys the config has, the MoE block's or the FFN's."""
     names = _layer_shapes(cfg)
-    return {path: name for path, name in LAYER_KEYS.items() if name in names}
+    block = "moe" if cfg.is_moe else "ffn"
+    return {path: name for path, name in LAYER_KEYS.items()
+            if name in names and path[0] in (block, "ln1", "ln2", "attn")}
 
 
 def _hybrid_keys(cfg: ModelConfig, kind: str):
     """JAX key path -> port name for one hybrid layer of ``kind``."""
     names = _layer_shapes(cfg, kind)
     keys = {**{p: n for p, n in LAYER_KEYS.items() if p[0] != "moe"},
-            **_REC_KEYS, **_FFN_KEYS}
+            **_REC_KEYS}
     return {path: name for path, name in keys.items() if name in names}
 
 
@@ -106,7 +128,8 @@ def _flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig
     """A tree in the JAX ``init_model`` layout -> {port parameter name
     (``model.named_parameters()``'s): numpy array}, stacked layer leaves
     split over L."""
-    out = {name: np.asarray(_get(tree, path)) for path, name in TOP_KEYS.items()}
+    out = {name: np.asarray(_get(tree, path))
+           for path, name in _top_keys(cfg).items()}
     L = cfg.num_layers
     if cfg.family == "hybrid":
         subs = tree["hybrid_layers"]
@@ -128,18 +151,22 @@ def _flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig
 def _jax_from_flat(model: Transformer, leaf) -> Dict[str, Any]:
     """The JAX tree layout of ``leaf(port parameter name)`` over every
     parameter of ``model`` (uniform-stack layer leaves stacked over L)."""
-    tree: Dict[str, Any] = {}
-    for path, name in TOP_KEYS.items():
+    cfg = model.cfg
+    empty = cfg.norm != "rmsnorm"        # the JAX tree's {} norms
+    tree: Dict[str, Any] = {"final_norm": {}} if empty else {}
+    for path, name in _top_keys(cfg).items():
         _put(tree, path, leaf(name))
-    if model.cfg.family == "hybrid":
+    if cfg.family == "hybrid":
         tree["hybrid_layers"] = []
         for l, layer in enumerate(model.layers):
-            sub: Dict[str, Any] = {}
-            for path, name in _hybrid_keys(model.cfg, layer.kind).items():
+            sub: Dict[str, Any] = ({k: {} for k in _EMPTY_NORMS} if empty
+                                   else {})
+            for path, name in _hybrid_keys(cfg, layer.kind).items():
                 _put(sub, path, leaf(f"layers.{l}.{name}"))
             tree["hybrid_layers"].append(sub)
         return tree
-    for path, name in _stack_keys(model.cfg).items():
+    tree["layers"] = {k: {} for k in _EMPTY_NORMS} if empty else {}
+    for path, name in _stack_keys(cfg).items():
         _put(tree, ("layers",) + path,
              np.stack([leaf(f"layers.{l}.{name}")
                        for l in range(len(model.layers))]))
@@ -161,7 +188,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     def dtype(dt):
         return torch.float32 if trainable else dt
     top = {name: _tensor(flat[name], dtype(_TOP_DTYPES[name]), dev)
-           for name in TOP_KEYS.values()}
+           for name in _top_keys(cfg).values()}
     layers = []
     for l in range(cfg.num_layers):
         t = {}

@@ -2,7 +2,8 @@
 
 The port's own copy of ``ModelConfig`` / ``MoEConfig`` for the families it
 serves so far: uniform-stack decoder-only GQA models with a dense or MoE
-FFN, and the hybrid family (Griffin: RG-LRU recurrent blocks and local
+FFN (the dense family with QKV biases, a non-parametric LayerNorm or tied
+embeddings), and the hybrid family (Griffin: RG-LRU recurrent blocks and local
 attention, in a repeating ``block_pattern``). Field names and defaults follow the JAX package's configs, so a
 config means the same model in both packages. Configs are plain frozen
 dataclasses.
@@ -75,9 +76,9 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10000.0
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"                # rmsnorm | nonparametric (olmo)
     activation: str = "swiglu"
-    tie_embeddings: bool = False
+    tie_embeddings: bool = False         # logits read the embedding table
     moe: Optional[MoEConfig] = None
     # hybrid (recurrentgemma): block pattern repeated over layers
     block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")

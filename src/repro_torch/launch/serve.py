@@ -5,12 +5,18 @@ prediction-guided expert duplication (the port of ``repro.launch.serve``).
       --reduced --device cpu --requests 8 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --reduced --device cpu --data-mesh 1 --model-mesh 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --reduced --device cpu --requests 8 --batch 4 --seq 40 --new-tokens 6
 
 ``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
 nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
 ``--model-mesh`` EP ranks as a leading tensor dimension on the one device.
 One card has no data axis, so ``--data-mesh`` must then be 1, and each
 prompt of ``--seq`` tokens splits over the ranks.
+
+A model without MoE (the dense family, Griffin) has no experts to balance:
+its ``--strategy`` is "none" (the default there; the default for a MoE
+model is "dist_only"), and another strategy or the mesh flags raise.
 
 Weights are random, drawn from ``--seed``; prompts are Zipf-distributed
 tokens from the same seed (numpy, so the JAX launcher gets the same ones).
@@ -40,7 +46,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--strategy", default="dist_only", choices=STRATEGIES)
+    ap.add_argument("--strategy", default=None, choices=STRATEGIES,
+                    help="default dist_only for a MoE model; a model "
+                         "without MoE takes none only")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -59,6 +67,17 @@ def main(argv=None) -> int:
                          "(open in Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
 
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if not cfg.is_moe:
+        if args.strategy not in (None, "none"):
+            raise ValueError(f"--strategy {args.strategy}: {cfg.name} has no "
+                             "experts to balance (--strategy none)")
+        if args.data_mesh or args.model_mesh:
+            raise ValueError(f"--data-mesh / --model-mesh: {cfg.name} has no "
+                             "experts to place on EP ranks")
+    strategy = args.strategy or ("dist_only" if cfg.is_moe else "none")
     ep, ep_ranks = False, 1
     if args.data_mesh and args.model_mesh:
         if args.data_mesh != 1:
@@ -71,14 +90,11 @@ def main(argv=None) -> int:
             raise ValueError(f"--seq {args.seq} does not split over "
                              f"{ep_ranks} EP ranks")
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                        device=dev)
 
     predictor = None
-    if args.strategy == "token_to_expert" and cfg.is_moe:
+    if strategy == "token_to_expert":
         trace = make_routing_trace(
             num_sequences=64, seq_len=args.seq, vocab=cfg.vocab_size,
             num_experts=cfg.moe.num_experts, num_layers=cfg.num_layers,
@@ -92,7 +108,7 @@ def main(argv=None) -> int:
         from repro_torch.obs import SpanTracer
         tracer = SpanTracer(process_name="repro-torch-launch-serve")
     engine = ServeEngine(cfg, model,
-                         ServeConfig(strategy=args.strategy,
+                         ServeConfig(strategy=strategy,
                                      dup_slots=args.dup_slots,
                                      max_len=args.seq + args.new_tokens),
                          ep_ranks=ep_ranks, ep=ep, predictor=predictor,

@@ -4,12 +4,17 @@ Zipf-distributed token batches from the same seed.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --reduced --device cpu --steps 20 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
+      --reduced --device cpu --steps 20 --batch 4 --seq 64
 
 It takes the JAX launcher's flags, prints its lines and returns its code:
 0 when the last step's loss is below the first. ``--device`` (default
 cuda) picks the card or, with ``cpu``, the kernels' plain versions;
 ``--trace-out`` writes one span per step (host clock, each step ending on
-its loss's read-back) as Chrome trace-event JSON. ``--data-mesh 1
+its loss's read-back) as Chrome trace-event JSON; ``--remat`` recomputes
+each layer in the backward (``make_train_step(remat=True)``: the same
+values in less memory). A config's ``lr_schedule`` picks the schedule:
+cosine, or WSD (minicpm-2b). ``--data-mesh 1
 --model-mesh R`` trains an MoE model through the expert-parallel dispatch
 over R ranks on the one device (``Runtime(ep=True, ep_ranks=R)``, the
 identity plan stack, no replica slots: the JAX launcher's
@@ -73,6 +78,9 @@ def main(argv=None) -> int:
                          "plain versions)")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON of the steps")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward (less "
+                         "activation memory, the same values)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -94,7 +102,8 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, duplication_slots=0))
     step_fn = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, args.lr,
-                                                         args.steps))
+                                                         args.steps),
+                              remat=args.remat)
     dev = resolve_device(args.device)
     plan = None
     if rt.ep:

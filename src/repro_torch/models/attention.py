@@ -18,8 +18,9 @@ slot ``p % W``, and RoPE is applied at the absolute position when k is
 written, so attention over the buffer does not depend on slot order.
 
 Layer parameters are a dict {"wq", "wk", "wv", "wo"} of (d_in, d_out)
-weights. Caches and pools are updated in place (the JAX package returns
-new arrays instead).
+weights, and under ``qkv_bias`` the projections' biases {"bq", "bk",
+"bv"}, which every path adds through ``gqa_project``. Caches and pools
+are updated in place (the JAX package returns new arrays instead).
 """
 
 from __future__ import annotations
@@ -109,9 +110,9 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 def gqa_project(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(B, S, H, hd)
-    k = dense(p["wk"], x).reshape(B, S, K, hd)
-    v = dense(p["wv"], x).reshape(B, S, K, hd)
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, H, hd)
+    k = dense(p["wk"], x, p.get("bk")).reshape(B, S, K, hd)
+    v = dense(p["wv"], x, p.get("bv")).reshape(B, S, K, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

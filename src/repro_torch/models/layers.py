@@ -32,6 +32,27 @@ def rmsnorm(scale, x, eps: float = 1e-6):
     return (y * scale).to(dtype)
 
 
+def nonparametric_layernorm(x, eps: float = 1e-5):
+    """OLMo's LayerNorm without learnable affine parameters, in fp32 with
+    the population variance (``jnp.var``'s; ``torch.var``'s default is
+    Bessel-corrected)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dtype)
+
+
+def apply_norm(kind: str, scale, x):
+    """``cfg.norm``'s norm of x: "rmsnorm" with its ``scale``, or
+    "nonparametric", which has none (``scale`` is None)."""
+    if kind == "rmsnorm":
+        return rmsnorm(scale, x)
+    if kind == "nonparametric":
+        return nonparametric_layernorm(x)
+    raise ValueError(kind)
+
+
 def dense(w, x, b=None):
     """x (..., d_in) @ w (d_in, d_out), w cast to x's dtype."""
     y = torch.matmul(x, w.to(x.dtype))

@@ -1,10 +1,15 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
-package's ``init_model`` tree, for two families:
+package's ``init_model`` tree, for three families:
 
 * the uniform-stack decoder-only GQA MoE models (Mixtral, the paper's
   Appendix C models llama-moe-3.5b and switch-base-128, and arctic-480b,
-  whose MoE block adds a dense residual FFN on every token; shared experts
-  are refused until they are ported);
+  whose MoE block adds a dense residual FFN on every token);
+* the uniform-stack dense family (qwen1.5-0.5b, olmo-1b, stablelm-3b,
+  minicpm-2b): a dense FFN in place of the MoE block, and per config the
+  Q/K/V projections' biases (``qkv_bias``), OLMo's non-parametric LayerNorm
+  (``norm="nonparametric"``: no ``ln1`` / ``ln2`` / ``final_norm``
+  parameters at all) and tied embeddings (no ``lm_head``: the logits read
+  the embedding table);
 * the hybrid family (Griffin / RecurrentGemma): a repeating block pattern
   of recurrent layers (``models.griffin``, RG-LRU) and local-attention
   layers over a rotating window buffer, each followed by a dense FFN.
@@ -22,6 +27,10 @@ Execution modes (``Transformer.forward``):
             against the prefill's cache with one scalar ``cache_len`` for
             the whole batch (``ServeEngine``).
 
+Refused until their families are ported (ROADMAP.md §1): the MoE block's
+shared experts and MLA attention (item 2c), RWKV (2d), the
+encoder-decoder (2e) and the VLM prefix input (2f).
+
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
 expert-parallel dispatch (``moe.dispatch``) with the R EP ranks as a
@@ -36,8 +45,9 @@ rows, once the main stream has waited on that layer's fill event; the
 other layers read the live plan and rows (``_migration_view``, the JAX
 package's per-layer select).
 
-Storage: the embedding, ``lm_head``, attention, expert and FFN weights and
-the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
+Storage: the embedding, ``lm_head``, attention weights and QKV biases,
+expert and FFN weights and the recurrent block's dense weights, ``conv_w``
+and ``conv_b`` are kept in
 bf16 — the reference casts each of them to the bf16 activation dtype at
 every use, so the bf16 copy computes the same values in half the bytes.
 The router weight, the RG-LRU's ``lam`` and the norm scales stay fp32, as
@@ -62,14 +72,20 @@ from repro_torch.core.placement import DevicePlan, identity_plan, to_device
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin
-from repro_torch.models.layers import (dense, embed, ffn, rmsnorm,
-                                       truncated_normal_init)
+from repro_torch.models.layers import (apply_norm, dense, embed, ffn,
+                                       truncated_normal_init, unembed)
 from repro_torch.models.moe import dense_branch, moe_ffn_dense
 from repro_torch.moe import dispatch as ep_dispatch
 from repro_torch.moe.router import expert_histogram, route
 
 ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
+# a forward's stats for a model without MoE, as the JAX forward gives them
+NO_MOE_STATS = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
+# families the port does not serve yet, with their ROADMAP.md §1 items
+UNPORTED_FAMILIES = {"ssm": "RWKV (ROADMAP.md §1 item 2d)",
+                     "audio": "the encoder-decoder (ROADMAP.md §1 item 2e)",
+                     "vlm": "the VLM prefix input (ROADMAP.md §1 item 2f)"}
 
 
 class Runtime(NamedTuple):
@@ -108,8 +124,8 @@ def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
 
 class DecoderLayer(nn.Module):
     """One block. Weights are (d_in, d_out). ``kind`` "attn": attention +
-    MoE FFN; "recurrent": recurrent block (``rec_*``) + FFN; "local":
-    local attention + FFN."""
+    MoE FFN (a dense FFN in a model without MoE); "recurrent": recurrent
+    block (``rec_*``) + FFN; "local": local attention + FFN."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
                  kind: str = "attn", trainable: bool = False):
@@ -119,7 +135,9 @@ class DecoderLayer(nn.Module):
             setattr(self, name, _param(t, trainable))
 
     def attn_params(self):
-        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+        """The projections, and their biases where the config has them."""
+        return {n: getattr(self, n) for n in ("wq", "wk", "wv", "wo", "bq",
+                                              "bk", "bv") if hasattr(self, n)}
 
     def moe_params(self):
         """The MoE block's weights: router and experts, and the dense
@@ -140,8 +158,11 @@ class Transformer(nn.Module):
     ``layers[l]``):
 
       embed (V, d), final_norm (d,), lm_head (d, V); every layer ln1, ln2
-      (d,); attention layers wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d).
-      MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d);
+      (d,); attention layers wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d),
+      and under ``qkv_bias`` bq (H*hd,), bk/bv (K*hd,). A non-parametric
+      norm has no final_norm, ln1 or ln2; tied embeddings no lm_head.
+      Dense layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
+      under swiglu). MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d);
       with a dense residual branch (arctic) also dense_w_up (d, Fd),
       dense_w_down (Fd, d) (and dense_w_gate (d, Fd) under swiglu).
       Hybrid layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
@@ -155,15 +176,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
                  layers, trainable: bool = False):
         super().__init__()
-        hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
-        moe = cfg.is_moe and cfg.attention == "gqa"
-        if not (hybrid or moe) or cfg.qkv_bias or cfg.tie_embeddings \
-                or cfg.norm != "rmsnorm":
-            raise ValueError(f"{cfg.name}: the port serves untied, bias-free "
-                             "rmsnorm GQA MoE and hybrid models only so far")
-        if moe and cfg.moe.num_shared_experts > 0:
-            raise ValueError(f"{cfg.name}: the MoE block's shared experts "
-                             "are not ported yet (ROADMAP.md §1 item 2c)")
+        check_config(cfg)
         self.cfg = cfg
         for name, t in top.items():
             setattr(self, name, _param(t, trainable))
@@ -185,24 +198,56 @@ class Transformer(nn.Module):
                        plan=plan, store=store, resched=resched, remat=remat)
 
 
+def check_config(cfg: ModelConfig) -> None:
+    """Raise on a config the port cannot build: a family or feature whose
+    port is still to come names its ROADMAP.md item."""
+    if cfg.family in UNPORTED_FAMILIES:
+        raise ValueError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} is "
+                         "not ported yet")
+    if cfg.attention == "mla":
+        raise ValueError(f"{cfg.name}: MLA attention is not ported yet "
+                         "(ROADMAP.md §1 item 2c)")
+    hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
+    uniform = cfg.family in ("moe", "dense") and cfg.attention == "gqa"
+    if not (hybrid or uniform):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with attention "
+                         f"{cfg.attention!r} has no port")
+    if cfg.norm not in ("rmsnorm", "nonparametric"):
+        raise ValueError(f"{cfg.name}: norm {cfg.norm!r}")
+    if cfg.is_moe and cfg.moe.num_shared_experts > 0:
+        raise ValueError(f"{cfg.name}: the MoE block's shared experts "
+                         "are not ported yet (ROADMAP.md §1 item 2c)")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+ZEROS = 0.0                      # a ``_layer_shapes`` scale: zeros (biases)
+
+
 def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     """name -> (shape, init scale, dtype) of one layer of ``kind``; scale
-    None = ones (norm scale). Recurrent layers' ``rec_*`` entries carry
-    ``models.griffin.param_shapes`` (``init_model`` draws them there)."""
+    None = ones (norm scale), ``ZEROS`` = zeros (the QKV biases, as the
+    JAX ``init_dense`` makes them). Recurrent layers' ``rec_*`` entries
+    carry ``models.griffin.param_shapes`` (``init_model`` draws them
+    there)."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    shapes = {"ln1": ((d,), None, torch.float32),
-              "ln2": ((d,), None, torch.float32)}
+    shapes = {}
+    if cfg.norm == "rmsnorm":
+        shapes.update({"ln1": ((d,), None, torch.float32),
+                       "ln2": ((d,), None, torch.float32)})
     if kind in ("attn", "local"):
         shapes.update({
             "wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "wv": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "wo": ((H * hd, d), 1 / math.sqrt(H * hd), WEIGHT_DTYPE)})
-    if kind == "attn":
+        if cfg.qkv_bias:
+            shapes.update({"bq": ((H * hd,), ZEROS, WEIGHT_DTYPE),
+                           "bk": ((K * hd,), ZEROS, WEIGHT_DTYPE),
+                           "bv": ((K * hd,), ZEROS, WEIGHT_DTYPE)})
+    if kind == "attn" and cfg.is_moe:
         E, F = cfg.moe.num_experts, cfg.moe.d_ff_expert
         shapes.update({
             "router": ((d, E), 0.02, torch.float32),
@@ -223,7 +268,7 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     if kind == "recurrent":
         shapes.update({"rec_" + n: (shape, scale, dt) for n, (shape, scale, dt, _)
                        in griffin.param_shapes(cfg).items()})
-    elif kind != "local":
+    elif kind not in ("local", "attn"):
         raise ValueError(f"layer kind {kind!r}")
     F = cfg.d_ff
     if cfg.activation == "swiglu":
@@ -236,6 +281,8 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
 def _draw(shape, scale, dtype, generator, device):
     if scale is None:
         return torch.ones(shape, dtype=dtype, device=device)
+    if scale == ZEROS:
+        return torch.zeros(shape, dtype=dtype, device=device)
     if len(shape) == 3:
         # one expert at a time keeps the fp32 draw buffer small at full width
         out = torch.empty(shape, dtype=dtype, device=device)
@@ -262,12 +309,12 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     def dtype(dt):
         return torch.float32 if trainable else dt
-    top = {
-        "embed": _draw((V, d), 0.02, dtype(WEIGHT_DTYPE), generator, dev),
-        "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
-        "lm_head": _draw((d, V), 1 / math.sqrt(d), dtype(WEIGHT_DTYPE),
-                         generator, dev),
-    }
+    top = {"embed": _draw((V, d), 0.02, dtype(WEIGHT_DTYPE), generator, dev)}
+    if cfg.norm == "rmsnorm":
+        top["final_norm"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    if not cfg.tie_embeddings:
+        top["lm_head"] = _draw((d, V), 1 / math.sqrt(d), dtype(WEIGHT_DTYPE),
+                               generator, dev)
     layers = []
     for l in range(cfg.num_layers):
         kind = _layer_kind(cfg, l)
@@ -408,11 +455,14 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 block_tables=None, token_weight=None, plan_l=None,
                 experts_l=None, fill_event=None, predicted_l=None,
                 resched_l=None):
-    """GQA attention + MoE FFN for one layer. ``cache``: this layer's
-    {"k", "v"} (linear cache in prefill, block pool in decode), updated in
-    place; None in train mode. Returns (x, (expert_counts (E,),
-    slot_counts, aux, z, dropped, overflow))."""
-    h = rmsnorm(layer.ln1, x)
+    """GQA attention + MoE FFN (a dense FFN without MoE) for one layer.
+    ``cache``: this layer's {"k", "v"} (linear cache in prefill, block pool
+    in decode), updated in place; None in train mode. Returns (x,
+    (expert_counts (E,), slot_counts, aux, z, dropped, overflow)), and for
+    a model without MoE (x, None): the plan, store, predictions and quota
+    arguments are the MoE block's, which it then ignores."""
+    # a non-parametric norm has no scale: getattr's None
+    h = apply_norm(cfg.norm, getattr(layer, "ln1", None), x)
     if mode == "train":
         a = attn.gqa_attention(layer.attn_params(), cfg, h, positions,
                                window=rt.window(cfg))
@@ -434,7 +484,10 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     else:
         raise ValueError(f"mode {mode!r}")
     x = x + a
-    h = rmsnorm(layer.ln2, x)
+    h = apply_norm(cfg.norm, getattr(layer, "ln2", None), x)
+    if not cfg.is_moe:
+        return x + ffn(getattr(layer, "w_gate", None), layer.w_up,
+                       layer.w_down, h, cfg.activation), None
     y, *stats = _moe_apply(layer, cfg, h, rt, plan_l, mode == "decode",
                            token_weight, experts_l, fill_event, predicted_l,
                            resched_l)
@@ -449,7 +502,7 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
     recurrent layer starts from a zero state and a local layer attends
     over the whole sequence within its window, with no buffer. Returns (x,
     state)."""
-    h = rmsnorm(layer.ln1, x)
+    h = apply_norm(cfg.norm, getattr(layer, "ln1", None), x)
     if layer.kind == "recurrent":
         if mode == "train":
             state = griffin.init_recurrent_state(cfg, x.shape[0], x.dtype,
@@ -468,12 +521,18 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
         raise ValueError(f"mode {mode!r}")
     x = x + a
     y = ffn(getattr(layer, "w_gate", None), layer.w_up, layer.w_down,
-            rmsnorm(layer.ln2, x), cfg.activation)
+            apply_norm(cfg.norm, getattr(layer, "ln2", None), x),
+            cfg.activation)
     return x + y, state
 
 
 def _logits(model: Transformer, x):
-    return dense(model.lm_head, rmsnorm(model.final_norm, x))
+    """The final norm, then ``lm_head``, or under tied embeddings the
+    embedding table (the JAX ``unembed``)."""
+    h = apply_norm(model.cfg.norm, getattr(model, "final_norm", None), x)
+    if model.cfg.tie_embeddings:
+        return unembed(model.embed, h)
+    return dense(model.lm_head, h)
 
 
 def _migration_view(l: int, plan: Optional[DevicePlan],
@@ -529,6 +588,9 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     reschedule quota stack (``repro_torch.schedule``) the EP dispatch
     picks replicas through, with a rescue round for the pairs that
     overflow; the dense path ignores it.
+    A model without MoE (dense, hybrid) ignores ``token_weight``,
+    ``plan``, ``store``, ``predicted_idx`` and ``resched``; its stats are
+    ``NO_MOE_STATS`` (no expert counts, zero aux and z losses).
     stats: {"expert_counts": (L, E) fp32, "aux_loss",
     "z_loss"}, and under EP also "slot_counts": (L, R * n_slots) kept pairs
     per global slot, "dropped": (L,) pairs dropped at capacity and
@@ -557,9 +619,18 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             x, cache[l] = _run_layer(
                 remat, _hybrid_layer, layer, cfg, x, positions, cache[l],
                 mode, cache_len)
-        stats = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
         return (_last_logits(model, x, mode, last_pos),
-                None if mode == "train" else cache, stats)
+                None if mode == "train" else cache, dict(NO_MOE_STATS))
+    if not cfg.is_moe:
+        # the dense family: no router, so nothing to dispatch, plan or
+        # count (the JAX forward's stats for a model without MoE)
+        for l, layer in enumerate(model.layers):
+            cache_l = (None if cache is None
+                       else {"k": cache["k"][l], "v": cache["v"][l]})
+            x, _ = _run_layer(remat, _attn_layer, layer, cfg, x, positions,
+                              rt, cache=cache_l, cache_len=cache_len,
+                              mode=mode, block_tables=block_tables)
+        return _last_logits(model, x, mode, last_pos), cache, dict(NO_MOE_STATS)
     if store is not None and not isinstance(plan, DevicePlan):
         raise ValueError("a store view needs a DevicePlan of its rows")
     if plan is not None and not isinstance(plan, DevicePlan):

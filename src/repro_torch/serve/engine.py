@@ -3,7 +3,12 @@
 ``ServeEngine`` (the port of the JAX package's ``ServeEngine``) serves one
 padded batch at a time: a batched prefill, then greedy decode at one
 position for the whole batch over the prefill's cache. It serves every
-family the port has, and is the only engine for hybrid (Griffin) models.
+family the port has (MoE, dense, hybrid), and is the only engine for hybrid
+(Griffin) models. A model without MoE (the dense family: qwen1.5-0.5b,
+olmo-1b, stablelm-3b, minicpm-2b; Griffin) has nothing to estimate, plan
+or move: both engines skip the estimator, re-plans, the replica store, the
+lever's quotas and the controller for it, where the JAX engines skip
+them, and ``ep=True`` or a controller raises on it.
 Without ``ep``, MoE models take the single-device dense path (the JAX
 engine without a mesh): the estimator, the accuracy window and Algorithm
 1 re-plan on the interval, a new plan replaces the old one at once, and
@@ -30,7 +35,8 @@ migration entries and bytes. With a tracer on, its ``prefill`` and
 null tracer nothing synchronises.
 
 ``ContinuousEngine`` is the port of the JAX package's
-``ContinuousEngine`` as it runs without a mesh.
+``ContinuousEngine`` as it runs without a mesh, for the uniform-stack GQA
+models: the MoE models and the dense family.
 
 Each ``step()`` is one mixed iteration: admit + prefill up to
 ``max_prefills_per_step`` waiting requests into free slots, then run ONE
@@ -554,8 +560,9 @@ class ServeEngine(_StoreMixin):
         """Token-to-Expert pre-routing: (B, S) tokens -> (L, B, S, K) int32
         predicted experts on the engine's device (the top-1 prediction
         broadcast over k), or None unless that strategy runs with a
-        predictor."""
-        if self.serve.strategy != "token_to_expert" or self.predictor is None:
+        predictor on a MoE model."""
+        if (self.serve.strategy != "token_to_expert" or self.predictor is None
+                or not self.cfg.is_moe):
             return None
         if torch.is_tensor(tokens):
             tokens = tokens.cpu().numpy()
@@ -770,8 +777,13 @@ class ContinuousEngine(_StoreMixin):
                  ep: bool = False, predictor=None, controller=None,
                  tracer=None, metrics: Optional[ServeMetrics] = None,
                  name: str = ""):
-        if not cfg.is_moe or cfg.attention != "gqa":
-            raise ValueError("the port's engine serves GQA MoE models so far")
+        if cfg.family == "hybrid" or cfg.attention != "gqa":
+            raise ValueError(f"{cfg.family}: continuous batching serves "
+                             "uniform-stack GQA models (ServeEngine serves "
+                             "the hybrid family)")
+        if not cfg.is_moe and (ep or controller is not None):
+            raise ValueError(f"{cfg.name}: ep=True and a GPS controller "
+                             "need a MoE model")
         if cfg.sliding_window and ccfg.prefill_len > cfg.sliding_window:
             # decode applies the window as a mask over the linear pool, but
             # prefill runs full-causal within the bucket — exact only while
@@ -813,24 +825,30 @@ class ContinuousEngine(_StoreMixin):
         # was built (EP only): the measured per-slot, so per-rank, load
         self.slot_counts: Optional[np.ndarray] = None
 
-        dup_slots = ccfg.dup_slots
-        if ep:
-            dup_slots = _clamp_store_dup_slots(cfg, model, ep_ranks,
-                                               dup_slots)
-        self._overlap = (ccfg.overlap_migration
-                         if ccfg.overlap_migration is not None
-                         else cfg.moe.overlap_migration)
-        self.moe_cfg = dataclasses.replace(
-            cfg.moe, duplication_slots=dup_slots,
-            max_copies=ccfg.max_copies, overlap_migration=self._overlap)
-        # logical duplication quota <= the built dup_slots (see
-        # set_dup_slot_quota)
-        self.dup_slot_quota = dup_slots
-        cfg = dataclasses.replace(cfg, moe=self.moe_cfg)
-        self.estimator = DistributionEstimator(
-            cfg.num_layers, cfg.moe.num_experts, ema=ccfg.ema)
-        self.accuracy = PredictorAccuracyTracker(
-            cfg.num_layers, cfg.moe.num_experts)
+        if cfg.is_moe:
+            dup_slots = ccfg.dup_slots
+            if ep:
+                dup_slots = _clamp_store_dup_slots(cfg, model, ep_ranks,
+                                                   dup_slots)
+            self._overlap = (ccfg.overlap_migration
+                             if ccfg.overlap_migration is not None
+                             else cfg.moe.overlap_migration)
+            self.moe_cfg = dataclasses.replace(
+                cfg.moe, duplication_slots=dup_slots,
+                max_copies=ccfg.max_copies, overlap_migration=self._overlap)
+            # logical duplication quota <= the built dup_slots (see
+            # set_dup_slot_quota)
+            self.dup_slot_quota = dup_slots
+            cfg = dataclasses.replace(cfg, moe=self.moe_cfg)
+            self.estimator = DistributionEstimator(
+                cfg.num_layers, cfg.moe.num_experts, ema=ccfg.ema)
+            self.accuracy = PredictorAccuracyTracker(
+                cfg.num_layers, cfg.moe.num_experts)
+        else:
+            # the dense family: no expert histogram, plan or store
+            self.moe_cfg = self.estimator = self.accuracy = None
+            self._overlap = False
+            self.dup_slot_quota = 0
         self.cfg = cfg
         self.model = model
         self.device = model.device
@@ -868,7 +886,8 @@ class ContinuousEngine(_StoreMixin):
         self._step_migration_hidden_bytes = 0.0
         self._prebegun_plan = None       # predictive pre-migration target
         self._pred_counts = None         # t2e predicted expert histogram EMA
-        self._entry_bytes = mig_cost.entry_bytes(_model_experts(model))
+        self._entry_bytes = (mig_cost.entry_bytes(_model_experts(model))
+                             if cfg.is_moe else 0)
         m = self.moe_cfg
         if ep and m.duplication_slots > 0 and m.replica_impl == "store":
             self._init_store(model, chunk=ccfg.migrate_chunk,
@@ -889,7 +908,10 @@ class ContinuousEngine(_StoreMixin):
         Lever: "duplicate" and "both" adopt a fresh plan every time;
         "reschedule" adopts one and then freezes it, and later calls only
         recompute the quotas. Quotas are refreshed under either
-        rescheduling lever (``_replan_resched``)."""
+        rescheduling lever (``_replan_resched``). A model without MoE has
+        no plan: None."""
+        if not self.cfg.is_moe:
+            return None
         m = self.moe_cfg
         if (self.strategy != "none" and self.lever == "reschedule"
                 and self._resched_frozen and self._plan_stack is not None):
@@ -926,9 +948,10 @@ class ContinuousEngine(_StoreMixin):
         built ``dup_slots``. Takes effect at the next re-plan: shrinking
         strands now-unused slots (zero transfer, see
         ``runtime.diff.vacated_slots``), growth migrates weights in through
-        the plan diff."""
-        self.dup_slot_quota = max(
-            0, min(int(quota), self.moe_cfg.duplication_slots))
+        the plan diff. A model without MoE keeps its quota of 0."""
+        if self.cfg.is_moe:
+            self.dup_slot_quota = max(
+                0, min(int(quota), self.moe_cfg.duplication_slots))
 
     def _replan_resched(self) -> None:
         """Recompute the (L, E, C_max) quota stack from the estimator's
@@ -937,7 +960,7 @@ class ContinuousEngine(_StoreMixin):
         transient). Counts are the prefill bucket's (token, k) pairs, the
         capacity a prefill slot's over the EP ranks."""
         if (not self._resched_enabled or self.lever == "duplicate"
-                or self.strategy == "none"):
+                or self.strategy == "none" or not self.cfg.is_moe):
             self._resched_stack = None
             return
         dist = np.asarray(self.estimator.predict(), np.float64)   # (L, E)
@@ -1003,7 +1026,7 @@ class ContinuousEngine(_StoreMixin):
         migration toward this exact plan just keeps filling; toward a
         different plan it is cancelled (misprediction) and the fill
         restarts."""
-        if (self._plan_stack is None
+        if (self._plan_stack is None or not self.cfg.is_moe
                 or self.moe_cfg.duplication_slots == 0):
             self._set_plan(target)
             return target
@@ -1112,8 +1135,9 @@ class ContinuousEngine(_StoreMixin):
 
     def _predict_tokens(self, tokens: np.ndarray) -> Optional[torch.Tensor]:
         """The prompt's predicted experts under Token-to-Expert (noted in
-        the predicted histogram), else None."""
-        if self.strategy != "token_to_expert" or self.predictor is None:
+        the predicted histogram), else None (always without MoE)."""
+        if (self.strategy != "token_to_expert" or self.predictor is None
+                or not self.cfg.is_moe):
             return None
         pred, out = self._shape_predictions(tokens)
         self._note_predicted(pred)
@@ -1138,7 +1162,9 @@ class ContinuousEngine(_StoreMixin):
         """(L, E) next-window hot-expert distribution, published early: the
         Token-to-Expert predictor's aggregated output when that strategy
         runs, else the Distribution-Only estimator (whose EMA state is what
-        the boundary re-plan will consume)."""
+        the boundary re-plan will consume). None without MoE."""
+        if not self.cfg.is_moe:
+            return None
         if self.strategy == "token_to_expert" and self._pred_counts is not None:
             tot = np.maximum(self._pred_counts.sum(axis=1, keepdims=True),
                              1e-9)
@@ -1191,7 +1217,7 @@ class ContinuousEngine(_StoreMixin):
         store = self._store_view()
         toks = np.zeros((1, ccfg.prefill_len), np.int32)
         preds = [None]
-        if self.predictor is not None:
+        if self.predictor is not None and self.cfg.is_moe:
             preds.append(self._shape_predictions(toks)[1])
         for pred in preds:
             self._prefill_fn(
@@ -1400,8 +1426,7 @@ class ContinuousEngine(_StoreMixin):
             now, dt, prefill_tokens=prefill_tokens,
             decode_tokens=len(decode_slots),
             counts=iter_counts, plan=self._plan_stack,
-            ep_ranks=self.ep_ranks,
-            dup_slots=self.moe_cfg.duplication_slots,
+            ep_ranks=self.ep_ranks, dup_slots=self._dup_slots(),
             strategy=self.strategy, wall_s=wall,
             attn_live_blocks=attn_live, attn_alloc_blocks=attn_alloc)
         step_span.set_args(prefills=len(splan.prefills),
@@ -1456,7 +1481,10 @@ class ContinuousEngine(_StoreMixin):
 
     def _accumulate(self, acc, stats, resched: bool = False):
         """Add a forward's statistics to the step's: under EP its slot
-        counts, drops and (with a quota) overflows in one transfer."""
+        counts, drops and (with a quota) overflows in one transfer. A
+        model without MoE has none: ``acc`` stays as it is."""
+        if not self.cfg.is_moe:
+            return acc
         if self.ep:
             sc = stats["slot_counts"]
             cols = [sc, stats["dropped"].to(sc.dtype)[:, None]]
@@ -1472,6 +1500,9 @@ class ContinuousEngine(_StoreMixin):
                                 else self.slot_counts + sc)
         c = stats["expert_counts"].to("cpu", torch.float64).numpy()
         return c if acc is None else acc + c
+
+    def _dup_slots(self) -> int:
+        return self.moe_cfg.duplication_slots if self.moe_cfg else 0
 
     def measured_imbalance(self) -> float:
         """max / mean of the pairs each EP rank computed (from
@@ -1513,7 +1544,8 @@ class ContinuousEngine(_StoreMixin):
         ``metrics.reset_phases()`` first); every profile also lands as
         retrospective spans on the tracer's "dispatch-profile" track.
         Returns seconds per phase; ``migrate`` is not part of ``total``
-        (it is paid per plan switch, not per step)."""
+        (it is paid per plan switch, not per step). A model without MoE has
+        the ``attn`` phase only."""
         from repro_torch.moe.profile import (ATTN_PHASE, attn_phase_times,
                                              dispatch_phase_times,
                                              migrate_phase_time)
@@ -1528,13 +1560,14 @@ class ContinuousEngine(_StoreMixin):
                 head_dim=cfg.head_dim, block_size=ccfg.block_size,
                 max_blocks=max(ccfg.max_len // ccfg.block_size, 1),
                 window=cfg.sliding_window, iters=iters, device=self.device))
-        phases.update(dispatch_phase_times(
-            d_model=cfg.d_model, d_ff=m.d_ff_expert,
-            num_experts=m.num_experts, top_k=m.top_k, tokens=tokens,
-            ranks=ranks, capacity_factor=m.capacity_factor,
-            impl=impl or "sort", activation=cfg.activation, iters=iters,
-            device=self.device))
-        if m.duplication_slots > 0:
+        if m is not None:
+            phases.update(dispatch_phase_times(
+                d_model=cfg.d_model, d_ff=m.d_ff_expert,
+                num_experts=m.num_experts, top_k=m.top_k, tokens=tokens,
+                ranks=ranks, capacity_factor=m.capacity_factor,
+                impl=impl or "sort", activation=cfg.activation, iters=iters,
+                device=self.device))
+        if m is not None and m.duplication_slots > 0:
             phases.update(migrate_phase_time(
                 d_model=cfg.d_model, d_ff=m.d_ff_expert,
                 num_experts=m.num_experts, ranks=ranks,
@@ -1574,5 +1607,5 @@ class ContinuousEngine(_StoreMixin):
             if max_iters and iters >= max_iters:
                 break
         self.metrics.flush(self._plan_stack, self.ep_ranks,
-                           self.moe_cfg.duplication_slots)
+                           self._dup_slots())
         return now

@@ -76,7 +76,9 @@ def _listify(node):
 
 def load(path: str) -> Any:
     """The nested dict / list structure of a checkpoint; leaves are numpy
-    arrays (a NamedTuple comes back as a dict of its fields)."""
+    arrays (a NamedTuple comes back as a dict of its fields). An empty
+    dict holds no leaf, so it does not come back (OLMo's norms, ``{}`` in
+    the JAX tree): ``restore_like`` over a template restores it."""
     with np.load(path, allow_pickle=False) as z:
         root: Dict = {}
         for key in z.files:

@@ -8,8 +8,12 @@ plain version of the CUDA kernel's two passes,
 ``ref.paged_decode_split_plain`` (per-split softmax, then the combine), at
 1, 2 and 3 blocks per split (3 leaves a ragged last split) and on a table
 wide enough that some splits are live and some empty; ``split_plan`` is
-checked for coverage, shared memory and CTA count. The CUDA kernel itself
-runs only on a card: its test is marked ``cuda`` and skips here.
+checked for coverage, shared memory and CTA count. The dense family's
+decode geometries (every query head its own KV head, G 1) run both plain
+versions against the JAX kernel too: stablelm-3b's head_dim 80 at 32 KV
+heads (10 16-byte chunks a bf16 row, 20 in fp32) and minicpm-2b's 36 KV
+heads. The CUDA kernel itself runs only on a card: its tests are marked
+``cuda`` and skip here.
 
 Tolerances: atol 1e-5 in fp32 (the same op sequence, summed in another
 order) and 1e-2 in bf16 (one bf16 ulp of outputs below 2 in magnitude).
@@ -67,11 +71,11 @@ def _jax(arrays, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_wants(dtype, bs, G, window, lengths, M=M):
+def _jax_wants(dtype, bs, G, window, lengths, M=M, K=2, hd=32):
     """The JAX Pallas kernel's (interpret=True) and the JAX gather oracle's
     outputs on ``_state``, as float32 numpy; cached, so every port-side
     version and split size is held against one JAX run per case."""
-    arrays = _state(bs, G, list(lengths), M=M)
+    arrays = _state(bs, G, list(lengths), M=M, K=K, hd=hd)
     q, kp, vp, tables, lens = _jax(arrays, dtype)
     want_kernel = jax_kernel(q, kp, vp, tables, lens, window=window,
                              interpret=True)
@@ -82,9 +86,9 @@ def _jax_wants(dtype, bs, G, window, lengths, M=M):
     return tuple(np.asarray(w, np.float32) for w in (want_kernel, want_oracle))
 
 
-def _assert_matches_jax(got, dtype, bs, G, window, lengths, M=M):
+def _assert_matches_jax(got, dtype, bs, G, window, lengths, M=M, K=2, hd=32):
     assert got.dtype == TORCH[dtype]
-    for want in _jax_wants(dtype, bs, G, window, tuple(lengths), M):
+    for want in _jax_wants(dtype, bs, G, window, tuple(lengths), M, K, hd):
         assert got.shape == want.shape
         np.testing.assert_allclose(got.float().numpy(), want,
                                    atol=TOL[dtype], rtol=0)
@@ -121,6 +125,29 @@ def test_split_plain_matches_jax_kernel_and_oracle(dtype, bs, G, window, P):
         got.float().numpy(),
         ref.paged_decode_plain(*args, window=window).float().numpy(),
         atol=TOL[dtype], rtol=0)
+
+
+# the dense family's decode geometries, G 1 (label: KV heads, head dim)
+DENSE_GEOMETRIES = {"stablelm_hd80": (32, 80), "minicpm_k36": (36, 64)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", sorted(DENSE_GEOMETRIES))
+def test_plain_versions_match_jax_kernel_at_the_dense_geometries(dtype,
+                                                                 geometry):
+    """Both plain versions (the split one at 1 and 3 blocks a split)
+    against the JAX Pallas kernel and oracle, bs 16, no window."""
+    K, hd = DENSE_GEOMETRIES[geometry]
+    bs, G, window = 16, 1, 0
+    lengths = _ragged_lengths(bs)
+    args = _torch(_state(bs, G, lengths, K=K, hd=hd), dtype)
+    got = ref.paged_decode_plain(*args, window=window)
+    assert got.shape == (len(lengths), K, G, hd)
+    _assert_matches_jax(got, dtype, bs, G, window, lengths, K=K, hd=hd)
+    for P in (1, 3):
+        split = ref.paged_decode_split_plain(*args, window=window,
+                                             blocks_per_split=P)
+        _assert_matches_jax(split, dtype, bs, G, window, lengths, K=K, hd=hd)
 
 
 WIDE_M = 16
@@ -161,7 +188,12 @@ PLANS = [(8, 8, 64, 16, 128, 2, 4),      # the main path's decode
          (64, 8, 256, 16, 128, 4, 8),
          (2, 8, 4096, 16, 128, 4, 8),    # long table
          (3, 8, 100, 8, 64, 2, 4),       # M not a power of two
-         (1, 1, 5, 16, 128, 2, 1)]       # B*K*M < MIN_CTAS
+         (1, 1, 5, 16, 128, 2, 1),       # B*K*M < MIN_CTAS
+         (8, 16, 64, 16, 64, 2, 1),      # qwen1.5-0.5b's decode
+         (8, 16, 64, 16, 128, 2, 1),     # olmo-1b's
+         (8, 32, 64, 16, 80, 2, 1),      # stablelm-3b's, hd 80
+         (8, 32, 64, 16, 80, 4, 1),
+         (8, 36, 64, 16, 64, 2, 1)]      # minicpm-2b's, 36 KV heads
 
 
 @pytest.mark.parametrize("plan", PLANS, ids=lambda p: "-".join(map(str, p)))
@@ -182,6 +214,16 @@ def test_split_plan_of_the_main_path(B, want):
     """max_len 1024 at block 16 is a 64-block table: 8 slots get 8 splits
     of 8 blocks (512 CTAs), one slot alone 64 splits of 1 (512 CTAs)."""
     assert split_plan(B, 8, 64, 16, 128, 2, 4) == want
+
+
+@pytest.mark.parametrize("K,hd,elem,want", [
+    (16, 64, 2, (4, 16)), (16, 128, 2, (4, 16)), (32, 80, 2, (2, 32)),
+    (32, 80, 4, (4, 16)), (36, 64, 2, (2, 32))])
+def test_split_plan_of_the_dense_family(K, hd, elem, want):
+    """8 slots over a 64-block table at G 1: more KV heads than Mixtral's 8
+    fill the card's 264 CTAs with fewer splits, so P grows (Mixtral's is
+    8) until shared memory bounds it (stablelm's fp32 tile)."""
+    assert split_plan(8, K, 64, 16, hd, elem, 1) == want
 
 
 def test_wrapper_sends_cpu_tensors_to_plain_version():
@@ -309,6 +351,29 @@ def test_cuda_kernel_matches_plain_version(dtype):
         got = ops.paged_decode_attention(*dev, window=window)
         torch.cuda.synchronize()
         want = ref.paged_decode_plain(*dev, window=window)
+        tol = TOL[dtype]
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol,
+                                   rtol=0 if dtype == "float32" else tol)
+    assert ops.LAUNCHES["paged_decode_attention"] == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", sorted(DENSE_GEOMETRIES))
+def test_cuda_kernel_matches_plain_version_at_the_dense_geometries(
+        dtype, geometry):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    ops.reset_launches()
+    K, hd = DENSE_GEOMETRIES[geometry]
+    cases = [(M, _ragged_lengths(16)), (64, [0, 15, 300, 700, 1023])]
+    for width, lengths in cases:
+        arrays = _state(16, 1, lengths, K=K, hd=hd, M=width)
+        dev = [t.cuda() for t in _torch(arrays, dtype)]
+        got = ops.paged_decode_attention(*dev)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_plain(*dev)
         tol = TOL[dtype]
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), atol=tol,
