@@ -36,7 +36,7 @@ non-zero:
                 hold the training path's backward kernels against their
                 plain versions: fused_topk_route_bwd at the router's shapes
                 and the train step's (1 x 2048 x 8, K 2, tie rows; and at
-                E 16 / K 4, E 128 / K 1 and K 2) plus an untimed sweep over
+                E 16 / K 4, E 128 / K 1 and K 2, E 64 / K 6) plus an untimed sweep over
                 T, R, E <= 256, K and every subset of the gradients (a
                 missing one is a null pointer); rg_lru_scan_bwd
                 at the train step's 2 x 1024 x 2560 and the prefill's 8 x
@@ -58,8 +58,9 @@ non-zero:
                 / F 2048 and fp32 there, each timed by events and the
                 profiler beside its plain version and the autograd chain
                 through the weights' gather and bmm; and the train layer at
-                llama-moe-3.5b's (swiglu, F 688) and switch-base-128's (relu,
-                d 768, F 3072) widths. Each of its cases also prints the
+                llama-moe-3.5b's (swiglu, F 688), switch-base-128's (relu,
+                d 768, F 3072) and deepseek-v2-lite-16b's (swiglu, d 2048,
+                F 1408, 64 slots) widths. Each of its cases also prints the
                 device time of each launch by kernel name (rows, pack, dh,
                 hidden, input, weight_gu, weight_down) beside that part's
                 own bound; the kernels line's row carries the train case's
@@ -67,9 +68,10 @@ non-zero:
                 same phase times that commit's design on the same card. The paper's other MoE models' shapes
                 run in the forward phases too: paged attention at G 1 (hd
                 128, 32 KV heads; hd 64, 12 KV heads) and G 7; moe_gemm's
-                decode and prefill blocks at llama-moe's and switch's
-                widths; the router at E 16 / K 4, E 128 / K 1 and K 2; the
-                histogram at the packer's 6, 21, 34 and 133 classes and at
+                decode and prefill blocks at llama-moe's, switch's and
+                deepseek's (d 2048, F 1408, 68 slots) widths; the router at
+                E 16 / K 4, E 128 / K 1 and K 2, E 64 / K 6; the histogram
+                at the packer's 6, 18, 21, 34, 69 and 133 classes and at
                 128.
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
@@ -288,7 +290,31 @@ non-zero:
                 head_dim 80) card against CPU for a prefill and a decode
                 step. The four geometries' paged attention cases run in
                 phase 3 (``PAGED_MODEL_CASES``).
- 15. train    — (last, after every serving engine is freed) training on
+ 15. mla      — (after dense, before train; alone with ``--phases mla``)
+                deepseek-v2-lite-16b at published widths and all 27 layers
+                (MLA attention over a 576-value latent cache a position and
+                layer, 64 experts top-6 beside 2 shared ones), random
+                weights from ``--seed``, through ``ServeEngine``: one batch of
+                8 x 512 Zipf prompts, 64 new tokens, on the dense MoE path
+                and on the EP path (4 ranks, one replica slot, the store)
+                under dist_only and under none; per run prefill ms, decode
+                step p50, decode tokens/s, peak memory, measured and
+                modelled imbalance, drops and the exact launches of the
+                router, histogram and moe_gemm (no paged attention: the
+                latent cache is linear); the dist_only run's prefill's
+                layer-0 kernel inputs against their plain versions
+                (``mla_<model>``) and the idle share of its profiled decode
+                steps. Then ``repro_torch.launch.serve --data-mesh 1
+                --model-mesh 4`` (one batch, exit 0, exact launches); 10
+                train steps of 4 x 512 at 4 of 27 layers (44.1 GB of fp32
+                state; 2 layers if 4 runs out of memory), dense and EP, with
+                step ms, tokens/s, peak memory, the model-FLOPs share and
+                exact launches, a real step's layer-0 backward inputs
+                against the plain versions (``mla_train``) and a repeated
+                batch whose loss must fall; last, the reduced config and
+                its scale (q/k 96 wide over head_dim 64) and router (E 16,
+                K 6, 2 shared) variants card against CPU, dense and EP.
+ 16. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -775,8 +801,10 @@ MOE_GEMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # prefill row blocks under their own Zipf plan (4 ranks, 1 replica slot):
 # llama-moe-3.5b d 4096, F 688 (not whole 64- or 128-column tiles), swiglu,
 # 16 experts in 20 slots; switch-base-128 d 768, F 3072, relu, 128 experts
-# in 132 slots
-MOE_GEMM_MODELS = {"llama_moe": "llama-moe-3.5b", "switch": "switch-base-128"}
+# in 132 slots; deepseek-v2-lite-16b d 2048, F 1408, swiglu, 64 experts in
+# 68 slots
+MOE_GEMM_MODELS = {"llama_moe": "llama-moe-3.5b", "switch": "switch-base-128",
+                   "deepseek": "deepseek-v2-lite-16b"}
 KERNEL_ROWS = {}                   # the kernels line's rows, by kernel name
 
 
@@ -931,9 +959,9 @@ def moe_gemm_phase(flush: torch.Tensor, seed: int, cfg):
 
 
 # the paper's other MoE models' routers: E 16 with K 4, E 128 with K 1 and
-# with K 2, at the main path's decode and prefill row counts
+# with K 2, E 64 with K 6, at the main path's decode and prefill row counts
 ROUTER_MODELS = {"llama_moe": "llama-moe-3.5b", "switch": "switch-base-128",
-                 "arctic": "arctic-480b"}
+                 "arctic": "arctic-480b", "deepseek": "deepseek-v2-lite-16b"}
 ROUTER_SWEEP = dict(T=(1, 8, 63, 64, 65, 128, 512, 4096), R=(1, 4),
                     E=(8, 16, 17, 128, 256), K=range(1, 9))
 HIST_SWEEP = dict(C=(4, 13, 32, 33, 128, 133), N=(0, 16, 256, 40000),
@@ -948,6 +976,8 @@ HIST_MODEL_CASES = {"llama_moe_decode": (EP_RANKS, 8 * 4, 4 + 1 + 1),
                     "switch_prefill": (EP_RANKS, 128, 4 * 33 + 1),
                     "arctic_decode": (EP_RANKS, 8 * 2, 32 + 1 + 1),
                     "arctic_prefill": (EP_RANKS, 128 * 2, 4 * 33 + 1),
+                    "deepseek_decode": (EP_RANKS, 8 * 6, 16 + 1 + 1),
+                    "deepseek_prefill": (EP_RANKS, 128 * 6, 4 * 17 + 1),
                     "c128": (EP_RANKS, 256, 128)}
 TIE_ROWS = 3                       # rows of equal logits at each rank's start
 # the flush before each pair timing: 1 GiB keeps the device busy for about
@@ -1262,9 +1292,10 @@ ROUTE_BWD_GRADS = ((True, True, True), (True, False, False),
 ROUTE_BWD_SWEEP = dict(T=(1, 8, 63, 64, 65, 2048), R=(1, 4),
                        E=(1, 2, 5, 8, 16, 17, 32, 64, 128, 256), K=(1, 2, 8))
 # the train step's router at the paper's other MoE models' widths: (1 x 2048
-# rows, E, K) of llama-moe-3.5b, switch-base-128 and arctic-480b
+# rows, E, K) of llama-moe-3.5b, switch-base-128, arctic-480b and
+# deepseek-v2-lite-16b
 ROUTE_BWD_MODELS = {"llama_moe_train": (16, 4), "switch_train": (128, 1),
-                    "arctic_train": (128, 2)}
+                    "arctic_train": (128, 2), "deepseek_train": (64, 6)}
 ROUTE_BWD_TOL = 1e-6
 TRAIN_CASES = {}                   # the train phase's captured kernel inputs
 
@@ -1391,9 +1422,11 @@ MOE_BWD_REDUCED = dict(d=1024, F=2048)   # the gelu / relu / fp32 cases
 # the EP train step's layer at the paper's other MoE models' widths (4 x 512
 # tokens over 4 ranks, identity plan): llama-moe-3.5b swiglu at F 688 (16
 # slots x 4 x 160 rows, K 4), switch-base-128 relu at d 768 / F 3072 (128
-# slots x 4 x 8 rows, K 1)
+# slots x 4 x 8 rows, K 1), deepseek-v2-lite-16b swiglu at d 2048 / F 1408
+# (64 slots, K 6)
 MOE_BWD_MODELS = {"llama_moe_train": "llama-moe-3.5b",
-                  "switch_train": "switch-base-128"}
+                  "switch_train": "switch-base-128",
+                  "deepseek_train": "deepseek-v2-lite-16b"}
 
 
 def ep_train_layer(cfg, gen, dup_slots: int):
@@ -3894,6 +3927,7 @@ def _near_tie_routes(run):
     and the number of routing decisions whose sorted top-(K+1)
     probabilities hold two within 2% of each other: decisions that bf16
     differences between two devices' hidden states may break differently."""
+    import repro_torch.models.moe as mm
     import repro_torch.models.transformer as tr
 
     route, near = tr.route, [0]
@@ -3905,11 +3939,12 @@ def _near_tie_routes(run):
         near[0] += int((top[..., :-1] - top[..., 1:]
                         < 0.02 * top[..., :-1]).any(-1).sum())
         return out
-    tr.route = recording
+    # the EP path routes in the model, the dense path in models.moe
+    tr.route = mm.route = recording
     try:
         return run(), near[0]
     finally:
-        tr.route = route
+        tr.route = mm.route = route
 
 
 def reference_phase(seed: int):
@@ -4457,19 +4492,19 @@ def _skew(counts) -> float:
     return float(c.max() / c.mean().clamp_min(1e-9))
 
 
-def _train_kernel_case(kernel: str, cap: _BwdCapture, flush) -> None:
+def _train_kernel_case(kernel: str, cap: _BwdCapture, flush,
+                       case: str = "train_step") -> None:
     """A backward kernel on one real train step's layer-0 inputs, held
     against its plain version at the kernel phase's check and timed as
-    that phase times it; logged as the kernels line's ``train_step`` case
-    (its error joins the row's)."""
+    that phase times it; logged as the kernels line's ``case`` (its error
+    joins the row's)."""
     if cap.inputs is None:
         raise SystemExit(f"train: no {kernel} call was captured")
     if kernel == "moe_gemm_bwd":
         x, wg, wu, wd, slot_map, dy, act, counts = cap.inputs
         row = moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush)
         S, T, d = x.shape
-        _log_row(kernel, "train_step", f"S{S}xT{T}xd{d}xF{wu.shape[-1]}/{act}",
-                 row)
+        _log_row(kernel, case, f"S{S}xT{T}xd{d}xF{wu.shape[-1]}/{act}", row)
         if not row["ok"]:
             raise SystemExit(f"{kernel} disagrees with its plain version on "
                              "a train step's inputs")
@@ -4496,7 +4531,7 @@ def _train_kernel_case(kernel: str, cap: _BwdCapture, flush) -> None:
         row.update(_scan_bwd_timed(a, h_all, h0, grads, flush))
         shape = f"B{B}xS{S}xD{D}"
     row["gradients"] = "".join("-" if g is None else "y" for g in grads)
-    _log_row(kernel, "train_step", shape, row)
+    _log_row(kernel, case, shape, row)
     if not row["ok"]:
         raise SystemExit(f"{kernel} disagrees with its plain version on a "
                          "train step's inputs")
@@ -5194,9 +5229,11 @@ def models_planner_times(seed: int) -> None:
     del flush
 
 
-def models_train(arch: str, seed: int, ep: bool, smi: str) -> dict:
+def models_train(arch: str, seed: int, ep: bool, smi: str,
+                 layers: int = TRAIN_LAYERS, phase: str = "models",
+                 flush=None, repeat: bool = False) -> dict:
     """``make_train_step`` on the model at published widths cut to
-    ``TRAIN_LAYERS`` layers (fp32 parameters, gradients and two moments),
+    ``layers`` layers (fp32 parameters, gradients and two moments),
     ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf tokens at
     the launcher's schedule (as the Mixtral runs), on the single-device MoE
     path or (``ep``) through the EP dispatch over 4 ranks under the
@@ -5204,16 +5241,24 @@ def models_train(arch: str, seed: int, ep: bool, smi: str) -> dict:
     --model-mesh 4`` runs). Per step loss, grad norm, drops (EP) and step
     ms; then step p50 (steps 1 on), tokens/s, peak memory and exact
     launches (one router forward and backward a layer and step, and under
-    EP one ``histogram_offsets``, ``moe_gemm`` and ``moe_gemm_bwd``). The
-    loss must be finite and fall. Returns the launches."""
+    EP one ``histogram_offsets``, ``moe_gemm`` and ``moe_gemm_bwd``), and
+    the model-FLOPs share of the card's peak. The loss must be finite and
+    fall. With ``flush``, step ``CAPTURE_STEP``'s layer-0 inputs of the
+    router's backward (and under EP ``moe_gemm_bwd``'s) are held against
+    the plain versions (``_train_kernel_case``, case ``<phase>_train``);
+    ``repeat``: then one batch repeated at a fixed lr from fresh moments,
+    whose loss must fall (``_dense_repeat``). Returns the launches."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.placement import identity_plan, stack_plans, to_device
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_lr_fn
     from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
     from repro_torch.train.steps import init_opt_state, make_train_step
 
-    cfg = _model_cfg(arch, TRAIN_LAYERS)
+    cfg = _model_cfg(arch, layers)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, duplication_slots=0))
     L, mc = cfg.num_layers, cfg.moe
@@ -5225,45 +5270,59 @@ def models_train(arch: str, seed: int, ep: bool, smi: str) -> dict:
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda", trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
-    log("models", train=run, layers=L, params=n_params,
+    full = get_config(arch).num_layers
+    log(phase, train=run, layers=L, params=n_params,
         state_gb=f"{16 * n_params / 1e9:.3f}", batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
-        reduced=f"'num_layers {MODEL_LAYERS[arch]}->{L}: fp32 parameters, "
+        reduced=f"'num_layers {full}->{L}: fp32 parameters, "
                 f"gradients and two AdamW moments, 16 B a parameter'")
     opt = init_opt_state(model)
     step = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, TRAIN_LR,
                                                       TRAIN_STEPS))
     gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
     losses, step_ms, drops = [], [], []
+    caps = []
+    if flush is not None:
+        caps.append(_BwdCapture("fused_topk_route_bwd", L))
+        if ep:
+            caps.append(_BwdCapture("moe_gemm_bwd", L))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for i in range(TRAIN_STEPS):
-        batch = next(gen)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        opt, m = step(model, opt, batch, plan)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(m["loss"]))
-        drops.append(int(m["dropped"].sum()) if ep else 0)
-        log("models", train=run, step=i, loss=f"{losses[-1]:.6f}",
-            grad_norm=f"{float(m['grad_norm']):.6g}",
-            lr=f"{float(m['lr']):.6g}", dropped_pairs=drops[-1],
-            skew=f"{_skew(m['expert_counts']):.4f}",
-            step_ms=f"{step_ms[-1]:.3f}")
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        for i in range(TRAIN_STEPS):
+            batch = next(gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt, m = step(model, opt, batch, plan)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            drops.append(int(m["dropped"].sum()) if ep else 0)
+            log(phase, train=run, step=i, loss=f"{losses[-1]:.6f}",
+                grad_norm=f"{float(m['grad_norm']):.6g}",
+                lr=f"{float(m['lr']):.6g}", dropped_pairs=drops[-1],
+                skew=f"{_skew(m['expert_counts']):.4f}",
+                step_ms=f"{step_ms[-1]:.3f}")
     launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernels = TRAIN_EP_KERNELS if ep else ("fused_topk_route",
                                            "fused_topk_route_bwd")
     want = {k: 0 for k in launches}
     want.update({k: L * TRAIN_STEPS for k in kernels})
     p50 = float(np.median(step_ms[1:]))
     pairs = TRAIN_BATCH * TRAIN_SEQ * mc.top_k * L
-    log("models", train=run, card=f"'{smi}'",
+    mflops = model_flops(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    log(phase, train=run, card=f"'{smi}'",
         loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
         step_ms_p50=f"{p50:.3f}", step_ms_first=f"{step_ms[0]:.3f}",
         tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.2f}",
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        peak_gb=f"{peak_gb:.3f}",
+        model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
         dropped_share=f"{np.mean(drops) / pairs:.4f}",
         launches=",".join(f"{k}:{v}" for k, v in launches.items()),
         launches_exact=launches == want)
@@ -5272,11 +5331,26 @@ def models_train(arch: str, seed: int, ep: bool, smi: str) -> dict:
         failures.append(f"launches {launches} != {want}")
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
         failures.append(f"loss {losses[0]} -> {losses[-1]}")
-    del model, opt, m
+    del opt, m
+    for c in caps:
+        _train_kernel_case(c.name, c, flush, case=f"{phase}_train")
+    del caps
+    if repeat:
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = next(token_batches(seed + 1, cfg.vocab_size, TRAIN_BATCH,
+                                   TRAIN_SEQ))
+        rl = _dense_repeat(cfg, model, batch, remat=False)
+        log(phase, train=run, repeat_batch_losses=",".join(
+            f"{v:.6f}" for v in rl), lr=TRAIN_REPEAT_LR, falls=rl[-1] < rl[0])
+        if not rl[-1] < rl[0]:
+            failures.append(f"the repeated batch's loss did not fall: {rl}")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     if failures:
-        raise SystemExit(f"models (train {run}) failed: " + "; ".join(failures))
+        raise SystemExit(f"{phase} (train {run}) failed: "
+                         + "; ".join(failures))
     return launches
 
 
@@ -5656,11 +5730,448 @@ def dense_phase(seed: int, smi: str) -> None:
         raise SystemExit("dense failed: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# phase mla: deepseek-v2-lite-16b (MLA attention, shared experts)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SERVE = dict(requests=8, batch=8, seq=512, new_tokens=64)
+# (leg, ep, strategy): the dense MoE path, then EP (4 ranks, one replica
+# slot, the store) under dist_only and under none
+MLA_LEGS = (("dense", False, "dist_only"), ("ep", True, "dist_only"),
+            ("ep_none", True, "none"))
+MLA_PROFILE_STEPS = 2
+# 4 of 27 layers: 2.759e9 parameters, 44.1 GB of fp32 state; 2 layers
+# (25.4 GB) if 4 runs out of device memory
+MLA_TRAIN_LAYERS = (4, 2)
+MLA_SERVE_CUT = ("none: published widths, all 27 layers (16.21e9 "
+                 "parameters, 32.4 GB bf16)")
+
+
+def mla_variants(cfg):
+    """The reduced config and its two variants (``tests/test_torch_mla_
+    models.py``'s): q/k 96 wide with head_dim 64 and V narrower than nope,
+    and the published routing's K 6 over 16 experts with 2 shared."""
+    return {"reduced": cfg,
+            "scale": dataclasses.replace(cfg, mla=dataclasses.replace(
+                cfg.mla, nope_head_dim=64, rope_head_dim=32, v_head_dim=48)),
+            "router": dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=16, top_k=6, num_shared_experts=2))}
+
+
+def mla_serve_leg(label: str, model, cfg, tokens, ep: bool, strategy: str,
+                  smi: str, cap=None):
+    """One ``ServeEngine`` run of deepseek: one batch of ``MLA_SERVE``
+    through ``generate``, every kernel count set to 0 just before and read
+    just after; the prefill and each decode step timed on the host clock
+    between synchronisations. Prints prefill ms, decode step p50, decode
+    tokens/s, peak memory, the measured (the prefill's slot counts, EP)
+    and modelled (the prefill's expert counts under the identity plan and
+    under the plan in force after the batch) rank imbalance, dropped
+    pairs, and the launches against ``expected_launches`` (no paged
+    attention: the latent cache is linear). With ``cap`` the prefill's
+    layer-0 kernel inputs are kept. Returns (engine, failures)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.metrics import imbalance, plan_rank_loads
+
+    a = MLA_SERVE
+    eng = ServeEngine(cfg, model, ServeConfig(
+        strategy=strategy, predict_interval=1, dup_slots=DUP_SLOTS,
+        max_len=a["seq"] + a["new_tokens"]), ep_ranks=EP_RANKS, ep=ep)
+    rec = {"prefill_ms": [], "decode_ms": [], "stats": None}
+    dec_dropped = torch.zeros((), dtype=torch.float64, device="cuda")
+    step_prefill, step_decode = eng._prefill, eng._decode
+
+    def prefill_step(*args, **kw):
+        if cap is not None:
+            cap.armed = True
+        out = step_prefill(*args, **kw)
+        if cap is not None:
+            cap.armed = False
+        rec["stats"] = out[2]
+        return out
+
+    def decode_step(*args, **kw):
+        nonlocal dec_dropped
+        out = step_decode(*args, **kw)
+        if ep:
+            dec_dropped = dec_dropped + out[3]["dropped"].sum()
+        return out
+    eng._prefill, eng._decode = prefill_step, decode_step
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    eng.prefill, eng.decode = timed(prefill, "prefill_ms"), \
+        timed(decode, "decode_ms")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, _ = eng.generate({"tokens": tokens}, max_new_tokens=a["new_tokens"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eng.prefill, eng.decode = prefill, decode
+    eng._prefill, eng._decode = step_prefill, step_decode
+    toks = out.cpu().numpy()
+    st = rec["stats"]
+    counts = st["expert_counts"].cpu().numpy()
+    m = eng.moe_cfg
+    modelled_id = imbalance(plan_rank_loads(counts, None, EP_RANKS,
+                                            m.duplication_slots))
+    plan = eng._plan_stack
+    modelled = (imbalance(plan_rank_loads(counts, plan, EP_RANKS,
+                                          m.duplication_slots))
+                if plan is not None else modelled_id)
+    measured = (imbalance(eng.rank_loads(st["slot_counts"].cpu().numpy()))
+                if ep else None)
+    pre_dropped = int(st["dropped"].sum()) if ep else 0
+    dropped = pre_dropped + int(dec_dropped)
+    want = expected_launches(launches, cfg, 1, a["new_tokens"] - 1, ep=ep,
+                             paged=False)
+    dec = rec["decode_ms"]
+    p50 = float(np.median(dec))
+    log("mla", run=label, card=f"'{smi}'", strategy=strategy,
+        store=eng._store is not None, batch=a["batch"], seq=a["seq"],
+        new_tokens=a["new_tokens"],
+        prefill_ms=f"{rec['prefill_ms'][0]:.3f}",
+        decode_steps=len(dec), decode_step_p50_ms=f"{p50:.3f}",
+        decode_toks_per_s=f"{a['batch'] / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}",
+        measured_imbalance=(f"{measured:.4f}" if ep
+                            else "n/a (dense path)"),
+        modelled_imbalance=f"{modelled:.4f}",
+        modelled_imbalance_identity=f"{modelled_id:.4f}",
+        window_skew=f"{eng.history[-1]['skew']:.4f}",
+        dropped_pairs=dropped, prefill_dropped_pairs=pre_dropped,
+        decode_dropped_pairs=int(dec_dropped),
+        migration_entries=eng.history[-1].get("migration_entries", "-"),
+        launches=",".join(f"{k}:{launches.get(k, 0)}"
+                          for k in SERVING_KERNELS),
+        launches_expected=",".join(f"{k}:{want.get(k, 0)}"
+                                   for k in SERVING_KERNELS),
+        launches_exact=launches == want)
+    failures = []
+    if launches != want:
+        failures.append(f"{label}: launches {launches} != {want}")
+    if toks.shape != (a["batch"], a["new_tokens"]) or (toks < 0).any() \
+            or (toks >= cfg.vocab_size).any():
+        failures.append(f"{label}: bad tokens of shape {toks.shape}")
+    if len(dec) != a["new_tokens"] - 1:
+        failures.append(f"{label}: {len(dec)} decode steps")
+    return eng, failures
+
+
+def mla_decode_profile(eng, cfg, tokens, label: str) -> None:
+    """The device's idle share of a decode step: a fresh prefill of
+    ``tokens``, two decode steps, then ``MLA_PROFILE_STEPS`` more under
+    torch.profiler (host wall per step, device busy time by kernel)."""
+    logits, cache, _ = eng.prefill({"tokens": tokens})
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = tokens.shape[1]
+    for _ in range(2):
+        tok, _, cache, _ = eng.decode(tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+
+    def steps():
+        nonlocal tok, cache, pos
+        t0 = time.perf_counter()
+        for _ in range(MLA_PROFILE_STEPS):
+            tok, _, cache, _ = eng.decode(tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / MLA_PROFILE_STEPS
+
+    prof, wall_ms = profiled(steps, f"the {label} decode step", cpu=True)
+    kernels = {} if prof is None else _kernel_time_by_name(
+        prof, MLA_PROFILE_STEPS)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
+    log("mla", profile=label, decode_steps=MLA_PROFILE_STEPS,
+        cache_len=pos, profiled_step_ms=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / MLA_PROFILE_STEPS:.1f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        log("mla", profile=label, ms_per_step=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", per_step=f"{n / MLA_PROFILE_STEPS:.1f}",
+            kernel=f"'{name[:90]}'")
+    del cache, logits
+
+
+def mla_serve(seed: int, smi: str) -> list:
+    """deepseek-v2-lite-16b at published widths, all 27 layers, random
+    bf16 weights from ``seed``, through ``ServeEngine`` in each of
+    ``MLA_LEGS`` (``mla_serve_leg``) on one batch of Zipf prompts
+    (``token_batches(seed)``); the EP dist_only run's prefill's layer-0
+    router, histogram and moe_gemm inputs held against their plain
+    versions (the kernels line's ``mla_<model>`` case) and one of its
+    decode steps profiled. Returns failures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.transformer import init_model
+
+    cfg = get_config(MLA_ARCH)
+    m, a = cfg.moe, MLA_SERVE
+    log("mla", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_lora_rank=cfg.mla.kv_lora_rank,
+        rope_head_dim=cfg.mla.rope_head_dim,
+        nope_head_dim=cfg.mla.nope_head_dim,
+        v_head_dim=cfg.mla.v_head_dim,
+        softmax_scale=f"1/sqrt({cfg.mla.nope_head_dim + cfg.mla.rope_head_dim})",
+        experts=m.num_experts, top_k=m.top_k, shared_experts=m.num_shared_experts,
+        d_ff_expert=m.d_ff_expert, vocab=cfg.vocab_size,
+        capacity_factor=m.capacity_factor, ep_ranks=EP_RANKS,
+        dup_slots=DUP_SLOTS, params=cfg.num_params(),
+        latent_cache_bytes_per_token=2 * cfg.num_layers
+        * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim),
+        reduced=f"'{MLA_SERVE_CUT}'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log("mla", model=cfg.name, init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    tokens = next(token_batches(seed, cfg.vocab_size, a["batch"],
+                                a["seq"]))["tokens"]
+    failures = []
+    for leg, ep, strategy in MLA_LEGS:
+        t1 = time.perf_counter()
+        cap = _PrefillCapture() if (ep and strategy == "dist_only") else None
+        with cap or contextlib.nullcontext():
+            eng, fails = mla_serve_leg(f"{cfg.name}/{leg}", model, cfg,
+                                       tokens, ep, strategy, smi, cap)
+        failures += fails
+        if cap is not None:
+            # (the kept moe_gemm inputs name the store's rows)
+            prefill_cases(cfg.name, cap, prefix="mla")
+            mla_decode_profile(eng, cfg, tokens, f"{cfg.name}/{leg}")
+        del eng, cap
+        free_engines("mla")
+        log("mla", run=f"{cfg.name}/{leg}",
+            leg_s=f"{time.perf_counter() - t1:.3f}")
+    del model
+    free_engines("mla")
+    return failures
+
+
+def mla_launch_serve(seed: int, smi: str) -> list:
+    """``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    --data-mesh 1 --model-mesh 4`` (``main`` in this process, a fresh
+    model from ``seed``): one batch of ``MLA_SERVE``, exit 0, every request
+    served, exact launches. Returns failures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    a = MLA_SERVE
+    cfg = get_config(MLA_ARCH)
+    trace = os.path.join(ROOT, "build", "chip_smoke", "mla_launch_serve.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    argv = ["--arch", MLA_ARCH, "--requests", str(a["requests"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--new-tokens", str(a["new_tokens"]), "--data-mesh", "1",
+            "--model-mesh", str(EP_RANKS), "--seed", str(seed),
+            "--device", "cuda", "--trace-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rc, out, spans = _launch(launch_serve, argv, "mla", trace)
+    launches = dict(ops.LAUNCHES)
+    decode = spans.get("decode", [])
+    batches = a["requests"] // a["batch"]
+    want = expected_launches(launches, cfg, batches,
+                             batches * (a["new_tokens"] - 1), ep=True,
+                             paged=False)
+    log("mla", run=f"launch.serve/{MLA_ARCH}", card=f"'{smi}'",
+        argv=f"'{' '.join(argv)}'", rc=rc,
+        prefill_ms=",".join(f"{v:.3f}" for v in spans.get("prefill", [])),
+        decode_steps=len(decode),
+        decode_ms_p50=f"{np.median(decode):.3f}" if decode else "n/a",
+        decode_toks_per_s=(f"{a['batch'] / np.median(decode) * 1e3:.2f}"
+                           if decode else "n/a"),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()),
+        launches_exact=launches == want)
+    failures = []
+    if rc != 0 or f"served {a['requests']} requests" not in out:
+        failures.append(f"launch.serve {MLA_ARCH}: exit {rc}")
+    if launches != want:
+        failures.append(f"launch.serve {MLA_ARCH}: launches {launches} != "
+                        f"{want}")
+    if len(decode) != batches * (a["new_tokens"] - 1):
+        failures.append(f"launch.serve {MLA_ARCH}: {len(decode)} decode "
+                        "steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def mla_train(seed: int, smi: str, flush) -> dict:
+    """``models_train`` on deepseek at published widths cut to the first
+    of ``MLA_TRAIN_LAYERS`` that fits the card: dense (then one batch
+    repeated at a fixed lr, whose loss must fall) and EP over 4 ranks,
+    each with step ``CAPTURE_STEP``'s layer-0 backward inputs held against
+    the plain versions (case ``mla_train``). Returns the launches, by
+    run."""
+    out = {}
+    for ep in (False, True):
+        for layers in MLA_TRAIN_LAYERS:
+            t1 = time.perf_counter()
+            try:
+                out[f"train_{'ep' if ep else 'dense'}"] = models_train(
+                    MLA_ARCH, seed, ep, smi, layers=layers, phase="mla",
+                    flush=flush, repeat=not ep)
+            except torch.cuda.OutOfMemoryError as e:
+                log("mla", train_ep=ep, layers=layers, out_of_memory=True,
+                    error=f"'{str(e).splitlines()[0][:160]}'")
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            log("mla", train_ep=ep, layers=layers,
+                train_s=f"{time.perf_counter() - t1:.3f}")
+            break
+        else:
+            raise SystemExit(f"mla: training ep={ep} ran out of memory at "
+                             f"every depth of {MLA_TRAIN_LAYERS}")
+    return out
+
+
+def _mla_reference_run(model, cfg, rt, tokens, forced):
+    """A prefill of ``tokens`` (B, S) into a fresh latent cache and one
+    teacher-forced decode step (``ServeEngine``'s steps). Returns (logits
+    (2, B, V) fp32 on the host, the latent cache on the host, the two
+    stats moved to the host)."""
+    from repro_torch.models.transformer import forward, init_cache
+
+    dev = model.device
+    B, S = tokens.shape
+    cache = init_cache(cfg, rt, B, S + 1, device=dev)
+    with torch.inference_mode():
+        lg, cache, st = forward(model, cfg, torch.tensor(tokens, device=dev),
+                                rt, mode="prefill", cache=cache)
+        lg2, cache, st2 = forward(model, cfg, torch.tensor(forced, device=dev),
+                                  rt, mode="decode", cache=cache,
+                                  cache_len=S)
+    host = [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in s.items()}
+            for s in (st, st2)]
+    return (torch.stack([lg[:, -1].float().cpu(), lg2[:, -1].float().cpu()]),
+            {k: v.float().cpu() for k, v in cache.items()}, host)
+
+
+def mla_card_vs_cpu(seed: int) -> None:
+    """The reduced deepseek and its two variants (``mla_variants``) on the
+    card against the same bridged weights on the CPU: a prefill of 2 x 32
+    tokens and one decode step over the latent cache, on the dense path
+    and on the EP path (4 ranks, the identity plan). Logits and the latent
+    cache within 5e-2 x their largest magnitude (bf16 activations, sums in
+    other orders); router weights scaled by 25 so that routing margins
+    stand clear of the bf16 noise between the devices, and where the CPU
+    run still holds near-tie decisions each may move at most two pairs of
+    the EP slot counts; the kernels launch on the card only."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_model
+
+    failures = []
+    rng = np.random.default_rng(seed)
+    for name, cfg in mla_variants(get_config(MLA_ARCH).reduced()).items():
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+        with torch.no_grad():
+            for layer in gpu.layers:
+                layer.router.mul_(25.0)
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+        tokens = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        forced = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+        for path, rt in (("dense", Runtime()),
+                         ("ep", Runtime(ep=True, ep_ranks=EP_RANKS))):
+            res, launches, near = {}, {}, 0
+            for dev, model in (("cuda", gpu), ("cpu", cpu)):
+                ops.reset_launches()
+                res[dev], n = _near_tie_routes(
+                    lambda: _mla_reference_run(model, cfg, rt, tokens, forced))
+                launches[dev] = dict(ops.LAUNCHES)
+                near = n if dev == "cpu" else near
+            (lg_c, cache_c, st_c), (lg_h, cache_h, st_h) = res["cuda"], res["cpu"]
+            err = float((lg_c - lg_h).abs().max())
+            scale = float(lg_h.abs().max())
+            cache_err = max(float((cache_c[k] - cache_h[k]).abs().max())
+                            / max(float(cache_h[k].abs().max()), 1e-6)
+                            for k in cache_h)
+            L = cfg.num_layers
+            want = {k: 0 for k in launches["cuda"]}
+            want["fused_topk_route"] = 2 * L
+            for k in EP_KERNELS:
+                want[k] = 2 * L if path == "ep" else 0
+            key = "slot_counts" if path == "ep" else "expert_counts"
+            moved = sum(int((a[key].to(torch.int64) - b[key].to(torch.int64))
+                            .abs().sum()) for a, b in zip(st_c, st_h))
+            ok = (bool(torch.isfinite(lg_c).all())
+                  and err <= 5e-2 * max(scale, 1.0) and cache_err <= 5e-2
+                  and launches["cuda"] == want
+                  and not any(launches["cpu"].values())
+                  and moved <= 2 * near)
+            log("mla", card_vs_cpu=f"{cfg.name}/{name}", path=path,
+                steps="prefill+1decode", max_abs_err=f"{err:.6g}",
+                logit_scale=f"{scale:.6g}",
+                cache_rel_err=f"{cache_err:.6g}",
+                tolerance="5e-2 x max|logit|, 5e-2 of the cache's largest "
+                          "(bf16 activations, CPU vs GPU sums)",
+                near_tie_routes_cpu=near, count_pairs_moved=moved,
+                kernel_launches=",".join(f"{k}:{v}" for k, v in
+                                         launches["cuda"].items()), ok=ok)
+            if not ok:
+                failures.append(f"{name}/{path}")
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"reduced deepseek on the card disagrees with the "
+                         f"CPU path: {failures}")
+
+
+def mla_phase(seed: int, smi: str) -> dict:
+    """Phase mla: deepseek-v2-lite-16b served through ``ServeEngine`` at
+    all 27 layers (dense, EP dist_only, EP none), through
+    ``launch.serve`` with 4 EP ranks, trained at 4 of 27 layers dense and
+    EP, and its reduced config and variants card against CPU. Frees what
+    earlier phases hold first. Returns the training runs' launches."""
+    free_engines("mla")
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    failures = mla_serve(seed, smi)
+    t2 = time.perf_counter()
+    failures += mla_launch_serve(seed, smi)
+    t3 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = mla_train(seed, smi, flush)
+    del flush
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    mla_card_vs_cpu(seed)
+    log("mla", serve_s=f"{t2 - t1:.3f}", launch_serve_s=f"{t3 - t2:.3f}",
+        train_s=f"{t4 - t3:.3f}",
+        card_vs_cpu_s=f"{time.perf_counter() - t4:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("mla failed: " + "; ".join(failures))
+    return out
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
-                          "griffin", "reference", "models", "dense", "train")
+                          "griffin", "reference", "models", "dense", "mla",
+                          "train")
 
 
 def main() -> int:
@@ -5758,6 +6269,8 @@ def main() -> int:
         models_phase(args.seed, smi)
     if "dense" in phases:
         dense_phase(args.seed, smi)
+    if "mla" in phases:
+        mla_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in

@@ -5,7 +5,9 @@ example ``jax.tree.map(np.asarray, params)``) and builds the port's
 ``Transformer``; ``params_to_jax`` is its inverse, returning the same key
 paths as float32 numpy arrays. Uniform-stack layer leaves are stacked over
 L in the JAX tree (``layers``) and split into ``layers[l]`` here (the MoE
-block's ``dense`` branch, where a config has one, as ``dense_w_*``; a relu
+block's ``shared`` experts and ``dense`` branch, where a config has them,
+as ``shared_w_*`` and ``dense_w_*``; MLA's ``attn.w_dkv`` ... ``attn.wo``
+under their JAX names; a relu
 or gelu model's experts keep the ``w_gate`` the JAX tree holds and never
 reads; the dense family's ``ffn.*`` as ``w_gate`` / ``w_up`` /
 ``w_down``, its Q/K/V biases ``attn.w*.b`` as ``bq`` / ``bk`` / ``bv``);
@@ -17,8 +19,8 @@ parameter here: a non-parametric norm (OLMo) is an empty dict at
 ``params_from_jax`` accepts, and a tied model (MiniCPM) has no
 ``lm_head`` on either side.
 
-The embedding, ``lm_head``, attention weights and biases, expert and FFN
-weights, and the recurrent block's dense weights, ``conv_w`` and ``conv_b``
+The embedding, ``lm_head``, attention weights and biases, expert,
+shared-expert and FFN weights, and the recurrent block's dense weights, ``conv_w`` and ``conv_b``
 are stored in
 bf16 (the reference casts each to bf16 at every use, so the values the
 model computes with are unchanged); the router weight, ``lam`` and the
@@ -60,10 +62,18 @@ LAYER_KEYS = {
     # qkv_bias (qwen)
     ("attn", "wq", "b"): "bq", ("attn", "wk", "b"): "bk",
     ("attn", "wv", "b"): "bv",
+    # MLA's projections (deepseek; its out projection is "wo" above)
+    ("attn", "w_dkv", "w"): "w_dkv", ("attn", "w_krope", "w"): "w_krope",
+    ("attn", "w_uk", "w"): "w_uk", ("attn", "w_uv", "w"): "w_uv",
+    ("attn", "w_q", "w"): "w_q",
     ("moe", "router", "w"): "router",
     ("moe", "experts", "w_gate"): "w_gate",
     ("moe", "experts", "w_up"): "w_up",
     ("moe", "experts", "w_down"): "w_down",
+    # deepseek's shared experts (no w_gate under relu / gelu)
+    ("moe", "shared", "w_gate"): "shared_w_gate",
+    ("moe", "shared", "w_up"): "shared_w_up",
+    ("moe", "shared", "w_down"): "shared_w_down",
     # arctic's dense residual branch (no w_gate under relu / gelu)
     ("moe", "dense", "w_gate"): "dense_w_gate",
     ("moe", "dense", "w_up"): "dense_w_up",

@@ -1,19 +1,22 @@
 """Model configuration for the PyTorch port.
 
-The port's own copy of ``ModelConfig`` / ``MoEConfig`` for the families it
-serves so far: uniform-stack decoder-only GQA models with a dense or MoE
-FFN (the dense family with QKV biases, a non-parametric LayerNorm or tied
-embeddings), and the hybrid family (Griffin: RG-LRU recurrent blocks and local
-attention, in a repeating ``block_pattern``). Field names and defaults follow the JAX package's configs, so a
-config means the same model in both packages. Configs are plain frozen
-dataclasses.
+The port's own copy of ``ModelConfig`` / ``MoEConfig`` / ``MLAConfig`` for
+the families it serves so far: uniform-stack decoder-only GQA models with a
+dense or MoE FFN (the dense family with QKV biases, a non-parametric
+LayerNorm or tied embeddings), DeepSeek's MoE with multi-head latent
+attention (MLA) and always-on shared experts, and the hybrid family
+(Griffin: RG-LRU recurrent blocks and local attention, in a repeating
+``block_pattern``). Field names and defaults follow the JAX package's
+configs, so a config means the same model in both packages. Configs are
+plain frozen dataclasses.
 
 ``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
 pattern; d_model<=256, <=4 experts, <=1 shared expert, a dense residual
-branch <=256 wide) used by the tests; it shrinks exactly
-the dimensions the JAX package's ``reduced()`` shrinks. ``num_params()`` /
-``active_params()`` are the JAX package's analytic counts, and
-``INPUT_SHAPES`` its four assigned step shapes (the roofline's inputs).
+branch <=256 wide, an MLA latent of 64 with 32-wide heads) used by the
+tests; it shrinks exactly the dimensions the JAX package's ``reduced()``
+shrinks. ``num_params()`` / ``active_params()`` are the JAX package's
+analytic counts, and ``INPUT_SHAPES`` its four assigned step shapes (the
+roofline's inputs).
 """
 
 from __future__ import annotations
@@ -62,6 +65,15 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0                 # 0 = full-rank Q projection
+    rope_head_dim: int = 64              # decoupled RoPE dims per head
+    v_head_dim: int = 128
+    nope_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                          # dense | moe | hybrid
@@ -72,7 +84,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                    # 0 -> d_model // num_heads
-    attention: str = "gqa"               # gqa | mixed (hybrid)
+    attention: str = "gqa"               # gqa | mla | mixed (hybrid)
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10000.0
@@ -80,6 +92,7 @@ class ModelConfig:
     activation: str = "swiglu"
     tie_embeddings: bool = False         # logits read the embedding table
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     # hybrid (recurrentgemma): block pattern repeated over layers
     block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")
     rnn_width: int = 0                   # RG-LRU recurrence width (0 = d_model)
@@ -99,15 +112,28 @@ class ModelConfig:
         """Analytical parameter count (embedding + blocks + head), the JAX
         package's formula: a hybrid counts every layer's attention as GQA
         and its FFN, as the reference does."""
-        if self.attention not in ("gqa", "mixed"):
+        mla = self.attention == "mla"
+        if not (self.attention in ("gqa", "mixed")
+                or (mla and self.mla is not None)):
             raise NotImplementedError(
-                f"attention {self.attention!r} has no port config yet "
-                "(ROADMAP.md §1)")
+                f"attention {self.attention!r} without its config has no "
+                "port count (ROADMAP.md §1)")
         d, L, hd = self.d_model, self.num_layers, self.head_dim
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        per_layer = d * self.num_heads * hd                   # Q
-        per_layer += 2 * d * self.num_kv_heads * hd           # K,V
-        per_layer += self.num_heads * hd * d                  # O
+        if mla:
+            m, H = self.mla, self.num_heads
+            per_layer = d * m.kv_lora_rank                        # kv down
+            per_layer += m.kv_lora_rank * H * (m.nope_head_dim + m.v_head_dim)
+            per_layer += d * m.rope_head_dim                      # shared k_rope
+            qd = m.q_lora_rank or d
+            if m.q_lora_rank:
+                per_layer += d * m.q_lora_rank
+            per_layer += qd * H * (m.nope_head_dim + m.rope_head_dim)
+            per_layer += H * m.v_head_dim * d                     # out proj
+        else:
+            per_layer = d * self.num_heads * hd                   # Q
+            per_layer += 2 * d * self.num_kv_heads * hd           # K,V
+            per_layer += self.num_heads * hd * d                  # O
         ff_mult = 3 if self.activation == "swiglu" else 2
         if self.moe is not None:
             e = self.moe
@@ -156,6 +182,10 @@ class ModelConfig:
                 d_ff_dense=(min(self.moe.d_ff_dense, 256)
                             if self.moe.d_ff_dense else 0),
             )
+        if self.mla is not None:
+            changes["mla"] = dataclasses.replace(
+                self.mla, kv_lora_rank=64, rope_head_dim=32,
+                nope_head_dim=32, v_head_dim=32)
         if self.block_pattern:
             changes["num_layers"] = len(self.block_pattern)
         return dataclasses.replace(self, **changes)

@@ -1,8 +1,9 @@
 """Architecture registry: name -> ModelConfig for the architectures the
-port serves so far: the MoE models (Mixtral and the paper's Appendix C
-models), the hybrid RecurrentGemma-2B, and the dense family (Qwen1.5-0.5B,
-OLMo-1B, StableLM-3B, MiniCPM-2B). The JAX package's other configs wait for
-their families (ROADMAP.md §1 items 2c-2f)."""
+port serves so far: the MoE models (Mixtral, the paper's Appendix C
+models, and DeepSeek-V2-Lite with MLA attention and shared experts), the
+hybrid RecurrentGemma-2B, and the dense family (Qwen1.5-0.5B, OLMo-1B,
+StableLM-3B, MiniCPM-2B). The JAX package's other configs wait for their
+families (ROADMAP.md §1 items 2d-2f)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ _MODULES = {
     "llama-moe-3.5b": "repro_torch.configs.llama_moe_3_5b",
     "switch-base-128": "repro_torch.configs.switch_base_128",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    # MLA attention and the MoE block's shared experts
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     # the dense family: QKV bias (qwen), non-parametric LayerNorm (olmo),
     # head_dim 80 (stablelm), tied embeddings and WSD (minicpm)
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",

@@ -112,13 +112,25 @@ def attention_flops(cfg: ModelConfig, tokens: int, seq: int,
                     causal: bool = True) -> float:
     """One layer of attention (projections + scores + values + output).
     ``causal=False`` for decode (each query sees the whole context)."""
-    if cfg.attention == "mla":
+    if cfg.attention == "mla" and cfg.mla is None:
         raise NotImplementedError(
-            "MLA attention has no port config yet (ROADMAP.md §1)")
+            "attention 'mla' without its MLAConfig has no port formula")
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     s_eff = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
     disc = 0.5 if (causal and s_eff == seq) else 1.0   # window keeps full width
+    if cfg.attention == "mla":
+        m = cfg.mla
+        proj = 2 * tokens * d * (m.kv_lora_rank + m.rope_head_dim)       # down
+        proj += 2 * tokens * m.kv_lora_rank * H * (m.nope_head_dim
+                                                   + m.v_head_dim)
+        qd = m.q_lora_rank or d
+        proj += 2 * tokens * qd * H * (m.nope_head_dim + m.rope_head_dim)
+        proj += 2 * tokens * H * m.v_head_dim * d                        # out
+        hd_eff = m.nope_head_dim + m.rope_head_dim
+        score = 2 * tokens * s_eff * H * hd_eff * disc
+        value = 2 * tokens * s_eff * H * m.v_head_dim * disc
+        return proj + 2 * (score + value)
     proj = 2 * tokens * d * (H + 2 * KV) * hd
     out = 2 * tokens * H * hd * d
     sv = 2 * 2 * tokens * s_eff * H * hd * disc

@@ -1,7 +1,8 @@
 """GQA attention: projection with RoPE, chunked online-softmax training
 attention and prefill, paged decode over the shared KV block pool, and
 decode over a contiguous per-batch cache, linear or a rotating window
-buffer.
+buffer. DeepSeek's multi-head latent attention (MLA) over a compressed
+latent cache (``mla_*``, below).
 
 Prefill follows the JAX package's ``chunked_attention`` block for block
 (scores in the activation dtype, probabilities cast to V's dtype before
@@ -21,6 +22,18 @@ Layer parameters are a dict {"wq", "wk", "wv", "wo"} of (d_in, d_out)
 weights, and under ``qkv_bias`` the projections' biases {"bq", "bk",
 "bv"}, which every path adds through ``gqa_project``. Caches and pools
 are updated in place (the JAX package returns new arrays instead).
+
+MLA (the JAX package's ``mla_*``): a layer's {"w_dkv" (d, r), "w_krope"
+(d, rope), "w_uk" (r, H nope), "w_uv" (r, H v), "w_q" (d, H (nope +
+rope)), "wo" (H v, d)}. The cache holds, per position, the latent
+``c_kv`` (r) and the one RoPE key ``k_rope`` (rope) that every head
+shares, stored after RoPE. Attention runs on the same cores as GQA with
+K = H: q and k are (nope ‖ rope) wide, so the softmax scale is 1/sqrt(nope
++ rope), and V is zero-padded to that width and sliced back after. Decode
+expands K and V from the whole cache (cast to the activation dtype) at
+every step, as the reference does: two plain products outside any Pallas
+kernel there. Q is full rank whatever ``q_lora_rank`` says, as the JAX
+model builds it.
 """
 
 from __future__ import annotations
@@ -251,3 +264,110 @@ def gqa_decode_windowed(p, cfg: ModelConfig, x, cache, cache_len: int, *,
     out = decode_attention(q, cache["k"], cache["v"],
                            cache_len=min(cache_len + 1, W), window=0)
     return dense(p["wo"], out.reshape(B, 1, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention over a compressed cache
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(p, cfg: ModelConfig, x, positions):
+    """q_nope (B, S, H, nope), q_rope (B, S, H, rope) after RoPE, the
+    latent c_kv (B, S, r) and the shared k_rope (B, S, 1, rope) after
+    RoPE."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = dense(p["w_q"], x).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = dense(p["w_dkv"], x)
+    k_rope = dense(p["w_krope"], x).reshape(B, S, 1, m.rope_head_dim)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(p, cfg: ModelConfig, c_kv):
+    """Per-head k_nope (B, S, H, nope) and v (B, S, H, v) from the latent
+    c_kv (B, S, r)."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    H = cfg.num_heads
+    k_nope = dense(p["w_uk"], c_kv).reshape(B, S, H, m.nope_head_dim)
+    v = dense(p["w_uv"], c_kv).reshape(B, S, H, m.v_head_dim)
+    return k_nope, v
+
+
+def _pad_like(v, hd: int):
+    """v zero-padded on its last axis to ``hd``."""
+    if v.shape[-1] == hd:
+        return v
+    return torch.nn.functional.pad(v, (0, hd - v.shape[-1]))
+
+
+def _mla_causal(p, cfg: ModelConfig, x, qkv, window: int):
+    """Causal MLA over the whole sequence from ``_mla_qkv``'s outputs."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope, c_kv, k_rope = qkv
+    k_nope, v = _mla_expand(p, cfg, c_kv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
+    out = chunked_attention(q, k, _pad_like(v, q.shape[-1]), causal=True,
+                            window=window)[..., :m.v_head_dim]
+    return dense(p["wo"], out.reshape(B, S, H * m.v_head_dim))
+
+
+def mla_attention(p, cfg: ModelConfig, x, positions, *, window=0):
+    """Train-mode MLA over the whole sequence: the concatenated (nope ‖
+    rope) q and k through ``chunked_attention``, the rope key broadcast
+    over the heads."""
+    return _mla_causal(p, cfg, x, _mla_qkv(p, cfg, x, positions), window)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_prefill(p, cfg: ModelConfig, x, positions, cache, *, window=0):
+    """Prefill: causal MLA, and the latent ``c_kv`` and the roped
+    ``k_rope`` written into ``cache`` (one layer's {"c_kv": (B, S_max, r),
+    "k_rope": (B, S_max, rope)}) from position 0, in place."""
+    qkv = _mla_qkv(p, cfg, x, positions)
+    out = _mla_causal(p, cfg, x, qkv, window)
+    S = x.shape[1]
+    _, _, c_kv, k_rope = qkv
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :S] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+    return out
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, cache_len: int, *, window=0):
+    """Decode one token per row over the latent cache. x: (B, 1, d);
+    ``cache_len``: the length BEFORE this token, where its c_kv and k_rope
+    are written (in place). K and V are expanded from all ``S_max`` cached
+    positions, the unwritten ones masked."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    positions = torch.full((B, 1), cache_len, dtype=torch.long,
+                           device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
+    cache["c_kv"][:, cache_len] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, cache_len] = k_rope_new[:, 0, 0].to(
+        cache["k_rope"].dtype)
+    S_max = cache["c_kv"].shape[1]
+    k_nope, v = _mla_expand(p, cfg, cache["c_kv"].to(x.dtype))
+    k_rope_all = cache["k_rope"][:, :, None, :].to(x.dtype).expand(
+        B, S_max, H, m.rope_head_dim)
+    k = torch.cat([k_nope, k_rope_all], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1).reshape(B, 1, H, -1)
+    out = decode_attention(q, k, _pad_like(v, q.shape[-1]),
+                           cache_len=cache_len + 1, window=window)
+    out = out[..., :m.v_head_dim]
+    return dense(p["wo"], out.reshape(B, 1, H * m.v_head_dim))

@@ -1,9 +1,11 @@
-"""MoE FFN block: router + routed experts (+ the dense residual branch),
-single-device exact path (``moe_ffn_dense`` of the JAX package's
-``models/moe.py``): every expert runs on every token and the results are
-combined by the gates. It never drops a token. A config with
-``dense_residual`` (arctic) adds a dense FFN on every token to the routed
-output (``dense_branch``), on this path and after the EP dispatch. The
+"""MoE FFN block: router + routed experts (+ the shared experts and the
+dense residual branch), single-device exact path (``moe_ffn_dense`` of the
+JAX package's ``models/moe.py``): every expert runs on every token and the
+results are combined by the gates. It never drops a token. A config with
+``num_shared_experts`` (deepseek) adds one ungated FFN of width
+``num_shared_experts * d_ff_expert`` on every token (``shared_branch``), and
+one with ``dense_residual`` (arctic) a dense FFN (``dense_branch``), in
+that order, on this path and after the EP dispatch. The
 expert products are ordinary batched matrix products, as in the JAX
 package, where XLA computes them outside any Pallas kernel.
 """
@@ -42,6 +44,17 @@ def routed_dense(w_gate, w_up, w_down, router_out: RouterOutput, x,
     return torch.einsum("te,etd->td", gates_full, y_all)
 
 
+def shared_branch(moe_p, cfg: ModelConfig, x):
+    """The shared experts (the JAX MoE block's ``shared`` FFN: one FFN of
+    width ``num_shared_experts * d_ff_expert``, ungated) on every token of
+    x (..., d), or None when the block has none. ``moe_p``'s
+    "shared_w_up", "shared_w_down" (and "shared_w_gate" under swiglu)."""
+    if "shared_w_up" not in moe_p:
+        return None
+    return ffn(moe_p.get("shared_w_gate"), moe_p["shared_w_up"],
+               moe_p["shared_w_down"], x, cfg.activation)
+
+
 def dense_branch(moe_p, cfg: ModelConfig, x):
     """The dense residual branch (the JAX MoE block's ``dense`` FFN) on
     every token of x (..., d), or None when the block has none.
@@ -55,14 +68,16 @@ def dense_branch(moe_p, cfg: ModelConfig, x):
 
 def moe_ffn_dense(moe_p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, RouterOutput]:
     """Single-device exact MoE FFN. x: (..., d) -> same shape.
-    ``moe_p``: {"router", "w_gate", "w_up", "w_down"} and, with a dense
-    residual branch, its ``dense_*`` weights."""
+    ``moe_p``: {"router", "w_gate", "w_up", "w_down"} and, with shared
+    experts or a dense residual branch, their ``shared_*`` / ``dense_*``
+    weights."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
     router_out = route(moe_p["router"], cfg.moe, xt)
     y = routed_dense(moe_p["w_gate"], moe_p["w_up"], moe_p["w_down"],
                      router_out, xt, cfg.activation)
-    dense = dense_branch(moe_p, cfg, xt)
-    if dense is not None:
-        y = y + dense
+    for branch in (shared_branch, dense_branch):
+        extra = branch(moe_p, cfg, xt)
+        if extra is not None:
+            y = y + extra
     return y.reshape(shape), router_out

@@ -1,9 +1,12 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
 package's ``init_model`` tree, for three families:
 
-* the uniform-stack decoder-only GQA MoE models (Mixtral, the paper's
-  Appendix C models llama-moe-3.5b and switch-base-128, and arctic-480b,
-  whose MoE block adds a dense residual FFN on every token);
+* the uniform-stack decoder-only MoE models: GQA ones (Mixtral, the
+  paper's Appendix C models llama-moe-3.5b and switch-base-128, and
+  arctic-480b, whose MoE block adds a dense residual FFN on every token),
+  and deepseek-v2-lite-16b, with multi-head latent attention (MLA: a
+  compressed latent cache, ``models.attention.mla_*``) and a MoE block
+  whose shared experts run on every token;
 * the uniform-stack dense family (qwen1.5-0.5b, olmo-1b, stablelm-3b,
   minicpm-2b): a dense FFN in place of the MoE block, and per config the
   Q/K/V projections' biases (``qkv_bias``), OLMo's non-parametric LayerNorm
@@ -18,18 +21,18 @@ Execution modes (``Transformer.forward``):
   train   — full causal pass, logits over the whole sequence, no cache
             (hybrid models start every recurrent layer from a zero state);
             optionally recomputed per layer in the backward (``remat``).
-  prefill — causal pass that fills a cache (a linear cache; for hybrid
-            models the per-layer recurrent states and window buffers);
+  prefill — causal pass that fills a cache (a linear cache, MLA's
+            latent one; for hybrid models the per-layer recurrent states
+            and window buffers);
             returns logits at the last (or each request's last real)
             position.
   decode  — one token per row: against the paged KV block pool with (B,)
             per-slot lengths and block tables (continuous batching), or
             against the prefill's cache with one scalar ``cache_len`` for
-            the whole batch (``ServeEngine``).
+            the whole batch (``ServeEngine``; MLA decodes this way only).
 
-Refused until their families are ported (ROADMAP.md §1): the MoE block's
-shared experts and MLA attention (item 2c), RWKV (2d), the
-encoder-decoder (2e) and the VLM prefix input (2f).
+Refused until their families are ported (ROADMAP.md §1): RWKV (item 2d),
+the encoder-decoder (2e) and the VLM prefix input (2f).
 
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
@@ -45,9 +48,9 @@ rows, once the main stream has waited on that layer's fill event; the
 other layers read the live plan and rows (``_migration_view``, the JAX
 package's per-layer select).
 
-Storage: the embedding, ``lm_head``, attention weights and QKV biases,
-expert and FFN weights and the recurrent block's dense weights, ``conv_w``
-and ``conv_b`` are kept in
+Storage: the embedding, ``lm_head``, attention weights (MLA's
+projections too) and QKV biases, expert, shared-expert and FFN weights and
+the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
 bf16 — the reference casts each of them to the bf16 activation dtype at
 every use, so the bf16 copy computes the same values in half the bytes.
 The router weight, the RG-LRU's ``lam`` and the norm scales stay fp32, as
@@ -74,7 +77,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import griffin
 from repro_torch.models.layers import (apply_norm, dense, embed, ffn,
                                        truncated_normal_init, unembed)
-from repro_torch.models.moe import dense_branch, moe_ffn_dense
+from repro_torch.models.moe import dense_branch, moe_ffn_dense, shared_branch
 from repro_torch.moe import dispatch as ep_dispatch
 from repro_torch.moe.router import expert_histogram, route
 
@@ -110,6 +113,12 @@ class StoreView(NamedTuple):
     events: Optional[list] = None            # per layer: CUDA event or None
 
 
+# a layer's attention parameters: GQA's projections and biases, MLA's
+# projections (``models.attention.mla_*``)
+ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_dkv", "w_krope",
+              "w_uk", "w_uv", "w_q")
+
+
 def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=trainable)
 
@@ -135,17 +144,18 @@ class DecoderLayer(nn.Module):
             setattr(self, name, _param(t, trainable))
 
     def attn_params(self):
-        """The projections, and their biases where the config has them."""
-        return {n: getattr(self, n) for n in ("wq", "wk", "wv", "wo", "bq",
-                                              "bk", "bv") if hasattr(self, n)}
+        """The projections (GQA's or MLA's), and their biases where the
+        config has them."""
+        return {n: getattr(self, n) for n in ATTN_NAMES if hasattr(self, n)}
 
     def moe_params(self):
-        """The MoE block's weights: router and experts, and the dense
-        residual branch's ``dense_*`` where the config has one."""
+        """The MoE block's weights: router and experts, and the shared
+        experts' ``shared_*`` and the dense residual branch's ``dense_*``
+        where the config has them."""
         p = {"router": self.router, "w_gate": self.w_gate,
              "w_up": self.w_up, "w_down": self.w_down}
         p.update((n, t) for n, t in self.named_parameters()
-                 if n.startswith("dense_"))
+                 if n.startswith(("shared_", "dense_")))
         return p
 
     def rec_params(self):
@@ -159,12 +169,17 @@ class Transformer(nn.Module):
 
       embed (V, d), final_norm (d,), lm_head (d, V); every layer ln1, ln2
       (d,); attention layers wq (d, H*hd), wk/wv (d, K*hd), wo (H*hd, d),
-      and under ``qkv_bias`` bq (H*hd,), bk/bv (K*hd,). A non-parametric
+      and under ``qkv_bias`` bq (H*hd,), bk/bv (K*hd,); MLA layers w_dkv
+      (d, r), w_krope (d, rope), w_uk (r, H*nope), w_uv (r, H*v), w_q (d,
+      H*(nope+rope)), wo (H*v, d). A non-parametric
       norm has no final_norm, ln1 or ln2; tied embeddings no lm_head.
       Dense layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
       under swiglu). MoE layers: router (d, E); w_gate/w_up (E, d, F); w_down (E, F, d);
-      with a dense residual branch (arctic) also dense_w_up (d, Fd),
-      dense_w_down (Fd, d) (and dense_w_gate (d, Fd) under swiglu).
+      with shared experts (deepseek) also shared_w_up (d, Fs), shared_w_down
+      (Fs, d) (and shared_w_gate (d, Fs) under swiglu), Fs =
+      num_shared_experts * F; with a dense residual branch (arctic) also
+      dense_w_up (d, Fd), dense_w_down (Fd, d) (and dense_w_gate (d, Fd)
+      under swiglu).
       Hybrid layers: an FFN w_up (d, F), w_down (F, d) (and w_gate (d, F)
       under swiglu); recurrent layers rec_w_gate, rec_w_main (d, dr),
       rec_conv_w (4, dr), rec_conv_b (dr,), rec_w_a, rec_w_x (dr, dr),
@@ -204,19 +219,16 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED_FAMILIES:
         raise ValueError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} is "
                          "not ported yet")
-    if cfg.attention == "mla":
-        raise ValueError(f"{cfg.name}: MLA attention is not ported yet "
-                         "(ROADMAP.md §1 item 2c)")
     hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
     uniform = cfg.family in ("moe", "dense") and cfg.attention == "gqa"
-    if not (hybrid or uniform):
+    # MLA: DeepSeek's MoE models, as the JAX package has them
+    mla = (cfg.family == "moe" and cfg.is_moe and cfg.attention == "mla"
+           and cfg.mla is not None)
+    if not (hybrid or uniform or mla):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with attention "
                          f"{cfg.attention!r} has no port")
     if cfg.norm not in ("rmsnorm", "nonparametric"):
         raise ValueError(f"{cfg.name}: norm {cfg.norm!r}")
-    if cfg.is_moe and cfg.moe.num_shared_experts > 0:
-        raise ValueError(f"{cfg.name}: the MoE block's shared experts "
-                         "are not ported yet (ROADMAP.md §1 item 2c)")
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +249,19 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     if cfg.norm == "rmsnorm":
         shapes.update({"ln1": ((d,), None, torch.float32),
                        "ln2": ((d,), None, torch.float32)})
-    if kind in ("attn", "local"):
+    if kind == "attn" and cfg.attention == "mla":
+        m = cfg.mla
+        r, qk = m.kv_lora_rank, m.nope_head_dim + m.rope_head_dim
+        shapes.update({
+            "w_dkv": ((d, r), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "w_krope": ((d, m.rope_head_dim), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "w_uk": ((r, H * m.nope_head_dim), 1 / math.sqrt(r),
+                     WEIGHT_DTYPE),
+            "w_uv": ((r, H * m.v_head_dim), 1 / math.sqrt(r), WEIGHT_DTYPE),
+            "w_q": ((d, H * qk), 1 / math.sqrt(d), WEIGHT_DTYPE),
+            "wo": ((H * m.v_head_dim, d), 1 / math.sqrt(H * m.v_head_dim),
+                   WEIGHT_DTYPE)})
+    elif kind in ("attn", "local"):
         shapes.update({
             "wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
@@ -254,6 +278,16 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
             "w_gate": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "w_up": ((E, d, F), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "w_down": ((E, F, d), 1 / math.sqrt(F), WEIGHT_DTYPE)})
+        if cfg.moe.num_shared_experts > 0:
+            # the shared experts: the JAX block's init_ffn at width
+            # num_shared_experts * d_ff_expert, under the model's activation
+            Fs = cfg.moe.num_shared_experts * F
+            if cfg.activation == "swiglu":
+                shapes["shared_w_gate"] = ((d, Fs), 1 / math.sqrt(d),
+                                           WEIGHT_DTYPE)
+            shapes["shared_w_up"] = ((d, Fs), 1 / math.sqrt(d), WEIGHT_DTYPE)
+            shapes["shared_w_down"] = ((Fs, d), 1 / math.sqrt(Fs),
+                                       WEIGHT_DTYPE)
         if cfg.moe.dense_residual:
             # the dense residual branch: the JAX block's init_ffn at width
             # d_ff_dense or d_ff, under the model's activation
@@ -340,7 +374,8 @@ def cache_len_for(cfg: ModelConfig, rt: Runtime, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Uniform stack: one linear cache {"k", "v"}: (L, B, S, K, hd), S =
-    ``cache_len_for``. Hybrid: a list over layers, a recurrent state
+    ``cache_len_for``; under MLA the latent one {"c_kv": (L, B, S, r),
+    "k_rope": (L, B, S, rope)}. Hybrid: a list over layers, a recurrent state
     {"h", "conv"} for each recurrent layer and a window buffer {"k", "v"}
     of ``min(max_len, local_window)`` positions for each local layer."""
     dev = resolve_device(device)
@@ -351,6 +386,10 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
                 attn.init_gqa_cache(cfg, batch, W, dtype, dev)
                 for l in range(cfg.num_layers)]
     clen = cache_len_for(cfg, rt, max_len)
+    if cfg.attention == "mla":
+        return {name: t.new_zeros((cfg.num_layers, *t.shape))
+                for name, t in attn.init_mla_cache(cfg, batch, clen, dtype,
+                                                   dev).items()}
     shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -436,11 +475,13 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                                           moe, predicted_idx=pred, **kw)
         y = y.reshape(R, B, S // R, d).transpose(0, 1).reshape(B, S, d)
         w = None if token_weight is None else split(token_weight)
-    # the dense residual branch on every token, outside the ranks (the JAX
-    # package adds it after the shard_map)
-    dense = dense_branch(layer.moe_params(), cfg, x)
-    if dense is not None:
-        y = y + dense
+    # the shared experts, then the dense residual branch, on every token,
+    # outside the ranks (the JAX package adds them after the shard_map)
+    moe_p = layer.moe_params()
+    for branch in (shared_branch, dense_branch):
+        extra = branch(moe_p, cfg, x)
+        if extra is not None:
+            y = y + extra
     counts = stats.expert_counts
     if w is not None:
         counts = expert_histogram(
@@ -455,15 +496,19 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 block_tables=None, token_weight=None, plan_l=None,
                 experts_l=None, fill_event=None, predicted_l=None,
                 resched_l=None):
-    """GQA attention + MoE FFN (a dense FFN without MoE) for one layer.
-    ``cache``: this layer's {"k", "v"} (linear cache in prefill, block pool
-    in decode), updated in place; None in train mode. Returns (x,
+    """GQA or MLA attention + MoE FFN (a dense FFN without MoE) for one
+    layer. ``cache``: this layer's {"k", "v"} (linear cache in prefill,
+    block pool in decode) or MLA's {"c_kv", "k_rope"} (linear), updated in
+    place; None in train mode. Returns (x,
     (expert_counts (E,), slot_counts, aux, z, dropped, overflow)), and for
     a model without MoE (x, None): the plan, store, predictions and quota
     arguments are the MoE block's, which it then ignores."""
     # a non-parametric norm has no scale: getattr's None
     h = apply_norm(cfg.norm, getattr(layer, "ln1", None), x)
-    if mode == "train":
+    if cfg.attention == "mla":
+        a = _mla_layer(layer, cfg, h, positions, rt, cache, cache_len, mode,
+                       block_tables)
+    elif mode == "train":
         a = attn.gqa_attention(layer.attn_params(), cfg, h, positions,
                                window=rt.window(cfg))
     elif mode == "prefill":
@@ -492,6 +537,23 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                            token_weight, experts_l, fill_event, predicted_l,
                            resched_l)
     return x + y, tuple(stats)
+
+
+def _mla_layer(layer: DecoderLayer, cfg: ModelConfig, h, positions,
+               rt: Runtime, cache, cache_len, mode: str, block_tables):
+    """MLA in train, prefill or linear-cache decode (one scalar
+    ``cache_len``); paged decode is GQA's alone, as in the JAX package."""
+    p, window = layer.attn_params(), rt.window(cfg)
+    if mode == "train":
+        return attn.mla_attention(p, cfg, h, positions, window=window)
+    if mode == "prefill":
+        return attn.mla_prefill(p, cfg, h, positions, cache, window=window)
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r}")
+    if block_tables is not None:
+        raise ValueError("MLA decodes over its linear latent cache: the "
+                         "paged pool is GQA only")
+    return attn.mla_decode(p, cfg, h, cache, int(cache_len), window=window)
 
 
 def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
@@ -625,8 +687,7 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         # the dense family: no router, so nothing to dispatch, plan or
         # count (the JAX forward's stats for a model without MoE)
         for l, layer in enumerate(model.layers):
-            cache_l = (None if cache is None
-                       else {"k": cache["k"][l], "v": cache["v"][l]})
+            cache_l = None if cache is None else _layer_cache(cache, l)
             x, _ = _run_layer(remat, _attn_layer, layer, cfg, x, positions,
                               rt, cache=cache_l, cache_len=cache_len,
                               mode=mode, block_tables=block_tables)
@@ -639,8 +700,7 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
                          m.duplication_slots, x.device)
     counts, slots, dropped, overflow, aux, z = [], [], [], [], 0.0, 0.0
     for l, layer in enumerate(model.layers):
-        cache_l = (None if cache is None
-                   else {"k": cache["k"][l], "v": cache["v"][l]})
+        cache_l = None if cache is None else _layer_cache(cache, l)
         plan_l, experts_l, event = _migration_view(l, plan, store)
         x, (c, sc, a_l, z_l, dr, ov) = _run_layer(
             remat, _attn_layer,
@@ -662,6 +722,12 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         stats["dropped"] = torch.stack(dropped)
         stats["overflow"] = torch.stack(overflow)
     return _last_logits(model, x, mode, last_pos), cache, stats
+
+
+def _layer_cache(cache, l: int):
+    """Layer ``l``'s views of a uniform stack's cache ({"k", "v"} or MLA's
+    {"c_kv", "k_rope"}), which the layer updates in place."""
+    return {name: t[l] for name, t in cache.items()}
 
 
 def _run_layer(remat: bool, fn, *args, **kwargs):

@@ -41,12 +41,12 @@ LINK_BW = H100_SXM_NVLINK.link_bw            # NVLink bytes/s per card
 
 
 def _check_family(cfg) -> None:
-    """The op model's branches for families the port has no config for
-    (RWKV's ``ssm``, MLA attention) are not ported."""
-    if cfg.family == "ssm" or cfg.attention == "mla":
+    """The op model's branch for RWKV's ``ssm`` family, which the port has
+    no config for yet, is not ported (ROADMAP.md §1 item 2d)."""
+    if cfg.family == "ssm":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / attention "
-            f"{cfg.attention!r} has no port config yet (ROADMAP.md §1)")
+            f"{cfg.name}: family {cfg.family!r} has no port config yet "
+            "(ROADMAP.md §1 item 2d)")
 
 
 def _recurrent_layers(cfg) -> int:
@@ -138,6 +138,11 @@ def analytic_hbm_bytes(cfg, shape, chips: int, *, act_coeff: float = 10.0
             cache = shape.global_batch * (dr * 4 + cfg.local_window
                                           * cfg.num_kv_heads * cfg.head_dim
                                           * B) * cfg.num_layers / chips
+        elif cfg.attention == "mla" and cfg.mla is not None:
+            # the latent cache: c_kv and the shared k_rope per position
+            cache = (shape.global_batch * clen
+                     * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * B
+                     * cfg.num_layers / chips)
         else:
             cache = (shape.global_batch * clen * 2 * cfg.num_kv_heads
                      * cfg.head_dim * B * cfg.num_layers / chips)

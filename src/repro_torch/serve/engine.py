@@ -4,7 +4,8 @@
 padded batch at a time: a batched prefill, then greedy decode at one
 position for the whole batch over the prefill's cache. It serves every
 family the port has (MoE, dense, hybrid), and is the only engine for hybrid
-(Griffin) models. A model without MoE (the dense family: qwen1.5-0.5b,
+(Griffin) models and for MLA (deepseek-v2-lite-16b: its latent cache is
+linear, and the paged pool is GQA's, as in the JAX package). A model without MoE (the dense family: qwen1.5-0.5b,
 olmo-1b, stablelm-3b, minicpm-2b; Griffin) has nothing to estimate, plan
 or move: both engines skip the estimator, re-plans, the replica store, the
 lever's quotas and the controller for it, where the JAX engines skip
@@ -365,8 +366,8 @@ class ServeEngine(_StoreMixin):
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  serve: ServeConfig, *, ep_ranks: int = 1, ep: bool = False,
                  predictor=None, tracer=None):
-        if ep and not (cfg.is_moe and cfg.attention == "gqa"):
-            raise ValueError("ep=True serves GQA MoE models")
+        if ep and not (cfg.is_moe and cfg.attention in ("gqa", "mla")):
+            raise ValueError("ep=True serves GQA and MLA MoE models")
         self.serve = serve
         self.ep_ranks = ep_ranks
         self.ep = ep
@@ -777,10 +778,13 @@ class ContinuousEngine(_StoreMixin):
                  ep: bool = False, predictor=None, controller=None,
                  tracer=None, metrics: Optional[ServeMetrics] = None,
                  name: str = ""):
-        if cfg.family == "hybrid" or cfg.attention != "gqa":
+        if cfg.family == "hybrid":
             raise ValueError(f"{cfg.family}: continuous batching serves "
                              "uniform-stack GQA models (ServeEngine serves "
                              "the hybrid family)")
+        if cfg.attention != "gqa":
+            # the JAX engine's refusal: MLA is served by ServeEngine
+            raise ValueError("paged KV cache is implemented for GQA")
         if not cfg.is_moe and (ep or controller is not None):
             raise ValueError(f"{cfg.name}: ep=True and a GPS controller "
                              "need a MoE model")

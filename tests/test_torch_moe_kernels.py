@@ -62,6 +62,7 @@ def _gemm_inputs(S, T, d, F, seed=0):
     (1, 8, 128, 256),          # minimal
     (2, 100, 128, 300),        # ragged T and F
     (4, 24, 64, 136),          # several slots, F not a block multiple
+    (2, 8, 2048, 1408),        # deepseek-v2-lite-16b's expert width
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("activation", ["swiglu", "gelu", "relu"])
@@ -91,7 +92,9 @@ def test_moe_gemm_plain_matches_jax_kernel_and_oracle(S, T, d, F, dtype,
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("R,T,E,K", [(3, 200, 8, 2), (2, 37, 16, 1),
-                                     (1, 300, 64, 4)])
+                                     (1, 300, 64, 4),
+                                     # deepseek's decode and prefill routes
+                                     (1, 8, 64, 6), (4, 128, 64, 6)])
 def test_fused_topk_route_plain_matches_jax_kernel(R, T, E, K):
     rng = np.random.default_rng(R * 100 + E)
     logits = rng.normal(size=(R, T, E)).astype(np.float32)
@@ -117,7 +120,9 @@ def test_fused_topk_route_plain_matches_jax_kernel(R, T, E, K):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("R,N,C", [(4, 256, 13), (4, 16, 4), (2, 1100, 7),
-                                   (1, 5, 33)])
+                                   (1, 5, 33),
+                                   # deepseek's decode and prefill packers
+                                   (4, 48, 18), (4, 768, 69)])
 def test_histogram_offsets_plain_matches_jax_kernel(R, N, C):
     rng = np.random.default_rng(N + C)
     ids = rng.integers(0, C, (R, N)).astype(np.int32)

@@ -7,8 +7,7 @@ branch beside the experts).
 * Configs: every field of every port config (and of its ``reduced()``)
   equals the JAX config's, and so do ``num_params()``, ``active_params()``
   and the roofline's op model for the three models (1e-12 relative); ``reduced()`` caps shared experts at 1 and the dense
-  branch at 256, as the JAX one does; the model refuses shared experts,
-  which are not ported yet.
+  branch at 256, as the JAX one does.
 * The bridge: JAX tree -> port -> JAX tree returns every leaf, the dense
   branch's and a relu model's unused expert ``w_gate`` included, as its
   bf16 rounding (fp32 leaves exactly); the trainable round trip is exact.
@@ -49,7 +48,7 @@ from repro_torch.configs.base import INPUT_SHAPES  # noqa: E402
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: E402
 from repro_torch.configs.registry import ALL_ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models.transformer import Transformer, init_model  # noqa: E402
+from repro_torch.models.transformer import init_model  # noqa: E402
 from repro_torch.moe.router import route  # noqa: E402
 
 from tests.test_torch_model import LOGIT_ATOL, _run_jax, _run_torch  # noqa: E402
@@ -71,7 +70,7 @@ def _assert_same_fields(port, jax_cfg):
     one has fields for families the port does not serve yet)."""
     for f in dataclasses.fields(port):
         a, b = getattr(port, f.name), getattr(jax_cfg, f.name)
-        if f.name == "moe" and a is not None:
+        if f.name in ("moe", "mla") and a is not None:
             for g in dataclasses.fields(a):
                 assert getattr(a, g.name) == getattr(b, g.name), (
                     port.name, g.name)
@@ -131,17 +130,6 @@ def test_reduced_caps_shared_experts_and_the_dense_branch(moe_kw):
     assert red.num_shared_experts == min(moe.get("num_shared_experts", 0), 1)
     assert red.d_ff_dense == min(moe.get("d_ff_dense", 0), 256)
     assert cfg.reduced().num_params() == jcfg.reduced().num_params()
-
-
-def test_model_refuses_shared_experts():
-    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
-                              moe=dataclasses.replace(
-                                  get_config("mixtral-8x7b").reduced().moe,
-                                  num_shared_experts=1))
-    with pytest.raises(ValueError, match="shared experts"):
-        init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="shared experts"):
-        Transformer(cfg, {}, [])
 
 
 def test_init_model_draws_the_dense_branch():

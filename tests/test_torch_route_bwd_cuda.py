@@ -1,5 +1,6 @@
 """The router's backward kernel at the widths the paper's other MoE models
-train at (E 64, 128 and 256; K 1 and 2), on a card: held against its plain
+train at (E 64, 128 and 256; K 1 and 2; deepseek's E 64 with K 6), on a
+card: held against its plain
 version (``kernels.ref.fused_topk_route_bwd_plain``) within 1e-6, the sum
 over E in another order, at one and several ranks, ragged row counts, tie
 rows, each gradient alone and all three, and the train step's (1, 2048,
@@ -15,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-WIDE_ROUTER = [(E, K) for E in (64, 128, 256) for K in (1, 2)]
+WIDE_ROUTER = [(E, K) for E in (64, 128, 256) for K in (1, 2)] + [(64, 6)]
 GRADS = ((True, True, True), (True, False, False), (False, True, False),
          (False, False, True))
 
