@@ -314,7 +314,34 @@ non-zero:
                 batch whose loss must fall; last, the reduced config and
                 its scale (q/k 96 wide over head_dim 64) and router (E 16,
                 K 6, 2 shared) variants card against CPU, dense and EP.
- 16. train    — (last, after every serving engine is freed) training on
+ 16. rwkv     — (after mla, before train; alone with ``--phases rwkv``)
+                rwkv6-7b at published widths and all 32 layers (the
+                attention-free RWKV-6 time mix and relu^2 channel mix,
+                7.618e9 parameters held, 15.24 GB in bf16), random weights
+                from ``--seed``, through ``ServeEngine`` (strategy none):
+                one batch of 8 x 512 Zipf prompts, 64 new tokens; prefill
+                ms, decode step p50, decode tokens/s, peak memory, finite
+                logits, every request's tokens, no kernel launched
+                (``ops.LAUNCHES`` all zero: the port's RWKV is plain
+                PyTorch, as the JAX package's is plain ``jnp``); a profiled
+                prefill (busy time, idle share, the WKV's device and host
+                shares from a profiler range around ``wkv_chunked``) and
+                two profiled decode steps (busy, idle share, device
+                operations). Then ``repro_torch.launch.serve --arch
+                rwkv6-7b`` (8 requests of 512, 16 new tokens); 10 train
+                steps of 4 x 512 at 8 of 32 layers (36.9 GB of fp32 state;
+                6 or 4 if 8 runs out of memory) with step ms, tokens/s,
+                peak memory, the model-FLOPs share, a repeated batch whose
+                loss must fall and the forward-and-backward against AdamW
+                split; the reduced config and its ``clip`` and ``shift``
+                weight variants card against CPU (a prefill of 2 x 75, two
+                decode steps: logits within 5e-2 x their largest, the WKV
+                state within 1e-3 in norm at layer 0 and 1e-2 over all
+                layers); last ``wkv_chunked`` against a
+                ``wkv_step`` loop on one full-width layer (8 x 512, 64
+                heads of 64, fp32) with and without the clip, within
+                1e-4 in norm.
+ 17. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -6166,12 +6193,597 @@ def mla_phase(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase rwkv: rwkv6-7b (the attention-free RWKV-6 time mix and channel mix)
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RWKV_SERVE = dict(batch=8, seq=512, new_tokens=64)
+RWKV_LAUNCH = dict(requests=8, batch=8, seq=512, new_tokens=16)
+RWKV_PROFILE_STEPS = 2
+# fp32 state (16 B a parameter) of 8 layers: 36.9 GB; the first depth that
+# fits is taken
+RWKV_TRAIN_LAYERS = (8, 6, 4)
+RWKV_VARIANTS = ("init", "clip", "shift")
+# one full-width layer's WKV: (B, S, H, hd)
+RWKV_CHUNK_CASE = (8, 512, 64, 64)
+WKV_REL = 1e-4                     # wkv_chunked against the wkv_step loop
+# the card's WKV state against the CPU's, in norm: layer 0's (its inputs
+# are the same embedding rows: only its bf16 projections round apart), and
+# every layer's (later layers integrate bf16 hidden states an ulp apart:
+# the CPU tests' tolerance for the state against JAX)
+RWKV_STATE_REL = 1e-3
+RWKV_STATE_REL_ALL = 1e-2
+WKV_RANGE = "chip_smoke.wkv"       # the profiler range around wkv_chunked
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over every element, in fp64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def rwkv_variant(model, name: str, seed: int) -> None:
+    """The weight variants that show what the JAX init hides (the CPU
+    tests' own, ``tests/test_torch_rwkv_models.py``): "clip" sets every
+    layer's ``decay_base`` to +1.0, so every decay rate clips to
+    ``MAX_RATE`` and the chunk's rescaling reaches exp(0.9 x 32); "shift"
+    redraws the time and channel mixes' ``mu`` at scale 0.5 (a standard
+    normal truncated to [-2, 2]), so the token shift moves the streams;
+    "init" leaves the weights as drawn."""
+    from repro_torch.models.layers import truncated_normal_init
+
+    gen = torch.Generator(device=model.device).manual_seed(seed + 11)
+    with torch.no_grad():
+        for layer in model.layers:
+            if name == "clip":
+                layer.tm_decay_base.fill_(1.0)
+            elif name == "shift":
+                for mu in (layer.tm_mu, layer.cm_mu):
+                    mu.copy_(truncated_normal_init(
+                        mu.shape, 0.5, generator=gen, device=mu.device))
+            elif name != "init":
+                raise ValueError(name)
+
+
+def wkv_inputs(shape, clip: bool, seed: int, device):
+    """fp32 r, k, v ~ N(0, 1) and logw of shape (B, S, H, hd): with the
+    clip every rate at ``MAX_RATE`` (logw -0.9), else the init's rate
+    exp(-6 + 2 N(0, 1)) under the same clip, as ``_log_decay`` gives it."""
+    from repro_torch.models import rwkv6
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v, z = (torch.randn(shape, generator=gen, device=device)
+                  for _ in range(4))
+    if clip:
+        logw = torch.full(shape, -rwkv6.MAX_RATE, device=device)
+    else:
+        logw = -torch.exp(torch.clamp(rwkv6.DECAY_BASE + 2.0 * z, -20.0,
+                                      rwkv6.LOG_MAX_RATE))
+    u = torch.randn(shape[2:], generator=gen, device=device) * 0.5
+    state = torch.randn((shape[0], shape[2], shape[3], shape[3]),
+                        generator=gen, device=device)
+    return r, k, v, logw, u, state
+
+
+def wkv_chunk_vs_step(shape, clip: bool, seed: int, device) -> dict:
+    """``wkv_chunked`` against a ``wkv_step`` loop over the same fp32 r, k,
+    v, logw, bonus and state (``wkv_inputs``): the relative errors
+    (``rel_err``) of y and of the final state, and each side's ms on the
+    device's clock (host clock on the CPU)."""
+    from repro_torch.models import rwkv6
+
+    r, k, v, logw, u, state = wkv_inputs(shape, clip, seed, device)
+
+    def clock(fn):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def step_loop():
+        s, ys = state, []
+        for t in range(shape[1]):
+            y, s = rwkv6.wkv_step(r[:, t], k[:, t], v[:, t], logw[:, t], u, s)
+            ys.append(y)
+        return torch.stack(ys, dim=1), s
+
+    with torch.inference_mode():
+        rwkv6.wkv_chunked(r, k, v, logw, u, state)          # warm
+        (yc, sc), chunk_ms = clock(lambda: rwkv6.wkv_chunked(
+            r, k, v, logw, u, state))
+        (ys, ss), step_ms = clock(step_loop)
+    return {"y_rel": rel_err(yc, ys), "state_rel": rel_err(sc, ss),
+            "finite": bool(torch.isfinite(yc).all() and torch.isfinite(sc).all()),
+            "chunked_ms": chunk_ms, "step_loop_ms": step_ms}
+
+
+def _rwkv_run(model, cfg, tokens, forced):
+    """A prefill of ``tokens`` (B, S) and one decode step a column of
+    ``forced`` (B, n), through ``forward`` as ``ServeEngine``'s steps call
+    it. Returns (logits (1 + n, B, V) fp32, the state after the prefill,
+    the state at the end), on the host."""
+    from repro_torch.models.transformer import Runtime, forward
+
+    dev, rt = model.device, Runtime()
+    S = tokens.shape[1]
+
+    def host(cache):
+        # a copy: the decode steps update the cache in place
+        return {k: t.to("cpu", torch.float32, copy=True)
+                for k, t in cache.items()}
+    with torch.inference_mode():
+        lg, cache, _ = forward(model, cfg, torch.tensor(tokens, device=dev),
+                               rt, mode="prefill")
+        logits = [lg[:, -1].float().cpu()]
+        after_prefill = host(cache)
+        for i in range(forced.shape[1]):
+            lg, cache, _ = forward(model, cfg, torch.tensor(
+                forced[:, i:i + 1], device=dev), rt, mode="decode",
+                cache=cache, cache_len=S + i)
+            logits.append(lg[:, -1].float().cpu())
+    return torch.stack(logits), after_prefill, host(cache)
+
+
+def rwkv_card_vs_cpu(seed: int) -> None:
+    """The reduced rwkv6-7b and its ``clip`` and ``shift`` variants on the
+    card against the same bridged weights on the CPU: a prefill of 2 x 75
+    tokens (three chunks, the last padded) and two decode steps. Logits
+    within 5e-2 x their largest magnitude (bf16 activations, sums in other
+    orders); the fp32 WKV state (``rel_err``) after the prefill and at the
+    end within ``RWKV_STATE_REL`` at layer 0 and ``RWKV_STATE_REL_ALL``
+    over every layer; no kernel launched on either side."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+
+    cfg = get_config(RWKV_ARCH).reduced()
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 75)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)
+    failures = []
+    for name in RWKV_VARIANTS:
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+        rwkv_variant(gpu, name, seed)
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+        ops.reset_launches()
+        lg_c, pre_c, end_c = _rwkv_run(gpu, cfg, tokens, forced)
+        lg_h, pre_h, end_h = _rwkv_run(cpu, cfg, tokens, forced)
+        launches = dict(ops.LAUNCHES)
+        err = float((lg_c - lg_h).abs().max())
+        scale = float(lg_h.abs().max())
+        pairs = ((pre_c, pre_h), (end_c, end_h))
+        wkv0 = max(rel_err(c["wkv"][0], h["wkv"][0]) for c, h in pairs)
+        wkv = max(rel_err(c["wkv"], h["wkv"]) for c, h in pairs)
+        shift = max(rel_err(c[k], h[k]) for c, h in pairs
+                    for k in ("shift_tm", "shift_cm"))
+        ok = (bool(torch.isfinite(lg_c).all()) and err <= 5e-2 * max(scale, 1.0)
+              and wkv0 <= RWKV_STATE_REL and wkv <= RWKV_STATE_REL_ALL
+              and not any(launches.values()))
+        log("rwkv", card_vs_cpu=f"{cfg.name}/{name}",
+            steps="prefill 2x75 + 2 decode", max_abs_err=f"{err:.6g}",
+            logit_scale=f"{scale:.6g}", wkv_layer0_rel_err=f"{wkv0:.6g}",
+            wkv_rel_err=f"{wkv:.6g}", shift_rel_err=f"{shift:.6g}",
+            tolerance=f"5e-2 x max|logit|; WKV state in norm {RWKV_STATE_REL} "
+                      f"at layer 0, {RWKV_STATE_REL_ALL} over all layers",
+            kernel_launches=sum(launches.values()), ok=ok)
+        if not ok:
+            failures.append(name)
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"reduced rwkv6-7b on the card disagrees with the "
+                         f"CPU path: {failures}")
+
+
+def wkv_bound(shape, chunk: int = 32):
+    """(bound ms, what bounds it) of ``wkv_chunked`` on fp32 inputs of
+    ``shape`` (B, S, H, hd): r, k, v and logw read and y written once, the
+    state read and written once; the products of the chunked form (two of
+    C x C x hd and two of C x hd x hd a chunk and head) at the fp32 rate
+    outside the tensor cores (TF32 is off)."""
+    B, S, H, hd = shape
+    C = min(chunk, S)
+    n = -(-S // C)
+    flops = 2 * B * n * H * C * (2 * C * hd + 2 * hd * hd)
+    nbytes = 4 * (5 * B * S * H * hd + 2 * B * H * hd * hd)
+    return _bound(nbytes, flops, FP32_FLOPS)
+
+
+def rwkv_chunk_check() -> None:
+    """``wkv_chunk_vs_step`` at one full-width layer (``RWKV_CHUNK_CASE``)
+    on the card, with and without the clip: y and the state within
+    ``WKV_REL``; the chunked time beside its bound (``wkv_bound``)."""
+    failures = []
+    bound_ms, bound_by = wkv_bound(RWKV_CHUNK_CASE)
+    for clip in (False, True):
+        row = wkv_chunk_vs_step(RWKV_CHUNK_CASE, clip, 3, torch.device("cuda"))
+        ok = (row["finite"] and row["y_rel"] <= WKV_REL
+              and row["state_rel"] <= WKV_REL)
+        log("rwkv", chunked_vs_step="x".join(map(str, RWKV_CHUNK_CASE)),
+            clip=clip, y_rel_err=f"{row['y_rel']:.6g}",
+            state_rel_err=f"{row['state_rel']:.6g}", tolerance=WKV_REL,
+            chunked_ms=f"{row['chunked_ms']:.3f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            share_of_bound=f"{bound_ms / row['chunked_ms']:.4f}",
+            step_loop_ms=f"{row['step_loop_ms']:.3f}", ok=ok)
+        if not ok:
+            failures.append(f"clip={clip}")
+    if failures:
+        raise SystemExit(f"wkv_chunked disagrees with the wkv_step loop: "
+                         f"{failures}")
+
+
+def _wkv_profiled(fn):
+    """``rwkv6.wkv_chunked`` wrapped in the ``WKV_RANGE`` profiler range,
+    with the host seconds its calls take summed into ``fn.host_s``."""
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(WKV_RANGE):
+            out = fn(*a, **kw)
+        wrapped.host_s += time.perf_counter() - t0
+        return out
+    wrapped.host_s = 0.0
+    return wrapped
+
+
+def _range_device_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside the host ranges ``name``
+    (the profiler correlates each kernel with the call that launched it)."""
+    from torch.autograd import DeviceType
+
+    def kernels_us(e):
+        return (sum(k.duration for k in getattr(e, "kernels", []))
+                + sum(kernels_us(c) for c in e.cpu_children))
+    return sum(kernels_us(e) for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+
+
+def rwkv_profiles(eng, tokens) -> None:
+    """A profiled prefill of ``tokens`` (wall, device busy time, the WKV's
+    device and host shares: the calls of ``wkv_chunked``, 32 a prefill),
+    then ``RWKV_PROFILE_STEPS`` profiled decode steps after two plain ones
+    (busy, idle share, device operations a step)."""
+    from repro_torch.models import rwkv6
+
+    real = rwkv6.wkv_chunked
+    rwkv6.wkv_chunked = wrapped = _wkv_profiled(real)
+    state = {}
+
+    def prefill():
+        wrapped.host_s = 0.0
+        t0 = time.perf_counter()
+        state["out"] = eng.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        prof, wall_ms = profiled(prefill, "the rwkv prefill", cpu=True)
+    finally:
+        rwkv6.wkv_chunked = real
+    kernels = {} if prof is None else {
+        n: v for n, v in _kernel_time_by_name(prof, 1).items()
+        if n != WKV_RANGE}
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
+    wkv = NOT_MEASURED if prof is None else _range_device_ms(prof, WKV_RANGE)
+    log("rwkv", profile="prefill", batch=tokens.shape[0], seq=tokens.shape[1],
+        profiled_prefill_ms=f"{wall_ms:.3f}",
+        device_busy_ms=f"{busy:.3f}", idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops=sum(n for _, n in kernels.values()),
+        wkv_device_ms=f"{wkv:.3f}", wkv_share_of_busy=f"{wkv / busy:.4f}",
+        wkv_host_ms=f"{wrapped.host_s * 1e3:.3f}",
+        wkv_host_share_of_wall=f"{wrapped.host_s * 1e3 / wall_ms:.4f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]:
+        log("rwkv", profile="prefill", ms=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", launches=n, kernel=f"'{name[:90]}'")
+
+    logits, cache, _ = state.pop("out")
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = tokens.shape[1]
+    for _ in range(2):
+        tok, _, cache, _ = eng.decode(tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+
+    def steps():
+        nonlocal tok, cache, pos
+        t0 = time.perf_counter()
+        for _ in range(RWKV_PROFILE_STEPS):
+            tok, _, cache, _ = eng.decode(tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / RWKV_PROFILE_STEPS
+
+    prof, wall_ms = profiled(steps, "the rwkv decode step", cpu=True)
+    kernels = {} if prof is None else _kernel_time_by_name(
+        prof, RWKV_PROFILE_STEPS)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
+    log("rwkv", profile="decode", decode_steps=RWKV_PROFILE_STEPS,
+        profiled_step_ms=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / RWKV_PROFILE_STEPS:.1f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]:
+        log("rwkv", profile="decode", ms_per_step=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", per_step=f"{n / RWKV_PROFILE_STEPS:.1f}",
+            kernel=f"'{name[:90]}'")
+    del cache, logits
+
+
+def rwkv_serve(seed: int, smi: str) -> list:
+    """rwkv6-7b at published widths and all 32 layers, random bf16 weights
+    from ``seed``, through ``ServeEngine`` (strategy none): one batch of
+    ``RWKV_SERVE`` Zipf prompts (``token_batches(seed)``). Prefill ms,
+    decode step p50 and tokens/s (each step synchronised), peak memory;
+    every request's tokens in range, every logit finite, no kernel
+    launched (a first, cold prefill timed apart). Then ``rwkv_profiles``.
+    Returns failures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import _layer_shapes, init_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, a = get_config(RWKV_ARCH), RWKV_SERVE
+    n_held = sum(int(np.prod(shape)) for shape, _, _ in _layer_shapes(
+        cfg, "rwkv").values()) * cfg.num_layers \
+        + 2 * cfg.vocab_size * cfg.d_model
+    log("rwkv", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, params_formula=cfg.num_params(),
+        params_held=n_held,
+        wkv_state_bytes_per_request=4 * cfg.num_layers * cfg.num_heads
+        * cfg.head_dim ** 2,
+        reduced="'none: published widths, all 32 layers'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log("rwkv", model=cfg.name, init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    tokens = next(token_batches(seed, cfg.vocab_size, a["batch"],
+                                a["seq"]))["tokens"]
+    eng = ServeEngine(cfg, model, ServeConfig(
+        strategy="none", max_len=a["seq"] + a["new_tokens"]))
+    # the first prefill meets cuBLAS's first calls at these shapes: timed
+    # apart, the run's own prefill is a warm one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"prefill_ms": [], "decode_ms": [], "finite": True}
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed(fn, key, logits_at):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t1) * 1e3)
+            rec["finite"] &= bool(torch.isfinite(out[logits_at]).all())
+            return out
+        return run
+    eng.prefill = timed(prefill, "prefill_ms", 0)
+    eng.decode = timed(decode, "decode_ms", 1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, tele = eng.generate({"tokens": tokens},
+                             max_new_tokens=a["new_tokens"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eng.prefill, eng.decode = prefill, decode
+    toks = out.cpu().numpy()
+    dec = rec["decode_ms"]
+    p50 = float(np.median(dec))
+    log("rwkv", run=f"serve/{cfg.name}", card=f"'{smi}'", strategy="none",
+        batch=a["batch"], seq=a["seq"], new_tokens=a["new_tokens"],
+        first_prefill_ms=f"{first_ms:.3f}",
+        prefill_ms=f"{rec['prefill_ms'][0]:.3f}", decode_steps=len(dec),
+        decode_step_p50_ms=f"{p50:.3f}",
+        decode_step_min_max_ms=f"{min(dec):.3f},{max(dec):.3f}",
+        decode_toks_per_s=f"{a['batch'] / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", logits_finite=rec["finite"],
+        kernel_launches=sum(launches.values()))
+    failures = []
+    if any(launches.values()):
+        failures.append(f"serve: kernel launches {launches}")
+    if toks.shape != (a["batch"], a["new_tokens"]) or (toks < 0).any() \
+            or (toks >= cfg.vocab_size).any():
+        failures.append(f"serve: bad tokens of shape {toks.shape}")
+    if len(dec) != a["new_tokens"] - 1 or not rec["finite"] or tele != {}:
+        failures.append(f"serve: {len(dec)} decode steps, finite "
+                        f"{rec['finite']}, telemetry {tele}")
+    rwkv_profiles(eng, tokens)
+    del eng, model, prefill, decode        # (the bound methods hold eng)
+    free_engines("rwkv")
+    return failures
+
+
+def rwkv_launch_serve(seed: int, smi: str) -> list:
+    """``python -m repro_torch.launch.serve --arch rwkv6-7b`` (``main`` in
+    this process, a fresh full-width model from ``seed``) on
+    ``RWKV_LAUNCH``: exit 0, every request served, no kernel launched.
+    Returns failures."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    a = RWKV_LAUNCH
+    trace = os.path.join(ROOT, "build", "chip_smoke", "rwkv_launch_serve.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    argv = ["--arch", RWKV_ARCH, "--requests", str(a["requests"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--new-tokens", str(a["new_tokens"]), "--seed", str(seed),
+            "--device", "cuda", "--trace-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rc, out, spans = _launch(launch_serve, argv, "rwkv", trace)
+    launches = dict(ops.LAUNCHES)
+    decode = spans.get("decode", [])
+    batches = a["requests"] // a["batch"]
+    log("rwkv", run=f"launch.serve/{RWKV_ARCH}", card=f"'{smi}'",
+        argv=f"'{' '.join(argv)}'", rc=rc,
+        prefill_ms=",".join(f"{v:.3f}" for v in spans.get("prefill", [])),
+        decode_steps=len(decode),
+        decode_ms_p50=f"{np.median(decode):.3f}" if decode else "n/a",
+        decode_toks_per_s=(f"{a['batch'] / np.median(decode) * 1e3:.2f}"
+                           if decode else "n/a"),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        kernel_launches=sum(launches.values()))
+    failures = []
+    if rc != 0 or f"served {a['requests']} requests" not in out:
+        failures.append(f"launch.serve {RWKV_ARCH}: exit {rc}")
+    if any(launches.values()):
+        failures.append(f"launch.serve {RWKV_ARCH}: launches {launches}")
+    if len(decode) != batches * (a["new_tokens"] - 1):
+        failures.append(f"launch.serve {RWKV_ARCH}: {len(decode)} decode "
+                        "steps")
+    free_engines("rwkv")
+    return failures
+
+
+def rwkv_train_run(seed: int, smi: str, layers: int) -> list:
+    """``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf tokens
+    (``token_batches(seed)``) through ``make_train_step`` at the launcher's
+    schedule, rwkv6-7b at published widths cut to ``layers`` layers, fp32
+    weights from ``seed``: per step loss, grad norm, lr and ms; step p50,
+    tokens/s, peak memory, the model-FLOPs share of peak; no kernel
+    launched; the loss falls, and so does one batch's repeated at a fixed
+    lr from fresh moments; then ``train_breakdown`` (forward and backward
+    against AdamW). Returns failures."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=layers)
+    run = f"rwkv/{cfg.name}/{layers}L"
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("rwkv", train=run, layers=layers, params_held=n_params,
+        state_gb=f"{16 * n_params / 1e9:.3f}", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
+        reduced=f"'{layers} of 32 layers (16 B a parameter: 32 layers "
+                "would need 122 GB); widths as published'")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, Runtime(), lr_fn=build_lr_fn(
+        cfg, TRAIN_LR, TRAIN_STEPS))
+    gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        log("rwkv", train=run, step=i, loss=f"{losses[-1]:.6f}",
+            grad_norm=f"{float(m['grad_norm']):.6g}",
+            lr=f"{float(m['lr']):.6g}", step_ms=f"{step_ms[-1]:.3f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(ops.LAUNCHES)
+    p50 = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mflops = model_flops(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    log("rwkv", train=run, card=f"'{smi}'", steps=len(step_ms),
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms=",".join(f"{v:.3f}" for v in step_ms),
+        step_ms_p50=f"{p50:.3f}", tokens_per_s=f"{tokens / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        note="6 x num_params() x tokens, the JAX formula (its time mix "
+             "counts 3 d^2 of the 6.25 d^2 a layer holds)",
+        kernel_launches=sum(launches.values()))
+    failures = []
+    if any(launches.values()):
+        failures.append(f"train launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"train loss {losses[0]} -> {losses[-1]}")
+    del opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = next(token_batches(seed + 1, cfg.vocab_size, TRAIN_BATCH,
+                               TRAIN_SEQ))
+    rl = _dense_repeat(cfg, model, batch, remat=False)
+    log("rwkv", train=run, repeat_batch_losses=",".join(
+        f"{v:.6f}" for v in rl), lr=TRAIN_REPEAT_LR, falls=rl[-1] < rl[0])
+    if not rl[-1] < rl[0]:
+        failures.append(f"the repeated batch's loss did not fall: {rl}")
+    opt = init_opt_state(model)
+    train_breakdown(run, cfg, model, opt, batch)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def rwkv_train(seed: int, smi: str) -> list:
+    """``rwkv_train_run`` at the first of ``RWKV_TRAIN_LAYERS`` that fits
+    the card. Returns failures."""
+    for layers in RWKV_TRAIN_LAYERS:
+        t1 = time.perf_counter()
+        try:
+            failures = rwkv_train_run(seed, smi, layers)
+        except torch.cuda.OutOfMemoryError as e:
+            log("rwkv", train_layers=layers, out_of_memory=True,
+                error=f"'{str(e).splitlines()[0][:160]}'")
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        log("rwkv", train_layers=layers,
+            train_s=f"{time.perf_counter() - t1:.3f}")
+        return failures
+    raise SystemExit(f"rwkv: training ran out of memory at every depth of "
+                     f"{RWKV_TRAIN_LAYERS}")
+
+
+def rwkv_phase(seed: int, smi: str) -> None:
+    """Phase rwkv: rwkv6-7b served through ``ServeEngine`` at all 32
+    layers (``rwkv_serve``), through ``launch.serve`` (``rwkv_launch_
+    serve``), trained at 8 of 32 layers (``rwkv_train``), its reduced
+    config and variants card against CPU (``rwkv_card_vs_cpu``) and the
+    chunked WKV against the stepwise one at a full-width layer
+    (``rwkv_chunk_check``). Frees what earlier phases hold first."""
+    free_engines("rwkv")
+    t0 = time.perf_counter()
+    failures = rwkv_serve(seed, smi)
+    t1 = time.perf_counter()
+    failures += rwkv_launch_serve(seed, smi)
+    t2 = time.perf_counter()
+    failures += rwkv_train(seed, smi)
+    t3 = time.perf_counter()
+    rwkv_card_vs_cpu(seed)
+    rwkv_chunk_check()
+    log("rwkv", serve_s=f"{t1 - t0:.3f}", launch_serve_s=f"{t2 - t1:.3f}",
+        train_s=f"{t3 - t2:.3f}",
+        checks_s=f"{time.perf_counter() - t3:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("rwkv failed: " + "; ".join(failures))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
-                          "train")
+                          "rwkv", "train")
 
 
 def main() -> int:
@@ -6271,6 +6883,8 @@ def main() -> int:
         dense_phase(args.seed, smi)
     if "mla" in phases:
         mla_phase(args.seed, smi)
+    if "rwkv" in phases:
+        rwkv_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in

@@ -10,7 +10,9 @@ as ``shared_w_*`` and ``dense_w_*``; MLA's ``attn.w_dkv`` ... ``attn.wo``
 under their JAX names; a relu
 or gelu model's experts keep the ``w_gate`` the JAX tree holds and never
 reads; the dense family's ``ffn.*`` as ``w_gate`` / ``w_up`` /
-``w_down``, its Q/K/V biases ``attn.w*.b`` as ``bq`` / ``bk`` / ``bv``);
+``w_down``, its Q/K/V biases ``attn.w*.b`` as ``bq`` / ``bk`` / ``bv``;
+RWKV's ``time_mix.*`` and ``channel_mix.*`` as ``tm_*`` and ``cm_*``, the
+dense weights' ``.w`` and ``ln_out.scale`` dropped from the name);
 hybrid models keep a list of per-layer trees (``hybrid_layers``:
 ``rec.*`` or ``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps
 its ``(d_in, d_out)`` layout. Two of the JAX tree's shapes have no
@@ -20,12 +22,13 @@ parameter here: a non-parametric norm (OLMo) is an empty dict at
 ``lm_head`` on either side.
 
 The embedding, ``lm_head``, attention weights and biases, expert,
-shared-expert and FFN weights, and the recurrent block's dense weights, ``conv_w`` and ``conv_b``
-are stored in
-bf16 (the reference casts each to bf16 at every use, so the values the
-model computes with are unchanged); the router weight, ``lam`` and the
-norm scales stay fp32. A round trip therefore returns the bf16-rounded
-weights the reference computes with, and is exact from then on. With
+shared-expert and FFN weights, the recurrent block's dense weights,
+``conv_w`` and ``conv_b``, and RWKV's dense weights, ``mu`` and LoRAs are
+stored in bf16 (the reference casts each to bf16 at every use, so the
+values the model computes with are unchanged); the router weight, ``lam``,
+RWKV's ``decay_base`` and ``bonus`` and the norm scales stay fp32. A
+round trip therefore returns the bf16-rounded weights the reference
+computes with, and is exact from then on. With
 ``trainable=True`` every parameter stays fp32 (and requires gradients),
 so the round trip is exact at once.
 
@@ -48,8 +51,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (WEIGHT_DTYPE, Transformer,
-                                            _layer_kind, _layer_shapes)
+from repro_torch.models.transformer import (RWKV_BLOCKS, WEIGHT_DTYPE,
+                                            Transformer, _layer_kind,
+                                            _layer_shapes)
 from repro_torch.optim.adamw import AdamWState
 
 # JAX key path -> port parameter name
@@ -92,6 +96,15 @@ _REC_KEYS = {("rec", n, "w") if n.startswith("w_") else ("rec", n): "rec_" + n
                        "lam", "w_out")}
 
 
+def _rwkv_path(block: str, n: str):
+    """The JAX key path (under ``layers``) of an RWKV block's parameter."""
+    if n.startswith("w_"):
+        return (block, n, "w")
+    if n == "ln_out":
+        return (block, n, "scale")
+    return (block, n)
+
+
 def _top_keys(cfg: ModelConfig):
     """JAX key path -> port name of the top-level leaves the config has."""
     return {path: name for path, name in TOP_KEYS.items()
@@ -101,11 +114,18 @@ def _top_keys(cfg: ModelConfig):
 
 def _stack_keys(cfg: ModelConfig):
     """JAX key path (under ``layers``) -> port name for a uniform stack's
-    layer: the keys the config has, the MoE block's or the FFN's."""
-    names = _layer_shapes(cfg)
-    block = "moe" if cfg.is_moe else "ffn"
-    return {path: name for path, name in LAYER_KEYS.items()
-            if name in names and path[0] in (block, "ln1", "ln2", "attn")}
+    layer: the keys the config has, the MoE block's or the FFN's (RWKV's:
+    its time and channel mix's)."""
+    kind = _layer_kind(cfg, 0)
+    names = _layer_shapes(cfg, kind)
+    blocks = ("ln1", "ln2") + (() if kind == "rwkv" else
+                               ("moe" if cfg.is_moe else "ffn", "attn"))
+    keys = {path: name for path, name in LAYER_KEYS.items()
+            if name in names and path[0] in blocks}
+    if kind == "rwkv":
+        keys.update((_rwkv_path(RWKV_BLOCKS[n[:3]], n[3:]), n)
+                    for n in names if n[:3] in RWKV_BLOCKS)
+    return keys
 
 
 def _hybrid_keys(cfg: ModelConfig, kind: str):

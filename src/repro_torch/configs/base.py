@@ -4,11 +4,12 @@ The port's own copy of ``ModelConfig`` / ``MoEConfig`` / ``MLAConfig`` for
 the families it serves so far: uniform-stack decoder-only GQA models with a
 dense or MoE FFN (the dense family with QKV biases, a non-parametric
 LayerNorm or tied embeddings), DeepSeek's MoE with multi-head latent
-attention (MLA) and always-on shared experts, and the hybrid family
+attention (MLA) and always-on shared experts, the hybrid family
 (Griffin: RG-LRU recurrent blocks and local attention, in a repeating
-``block_pattern``). Field names and defaults follow the JAX package's
-configs, so a config means the same model in both packages. Configs are
-plain frozen dataclasses.
+``block_pattern``) and the attention-free ``ssm`` family (RWKV-6:
+``attention="none"``, a time mix and a relu^2 channel mix). Field names
+and defaults follow the JAX package's configs, so a config means the same
+model in both packages. Configs are plain frozen dataclasses.
 
 ``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
 pattern; d_model<=256, <=4 experts, <=1 shared expert, a dense residual
@@ -76,7 +77,7 @@ class MLAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                          # dense | moe | hybrid
+    family: str                          # dense | moe | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -84,12 +85,12 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                    # 0 -> d_model // num_heads
-    attention: str = "gqa"               # gqa | mla | mixed (hybrid)
+    attention: str = "gqa"               # gqa | mla | mixed | none (ssm)
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"                # rmsnorm | nonparametric (olmo)
-    activation: str = "swiglu"
+    activation: str = "swiglu"           # swiglu | gelu | relu | relu2 (rwkv)
     tie_embeddings: bool = False         # logits read the embedding table
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
@@ -111,10 +112,12 @@ class ModelConfig:
     def num_params(self) -> int:
         """Analytical parameter count (embedding + blocks + head), the JAX
         package's formula: a hybrid counts every layer's attention as GQA
-        and its FFN, as the reference does."""
+        and its FFN, and RWKV's time mix as ``6 d^2 / 2``, as the reference
+        does."""
         mla = self.attention == "mla"
+        ssm = self.attention == "none" and self.family == "ssm"
         if not (self.attention in ("gqa", "mixed")
-                or (mla and self.mla is not None)):
+                or (mla and self.mla is not None) or ssm):
             raise NotImplementedError(
                 f"attention {self.attention!r} without its config has no "
                 "port count (ROADMAP.md §1)")
@@ -130,6 +133,8 @@ class ModelConfig:
                 per_layer += d * m.q_lora_rank
             per_layer += qd * H * (m.nope_head_dim + m.rope_head_dim)
             per_layer += H * m.v_head_dim * d                     # out proj
+        elif ssm:
+            per_layer = 6 * d * d // 2                            # rwkv6 time-mix approx
         else:
             per_layer = d * self.num_heads * hd                   # Q
             per_layer += 2 * d * self.num_kv_heads * hd           # K,V

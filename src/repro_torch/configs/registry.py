@@ -1,9 +1,10 @@
 """Architecture registry: name -> ModelConfig for the architectures the
 port serves so far: the MoE models (Mixtral, the paper's Appendix C
 models, and DeepSeek-V2-Lite with MLA attention and shared experts), the
-hybrid RecurrentGemma-2B, and the dense family (Qwen1.5-0.5B, OLMo-1B,
-StableLM-3B, MiniCPM-2B). The JAX package's other configs wait for their
-families (ROADMAP.md §1 items 2d-2f)."""
+hybrid RecurrentGemma-2B, the dense family (Qwen1.5-0.5B, OLMo-1B,
+StableLM-3B, MiniCPM-2B) and the attention-free RWKV-6 7B. The JAX
+package's other configs wait for their families (ROADMAP.md §1 items
+2e-2f)."""
 
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    # attention-free: the RWKV-6 time mix and relu^2 channel mix
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ALL_ARCHS = list(_MODULES)

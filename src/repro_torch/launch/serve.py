@@ -7,6 +7,8 @@ prediction-guided expert duplication (the port of ``repro.launch.serve``).
       --reduced --device cpu --data-mesh 1 --model-mesh 4 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --device cpu --requests 8 --batch 4 --seq 40 --new-tokens 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --reduced --device cpu --requests 8 --batch 4 --seq 40 --new-tokens 6
 
 ``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
 nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
@@ -14,7 +16,8 @@ nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
 One card has no data axis, so ``--data-mesh`` must then be 1, and each
 prompt of ``--seq`` tokens splits over the ranks.
 
-A model without MoE (the dense family, Griffin) has no experts to balance:
+A model without MoE (the dense family, Griffin, RWKV) has no experts to
+balance:
 its ``--strategy`` is "none" (the default there; the default for a MoE
 model is "dist_only"), and another strategy or the mesh flags raise.
 
@@ -23,7 +26,9 @@ tokens from the same seed (numpy, so the JAX launcher gets the same ones).
 ``--strategy token_to_expert`` fits a ``ConditionalProbabilityModel`` on a
 synthetic routing trace (64 sequences of ``--seq`` tokens, skew 1.5, from
 ``--seed``), as the JAX launcher does, and hands it to the engine.
-``main(argv)`` returns 0 when every request completes.
+``main(argv)`` returns 0 when every request completes. fp32 matrix
+products stay fp32 (TF32 off), as the fp32 recurrences of Griffin and RWKV
+are computed in the reference.
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ def main(argv=None) -> int:
                     help="write a Chrome trace-event JSON of the run "
                          "(open in Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -6,6 +6,8 @@ Zipf-distributed token batches from the same seed.
       --reduced --device cpu --steps 20 --batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
       --reduced --device cpu --steps 20 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
+      --reduced --device cpu --steps 20 --batch 4 --seq 64
 
 It takes the JAX launcher's flags, prints its lines and returns its code:
 0 when the last step's loss is below the first. ``--device`` (default
@@ -13,7 +15,8 @@ cuda) picks the card or, with ``cpu``, the kernels' plain versions;
 ``--trace-out`` writes one span per step (host clock, each step ending on
 its loss's read-back) as Chrome trace-event JSON; ``--remat`` recomputes
 each layer in the backward (``make_train_step(remat=True)``: the same
-values in less memory). A config's ``lr_schedule`` picks the schedule:
+values in less memory); fp32 matrix products stay fp32 (TF32 off). A
+config's ``lr_schedule`` picks the schedule:
 cosine, or WSD (minicpm-2b). ``--data-mesh 1
 --model-mesh R`` trains an MoE model through the expert-parallel dispatch
 over R ranks on the one device (``Runtime(ep=True, ep_ranks=R)``, the
@@ -82,6 +85,8 @@ def main(argv=None) -> int:
                     help="recompute each layer in the backward (less "
                          "activation memory, the same values)")
     args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -1,5 +1,5 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
-package's ``init_model`` tree, for three families:
+package's ``init_model`` tree, for four families:
 
 * the uniform-stack decoder-only MoE models: GQA ones (Mixtral, the
   paper's Appendix C models llama-moe-3.5b and switch-base-128, and
@@ -15,24 +15,30 @@ package's ``init_model`` tree, for three families:
   the embedding table);
 * the hybrid family (Griffin / RecurrentGemma): a repeating block pattern
   of recurrent layers (``models.griffin``, RG-LRU) and local-attention
-  layers over a rotating window buffer, each followed by a dense FFN.
+  layers over a rotating window buffer, each followed by a dense FFN;
+* the attention-free ``ssm`` family (RWKV-6): every layer a time mix
+  (``models.rwkv6``: token shift, data-dependent decay, the chunked WKV
+  recurrence) and a relu^2 channel mix, over a stacked recurrent state.
 
 Execution modes (``Transformer.forward``):
   train   — full causal pass, logits over the whole sequence, no cache
-            (hybrid models start every recurrent layer from a zero state);
+            (hybrid and RWKV models start every recurrent layer from a zero
+            state);
             optionally recomputed per layer in the backward (``remat``).
   prefill — causal pass that fills a cache (a linear cache, MLA's
             latent one; for hybrid models the per-layer recurrent states
-            and window buffers);
+            and window buffers; RWKV's stacked shift and WKV states, through
+            which padded positions run too, as in the reference);
             returns logits at the last (or each request's last real)
             position.
   decode  — one token per row: against the paged KV block pool with (B,)
             per-slot lengths and block tables (continuous batching), or
             against the prefill's cache with one scalar ``cache_len`` for
-            the whole batch (``ServeEngine``; MLA decodes this way only).
+            the whole batch (``ServeEngine``; MLA decodes this way only;
+            RWKV's state needs no position and ignores ``cache_len``).
 
-Refused until their families are ported (ROADMAP.md §1): RWKV (item 2d),
-the encoder-decoder (2e) and the VLM prefix input (2f).
+Refused until their families are ported (ROADMAP.md §1): the
+encoder-decoder (item 2e) and the VLM prefix input (2f).
 
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
@@ -53,11 +59,13 @@ projections too) and QKV biases, expert, shared-expert and FFN weights and
 the recurrent block's dense weights, ``conv_w`` and ``conv_b`` are kept in
 bf16 — the reference casts each of them to the bf16 activation dtype at
 every use, so the bf16 copy computes the same values in half the bytes.
-The router weight, the RG-LRU's ``lam`` and the norm scales stay fp32, as
-they are used in fp32. A trainable model (``init_model(...,
-trainable=True)``, ``bridge.params_from_jax(..., trainable=True)``) keeps
-every parameter in fp32 with ``requires_grad``, as the JAX package trains
-them, and casts each to bf16 at use exactly as the serving model computes.
+RWKV's dense weights, token-shift mixes and LoRAs are bf16 too. The router
+weight, the RG-LRU's ``lam``, RWKV's ``decay_base`` and ``bonus`` and the
+norm scales stay fp32, as they are used in fp32. A trainable model
+(``init_model(..., trainable=True)``, ``bridge.params_from_jax(...,
+trainable=True)``) keeps every parameter in fp32 with ``requires_grad``,
+as the JAX package trains them, and casts each to bf16 at use exactly as
+the serving model computes.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import DevicePlan, identity_plan, to_device
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import griffin
+from repro_torch.models import griffin, rwkv6
 from repro_torch.models.layers import (apply_norm, dense, embed, ffn,
                                        truncated_normal_init, unembed)
 from repro_torch.models.moe import dense_branch, moe_ffn_dense, shared_branch
@@ -86,9 +94,10 @@ WEIGHT_DTYPE = torch.bfloat16
 # a forward's stats for a model without MoE, as the JAX forward gives them
 NO_MOE_STATS = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
 # families the port does not serve yet, with their ROADMAP.md §1 items
-UNPORTED_FAMILIES = {"ssm": "RWKV (ROADMAP.md §1 item 2d)",
-                     "audio": "the encoder-decoder (ROADMAP.md §1 item 2e)",
+UNPORTED_FAMILIES = {"audio": "the encoder-decoder (ROADMAP.md §1 item 2e)",
                      "vlm": "the VLM prefix input (ROADMAP.md §1 item 2f)"}
+# an RWKV layer's parameter name prefixes -> the JAX tree's blocks
+RWKV_BLOCKS = {"tm_": "time_mix", "cm_": "channel_mix"}
 
 
 class Runtime(NamedTuple):
@@ -124,8 +133,10 @@ def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
 
 
 def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
-    """"attn" for the uniform stack; the block pattern's entry ("recurrent"
-    or "local") for hybrid models."""
+    """"attn" for the uniform stack, "rwkv" for the ssm family; the block
+    pattern's entry ("recurrent" or "local") for hybrid models."""
+    if cfg.family == "ssm":
+        return "rwkv"
     if cfg.family == "hybrid":
         return cfg.block_pattern[layer_idx % len(cfg.block_pattern)]
     return "attn"
@@ -134,7 +145,8 @@ def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
 class DecoderLayer(nn.Module):
     """One block. Weights are (d_in, d_out). ``kind`` "attn": attention +
     MoE FFN (a dense FFN in a model without MoE); "recurrent": recurrent
-    block (``rec_*``) + FFN; "local": local attention + FFN."""
+    block (``rec_*``) + FFN; "local": local attention + FFN; "rwkv": time
+    mix (``tm_*``) + channel mix (``cm_*``)."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
                  kind: str = "attn", trainable: bool = False):
@@ -162,6 +174,12 @@ class DecoderLayer(nn.Module):
         return {name[4:]: t for name, t in self.named_parameters()
                 if name.startswith("rec_")}
 
+    def rwkv_params(self, prefix: str):
+        """The time mix's (``prefix`` "tm_") or the channel mix's ("cm_")
+        parameters under the JAX package's keys."""
+        return {name[len(prefix):]: t for name, t in self.named_parameters()
+                if name.startswith(prefix)}
+
 
 class Transformer(nn.Module):
     """Decoder-only transformer. Parameters (per-layer ones live in
@@ -184,6 +202,11 @@ class Transformer(nn.Module):
       under swiglu); recurrent layers rec_w_gate, rec_w_main (d, dr),
       rec_conv_w (4, dr), rec_conv_b (dr,), rec_w_a, rec_w_x (dr, dr),
       rec_lam (dr,), rec_w_out (dr, d); local layers the attention weights.
+      RWKV layers: ln1, ln2 and the time mix tm_mu (5, d), tm_lora_a (d,
+      320), tm_lora_b (5, 64, d), tm_w_r/w_k/w_v/w_g (d, H*hd), tm_w_o
+      (H*hd, d), tm_decay_base (H*hd,), tm_decay_lora_a (d, 64),
+      tm_decay_lora_b (64, H*hd), tm_bonus (H, hd), tm_ln_out (H*hd,); the
+      channel mix cm_mu (2, d), cm_w_k (d, F), cm_w_v (F, d), cm_w_r (d, d).
     ``trainable``: the parameters require gradients (the tensors given are
     then fp32).
     """
@@ -221,10 +244,11 @@ def check_config(cfg: ModelConfig) -> None:
                          "not ported yet")
     hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
     uniform = cfg.family in ("moe", "dense") and cfg.attention == "gqa"
+    ssm = cfg.family == "ssm" and cfg.attention == "none" and not cfg.is_moe
     # MLA: DeepSeek's MoE models, as the JAX package has them
     mla = (cfg.family == "moe" and cfg.is_moe and cfg.attention == "mla"
            and cfg.mla is not None)
-    if not (hybrid or uniform or mla):
+    if not (hybrid or uniform or mla or ssm):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with attention "
                          f"{cfg.attention!r} has no port")
     if cfg.norm not in ("rmsnorm", "nonparametric"):
@@ -241,14 +265,20 @@ ZEROS = 0.0                      # a ``_layer_shapes`` scale: zeros (biases)
 def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     """name -> (shape, init scale, dtype) of one layer of ``kind``; scale
     None = ones (norm scale), ``ZEROS`` = zeros (the QKV biases, as the
-    JAX ``init_dense`` makes them). Recurrent layers' ``rec_*`` entries
-    carry ``models.griffin.param_shapes`` (``init_model`` draws them
-    there)."""
+    JAX ``init_dense`` makes them), an ``rwkv6.Constant`` a constant fill.
+    Recurrent layers' ``rec_*`` entries carry ``models.griffin.param_shapes``
+    (``init_model`` draws them there); RWKV layers' ``tm_*`` and ``cm_*``
+    entries ``models.rwkv6.param_shapes``."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = {}
     if cfg.norm == "rmsnorm":
         shapes.update({"ln1": ((d,), None, torch.float32),
                        "ln2": ((d,), None, torch.float32)})
+    if kind == "rwkv":
+        for prefix, block in RWKV_BLOCKS.items():
+            shapes.update((prefix + n, spec) for n, spec
+                          in rwkv6.param_shapes(cfg)[block].items())
+        return shapes
     if kind == "attn" and cfg.attention == "mla":
         m = cfg.mla
         r, qk = m.kv_lora_rank, m.nope_head_dim + m.rope_head_dim
@@ -315,6 +345,8 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
 def _draw(shape, scale, dtype, generator, device):
     if scale is None:
         return torch.ones(shape, dtype=dtype, device=device)
+    if isinstance(scale, rwkv6.Constant):
+        return torch.full(shape, scale.value, dtype=dtype, device=device)
     if scale == ZEROS:
         return torch.zeros(shape, dtype=dtype, device=device)
     if len(shape) == 3:
@@ -377,8 +409,16 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
     ``cache_len_for``; under MLA the latent one {"c_kv": (L, B, S, r),
     "k_rope": (L, B, S, rope)}. Hybrid: a list over layers, a recurrent state
     {"h", "conv"} for each recurrent layer and a window buffer {"k", "v"}
-    of ``min(max_len, local_window)`` positions for each local layer."""
+    of ``min(max_len, local_window)`` positions for each local layer.
+    RWKV: the stacked state {"shift_tm", "shift_cm": (L, B, d), "wkv": (L,
+    B, H, hd, hd)}, fp32 zeros as the JAX package makes them (``dtype`` and
+    ``max_len`` do not apply); a forward stores its bf16 shift vectors
+    there, exactly."""
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return {name: t.new_zeros((cfg.num_layers, *t.shape))
+                for name, t in rwkv6.init_rwkv_state(cfg, batch,
+                                                     device=dev).items()}
     if cfg.family == "hybrid":
         W = min(max_len, cfg.local_window)
         return [griffin.init_recurrent_state(cfg, batch, dtype, dev)
@@ -588,6 +628,20 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
     return x + y, state
 
 
+def _rwkv_layer(layer: DecoderLayer, cfg: ModelConfig, x, state):
+    """One RWKV block: time mix, then channel mix, each after its norm and
+    added to the residual. ``state``: the layer's {"shift_tm", "shift_cm",
+    "wkv"} (not modified). Returns (x, new state)."""
+    h = apply_norm(cfg.norm, layer.ln1, x)
+    a, tm = rwkv6.time_mix(layer.rwkv_params("tm_"), cfg, h, state)
+    x = x + a
+    h = apply_norm(cfg.norm, layer.ln2, x)
+    y, shift_cm = rwkv6.channel_mix(layer.rwkv_params("cm_"), h,
+                                    state["shift_cm"])
+    return x + y, {"shift_tm": tm["shift_tm"], "shift_cm": shift_cm,
+                   "wkv": tm["wkv"]}
+
+
 def _logits(model: Transformer, x):
     """The final norm, then ``lm_head``, or under tied embeddings the
     embedding table (the JAX ``unembed``)."""
@@ -650,7 +704,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     reschedule quota stack (``repro_torch.schedule``) the EP dispatch
     picks replicas through, with a rescue round for the pairs that
     overflow; the dense path ignores it.
-    A model without MoE (dense, hybrid) ignores ``token_weight``,
+    RWKV runs every layer from its stacked state (train mode from zeros)
+    and writes the new one into ``cache`` in place; decode ignores
+    ``cache_len``.
+    A model without MoE (dense, hybrid, RWKV) ignores ``token_weight``,
     ``plan``, ``store``, ``predicted_idx`` and ``resched``; its stats are
     ``NO_MOE_STATS`` (no expert counts, zero aux and z losses).
     stats: {"expert_counts": (L, E) fp32, "aux_loss",
@@ -681,6 +738,16 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             x, cache[l] = _run_layer(
                 remat, _hybrid_layer, layer, cfg, x, positions, cache[l],
                 mode, cache_len)
+        return (_last_logits(model, x, mode, last_pos),
+                None if mode == "train" else cache, dict(NO_MOE_STATS))
+    if cfg.family == "ssm":
+        for l, layer in enumerate(model.layers):
+            st = (rwkv6.init_rwkv_state(cfg, B, device=x.device)
+                  if mode == "train" else _layer_cache(cache, l))
+            x, new = _run_layer(remat, _rwkv_layer, layer, cfg, x, st)
+            if mode != "train":
+                for name, t in new.items():
+                    st[name].copy_(t)
         return (_last_logits(model, x, mode, last_pos),
                 None if mode == "train" else cache, dict(NO_MOE_STATS))
     if not cfg.is_moe:

@@ -40,15 +40,6 @@ HBM_BW = H100_SXM_NVLINK.hbm_bw              # bytes/s per card
 LINK_BW = H100_SXM_NVLINK.link_bw            # NVLink bytes/s per card
 
 
-def _check_family(cfg) -> None:
-    """The op model's branch for RWKV's ``ssm`` family, which the port has
-    no config for yet, is not ported (ROADMAP.md §1 item 2d)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} has no port config yet "
-            "(ROADMAP.md §1 item 2d)")
-
-
 def _recurrent_layers(cfg) -> int:
     L = cfg.num_layers
     return sum(1 for i in range(L)
@@ -62,7 +53,6 @@ def _recurrent_layers(cfg) -> int:
 
 def analytic_flops(cfg, shape) -> float:
     """Per-STEP total (all devices) FLOPs for the step a shape lowers."""
-    _check_family(cfg)
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
 
     if shape.kind == "decode":
@@ -70,7 +60,10 @@ def analytic_flops(cfg, shape) -> float:
         ctx = shape.seq_len
         w = cfg.sliding_window or (4096 if shape.name == "long_500k" else 0)
         s_eff = min(ctx, w) if w else ctx
-        if cfg.family == "hybrid":
+        if cfg.family == "ssm":
+            per_tok_layer = 14 * d * d            # rwkv6 time+channel mix
+            attn = per_tok_layer * tokens * L
+        elif cfg.family == "hybrid":
             dr = cfg.rnn_width or d
             rec_l = (4 * d * dr + 3 * dr) * 2 * tokens   # gates + out proj
             loc_l = attention_flops(cfg, tokens, min(ctx, cfg.local_window))
@@ -84,7 +77,9 @@ def analytic_flops(cfg, shape) -> float:
         return attn + ffn + head
 
     tokens = shape.global_batch * shape.seq_len
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        attn = 14 * d * d * tokens * L
+    elif cfg.family == "hybrid":
         dr = cfg.rnn_width or d
         rec_l = (4 * d * dr + 3 * dr) * 2 * tokens
         loc_l = attention_flops(cfg, tokens, min(shape.seq_len,
@@ -109,8 +104,8 @@ def analytic_hbm_bytes(cfg, shape, chips: int, *, act_coeff: float = 10.0
     * duplication: with ``duplication_slots > 0`` the replica store adds
       one read of the extra slot entries per MoE layer per step;
     * activations: ~``act_coeff`` residency round-trips per layer;
-    * decode: the full KV-cache shard read per step."""
-    _check_family(cfg)
+    * decode: the full KV-cache shard read per step (RWKV: its fp32 WKV
+      state)."""
     B = 2  # bf16
     params = cfg.num_params()
     w = params * B / chips
@@ -133,7 +128,10 @@ def analytic_hbm_bytes(cfg, shape, chips: int, *, act_coeff: float = 10.0
     if shape.kind == "decode":
         w_win = cfg.sliding_window or (4096 if shape.name == "long_500k" else 0)
         clen = min(shape.seq_len, w_win) if w_win else shape.seq_len
-        if cfg.family == "hybrid":
+        if cfg.family == "ssm":
+            state = cfg.num_heads * cfg.head_dim * cfg.head_dim * 4
+            cache = shape.global_batch * state * cfg.num_layers / chips
+        elif cfg.family == "hybrid":
             dr = cfg.rnn_width or cfg.d_model
             cache = shape.global_batch * (dr * 4 + cfg.local_window
                                           * cfg.num_kv_heads * cfg.head_dim

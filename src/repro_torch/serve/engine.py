@@ -3,11 +3,12 @@
 ``ServeEngine`` (the port of the JAX package's ``ServeEngine``) serves one
 padded batch at a time: a batched prefill, then greedy decode at one
 position for the whole batch over the prefill's cache. It serves every
-family the port has (MoE, dense, hybrid), and is the only engine for hybrid
-(Griffin) models and for MLA (deepseek-v2-lite-16b: its latent cache is
-linear, and the paged pool is GQA's, as in the JAX package). A model without MoE (the dense family: qwen1.5-0.5b,
-olmo-1b, stablelm-3b, minicpm-2b; Griffin) has nothing to estimate, plan
-or move: both engines skip the estimator, re-plans, the replica store, the
+family the port has (MoE, dense, hybrid, ssm), and is the only engine for
+hybrid (Griffin) and RWKV models and for MLA (deepseek-v2-lite-16b: its
+latent cache is linear, and the paged pool is GQA's, as in the JAX
+package). A model without MoE (the dense family: qwen1.5-0.5b, olmo-1b,
+stablelm-3b, minicpm-2b; Griffin; RWKV) has nothing to estimate, plan or
+move: both engines skip the estimator, re-plans, the replica store, the
 lever's quotas and the controller for it, where the JAX engines skip
 them, and ``ep=True`` or a controller raises on it.
 Without ``ep``, MoE models take the single-device dense path (the JAX
@@ -778,10 +779,10 @@ class ContinuousEngine(_StoreMixin):
                  ep: bool = False, predictor=None, controller=None,
                  tracer=None, metrics: Optional[ServeMetrics] = None,
                  name: str = ""):
-        if cfg.family == "hybrid":
+        if cfg.family in ("ssm", "hybrid"):
             raise ValueError(f"{cfg.family}: continuous batching serves "
                              "uniform-stack GQA models (ServeEngine serves "
-                             "the hybrid family)")
+                             "the hybrid and ssm families)")
         if cfg.attention != "gqa":
             # the JAX engine's refusal: MLA is served by ServeEngine
             raise ValueError("paged KV cache is implemented for GQA")

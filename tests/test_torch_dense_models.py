@@ -114,8 +114,8 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_nine_architectures():
-    # the nine of PRs 11-29 and, since PR 30's MLA, deepseek-v2-lite-16b
-    assert len(ALL_ARCHS) == 10
+    # nine GQA models, deepseek-v2-lite-16b (MLA) and rwkv6-7b (ssm)
+    assert len(ALL_ARCHS) == 11
     for arch in ARCHS:
         assert arch in ALL_ARCHS and get_config(arch).name == arch
         assert get_config(arch).family == "dense" and not get_config(arch).is_moe
@@ -153,7 +153,7 @@ def test_roofline_op_model_matches_jax(arch, chips):
 
 
 @pytest.mark.parametrize("family,attention,item", [
-    ("ssm", "none", "2d"), ("audio", "gqa", "2e"), ("vlm", "gqa", "2f")])
+    ("audio", "gqa", "2e"), ("vlm", "gqa", "2f")])
 def test_families_still_to_come_are_refused(family, attention, item):
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                               family=family, attention=attention)

@@ -102,10 +102,13 @@ def test_report_terms_use_the_h100_constants(tmp_path):
 
 
 def test_families_without_a_port_config_raise():
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"), family="ssm")
-    shape = base.INPUT_SHAPES["train_4k"]
-    with pytest.raises(NotImplementedError):
-        roof.analytic_flops(cfg, shape)
+    # RWKV's ssm family has its config now: its terms are the JAX package's
+    cfg, jcfg = get_config("rwkv6-7b"), jax_get_config("rwkv6-7b")
+    shape, jshape = base.INPUT_SHAPES["train_4k"], jbase.INPUT_SHAPES["train_4k"]
+    _close(roof.analytic_flops(cfg, shape), jroof.analytic_flops(jcfg, jshape))
+    _close(roof.analytic_hbm_bytes(cfg, shape, 1),
+           jroof.analytic_hbm_bytes(jcfg, jshape, 1))
+    _close(roof.model_flops(cfg, shape), jroof.model_flops(jcfg, jshape))
     with pytest.raises(NotImplementedError):
         dataclasses.replace(get_config("mixtral-8x7b"),
                             attention="mla").num_params()
