@@ -341,7 +341,39 @@ non-zero:
                 ``wkv_step`` loop on one full-width layer (8 x 512, 64
                 heads of 64, fp32) with and without the clip, within
                 1e-4 in norm.
- 17. train    — (last, after every serving engine is freed) training on
+ 17. seamless — (after rwkv, before train; alone with ``--phases
+                seamless``) seamless-m4t-medium at published widths and
+                all 12 + 12 layers (the encoder-decoder: a bidirectional
+                frame encoder under a GQA decoder with cross-attention,
+                877.1e6 parameters held, 1.754 GB in bf16), random weights
+                from ``--seed``, through ``ServeEngine`` (strategy none):
+                8 requests of 1024 random frames (~20 s of speech at 50
+                frames/s) and a 64-token Zipf prompt, 64 new tokens, then
+                one batch of 8 x 4096 frames (``max_source_len``), 8 new
+                tokens; prefill ms, decode step p50, decode tokens/s, peak
+                memory, finite logits, every request's tokens, no kernel
+                launched (``ops.LAUNCHES`` all zero); for each, a profiled
+                prefill (busy time, idle share, the encoder's device and
+                host shares from a profiler range around ``_encode``) and
+                two profiled decode steps (busy, idle share, device
+                operations, the cross-attention's share from a range around
+                ``cross_decode``). Then ``repro_torch.launch.train --arch
+                seamless-m4t-medium`` (10 steps of 4 x 512 over the JAX
+                launcher's zero frames), held to the JAX launcher's
+                behaviour there: a finite step-0 loss, a NaN gradient norm
+                (the encoder's RMSNorms at 0 scale the gradient by 1000
+                each, and 12 layers overflow it) and exit 1; 10 train steps
+                of 4 x 512 tokens over 4 x 1024 random frames at all layers
+                (14.0 GB of fp32 state) with step ms, tokens/s, peak
+                memory, the model-FLOPs share, the encoder's and the
+                cross-attention's gradient norms (nonzero), a repeated
+                batch whose loss must fall and the forward-and-backward
+                against AdamW split; last the reduced config and its
+                ``long`` (600 frames) and ``g1`` (G 1, the encoder at 8
+                heads of 32) variants card against CPU (the encoder's
+                output and the cross cache within 1e-2 and 2e-2 in norm,
+                logits within 5e-2 x their largest).
+ 18. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -3125,13 +3157,29 @@ def t2e_controller_run(model, cfg, seed: int, predictor) -> None:
     free_engines()
 
 
+def _proc_gb(path: str, key: str) -> float:
+    """The ``key:`` line of a /proc file (in kB) in GB; NaN if unreadable."""
+    try:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return float("nan")
+
+
 def free_engines(phase: str = "t2e") -> None:
     """Free the device memory of engines no longer referenced: the phases'
     instrumentation closures tie each engine into a reference cycle, which
-    only the cycle collector breaks (an EP engine's store holds 22.5 GB)."""
+    only the cycle collector breaks (an EP engine's store holds 22.5 GB).
+    Logs what stays allocated on the card, and the host's resident and
+    available memory."""
     gc.collect()
     torch.cuda.empty_cache()
-    log(phase, allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    log(phase, allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        host_rss_gb=f"{_proc_gb('/proc/self/status', 'VmRSS'):.3f}",
+        host_available_gb=f"{_proc_gb('/proc/meminfo', 'MemAvailable'):.3f}")
 
 
 def t2e_phase(model, cfg, seed: int) -> None:
@@ -6419,12 +6467,13 @@ def rwkv_chunk_check() -> None:
                          f"{failures}")
 
 
-def _wkv_profiled(fn):
-    """``rwkv6.wkv_chunked`` wrapped in the ``WKV_RANGE`` profiler range,
-    with the host seconds its calls take summed into ``fn.host_s``."""
+def _ranged(fn, name: str):
+    """``fn`` wrapped in the profiler range ``name`` (``rwkv6.wkv_chunked``
+    in ``WKV_RANGE``, the encoder in ``ENCODE_RANGE``, ...), with the host
+    seconds its calls take summed into ``wrapped.host_s``."""
     def wrapped(*a, **kw):
         t0 = time.perf_counter()
-        with torch.profiler.record_function(WKV_RANGE):
+        with torch.profiler.record_function(name):
             out = fn(*a, **kw)
         wrapped.host_s += time.perf_counter() - t0
         return out
@@ -6452,7 +6501,7 @@ def rwkv_profiles(eng, tokens) -> None:
     from repro_torch.models import rwkv6
 
     real = rwkv6.wkv_chunked
-    rwkv6.wkv_chunked = wrapped = _wkv_profiled(real)
+    rwkv6.wkv_chunked = wrapped = _ranged(real, WKV_RANGE)
     state = {}
 
     def prefill():
@@ -6778,12 +6827,542 @@ def rwkv_phase(seed: int, smi: str) -> None:
         raise SystemExit("rwkv failed: " + "; ".join(failures))
 
 
+SEAMLESS_ARCH = "seamless-m4t-medium"
+# 8 requests of 1024 frames (~20 s of speech at 50 frames/s) and a 64-token
+# Zipf prompt each, 64 new tokens; then one batch at the encoder's
+# max_source_len (the JAX launch specs' 4096 frames), 8 new tokens
+SEAMLESS_SERVE = dict(batch=8, frames=1024, prompt=64, new_tokens=64)
+SEAMLESS_LONG = dict(batch=8, frames=4096, prompt=64, new_tokens=8)
+SEAMLESS_PROFILE_STEPS = 2
+# 10 steps of 4 x 512 tokens over 4 x 1024 random frames, all 12 + 12
+# layers (877.1e6 parameters: 14.0 GB of fp32 state)
+SEAMLESS_TRAIN = dict(batch=4, seq=512, frames=1024, steps=10)
+# the CPU tests' variants (tests/_torch_encdec.py): frames a row
+SEAMLESS_VARIANTS = {"reduced": 40, "long": 600, "g1": 600}
+SEAMLESS_CACHE_REL = 2e-2          # the cross cache, card vs CPU, in norm
+SEAMLESS_ENC_REL = 1e-2            # the encoder's output, card vs CPU
+ENCODE_RANGE = "chip_smoke.encode"
+CROSS_RANGE = "chip_smoke.cross_decode"
+
+
+def seamless_variant(reduced, name: str):
+    """The CPU tests' variants of the reduced seamless config
+    (``tests/_torch_encdec.py``): "reduced" and "long" as they are (40 and
+    600 frames); "g1" with G 1 in both stacks, the encoder at 8 heads of 32
+    (so RoPE at the decoder's width would show)."""
+    if name in ("reduced", "long"):
+        return reduced
+    if name != "g1":
+        raise ValueError(name)
+    enc = dataclasses.replace(reduced.encoder, num_heads=8, num_kv_heads=8)
+    return dataclasses.replace(reduced, num_kv_heads=reduced.num_heads,
+                               encoder=enc)
+
+
+def seamless_frames(seed: int, batch: int, frames: int, d: int, device):
+    """(batch, frames, d) fp32 frames, a standard normal from ``seed``,
+    drawn on ``device`` (zero frames would make the encoder's output 0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, frames, d), generator=gen, device=device)
+
+
+def seamless_held(cfg) -> int:
+    """The parameters the model holds (``num_params()`` leaves out the
+    cross-attention and the norms)."""
+    from repro_torch.models.transformer import _layer_shapes
+
+    def count(kind):
+        return sum(int(np.prod(shape)) for shape, _, _ in
+                   _layer_shapes(cfg, kind).values())
+    return (count("decoder") * cfg.num_layers
+            + count("encoder") * cfg.encoder.num_layers
+            + 2 * cfg.vocab_size * cfg.d_model + cfg.d_model
+            + cfg.encoder.d_model)
+
+
+def seamless_profiles(eng, batch, label: str) -> None:
+    """A profiled prefill of ``batch`` (wall, device busy time, idle share,
+    the encoder's device and host shares: a profiler range around
+    ``_encode``), then ``SEAMLESS_PROFILE_STEPS`` profiled decode steps
+    after two plain ones (busy, idle share, device operations a step, the
+    cross-attention's device share: a range around ``cross_decode``)."""
+    from repro_torch.models import attention, transformer
+
+    real_enc, real_cross = transformer._encode, attention.cross_decode
+    transformer._encode = enc = _ranged(real_enc, ENCODE_RANGE)
+    attention.cross_decode = cross = _ranged(real_cross, CROSS_RANGE)
+    state = {}
+    try:
+        def prefill():
+            enc.host_s = 0.0
+            t0 = time.perf_counter()
+            state["out"] = eng.prefill(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        prof, wall_ms = profiled(prefill, f"the seamless {label} prefill",
+                                 cpu=True)
+        ranges = (ENCODE_RANGE, CROSS_RANGE)
+        kernels = {} if prof is None else {
+            n: v for n, v in _kernel_time_by_name(prof, 1).items()
+            if n not in ranges}
+        busy = (sum(ms for ms, _ in kernels.values()) if kernels
+                else NOT_MEASURED)
+        enc_ms = (NOT_MEASURED if prof is None
+                  else _range_device_ms(prof, ENCODE_RANGE))
+        log("seamless", profile=f"prefill/{label}",
+            batch=batch["tokens"].shape[0],
+            prompt=batch["tokens"].shape[1],
+            frames=batch["frames"].shape[1],
+            profiled_prefill_ms=f"{wall_ms:.3f}",
+            device_busy_ms=f"{busy:.3f}",
+            idle_share=f"{1 - busy / wall_ms:.4f}",
+            device_ops=sum(n for _, n in kernels.values()),
+            encoder_device_ms=f"{enc_ms:.3f}",
+            encoder_share_of_busy=f"{enc_ms / busy:.4f}",
+            encoder_host_ms=f"{enc.host_s * 1e3:.3f}",
+            encoder_host_share_of_wall=f"{enc.host_s * 1e3 / wall_ms:.4f}")
+        for name, (ms, n) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            log("seamless", profile=f"prefill/{label}", ms=f"{ms:.4f}",
+                share=f"{ms / busy:.4f}", launches=n,
+                kernel=f"'{name[:90]}'")
+
+        logits, cache, _ = state.pop("out")
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = batch["tokens"].shape[1]
+        for _ in range(2):
+            tok, _, cache, _ = eng.decode(tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+
+        def steps():
+            nonlocal tok, cache, pos
+            cross.host_s = 0.0
+            t0 = time.perf_counter()
+            for _ in range(SEAMLESS_PROFILE_STEPS):
+                tok, _, cache, _ = eng.decode(tok, cache, pos)
+                pos += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / SEAMLESS_PROFILE_STEPS
+
+        n_steps = SEAMLESS_PROFILE_STEPS
+        prof, wall_ms = profiled(steps, f"the seamless {label} decode step",
+                                 cpu=True)
+        kernels = {} if prof is None else {
+            n: v for n, v in _kernel_time_by_name(prof, n_steps).items()
+            if n not in ranges}
+        busy = (sum(ms for ms, _ in kernels.values()) if kernels
+                else NOT_MEASURED)
+        cross_ms = (NOT_MEASURED if prof is None
+                    else _range_device_ms(prof, CROSS_RANGE) / n_steps)
+        log("seamless", profile=f"decode/{label}", decode_steps=n_steps,
+            frames=batch["frames"].shape[1],
+            profiled_step_ms=f"{wall_ms:.3f}",
+            device_busy_ms_per_step=f"{busy:.3f}",
+            idle_share=f"{1 - busy / wall_ms:.4f}",
+            device_ops_per_step=f"{sum(n for _, n in kernels.values()) / n_steps:.1f}",
+            cross_device_ms_per_step=f"{cross_ms:.3f}",
+            cross_share_of_busy=f"{cross_ms / busy:.4f}",
+            cross_host_ms_per_step=f"{cross.host_s * 1e3 / n_steps:.3f}",
+            cross_cache_gb=f"{2 * cache['cross_k'].numel() * 2 / 1e9:.4f}")
+        for name, (ms, n) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            log("seamless", profile=f"decode/{label}",
+                ms_per_step=f"{ms:.4f}", share=f"{ms / busy:.4f}",
+                per_step=f"{n / n_steps:.1f}", kernel=f"'{name[:90]}'")
+        del cache, logits
+    finally:
+        transformer._encode, attention.cross_decode = real_enc, real_cross
+
+
+def seamless_generate(eng, cfg, batch, label: str, smi: str,
+                      timed_first: bool) -> list:
+    """``eng.generate(batch)``, each prefill and decode step synchronised
+    and timed: prefill ms, decode step p50 and tokens/s, peak memory; every
+    request's tokens in range, every logit finite, no kernel launched. A
+    first, untimed-in-the-run prefill of the same batch comes first (cold
+    for ``timed_first``). Returns failures."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"prefill_ms": [], "decode_ms": [], "finite": True}
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed(fn, key, logits_at):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t1) * 1e3)
+            rec["finite"] &= bool(torch.isfinite(out[logits_at]).all())
+            return out
+        return run
+    new = eng.serve.max_len - batch["tokens"].shape[1]
+    eng.prefill = timed(prefill, "prefill_ms", 0)
+    eng.decode = timed(decode, "decode_ms", 1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        out, tele = eng.generate(batch, max_new_tokens=new)
+        torch.cuda.synchronize()
+    finally:
+        eng.prefill, eng.decode = prefill, decode
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = out.cpu().numpy()
+    dec = rec["decode_ms"]
+    p50 = float(np.median(dec))
+    B = batch["tokens"].shape[0]
+    log("seamless", run=f"serve/{cfg.name}/{label}", card=f"'{smi}'",
+        strategy="none", batch=B, prompt=batch["tokens"].shape[1],
+        frames=batch["frames"].shape[1], new_tokens=new,
+        first_prefill_ms=f"{first_ms:.3f}", first_was_cold=timed_first,
+        prefill_ms=f"{rec['prefill_ms'][0]:.3f}", decode_steps=len(dec),
+        decode_step_p50_ms=f"{p50:.3f}",
+        decode_step_min_max_ms=f"{min(dec):.3f},{max(dec):.3f}",
+        decode_toks_per_s=f"{B / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", logits_finite=rec["finite"],
+        kernel_launches=sum(launches.values()))
+    for r in range(B):
+        log("seamless", run=f"serve/{cfg.name}/{label}", request=r,
+            tokens=",".join(map(str, toks[r])))
+    failures = []
+    if any(launches.values()):
+        failures.append(f"serve {label}: kernel launches {launches}")
+    if toks.shape != (B, new) or (toks < 0).any() \
+            or (toks >= cfg.vocab_size).any():
+        failures.append(f"serve {label}: bad tokens of shape {toks.shape}")
+    if len(dec) != new - 1 or not rec["finite"] or tele != {}:
+        failures.append(f"serve {label}: {len(dec)} decode steps, finite "
+                        f"{rec['finite']}, telemetry {tele}")
+    return failures
+
+
+def seamless_serve(seed: int, smi: str) -> list:
+    """seamless-m4t-medium at published widths and all 12 + 12 layers,
+    random bf16 weights from ``seed``, through ``ServeEngine`` (strategy
+    none): ``SEAMLESS_SERVE`` (8 requests of 1024 random frames and a
+    64-token Zipf prompt, 64 new tokens), then ``SEAMLESS_LONG`` (8 x 4096
+    frames, 8 new tokens), each through ``seamless_generate`` and
+    ``seamless_profiles``. Returns failures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config(SEAMLESS_ARCH)
+    enc = cfg.encoder
+    log("seamless", model=cfg.name, layers=cfg.num_layers,
+        enc_layers=enc.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, max_source_len=enc.max_source_len,
+        params_formula=cfg.num_params(), params_held=seamless_held(cfg),
+        cross_cache_bytes_per_frame=2 * cfg.num_layers * cfg.num_kv_heads
+        * cfg.head_dim * 2,
+        reduced="'none: published widths, all 12 + 12 layers'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    log("seamless", model=cfg.name, init_s=f"{time.perf_counter() - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    failures = []
+    for i, (label, a) in enumerate((("serve", SEAMLESS_SERVE),
+                                    ("max_source_len", SEAMLESS_LONG))):
+        batch = {"tokens": next(token_batches(seed + i, cfg.vocab_size,
+                                              a["batch"], a["prompt"]))
+                 ["tokens"],
+                 "frames": seamless_frames(seed + i, a["batch"], a["frames"],
+                                           enc.d_model, "cuda")}
+        eng = ServeEngine(cfg, model, ServeConfig(
+            strategy="none", max_len=a["prompt"] + a["new_tokens"]))
+        failures += seamless_generate(eng, cfg, batch, label, smi,
+                                      timed_first=i == 0)
+        seamless_profiles(eng, batch, label)
+        del eng, batch
+        free_engines("seamless")
+    del model
+    free_engines("seamless")
+    return failures
+
+
+def seamless_encoder_grads(cfg, model, batch) -> dict:
+    """One forward and backward of ``make_loss_fn`` on ``batch``: the
+    gradient norms of the encoder's parameters, of the decoder's
+    cross-attention and of everything, fp64 on the host; the gradients are
+    cleared after."""
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.steps import make_loss_fn
+
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    loss, _ = make_loss_fn(cfg, Runtime())(model, batch)
+    loss.backward()
+    sums = dict.fromkeys(("encoder", "cross", "all"), 0.0)
+    for n, p in model.named_parameters():
+        g = float(p.grad.double().square().sum()) if p.grad is not None \
+            else 0.0
+        sums["all"] += g
+        if n.startswith("enc_layers.") or n == "enc_norm":
+            sums["encoder"] += g
+        if ".cross_" in n or n.endswith(".ln_cross"):
+            sums["cross"] += g
+        p.grad = None
+    return {k: float(np.sqrt(v)) for k, v in sums.items()}
+
+
+def seamless_train(seed: int, smi: str) -> list:
+    """Training at published widths and all 12 + 12 layers. First
+    ``python -m repro_torch.launch.train --arch seamless-m4t-medium``
+    (``main`` in this process: 10 steps of 4 x 512 Zipf tokens over the
+    launcher's zero frames, step times from its trace), held to what the
+    JAX launcher does there: zero frames make every encoder activation 0,
+    each of the encoder's RMSNorms then passes the gradient on times
+    1/sqrt(eps) = 1000, and over 12 layers it overflows (so do 8 at
+    reduced widths, in both packages: ``tests/test_torch_encdec_train.py``),
+    so step 0's
+    loss is finite, its gradient norm NaN, the weights turn NaN and the
+    launcher exits 1 (ROADMAP.md §3). Then
+    ``SEAMLESS_TRAIN`` through ``make_train_step`` at the launcher's
+    schedule, fp32 weights from ``seed``, every step's frames a random
+    normal: per step loss, grad norm, lr and ms; step p50, tokens/s, peak
+    memory, the model-FLOPs share of peak; no kernel launched; the loss
+    falls, and so does one batch's repeated at a fixed lr from fresh
+    moments; the encoder's and the cross-attention's gradients nonzero on
+    that batch; then ``train_breakdown``. Returns failures."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg, a = get_config(SEAMLESS_ARCH), SEAMLESS_TRAIN
+    failures = []
+    trace = os.path.join(ROOT, "build", "chip_smoke",
+                         "seamless_launch_train.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    argv = ["--arch", SEAMLESS_ARCH, "--steps", str(a["steps"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--lr", str(TRAIN_LR), "--log-every", "1", "--seed", str(seed),
+            "--device", "cuda", "--trace-out", trace]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rc, out, spans = _launch(launch_train, argv, "seamless", trace)
+    steps = spans.get("train_step", [])
+    first = next(line for line in out.splitlines()
+                 if line.startswith("step    0 "))
+    loss0 = float(first.split("loss=")[1].split()[0])
+    gnorm0 = float(first.split("gnorm=")[1].split()[0])
+    as_reference = rc == 1 and np.isfinite(loss0) and np.isnan(gnorm0)
+    log("seamless", run=f"launch.train/{SEAMLESS_ARCH}", card=f"'{smi}'",
+        argv=f"'{' '.join(argv)}'", rc=rc, step0_loss=loss0,
+        step0_grad_norm=gnorm0, as_the_jax_launcher=as_reference,
+        frames="zeros (batch, 64, 1024) bf16, the JAX launcher's",
+        step_ms=",".join(f"{v:.3f}" for v in steps),
+        step_ms_p50=f"{np.median(steps[1:]):.3f}" if len(steps) > 1
+        else "n/a",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        kernel_launches=sum(ops.LAUNCHES.values()))
+    if not as_reference or any(ops.LAUNCHES.values()):
+        failures.append(f"launch.train {SEAMLESS_ARCH}: exit {rc}, step 0 "
+                        f"loss {loss0} grad norm {gnorm0} (the JAX "
+                        "launcher: exit 1, a finite loss, a NaN norm), "
+                        f"launches {dict(ops.LAUNCHES)}")
+    free_engines("seamless")
+
+    run = f"seamless/{cfg.name}"
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("seamless", train=run, layers=cfg.num_layers,
+        enc_layers=cfg.encoder.num_layers, params_held=n_params,
+        state_gb=f"{16 * n_params / 1e9:.3f}", batch=a["batch"],
+        seq=a["seq"], frames=a["frames"], steps=a["steps"], base_lr=TRAIN_LR,
+        reduced="'none: published widths, all 12 + 12 layers'")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, Runtime(), lr_fn=build_lr_fn(
+        cfg, TRAIN_LR, a["steps"]))
+    gen = token_batches(seed, cfg.vocab_size, a["batch"], a["seq"])
+    step_ms, losses = [], []
+    for i in range(a["steps"]):
+        batch = dict(next(gen), frames=seamless_frames(
+            seed + 100 + i, a["batch"], a["frames"], cfg.encoder.d_model,
+            "cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        log("seamless", train=run, step=i, loss=f"{losses[-1]:.6f}",
+            grad_norm=f"{float(m['grad_norm']):.6g}",
+            lr=f"{float(m['lr']):.6g}", step_ms=f"{step_ms[-1]:.3f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(ops.LAUNCHES)
+    p50 = float(np.median(step_ms[1:]))
+    tokens = a["batch"] * a["seq"]
+    mflops = model_flops(cfg, InputShape("train", a["seq"], a["batch"],
+                                         "train"))
+    log("seamless", train=run, card=f"'{smi}'", steps=len(step_ms),
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms=",".join(f"{v:.3f}" for v in step_ms),
+        step_ms_p50=f"{p50:.3f}", tokens_per_s=f"{tokens / p50 * 1e3:.2f}",
+        frames_per_s=f"{a['batch'] * a['frames'] / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        note="6 x num_params() x decoder tokens, the JAX formula (it counts "
+             "the encoder's weights at the decoder's tokens, and neither "
+             "the cross-attention nor the frames)",
+        kernel_launches=sum(launches.values()))
+    if any(launches.values()):
+        failures.append(f"train launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"train loss {losses[0]} -> {losses[-1]}")
+    del opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = dict(next(token_batches(seed + 1, cfg.vocab_size, a["batch"],
+                                    a["seq"])),
+                 frames=seamless_frames(seed + 1, a["batch"], a["frames"],
+                                        cfg.encoder.d_model, "cuda"))
+    norms = seamless_encoder_grads(cfg, model, batch)
+    log("seamless", train=run, **{f"grad_norm_{k}": f"{v:.6g}"
+                                  for k, v in norms.items()})
+    if not (np.isfinite(norms["all"]) and norms["encoder"] > 0
+            and norms["cross"] > 0):
+        failures.append(f"encoder / cross-attention gradients {norms}")
+    rl = _dense_repeat(cfg, model, batch, remat=False)
+    log("seamless", train=run, repeat_batch_losses=",".join(
+        f"{v:.6f}" for v in rl), lr=TRAIN_REPEAT_LR, falls=rl[-1] < rl[0])
+    if not rl[-1] < rl[0]:
+        failures.append(f"the repeated batch's loss did not fall: {rl}")
+    opt = init_opt_state(model)
+    train_breakdown(run, cfg, model, opt, batch)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def _seamless_run(model, cfg, tokens, frames, forced):
+    """The encoder's output over ``frames``, a prefill of ``tokens`` (B, S)
+    and one decode step a column of ``forced`` (B, n), through ``forward``
+    as ``ServeEngine``'s steps call it. Returns (logits (1 + n, B, V) fp32,
+    the encoder's output fp32, the cross cache {"cross_k", "cross_v"}
+    fp32), on the host."""
+    from repro_torch.models.transformer import (Runtime, _encode, forward,
+                                                init_cache)
+
+    dev, rt = model.device, Runtime()
+    B, S = tokens.shape
+    f = torch.tensor(frames, device=dev)
+    with torch.inference_mode():
+        enc = _encode(model, cfg, f).to("cpu", torch.float32, copy=True)
+        cache = init_cache(cfg, rt, B, S + forced.shape[1], device=dev)
+        lg, cache, _ = forward(model, cfg, torch.tensor(tokens, device=dev),
+                               rt, mode="prefill", cache=cache, frames=f)
+        logits = [lg[:, -1].float().cpu()]
+        for i in range(forced.shape[1]):
+            lg, cache, _ = forward(model, cfg, torch.tensor(
+                forced[:, i:i + 1], device=dev), rt, mode="decode",
+                cache=cache, cache_len=S + i)
+            logits.append(lg[:, -1].float().cpu())
+    cross = {k: cache[k].to("cpu", torch.float32, copy=True)
+             for k in ("cross_k", "cross_v")}
+    return torch.stack(logits), enc, cross
+
+
+def seamless_card_vs_cpu(seed: int) -> None:
+    """The reduced seamless config and its ``long`` (600 frames: two key
+    blocks, the second padded) and ``g1`` (G 1, the encoder at 8 heads of
+    32, 600 frames) variants on the card against the same bridged weights
+    on the CPU: the encoder's output, a prefill of 2 x 24 tokens and two
+    decode steps. Logits within 5e-2 x their largest magnitude (bf16
+    activations, sums in other orders), the encoder's output within
+    ``SEAMLESS_ENC_REL`` and the cross cache within ``SEAMLESS_CACHE_REL``
+    in norm (``rel_err``), no kernel launched on either side."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+
+    failures = []
+    for name, n_frames in SEAMLESS_VARIANTS.items():
+        cfg = seamless_variant(get_config(SEAMLESS_ARCH).reduced(), name)
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+        forced = rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)
+        frames = rng.normal(size=(2, n_frames, cfg.encoder.d_model)).astype(
+            np.float32)
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+        ops.reset_launches()
+        lg_c, enc_c, cross_c = _seamless_run(gpu, cfg, tokens, frames, forced)
+        lg_h, enc_h, cross_h = _seamless_run(cpu, cfg, tokens, frames, forced)
+        launches = dict(ops.LAUNCHES)
+        err = float((lg_c - lg_h).abs().max())
+        scale = float(lg_h.abs().max())
+        enc = rel_err(enc_c, enc_h)
+        cross = max(rel_err(cross_c[k], cross_h[k]) for k in cross_c)
+        ok = (bool(torch.isfinite(lg_c).all()) and err <= 5e-2 * max(scale, 1.0)
+              and enc <= SEAMLESS_ENC_REL and cross <= SEAMLESS_CACHE_REL
+              and tuple(cross_c["cross_k"].shape)[2] == n_frames
+              and not any(launches.values()))
+        log("seamless", card_vs_cpu=f"{cfg.name}/{name}", frames=n_frames,
+            kv_heads=cfg.num_kv_heads, enc_heads=cfg.encoder.num_heads,
+            steps="prefill 2x24 + 2 decode", max_abs_err=f"{err:.6g}",
+            logit_scale=f"{scale:.6g}", encoder_rel_err=f"{enc:.6g}",
+            cross_cache_rel_err=f"{cross:.6g}",
+            tolerance=f"5e-2 x max|logit|; encoder {SEAMLESS_ENC_REL}, "
+                      f"cross cache {SEAMLESS_CACHE_REL} in norm",
+            kernel_launches=sum(launches.values()), ok=ok)
+        if not ok:
+            failures.append(name)
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"reduced seamless-m4t-medium on the card disagrees "
+                         f"with the CPU path: {failures}")
+
+
+def seamless_phase(seed: int, smi: str) -> None:
+    """Phase seamless: seamless-m4t-medium served through ``ServeEngine``
+    at all 12 + 12 layers (``seamless_serve``), trained through
+    ``launch.train`` and ``make_train_step`` (``seamless_train``), its
+    reduced config and variants card against CPU
+    (``seamless_card_vs_cpu``). Frees what earlier phases hold first."""
+    free_engines("seamless")
+    t0 = time.perf_counter()
+    failures = seamless_serve(seed, smi)
+    t1 = time.perf_counter()
+    failures += seamless_train(seed, smi)
+    t2 = time.perf_counter()
+    seamless_card_vs_cpu(seed)
+    log("seamless", serve_s=f"{t1 - t0:.3f}", train_s=f"{t2 - t1:.3f}",
+        checks_s=f"{time.perf_counter() - t2:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("seamless failed: " + "; ".join(failures))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
-                          "rwkv", "train")
+                          "rwkv", "seamless", "train")
 
 
 def main() -> int:
@@ -6885,6 +7464,8 @@ def main() -> int:
         mla_phase(args.seed, smi)
     if "rwkv" in phases:
         rwkv_phase(args.seed, smi)
+    if "seamless" in phases:
+        seamless_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in

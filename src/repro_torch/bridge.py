@@ -12,7 +12,11 @@ or gelu model's experts keep the ``w_gate`` the JAX tree holds and never
 reads; the dense family's ``ffn.*`` as ``w_gate`` / ``w_up`` /
 ``w_down``, its Q/K/V biases ``attn.w*.b`` as ``bq`` / ``bk`` / ``bv``;
 RWKV's ``time_mix.*`` and ``channel_mix.*`` as ``tm_*`` and ``cm_*``, the
-dense weights' ``.w`` and ``ln_out.scale`` dropped from the name);
+dense weights' ``.w`` and ``ln_out.scale`` dropped from the name; an
+encoder-decoder's ``cross.*`` and ``ln_cross`` as ``cross_w*`` and
+``ln_cross``, its encoder stack ``enc_layers`` (``attn.*``, ``ffn.*``,
+``ln1``, ``ln2``) split into ``enc_layers[l]`` as ``layers`` is, and
+``enc_norm`` at the top);
 hybrid models keep a list of per-layer trees (``hybrid_layers``:
 ``rec.*`` or ``attn.*``, ``ffn.*``, ``ln1``, ``ln2``). Every weight keeps
 its ``(d_in, d_out)`` layout. Two of the JAX tree's shapes have no
@@ -51,14 +55,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (RWKV_BLOCKS, WEIGHT_DTYPE,
+from repro_torch.models.transformer import (CROSS, RWKV_BLOCKS, WEIGHT_DTYPE,
                                             Transformer, _layer_kind,
                                             _layer_shapes)
 from repro_torch.optim.adamw import AdamWState
 
 # JAX key path -> port parameter name
 TOP_KEYS = {("embed", "table"): "embed", ("final_norm", "scale"): "final_norm",
-            ("lm_head", "w"): "lm_head"}
+            ("lm_head", "w"): "lm_head", ("enc_norm", "scale"): "enc_norm"}
 LAYER_KEYS = {
     ("ln1", "scale"): "ln1", ("ln2", "scale"): "ln2",
     ("attn", "wq", "w"): "wq", ("attn", "wk", "w"): "wk",
@@ -85,11 +89,16 @@ LAYER_KEYS = {
     # the dense family's FFN
     ("ffn", "w_gate"): "w_gate", ("ffn", "w_up"): "w_up",
     ("ffn", "w_down"): "w_down",
+    # an encoder-decoder's cross-attention (its projections' biases under
+    # qkv_bias)
+    ("ln_cross", "scale"): "ln_cross",
+    **{("cross", f"w{c}", "w"): f"{CROSS}w{c}" for c in "qkvo"},
+    **{("cross", f"w{c}", "b"): f"{CROSS}b{c}" for c in "qkv"},
 }
 # the norms a non-parametric config holds as empty dicts in the JAX tree
 _EMPTY_NORMS = ("ln1", "ln2")
 _TOP_DTYPES = {"embed": WEIGHT_DTYPE, "final_norm": torch.float32,
-               "lm_head": WEIGHT_DTYPE}
+               "lm_head": WEIGHT_DTYPE, "enc_norm": torch.float32}
 # one hybrid layer's JAX key path -> port parameter name
 _REC_KEYS = {("rec", n, "w") if n.startswith("w_") else ("rec", n): "rec_" + n
              for n in ("w_gate", "w_main", "conv_w", "conv_b", "w_a", "w_x",
@@ -108,18 +117,27 @@ def _rwkv_path(block: str, n: str):
 def _top_keys(cfg: ModelConfig):
     """JAX key path -> port name of the top-level leaves the config has."""
     return {path: name for path, name in TOP_KEYS.items()
-            if not (name == "final_norm" and cfg.norm != "rmsnorm")
-            and not (name == "lm_head" and cfg.tie_embeddings)}
+            if not (name in ("final_norm", "enc_norm")
+                    and cfg.norm != "rmsnorm")
+            and not (name == "lm_head" and cfg.tie_embeddings)
+            and not (name == "enc_norm" and not cfg.is_encdec)}
 
 
-def _stack_keys(cfg: ModelConfig):
-    """JAX key path (under ``layers``) -> port name for a uniform stack's
-    layer: the keys the config has, the MoE block's or the FFN's (RWKV's:
-    its time and channel mix's)."""
-    kind = _layer_kind(cfg, 0)
+def _empty_norms(kind: str):
+    """The norms a non-parametric config's layer of ``kind`` holds as
+    empty dicts in the JAX tree."""
+    return _EMPTY_NORMS + (("ln_cross",) if kind == "decoder" else ())
+
+
+def _stack_keys(cfg: ModelConfig, kind=None):
+    """JAX key path (under ``layers``, or ``enc_layers`` for ``kind``
+    "encoder") -> port name for a uniform stack's layer: the keys the
+    config has, the MoE block's or the FFN's (RWKV's: its time and channel
+    mix's; a decoder's also its cross-attention's)."""
+    kind = kind or _layer_kind(cfg, 0)
     names = _layer_shapes(cfg, kind)
-    blocks = ("ln1", "ln2") + (() if kind == "rwkv" else
-                               ("moe" if cfg.is_moe else "ffn", "attn"))
+    blocks = ("ln1", "ln2", "cross", "ln_cross") + (
+        () if kind == "rwkv" else ("moe" if cfg.is_moe else "ffn", "attn"))
     keys = {path: name for path, name in LAYER_KEYS.items()
             if name in names and path[0] in blocks}
     if kind == "rwkv":
@@ -169,12 +187,16 @@ def _flat_from_jax(tree: Dict[str, Any], cfg: ModelConfig
             for path, name in _hybrid_keys(cfg, _layer_kind(cfg, l)).items():
                 out[f"layers.{l}.{name}"] = np.asarray(_get(sub, path))
         return out
-    for path, name in _stack_keys(cfg).items():
-        a = np.asarray(_get(tree["layers"], path))
-        if a.shape[:1] != (L,):
-            raise ValueError(f"layers.{name}: shape {a.shape}, expected "
-                             f"({L}, ...)")
-        out.update((f"layers.{l}.{name}", a[l]) for l in range(L))
+    stacks = [("layers", None, L)]
+    if cfg.is_encdec:
+        stacks.append(("enc_layers", "encoder", cfg.encoder.num_layers))
+    for stack, kind, n in stacks:
+        for path, name in _stack_keys(cfg, kind).items():
+            a = np.asarray(_get(tree[stack], path))
+            if a.shape[:1] != (n,):
+                raise ValueError(f"{stack}.{name}: shape {a.shape}, "
+                                 f"expected ({n}, ...)")
+            out.update((f"{stack}.{l}.{name}", a[l]) for l in range(n))
     return out
 
 
@@ -184,6 +206,8 @@ def _jax_from_flat(model: Transformer, leaf) -> Dict[str, Any]:
     cfg = model.cfg
     empty = cfg.norm != "rmsnorm"        # the JAX tree's {} norms
     tree: Dict[str, Any] = {"final_norm": {}} if empty else {}
+    if empty and cfg.is_encdec:
+        tree["enc_norm"] = {}
     for path, name in _top_keys(cfg).items():
         _put(tree, path, leaf(name))
     if cfg.family == "hybrid":
@@ -195,11 +219,16 @@ def _jax_from_flat(model: Transformer, leaf) -> Dict[str, Any]:
                 _put(sub, path, leaf(f"layers.{l}.{name}"))
             tree["hybrid_layers"].append(sub)
         return tree
-    tree["layers"] = {k: {} for k in _EMPTY_NORMS} if empty else {}
-    for path, name in _stack_keys(cfg).items():
-        _put(tree, ("layers",) + path,
-             np.stack([leaf(f"layers.{l}.{name}")
-                       for l in range(len(model.layers))]))
+    stacks = [("layers", _layer_kind(cfg, 0), model.layers)]
+    if cfg.is_encdec:
+        stacks.append(("enc_layers", "encoder", model.enc_layers))
+    for stack, kind, layers in stacks:
+        tree[stack] = ({k: {} for k in _empty_norms(kind)} if empty
+                       else {})
+        for path, name in _stack_keys(cfg, kind).items():
+            _put(tree, (stack,) + path,
+                 np.stack([leaf(f"{stack}.{l}.{name}")
+                           for l in range(len(layers))]))
     return tree
 
 
@@ -219,18 +248,23 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         return torch.float32 if trainable else dt
     top = {name: _tensor(flat[name], dtype(_TOP_DTYPES[name]), dev)
            for name in _top_keys(cfg).values()}
-    layers = []
-    for l in range(cfg.num_layers):
-        t = {}
-        for name, (shape, _, dt) in _layer_shapes(
-                cfg, _layer_kind(cfg, l)).items():
-            a = flat[f"layers.{l}.{name}"]
-            if a.shape != shape:
-                raise ValueError(f"layers[{l}].{name}: shape {a.shape}, "
-                                 f"expected {shape}")
-            t[name] = _tensor(a, dtype(dt), dev)
-        layers.append(t)
-    return Transformer(cfg, top, layers, trainable)
+    def stack(prefix, kinds):
+        out = []
+        for l, kind in enumerate(kinds):
+            t = {}
+            for name, (shape, _, dt) in _layer_shapes(cfg, kind).items():
+                a = flat[f"{prefix}.{l}.{name}"]
+                if a.shape != shape:
+                    raise ValueError(f"{prefix}[{l}].{name}: shape {a.shape}, "
+                                     f"expected {shape}")
+                t[name] = _tensor(a, dtype(dt), dev)
+            out.append(t)
+        return out
+    layers = stack("layers", [_layer_kind(cfg, l)
+                              for l in range(cfg.num_layers)])
+    enc_layers = (stack("enc_layers", ["encoder"] * cfg.encoder.num_layers)
+                  if cfg.is_encdec else [])
+    return Transformer(cfg, top, layers, trainable, enc_layers)
 
 
 def params_to_jax(model: Transformer) -> Dict[str, Any]:

@@ -6,15 +6,19 @@ dense or MoE FFN (the dense family with QKV biases, a non-parametric
 LayerNorm or tied embeddings), DeepSeek's MoE with multi-head latent
 attention (MLA) and always-on shared experts, the hybrid family
 (Griffin: RG-LRU recurrent blocks and local attention, in a repeating
-``block_pattern``) and the attention-free ``ssm`` family (RWKV-6:
-``attention="none"``, a time mix and a relu^2 channel mix). Field names
-and defaults follow the JAX package's configs, so a config means the same
-model in both packages. Configs are plain frozen dataclasses.
+``block_pattern``), the attention-free ``ssm`` family (RWKV-6:
+``attention="none"``, a time mix and a relu^2 channel mix) and the
+``audio`` encoder-decoder (SeamlessM4T: a bidirectional ``EncoderConfig``
+stack over frame embeddings under a GQA decoder with cross-attention).
+Field names and defaults follow the JAX package's configs, so a config
+means the same model in both packages. Configs are plain frozen
+dataclasses.
 
 ``reduced()`` derives the CPU-smoke variant (<=2 layers, or one block
 pattern; d_model<=256, <=4 experts, <=1 shared expert, a dense residual
-branch <=256 wide, an MLA latent of 64 with 32-wide heads) used by the
-tests; it shrinks exactly the dimensions the JAX package's ``reduced()``
+branch <=256 wide, an MLA latent of 64 with 32-wide heads, an encoder of 2
+layers, d 256, 4 heads, 2 KV heads, F 512 over at most 64 frames) used by
+the tests; it shrinks exactly the dimensions the JAX package's ``reduced()``
 shrinks. ``num_params()`` / ``active_params()`` are the JAX package's
 analytic counts, and ``INPUT_SHAPES`` its four assigned step shapes (the
 roofline's inputs).
@@ -75,9 +79,20 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec (seamless-m4t) architectures."""
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    max_source_len: int = 4096
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                          # dense | moe | hybrid | ssm
+    family: str                          # dense | moe | hybrid | ssm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -94,6 +109,7 @@ class ModelConfig:
     tie_embeddings: bool = False         # logits read the embedding table
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    encoder: Optional[EncoderConfig] = None
     # hybrid (recurrentgemma): block pattern repeated over layers
     block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")
     rnn_width: int = 0                   # RG-LRU recurrence width (0 = d_model)
@@ -109,11 +125,17 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe is not None
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None
+
     def num_params(self) -> int:
         """Analytical parameter count (embedding + blocks + head), the JAX
         package's formula: a hybrid counts every layer's attention as GQA
         and its FFN, and RWKV's time mix as ``6 d^2 / 2``, as the reference
-        does."""
+        does. An encoder adds ``4 d H (d / H)`` and its FFN a layer, whatever
+        its KV heads, with the decoder's FFN matrix count; neither the
+        decoder's cross-attention nor any norm scale is counted."""
         mla = self.attention == "mla"
         ssm = self.attention == "none" and self.family == "ssm"
         if not (self.attention in ("gqa", "mixed")
@@ -149,7 +171,14 @@ class ModelConfig:
             per_layer += d * e.num_experts                    # router
         else:
             per_layer += ff_mult * d * self.d_ff
-        return emb + L * per_layer
+        total = emb + L * per_layer
+        if self.encoder is not None:
+            enc = self.encoder
+            enc_layer = 4 * enc.d_model * enc.num_heads * (enc.d_model
+                                                           // enc.num_heads)
+            enc_layer += ff_mult * enc.d_model * enc.d_ff
+            total += enc.num_layers * enc_layer
+        return total
 
     def active_params(self) -> int:
         """Active (per-token) parameter count: MoE counts only top_k
@@ -191,6 +220,10 @@ class ModelConfig:
             changes["mla"] = dataclasses.replace(
                 self.mla, kv_lora_rank=64, rope_head_dim=32,
                 nope_head_dim=32, v_head_dim=32)
+        if self.encoder is not None:
+            changes["encoder"] = dataclasses.replace(
+                self.encoder, num_layers=2, d_model=256, num_heads=4,
+                num_kv_heads=2, d_ff=512, max_source_len=64)
         if self.block_pattern:
             changes["num_layers"] = len(self.block_pattern)
         return dataclasses.replace(self, **changes)

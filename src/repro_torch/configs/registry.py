@@ -2,9 +2,9 @@
 port serves so far: the MoE models (Mixtral, the paper's Appendix C
 models, and DeepSeek-V2-Lite with MLA attention and shared experts), the
 hybrid RecurrentGemma-2B, the dense family (Qwen1.5-0.5B, OLMo-1B,
-StableLM-3B, MiniCPM-2B) and the attention-free RWKV-6 7B. The JAX
-package's other configs wait for their families (ROADMAP.md §1 items
-2e-2f)."""
+StableLM-3B, MiniCPM-2B), the attention-free RWKV-6 7B and the
+encoder-decoder SeamlessM4T-medium. The JAX package's VLM config waits for
+its prefix input (ROADMAP.md §1 item 2f)."""
 
 from __future__ import annotations
 
@@ -30,6 +30,8 @@ _MODULES = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     # attention-free: the RWKV-6 time mix and relu^2 channel mix
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    # the encoder-decoder: a frame encoder and the decoder's cross-attention
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 ALL_ARCHS = list(_MODULES)

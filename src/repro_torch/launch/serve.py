@@ -16,6 +16,11 @@ nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
 One card has no data axis, so ``--data-mesh`` must then be 1, and each
 prompt of ``--seq`` tokens splits over the ranks.
 
+An encoder-decoder (seamless-m4t-medium) fails in the forward with
+``KeyError``: the launcher sends tokens and no frames, as the JAX launcher
+does, and the encoder needs them (``ServeEngine.generate`` with
+``batch["frames"]`` serves it).
+
 A model without MoE (the dense family, Griffin, RWKV) has no experts to
 balance:
 its ``--strategy`` is "none" (the default there; the default for a MoE

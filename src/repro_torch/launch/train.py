@@ -8,6 +8,13 @@ Zipf-distributed token batches from the same seed.
       --reduced --device cpu --steps 20 --batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
       --reduced --device cpu --steps 20 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch seamless-m4t-medium --reduced --device cpu --steps 20
+
+An encoder-decoder's encoder is fed zero frames of (batch, min(64,
+max_source_len), d_enc) in bf16 every step, as the JAX launcher feeds them
+(the encoder's output is then zero, and so is what the cross-attention
+adds).
 
 It takes the JAX launcher's flags, prints its lines and returns its code:
 0 when the last step's loss is below the first. ``--device`` (default
@@ -132,6 +139,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for step in range(args.steps):
         batch = next(gen)
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros(
+                (args.batch, min(64, cfg.encoder.max_source_len),
+                 cfg.encoder.d_model), dtype=torch.bfloat16, device=dev)
         with tracer.span("train_step", cat="train", args={"step": step}):
             opt, metrics = step_fn(model, opt, batch, plan)
             losses.append(float(metrics["loss"]))

@@ -1,8 +1,10 @@
 """GQA attention: projection with RoPE, chunked online-softmax training
 attention and prefill, paged decode over the shared KV block pool, and
 decode over a contiguous per-batch cache, linear or a rotating window
-buffer. DeepSeek's multi-head latent attention (MLA) over a compressed
-latent cache (``mla_*``, below).
+buffer. An encoder-decoder's cross-attention over the encoder's output
+(``cross_attention``; in decode over the cached cross K and V,
+``cross_decode``). DeepSeek's multi-head latent attention (MLA) over a
+compressed latent cache (``mla_*``, below).
 
 Prefill follows the JAX package's ``chunked_attention`` block for block
 (scores in the activation dtype, probabilities cast to V's dtype before
@@ -207,6 +209,34 @@ def decode_attention(q, k_cache, v_cache, *, cache_len, window=0):
     p = torch.softmax(s.float(), dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     return out.to(q.dtype).reshape(B, 1, H, hd)
+
+
+def cross_attention(p, cfg: ModelConfig, x, enc_out):
+    """Full (non-causal) cross-attention of the decoder stream x (B, S, d)
+    over the encoder's output enc_out (B, Se, d_enc), without RoPE (the JAX
+    package's ``cross_attention``). ``p``: GQA's {"wq", "wk", "wv", "wo"}
+    (and biases). Returns (out (B, S, d), k, v): k and v (B, Se, K, hd),
+    for the cross cache."""
+    B, S, _ = x.shape
+    Se = enc_out.shape[1]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, H, hd)
+    k = dense(p["wk"], enc_out, p.get("bk")).reshape(B, Se, K, hd)
+    v = dense(p["wv"], enc_out, p.get("bv")).reshape(B, Se, K, hd)
+    out = chunked_attention(q, k, v, causal=False)
+    return dense(p["wo"], out.reshape(B, S, -1)), k, v
+
+
+def cross_decode(p, cfg: ModelConfig, x, cross_k, cross_v):
+    """One token's cross-attention over the whole cached source: x (B, 1,
+    d); cross_k / cross_v (B, Se, K, hd) from the prefill. Probabilities
+    and the PV product in fp32 (``decode_attention`` at ``cache_len`` Se,
+    as the JAX decode step calls it)."""
+    B = x.shape[0]
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, 1, cfg.num_heads,
+                                               cfg.head_dim)
+    out = decode_attention(q, cross_k, cross_v, cache_len=cross_k.shape[1])
+    return dense(p["wo"], out.reshape(B, 1, -1))
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,

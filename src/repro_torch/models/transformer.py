@@ -1,5 +1,5 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
-package's ``init_model`` tree, for four families:
+package's ``init_model`` tree, for five families:
 
 * the uniform-stack decoder-only MoE models: GQA ones (Mixtral, the
   paper's Appendix C models llama-moe-3.5b and switch-base-128, and
@@ -18,7 +18,16 @@ package's ``init_model`` tree, for four families:
   layers over a rotating window buffer, each followed by a dense FFN;
 * the attention-free ``ssm`` family (RWKV-6): every layer a time mix
   (``models.rwkv6``: token shift, data-dependent decay, the chunked WKV
-  recurrence) and a relu^2 channel mix, over a stacked recurrent state.
+  recurrence) and a relu^2 channel mix, over a stacked recurrent state;
+* the ``audio`` encoder-decoder (SeamlessM4T): a bidirectional encoder
+  stack (``enc_layers``, ``enc_norm``; ``_encode``) over stub frame
+  embeddings, at the encoder's own widths (``encoder_config``) with RoPE at
+  the frame positions, and GQA decoder layers that attend, after their
+  self-attention, over the encoder's output (``ln_cross`` and the
+  ``cross_*`` projections; no RoPE). Train and prefill run the encoder on
+  ``frames``; prefill keeps each layer's cross K and V in the cache
+  (``cross_k`` / ``cross_v``), which decode reads in full and the encoder
+  never runs again.
 
 Execution modes (``Transformer.forward``):
   train   — full causal pass, logits over the whole sequence, no cache
@@ -37,8 +46,8 @@ Execution modes (``Transformer.forward``):
             the whole batch (``ServeEngine``; MLA decodes this way only;
             RWKV's state needs no position and ignores ``cache_len``).
 
-Refused until their families are ported (ROADMAP.md §1): the
-encoder-decoder (item 2e) and the VLM prefix input (2f).
+Refused until its family is ported (ROADMAP.md §1): the VLM prefix input
+(item 2f).
 
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
@@ -70,6 +79,7 @@ the serving model computes.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, NamedTuple, Optional
 
@@ -94,8 +104,7 @@ WEIGHT_DTYPE = torch.bfloat16
 # a forward's stats for a model without MoE, as the JAX forward gives them
 NO_MOE_STATS = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
 # families the port does not serve yet, with their ROADMAP.md §1 items
-UNPORTED_FAMILIES = {"audio": "the encoder-decoder (ROADMAP.md §1 item 2e)",
-                     "vlm": "the VLM prefix input (ROADMAP.md §1 item 2f)"}
+UNPORTED_FAMILIES = {"vlm": "the VLM prefix input (ROADMAP.md §1 item 2f)"}
 # an RWKV layer's parameter name prefixes -> the JAX tree's blocks
 RWKV_BLOCKS = {"tm_": "time_mix", "cm_": "channel_mix"}
 
@@ -126,6 +135,7 @@ class StoreView(NamedTuple):
 # projections (``models.attention.mla_*``)
 ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_dkv", "w_krope",
               "w_uk", "w_uv", "w_q")
+CROSS = "cross_"                 # a decoder layer's cross-attention prefix
 
 
 def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
@@ -133,20 +143,38 @@ def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
 
 
 def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
-    """"attn" for the uniform stack, "rwkv" for the ssm family; the block
-    pattern's entry ("recurrent" or "local") for hybrid models."""
+    """"attn" for the uniform stack, "rwkv" for the ssm family, "decoder"
+    for an encoder-decoder's decoder stack; the block pattern's entry
+    ("recurrent" or "local") for hybrid models."""
     if cfg.family == "ssm":
         return "rwkv"
+    if cfg.is_encdec:
+        return "decoder"
     if cfg.family == "hybrid":
         return cfg.block_pattern[layer_idx % len(cfg.block_pattern)]
     return "attn"
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder-decoder's encoder layers run under (the JAX
+    ``_encode``'s): the encoder's widths, ``head_dim`` its ``d_model //
+    num_heads``, GQA attention and a dense FFN, the model's norm,
+    activation and RoPE."""
+    enc = cfg.encoder
+    return dataclasses.replace(
+        cfg, num_layers=enc.num_layers, d_model=enc.d_model,
+        num_heads=enc.num_heads, num_kv_heads=enc.num_kv_heads,
+        d_ff=enc.d_ff, moe=None, encoder=None, attention="gqa",
+        head_dim=enc.d_model // enc.num_heads)
+
+
 class DecoderLayer(nn.Module):
     """One block. Weights are (d_in, d_out). ``kind`` "attn": attention +
-    MoE FFN (a dense FFN in a model without MoE); "recurrent": recurrent
-    block (``rec_*``) + FFN; "local": local attention + FFN; "rwkv": time
-    mix (``tm_*``) + channel mix (``cm_*``)."""
+    MoE FFN (a dense FFN in a model without MoE); "decoder": the same, with
+    cross-attention (``ln_cross``, ``cross_*``) between them; "encoder": an
+    encoder layer (attention + FFN at the encoder's widths); "recurrent":
+    recurrent block (``rec_*``) + FFN; "local": local attention + FFN;
+    "rwkv": time mix (``tm_*``) + channel mix (``cm_*``)."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
                  kind: str = "attn", trainable: bool = False):
@@ -159,6 +187,12 @@ class DecoderLayer(nn.Module):
         """The projections (GQA's or MLA's), and their biases where the
         config has them."""
         return {n: getattr(self, n) for n in ATTN_NAMES if hasattr(self, n)}
+
+    def cross_params(self):
+        """A decoder layer's cross-attention projections (and biases)
+        under GQA's names."""
+        return {n: getattr(self, CROSS + n) for n in ATTN_NAMES
+                if hasattr(self, CROSS + n)}
 
     def moe_params(self):
         """The MoE block's weights: router and experts, and the shared
@@ -207,12 +241,16 @@ class Transformer(nn.Module):
       (H*hd, d), tm_decay_base (H*hd,), tm_decay_lora_a (d, 64),
       tm_decay_lora_b (64, H*hd), tm_bonus (H, hd), tm_ln_out (H*hd,); the
       channel mix cm_mu (2, d), cm_w_k (d, F), cm_w_v (F, d), cm_w_r (d, d).
+      Encoder-decoder: enc_norm (d_enc,) at the top; decoder layers add
+      ln_cross (d,) and cross_wq (d, H*hd), cross_wk / cross_wv (d, K*hd),
+      cross_wo (H*hd, d); ``enc_layers[l]`` hold ln1, ln2, wq, wk, wv, wo
+      and the FFN at the encoder's widths (``encoder_config``).
     ``trainable``: the parameters require gradients (the tensors given are
     then fp32).
     """
 
     def __init__(self, cfg: ModelConfig, top: Dict[str, torch.Tensor],
-                 layers, trainable: bool = False):
+                 layers, trainable: bool = False, enc_layers=()):
         super().__init__()
         check_config(cfg)
         self.cfg = cfg
@@ -221,6 +259,8 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, t, _layer_kind(cfg, l), trainable)
             for l, t in enumerate(layers))
+        self.enc_layers = nn.ModuleList(
+            DecoderLayer(cfg, t, "encoder", trainable) for t in enc_layers)
 
     @property
     def device(self) -> torch.device:
@@ -229,11 +269,12 @@ class Transformer(nn.Module):
     def forward(self, tokens, rt: Runtime = Runtime(), *, mode: str,
                 cache=None, cache_len=None, block_tables=None,
                 last_pos=None, token_weight=None, plan=None, store=None,
-                resched=None, remat=False):
+                resched=None, remat=False, frames=None):
         return forward(self, self.cfg, tokens, rt, mode=mode, cache=cache,
                        cache_len=cache_len, block_tables=block_tables,
                        last_pos=last_pos, token_weight=token_weight,
-                       plan=plan, store=store, resched=resched, remat=remat)
+                       plan=plan, store=store, resched=resched, remat=remat,
+                       frames=frames)
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -242,13 +283,21 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED_FAMILIES:
         raise ValueError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} is "
                          "not ported yet")
+    if cfg.is_encdec != (cfg.family == "audio"):
+        raise ValueError(f"{cfg.name}: an encoder comes with the audio "
+                         "family's encoder-decoder only, and that family "
+                         f"needs one (family {cfg.family!r}, encoder "
+                         f"{cfg.encoder})")
     hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
     uniform = cfg.family in ("moe", "dense") and cfg.attention == "gqa"
+    # the encoder-decoder: a GQA decoder with a dense FFN, as in JAX
+    encdec = (cfg.family == "audio" and cfg.attention == "gqa"
+              and not cfg.is_moe)
     ssm = cfg.family == "ssm" and cfg.attention == "none" and not cfg.is_moe
     # MLA: DeepSeek's MoE models, as the JAX package has them
     mla = (cfg.family == "moe" and cfg.is_moe and cfg.attention == "mla"
            and cfg.mla is not None)
-    if not (hybrid or uniform or mla or ssm):
+    if not (hybrid or uniform or mla or ssm or encdec):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with attention "
                          f"{cfg.attention!r} has no port")
     if cfg.norm not in ("rmsnorm", "nonparametric"):
@@ -262,14 +311,34 @@ def check_config(cfg: ModelConfig) -> None:
 ZEROS = 0.0                      # a ``_layer_shapes`` scale: zeros (biases)
 
 
+def _gqa_shapes(cfg: ModelConfig, prefix: str = ""):
+    """GQA's projections (and, under ``qkv_bias``, their biases), each name
+    after ``prefix``."""
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {"wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+              "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+              "wv": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
+              "wo": ((H * hd, d), 1 / math.sqrt(H * hd), WEIGHT_DTYPE)}
+    if cfg.qkv_bias:
+        shapes.update({"bq": ((H * hd,), ZEROS, WEIGHT_DTYPE),
+                       "bk": ((K * hd,), ZEROS, WEIGHT_DTYPE),
+                       "bv": ((K * hd,), ZEROS, WEIGHT_DTYPE)})
+    return {prefix + n: spec for n, spec in shapes.items()}
+
+
 def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     """name -> (shape, init scale, dtype) of one layer of ``kind``; scale
     None = ones (norm scale), ``ZEROS`` = zeros (the QKV biases, as the
     JAX ``init_dense`` makes them), an ``rwkv6.Constant`` a constant fill.
     Recurrent layers' ``rec_*`` entries carry ``models.griffin.param_shapes``
     (``init_model`` draws them there); RWKV layers' ``tm_*`` and ``cm_*``
-    entries ``models.rwkv6.param_shapes``."""
-    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    entries ``models.rwkv6.param_shapes``. An "encoder" layer takes the
+    model's config and has the encoder's widths (``encoder_config``); a
+    "decoder" layer's cross-attention has the decoder's, as the JAX
+    ``init_gqa(cfg)`` draws it."""
+    if kind == "encoder":
+        return _layer_shapes(encoder_config(cfg), "attn")
+    d = cfg.d_model
     shapes = {}
     if cfg.norm == "rmsnorm":
         shapes.update({"ln1": ((d,), None, torch.float32),
@@ -280,7 +349,7 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
                           in rwkv6.param_shapes(cfg)[block].items())
         return shapes
     if kind == "attn" and cfg.attention == "mla":
-        m = cfg.mla
+        H, m = cfg.num_heads, cfg.mla
         r, qk = m.kv_lora_rank, m.nope_head_dim + m.rope_head_dim
         shapes.update({
             "w_dkv": ((d, r), 1 / math.sqrt(d), WEIGHT_DTYPE),
@@ -291,16 +360,12 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
             "w_q": ((d, H * qk), 1 / math.sqrt(d), WEIGHT_DTYPE),
             "wo": ((H * m.v_head_dim, d), 1 / math.sqrt(H * m.v_head_dim),
                    WEIGHT_DTYPE)})
-    elif kind in ("attn", "local"):
-        shapes.update({
-            "wq": ((d, H * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-            "wk": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-            "wv": ((d, K * hd), 1 / math.sqrt(d), WEIGHT_DTYPE),
-            "wo": ((H * hd, d), 1 / math.sqrt(H * hd), WEIGHT_DTYPE)})
-        if cfg.qkv_bias:
-            shapes.update({"bq": ((H * hd,), ZEROS, WEIGHT_DTYPE),
-                           "bk": ((K * hd,), ZEROS, WEIGHT_DTYPE),
-                           "bv": ((K * hd,), ZEROS, WEIGHT_DTYPE)})
+    elif kind in ("attn", "local", "decoder"):
+        shapes.update(_gqa_shapes(cfg))
+    if kind == "decoder":
+        if cfg.norm == "rmsnorm":
+            shapes["ln_cross"] = ((d,), None, torch.float32)
+        shapes.update(_gqa_shapes(cfg, CROSS))
     if kind == "attn" and cfg.is_moe:
         E, F = cfg.moe.num_experts, cfg.moe.d_ff_expert
         shapes.update({
@@ -332,7 +397,7 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     if kind == "recurrent":
         shapes.update({"rec_" + n: (shape, scale, dt) for n, (shape, scale, dt, _)
                        in griffin.param_shapes(cfg).items()})
-    elif kind not in ("local", "attn"):
+    elif kind not in ("local", "attn", "decoder"):
         raise ValueError(f"layer kind {kind!r}")
     F = cfg.d_ff
     if cfg.activation == "swiglu":
@@ -391,7 +456,16 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             t.update(("rec_" + n, w) for n, w in griffin.init_recurrent_block(
                 cfg, generator, dev, trainable).items())
         layers.append(t)
-    return Transformer(cfg, top, layers, trainable)
+    enc_layers = []
+    if cfg.is_encdec:
+        if cfg.norm == "rmsnorm":
+            top["enc_norm"] = torch.ones((cfg.encoder.d_model,),
+                                         dtype=torch.float32, device=dev)
+        enc_layers = [{name: _draw(shape, scale, dtype(dt), generator, dev)
+                       for name, (shape, scale, dt)
+                       in _layer_shapes(cfg, "encoder").items()}
+                      for _ in range(cfg.encoder.num_layers)]
+    return Transformer(cfg, top, layers, trainable, enc_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -404,10 +478,14 @@ def cache_len_for(cfg: ModelConfig, rt: Runtime, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", source_len=None):
     """Uniform stack: one linear cache {"k", "v"}: (L, B, S, K, hd), S =
-    ``cache_len_for``; under MLA the latent one {"c_kv": (L, B, S, r),
-    "k_rope": (L, B, S, rope)}. Hybrid: a list over layers, a recurrent state
+    ``cache_len_for``; an encoder-decoder adds the cross-attention's
+    {"cross_k", "cross_v"}: (L, B, T_src, K, hd) zeros, T_src =
+    ``source_len`` (default the encoder's ``max_source_len``, as the JAX
+    package sizes them; a prefill over another number of frames replaces
+    them, as the JAX prefill does); under MLA the latent one
+    {"c_kv": (L, B, S, r), "k_rope": (L, B, S, rope)}. Hybrid: a list over layers, a recurrent state
     {"h", "conv"} for each recurrent layer and a window buffer {"k", "v"}
     of ``min(max_len, local_window)`` positions for each local layer.
     RWKV: the stacked state {"shift_tm", "shift_cm": (L, B, d), "wkv": (L,
@@ -431,8 +509,14 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, max_len: int,
                 for name, t in attn.init_mla_cache(cfg, batch, clen, dtype,
                                                    dev).items()}
     shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.is_encdec:
+        src = cfg.encoder.max_source_len if source_len is None else source_len
+        cshape = shape[:2] + (src,) + shape[3:]
+        cache.update(cross_k=torch.zeros(cshape, dtype=dtype, device=dev),
+                     cross_v=torch.zeros(cshape, dtype=dtype, device=dev))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -535,11 +619,14 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
                 rt: Runtime, *, cache, cache_len=None, mode="prefill",
                 block_tables=None, token_weight=None, plan_l=None,
                 experts_l=None, fill_event=None, predicted_l=None,
-                resched_l=None):
+                resched_l=None, enc_out=None):
     """GQA or MLA attention + MoE FFN (a dense FFN without MoE) for one
     layer. ``cache``: this layer's {"k", "v"} (linear cache in prefill,
     block pool in decode) or MLA's {"c_kv", "k_rope"} (linear), updated in
-    place; None in train mode. Returns (x,
+    place; None in train mode. An encoder-decoder's decoder layer attends
+    over ``enc_out`` (train, prefill) between the two, and its cache also
+    holds {"cross_k", "cross_v"}, which prefill fills and decode reads in
+    full. Returns (x,
     (expert_counts (E,), slot_counts, aux, z, dropped, overflow)), and for
     a model without MoE (x, None): the plan, store, predictions and quota
     arguments are the MoE block's, which it then ignores."""
@@ -569,6 +656,18 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
     else:
         raise ValueError(f"mode {mode!r}")
     x = x + a
+    if cfg.is_encdec:
+        h = apply_norm(cfg.norm, getattr(layer, "ln_cross", None), x)
+        if mode == "decode":
+            c = attn.cross_decode(layer.cross_params(), cfg, h,
+                                  cache["cross_k"], cache["cross_v"])
+        else:
+            c, k, v = attn.cross_attention(layer.cross_params(), cfg, h,
+                                           enc_out)
+            if mode == "prefill":
+                cache["cross_k"].copy_(k)
+                cache["cross_v"].copy_(v)
+        x = x + c
     h = apply_norm(cfg.norm, getattr(layer, "ln2", None), x)
     if not cfg.is_moe:
         return x + ffn(getattr(layer, "w_gate", None), layer.w_up,
@@ -628,6 +727,36 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
     return x + y, state
 
 
+def _encoder_layer(layer: DecoderLayer, cfg: ModelConfig, enc_cfg: ModelConfig,
+                   x, positions):
+    """One encoder layer (the JAX ``_encode``'s body): GQA projections at
+    the encoder's widths with RoPE, non-causal attention, then the FFN,
+    under the model's norm and activation."""
+    B, S = x.shape[:2]
+    z = apply_norm(cfg.norm, getattr(layer, "ln1", None), x)
+    p = layer.attn_params()
+    q, k, v = attn.gqa_project(p, enc_cfg, z, positions)
+    a = attn.chunked_attention(q, k, v, causal=False)
+    x = x + dense(p["wo"], a.reshape(B, S, -1))
+    z = apply_norm(cfg.norm, getattr(layer, "ln2", None), x)
+    return x + ffn(getattr(layer, "w_gate", None), layer.w_up, layer.w_down,
+                   z, cfg.activation)
+
+
+def _encode(model: Transformer, cfg: ModelConfig, frames, remat=False):
+    """The encoder over ``frames`` (B, T_src, d_enc), cast to bf16, at
+    positions ``arange(T_src)``, then ``enc_norm``. Returns (B, T_src,
+    d_enc) bf16."""
+    enc_cfg = encoder_config(cfg)
+    x = frames.to(device=model.device, dtype=ACT_DTYPE)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for layer in model.enc_layers:
+        x = _run_layer(remat, _encoder_layer, layer, cfg, enc_cfg, x,
+                       positions)
+    return apply_norm(cfg.norm, getattr(model, "enc_norm", None), x)
+
+
 def _rwkv_layer(layer: DecoderLayer, cfg: ModelConfig, x, state):
     """One RWKV block: time mix, then channel mix, each after its norm and
     added to the residual. ``state``: the layer's {"shift_tm", "shift_cm",
@@ -670,7 +799,7 @@ def _migration_view(l: int, plan: Optional[DevicePlan],
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
             last_pos=None, token_weight=None, plan=None, store=None,
-            predicted_idx=None, resched=None, remat=False):
+            predicted_idx=None, resched=None, remat=False, frames=None):
     """Returns (logits, cache, stats).
 
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
@@ -707,6 +836,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     RWKV runs every layer from its stacked state (train mode from zeros)
     and writes the new one into ``cache`` in place; decode ignores
     ``cache_len``.
+    An encoder-decoder runs its encoder on ``frames`` (B, T_src, d_enc) in
+    train and prefill mode (without them it raises ``KeyError``, as the
+    JAX forward reads ``batch["frames"]``); prefill fills the cache's
+    ``cross_k`` / ``cross_v`` (made anew when they hold another number of
+    frames), and decode reads them and ignores ``frames``.
     A model without MoE (dense, hybrid, RWKV) ignores ``token_weight``,
     ``plan``, ``store``, ``predicted_idx`` and ``resched``; its stats are
     ``NO_MOE_STATS`` (no expert counts, zero aux and z losses).
@@ -721,6 +855,14 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         raise ValueError("EP training takes a plan only: no store, "
                          "predicted_idx or resched (the JAX train step "
                          "takes none of them)")
+    enc_out = None
+    if cfg.is_encdec and mode != "decode":
+        if frames is None:
+            raise KeyError("frames")
+        enc_out = _encode(model, cfg, frames, remat)
+    if cfg.is_encdec and block_tables is not None:
+        raise ValueError("an encoder-decoder decodes over its linear cache: "
+                         "the paged pool has no cross-attention cache")
     x = embed(model.embed, tokens).to(ACT_DTYPE)
     B, S = tokens.shape
     if mode == "decode" and torch.is_tensor(cache_len):
@@ -731,7 +873,15 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
         if cache is None and mode != "train":
-            cache = init_cache(cfg, rt, B, S, device=x.device)
+            cache = init_cache(cfg, rt, B, S, device=x.device, source_len=(
+                None if enc_out is None else enc_out.shape[1]))
+        if mode == "prefill" and cfg.is_encdec:
+            # the cross K and V of every layer over this source
+            shape = (cfg.num_layers, B, enc_out.shape[1], cfg.num_kv_heads,
+                     cfg.head_dim)
+            for name in ("cross_k", "cross_v"):
+                if tuple(cache[name].shape) != shape:
+                    cache[name] = cache["k"].new_empty(shape)
     if cfg.family == "hybrid":
         cache = [None] * cfg.num_layers if cache is None else list(cache)
         for l, layer in enumerate(model.layers):
@@ -757,7 +907,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             cache_l = None if cache is None else _layer_cache(cache, l)
             x, _ = _run_layer(remat, _attn_layer, layer, cfg, x, positions,
                               rt, cache=cache_l, cache_len=cache_len,
-                              mode=mode, block_tables=block_tables)
+                              mode=mode, block_tables=block_tables,
+                              enc_out=enc_out)
         return _last_logits(model, x, mode, last_pos), cache, dict(NO_MOE_STATS)
     if store is not None and not isinstance(plan, DevicePlan):
         raise ValueError("a store view needs a DevicePlan of its rows")

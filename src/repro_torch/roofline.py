@@ -91,7 +91,15 @@ def analytic_flops(cfg, shape) -> float:
     ffn = (ffn_flops_per_token(cfg) + dense_ffn_flops_per_token(cfg)) \
         * tokens * L
     head = 2 * tokens * d * V
-    fwd = attn + ffn + head
+    enc = 0.0
+    if cfg.is_encdec:
+        # the JAX formula: max_source_len frames a row whatever the input,
+        # the decoder's attention terms (causal), three FFN matrices
+        e = cfg.encoder
+        etoks = shape.global_batch * e.max_source_len
+        enc = (attention_flops(cfg, etoks, e.max_source_len)
+               + 2 * 3 * e.d_model * e.d_ff * etoks) * e.num_layers
+    fwd = attn + ffn + head + enc
     return 3.0 * fwd if shape.kind == "train" else fwd
 
 

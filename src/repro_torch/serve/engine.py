@@ -578,15 +578,21 @@ class ServeEngine(_StoreMixin):
 
     def prefill(self, batch, cache=None):
         """Prefill ``batch["tokens"]`` (B, S) (host array or tensor) into
-        ``cache`` (a fresh one of ``max_len`` when None). Returns (logits
-        (B, 1, V), cache, stats)."""
+        ``cache`` (a fresh one of ``max_len`` when None); an
+        encoder-decoder's encoder runs over ``batch["frames"]`` (B, T_src,
+        d_enc), whose cross K and V the cache keeps for decode. Returns
+        (logits (B, 1, V), cache, stats)."""
         t0 = time.perf_counter()
         pred = self._predict_tokens(batch["tokens"])
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        frames = batch.get("frames")
+        if frames is not None:
+            frames = torch.as_tensor(frames, device=self.device)
         B, S = tokens.shape
         if cache is None:
+            src = None if frames is None else frames.shape[1]
             cache = init_cache(self.cfg, self.rt, B, self.serve.max_len,
-                               device=self.device)
+                               device=self.device, source_len=src)
         self._step_moved = False
         self._tick_migration()       # overlapped fills ride this step
         plan, store = self._step_inputs()
@@ -598,7 +604,7 @@ class ServeEngine(_StoreMixin):
         else:
             logits, cache, stats = self._prefill(
                 self.model, tokens, cache, plan=plan, predicted_idx=pred,
-                store=store, resched=self._resched_stack)
+                store=store, resched=self._resched_stack, frames=frames)
         self._observe(stats, skip_replan=self._in_graph)
         self._sync()
         dt = time.perf_counter() - t0
@@ -779,10 +785,11 @@ class ContinuousEngine(_StoreMixin):
                  ep: bool = False, predictor=None, controller=None,
                  tracer=None, metrics: Optional[ServeMetrics] = None,
                  name: str = ""):
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid") or cfg.is_encdec:
             raise ValueError(f"{cfg.family}: continuous batching serves "
-                             "uniform-stack GQA models (ServeEngine serves "
-                             "the hybrid and ssm families)")
+                             "uniform-stack decoder-only GQA models "
+                             "(ServeEngine serves the hybrid, ssm and "
+                             "encoder-decoder families)")
         if cfg.attention != "gqa":
             # the JAX engine's refusal: MLA is served by ServeEngine
             raise ValueError("paged KV cache is implemented for GQA")

@@ -45,10 +45,11 @@ def weight_decay_mask(model: Transformer):
     """Which parameters AdamW decays, keyed like ``param_tree``: the JAX
     package decays the leaves of ndim >= 2 of its own tree, where a uniform
     stack's layer leaves carry a leading L, so there every layer parameter
-    decays, the norm scales included; a hybrid model's layers are a list,
-    and their vectors do not."""
+    decays, the norm scales included (an encoder-decoder's encoder stack
+    too); a hybrid model's layers are a list, and their vectors do not."""
     stacked = model.cfg.family != "hybrid"
-    return {name: p.dim() + (stacked and name.startswith("layers.")) >= 2
+    return {name: p.dim() + (stacked and name.startswith(
+                ("layers.", "enc_layers."))) >= 2
             for name, p in model.named_parameters()}
 
 
@@ -60,7 +61,8 @@ def init_opt_state(model: Transformer) -> AdamWState:
 
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
     """``loss_fn(model, batch, plan=None) -> (loss, metrics)``: the
-    train-mode forward over ``batch["tokens"]`` (under ``rt.ep`` dispatched
+    train-mode forward over ``batch["tokens"]`` (an encoder-decoder's
+    encoder over ``batch["frames"]``; under ``rt.ep`` dispatched
     under ``plan``, None the identity plan), ``lm_loss`` against
     ``batch["labels"]`` (and ``batch["loss_mask"]`` if given), plus the aux
     and z losses for MoE models, whose ``aux_loss`` and ``expert_counts``
@@ -69,7 +71,8 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
 
     def loss_fn(model: Transformer, batch, plan=None):
         logits, _, stats = forward(model, cfg, batch["tokens"], rt,
-                                   mode="train", plan=plan, remat=remat)
+                                   mode="train", plan=plan, remat=remat,
+                                   frames=batch.get("frames"))
         loss, metrics = lm_loss(logits, batch["labels"],
                                 batch.get("loss_mask"))
         if cfg.is_moe:
@@ -93,7 +96,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
     path ignores it.
 
     ``batch``: {"tokens", "labels"[, "loss_mask"]}, (B, S) tensors or numpy
-    arrays. ``lr_fn(step)``: the learning rate at the state's step
+    arrays, and for an encoder-decoder "frames" (B, T_src, d_enc).
+    ``lr_fn(step)``: the learning rate at the state's step
     (default 3e-4). ``remat``: each layer recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant; the values are the plain
     step's). ``microbatches``: the batch split into that many sequential
@@ -187,13 +191,15 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     """Batched prefill of (B, S) prompts into ``cache`` (a fresh one when
-    None). Returns (logits at the last position, cache, stats)."""
+    None), an encoder-decoder's encoder over ``frames``. Returns (logits at
+    the last position, cache, stats)."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, plan=None,
-                     predicted_idx=None, store=None, resched=None):
+                     predicted_idx=None, store=None, resched=None,
+                     frames=None):
         return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
                        plan=plan, store=store, predicted_idx=predicted_idx,
-                       resched=resched)
+                       resched=resched, frames=frames)
     return prefill_step
 
 

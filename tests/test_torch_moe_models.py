@@ -70,7 +70,7 @@ def _assert_same_fields(port, jax_cfg):
     one has fields for families the port does not serve yet)."""
     for f in dataclasses.fields(port):
         a, b = getattr(port, f.name), getattr(jax_cfg, f.name)
-        if f.name in ("moe", "mla") and a is not None:
+        if f.name in ("moe", "mla", "encoder") and a is not None:
             for g in dataclasses.fields(a):
                 assert getattr(a, g.name) == getattr(b, g.name), (
                     port.name, g.name)

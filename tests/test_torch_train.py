@@ -648,7 +648,7 @@ def test_launch_train_prints_the_jax_launchers_lines(capsys):
      ValueError),
     (["--arch", "recurrentgemma-2b", "--data-mesh", "2", "--model-mesh", "2"],
      ValueError),
-    (["--arch", "seamless-m4t-medium"], KeyError)])
+    (["--arch", "llava-next-34b"], KeyError)])
 def test_launch_train_rejects_what_the_port_cannot_train(argv, err):
     with pytest.raises(err):
         launch_train.main(argv + ["--reduced", "--device", "cpu",
