@@ -373,7 +373,37 @@ non-zero:
                 heads of 32) variants card against CPU (the encoder's
                 output and the cross cache within 1e-2 and 2e-2 in norm,
                 logits within 5e-2 x their largest).
- 18. train    — (last, after every serving engine is freed) training on
+ 18. llava    — (after seamless, before train; alone with ``--phases
+                llava``) llava-next-34b at published widths and all 60
+                layers (the VLM backbone: 2880 patch embeddings before the
+                tokens; 34.39e9 parameters, 68.78 GB in bf16), random
+                weights from ``--seed``, after every earlier engine is
+                freed. Through ``ServeEngine`` (strategy none): 2 requests
+                of 2880 random prefix embeddings (0.02 x a normal) and a
+                64-token Zipf prompt, a prefill and 32 decode steps at the
+                true positions P + S + t (prefill ms, decode step p50 and
+                tokens/s, peak memory, finite logits, no kernel launched),
+                a prefill with CUDA events around each
+                ``chunked_attention`` call (its device share), the same
+                prefill under the profiler's device tracing (busy, idle
+                share) and two profiled decode steps, then ``generate``'s 8 tokens at the reference's
+                positions S + t. Through ``ContinuousEngine`` text only on
+                the same weights: 8 x 64 tokens, 32 new
+                (``paged_decode_attention`` exactly once a layer a decode
+                step), its decode steps profiled, the kernel at that pool
+                shape (8 slots, G 7, hd 128, M 6) against its plain
+                version, the library call, "gather" and its bound (the
+                kernels line's ``cases``), and the trace again under
+                ``paged_attn_impl="gather"``: no launch, the same tokens or
+                a first difference at a near tie. Then 10 train steps at 4
+                of 60 layers under ``remat`` (50.4 GB of fp32 state) over 2
+                x (2880 random prefix + 512 tokens), the model-FLOPs share
+                by the JAX formula and with the prefix counted, a repeated
+                batch whose loss must fall, and one step on the launcher's
+                zero prefix (finite at this depth, as the JAX step's in the
+                CPU test); last the reduced config and its "wide" variant
+                (G 7, head_dim 128, 600 prefix embeddings) card against CPU.
+ 19. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -1887,8 +1917,8 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
     migration gate); with a ``predictor``, under ``token_to_expert`` (each
     EP prefill layer then runs two dispatch rounds); under ``lever``
     "reschedule" or "both", with ``resched_impl``'s quotas (each EP layer
-    then runs a rescue round). ``on_start``: called just before the trace
-    starts. ``ccfg`` / ``trace``: the engine's config and the trace's
+    then runs a rescue round). ``on_start``: called with the engine just
+    before the trace starts. ``ccfg`` / ``trace``: the engine's config and the trace's
     shape in place of ``MAIN_CCFG`` / ``MAIN_TRACE``; ``strategy``: in
     place of dist_only (under "none" nothing re-plans, so no replica is
     required); ``capture``: a ``_PrefillCapture`` armed for the run.
@@ -1930,7 +1960,7 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
             for i in range(trace["requests"])]
     torch.cuda.reset_peak_memory_stats()
     if on_start is not None:
-        on_start()
+        on_start(eng)
     quota_forwards.update(prefill=0, decode=0)
     ops.reset_launches()
     if capture is not None:
@@ -1997,7 +2027,8 @@ def serve_trace(label: str, model, cfg, seed: int, *, ep: bool,
                 or (toks >= cfg.vocab_size).any():
             failures.append(f"request {r.rid}: bad tokens {toks[:8]}...")
     want = expected_launches(launches, cfg, prefills, eng.decode_steps,
-                             ep=ep, t2e_prefills=prefills if predictor
+                             ep=ep, paged=cfg.paged_attn_impl == "fused",
+                             t2e_prefills=prefills if predictor
                              is not None and ep else 0,
                              resched_prefills=quota_forwards["prefill"],
                              resched_decodes=quota_forwards["decode"])
@@ -2050,8 +2081,9 @@ def expected_launches(launches, cfg, prefills: int, decode_steps: int, *,
     quota: a rescue round per layer (one more ``moe_gemm`` and
     ``histogram_offsets``), and in decode the global first-come positions
     (one more ``histogram_offsets``), whether or not a pair overflowed.
-    ``paged``: decode attends over the paged pool (``ContinuousEngine``;
-    ``ServeEngine``'s linear cache launches no attention kernel). A model
+    ``paged``: decode attends over the paged pool through the kernel
+    (``ContinuousEngine`` under ``paged_attn_impl="fused"``; "gather" and
+    ``ServeEngine``'s linear cache launch no attention kernel). A model
     without MoE launches paged attention only."""
     L = cfg.num_layers
     forwards = (prefills + decode_steps) * L
@@ -2198,8 +2230,10 @@ def mid_migration_phase(eng, cfg, seed: int) -> None:
                          "gather forward under the mixed plan")
 
 
-def _fill_slots(eng, cfg, seed: int, new_tokens: int, now: float) -> float:
-    """Admit one fresh 256-token request per slot and run the prefills."""
+def _fill_slots(eng, cfg, seed: int, new_tokens: int, now: float,
+                prompt: int = 256) -> float:
+    """Admit one fresh ``prompt``-token request per slot and run the
+    prefills."""
     from repro_torch.serve import ServeRequest
 
     rng = np.random.default_rng(seed)
@@ -2207,7 +2241,7 @@ def _fill_slots(eng, cfg, seed: int, new_tokens: int, now: float) -> float:
         eng.submit(ServeRequest(
             rid=10_000 * (seed % 7 + 1) + i, max_new_tokens=new_tokens,
             arrival=now,
-            tokens=rng.integers(0, cfg.vocab_size, 256).astype(np.int32)))
+            tokens=rng.integers(0, cfg.vocab_size, prompt).astype(np.int32)))
     while eng.scheduler.waiting:                  # admission + prefills
         eng.step(now)
         now += 1.0
@@ -2227,9 +2261,11 @@ def _is_copy(name: str) -> bool:
     return "Memcpy DtoD" in name
 
 
-def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
+def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12,
+                  prompt: int = 256) -> None:
     """Where an engine's decode step's time goes: fill every slot with fresh
-    requests, time ``iters`` decode-only iterations on the host clock, then
+    requests of ``prompt`` tokens, time ``iters`` decode-only iterations on
+    the host clock, then
     ``iters`` more under torch.profiler. Prints the device's busy time by
     kernel and its idle share of the profiled window. Re-planning is off
     (strategy "none"), so the plan in force stays and nothing migrates.
@@ -2237,7 +2273,7 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     filled anew (``profiled``)."""
     strategy, eng.strategy = eng.strategy, "none"
     in_flight = eng._executor is not None and eng._executor.active
-    now = _fill_slots(eng, cfg, seed + 1, 2 * iters + 8, 0.0)
+    now = _fill_slots(eng, cfg, seed + 1, 2 * iters + 8, 0.0, prompt)
     t0 = time.perf_counter()
     for _ in range(iters):
         eng.step(now)
@@ -2257,7 +2293,7 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12) -> None:
     def refill():
         nonlocal now
         now = _fill_slots(eng, cfg, seed + next(refills), iters + 8,
-                          _drain(eng, now))
+                          _drain(eng, now), prompt)
 
     prof, wall_ms = profiled(steps, f"the {label} decode step", cpu=True,
                              again=refill)
@@ -3197,7 +3233,7 @@ def t2e_phase(model, cfg, seed: int) -> None:
         with _RoundCapture("predicted_idx") as rc:
             eng, _ = serve_trace(label, model, cfg, seed, ep=True,
                                  phase="t2e", predictor=rungs[rung],
-                                 on_start=rc.reset)
+                                 on_start=lambda eng: rc.reset())
             nums = rc.numbers()
         acc = eng.accuracy.summary()
         log("t2e", path=label, **nums, accuracy_windows=int(
@@ -5584,15 +5620,15 @@ def dense_serve(arch: str, seed: int, smi: str) -> list:
     return failures
 
 
-def _dense_repeat(cfg, model, batch, remat: bool) -> list:
-    """``TRAIN_REPEAT_STEPS + 1`` steps on one batch at a fixed lr from
+def _dense_repeat(cfg, model, batch, remat: bool,
+                  lr: float = TRAIN_REPEAT_LR) -> list:
+    """``TRAIN_REPEAT_STEPS + 1`` steps on one batch at a fixed ``lr`` from
     fresh moments: the losses."""
     from repro_torch.models.transformer import Runtime
     from repro_torch.train.steps import init_opt_state, make_train_step
 
     opt = init_opt_state(model)
-    rep = make_train_step(cfg, Runtime(), lr_fn=lambda s: TRAIN_REPEAT_LR,
-                          remat=remat)
+    rep = make_train_step(cfg, Runtime(), lr_fn=lambda s: lr, remat=remat)
     losses = []
     for _ in range(TRAIN_REPEAT_STEPS + 1):
         opt, m = rep(model, opt, batch)
@@ -6976,6 +7012,27 @@ def seamless_profiles(eng, batch, label: str) -> None:
         transformer._encode, attention.cross_decode = real_enc, real_cross
 
 
+def _timed(eng, rec: dict):
+    """``eng.prefill`` / ``eng.decode`` wrapped to synchronise and time each
+    call into ``rec["prefill_ms"]`` / ``rec["decode_ms"]`` and to AND the
+    finiteness of its logits into ``rec["finite"]``. Returns the originals."""
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed(fn, key, logits_at):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t1) * 1e3)
+            rec["finite"] &= bool(torch.isfinite(out[logits_at]).all())
+            return out
+        return run
+    eng.prefill = timed(prefill, "prefill_ms", 0)
+    eng.decode = timed(decode, "decode_ms", 1)
+    return prefill, decode
+
+
 def seamless_generate(eng, cfg, batch, label: str, smi: str,
                       timed_first: bool) -> list:
     """``eng.generate(batch)``, each prefill and decode step synchronised
@@ -6991,21 +7048,8 @@ def seamless_generate(eng, cfg, batch, label: str, smi: str,
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     rec = {"prefill_ms": [], "decode_ms": [], "finite": True}
-    prefill, decode = eng.prefill, eng.decode
-
-    def timed(fn, key, logits_at):
-        def run(*args, **kw):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            rec[key].append((time.perf_counter() - t1) * 1e3)
-            rec["finite"] &= bool(torch.isfinite(out[logits_at]).all())
-            return out
-        return run
     new = eng.serve.max_len - batch["tokens"].shape[1]
-    eng.prefill = timed(prefill, "prefill_ms", 0)
-    eng.decode = timed(decode, "decode_ms", 1)
+    prefill, decode = _timed(eng, rec)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     try:
@@ -7357,12 +7401,712 @@ def seamless_phase(seed: int, smi: str) -> None:
         raise SystemExit("seamless failed: " + "; ".join(failures))
 
 
+LLAVA_ARCH = "llava-next-34b"
+# ServeEngine: 2 requests of 2880 prefix embeddings (5 anyres tiles x 576
+# patches, the config's P) and a 64-token Zipf prompt each, 32 decode steps
+# at the true positions P + S + t; then generate's 8 tokens (positions
+# S + t, the reference's)
+LLAVA_SERVE = dict(batch=2, prompt=64, new_tokens=32)
+LLAVA_GENERATE = 8
+LLAVA_PROFILE_STEPS = 2
+# ContinuousEngine, text only, on the same weights: 8 requests of 64 tokens,
+# 32 new each, the paged pool of 8 slots x 96 positions
+LLAVA_CCFG = dict(max_slots=8, prefill_len=64, block_size=16, max_len=96,
+                  predict_interval=8)
+LLAVA_TRACE = dict(requests=8, prompt=(64, 65), new_tokens=32, gap=0.0)
+LLAVA_PROFILE_PROMPT = 32          # profile_phase's refills fit max_len 96
+# the kernel at the engine's pool shape: 8 slots, M 6 blocks of 16, the
+# decode lengths the run walks through (64 ... 95)
+LLAVA_PAGED_LENGTHS = list(range(64, 96, 4))
+# 10 train steps of 2 x (2880 random prefix embeddings + 512 tokens) at 4
+# of 60 layers, each layer recomputed in the backward (without it each
+# layer keeps ~13 GB of the chunked attention's 7 x 7 block intermediates);
+# 16 B a parameter: 50.4 GB of state, and every run peaked at 65.04 GB of
+# 80 (PERF.md), so an out-of-memory error fails the phase
+LLAVA_TRAIN = dict(batch=2, seq=512, steps=10, layers=4)
+# on an H100: at TRAIN_LR (3e-4) the launcher's warmup reached 1.8e-4 by
+# step 6 and the 4-layer, 7168-wide model diverged there (loss 11.4 ->
+# 19.1, grad norm 817); at 1e-4 the loss fell (11.4 -> 8.9) but the
+# gradient norm grew from 43 to 313, and the repeated batch at
+# TRAIN_REPEAT_LR (1e-5) then jumped from 11.8 to 26.1 in one step; at 5e-5
+# with a repeat lr of 1e-6 the repeated batch went 9.86 -> 8.05 -> 9.71 ->
+# 9.77, and at 3e-7 9.86 -> 9.24 -> 8.65 -> 8.14: AdamW's first steps from
+# fresh moments move every weight by about lr, and this model overshoots
+# (PERF.md, the llava findings)
+LLAVA_TRAIN_LR, LLAVA_REPEAT_LR = 5e-5, 3e-7
+LLAVA_CACHE_REL = 2e-2             # the KV cache, card vs CPU, in norm
+# "gather" against "fused": the two runs' decode logits at every step both
+# took on the same tokens within 4 bf16 ulps at |logit| in [4, 8), and
+# where a request's tokens differ, the gather run's token is the fused
+# run's runner-up. The two attention paths agree within a bf16 ulp a layer
+# (the kernel case's 0.00195) and 60 layers carry that into the logits: on
+# an H100 each request's largest difference read 0.0625-0.0859 over 145
+# steps of 64000 logits, where 5e-2 had been predicted (PERF.md, llava)
+LLAVA_GATHER_ATOL = 2.0 ** -3
+
+
+def llava_variants():
+    """The CPU tests' configs and inputs of the VLM backbone
+    (``tests/_torch_vlm.py``, loaded from its file): ``VARIANTS``,
+    ``PREFIX`` (prefix embeddings a row) and ``vlm_config``, which makes
+    "reduced" (G 2, head_dim 64, 8 prefix embeddings) and "wide" (14 heads
+    over 2 KV heads of 128, G 7, and 600 prefix embeddings, so P + S
+    crosses a 512 block)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "_torch_vlm.py")
+    spec = importlib.util.spec_from_file_location("_torch_vlm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def llava_prefix(seed: int, batch: int, P: int, d: int, device):
+    """(batch, P, d) fp32 prefix embeddings, 0.02 x a standard normal from
+    ``seed`` (the token embeddings' scale), drawn on ``device`` (the
+    launcher's zero prefix stays zero through every layer)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return 0.02 * torch.randn((batch, P, d), generator=gen, device=device)
+
+
+def _event_timed(fn):
+    """``fn`` with a CUDA event recorded before and after each call (pairs
+    in ``wrapped.pairs``) and its host seconds summed into
+    ``wrapped.host_s``: on one stream, the kernels between a pair are the
+    call's, so the pairs' elapsed times sum its device time while the
+    device runs behind the host."""
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        wrapped.pairs.append((start, end))
+        wrapped.host_s += time.perf_counter() - t0
+        return out
+    wrapped.pairs, wrapped.host_s = [], 0.0
+    return wrapped
+
+
+def llava_profiles(eng, batch, pos: int) -> None:
+    """A timed prefill of ``batch`` with CUDA events around each call of
+    ``attention.chunked_attention`` (its device ms and host ms), then the
+    same prefill under torch.profiler's device tracing alone (busy time,
+    idle share, operations: tracing the host's operations too stretched a
+    2.2 s prefill to 4.0 s, its 70578 device operations waiting on the
+    tracer, and the idle share read 0.46), then
+    ``LLAVA_PROFILE_STEPS`` profiled decode steps at ``pos`` on (busy,
+    idle share, device operations a step)."""
+    from repro_torch.models import attention
+
+    real = attention.chunked_attention
+    attention.chunked_attention = wrapped = _event_timed(real)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill(batch)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        attention.chunked_attention = real
+    att = sum(a.elapsed_time(b) for a, b in wrapped.pairs)
+    state = {}
+
+    def prefill():
+        t0 = time.perf_counter()
+        state["out"] = eng.prefill(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t1 = time.perf_counter()
+    prof, wall_ms = profiled(prefill, "the llava prefill")
+    kernels = {} if prof is None else _kernel_time_by_name(prof, 1)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
+    B, S = batch["tokens"].shape
+    log("llava", profile="prefill", batch=B, prefix=batch[
+        "prefix_embeds"].shape[1], prompt=S,
+        timed_prefill_ms=f"{timed_ms:.3f}",
+        profiled_prefill_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops=sum(n for _, n in kernels.values()),
+        chunked_attention_calls=len(wrapped.pairs),
+        chunked_attention_device_ms=f"{att:.3f}",
+        chunked_attention_share_of_busy=f"{att / busy:.4f}",
+        chunked_attention_host_ms=f"{wrapped.host_s * 1e3:.3f}",
+        profile_s=f"{time.perf_counter() - t1:.3f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        log("llava", profile="prefill", ms=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", launches=n, kernel=f"'{name[:90]}'")
+
+    logits, cache, _ = state.pop("out")
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(2):
+        tok, _, cache, _ = eng.decode(tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+
+    def steps():
+        nonlocal tok, cache, pos
+        t0 = time.perf_counter()
+        for _ in range(LLAVA_PROFILE_STEPS):
+            tok, _, cache, _ = eng.decode(tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / LLAVA_PROFILE_STEPS
+
+    n_steps = LLAVA_PROFILE_STEPS
+    t1 = time.perf_counter()
+    prof, wall_ms = profiled(steps, "the llava decode step")
+    kernels = {} if prof is None else _kernel_time_by_name(prof, n_steps)
+    busy = sum(ms for ms, _ in kernels.values()) if kernels else NOT_MEASURED
+    log("llava", profile="decode", decode_steps=n_steps,
+        profiled_step_ms=f"{wall_ms:.3f}",
+        device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / wall_ms:.4f}",
+        device_ops_per_step=f"{sum(n for _, n in kernels.values()) / n_steps:.1f}",
+        profile_s=f"{time.perf_counter() - t1:.3f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        log("llava", profile="decode", ms_per_step=f"{ms:.4f}",
+            share=f"{ms / busy:.4f}", per_step=f"{n / n_steps:.1f}",
+            kernel=f"'{name[:90]}'")
+    del cache, logits
+
+
+def llava_serve_engine(model, cfg, seed: int, smi: str) -> list:
+    """``ServeEngine`` (strategy none) at all 60 layers on ``LLAVA_SERVE``:
+    a cold prefill, then a timed one and 32 decode steps at the true
+    positions P + S + t (prefill ms, decode step p50, decode tokens/s, peak
+    memory, finite logits, tokens in range, no kernel launched: the linear
+    cache decodes in plain PyTorch); ``llava_profiles``; then one
+    ``generate`` of ``LLAVA_GENERATE`` tokens, the reference's parity path
+    (its decode positions S + t lie inside the prefix). Returns failures."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    a, P = LLAVA_SERVE, cfg.num_prefix_embeddings
+    B, S, T = a["batch"], a["prompt"], a["new_tokens"]
+    batch = {"tokens": next(token_batches(seed, cfg.vocab_size, B, S))
+             ["tokens"],
+             "prefix_embeds": llava_prefix(seed, B, P, cfg.d_model, "cuda")}
+    eng = ServeEngine(cfg, model, ServeConfig(strategy="none",
+                                              max_len=P + S + T))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"prefill_ms": [], "decode_ms": [], "finite": True}
+    prefill, decode = _timed(eng, rec)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        logits, cache, _ = eng.prefill(batch)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out = [tok]
+        for t in range(T - 1):
+            tok, _, cache, _ = eng.decode(tok, cache, P + S + t)
+            out.append(tok)
+        toks = torch.cat(out, dim=1).cpu().numpy()
+    finally:
+        eng.prefill, eng.decode = prefill, decode
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    del cache, logits
+    dec = rec["decode_ms"]
+    p50 = float(np.median(dec))
+    log("llava", run=f"serve/{cfg.name}", card=f"'{smi}'", strategy="none",
+        batch=B, prefix=P, prompt=S, new_tokens=T,
+        positions="P + S + t (the true ones)",
+        first_prefill_ms=f"{first_ms:.3f}",
+        prefill_ms=f"{rec['prefill_ms'][0]:.3f}",
+        prefill_toks_per_s=f"{B * (P + S) / rec['prefill_ms'][0] * 1e3:.1f}",
+        decode_steps=len(dec), decode_step_p50_ms=f"{p50:.3f}",
+        decode_step_min_max_ms=f"{min(dec):.3f},{max(dec):.3f}",
+        decode_toks_per_s=f"{B / p50 * 1e3:.2f}", kv_cache_gb=f"{cache_gb:.3f}",
+        peak_gb=f"{peak_gb:.3f}", logits_finite=rec["finite"],
+        kernel_launches=sum(launches.values()))
+    for r in range(B):
+        log("llava", run=f"serve/{cfg.name}", request=r,
+            tokens=",".join(map(str, toks[r])))
+    failures = []
+    if any(launches.values()):
+        failures.append(f"serve: kernel launches {launches}")
+    if toks.shape != (B, T) or (toks < 0).any() \
+            or (toks >= cfg.vocab_size).any():
+        failures.append(f"serve: bad tokens of shape {toks.shape}")
+    if len(dec) != T - 1 or not rec["finite"]:
+        failures.append(f"serve: {len(dec)} decode steps, finite "
+                        f"{rec['finite']}")
+    llava_profiles(eng, batch, P + S)
+    seen = []
+    decode = eng.decode
+
+    def spy(tok, cache, n):
+        seen.append(n)
+        return decode(tok, cache, n)
+    eng.decode = spy
+    t0 = time.perf_counter()
+    try:
+        gen, _ = eng.generate(batch, max_new_tokens=LLAVA_GENERATE)
+        torch.cuda.synchronize()
+    finally:
+        eng.decode = decode
+    gen = gen.cpu().numpy()
+    log("llava", run=f"generate/{cfg.name}", new_tokens=LLAVA_GENERATE,
+        wall_ms=f"{(time.perf_counter() - t0) * 1e3:.3f}",
+        positions=",".join(map(str, seen)),
+        note="ServeEngine.generate decodes at S + t, as the JAX engine does "
+             "(ROADMAP.md section 3): inside the prefix here, so its tokens "
+             "are the reference's parity path, not the true context's",
+        first_token_as_true_run=bool((gen[:, 0] == toks[:, 0]).all()))
+    if seen != [S + t for t in range(LLAVA_GENERATE - 1)] \
+            or gen.shape != (B, LLAVA_GENERATE) \
+            or not (gen[:, 0] == toks[:, 0]).all():
+        failures.append(f"generate: positions {seen}, tokens {gen.shape}")
+    del eng, batch
+    free_engines("llava")
+    return failures
+
+
+def llava_paged_case(flush) -> dict:
+    """``paged_decode_attention`` at the ContinuousEngine's pool shape (8
+    slots, K 8, G 7, hd 128, blocks of 16, M 6, lengths 64 ... 92) held
+    against its plain version and timed beside it, the library call and
+    its bound (``_paged_case``); and the "gather" path at the same inputs
+    (each slot's view gathered from its table, then
+    ``kernels.ref.paged_decode_ref``), timed the same way."""
+    from repro_torch.kernels import ref
+
+    B, K, G, hd, bs = LLAVA_CCFG["max_slots"], 8, 7, 128, 16
+    M = LLAVA_CCFG["max_len"] // bs
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = torch.device("cuda")
+    N = 1 + B * M
+    tab = (1 + torch.randperm(B * M, generator=gen, device=dev)
+           .to(torch.int32)).reshape(B, M).contiguous()
+    q, kp, vp = (torch.randn(shape, generator=gen, device=dev)
+                 .to(torch.bfloat16) for shape in
+                 ((B, K, G, hd), (N, bs, K, hd), (N, bs, K, hd)))
+    lens = LLAVA_PAGED_LENGTHS
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    row = _paged_case(q, kp, vp, tab, lengths, lens, 0, flush, True)
+
+    def gather():
+        return ref.paged_decode_ref(q, ref.gather_view(kp, tab),
+                                    ref.gather_view(vp, tab), lengths,
+                                    block_size=bs)
+    g_err = float((gather().float() - ref.paged_decode_plain(
+        q, kp, vp, tab, lengths).float()).abs().max())
+    row["gather_ms"] = time_ms(gather, flush)
+    row["gather_max_abs_err"] = g_err
+    row["ok"] = row["ok"] and g_err <= 1e-2
+    log("kernels", kernel="paged_decode_attention", case="llava_g7_pool",
+        dtype="bfloat16", window=0, shape=f"B{B}xK{K}xG{G}xhd{hd}xbs{bs}xM{M}",
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+           for k, v in row.items()})
+    if not row["ok"]:
+        raise SystemExit(f"paged_decode_attention disagrees with its plain "
+                         f"version at llava's pool shape: {row}")
+    return row
+
+
+def llava_continuous(model, cfg, seed: int, smi: str) -> list:
+    """``ContinuousEngine`` text only (tokens alone, as the JAX engine's
+    requests carry) on the same weights: ``LLAVA_TRACE`` through
+    ``serve_trace`` (completions, tokens, ``paged_decode_attention``
+    exactly once a layer a decode step), ``profile_phase``'s decode steps
+    (idle share), then the same trace with ``paged_attn_impl="gather"``:
+    each decode step's logits (kept during both runs, ``_DecodeLogits``)
+    within ``LLAVA_GATHER_ATOL`` of the fused run's wherever the two took
+    the same tokens, the gather run's token the fused run's runner-up at a
+    request's first difference, and no kernel launched. The kernel's case
+    at this pool shape goes on the kernels line with the run's launches.
+    Returns failures."""
+    label = f"continuous/{cfg.name}"
+    kept = _DecodeLogits()
+    eng, launches = serve_trace(label, model, cfg, seed, ep=False,
+                                phase="llava", strategy="none",
+                                ccfg=LLAVA_CCFG, trace=LLAVA_TRACE,
+                                on_start=kept.install)
+    kept.uninstall(eng)
+    n = MEASURED[f"serve/{label}"]
+    steps = eng.decode_steps
+    fused = {r.rid: list(r.generated) for r in eng.scheduler.completed}
+    log("llava", run=label, card=f"'{smi}'",
+        step_p50_ms=f"{n['step_p50_ms']:.3f}",
+        ttft_p50_ms=f"{n['ttft_p50_ms']:.3f}",
+        decode_toks_per_s=f"{n['decode_toks_per_s']:.2f}",
+        peak_gb=f"{n['peak_gb']:.3f}", decode_steps=steps,
+        paged_decode_attention_calls=launches["paged_decode_attention"],
+        expected_calls=f"{steps}x{cfg.num_layers}")
+    profile_phase(eng, cfg, seed, label, iters=LLAVA_PROFILE_STEPS,
+                  prompt=LLAVA_PROFILE_PROMPT)
+    del eng
+    free_engines("llava")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    row = llava_paged_case(flush)
+    del flush
+    gcfg = dataclasses.replace(cfg, paged_attn_impl="gather")
+    glabel = f"continuous_gather/{cfg.name}"
+    gkept = _DecodeLogits()
+    eng, glaunches = serve_trace(glabel, model, gcfg, seed, ep=False,
+                                 phase="llava", strategy="none",
+                                 ccfg=LLAVA_CCFG, trace=LLAVA_TRACE,
+                                 on_start=gkept.install)
+    gkept.uninstall(eng)
+    g = MEASURED[f"serve/{glabel}"]
+    gather = {r.rid: list(r.generated) for r in eng.scheduler.completed}
+    rows = _gather_against_fused(kept.logits(), gkept.logits(), fused, gather)
+    err = max(r["max_abs_err"] for r in rows)
+    same = err <= LLAVA_GATHER_ATOL and all(
+        r["runner_up"] for r in rows if r["first_difference"] is not None)
+    log("llava", run=glabel, card=f"'{smi}'", paged_attn_impl="gather",
+        step_p50_ms=f"{g['step_p50_ms']:.3f}",
+        decode_toks_per_s=f"{g['decode_toks_per_s']:.2f}",
+        decode_steps=eng.decode_steps,
+        kernel_launches=sum(glaunches.values()),
+        requests_equal_fused=sum(r["first_difference"] is None
+                                 for r in rows),
+        requests=len(rows), steps_compared=sum(r["steps"] for r in rows),
+        max_abs_logit_err=f"{err:.6g}", atol=LLAVA_GATHER_ATOL,
+        first_differences=",".join(
+            f"rid{r['rid']}@{r['first_difference']}:gap{r['gap']:.4g}"
+            f":top{r['top']:.4g}:runner_up{int(r['runner_up'])}"
+            for r in rows if r["first_difference"] is not None) or "none",
+        per_request_err=",".join(f"{r['max_abs_err']:.4g}" for r in rows),
+        as_fused=same)
+    del eng
+    free_engines("llava")
+    MEASURED["llava_paged_case"] = dict(
+        {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "gather_ms")},
+        shape="B8xK8xG7xhd128xbs16xM6", launches=launches[
+            "paged_decode_attention"], decode_steps=steps,
+        layers=cfg.num_layers)
+    failures = []
+    if launches["paged_decode_attention"] != steps * cfg.num_layers:
+        failures.append(f"continuous: {launches} for {steps} decode steps")
+    if not same or any(glaunches.values()):
+        failures.append(f"gather: as fused {same} (largest logit difference "
+                        f"{err}, first differences {rows}), launches "
+                        f"{glaunches}")
+    return failures
+
+
+class _DecodeLogits:
+    """Keeps, during a ``ContinuousEngine`` run, each decode step's logits
+    (the step's own output, on the device; nothing read back during the
+    run), keyed by the request and the index in its ``generated`` of the
+    token the step makes for it. ``install`` wraps the engine's decode step
+    (``serve_trace``'s ``on_start``, after the warmup); ``uninstall`` puts
+    it back."""
+
+    def __init__(self):
+        self.calls = []
+
+    def install(self, eng) -> None:
+        real = eng._decode_fn
+
+        def decode_fn(model, tokens, pool, tables, lengths, active, *a, **kw):
+            out = real(model, tokens, pool, tables, lengths, active, *a, **kw)
+            keys = [(s, r.rid, len(r.generated))
+                    for s, r in enumerate(eng.scheduler.slots) if r is not None]
+            self.calls.append((keys, active, out[1][:, -1]))
+            return out
+        decode_fn.real = real
+        eng._decode_fn = decode_fn
+
+    @staticmethod
+    def uninstall(eng) -> None:
+        eng._decode_fn = eng._decode_fn.real
+
+    def logits(self) -> dict:
+        """{(rid, index): (V,) fp32 logits on the host} over the slots each
+        step decoded."""
+        out = {}
+        for keys, active, logits in self.calls:
+            act = active.reshape(-1).cpu().numpy()
+            logits = logits.float().cpu().numpy()
+            for s, rid, j in keys:
+                if act[s]:
+                    out[(rid, j)] = logits[s]
+        return out
+
+
+def _gather_against_fused(fl: dict, gl: dict, a: dict, b: dict) -> list:
+    """One row a request of two runs' tokens (``a`` "fused", ``b``
+    "gather") and decode logits (``fl``, ``gl``, ``_DecodeLogits``): the
+    first index where its tokens differ (None where none does); the
+    decode steps up to and including it, where both runs took the same
+    tokens, and the largest |logit| difference over them; at the first
+    difference, the fused run's top logit, its gap to the second, and
+    whether ``b``'s token was that runner-up. A difference at index 0
+    (the prefill's token, which no decode step makes) compares nothing and
+    has no runner-up."""
+    rows = []
+    for rid in sorted(a):
+        diff = np.nonzero(np.asarray(a[rid]) != np.asarray(b[rid]))[0]
+        j = int(diff[0]) if len(diff) else None
+        last = len(a[rid]) - 1 if j is None else j
+        errs = [float(np.abs(fl[(rid, i)] - gl[(rid, i)]).max())
+                for i in range(1, last + 1)]
+        row = dict(rid=rid, first_difference=j, steps=len(errs),
+                   max_abs_err=max(errs) if errs else float("inf"),
+                   gap=float("nan"), top=float("nan"), runner_up=False)
+        if j:
+            ids = np.argsort(fl[(rid, j)])[::-1][:2]
+            vals = fl[(rid, j)][ids]
+            row.update(gap=float(vals[0] - vals[1]), top=float(vals[0]),
+                       runner_up={int(t) for t in ids} == {a[rid][j],
+                                                             b[rid][j]})
+        rows.append(row)
+    return rows
+
+
+def llava_train(seed: int, smi: str) -> list:
+    """``LLAVA_TRAIN`` through ``make_train_step`` (``remat``) at published
+    widths and ``LLAVA_TRAIN["layers"]`` of 60, fp32 weights from ``seed``, each step's
+    prefix random (``llava_prefix``): per step loss, grad norm, lr and ms;
+    step p50, tokens/s, peak memory, the model-FLOPs share of peak by the
+    JAX formula (text tokens only) and with the prefix's tokens counted;
+    no kernel launched; the loss falls, and so does one batch's repeated at
+    a fixed lr from fresh moments. Then one step on the launcher's zero
+    prefix (bf16 zeros), held to the JAX step at this depth in the CPU
+    test (``tests/test_torch_vlm_train.py``: finite at 4 layers, NaN at
+    16): a finite loss and gradient norm. Returns failures."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    a = LLAVA_TRAIN
+    layers = a["layers"]
+    cfg = dataclasses.replace(get_config(LLAVA_ARCH), num_layers=layers)
+    P, B = cfg.num_prefix_embeddings, a["batch"]
+    run = f"llava/{cfg.name}"
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda", trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("llava", train=run, layers=layers, params_held=n_params,
+        state_gb=f"{16 * n_params / 1e9:.3f}", batch=B, prefix=P,
+        seq=a["seq"], steps=a["steps"], base_lr=LLAVA_TRAIN_LR, remat=True,
+        reduced=f"'depth: {layers} of 60 layers (16 B a parameter of fp32 "
+                f"state), published widths'")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    opt = init_opt_state(model)
+    step = make_train_step(cfg, Runtime(), lr_fn=build_lr_fn(
+        cfg, LLAVA_TRAIN_LR, a["steps"]), remat=True)
+    gen = token_batches(seed, cfg.vocab_size, B, a["seq"])
+    step_ms, losses = [], []
+    for i in range(a["steps"]):
+        batch = dict(next(gen), prefix_embeds=llava_prefix(
+            seed + 100 + i, B, P, cfg.d_model, "cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        log("llava", train=run, step=i, loss=f"{losses[-1]:.6f}",
+            grad_norm=f"{float(m['grad_norm']):.6g}",
+            lr=f"{float(m['lr']):.6g}", step_ms=f"{step_ms[-1]:.3f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(ops.LAUNCHES)
+    p50 = float(np.median(step_ms[1:]))
+    text = B * a["seq"]
+    mflops = model_flops(cfg, InputShape("train", a["seq"], B, "train"))
+    with_prefix = mflops * (a["seq"] + P) / a["seq"]
+    log("llava", train=run, card=f"'{smi}'", steps=len(step_ms),
+        loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms=",".join(f"{v:.3f}" for v in step_ms),
+        step_ms_p50=f"{p50:.3f}", text_tokens_per_s=f"{text / p50 * 1e3:.2f}",
+        all_positions_per_s=f"{B * (a['seq'] + P) / p50 * 1e3:.2f}",
+        peak_gb=f"{peak_gb:.3f}", model_flops_per_step=f"{mflops:.6g}",
+        model_flops_share_of_peak=f"{mflops / (p50 / 1e3 * PEAK_FLOPS):.6g}",
+        with_prefix_share_of_peak=(
+            f"{with_prefix / (p50 / 1e3 * PEAK_FLOPS):.6g}"),
+        note="6 x num_params() x text tokens, the JAX formula (the prefix's "
+             "2880 positions a row are left out); beside it the same with "
+             "them counted",
+        kernel_launches=sum(launches.values()))
+    failures = []
+    if any(launches.values()):
+        failures.append(f"train launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"train loss {losses[0]} -> {losses[-1]}")
+    del opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = dict(next(token_batches(seed + 1, cfg.vocab_size, B, a["seq"])),
+                 prefix_embeds=llava_prefix(seed + 1, B, P, cfg.d_model,
+                                            "cuda"))
+    rl = _dense_repeat(cfg, model, batch, remat=True, lr=LLAVA_REPEAT_LR)
+    log("llava", train=run, repeat_batch_losses=",".join(
+        f"{v:.6f}" for v in rl), lr=LLAVA_REPEAT_LR, falls=rl[-1] < rl[0])
+    if not rl[-1] < rl[0]:
+        failures.append(f"the repeated batch's loss did not fall: {rl}")
+    batch["prefix_embeds"] = torch.zeros((B, P, cfg.d_model),
+                                         dtype=torch.bfloat16, device="cuda")
+    opt = init_opt_state(model)
+    opt, m = make_train_step(cfg, Runtime(), lr_fn=lambda s: LLAVA_TRAIN_LR,
+                             remat=True)(model, opt, batch)
+    zl, zg = float(m["loss"]), float(m["grad_norm"])
+    log("llava", train=run, zero_prefix_loss=f"{zl:.6f}",
+        zero_prefix_grad_norm=f"{zg:.6g}",
+        prefix="zeros (2, 2880, 7168) bf16, the launchers'",
+        as_the_jax_step_at_this_depth=bool(np.isfinite(zl)
+                                           and np.isfinite(zg)))
+    if not (np.isfinite(zl) and np.isfinite(zg)):
+        failures.append(f"zero prefix: loss {zl}, grad norm {zg} (the JAX "
+                        f"step at {layers} layers: finite)")
+    del model, opt, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
+
+
+def _llava_run(model, cfg, tokens, prefix, forced):
+    """A prefill of ``prefix`` (B, P, d) and ``tokens`` (B, S) into a fresh
+    cache of P + S + n positions and one decode step a column of
+    ``forced`` (B, n) at the true positions P + S + i, through ``forward``
+    as ``ServeEngine``'s steps call it. Returns (logits (1 + n, B, V) fp32,
+    the cache {"k", "v"} fp32), on the host."""
+    from repro_torch.models.transformer import Runtime, forward, init_cache
+
+    dev, rt = model.device, Runtime()
+    B, S = tokens.shape
+    P = prefix.shape[1]
+    with torch.inference_mode():
+        cache = init_cache(cfg, rt, B, P + S + forced.shape[1], device=dev)
+        lg, cache, _ = forward(model, cfg, torch.tensor(tokens, device=dev),
+                               rt, mode="prefill", cache=cache,
+                               prefix_embeds=torch.tensor(prefix, device=dev))
+        logits = [lg[:, -1].float().cpu()]
+        for i in range(forced.shape[1]):
+            lg, cache, _ = forward(model, cfg, torch.tensor(
+                forced[:, i:i + 1], device=dev), rt, mode="decode",
+                cache=cache, cache_len=P + S + i)
+            logits.append(lg[:, -1].float().cpu())
+    return torch.stack(logits), {k: cache[k].to("cpu", torch.float32,
+                                                copy=True) for k in "kv"}
+
+
+def llava_card_vs_cpu(seed: int) -> None:
+    """The reduced llava config and its "wide" variant (``llava_variants``:
+    G 7 at head_dim 128, 600 prefix embeddings, so P + S crosses a 512
+    block) on the card against the same bridged weights on the CPU: a
+    prefill of fp32 prefix embeddings and 2 x 24 tokens, then two decode
+    steps at the true positions. Logits within 5e-2 x their largest magnitude (bf16
+    activations, sums in other orders), the cache within
+    ``LLAVA_CACHE_REL`` in norm, no kernel launched on either side."""
+    from repro_torch.bridge import params_from_jax, params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+
+    vlm = llava_variants()
+    failures = []
+    for name in vlm.VARIANTS:
+        P = vlm.PREFIX[name]
+        cfg = vlm.vlm_config(get_config(LLAVA_ARCH).reduced(), name)
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+        forced = rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)
+        prefix = (0.02 * rng.normal(size=(2, P, cfg.d_model))).astype(
+            np.float32)
+        gpu = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+        cpu = params_from_jax(params_to_jax(gpu), cfg, device="cpu")
+        ops.reset_launches()
+        lg_c, cache_c = _llava_run(gpu, cfg, tokens, prefix, forced)
+        lg_h, cache_h = _llava_run(cpu, cfg, tokens, prefix, forced)
+        launches = dict(ops.LAUNCHES)
+        err = float((lg_c - lg_h).abs().max())
+        scale = float(lg_h.abs().max())
+        cache = max(rel_err(cache_c[k], cache_h[k]) for k in cache_c)
+        ok = (bool(torch.isfinite(lg_c).all()) and err <= 5e-2 * max(scale, 1.0)
+              and cache <= LLAVA_CACHE_REL
+              and tuple(cache_c["k"].shape)[2] == P + 24 + 2
+              and not any(launches.values()))
+        log("llava", card_vs_cpu=f"{cfg.name}/{name}", prefix=P,
+            heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim,
+            steps="prefill 2x(P+24) + 2 decode at P + 24 + i",
+            max_abs_err=f"{err:.6g}", logit_scale=f"{scale:.6g}",
+            cache_rel_err=f"{cache:.6g}",
+            tolerance=f"5e-2 x max|logit|; cache {LLAVA_CACHE_REL} in norm",
+            kernel_launches=sum(launches.values()), ok=ok)
+        if not ok:
+            failures.append(name)
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"reduced llava-next-34b on the card disagrees "
+                         f"with the CPU path: {failures}")
+
+
+def llava_phase(seed: int, smi: str) -> None:
+    """Phase llava: llava-next-34b at published widths and all 60 layers
+    (68.78 GB of bf16 weights) through ``ServeEngine`` with prefix
+    embeddings (``llava_serve_engine``) and ``ContinuousEngine`` text only,
+    fused and "gather" (``llava_continuous``), on one model object; then
+    trained at 4 of 60 layers (``llava_train``), and its reduced config
+    and variant card against CPU (``llava_card_vs_cpu``). Frees what
+    earlier phases hold first."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+
+    free_engines("llava")
+    torch.cuda.empty_cache()
+    free_b, total_b = torch.cuda.mem_get_info()
+    cfg = get_config(LLAVA_ARCH)
+    log("llava", model=cfg.name, card=f"'{smi}'", layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        prefix=cfg.num_prefix_embeddings, params=cfg.num_params(),
+        weights_gb_bf16=f"{2 * cfg.num_params() / 1e9:.3f}",
+        kv_bytes_per_position=2 * cfg.num_layers * cfg.num_kv_heads
+        * cfg.head_dim * 2, free_gb=f"{free_b / 1e9:.3f}",
+        total_gb=f"{total_b / 1e9:.3f}",
+        reduced="'none: published widths, all 60 layers'")
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    log("llava", model=cfg.name, init_s=f"{t1 - t0:.3f}",
+        weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    failures = llava_serve_engine(model, cfg, seed, smi)
+    t2 = time.perf_counter()
+    failures += llava_continuous(model, cfg, seed, smi)
+    t3 = time.perf_counter()
+    del model
+    free_engines("llava")
+    failures += llava_train(seed, smi)
+    t4 = time.perf_counter()
+    llava_card_vs_cpu(seed)
+    log("llava", init_s=f"{t1 - t0:.3f}", serve_s=f"{t2 - t1:.3f}",
+        continuous_s=f"{t3 - t2:.3f}", train_s=f"{t4 - t3:.3f}",
+        checks_s=f"{time.perf_counter() - t4:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("llava failed: " + "; ".join(failures))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
-                          "rwkv", "seamless", "train")
+                          "rwkv", "seamless", "llava", "train")
 
 
 def main() -> int:
@@ -7466,6 +8210,8 @@ def main() -> int:
         rwkv_phase(args.seed, smi)
     if "seamless" in phases:
         seamless_phase(args.seed, smi)
+    if "llava" in phases:
+        llava_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in
@@ -7475,6 +8221,9 @@ def main() -> int:
     if set(phases) == set(PHASES):
         for k in kernels:
             k["launches"] = launches[k["name"]]
+            if k["name"] == "paged_decode_attention":
+                # phase llava's case: its pool shape, its run's launches
+                k["cases"] = {"llava_g7_pool": MEASURED["llava_paged_case"]}
         print(json.dumps({"kernels": _measured(kernels)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

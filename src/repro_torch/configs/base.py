@@ -92,7 +92,7 @@ class EncoderConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                          # dense | moe | hybrid | ssm | audio
+    family: str                          # dense | moe | hybrid | ssm | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -104,6 +104,12 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: int = 0              # 0 = full attention
     rope_theta: float = 10000.0
+    # paged decode attention (``ContinuousEngine``): "fused" launches the
+    # paged kernel straight off the block pool; "gather" materialises each
+    # slot's logical view from its block table, then runs the plain
+    # blockwise online softmax (``kernels.ref.paged_decode_ref``, the JAX
+    # package's oracle). Taken only as configured, never as a fallback.
+    paged_attn_impl: str = "fused"
     norm: str = "rmsnorm"                # rmsnorm | nonparametric (olmo)
     activation: str = "swiglu"           # swiglu | gelu | relu | relu2 (rwkv)
     tie_embeddings: bool = False         # logits read the embedding table
@@ -114,6 +120,10 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()  # e.g. ("recurrent","recurrent","local")
     rnn_width: int = 0                   # RG-LRU recurrence width (0 = d_model)
     local_window: int = 2048             # local-attention window (hybrid)
+    # modality frontends (stubs): tokens, or "mixed" (vlm): precomputed
+    # patch embeddings (B, P, d) prepended to the token embeddings
+    input_mode: str = "tokens"
+    num_prefix_embeddings: int = 0       # P, patch embeddings a sequence
     lr_schedule: str = "cosine"          # cosine | wsd (launch.train)
     source: str = ""
 
@@ -204,6 +214,7 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             local_window=min(self.local_window, 32),
             rnn_width=min(self.rnn_width, 256) if self.rnn_width else 0,
+            num_prefix_embeddings=min(self.num_prefix_embeddings, 8),
             name=self.name + "-smoke",
         )
         if self.moe is not None:

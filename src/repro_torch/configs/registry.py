@@ -1,10 +1,10 @@
 """Architecture registry: name -> ModelConfig for the architectures the
-port serves so far: the MoE models (Mixtral, the paper's Appendix C
+port serves: the MoE models (Mixtral, the paper's Appendix C
 models, and DeepSeek-V2-Lite with MLA attention and shared experts), the
 hybrid RecurrentGemma-2B, the dense family (Qwen1.5-0.5B, OLMo-1B,
-StableLM-3B, MiniCPM-2B), the attention-free RWKV-6 7B and the
-encoder-decoder SeamlessM4T-medium. The JAX package's VLM config waits for
-its prefix input (ROADMAP.md §1 item 2f)."""
+StableLM-3B, MiniCPM-2B), the attention-free RWKV-6 7B, the
+encoder-decoder SeamlessM4T-medium and the VLM backbone LLaVA-NeXT-34B:
+all thirteen of the JAX package's configs."""
 
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ _MODULES = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     # the encoder-decoder: a frame encoder and the decoder's cross-attention
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    # the VLM backbone: patch embeddings prepended to the tokens
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
 }
 
 ALL_ARCHS = list(_MODULES)

@@ -14,7 +14,12 @@ Zipf-distributed token batches from the same seed.
 An encoder-decoder's encoder is fed zero frames of (batch, min(64,
 max_source_len), d_enc) in bf16 every step, as the JAX launcher feeds them
 (the encoder's output is then zero, and so is what the cross-attention
-adds).
+adds). A VLM (``input_mode="mixed"``) is fed zero patch embeddings of
+(batch, num_prefix_embeddings, d) in bf16 before its tokens, as the JAX
+launcher feeds them; the loss scores the text positions only.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-34b \
+      --reduced --device cpu --steps 20
 
 It takes the JAX launcher's flags, prints its lines and returns its code:
 0 when the last step's loss is below the first. ``--device`` (default
@@ -139,6 +144,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for step in range(args.steps):
         batch = next(gen)
+        if cfg.input_mode == "mixed" and cfg.num_prefix_embeddings:
+            batch["prefix_embeds"] = torch.zeros(
+                (args.batch, cfg.num_prefix_embeddings, cfg.d_model),
+                dtype=torch.bfloat16, device=dev)
         if cfg.is_encdec:
             batch["frames"] = torch.zeros(
                 (args.batch, min(64, cfg.encoder.max_source_len),

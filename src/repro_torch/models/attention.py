@@ -11,9 +11,14 @@ Prefill follows the JAX package's ``chunked_attention`` block for block
 the PV product, an fp32 running max / denominator / accumulator) and is
 plain PyTorch with the reference's masks. Paged decode goes through the
 fused paged kernel (``kernels.ops.paged_decode_attention``), whose
-probabilities stay fp32. Contiguous decode (``decode_attention``) is plain
-PyTorch, as the JAX package computes it outside any Pallas kernel, and
-keeps its probabilities in fp32 for the PV product too.
+probabilities stay fp32, or, under ``ModelConfig.paged_attn_impl=
+"gather"``, materialises each slot's view from its block table and runs
+the plain blockwise oracle (``kernels.ref.paged_decode_ref``), as the JAX
+package's "gather" does. Contiguous decode (``decode_attention``; one
+position for the batch, or each slot's own over a slotted cache,
+``gqa_decode_multi``) is plain PyTorch, as the JAX package computes it
+outside any Pallas kernel, and keeps its probabilities in fp32 for the PV
+product too.
 
 Rotating-window caches (Griffin's local layers): the buffer holds
 ``W = min(max_len, window)`` positions, absolute position ``p`` lives in
@@ -46,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.models.layers import apply_rope, dense
 
 NEG_INF = -1e30
@@ -165,7 +171,10 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, pool, block_tables, lengths,
     already be allocated; ``lengths[b] == 0`` marks an idle slot whose KV
     write is suppressed, so dead slots never dirty the null block that
     other slots' tables point at. ``window``: architectural sliding window,
-    applied as a mask.
+    applied as a mask. ``cfg.paged_attn_impl``: "fused" launches the paged
+    kernel on the pool (on a CPU tensor its plain version runs); "gather"
+    materialises each slot's (M * block, K, hd) view from its table and
+    runs ``kernels.ref.paged_decode_ref``, launching no kernel.
     """
     B = x.shape[0]
     N, bs, K, hd = pool["k"].shape
@@ -183,8 +192,17 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, pool, block_tables, lengths,
                                     buf[blk, off])
     G = q.shape[2] // K
     qg = q.reshape(B, K, G, hd)
-    out = kernel_ops.paged_decode_attention(
-        qg, pool["k"], pool["v"], block_tables, lengths, window=window)
+    if cfg.paged_attn_impl == "fused":
+        out = kernel_ops.paged_decode_attention(
+            qg, pool["k"], pool["v"], block_tables, lengths, window=window)
+    elif cfg.paged_attn_impl == "gather":
+        tables = block_tables.long()
+        out = kernel_ref.paged_decode_ref(
+            qg, pool["k"][tables].reshape(B, -1, K, hd),
+            pool["v"][tables].reshape(B, -1, K, hd), lengths,
+            window=window, block_size=bs)
+    else:
+        raise ValueError(f"paged_attn_impl {cfg.paged_attn_impl!r}")
     return dense(p["wo"], out.reshape(B, 1, -1))
 
 
@@ -256,6 +274,23 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, cache_len: int, *, window=0):
     cache["v"][:, cache_len] = v[:, 0].to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"],
                            cache_len=cache_len + 1, window=window)
+    return dense(p["wo"], out.reshape(B, 1, -1))
+
+
+def gqa_decode_multi(p, cfg: ModelConfig, x, cache, lengths, *, window=0):
+    """Decode one token a slot over a slotted linear cache, every slot at
+    its own position. x: (B, 1, d); cache: one layer's {"k", "v"}: (B,
+    S_max, K, hd), updated in place; lengths: (B,) int tensor, each slot's
+    length before this token, where its k / v are written. Idle slots
+    decode garbage that the caller ignores."""
+    B = x.shape[0]
+    positions = lengths.long()[:, None]                           # (B, 1)
+    q, k, v = gqa_project(p, cfg, x, positions)
+    b_idx = torch.arange(B, device=x.device)
+    cache["k"][b_idx, positions[:, 0]] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][b_idx, positions[:, 0]] = v[:, 0].to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"], cache_len=lengths + 1,
+                           window=window)
     return dense(p["wo"], out.reshape(B, 1, -1))
 
 

@@ -1,5 +1,5 @@
 """Model assembly, as an ``nn.Module`` whose parameters mirror the JAX
-package's ``init_model`` tree, for five families:
+package's ``init_model`` tree, for six families:
 
 * the uniform-stack decoder-only MoE models: GQA ones (Mixtral, the
   paper's Appendix C models llama-moe-3.5b and switch-base-128, and
@@ -27,7 +27,13 @@ package's ``init_model`` tree, for five families:
   ``cross_*`` projections; no RoPE). Train and prefill run the encoder on
   ``frames``; prefill keeps each layer's cross K and V in the cache
   (``cross_k`` / ``cross_v``), which decode reads in full and the encoder
-  never runs again.
+  never runs again;
+* the ``vlm`` backbone (LLaVA-NeXT): a uniform GQA stack with a dense FFN
+  whose train and prefill inputs are ``num_prefix_embeddings`` precomputed
+  patch embeddings (``prefix_embeds`` (B, P, d), the vision tower being a
+  stub), cast to the embedding's dtype and placed before the token
+  embeddings, at positions ``arange(P + S)`` (``_embed_inputs``, under
+  ``input_mode="mixed"``); decode takes tokens only.
 
 Execution modes (``Transformer.forward``):
   train   — full causal pass, logits over the whole sequence, no cache
@@ -44,10 +50,9 @@ Execution modes (``Transformer.forward``):
             per-slot lengths and block tables (continuous batching), or
             against the prefill's cache with one scalar ``cache_len`` for
             the whole batch (``ServeEngine``; MLA decodes this way only;
-            RWKV's state needs no position and ignores ``cache_len``).
-
-Refused until its family is ported (ROADMAP.md §1): the VLM prefix input
-(item 2f).
+            RWKV's state needs no position and ignores ``cache_len``), or
+            against a slotted linear cache with (B,) per-slot lengths and
+            no block tables (``attention.gqa_decode_multi``).
 
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
@@ -103,8 +108,6 @@ ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
 # a forward's stats for a model without MoE, as the JAX forward gives them
 NO_MOE_STATS = {"expert_counts": None, "aux_loss": 0.0, "z_loss": 0.0}
-# families the port does not serve yet, with their ROADMAP.md §1 items
-UNPORTED_FAMILIES = {"vlm": "the VLM prefix input (ROADMAP.md §1 item 2f)"}
 # an RWKV layer's parameter name prefixes -> the JAX tree's blocks
 RWKV_BLOCKS = {"tm_": "time_mix", "cm_": "channel_mix"}
 
@@ -269,27 +272,23 @@ class Transformer(nn.Module):
     def forward(self, tokens, rt: Runtime = Runtime(), *, mode: str,
                 cache=None, cache_len=None, block_tables=None,
                 last_pos=None, token_weight=None, plan=None, store=None,
-                resched=None, remat=False, frames=None):
+                resched=None, remat=False, frames=None, prefix_embeds=None):
         return forward(self, self.cfg, tokens, rt, mode=mode, cache=cache,
                        cache_len=cache_len, block_tables=block_tables,
                        last_pos=last_pos, token_weight=token_weight,
                        plan=plan, store=store, resched=resched, remat=remat,
-                       frames=frames)
+                       frames=frames, prefix_embeds=prefix_embeds)
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise on a config the port cannot build: a family or feature whose
-    port is still to come names its ROADMAP.md item."""
-    if cfg.family in UNPORTED_FAMILIES:
-        raise ValueError(f"{cfg.name}: {UNPORTED_FAMILIES[cfg.family]} is "
-                         "not ported yet")
+    """Raise on a config the port cannot build."""
     if cfg.is_encdec != (cfg.family == "audio"):
         raise ValueError(f"{cfg.name}: an encoder comes with the audio "
                          "family's encoder-decoder only, and that family "
                          f"needs one (family {cfg.family!r}, encoder "
                          f"{cfg.encoder})")
     hybrid = cfg.family == "hybrid" and cfg.attention == "mixed"
-    uniform = cfg.family in ("moe", "dense") and cfg.attention == "gqa"
+    uniform = cfg.family in ("moe", "dense", "vlm") and cfg.attention == "gqa"
     # the encoder-decoder: a GQA decoder with a dense FFN, as in JAX
     encdec = (cfg.family == "audio" and cfg.attention == "gqa"
               and not cfg.is_moe)
@@ -648,6 +647,12 @@ def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
         a = attn.gqa_decode_paged(layer.attn_params(), cfg, h, cache,
                                   block_tables, cache_len,
                                   window=cfg.sliding_window)
+    elif mode == "decode" and torch.is_tensor(cache_len) \
+            and cache_len.dim() == 1:
+        # per-slot positions over a slotted linear cache, masked to the
+        # architectural sliding window, as the JAX package decodes there
+        a = attn.gqa_decode_multi(layer.attn_params(), cfg, h, cache,
+                                  cache_len, window=cfg.sliding_window)
     elif mode == "decode":
         # one scalar position for the whole batch over a linear cache (or
         # a rotating buffer once the cache is as short as the window)
@@ -799,7 +804,8 @@ def _migration_view(l: int, plan: Optional[DevicePlan],
 def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(),
             *, mode: str, cache=None, cache_len=None, block_tables=None,
             last_pos=None, token_weight=None, plan=None, store=None,
-            predicted_idx=None, resched=None, remat=False, frames=None):
+            predicted_idx=None, resched=None, remat=False, frames=None,
+            prefix_embeds=None):
     """Returns (logits, cache, stats).
 
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
@@ -818,7 +824,13 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
                   ``cache`` is the block pool {"k", "v"}: (L, N, bs, K, hd)
                   and ``cache_len`` the (B,) int32 lengths; without, the
                   prefill's cache and ``cache_len`` one int, the length
-                  before this token. Logits (B, 1, V).
+                  before this token, or a (B,) tensor of per-slot lengths
+                  over a slotted linear cache. Logits (B, 1, V).
+    ``prefix_embeds``: under ``input_mode="mixed"`` (the VLM), (B, P, d)
+    patch embeddings placed before the tokens in train and prefill mode
+    (``_embed_inputs``): the sequence is then P + S long, train logits
+    cover all of it, and prefill fills P + S cache positions. Decode, and
+    a config of another ``input_mode``, ignore it.
     ``token_weight``: (B, S) weight of each token in the expert histogram
     (0 for padding / idle slots). ``plan``: the (L, ...) placement plan
     stack the EP path dispatches under, a ``DevicePlan`` (see
@@ -863,8 +875,9 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     if cfg.is_encdec and block_tables is not None:
         raise ValueError("an encoder-decoder decodes over its linear cache: "
                          "the paged pool has no cross-attention cache")
-    x = embed(model.embed, tokens).to(ACT_DTYPE)
-    B, S = tokens.shape
+    x = _embed_inputs(model, cfg, tokens,
+                      None if mode == "decode" else prefix_embeds)
+    B, S = x.shape[:2]
     if mode == "decode" and torch.is_tensor(cache_len):
         positions = cache_len.long()[:, None]
     elif mode == "decode":
@@ -940,6 +953,18 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         stats["dropped"] = torch.stack(dropped)
         stats["overflow"] = torch.stack(overflow)
     return _last_logits(model, x, mode, last_pos), cache, stats
+
+
+def _embed_inputs(model: Transformer, cfg: ModelConfig, tokens,
+                  prefix_embeds=None):
+    """The token embeddings (B, S, d), with, under ``input_mode="mixed"``,
+    ``prefix_embeds`` (B, P, d) cast to the embedding's dtype and placed
+    before them; in the activation dtype (the JAX ``_embed_inputs``)."""
+    x = embed(model.embed, tokens)
+    if cfg.input_mode == "mixed" and prefix_embeds is not None:
+        x = torch.cat([torch.as_tensor(prefix_embeds).to(x.device, x.dtype),
+                       x], dim=1)
+    return x.to(ACT_DTYPE)
 
 
 def _layer_cache(cache, l: int):

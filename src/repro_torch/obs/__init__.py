@@ -1,8 +1,9 @@
 """Serving observability: span tracer with Chrome-trace/Perfetto export
 (``trace``), metrics registry with Prometheus/JSONL exporters
 (``metrics``), GPS decision audit log (``audit``) and predictor-accuracy
-tracking (``accuracy``) — the port's own copies of the JAX package's
-jax-free ``obs`` modules."""
+tracking (``accuracy``), and the trace schema check's command line
+(``python -m repro_torch.obs.validate``) — the port's own copies of the
+JAX package's jax-free ``obs`` modules."""
 
 from repro_torch.obs.accuracy import (PredictorAccuracyTracker, WindowAccuracy,
                                       hist_hit_rate, hist_kl, hist_l1)

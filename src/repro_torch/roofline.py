@@ -77,6 +77,11 @@ def analytic_flops(cfg, shape) -> float:
         return attn + ffn + head
 
     tokens = shape.global_batch * shape.seq_len
+    if cfg.input_mode == "mixed" and cfg.num_prefix_embeddings:
+        # a VLM's patch embeddings run every layer too (the attention
+        # terms keep the text length, as the JAX formula does)
+        tokens = shape.global_batch * (shape.seq_len
+                                       + cfg.num_prefix_embeddings)
     if cfg.family == "ssm":
         attn = 14 * d * d * tokens * L
     elif cfg.family == "hybrid":
@@ -159,7 +164,9 @@ def analytic_hbm_bytes(cfg, shape, chips: int, *, act_coeff: float = 10.0
 def model_flops(cfg, shape) -> float:
     """6·N_active·D for training, 2·N_active·D for inference (per step):
     the "useful compute" yardstick. N_active counts only the activated
-    experts; D = tokens the step processes (decode: one per sequence)."""
+    experts; D = tokens the step processes (decode: one per sequence), the
+    text alone: a VLM's patch embeddings are left out, as the JAX formula
+    leaves them out."""
     n = cfg.active_params()
     tokens = shape.global_batch * shape.seq_len
     if shape.kind == "train":

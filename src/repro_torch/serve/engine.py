@@ -3,7 +3,9 @@
 ``ServeEngine`` (the port of the JAX package's ``ServeEngine``) serves one
 padded batch at a time: a batched prefill, then greedy decode at one
 position for the whole batch over the prefill's cache. It serves every
-family the port has (MoE, dense, hybrid, ssm), and is the only engine for
+family the port has (MoE, dense, hybrid, ssm, audio, vlm; a VLM's batch
+may carry patch embeddings, ``prefix_embeds``, placed before its
+prompts), and is the only engine for
 hybrid (Griffin) and RWKV models and for MLA (deepseek-v2-lite-16b: its
 latent cache is linear, and the paged pool is GQA's, as in the JAX
 package). A model without MoE (the dense family: qwen1.5-0.5b, olmo-1b,
@@ -38,7 +40,9 @@ null tracer nothing synchronises.
 
 ``ContinuousEngine`` is the port of the JAX package's
 ``ContinuousEngine`` as it runs without a mesh, for the uniform-stack GQA
-models: the MoE models and the dense family.
+models: the MoE models, the dense family and the VLM backbone, which it
+serves text only (its requests carry tokens alone, as the JAX engine's
+do).
 
 Each ``step()`` is one mixed iteration: admit + prefill up to
 ``max_prefills_per_step`` waiting requests into free slots, then run ONE
@@ -580,14 +584,16 @@ class ServeEngine(_StoreMixin):
         """Prefill ``batch["tokens"]`` (B, S) (host array or tensor) into
         ``cache`` (a fresh one of ``max_len`` when None); an
         encoder-decoder's encoder runs over ``batch["frames"]`` (B, T_src,
-        d_enc), whose cross K and V the cache keeps for decode. Returns
-        (logits (B, 1, V), cache, stats)."""
+        d_enc), whose cross K and V the cache keeps for decode; a VLM's
+        ``batch["prefix_embeds"]`` (B, P, d) go before the prompts, and
+        the prefill fills P + S cache positions (``max_len`` must hold them
+        and the new tokens). Returns (logits (B, 1, V), cache, stats)."""
         t0 = time.perf_counter()
         pred = self._predict_tokens(batch["tokens"])
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        frames = batch.get("frames")
-        if frames is not None:
-            frames = torch.as_tensor(frames, device=self.device)
+        frames, prefix = (None if batch.get(k) is None else
+                          torch.as_tensor(batch[k], device=self.device)
+                          for k in ("frames", "prefix_embeds"))
         B, S = tokens.shape
         if cache is None:
             src = None if frames is None else frames.shape[1]
@@ -604,7 +610,8 @@ class ServeEngine(_StoreMixin):
         else:
             logits, cache, stats = self._prefill(
                 self.model, tokens, cache, plan=plan, predicted_idx=pred,
-                store=store, resched=self._resched_stack, frames=frames)
+                store=store, resched=self._resched_stack, frames=frames,
+                prefix_embeds=prefix)
         self._observe(stats, skip_replan=self._in_graph)
         self._sync()
         dt = time.perf_counter() - t0
@@ -642,7 +649,11 @@ class ServeEngine(_StoreMixin):
 
     def generate(self, batch, max_new_tokens: int = 8):
         """Prefill + greedy decode; returns (generated (B, T) int32 tensor,
-        the last batch's telemetry)."""
+        the last batch's telemetry). Decode step t runs at position S + t,
+        S the prompt's length, as the JAX engine's does: with a VLM's P
+        prefix embeddings the prefill filled P + S positions, so the first
+        steps overwrite prefix positions (whenever S < P) and attend over
+        S + t + 1 of them. ``decode`` at P + S + t is the true position."""
         S = batch["tokens"].shape[1]
         logits, cache, _ = self.prefill(batch, cache=None)
         next_tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -1571,7 +1582,8 @@ class ContinuousEngine(_StoreMixin):
                 gqa=max(cfg.num_heads // cfg.num_kv_heads, 1),
                 head_dim=cfg.head_dim, block_size=ccfg.block_size,
                 max_blocks=max(ccfg.max_len // ccfg.block_size, 1),
-                window=cfg.sliding_window, iters=iters, device=self.device))
+                window=cfg.sliding_window, impl=cfg.paged_attn_impl,
+                iters=iters, device=self.device))
         if m is not None:
             phases.update(dispatch_phase_times(
                 d_model=cfg.d_model, d_ff=m.d_ff_expert,

@@ -62,7 +62,9 @@ def init_opt_state(model: Transformer) -> AdamWState:
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
     """``loss_fn(model, batch, plan=None) -> (loss, metrics)``: the
     train-mode forward over ``batch["tokens"]`` (an encoder-decoder's
-    encoder over ``batch["frames"]``; under ``rt.ep`` dispatched
+    encoder over ``batch["frames"]``; a VLM's ``batch["prefix_embeds"]``
+    (B, P, d) before the tokens, whose P positions carry no label and are
+    sliced off the logits before the loss; under ``rt.ep`` dispatched
     under ``plan``, None the identity plan), ``lm_loss`` against
     ``batch["labels"]`` (and ``batch["loss_mask"]`` if given), plus the aux
     and z losses for MoE models, whose ``aux_loss`` and ``expert_counts``
@@ -72,7 +74,11 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
     def loss_fn(model: Transformer, batch, plan=None):
         logits, _, stats = forward(model, cfg, batch["tokens"], rt,
                                    mode="train", plan=plan, remat=remat,
-                                   frames=batch.get("frames"))
+                                   frames=batch.get("frames"),
+                                   prefix_embeds=batch.get("prefix_embeds"))
+        if cfg.input_mode == "mixed" and "prefix_embeds" in batch:
+            # the prefix carries no LM labels: score text positions only
+            logits = logits[:, batch["prefix_embeds"].shape[1]:]
         loss, metrics = lm_loss(logits, batch["labels"],
                                 batch.get("loss_mask"))
         if cfg.is_moe:
@@ -96,7 +102,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
     path ignores it.
 
     ``batch``: {"tokens", "labels"[, "loss_mask"]}, (B, S) tensors or numpy
-    arrays, and for an encoder-decoder "frames" (B, T_src, d_enc).
+    arrays, and for an encoder-decoder "frames" (B, T_src, d_enc), for a
+    VLM "prefix_embeds" (B, P, d) (microbatches split it as the rest).
     ``lr_fn(step)``: the learning rate at the state's step
     (default 3e-4). ``remat``: each layer recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant; the values are the plain
@@ -191,15 +198,17 @@ def make_paged_decode_step(cfg: ModelConfig, rt: Runtime):
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     """Batched prefill of (B, S) prompts into ``cache`` (a fresh one when
-    None), an encoder-decoder's encoder over ``frames``. Returns (logits at
-    the last position, cache, stats)."""
+    None), an encoder-decoder's encoder over ``frames``, a VLM's
+    ``prefix_embeds`` (B, P, d) before the prompts (P + S cache
+    positions). Returns (logits at the last position, cache, stats)."""
     @torch.inference_mode()
     def prefill_step(model: Transformer, tokens, cache=None, plan=None,
                      predicted_idx=None, store=None, resched=None,
-                     frames=None):
+                     frames=None, prefix_embeds=None):
         return forward(model, cfg, tokens, rt, mode="prefill", cache=cache,
                        plan=plan, store=store, predicted_idx=predicted_idx,
-                       resched=resched, frames=frames)
+                       resched=resched, frames=frames,
+                       prefix_embeds=prefix_embeds)
     return prefill_step
 
 

@@ -114,7 +114,7 @@ def _cross_inputs(d, d_enc, frames):
 # --------------------------------------------------------------------------
 
 def test_registry_holds_seamless():
-    assert ARCH in ALL_ARCHS and len(ALL_ARCHS) == 12
+    assert ARCH in ALL_ARCHS and len(ALL_ARCHS) == 13
     cfg = get_config(ARCH)
     assert (cfg.family, cfg.attention, cfg.activation) == ("audio", "gqa",
                                                            "gelu")

@@ -157,7 +157,7 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_deepseek():
-    assert ARCH in ALL_ARCHS and len(ALL_ARCHS) == 12      # seamless the twelfth
+    assert ARCH in ALL_ARCHS and len(ALL_ARCHS) == 13      # llava the 13th
     cfg = get_config(ARCH)
     assert cfg.attention == "mla" and cfg.moe.num_shared_experts == 2
     assert (cfg.moe.num_experts, cfg.moe.top_k) == (64, 6)
