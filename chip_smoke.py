@@ -403,7 +403,33 @@ non-zero:
                 zero prefix (finite at this depth, as the JAX step's in the
                 CPU test); last the reduced config and its "wide" variant
                 (G 7, head_dim 128, 600 prefix embeddings) card against CPU.
- 19. train    — (last, after every serving engine is freed) training on
+ 19. sweep    — (after llava, before train; alone with ``--phases
+                sweep``) the port's sweep harness (``repro_torch.sweep``)
+                as users call it, after every earlier engine is freed.
+                ``python -m repro_torch.sweep run --smoke --mesh 1x4
+                --workload skew_shift --strategy dist_only --device cuda``
+                (the smoke spec's reduced Mixtral) with its report,
+                history, per-job traces and merged trace under
+                ``chiprun_out/sweep/``: exit 0, the job ok on this card,
+                the merged trace valid. Then llama-moe-3.5b at published
+                widths and all 32 layers (6.74e9 parameters), random
+                weights from ``--seed``, mesh 1x4 under every strategy
+                value (dist_only, token_to_expert, reschedule, both) at
+                the smoke engine shape and trace, ``max_iters`` 400: the
+                dist_only point in this process through ``run_point``,
+                kernel counts set to 0 just before and read just after and
+                held to its engine's warmup (one prefill, one decode),
+                prefills and decode steps; the other three through
+                ``run_sweep``, one subprocess each, which load the kernels
+                this script built. Every document must be ok, drained, on
+                device cuda with this card's name; per point the step p50
+                / p99, TTFT p50 (virtual clock), decode tokens/s,
+                completions, dropped and overflowed pairs, migration
+                re-plans and bytes and rescue plans. Last ``collect`` over
+                the four documents into a fresh history, ``report`` over it
+                (one row per series) and the spec's k8s manifests (every
+                one valid, none applied).
+ 20. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -8101,12 +8127,256 @@ def llava_phase(seed: int, smi: str) -> None:
         raise SystemExit("llava failed: " + "; ".join(failures))
 
 
+SWEEP_ARCH = "llama-moe-3.5b"      # all 32 layers at published widths
+SWEEP_STRATEGIES = ("dist_only", "token_to_expert", "reschedule", "both")
+SWEEP_MAX_ITERS = 400              # the full tier's: every point drains
+SWEEP_OUT = os.path.join(ROOT, "chiprun_out", "sweep")
+
+
+@contextlib.contextmanager
+def _warmup_capture(rec: dict):
+    """Record, at the end of every ``ContinuousEngine.warmup``, the engine
+    and the launch counts so far: a sweep job builds its engine inside
+    ``run_point``, and its decode steps are read from the engine after."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousEngine
+
+    real = ContinuousEngine.warmup
+
+    def warmup(self):
+        out = real(self)
+        rec["engine"] = self
+        rec["warmup_launches"] = dict(ops.LAUNCHES)
+        return out
+    ContinuousEngine.warmup = warmup
+    try:
+        yield rec
+    finally:
+        ContinuousEngine.warmup = real
+
+
+def _sweep_main(argv) -> str:
+    """The sweep CLI's ``main(ARGV)`` in this process (the host-only
+    commands, which need no process of their own); its output logged line
+    by line. Returns its stdout; fails the phase on rc != 0."""
+    import io
+
+    from repro_torch.sweep.__main__ import main as sweep_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = sweep_main(argv)
+    for line in out.getvalue().splitlines():
+        log("sweep", cli=argv[0], stdout=f"'{line}'")
+    if rc != 0:
+        raise SystemExit(f"sweep failed: {argv[0]} returned {rc}")
+    return out.getvalue()
+
+
+def _sweep_doc_failures(doc: dict, kind: str) -> list:
+    """What a sweep job document on this card must show: ok, drained,
+    every request completed, the device and the card's name."""
+    m, c = doc.get("metrics", {}), doc.get("config", {})
+    bad = []
+    if not doc.get("ok"):
+        why = doc.get("error", "the job reported not ok")
+        bad.append(f"{doc.get('key')}: not ok ({why})")
+    if c.get("device") != "cuda":
+        bad.append(f"{doc.get('key')}: device {c.get('device')!r}")
+    if c.get("device_name") != kind:
+        bad.append(f"{doc.get('key')}: device_name {c.get('device_name')!r}")
+    if m and m.get("completed") != m.get("submitted"):
+        bad.append(f"{doc.get('key')}: {m.get('completed')} of "
+                   f"{m.get('submitted')} requests completed")
+    return bad
+
+
+def _log_sweep_point(doc: dict, smi: str) -> None:
+    m = doc["metrics"]
+    log("sweep", point=doc["key"], card=f"'{smi}'",
+        device=doc["config"]["device"], ok=doc["ok"],
+        wall_s=f"{doc['wall_s']:.3f}", steps=int(m["steps"]),
+        step_p50_ms=f"{m['step_p50_ms']:.3f}",
+        step_p99_ms=f"{m['step_p99_ms']:.3f}",
+        ttft_p50_virtual_s=f"{m['ttft_p50']:.4f}",
+        time_scale=doc["config"]["time_scale"],
+        decode_toks_per_s=f"{m['decode_toks_per_s']:.2f}",
+        completed=f"{int(m['completed'])}/{int(m['submitted'])}",
+        dropped_pairs=int(m["dropped_tokens"]),
+        overflow_pairs=int(m["overflow_tokens"]),
+        migration_replans=int(m["migration_replans"]),
+        migration_bytes_moved=int(m["migration_bytes_moved"]),
+        migration_rejected=int(m["migration_rejected"]),
+        resched_plans=int(m["resched_plans"]))
+
+
+def sweep_phase(seed: int, smi: str) -> None:
+    """Phase sweep: the port's sweep harness as users call it. First
+    ``python -m repro_torch.sweep run`` on the smoke spec's reduced
+    Mixtral point at mesh 1x4 (workload skew_shift, dist_only, ``--device
+    cuda``), with its report, history and traces under ``SWEEP_OUT``.
+    Then llama-moe-3.5b at published widths and all 32 layers under
+    every strategy value (dist_only, token_to_expert, reschedule, both;
+    mesh 1x4, smoke engine shape): the dist_only point in this process
+    through ``run_point`` with every kernel count set to 0 just before
+    and read just after (held to its engine's warmup, prefills and decode
+    steps), the other three through ``run_sweep``, one subprocess each,
+    loading the kernels this script built. Every document must be ok on
+    this card; then ``collect`` into a fresh history, ``report`` over it
+    (one row per series) and the spec's k8s manifests (every one valid)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.sweep import MeshShape, SweepSpec, validate_manifest
+    from repro_torch.sweep.history import load_history, series
+    from repro_torch.sweep.job import run_point
+    from repro_torch.sweep.k8s import write_manifests
+    from repro_torch.sweep.runner import _src_root, run_sweep
+
+    free_engines("sweep")
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+    os.makedirs(SWEEP_OUT)
+    failures = []
+
+    # 1. the CLI, as a user runs it, on the smoke spec's reduced Mixtral
+    cli = {k: os.path.join(SWEEP_OUT, f) for k, f in (
+        ("out", "SWEEP_cli_report.json"), ("history", "cli_history.jsonl"),
+        ("trace-dir", "cli_traces"), ("merged-trace", "SWEEP_cli_trace.json"))}
+    argv = (["run", "--smoke", "--mesh", "1x4", "--workload", "skew_shift",
+             "--strategy", "dist_only", "--device", "cuda", "--max-iters",
+             str(SWEEP_MAX_ITERS)]
+            + [a for k, v in cli.items() for a in (f"--{k}", v)])
+    env = dict(os.environ, PYTHONPATH=_src_root() + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.sweep", *argv],
+                         capture_output=True, text=True, env=env,
+                         timeout=900)
+    for line in run.stdout.splitlines():
+        log("sweep", cli="run", stdout=f"'{line}'")
+    if run.returncode != 0:
+        raise SystemExit(f"sweep failed: python -m repro_torch.sweep "
+                         f"{' '.join(argv)} exited {run.returncode}: "
+                         f"{run.stderr.strip().splitlines()[-5:]}")
+    with open(cli["out"]) as f:
+        report = json.load(f)
+    with open(cli["merged-trace"]) as f:
+        trace_errors = validate_chrome_trace(json.load(f))
+    for doc in report["jobs"].values():
+        failures += _sweep_doc_failures(doc, kind)
+        if doc.get("metrics"):
+            _log_sweep_point(doc, smi)
+    if len(report["jobs"]) != 1 or len(load_history(cli["history"])) != 1:
+        failures.append(f"the CLI ran {len(report['jobs'])} points")
+    if trace_errors:
+        failures.append(f"the CLI's merged trace: {trace_errors[:3]}")
+    t1 = time.perf_counter()
+
+    # 2. llama-moe-3.5b at published widths under every strategy value
+    cfg = get_config(SWEEP_ARCH)
+    spec = SweepSpec(archs=(SWEEP_ARCH,), meshes=(MeshShape(1, 4),),
+                     workloads=("skew_shift",), strategies=SWEEP_STRATEGIES,
+                     seeds=(seed,), reduced=False)
+    points = spec.expand()
+    log("sweep", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+        points=",".join(p.key for p in points),
+        max_iters=SWEEP_MAX_ITERS, reduced="'none: published widths, all "
+        "32 layers; smoke engine shape and trace'")
+    rec = {}
+    with _warmup_capture(rec):
+        ops.reset_launches()
+        first = run_point(points[0], smoke=True, max_iters=SWEEP_MAX_ITERS,
+                          device="cuda")
+        launches = dict(ops.LAUNCHES)
+    eng = rec.pop("engine")
+    decode_steps, warm = eng.decode_steps, rec.pop("warmup_launches")
+    del eng
+    free_engines("sweep")
+    m = first["metrics"]
+    prefills = int(m["submitted"] + m["preemptions"])  # a preempted one refills
+    want_warm = expected_launches(warm, cfg, 1, 1, ep=True)
+    serving = {k: launches[k] - warm.get(k, 0) for k in launches}
+    want = expected_launches(serving, cfg, prefills, decode_steps, ep=True)
+    log("sweep", point=first["key"], prefills=prefills,
+        decode_steps=decode_steps, iterations=int(m["steps"]),
+        launches=",".join(f"{k}:{launches[k]}" for k in SERVING_KERNELS),
+        warmup_launches=",".join(f"{k}:{warm[k]}" for k in SERVING_KERNELS),
+        serving_launches=",".join(f"{k}:{serving[k]}"
+                                  for k in SERVING_KERNELS),
+        launches_exact=serving == want and warm == want_warm)
+    if serving != want or warm != want_warm:
+        failures.append(f"{first['key']}: launches {serving} (warmup "
+                        f"{warm}) != {want} (warmup {want_warm})")
+    if any(serving[k] == 0 for k in SERVING_KERNELS):
+        failures.append(f"{first['key']}: a kernel never launched {serving}")
+    rest = run_sweep(points[1:], smoke=True,
+                     out_path=os.path.join(SWEEP_OUT, "SWEEP_report.json"),
+                     history_path=os.path.join(SWEEP_OUT, "history.jsonl"),
+                     max_iters=SWEEP_MAX_ITERS, device="cuda")
+    docs = [first] + [rest["jobs"][p.key] for p in points[1:]]
+    for doc in docs:
+        failures += _sweep_doc_failures(doc, kind)
+        if doc.get("metrics"):
+            _log_sweep_point(doc, smi)
+    t2 = time.perf_counter()
+
+    # 3. collect, report and manifests over the four documents
+    results = os.path.join(SWEEP_OUT, "results")
+    os.makedirs(results)
+    for doc in docs:
+        with open(os.path.join(results, doc["key"].replace("/", "_")
+                               + ".json"), "w") as f:
+            json.dump(doc, f)
+    fresh = os.path.join(SWEEP_OUT, "collected.jsonl")
+    out = _sweep_main(["collect", "--dir", results, "--history", fresh])
+    entries = load_history(fresh)
+    if sorted(e["key"] for e in entries) != sorted(p.key for p in points):
+        failures.append(f"collect: {out.strip()}")
+    trend_md = os.path.join(SWEEP_OUT, "trend.md")
+    _sweep_main(["report", "--history", fresh, "--out", trend_md])
+    with open(trend_md) as f:
+        rows = [r for r in f.read().splitlines() if r.startswith("| sweep |")]
+    n_series = len(series(entries))
+    if len(rows) != n_series:
+        failures.append(f"report: {len(rows)} rows for {n_series} series")
+    paths = write_manifests(points, os.path.join(SWEEP_OUT, "k8s"),
+                            image="repro-sweep:latest", smoke=True)
+    manifest_errors = []
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        try:
+            manifest = json.loads(text)
+        except json.JSONDecodeError:
+            import yaml
+            manifest = yaml.safe_load(text)
+        manifest_errors += validate_manifest(manifest)
+        if "repro_torch.sweep.job" not in text:
+            manifest_errors.append(f"{path}: not the port's job")
+    if len(paths) != len(points) or manifest_errors:
+        failures.append(f"manifests: {len(paths)} of {len(points)}, "
+                        f"{manifest_errors[:3]}")
+    log("sweep", collected=len(entries), series=n_series, report_rows=len(rows),
+        manifests=len(paths), manifests_valid=not manifest_errors,
+        cli_s=f"{t1 - t0:.3f}", points_s=f"{t2 - t1:.3f}",
+        records_s=f"{time.perf_counter() - t2:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    if failures:
+        raise SystemExit("sweep failed: " + "; ".join(failures))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
-                          "rwkv", "seamless", "llava", "train")
+                          "rwkv", "seamless", "llava", "sweep", "train")
 
 
 def main() -> int:
@@ -8212,6 +8482,8 @@ def main() -> int:
         seamless_phase(args.seed, smi)
     if "llava" in phases:
         llava_phase(args.seed, smi)
+    if "sweep" in phases:
+        sweep_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in

@@ -327,11 +327,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "core/predictors", "schedule/base", "schedule/greedy",
         "schedule/lp", "roofline", "moe/profile", "fleet/budget",
         "fleet/admission", "fleet/arbiter", "fleet/engine",
-        "workloads/catalog")} <= walked
+        "workloads/catalog", "sweep/job", "sweep/runner", "sweep/k8s",
+        "sweep/__main__")} <= walked
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def test_sweep_jobs_run_the_ports_job(monkeypatch):
+    """The runner's subprocess and the k8s container run
+    ``repro_torch.sweep.job``, never the JAX package's job."""
+    from repro_torch.sweep import k8s, runner
+    from repro_torch.sweep.matrix import SMOKE_SPEC
+
+    point = SMOKE_SPEC.expand()[0]
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append((cmd, kw["env"]))
+        raise OSError("not run")
+    monkeypatch.setattr(runner.subprocess, "run", fake_run)
+    doc = runner.run_job(point, smoke=True, device="cpu", verbose=False)
+    assert not doc["ok"] and "not run" in doc["error"]
+    (cmd, env), = seen
+    assert cmd[1:3] == ["-m", "repro_torch.sweep.job"]
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+    assert "XLA_FLAGS" not in env or env["XLA_FLAGS"] == os.environ.get(
+        "XLA_FLAGS")
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == str(ROOT / "src")
+    container = k8s.job_manifest(point, image="repro:ci")[
+        "spec"]["template"]["spec"]["containers"][0]
+    assert container["command"] == ["python", "-m", "repro_torch.sweep.job"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
