@@ -215,12 +215,15 @@ non-zero:
                 device busy time.
  11. profile  — ``ContinuousEngine.profile_phases`` on an EP store engine
                 (4 ranks, one replica slot, the main trace's config) over
-                the first 2 Mixtral layers at full width (a fresh model
-                from ``--seed``: ``init_model`` draws the embedding and
-                head, then the layers in order, so these are the main
-                path's first 2 layers): the prefill bucket (512 tokens),
-                then ``metrics.reset_phases()`` and a decode-shaped profile
-                (8 tokens). Prints seconds per phase (attn, route, pack,
+                the first Mixtral layer at full width (a fresh model from
+                ``--seed``: ``init_model`` draws the embedding and head,
+                then the layers in order, so this is the main path's first
+                layer; one layer, since the numpy draws of the fp32
+                migrate inputs grow with it): the prefill bucket (512
+                tokens), then ``metrics.reset_phases()`` and a
+                decode-shaped profile (8 tokens), the inputs of both
+                drawn at once first (``draw_profile_inputs``). Prints
+                seconds per phase (attn, route, pack,
                 a2a, ffn, combine, total, migrate, prefetch); checks every
                 phase > 0, ``total`` the sum of the five dispatch phases,
                 the ``phase_*_us`` columns, the spans on the
@@ -269,12 +272,15 @@ non-zero:
                 trains on the CPU parity tests only (218 GB of fp32 state a
                 layer); the phase prints why.
  14. dense    — (after models, before train; alone with ``--phases dense``)
-                the dense family at published widths and every layer,
-                random weights from ``--seed`` (qwen's QKV biases drawn
-                nonzero): qwen1.5-0.5b (24 layers, QKV bias), olmo-1b (16,
-                the non-parametric LayerNorm), stablelm-3b (32, head_dim
-                80) and minicpm-2b (40, 36 KV heads, tied embeddings, WSD).
-                Each through ``ContinuousEngine`` on phase 4's trace
+                the dense family at published widths, random weights
+                from ``--seed`` (qwen's QKV biases drawn nonzero):
+                qwen1.5-0.5b (24 layers, QKV bias), olmo-1b (16, the
+                non-parametric LayerNorm), stablelm-3b (32, head_dim 80)
+                and minicpm-2b (40, 36 KV heads, tied embeddings, WSD),
+                the launchers at every layer, the engine and
+                ``make_train_step`` runs at half of them (``DENSE_DEPTH``:
+                the script's time limit). Each through
+                ``ContinuousEngine`` on phase 4's trace
                 (completions, tokens, exact launches: paged attention once
                 a layer a decode step, nothing else), step p50, TTFT p50,
                 decode tokens/s, peak memory, and profiled decode steps
@@ -374,9 +380,10 @@ non-zero:
                 output and the cross cache within 1e-2 and 2e-2 in norm,
                 logits within 5e-2 x their largest).
  18. llava    — (after seamless, before train; alone with ``--phases
-                llava``) llava-next-34b at published widths and all 60
-                layers (the VLM backbone: 2880 patch embeddings before the
-                tokens; 34.39e9 parameters, 68.78 GB in bf16), random
+                llava``) llava-next-34b at published widths and 30 of
+                its 60 layers (``LLAVA_SERVE_LAYERS``, the script's time
+                limit; the VLM backbone: 2880 patch embeddings before the
+                tokens; 34.39e9 parameters, 68.78 GB in bf16 at 60), random
                 weights from ``--seed``, after every earlier engine is
                 freed. Through ``ServeEngine`` (strategy none): 2 requests
                 of 2880 random prefix embeddings (0.02 x a normal) and a
@@ -429,7 +436,35 @@ non-zero:
                 the four documents into a fresh history, ``report`` over it
                 (one row per series) and the spec's k8s manifests (every
                 one valid, none applied).
- 20. train    — (last, after every serving engine is freed) training on
+ 20. dist     — (after sweep, before train; alone with ``--phases dist``)
+                the EP serving path over a process mesh (``launch.mesh``:
+                one process a rank of a (data, model) mesh): NCCL, a card
+                a rank, with four cards or more, else gloo with four
+                processes on card 0, every collective staged through the
+                host (this measures no NVLink). Mixtral-8x7B at published
+                widths, 4 of 32 layers, the main trace and engine on a
+                virtual clock (``DIST_STEP_S`` an iteration, the overlap
+                window pinned at ``DIST_WINDOW_S``, so two runs agree step
+                for step): first with the EP ranks stacked in this process
+                (the reference), then as a (1, 4) world on the same
+                weights, each process drawing them all and keeping its
+                experts; equal tokens, per-iteration drops, re-plans and
+                migration counters, the last logits bit-equal (top-2:
+                a token's psum has at most two nonzero partials), every
+                process's launches
+                of the router, histogram_offsets, moe_gemm and paged
+                attention exact (counts set to 0 after its warmup, read at
+                the end). A (2, 2) world at 2 layers: every request done,
+                the ranks' plan checksums equal at each re-plan, launches
+                exact; and in it reduced Mixtral, two prefills and a
+                decode step, against the same (2, 2) run on the CPU (gloo,
+                plain versions). Per leg: step p50 / p99, TTFT p50 (host
+                wall, no synchronisation added), decode tokens/s, the
+                collectives' share of a decode step (CUDA events around
+                each collective on its calling stream), fill entries and
+                seconds, peak memory a process. A failed or timed-out
+                rank fails the phase.
+ 21. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -460,7 +495,9 @@ non-zero:
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. The kernels JSON lists the three backward
 kernels beside the five forward ones, with ``gradient_of`` naming the
-forward kernel and their launches from phase train. Run from the repository root:
+forward kernel and their launches from phase train; every row also has
+``dist_launches``, rank 0's launches in phase dist's (1, 4) and (2, 2)
+worlds. Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--phases router,histogram,...] [--src DIR]
 
@@ -480,6 +517,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4287,7 +4325,10 @@ def roofline_phase() -> None:
 # phase profile: ContinuousEngine.profile_phases at full width
 # ---------------------------------------------------------------------------
 
-PROFILE_LAYERS = 2                 # keeps the fp32 migrate inputs ~34 GB
+PROFILE_LAYERS = 1                 # the fp32 migrate inputs 5.6 GB; their
+                                   # numpy draws take most of the phase
+PROFILE_SHAPES = {"prefill": MAIN_CCFG["prefill_len"],  # tokens profiled
+                  "decode": MAIN_CCFG["max_slots"]}
 PROFILE_ITERS = 3
 PROFILE_SPANS = ("attn", "route", "pack", "a2a", "ffn", "combine", "migrate")
 
@@ -4302,11 +4343,11 @@ def _track_spans(tracer, track: str):
 
 
 def dispatch_profile_phase(seed: int) -> None:
-    """``profile_phases`` at the prefill bucket and decode-shaped on an EP
-    store engine over 2 full-width Mixtral layers, with its checks; the
-    packers and paged attention head to head; the ffn phase beside phase
-    3's moe_gemm rows and the phases' sum over 8 layers beside phase 4's
-    profiled EP decode step."""
+    """``profile_phases`` at each of ``PROFILE_SHAPES`` on an EP store
+    engine over ``PROFILE_LAYERS`` full-width Mixtral layers, with its
+    checks; the packers and paged attention head to head; the ffn phase
+    beside phase 3's moe_gemm rows and the phases' sum over 8 layers
+    beside phase 4's profiled EP decode step."""
     from repro_torch.kernels import ops
     from repro_torch.moe import profile as prof
     from repro_torch.obs import SpanTracer
@@ -4324,14 +4365,22 @@ def dispatch_profile_phase(seed: int) -> None:
         dispatch_dtype="float32 (the JAX profile's)",
         allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
     failures, profiles = [], {}
-    for shape, tokens in (("prefill", ccfg.prefill_len),
-                          ("decode", ccfg.max_slots)):
-        if shape == "decode":
-            eng.metrics.reset_phases()
+    # the numpy draws of the fp32 weights take most of the phase: both
+    # shapes' dispatch inputs and the migrate inputs at once, one thread
+    # each, before anything is timed
+    t1 = time.perf_counter()
+    draws = eng.draw_profile_inputs(tuple(PROFILE_SHAPES.values()), {})
+    log("phases", draws=",".join("%s@%d" % k if isinstance(k, tuple)
+                                 else k for k in draws),
+        draw_s=f"{time.perf_counter() - t1:.3f}",
+        allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    for shape, tokens in PROFILE_SHAPES.items():
+        eng.metrics.reset_phases()
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        ph = eng.profile_phases(iters=PROFILE_ITERS, tokens=tokens)
+        ph = eng.profile_phases(iters=PROFILE_ITERS, tokens=tokens,
+                                draws=draws)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         profiles[shape] = ph
@@ -4361,11 +4410,11 @@ def dispatch_profile_phase(seed: int) -> None:
             failures.append(f"{shape}: summary columns {sorted(cols)}")
     spans = _track_spans(tracer, "dispatch-profile")
     log("phases", dispatch_profile_spans=len(spans),
-        span_order_ok=spans == list(PROFILE_SPANS) * 2)
-    if spans != list(PROFILE_SPANS) * 2:
+        span_order_ok=spans == list(PROFILE_SPANS) * len(PROFILE_SHAPES))
+    if spans != list(PROFILE_SPANS) * len(PROFILE_SHAPES):
         failures.append(f"dispatch-profile spans {spans}")
     dev = model.device
-    del eng, model, tracer
+    del eng, model, tracer, draws
     free_engines("phases")
 
     packs = prof.pack_impl_times(d_model=cfg.d_model,
@@ -4387,7 +4436,7 @@ def dispatch_profile_phase(seed: int) -> None:
     # phase 3 times its bf16 rows (the engine's arithmetic) and bounds its
     # fp32 rows (the profile's), at 12 slots of 8 / 128 rows
     rows = MEASURED.get("moe_gemm_rows", {})
-    for shape in ("decode", "prefill"):
+    for shape in PROFILE_SHAPES:
         fp32, bf16 = rows.get(f"float32/{shape}"), rows.get(
             f"bfloat16/{shape}")
         log("phases", compare="ffn phase vs kernel table", shape=shape,
@@ -5526,6 +5575,10 @@ def models_phase(seed: int, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("qwen1.5-0.5b", "olmo-1b", "stablelm-3b", "minicpm-2b")
+# the engine and make_train_step runs' depth: half of each model's layers
+# (the launchers, launch.serve and launch.train, run every layer)
+DENSE_DEPTH = {"qwen1.5-0.5b": 12, "olmo-1b": 8, "stablelm-3b": 16,
+               "minicpm-2b": 20}
 # launch.serve's ServeEngine run: one batch of 8 x 512, 64 new tokens each
 DENSE_LAUNCH_SERVE = ("qwen1.5-0.5b", "minicpm-2b")
 DENSE_SERVE_ARGS = dict(requests=8, batch=8, seq=512, new_tokens=64)
@@ -5558,8 +5611,17 @@ def _launch(module, argv, phase: str, trace: str):
     return rc, out.getvalue(), spans
 
 
+def _dense_cfg(arch: str):
+    """``arch`` at published widths, cut to ``DENSE_DEPTH`` layers."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=DENSE_DEPTH[arch])
+
+
 def dense_serve(arch: str, seed: int, smi: str) -> list:
-    """One dense model at published widths, every layer, random bf16
+    """One dense model at published widths, ``DENSE_DEPTH`` layers (the
+    launcher every layer), random bf16
     weights from ``seed`` (qwen's QKV biases drawn nonzero, N(0, 0.5)):
     ``ContinuousEngine`` on phase 4's trace (``serve_trace``: completions,
     tokens, exact launches, paged attention once a layer a decode step),
@@ -5571,14 +5633,16 @@ def dense_serve(arch: str, seed: int, smi: str) -> list:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.transformer import init_model
 
-    cfg = get_config(arch)
+    cfg = _dense_cfg(arch)
+    layers = get_config(arch).num_layers
     log("dense", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         qkv_bias=cfg.qkv_bias, norm=cfg.norm,
         tie_embeddings=cfg.tie_embeddings, lr_schedule=cfg.lr_schedule,
-        params=cfg.num_params(), reduced="'none: published widths, all "
-        f"{cfg.num_layers} layers'")
+        params=cfg.num_params(), reduced=f"'depth: {cfg.num_layers} of "
+        f"{layers} layers, published widths (launch.serve: all "
+        f"{layers})'")
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda")
@@ -5665,8 +5729,9 @@ def _dense_repeat(cfg, model, batch, remat: bool,
 
 def dense_train(arch: str, seed: int, smi: str) -> list:
     """``TRAIN_STEPS`` train steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf
-    tokens (``token_batches(seed)``) at the launcher's schedule, every layer
-    at published widths, fp32 weights from ``seed``, each layer recomputed
+    tokens (``token_batches(seed)``) at the launcher's schedule, at
+    published widths (the launcher's run every layer, the others
+    ``DENSE_DEPTH``), fp32 weights from ``seed``, each layer recomputed
     for ``DENSE_REMAT``: minicpm-2b through ``repro_torch.launch.train.main``
     (its WSD schedule, step times from its trace), the others through
     ``make_train_step``. Per step loss, lr, grad norm and ms; then step p50,
@@ -5685,7 +5750,9 @@ def dense_train(arch: str, seed: int, smi: str) -> list:
     from repro_torch.roofline import PEAK_FLOPS, model_flops
     from repro_torch.train.steps import init_opt_state, make_train_step
 
-    cfg = get_config(arch)
+    # the launcher's model has every layer; make_train_step's DENSE_DEPTH
+    cfg = (get_config(arch) if arch == DENSE_LAUNCH_TRAIN
+           else _dense_cfg(arch))
     remat = arch in DENSE_REMAT
     run = f"dense/{cfg.name}"
     n_params = cfg.num_params()
@@ -5693,7 +5760,8 @@ def dense_train(arch: str, seed: int, smi: str) -> list:
         state_gb=f"{16 * n_params / 1e9:.3f}", batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
         schedule=cfg.lr_schedule, remat=remat,
-        reduced="'none: published widths, all layers'")
+        reduced=f"'depth: {cfg.num_layers} of "
+                f"{get_config(arch).num_layers} layers, published widths'")
     failures, lrs, losses = [], [], []
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -5847,8 +5915,9 @@ def dense_card_vs_cpu(seed: int) -> None:
 
 
 def dense_phase(seed: int, smi: str) -> None:
-    """Phase dense: for each of ``DENSE_ARCHS`` at published widths and all
-    layers, serving (``dense_serve``) then training (``dense_train``);
+    """Phase dense: for each of ``DENSE_ARCHS`` at published widths
+    (``DENSE_DEPTH`` layers, the launchers all), serving (``dense_serve``)
+    then training (``dense_train``);
     then the reduced models card against CPU. Frees what earlier phases
     hold first."""
     free_engines("dense")
@@ -7432,6 +7501,8 @@ LLAVA_ARCH = "llava-next-34b"
 # patches, the config's P) and a 64-token Zipf prompt each, 32 decode steps
 # at the true positions P + S + t; then generate's 8 tokens (positions
 # S + t, the reference's)
+LLAVA_SERVE_LAYERS = 30            # of 60: both engines' runs (the script's
+                                   # time limit; all 60 fit, PR 33-35 ran them)
 LLAVA_SERVE = dict(batch=2, prompt=64, new_tokens=32)
 LLAVA_GENERATE = 8
 LLAVA_PROFILE_STEPS = 2
@@ -7465,9 +7536,10 @@ LLAVA_CACHE_REL = 2e-2             # the KV cache, card vs CPU, in norm
 # took on the same tokens within 4 bf16 ulps at |logit| in [4, 8), and
 # where a request's tokens differ, the gather run's token is the fused
 # run's runner-up. The two attention paths agree within a bf16 ulp a layer
-# (the kernel case's 0.00195) and 60 layers carry that into the logits: on
-# an H100 each request's largest difference read 0.0625-0.0859 over 145
-# steps of 64000 logits, where 5e-2 had been predicted (PERF.md, llava)
+# (the kernel case's 0.00195) and the layers carry that into the logits:
+# on an H100 at all 60 layers each request's largest difference read
+# 0.0625-0.0859 over 145 steps of 64000 logits, where 5e-2 had been
+# predicted (PERF.md, llava)
 LLAVA_GATHER_ATOL = 2.0 ** -3
 
 
@@ -7600,11 +7672,12 @@ def llava_profiles(eng, batch, pos: int) -> None:
 
 
 def llava_serve_engine(model, cfg, seed: int, smi: str) -> list:
-    """``ServeEngine`` (strategy none) at all 60 layers on ``LLAVA_SERVE``:
-    a cold prefill, then a timed one and 32 decode steps at the true
-    positions P + S + t (prefill ms, decode step p50, decode tokens/s, peak
-    memory, finite logits, tokens in range, no kernel launched: the linear
-    cache decodes in plain PyTorch); ``llava_profiles``; then one
+    """``ServeEngine`` (strategy none) at ``cfg``'s layers on
+    ``LLAVA_SERVE``: a cold prefill, then a timed one and 32 decode steps
+    at the true positions P + S + t (prefill ms, decode step p50, decode
+    tokens/s, peak memory, finite logits, tokens in range, no kernel
+    launched: the linear cache decodes in plain PyTorch);
+    ``llava_profiles``; then one
     ``generate`` of ``LLAVA_GENERATE`` tokens, the reference's parity path
     (its decode positions S + t lie inside the prefix). Returns failures."""
     from repro_torch.data.synthetic import token_batches
@@ -8080,10 +8153,11 @@ def llava_card_vs_cpu(seed: int) -> None:
 
 
 def llava_phase(seed: int, smi: str) -> None:
-    """Phase llava: llava-next-34b at published widths and all 60 layers
-    (68.78 GB of bf16 weights) through ``ServeEngine`` with prefix
-    embeddings (``llava_serve_engine``) and ``ContinuousEngine`` text only,
-    fused and "gather" (``llava_continuous``), on one model object; then
+    """Phase llava: llava-next-34b at published widths and
+    ``LLAVA_SERVE_LAYERS`` of its 60 layers through ``ServeEngine`` with
+    prefix embeddings (``llava_serve_engine``) and ``ContinuousEngine``
+    text only, fused and "gather" (``llava_continuous``), on one model
+    object; then
     trained at 4 of 60 layers (``llava_train``), and its reduced config
     and variant card against CPU (``llava_card_vs_cpu``). Frees what
     earlier phases hold first."""
@@ -8093,16 +8167,19 @@ def llava_phase(seed: int, smi: str) -> None:
     free_engines("llava")
     torch.cuda.empty_cache()
     free_b, total_b = torch.cuda.mem_get_info()
-    cfg = get_config(LLAVA_ARCH)
+    full = get_config(LLAVA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LLAVA_SERVE_LAYERS)
     log("llava", model=cfg.name, card=f"'{smi}'", layers=cfg.num_layers,
         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         prefix=cfg.num_prefix_embeddings, params=cfg.num_params(),
+        params_published=full.num_params(),
         weights_gb_bf16=f"{2 * cfg.num_params() / 1e9:.3f}",
         kv_bytes_per_position=2 * cfg.num_layers * cfg.num_kv_heads
         * cfg.head_dim * 2, free_gb=f"{free_b / 1e9:.3f}",
         total_gb=f"{total_b / 1e9:.3f}",
-        reduced="'none: published widths, all 60 layers'")
+        reduced=f"'depth: {cfg.num_layers} of {full.num_layers} layers "
+                f"(the script's time limit), published widths'")
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda")
@@ -8371,12 +8448,443 @@ def sweep_phase(seed: int, smi: str) -> None:
         raise SystemExit("sweep failed: " + "; ".join(failures))
 
 
+DIST_LAYERS = 4                    # of Mixtral's 32: the reference's store
+                                   # 22.5 GB, each rank's shard 5.6 GB
+DIST_22_LAYERS = 2                 # the 2x2 leg's: two replicas of each rank
+DIST_STEP_S = 0.05                 # the deterministic loop's virtual step
+DIST_WINDOW_S = 0.05               # the pinned overlap window (both engines)
+DIST_TIMEOUT_S = 600
+DIST_REL = 5e-2                    # reduced card vs CPU: x max|logit|
+DIST_KERNELS = ("fused_topk_route", "histogram_offsets", "moe_gemm",
+                "paged_decode_attention")
+COLLECTIVES = ("all_to_all", "psum", "all_gather", "transfer")
+
+
+def dist_backend():
+    """(backend, the ranks' device): NCCL a card a rank with four cards or
+    more, else gloo on card 0, staging every collective through the
+    host."""
+    if torch.cuda.device_count() >= EP_RANKS:
+        return "nccl", None
+    return "gloo", torch.device("cuda", 0)
+
+
+def _dist_requests(cfg, seed: int):
+    """The main trace's requests (``serve_trace``'s draw)."""
+    from repro_torch.serve import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    t = MAIN_TRACE
+    return [ServeRequest(rid=i, tokens=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(*t["prompt"]))).astype(np.int32),
+        max_new_tokens=t["new_tokens"], arrival=t["gap"] * i)
+        for i in range(t["requests"])]
+
+
+def _time_collectives(comms, acc: list) -> None:
+    """Append (name, start, end) to ``acc`` for each collective of
+    ``comms``: CUDA events recorded on the calling stream, with no
+    synchronisation added, so the loop's step walls are what they are
+    without the timing; their elapsed times are read after the run. Under
+    gloo the span includes the host staging's copies and the wait for
+    them."""
+    for comm in comms:
+        for name in COLLECTIVES:
+            fn = getattr(comm, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*a, **kw)
+                end.record()
+                acc.append((_name, start, end))
+                return out
+            setattr(comm, name, timed)
+
+
+def _plan_sum(plan) -> int:
+    return int(sum(int(np.asarray(a, np.int64).sum() * (i + 7))
+                   for i, a in enumerate(plan)))
+
+
+def dist_serve(cfg, model, seed: int, mesh=None) -> dict:
+    """The main trace through ``ContinuousEngine(ep=True)`` at
+    ``MAIN_CCFG`` (the replica store, staged fills, the prefetcher), on a
+    deterministic loop: iteration i runs at virtual time i *
+    ``DIST_STEP_S`` with the clock frozen, and the overlap window is
+    pinned to ``DIST_WINDOW_S``, so admission and the fill schedule do not
+    depend on the host's speed and two runs of the same weights agree
+    step for step. With ``mesh`` this process is its rank (at each re-plan
+    the ranks gather a checksum of their plans). Kernel counts are set to
+    0 after the warmup and read at the end. Returns the record."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousConfig, ContinuousEngine
+
+    eng = ContinuousEngine(cfg, model, ContinuousConfig(**MAIN_CCFG),
+                           ep_ranks=EP_RANKS if mesh is None else mesh.model,
+                           ep=True, mesh=mesh)
+    eng._overlap_window_s = lambda: DIST_WINDOW_S
+    eng.warmup()
+    rec = {"plans": [], "plans_agree": [], "dropped": [], "walls": [],
+           "decoded": [], "coll_decode": [], "last": {}}
+    replan = eng.replan
+
+    def recording_replan():
+        out = replan()
+        p = eng._plan_stack
+        rec["plans"].append((eng.iterations, np.asarray(p.replica_table),
+                             np.asarray(p.n_replicas)))
+        if mesh is not None:
+            sums = mesh.all_gather_object(_plan_sum(p))
+            rec["plans_agree"].append(len(set(sums)) == 1)
+        return out
+    eng.replan = recording_replan
+    rows = {}
+    dec = eng._decode_fn
+
+    def decode(*a, **kw):
+        out = dec(*a, **kw)
+        rows["decode"] = out[1][:, -1].float().cpu()
+        return out
+    eng._decode_fn = decode
+    acc, spans = [], []          # collectives' events; each step's slice
+    if mesh is not None:
+        _time_collectives((mesh.comm, mesh.data_comm), acc)
+    reqs = _dist_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    first, arrive_it = {}, {}
+    it = 0
+    t_run = time.perf_counter()
+    while eng.has_work():
+        now = it * DIST_STEP_S
+        for r in reqs:
+            if r.arrival <= now and r.rid not in arrive_it:
+                arrive_it[r.rid] = it
+        before = eng.metrics.summary()["dropped_tokens"]
+        n0 = len(acc)
+        rows.clear()
+        t0 = time.perf_counter()
+        ev = eng.step(now)
+        wall = time.perf_counter() - t0
+        rec["walls"].append(wall)
+        rec["dropped"].append(eng.metrics.summary()["dropped_tokens"] - before)
+        rec["decoded"].append(ev.decoded_slots)
+        for r in ev.prefilled:
+            first[r.rid] = it
+        for r in ev.completed:
+            if "decode" in rows:
+                rec["last"][r.rid] = rows["decode"][r.slot].numpy()
+        if not ev.prefilled and ev.decoded_slots and not any(
+                name == "transfer" for name, _, _ in acc[n0:]):
+            spans.append((n0, len(acc), wall))   # a decode step, no fill
+        it += 1
+    rec["run_s"] = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for _, a, b in acc]
+    rec["collectives_s"] = {k: sum(t for (n, _, _), t in zip(acc, ms)
+                                   if n == k) / 1e3 for k in COLLECTIVES}
+    rec["coll_decode"] = [(sum(ms[i:j]) / 1e3, wall)
+                          for i, j, wall in spans]
+    rec["launches"] = dict(ops.LAUNCHES)
+    s = eng.metrics.summary()
+    rec["tokens"] = [list(r.generated) for r in reqs]
+    rec["completed"] = len(eng.scheduler.completed)
+    rec["prefills"] = len(reqs) + int(s["preemptions"])
+    rec["decode_steps"] = eng.decode_steps
+    rec["iterations"] = eng.iterations
+    rec["mig"] = dict(eng.metrics.migration)
+    rec["entry_bytes"] = eng._store.entry_bytes
+    rec["store_gb"] = eng._store.device_bytes / 1e9
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    walls = rec["walls"]
+    rec["ttft_s"] = [sum(walls[arrive_it[r]:first[r] + 1]) for r in first]
+    rec["decode_toks_per_s"] = sum(rec["decoded"]) / max(
+        sum(w for w, n in zip(walls, rec["decoded"]) if n), 1e-9)
+    return rec
+
+
+def dist_reduced(seed: int, device, mesh):
+    """Reduced Mixtral (router weights x 25, as phase reference) over
+    ``mesh``: one slot prefill (whole on both data ranks) and one paged
+    decode step of 2 slots (one a data rank) under a duplicated plan, the
+    weights drawn on the CPU from ``seed`` and this rank's experts kept.
+    Returns (prefill logits, decode logits, stats) on the host."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.duplication import duplicate_experts_host
+    from repro_torch.core.placement import stack_plans
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.serve.kvcache import init_block_pool, write_prefill_blocks
+    from repro_torch.sharding import expert_block
+    from repro_torch.train.steps import (make_paged_decode_step,
+                                         make_slot_prefill_step)
+
+    base = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, duplication_slots=DUP_SLOTS))
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device="cpu",
+                       expert_block=expert_block(
+                           cfg.moe.num_experts, {"model": mesh.model_index},
+                           mesh))
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.router.mul_(25.0)
+    model = model.to(device)
+    R = mesh.model
+    plan = stack_plans([duplicate_experts_host(
+        np.roll([0.55, 0.15, 0.2, 0.1], l), R, DUP_SLOTS,
+        cfg.moe.max_copies).plan for l in range(cfg.num_layers)])
+    rt = Runtime(window_override=64, ep=True, ep_ranks=R, mesh=mesh)
+    rng = np.random.default_rng(seed)
+    S, bs = 32, 8
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 27)]
+    pool = init_block_pool(cfg, 1 + 2 * 64 // bs, bs, device=device)
+    tables = np.stack([1 + b * (64 // bs) + np.arange(64 // bs)
+                       for b in range(2)]).astype(np.int32)
+    prefill = make_slot_prefill_step(cfg, rt)
+    out = {"prefill": [], "stats": []}
+    for b, p in enumerate(prompts):
+        toks = np.zeros((1, S), np.int32)
+        toks[0, :len(p)] = p
+        tw = (np.arange(S) < len(p)).astype(np.float32)[None]
+        _, lg, temp, st = prefill(model, torch.tensor(toks, device=device),
+                                  None, torch.tensor([len(p) - 1],
+                                                     device=device),
+                                  torch.tensor(tw, device=device), plan)
+        write_prefill_blocks(pool, temp, tables[b, :S // bs])
+        out["prefill"].append(lg.float().cpu())
+        out["stats"].append({k: v.cpu() for k, v in st.items()
+                             if torch.is_tensor(v)})
+    forced = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    lengths = np.asarray([len(p) for p in prompts], np.int32)
+    _, lg, _, st = make_paged_decode_step(cfg, rt)(
+        model, torch.tensor(forced, device=device), pool,
+        torch.tensor(tables, device=device),
+        torch.tensor(lengths, device=device),
+        torch.ones((2, 1), device=device), plan)
+    out["decode"] = lg.float().cpu()
+    out["stats"].append({k: v.cpu() for k, v in st.items()
+                         if torch.is_tensor(v)})
+    return out
+
+
+def dist_rank(mesh, seed: int, layers: int, reduced: bool):
+    """A rank of the dist phase's worlds: with ``reduced`` the reduced
+    check first; then Mixtral at published widths, the first ``layers``
+    of its 32 layers, this rank's experts kept (``init_model(expert_
+    block=...)``: every weight drawn as the whole model draws it), through
+    ``dist_serve``."""
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding import expert_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    if reduced:
+        out["reduced"] = dist_reduced(seed, mesh.device, mesh)
+    cfg = _dist_cfg(layers)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=mesh.device).manual_seed(
+        seed), device=mesh.device, expert_block=expert_block(
+            cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["serve"] = dist_serve(cfg, model, seed, mesh)
+    return out
+
+
+def dist_reduced_cpu_rank(mesh, seed: int):
+    return dist_reduced(seed, torch.device("cpu"), mesh)
+
+
+def _dist_leg_log(label, backend, smi, rec, world):
+    walls = np.asarray(rec["walls"])
+    share = [c / w for c, w in rec["coll_decode"]]
+    log("dist", leg=label, backend=backend, world=world, card=f"'{smi}'",
+        layers=rec.get("layers"), iterations=rec["iterations"],
+        completed=rec["completed"], prefills=rec["prefills"],
+        decode_steps=rec["decode_steps"],
+        step_p50_ms=f"{np.percentile(walls, 50) * 1e3:.3f}",
+        step_p99_ms=f"{np.percentile(walls, 99) * 1e3:.3f}",
+        ttft_p50_ms=f"{np.percentile(rec['ttft_s'], 50) * 1e3:.3f}",
+        decode_toks_per_s=f"{rec['decode_toks_per_s']:.2f}",
+        run_s=f"{rec['run_s']:.3f}",
+        dropped_pairs=int(sum(rec["dropped"])),
+        replans=int(rec["mig"]["replans"]),
+        commits=int(rec["mig"]["commits"]),
+        entries_moved=int(rec["mig"]["bytes_moved"] // rec["entry_bytes"]),
+        moved_gb=f"{rec['mig']['bytes_moved'] / 1e9:.3f}",
+        store_gb=f"{rec['store_gb']:.3f}",
+        collective_share_of_decode_step=(
+            f"{np.median(share):.4f}" if share else "not measured"),
+        collective_s=",".join(f"{k}:{v:.3f}"
+                              for k, v in rec["collectives_s"].items()),
+        timing="host wall of the deterministic loop (virtual clock for "
+               "admission); collectives by CUDA events on the calling "
+               "stream, no synchronisation added")
+
+
+def dist_phase(seed: int, smi: str) -> dict:
+    """Phase dist: the EP serving path over a process mesh (one process a
+    mesh rank, ``launch.mesh``), held against the single-process engine.
+    Returns {kernel: {"1x4": launches, "2x2": launches}} of rank 0."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    free_engines("dist")
+    t0 = time.perf_counter()
+    backend, device = dist_backend()
+    cards = torch.cuda.device_count()
+    log("dist", backend=backend, world=EP_RANKS, cards=cards,
+        card=f"'{smi}'", ranks_on=("one card a rank" if backend == "nccl"
+                                   else "card 0, collectives staged "
+                                        "through the host (gloo)"),
+        step_s=DIST_STEP_S, pinned_window_s=DIST_WINDOW_S)
+    failures = []
+
+    # 1. the reference: the ranks stacked in this process
+    model, cfg = build_mixtral(seed, layers=DIST_LAYERS, phase="dist")
+    ref = dist_serve(cfg, model, seed)
+    ref["layers"] = DIST_LAYERS
+    del model
+    free_engines("dist")
+    _dist_leg_log("stacked_1x4", "stacked", smi, ref, 1)
+    t1 = time.perf_counter()
+
+    # 2. the 1x4 process engine on the same weights and trace
+    threads = 0 if backend == "nccl" else 2          # 8 host cores, 4 ranks
+    world = mesh_mod.spawn(dist_rank, (seed, DIST_LAYERS, False), data=1,
+                           model=EP_RANKS, backend=backend, device=device,
+                           threads=threads, timeout_s=DIST_TIMEOUT_S)
+    t2 = time.perf_counter()
+    recs = [w["serve"] for w in world]
+    got = recs[0]
+    got["layers"] = DIST_LAYERS
+    _dist_leg_log("process_1x4", backend, smi, got, EP_RANKS)
+    for k in ("tokens", "dropped", "mig", "prefills", "decode_steps"):
+        if got[k] != ref[k]:
+            failures.append(f"1x4: {k} differs from the stacked engine's")
+    if [i for i, _, _ in got["plans"]] != [i for i, _, _ in ref["plans"]] \
+            or not all(np.array_equal(a[1], b[1]) and
+                       np.array_equal(a[2], b[2])
+                       for a, b in zip(got["plans"], ref["plans"])):
+        failures.append("1x4: re-plans differ from the stacked engine's")
+    err = max(float(np.abs(got["last"][r] - ref["last"][r]).max())
+              for r in ref["last"])
+    scale = max(float(np.abs(v).max()) for v in ref["last"].values())
+    # top-2: a token's psum has at most two nonzero partials, so its sum
+    # is free of order and the two engines' logits are the same bits
+    if cfg.moe.top_k != 2:
+        raise SystemExit(f"dist: the bit-equal check assumes top-2, got "
+                         f"{cfg.moe.top_k}")
+    if err != 0.0:
+        failures.append(f"1x4: last logits differ from the stacked "
+                        f"engine's by {err} (bit-equal at top-2)")
+    log("dist", leg="process_1x4", equal_tokens=got["tokens"] == ref["tokens"],
+        equal_drops=got["dropped"] == ref["dropped"],
+        equal_migration=got["mig"] == ref["mig"], replans=len(got["plans"]),
+        last_logits_max_abs_err=f"{err:.6g}", logit_scale=f"{scale:.6g}",
+        bit_equal=err == 0.0, tolerance="0 (bit-equal at top-2)",
+        per_rank_peak_gb=",".join(f"{r['peak_gb']:.3f}" for r in recs),
+        init_s=",".join(f"{w['init_s']:.2f}" for w in world),
+        world_s=f"{t2 - t1:.3f}")
+    for r, rec in enumerate(recs):
+        want = expected_launches(rec["launches"], _dist_cfg(DIST_LAYERS),
+                                 rec["prefills"], rec["decode_steps"],
+                                 ep=True)
+        if rec["launches"] != want:
+            failures.append(f"1x4 rank {r}: launches {rec['launches']} != "
+                            f"{want}")
+    launches = {"1x4": recs[0]["launches"]}
+
+    # 3. the 2x2 leg, the reduced check first in the same world; the same
+    # check's CPU world (plain versions) runs beside it, on the host
+    cpu_out = {}
+
+    def cpu_world():
+        t = time.perf_counter()
+        try:
+            cpu_out["ranks"] = mesh_mod.spawn(
+                dist_reduced_cpu_rank, (seed,), data=2, model=2,
+                backend="gloo", device=torch.device("cpu"), threads=1,
+                timeout_s=DIST_TIMEOUT_S)
+        except RuntimeError as e:            # raised again below
+            cpu_out["error"] = e
+        cpu_out["s"] = time.perf_counter() - t
+    beside = threading.Thread(target=cpu_world)
+    beside.start()
+    world = mesh_mod.spawn(dist_rank, (seed, DIST_22_LAYERS, True), data=2,
+                           model=2, backend=backend, device=device,
+                           threads=threads, timeout_s=DIST_TIMEOUT_S)
+    t3 = time.perf_counter()
+    beside.join()
+    if "error" in cpu_out:
+        raise cpu_out["error"]
+    recs = [w["serve"] for w in world]
+    recs[0]["layers"] = DIST_22_LAYERS
+    _dist_leg_log("process_2x2", backend, smi, recs[0], 4)
+    for r, rec in enumerate(recs):
+        want = expected_launches(rec["launches"], _dist_cfg(DIST_22_LAYERS),
+                                 rec["prefills"], rec["decode_steps"],
+                                 ep=True)
+        if rec["launches"] != want:
+            failures.append(f"2x2 rank {r}: launches {rec['launches']} "
+                            f"!= {want}")
+        if rec["completed"] != MAIN_TRACE["requests"]:
+            failures.append(f"2x2 rank {r}: {rec['completed']} completed")
+        if not all(rec["plans_agree"]) or rec["tokens"] != recs[0]["tokens"]:
+            failures.append(f"2x2 rank {r}: plans or tokens disagree")
+    launches["2x2"] = recs[0]["launches"]
+    card = world[0]["reduced"]
+    want = cpu_out["ranks"][0]
+    pairs = list(zip(card["prefill"] + [card["decode"]],
+                     want["prefill"] + [want["decode"]]))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    moved = sum(int((a[k].long() - b[k].long()).abs().sum())
+                for a, b in zip(card["stats"], want["stats"])
+                for k in ("slot_counts", "dropped"))
+    ok = err <= DIST_REL * max(scale, 1.0) and all(
+        bool(torch.isfinite(a).all()) for a, _ in pairs)
+    log("dist", leg="reduced_2x2_card_vs_cpu", steps="2 prefills+1 decode",
+        max_abs_err=f"{err:.6g}", logit_scale=f"{scale:.6g}",
+        tolerance=f"{DIST_REL} x max|logit|", slot_pairs_moved=moved,
+        ok=ok, plans_agree=all(all(r["plans_agree"]) for r in recs),
+        per_rank_peak_gb=",".join(f"{r['peak_gb']:.3f}" for r in recs),
+        world_s=f"{t3 - t2:.3f}", cpu_world_s=f"{cpu_out['s']:.3f}")
+    if not ok:
+        failures.append(f"reduced 2x2 card vs CPU: {err} > tolerance")
+    for label in launches:
+        log("dist", leg=label, launches=",".join(
+            f"{k}:{launches[label][k]}" for k in DIST_KERNELS))
+        if any(launches[label][k] == 0 for k in DIST_KERNELS):
+            failures.append(f"{label}: a kernel never launched")
+    log("dist", phase_s=f"{time.perf_counter() - t0:.3f}",
+        reference_s=f"{t1 - t0:.3f}")
+    if failures:
+        raise SystemExit("dist failed: " + "; ".join(failures))
+    return {k: {label: launches[label][k] for label in launches}
+            for k in launches["1x4"]}
+
+
+def _dist_cfg(layers: int):
+    """Mixtral-8x7B at published widths, its first ``layers`` layers."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("mixtral-8x7b"), num_layers=layers)
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
-                          "rwkv", "seamless", "llava", "sweep", "train")
+                          "rwkv", "seamless", "llava", "sweep", "dist",
+                          "train")
 
 
 def main() -> int:
@@ -8484,6 +8992,9 @@ def main() -> int:
         llava_phase(args.seed, smi)
     if "sweep" in phases:
         sweep_phase(args.seed, smi)
+    dist_launches = {}
+    if "dist" in phases:
+        dist_launches = dist_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in
@@ -8493,6 +9004,9 @@ def main() -> int:
     if set(phases) == set(PHASES):
         for k in kernels:
             k["launches"] = launches[k["name"]]
+            # phase dist's runs, rank 0 of each process mesh
+            k["dist_launches"] = dist_launches.get(k["name"],
+                                                   {"1x4": 0, "2x2": 0})
             if k["name"] == "paged_decode_attention":
                 # phase llava's case: its pool shape, its run's launches
                 k["cases"] = {"llava_g7_pool": MEASURED["llava_paged_case"]}

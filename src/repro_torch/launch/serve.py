@@ -11,10 +11,22 @@ prediction-guided expert duplication (the port of ``repro.launch.serve``).
       --reduced --device cpu --requests 8 --batch 4 --seq 40 --new-tokens 6
 
 ``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
-nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), with
-``--model-mesh`` EP ranks as a leading tensor dimension on the one device.
-One card has no data axis, so ``--data-mesh`` must then be 1, and each
-prompt of ``--seq`` tokens splits over the ranks.
+nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), and
+each prompt of ``--seq`` tokens splits over the ``--model-mesh`` EP ranks.
+``--backend`` says where the ranks run. ``stacked`` (the default): as a
+leading tensor dimension in this one process, on one device, so
+``--data-mesh`` must be 1. ``nccl`` or ``gloo``: the launcher starts
+``data x model`` processes, one a mesh rank (``launch.mesh``), each
+holding its EP rank's experts; the batch splits over the data ranks.
+``nccl`` takes a card a rank; ``gloo`` runs on the CPU with ``--device
+cpu`` or, on a card, stages its collectives through the host, every rank
+on card 0:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo
+
+Rank 0 prints; every rank draws the whole model's weights from
+``--seed`` and keeps its block of experts.
 
 An encoder-decoder (seamless-m4t-medium) fails in the forward with
 ``KeyError``: the launcher sends tokens and no frames, as the JAX launcher
@@ -43,6 +55,9 @@ import time
 
 import torch
 
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.sharding import expert_block
+
 from repro_torch.configs.registry import get_config
 from repro_torch.core.predictors import ConditionalProbabilityModel
 from repro_torch.data.synthetic import make_routing_trace, token_batches
@@ -52,7 +67,10 @@ from repro_torch.serve import BatchScheduler, Request, ServeConfig, ServeEngine
 from repro_torch.serve.engine import STRATEGIES
 
 
-def main(argv=None) -> int:
+BACKENDS = ("stacked",) + mesh_mod.BACKENDS
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -67,18 +85,22 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data-mesh", type=int, default=0)
     ap.add_argument("--model-mesh", type=int, default=0,
-                    help="with --data-mesh 1: EP ranks (the JAX launcher's "
-                         "mesh flags)")
+                    help="EP ranks (the JAX launcher's mesh flags)")
+    ap.add_argument("--backend", default="stacked", choices=BACKENDS,
+                    help="stacked: the EP ranks as a tensor dimension in "
+                         "this process (--data-mesh 1); nccl / gloo: one "
+                         "process a mesh rank")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON of the run "
                          "(open in Perfetto / chrome://tracing)")
-    args = ap.parse_args(argv)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    return ap
 
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -89,21 +111,47 @@ def main(argv=None) -> int:
         if args.data_mesh or args.model_mesh:
             raise ValueError(f"--data-mesh / --model-mesh: {cfg.name} has no "
                              "experts to place on EP ranks")
-    strategy = args.strategy or ("dist_only" if cfg.is_moe else "none")
-    ep, ep_ranks = False, 1
-    if args.data_mesh and args.model_mesh:
-        if args.data_mesh != 1:
+    ep = bool(args.data_mesh and args.model_mesh)
+    if ep and args.seq % args.model_mesh:
+        raise ValueError(f"--seq {args.seq} does not split over "
+                         f"{args.model_mesh} EP ranks")
+    if args.backend == "stacked":
+        if ep and args.data_mesh != 1:
             raise ValueError(
-                f"--data-mesh {args.data_mesh}: one device has no data axis "
-                "(serving across cards waits for a torch.distributed "
-                "backend: ROADMAP.md section 1, item 4)")
-        ep, ep_ranks = True, args.model_mesh
-        if args.seq % ep_ranks:
-            raise ValueError(f"--seq {args.seq} does not split over "
-                             f"{ep_ranks} EP ranks")
-    dev = resolve_device(args.device)
+                f"--data-mesh {args.data_mesh}: the stacked backend runs "
+                "every EP rank in this process on one device, which has "
+                "no data axis; a data axis needs --backend nccl or gloo "
+                "(one process a mesh rank)")
+        return serve(args, cfg)
+    if not ep:
+        raise ValueError(f"--backend {args.backend} runs a process mesh: "
+                         "give --data-mesh and --model-mesh")
+    device, threads = mesh_mod.rank_device(args.backend, args.device)
+    return mesh_mod.spawn(_serve_rank, (vars(args),), data=args.data_mesh,
+                          model=args.model_mesh, backend=args.backend,
+                          device=device, threads=threads)[0]
+
+
+def _serve_rank(mesh, argv: dict) -> int:
+    args = argparse.Namespace(**argv)
+    cfg = get_config(args.arch)
+    return serve(args, cfg.reduced() if args.reduced else cfg, mesh=mesh)
+
+
+def serve(args, cfg, mesh=None) -> int:
+    """Serve ``args.requests`` requests in batches; with ``mesh``, as its
+    rank (rank 0 prints). Returns 0 when every request completes."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strategy = args.strategy or ("dist_only" if cfg.is_moe else "none")
+    ep = bool(args.data_mesh and args.model_mesh)
+    ep_ranks = args.model_mesh if ep else 1
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    block = (None if mesh is None else expert_block(
+        cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                       device=dev)
+                       device=dev, expert_block=block)
 
     predictor = None
     if strategy == "token_to_expert":
@@ -116,7 +164,7 @@ def main(argv=None) -> int:
         ).fit(trace.experts, trace.tokens)
 
     tracer = None
-    if args.trace_out:
+    if args.trace_out and (mesh is None or mesh.rank == 0):
         from repro_torch.obs import SpanTracer
         tracer = SpanTracer(process_name="repro-torch-launch-serve")
     engine = ServeEngine(cfg, model,
@@ -124,10 +172,13 @@ def main(argv=None) -> int:
                                      dup_slots=args.dup_slots,
                                      max_len=args.seq + args.new_tokens),
                          ep_ranks=ep_ranks, ep=ep, predictor=predictor,
-                         tracer=tracer)
-    if ep:
-        print(f"EP over {ep_ranks} ranks on one device "
-              f"(replica store: {engine._store is not None})")
+                         tracer=tracer, mesh=mesh)
+    if ep and mesh is None:
+        say(f"EP over {ep_ranks} ranks on one device "
+            f"(replica store: {engine._store is not None})")
+    elif ep:
+        say(f"EP over a {mesh.key} mesh of processes ({mesh.backend}, "
+            f"{mesh.device}; replica store: {engine._store is not None})")
 
     sched = BatchScheduler(args.batch, args.seq)
     gen = token_batches(args.seed, cfg.vocab_size, 1, args.seq)
@@ -144,16 +195,16 @@ def main(argv=None) -> int:
         sched.finish(batch["requests"], out.cpu().numpy())
         batches += 1
         if cfg.is_moe and tele:
-            print(f"batch {batches}: measured routing skew={tele['skew']:.2f}")
+            say(f"batch {batches}: measured routing skew={tele['skew']:.2f}")
     dt = time.perf_counter() - t0
     done = len(sched.completed)
-    print(f"served {done} requests in {batches} batches on {dev}, {dt:.1f}s "
-          f"({done * args.new_tokens / dt:.1f} tok/s)")
+    say(f"served {done} requests in {batches} batches on {dev}, {dt:.1f}s "
+        f"({done * args.new_tokens / dt:.1f} tok/s)")
     if tracer is not None:
         tracer.export(args.trace_out,
                       extra={"pred_accuracy": engine.accuracy.to_obj()
                              if engine.accuracy else []})
-        print(f"trace written to {args.trace_out}")
+        say(f"trace written to {args.trace_out}")
     return 0 if done == args.requests else 1
 
 

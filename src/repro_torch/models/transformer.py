@@ -57,8 +57,11 @@ Execution modes (``Transformer.forward``):
 MoE layers run the single-device exact path (``moe_ffn_dense``, the path
 the JAX engine takes without a mesh) or, with ``Runtime.ep``, the
 expert-parallel dispatch (``moe.dispatch``) with the R EP ranks as a
-leading tensor dimension on one device: prefill splits each sequence over
-the ranks, decode replicates the tokens. Under EP the placement plan
+leading tensor dimension on one device, or with ``Runtime.mesh`` one rank
+in this process (the others in theirs, over ``torch.distributed``):
+prefill splits each sequence over the ranks (a process runs its positions
+and gathers every rank's outputs back), decode replicates the tokens.
+Under EP the placement plan
 decides which slot each (token, k) pair goes to, which pairs are dropped at
 capacity, and which weight row each slot computes with: its expert's row
 of the layer's (E, ...) weights, or with a ``StoreView`` the replica
@@ -113,11 +116,24 @@ RWKV_BLOCKS = {"tm_": "time_mix", "cm_": "channel_mix"}
 
 
 class Runtime(NamedTuple):
-    """Execution-context knobs (the JAX package's ``Runtime`` without the
-    mesh: the EP ranks are a tensor dimension here)."""
+    """Execution-context knobs (the JAX package's ``Runtime``). Without a
+    ``mesh`` the EP ranks are a tensor dimension on one device
+    (``StackedRanks``); with one (``launch.mesh.Mesh``, one process a
+    rank) this process holds its mesh rank: its EP rank's home experts,
+    the dispatch's collectives over the model group (``mesh.comm``), and
+    its data rank's rows of a batch the data axis divides."""
     window_override: int = 0             # force a window (engine: max_len)
     ep: bool = False                     # expert-parallel dispatch
     ep_ranks: int = 1
+    mesh: Optional[object] = None        # launch.mesh.Mesh, or None
+
+    @property
+    def comm(self):
+        """The EP rank backend: the mesh's model group, or the ranks
+        stacked on one device."""
+        if self.mesh is not None:
+            return self.mesh.comm
+        return ep_dispatch.StackedRanks(self.ep_ranks)
 
     def window(self, cfg: ModelConfig) -> int:
         return self.window_override or cfg.sliding_window
@@ -308,6 +324,7 @@ def check_config(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 ZEROS = 0.0                      # a ``_layer_shapes`` scale: zeros (biases)
+EXPERT_NAMES = ("w_gate", "w_up", "w_down")    # a MoE layer's (E, ...) experts
 
 
 def _gqa_shapes(cfg: ModelConfig, prefix: str = ""):
@@ -406,7 +423,9 @@ def _layer_shapes(cfg: ModelConfig, kind: str = "attn"):
     return shapes
 
 
-def _draw(shape, scale, dtype, generator, device):
+def _draw(shape, scale, dtype, generator, device, keep=None):
+    """One parameter's draw; ``keep``: None, or (lo, hi), the rows of a 3-D
+    draw to keep (every row is still drawn, in order)."""
     if scale is None:
         return torch.ones(shape, dtype=dtype, device=device)
     if isinstance(scale, rwkv6.Constant):
@@ -415,23 +434,32 @@ def _draw(shape, scale, dtype, generator, device):
         return torch.zeros(shape, dtype=dtype, device=device)
     if len(shape) == 3:
         # one expert at a time keeps the fp32 draw buffer small at full width
-        out = torch.empty(shape, dtype=dtype, device=device)
+        lo, hi = keep or (0, shape[0])
+        out = torch.empty((hi - lo,) + tuple(shape[1:]), dtype=dtype,
+                          device=device)
         for e in range(shape[0]):
-            out[e] = truncated_normal_init(shape[1:], scale, generator=generator,
-                                           device=device, dtype=dtype)
+            w = truncated_normal_init(shape[1:], scale, generator=generator,
+                                      device=device, dtype=dtype)
+            if lo <= e < hi:
+                out[e - lo] = w
         return out
     return truncated_normal_init(shape, scale, generator=generator,
                                  device=device, dtype=dtype)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device="cuda", trainable: bool = False) -> Transformer:
+               device="cuda", trainable: bool = False,
+               expert_block=None) -> Transformer:
     """Random weights from the same distributions as the JAX package's
     ``init_model`` (a standard normal truncated to [-2, 2] times the same
     scales), drawn on ``device`` from ``generator`` (which must live on that
     device). The draws differ from JAX's: use ``bridge.params_from_jax``
     for identical weights. ``trainable``: every parameter fp32 and
-    requiring gradients (the serving default stores bf16 copies)."""
+    requiring gradients (the serving default stores bf16 copies).
+    ``expert_block``: None, or (lo, hi), the experts of each MoE layer to
+    keep (an EP rank's home experts, ``sharding.expert_block``): every
+    weight is still drawn, so the kept ones are the whole model's, and no
+    process holds more than its block of experts."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -448,7 +476,8 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     layers = []
     for l in range(cfg.num_layers):
         kind = _layer_kind(cfg, l)
-        t = {name: _draw(shape, scale, dtype(dt), generator, dev)
+        t = {name: _draw(shape, scale, dtype(dt), generator, dev,
+                         expert_block if name in EXPERT_NAMES else None)
              for name, (shape, scale, dt) in _layer_shapes(cfg, kind).items()
              if not name.startswith("rec_")}
         if kind == "recurrent":
@@ -554,6 +583,7 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                 None, None)
 
     R = rt.ep_ranks
+    comm = rt.comm
     if plan_l is None:
         plan_l = to_device(identity_plan(moe.num_experts, R,
                                          moe.duplication_slots,
@@ -569,7 +599,14 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
     experts = experts_l or {"w_gate": layer.w_gate.to(x.dtype),
                             "w_up": layer.w_up.to(x.dtype),
                             "w_down": layer.w_down.to(x.dtype)}
-    kw = dict(ep_ranks=R, activation=cfg.activation, resched_quota=resched_l)
+    rows = None
+    if comm.held < comm.ranks and experts_l is None:
+        # one rank a process, no store: this rank's home experts, and its
+        # replica slots' weights from a pool gathered over the ranks
+        experts, rows = ep_dispatch.gather_replica_pool(experts, plan_l, moe,
+                                                        comm)
+    kw = dict(ep_ranks=R, activation=cfg.activation, resched_quota=resched_l,
+              comm=comm, slot_rows=rows)
     if decode:
         # decode batches are too small to shard: every rank sees every
         # token, routed once, and serves the pairs bound for its slots
@@ -584,19 +621,22 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
     else:
         # the sequence splits over the ranks (the JAX package's
         # P(batch, "model", None)): rank r takes positions
-        # [r*S/R, (r+1)*S/R) of every row
+        # [r*S/R, (r+1)*S/R) of every row; the held ranks' rows go through
+        # the dispatch, and every rank's outputs are gathered back
         if S % R:
             raise ValueError(f"sequence length {S} does not split over "
                              f"{R} EP ranks")
         def split(a):
-            return a.reshape(B, R, S // R, *a.shape[2:]).transpose(0, 1) \
-                    .reshape(R, B * (S // R), *a.shape[2:])
+            return comm.local(
+                a.reshape(B, R, S // R, *a.shape[2:]).transpose(0, 1)
+                .reshape(R, B * (S // R), *a.shape[2:]))
         t = split(x)
         router_out = route(layer.router, moe, t)
         pred = None if predicted_l is None else split(predicted_l)
         y, stats = ep_dispatch.ep_moe_ffn(t, router_out, experts, plan_l,
                                           moe, predicted_idx=pred, **kw)
-        y = y.reshape(R, B, S // R, d).transpose(0, 1).reshape(B, S, d)
+        y = comm.all_gather(y).reshape(R, B, S // R, d).transpose(0, 1) \
+            .reshape(B, S, d)
         w = None if token_weight is None else split(token_weight)
     # the shared experts, then the dense residual branch, on every token,
     # outside the ranks (the JAX package adds them after the shard_map)
@@ -610,6 +650,9 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
         counts = expert_histogram(
             router_out.expert_idx, moe.num_experts,
             w[..., None].expand_as(router_out.expert_idx))
+        if not decode and comm.held < comm.ranks:
+            # this process's positions only: summed over the model axis
+            counts = comm.psum(counts[None])
     return (y, counts, stats.slot_counts, stats.aux_loss, stats.z_loss,
             stats.dropped, stats.overflow)
 
@@ -808,6 +851,15 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             prefix_embeds=None):
     """Returns (logits, cache, stats).
 
+    Under a process mesh (``rt.mesh``; a MoE model under EP, prefill and
+    decode) the batch splits over the data axis when the data ranks
+    divide it (``Mesh.batch_rows``): this rank runs its rows, reading and
+    writing its rows of a linear ``cache`` in place (the paged pool is
+    whole on every rank: its block tables pick the rows' blocks); the
+    statistics are summed (the losses averaged) over the data axis and
+    the logits gathered over it, so every rank returns the whole batch's.
+    A batch the data ranks do not divide runs whole on each of them.
+
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
                   cache None, recurrent layers from zero states. Under
                   ``rt.ep`` each MoE layer runs the prefill's sequence split
@@ -862,6 +914,57 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     "overflow": (L,) round-1 overflows the rescue round took (without
     ``resched`` a host vector of zeros: nothing is launched for it).
     """
+    kw = dict(mode=mode, cache=cache, cache_len=cache_len,
+              block_tables=block_tables, last_pos=last_pos,
+              token_weight=token_weight, plan=plan, store=store,
+              predicted_idx=predicted_idx, resched=resched, remat=remat,
+              frames=frames, prefix_embeds=prefix_embeds)
+    if rt.mesh is None:
+        return _forward(model, cfg, tokens, rt, **kw)
+    if not (cfg.is_moe and rt.ep and mode in ("prefill", "decode")):
+        raise ValueError("a process mesh serves MoE models under EP, in "
+                         "prefill and decode (training across processes "
+                         "is not ported)")
+    if rt.ep_ranks != rt.mesh.model:
+        raise ValueError(f"ep_ranks {rt.ep_ranks} on a mesh of model axis "
+                         f"{rt.mesh.model}")
+    rows = rt.mesh.batch_rows(tokens.shape[0])
+    if rows is None:
+        return _forward(model, cfg, tokens, rt, **kw)
+    for k in ("token_weight", "last_pos", "block_tables", "frames",
+              "prefix_embeds"):
+        if kw[k] is not None:
+            kw[k] = kw[k][rows]
+    if torch.is_tensor(cache_len):
+        kw["cache_len"] = cache_len[rows]
+    if predicted_idx is not None:
+        kw["predicted_idx"] = predicted_idx[:, rows]
+    if block_tables is None:
+        if cache is None:
+            cache = init_cache(cfg, rt, tokens.shape[0], tokens.shape[1],
+                               device=model.device)
+        kw["cache"] = {k: t[:, rows] for k, t in cache.items()}
+    logits, out_cache, stats = _forward(model, cfg, tokens[rows], rt, **kw)
+    data = rt.mesh.data_comm
+    # summed over the data axis: the counts in one collective (a host
+    # zero overflow without a quota stays as it is), the losses in one
+    keys = [k for k in ("expert_counts", "slot_counts", "dropped",
+                        "overflow") if stats[k].device == logits.device]
+    stats.update(zip(keys, data.psum_counts(*(stats[k][None]
+                                              for k in keys))))
+    stats["aux_loss"], stats["z_loss"] = data.pmean_losses(
+        *(torch.as_tensor(stats[k], device=logits.device)[None]
+          for k in ("aux_loss", "z_loss")))
+    logits = data.all_gather(logits[None]).reshape(
+        (tokens.shape[0],) + logits.shape[1:])
+    return logits, (cache if block_tables is None else out_cache), stats
+
+
+def _forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime, *,
+             mode: str, cache, cache_len, block_tables, last_pos,
+             token_weight, plan, store, predicted_idx, resched, remat, frames,
+             prefix_embeds):
+    """``forward`` on the rows this process runs."""
     if mode == "train" and rt.ep and (store is not None or predicted_idx
                                       is not None or resched is not None):
         raise ValueError("EP training takes a plan only: no store, "

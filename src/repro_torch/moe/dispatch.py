@@ -27,11 +27,18 @@ Every rank hosts ``E_loc = E / R`` home experts plus ``D`` replica slots,
      past a source rank's count (zero padding) cost the kernel nothing;
   6. exchange back and combine with the router gates.
 
-The collectives go through ``StackedRanks``: ``all_to_all`` is a transpose
-of the ``(R_src, R_dst, ...)`` send buffers, ``psum`` a sum over the rank
-dimension, ``pmean`` a mean and ``rank_index`` an ``arange(R)``. A backend
-over ``torch.distributed`` would implement the same four methods with one
-rank per process.
+The collectives go through a rank backend. Every per-rank tensor has a
+leading dimension of the H ranks held in this process, out of the R ranks
+of the EP group. ``StackedRanks`` holds all of them (H = R) on one device:
+``all_to_all`` is a transpose of the ``(R_src, R_dst, ...)`` send buffers,
+``psum`` a sum over the rank dimension, ``pmean`` a mean and
+``rank_index`` an ``arange(R)``. ``ProcessGroupRanks`` holds one (H = 1),
+one rank per process, and runs the same methods as ``torch.distributed``
+collectives over the mesh's model group (``launch.mesh``). Without a store
+each process holds only its ranks' home experts, so a replica slot there
+reads an expert of another rank from a pool that an ``all_gather`` builds
+each forward (``gather_replica_pool``, the JAX package's
+``replica_impl="gather"``).
 
 Token-to-Expert predicted mode (``ep_moe_ffn(predicted_idx=...)``, a
 prefill feature): a first round dispatches every (token, k) pair to its
@@ -60,7 +67,9 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
@@ -86,6 +95,7 @@ class StackedRanks:
 
     def __init__(self, ranks: int):
         self.ranks = ranks
+        self.held = ranks
 
     def all_to_all(self, buf):
         """(R_src, R_dst, ...) -> (R_dst, R_src, ...): rank dst receives
@@ -100,6 +110,128 @@ class StackedRanks:
 
     def rank_index(self, device):
         return torch.arange(self.ranks, device=device)
+
+    def local(self, t):
+        """(R, ...) per-rank rows -> the held ranks' rows: all of them."""
+        return t
+
+    def all_gather(self, t):
+        """(H, ...) -> (R, ...): every rank's rows (all held here)."""
+        return t
+
+    def psum_counts(self, *ts):
+        """``psum`` of each of several (H, ...) tensors."""
+        return [self.psum(t) for t in ts]
+
+    def pmean_losses(self, *ts):
+        """``pmean`` of each of several (H,) tensors."""
+        return [self.pmean(t) for t in ts]
+
+
+class ProcessGroupRanks:
+    """One EP rank per process: the collectives of ``StackedRanks`` over a
+    ``torch.distributed`` group of ``ranks`` processes, this one at
+    ``rank`` in it (``global_ranks`` the group's members by group rank).
+    Per-rank tensors keep a leading dimension of one. ``host_staging``:
+    a ``gloo`` group given CUDA tensors; each collective then copies its
+    operands to the host and its results back, by name. Every collective
+    is bounded by the group's timeout, so a rank that died fails the
+    others instead of hanging them."""
+
+    held = 1
+
+    def __init__(self, group, *, ranks: int, rank: int, global_ranks,
+                 host_staging: bool = False):
+        self.group = group
+        self.ranks = ranks
+        self.rank = rank
+        self.global_ranks = list(global_ranks)
+        self.host_staging = host_staging
+
+    def _host(self, t):
+        return t.cpu() if self.host_staging else t
+
+    def _back(self, t, like):
+        return t.to(like.device) if self.host_staging else t
+
+    def all_to_all(self, buf):
+        """(1, R_dst, ...) -> (1, R_src, ...): this rank's block from every
+        source rank."""
+        x = self._host(buf[0].contiguous())
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return self._back(out, buf)[None]
+
+    def psum(self, t):
+        x = t[0].cpu() if self.host_staging else t[0].clone()
+        dist.all_reduce(x, group=self.group)
+        return self._back(x, t)
+
+    def psum_counts(self, *ts):
+        """``psum`` of several (1, ...) integer-valued tensors (counts) in
+        one collective: packed as float64, exact below 2**53, and split
+        back to each one's dtype and shape."""
+        flat = self.psum(torch.cat([t.reshape(1, -1).to(torch.float64)
+                                    for t in ts], dim=1))
+        out, at = [], 0
+        for t in ts:
+            n = t[0].numel()
+            out.append(flat[at:at + n].reshape(t.shape[1:]).to(t.dtype))
+            at += n
+        return out
+
+    def pmean_losses(self, *ts):
+        """``pmean`` of several (1,) fp32 losses in one collective (an
+        elementwise mean: each is what its own ``pmean`` gives)."""
+        return list(self.pmean(torch.stack(ts, dim=-1)).unbind(-1))
+
+    def pmean(self, t):
+        return self.psum(t) / self.ranks
+
+    def rank_index(self, device):
+        return torch.tensor([self.rank], device=device)
+
+    def local(self, t):
+        return t[self.rank:self.rank + 1]
+
+    def all_gather(self, t):
+        """(1, ...) -> (R, ...) in group-rank order."""
+        x = self._host(t[0].contiguous())
+        out = [torch.empty_like(x) for _ in range(self.ranks)]
+        dist.all_gather(out, x, group=self.group)
+        return self._back(torch.stack(out), t)
+
+    def transfer(self, moves) -> None:
+        """Point-to-point copies between the group's ranks: ``moves`` is a
+        list of (src_rank, src tensor or None, dst_rank, dst tensor or
+        None) in one order on every rank; this rank passes the tensor of
+        each end it is, and copies where it is both. Sends and receives go
+        out together and are waited on before it returns."""
+        def pinned(t):               # a staging buffer the copies run fast on
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+        ops, landed = [], []
+        for tag, (src, x, dst, y) in enumerate(moves):
+            if src == dst:
+                if src == self.rank:
+                    y.copy_(x)
+                continue
+            if src == self.rank:
+                ops.append(dist.P2POp(
+                    dist.isend, pinned(x).copy_(x) if self.host_staging
+                    else x.contiguous(), self.global_ranks[dst], self.group,
+                    tag))
+            elif dst == self.rank:
+                buf = pinned(y) if self.host_staging else y
+                ops.append(dist.P2POp(dist.irecv, buf, self.global_ranks[src],
+                                      self.group, tag))
+                if self.host_staging:
+                    landed.append((y, buf))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for y, buf in landed:
+            y.copy_(buf)
 
 
 def capacity(t_local: int, top_k: int, num_slots_global: int, factor: float,
@@ -262,31 +394,82 @@ def _slot_map(plan: DevicePlan, num_experts: int, dup_slots: int, S: int,
     return rows
 
 
-def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
-                    experts: dict, slot_rows, activation: str,
-                    comm: StackedRanks):
-    """One dispatch -> FFN -> combine round for all ranks.
+def _held_rows(comm, rows, num_slots: int):
+    """(S,) global slot -> row map -> the held ranks' (H * n_slots,)."""
+    return comm.local(rows.reshape(comm.ranks, num_slots)).reshape(-1)
 
-    x: (R, T, d); gslot, valid: (R, N) flattened (token, k) assignments
-    with token index n // K. Returns y_flat (R, N, d) per-assignment
-    outputs (zeros where dropped or invalid), slot counts (R, S), drops
-    (R,) and the in-capacity mask."""
-    R, T, d = x.shape
+
+def gather_replica_pool(experts: dict, plan: DevicePlan, moe: MoEConfig,
+                        comm: ProcessGroupRanks):
+    """The replica slots' weights without a store, for one rank a process
+    (the JAX package's ``gather_replica_pool`` and ``_slot_weights``):
+    every rank contributes the one home expert of its that a replica slot
+    holds, an ``all_gather`` makes the pool, and this rank's slot weights
+    are its home experts followed by its replica slots' pool entries.
+    ``experts``: this rank's (E_loc, ...) home experts. Returns
+    ({name: (n_slots, ...)}, (S,) int32 slot -> row map over them). Under
+    a plan that replicates nothing the pool is skipped (the replica slots
+    are unreachable), as the JAX package's ``lax.cond`` skips it."""
+    E, R, D = moe.num_experts, comm.ranks, moe.duplication_slots
+    e_loc, n_slots = plan_dims(E, R, D)
+    dev = plan.slot_rows.device
+    rows = torch.arange(n_slots, dtype=torch.int32, device=dev).repeat(R)
+    if D == 0:
+        return experts, rows
+    se = plan.slot_experts.cpu().numpy().reshape(R, n_slots)
+    replica = se[:, e_loc:]
+    live = replica[replica >= 0]
+    if live.size == 0:
+        return {k: torch.cat([w, w.new_zeros((D,) + w.shape[1:])])
+                for k, w in experts.items()}, rows
+    home = live // e_loc
+    pool_expert = np.zeros((R,), np.int64)
+    for q in range(R):
+        mine = np.unique(live[home == q])
+        if mine.size > 1:
+            raise ValueError(f"rank {q} would contribute experts {mine} to "
+                             "the replica pool, which holds one a rank")
+        pool_expert[q] = mine[0] if mine.size else q * e_loc
+    own = int(pool_expert[comm.rank]) % e_loc
+    sel = replica[comm.rank]
+    sel = np.where(sel >= 0, sel // e_loc, 0)
+    out = {}
+    for k, w in experts.items():
+        pool = comm.all_gather(w[own:own + 1])                 # (R, ...)
+        out[k] = torch.cat([w, pool[torch.as_tensor(sel, device=w.device)]])
+    return out, rows
+
+
+def _dispatch_round(x, gslot, valid, *, num_slots: int, cap: int,
+                    experts: dict, slot_rows, activation: str, comm):
+    """One dispatch -> FFN -> combine round for the held ranks.
+
+    x: (H, T, d); gslot, valid: (H, N) flattened (token, k) assignments
+    with token index n // K; ``slot_rows``: the (S,) global slot -> row
+    map. Returns y_flat (H, N, d) per-assignment outputs (zeros where
+    dropped or invalid), slot counts (H, S), drops (H,) and the in-capacity
+    mask."""
+    H, T, d = x.shape
+    R = comm.ranks
     N = gslot.shape[1]
     K = N // T
     S = R * num_slots
     token_of = torch.arange(N, device=x.device) // K
     send, in_cap, dest, slot_counts, dropped = _pack_sort(
         x, token_of, gslot, valid, num_classes=S, cap=cap)
-    recv = comm.all_to_all(send.reshape(R, R, num_slots * cap, d))
-    # (R_dst, R_src, n_slots, cap, d) -> (R_dst * n_slots, R_src * cap, d)
-    recv = recv.reshape(R, R, num_slots, cap, d).transpose(1, 2) \
-               .reshape(S, R * cap, d).contiguous()
-    # source rank r's rows for slot s sit at [r * cap, r * cap + count)
-    y_slots = grouped_ffn(experts, recv, slot_rows, activation,
-                          row_counts=slot_counts.T.contiguous())
-    y_back = y_slots.reshape(R, num_slots, R, cap, d).transpose(1, 2)
-    y_recv = comm.all_to_all(y_back).reshape(R, S * cap, d)
+    recv = comm.all_to_all(send.reshape(H, R, num_slots * cap, d))
+    # (H_dst, R_src, n_slots, cap, d) -> (H_dst * n_slots, R_src * cap, d)
+    recv = recv.reshape(H, R, num_slots, cap, d).transpose(1, 2) \
+               .reshape(H * num_slots, R * cap, d).contiguous()
+    # source rank r's rows for slot s sit at [r * cap, r * cap + count):
+    # the counts each source packed for the held ranks' slots
+    counts = comm.all_to_all(slot_counts.reshape(H, R, num_slots)) \
+        .transpose(1, 2).reshape(H * num_slots, R).contiguous()
+    y_slots = grouped_ffn(experts, recv, _held_rows(comm, slot_rows,
+                                                    num_slots),
+                          activation, row_counts=counts)
+    y_back = y_slots.reshape(H, num_slots, R, cap, d).transpose(1, 2)
+    y_recv = comm.all_to_all(y_back).reshape(H, S * cap, d)
     y_flat = torch.gather(y_recv, 1, dest.clamp(max=S * cap - 1)[..., None]
                           .expand(-1, -1, d))
     y_flat = torch.where(in_cap[..., None], y_flat,
@@ -318,35 +501,41 @@ def _expert_counts(expert_idx, num_experts: int):
 def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
                moe: MoEConfig, *, ep_ranks: int, activation: str = "swiglu",
                predicted_idx=None, correction_cap_frac: float = 0.25,
-               resched_quota=None, comm: Optional[StackedRanks] = None):
+               resched_quota=None, comm=None, slot_rows=None):
     """Placement-aware EP MoE FFN over sharded tokens (see the module
-    docstring). x: (R, T, d), rank r's T local tokens in row r;
-    ``router_out``: the fused router's output on them, with leading R
-    (losses (R,)); ``experts``: {"w_gate", "w_up", "w_down"}, the (E, ...)
-    home experts or the store's rows (``plan.slot_rows`` indexes them);
-    ``plan``: one layer's ``DevicePlan``; ``predicted_idx``: None, or (R,
-    T, K) Token-to-Expert predictions, which add the correction round;
-    ``resched_quota``: None, or the layer's (E, C_max) int32 quota, which
-    the replica choice follows and which adds the rescue round.
-    Returns (y (R, T, d), MoEStats) with global statistics."""
+    docstring). x: (H, T, d), held rank h's T local tokens in row h (H =
+    ``comm.held``: all ``ep_ranks`` under ``StackedRanks``, the default);
+    ``router_out``: the fused router's output on them, with leading H
+    (losses (H,)); ``experts``: {"w_gate", "w_up", "w_down"}, the home
+    experts or the store's rows (``plan.slot_rows`` indexes them; the
+    held ranks' rows under ``ProcessGroupRanks``); ``slot_rows``: None, or
+    an (S,) slot -> row map in place of the plan's; ``plan``: one layer's
+    ``DevicePlan``; ``predicted_idx``: None, or (H, T, K) Token-to-Expert
+    predictions, which add the correction round; ``resched_quota``: None,
+    or the layer's (E, C_max) int32 quota, which the replica choice
+    follows and which adds the rescue round.
+    Returns (y (H, T, d), MoEStats) with global statistics."""
     comm = comm or StackedRanks(ep_ranks)
-    R, T, d = x.shape
-    if R != ep_ranks:
-        raise ValueError(f"x has {R} rank rows, ep_ranks is {ep_ranks}")
+    H, T, d = x.shape
+    if H != comm.held or comm.ranks != ep_ranks:
+        raise ValueError(f"x has {H} rank rows, the rank backend holds "
+                         f"{comm.held} of {comm.ranks} and ep_ranks is "
+                         f"{ep_ranks}")
     K, E = moe.top_k, moe.num_experts
     dup_slots = moe.duplication_slots
     _, n_slots = plan_dims(E, ep_ranks, dup_slots)
     S = ep_ranks * n_slots
     cap = capacity(T, K, S, moe.capacity_factor)
-    se = _slot_map(plan, E, dup_slots, S, x.device)
+    se = (_slot_map(plan, E, dup_slots, S, x.device) if slot_rows is None
+          else slot_rows)
     kw = dict(num_slots=n_slots, experts=experts, slot_rows=se,
               activation=activation, comm=comm)
 
-    true_idx = router_out.expert_idx                             # (R, T, K)
+    true_idx = router_out.expert_idx                             # (H, T, K)
     gates = router_out.gates.to(x.dtype)
-    true_flat = true_idx.reshape(R, T * K)
+    true_flat = true_idx.reshape(H, T * K)
     salt = _salt(T, K, x.device)
-    all_pairs = torch.ones((R, T * K), dtype=torch.bool, device=x.device)
+    all_pairs = torch.ones((H, T * K), dtype=torch.bool, device=x.device)
     if resched_quota is None:
         def pick(e, shift):
             return choose_replica(plan, e, salt + shift if shift else salt)
@@ -361,7 +550,7 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
             # rescue round: re-send the overflowed pairs to the expert's
             # next copy; its drops are the layer's drops
             miss = all_pairs & ~in_cap
-            overflow = comm.psum(miss.sum(dim=1))
+            overflow = miss.sum(dim=1)           # summed with the counts
             cap2 = max(8, int(cap * moe.resched_cap_frac))
             y2, slot_counts2, dropped, _ = _dispatch_round(
                 x, pick(true_flat, 1), miss, cap=cap2, **kw)
@@ -370,7 +559,7 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
     else:
         # round 1 on the predictions, round 2 corrects the mispredicted
         # pairs on their true experts at a fraction of the capacity
-        pred = predicted_idx.reshape(R, T * K).to(true_flat.dtype)
+        pred = predicted_idx.reshape(H, T * K).to(true_flat.dtype)
         y1, slot_counts, dropped1, _ = _dispatch_round(
             x, pick(pred, 0), all_pairs, cap=cap, **kw)
         correct = pred == true_flat
@@ -380,37 +569,41 @@ def ep_moe_ffn(x, router_out: RouterOutput, experts: dict, plan: DevicePlan,
         y_flat = torch.where(correct[..., None], y1, y2)
         slot_counts = slot_counts + slot_counts2
         dropped = dropped1 + dropped2
-    y = (y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2)
+    y = (y_flat.reshape(H, T, K, d) * gates[..., None]).sum(dim=2)
+    # the rescue round's overflow is per rank; otherwise it is no count
+    rescued = resched_quota is not None and predicted_idx is None
+    counts = comm.psum_counts(_expert_counts(true_idx, E), slot_counts,
+                              dropped, *([overflow] if rescued else []))
+    aux, z = comm.pmean_losses(router_out.aux_loss, router_out.z_loss)
     stats = MoEStats(
-        expert_counts=comm.psum(_expert_counts(true_idx, E)),
-        slot_counts=comm.psum(slot_counts),
-        dropped=comm.psum(dropped),
-        aux_loss=comm.pmean(router_out.aux_loss),
-        z_loss=comm.pmean(router_out.z_loss),
-        overflow=overflow)
+        expert_counts=counts[0], slot_counts=counts[1], dropped=counts[2],
+        aux_loss=aux, z_loss=z, overflow=counts[3] if rescued else overflow)
     return y, stats
 
 
 def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
-                    moe: MoEConfig, *, ep_ranks: int,
-                    comm: Optional[StackedRanks] = None,
-                    resched_quota=None, shift: int = 0, select=None):
+                    moe: MoEConfig, *, ep_ranks: int, comm=None,
+                    resched_quota=None, shift: int = 0, select=None,
+                    slot_rows=None):
     """The decode path's send side: the same (T, d) tokens on every rank,
-    routed once (``router_out`` unbatched); each rank packs the (token, k)
-    pairs assigned to its slots. ``resched_quota``: None (round-robin), or
-    the layer's quota, drawn at ``shift``; ``select``: None, or (N,) bool,
-    the only pairs to pack (the rescue round's overflowed pairs). Returns
-    (send (S, cap, d) rows per global slot, row_counts (S, 1) int32 live
-    rows per slot, slot_rows (S,), in_cap (R, N), dest (R, N), dropped
-    (R,), gslot (N,)) with N = T * K."""
+    routed once (``router_out`` unbatched); each held rank packs the
+    (token, k) pairs assigned to its slots. ``resched_quota``: None
+    (round-robin), or the layer's quota, drawn at ``shift``; ``select``:
+    None, or (N,) bool, the only pairs to pack (the rescue round's
+    overflowed pairs); ``slot_rows``: None, or an (S,) slot -> row map in
+    place of the plan's. Returns (send (H * n_slots, cap, d) rows per held
+    slot, row_counts (H * n_slots, 1) int32 live rows per slot, the held
+    slots' rows (H * n_slots,), in_cap (H, N), dest (H, N), dropped (H,),
+    gslot (N,)) with N = T * K."""
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape
-    R = ep_ranks
+    H = comm.held
     K, E = moe.top_k, moe.num_experts
     _, n_slots = plan_dims(E, ep_ranks, moe.duplication_slots)
-    S = R * n_slots
+    S = ep_ranks * n_slots
     cap = capacity(T, K, n_slots, moe.capacity_factor)  # per-rank slot capacity
-    se = _slot_map(plan, E, moe.duplication_slots, S, x.device)
+    se = (_slot_map(plan, E, moe.duplication_slots, S, x.device)
+          if slot_rows is None else slot_rows)
     expert_flat = router_out.expert_idx.reshape(-1)
     salt = _salt(T, K, x.device)
     if resched_quota is None:
@@ -420,51 +613,54 @@ def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
                                      shift)
     N = gslot.shape[0]
     rank = comm.rank_index(x.device)
-    mine = (gslot // n_slots)[None, :] == rank[:, None]              # (R, N)
+    mine = (gslot // n_slots)[None, :] == rank[:, None]              # (H, N)
     if select is not None:
         mine = mine & select[None, :]
     token_of = torch.arange(N, device=x.device) // K
     send, in_cap, dest, counts, dropped = _pack_sort(
-        x.expand(R, T, d), token_of, (gslot % n_slots).expand(R, N), mine,
+        x.expand(H, T, d), token_of, (gslot % n_slots).expand(H, N), mine,
         num_classes=n_slots, cap=cap)
-    return (send.reshape(S, cap, d), counts.reshape(S, 1), se, in_cap, dest,
-            dropped, gslot)
+    return (send.reshape(H * n_slots, cap, d), counts.reshape(H * n_slots, 1),
+            _held_rows(comm, se, n_slots), in_cap, dest, dropped, gslot)
 
 
 def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                           plan: DevicePlan, moe: MoEConfig, *, ep_ranks: int,
                           activation: str = "swiglu", predicted_idx=None,
-                          resched_quota=None,
-                          comm: Optional[StackedRanks] = None):
+                          resched_quota=None, comm=None, slot_rows=None):
     """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
-    once (``router_out`` unbatched). Each rank computes the (token, k)
-    pairs assigned to its slots (``pack_replicated``) and a psum combines
-    the results. With ``resched_quota`` the pairs past their global slot's
-    first-come capacity are served again on the expert's next copy, at the
-    same capacity, by the rank that holds it. Returns (y (T, d),
+    once (``router_out`` unbatched). Each held rank computes the (token,
+    k) pairs assigned to its slots (``pack_replicated``) and a psum over
+    the ranks combines the results. With ``resched_quota`` the pairs past
+    their global slot's first-come capacity are served again on the
+    expert's next copy, at the same capacity, by the rank that holds it.
+    ``comm`` and ``slot_rows`` as for ``ep_moe_ffn``. Returns (y (T, d),
     MoEStats). Token-to-Expert predictions are a prefill feature:
     ``predicted_idx`` raises, as in the JAX package."""
     if predicted_idx is not None:
         raise NotImplementedError("predicted pre-routing is a prefill feature")
     comm = comm or StackedRanks(ep_ranks)
     T, d = x.shape
-    R = ep_ranks
+    H = comm.held
     K, E = moe.top_k, moe.num_experts
-    kw = dict(ep_ranks=ep_ranks, comm=comm, resched_quota=resched_quota)
+    _, n_slots = plan_dims(E, ep_ranks, moe.duplication_slots)
+    S = ep_ranks * n_slots
+    kw = dict(ep_ranks=ep_ranks, comm=comm, resched_quota=resched_quota,
+              slot_rows=slot_rows)
     packed = pack_replicated(x, router_out, plan, moe, **kw)
-    S, cap, _ = packed[0].shape
+    cap = packed[0].shape[1]
     N = T * K
-    rows_per_rank = S // R * cap
-    slot_counts = torch.zeros((R, S), dtype=torch.int32, device=x.device)
+    rows_per_rank = n_slots * cap
+    slot_counts = torch.zeros((H, S), dtype=torch.int32, device=x.device)
 
     def serve(send, row_counts, se, in_cap, dest, dropped, gslot):
-        """One round's FFN: (R, N, d) outputs (zeros where not computed)
+        """One round's FFN: (H, N, d) outputs (zeros where not computed)
         and its drops; its kept pairs join the slot counts."""
         ys = grouped_ffn(experts, send, se, activation, row_counts=row_counts)
-        ys = ys.reshape(R, rows_per_rank, d)
+        ys = ys.reshape(H, rows_per_rank, d)
         y_flat = torch.gather(ys, 1, dest.clamp(max=rows_per_rank - 1)
                               [..., None].expand(-1, -1, d))
-        slot_counts.scatter_add_(1, gslot.clamp(max=S - 1).expand(R, N),
+        slot_counts.scatter_add_(1, gslot.clamp(max=S - 1).expand(H, N),
                                  in_cap.to(torch.int32))
         return torch.where(in_cap[..., None], y_flat,
                            torch.zeros((), dtype=ys.dtype,
@@ -484,11 +680,12 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                                              shift=1, select=miss, **kw))
         y_flat = y_flat + y2
     gates = router_out.gates.to(x.dtype)
-    y = comm.psum((y_flat.reshape(R, T, K, d) * gates[..., None]).sum(dim=2))
+    y = comm.psum((y_flat.reshape(H, T, K, d) * gates[..., None]).sum(dim=2))
+    slot_counts, dropped = comm.psum_counts(slot_counts, dropped)
     stats = MoEStats(
         expert_counts=_expert_counts(router_out.expert_idx, E),  # replicated
-        slot_counts=comm.psum(slot_counts),
-        dropped=comm.psum(dropped),
+        slot_counts=slot_counts,
+        dropped=dropped,
         aux_loss=router_out.aux_loss,
         z_loss=router_out.z_loss,
         overflow=overflow)

@@ -189,12 +189,14 @@ def dispatch_phase_times(*, d_model: int = 256, d_ff: int = 256,
                          capacity_factor: float = 1.25,
                          impl: str = "sort", activation: str = "swiglu",
                          iters: int = 5, seed: int = 0,
-                         device="cuda") -> Dict[str, float]:
+                         device="cuda", inputs=None) -> Dict[str, float]:
     """Time each dispatch phase on one device. Returns seconds per phase
-    plus ``"total"``; ``impl`` selects the pack formulation."""
-    inputs = dispatch_inputs(d_model=d_model, d_ff=d_ff,
-                             num_experts=num_experts, tokens=tokens,
-                             seed=seed, device=device)
+    plus ``"total"``; ``impl`` selects the pack formulation; ``inputs``
+    are ``dispatch_inputs``' (drawn here when not given)."""
+    if inputs is None:
+        inputs = dispatch_inputs(d_model=d_model, d_ff=d_ff,
+                                 num_experts=num_experts, tokens=tokens,
+                                 seed=seed, device=device)
     dev = inputs["x"].device
     phases, _ = dispatch_chain(inputs["x"], inputs["w_router"],
                                inputs["slot_w"], top_k=top_k, ranks=ranks,
@@ -283,7 +285,7 @@ def migrate_phase_time(*, d_model: int = 256, d_ff: int = 256,
                        num_experts: int = 64, ranks: int = 4,
                        dup_slots: int = 1, layers: int = 2, chunk: int = 8,
                        iters: int = 5, seed: int = 0,
-                       device="cuda") -> Dict[str, float]:
+                       device="cuda", inputs=None) -> Dict[str, float]:
     """Device cost of ONE replica-migration chunk (the row copies from home
     rows into back rows of a ``runtime.ReplicaStore``, on a side stream on
     the card) at representative shapes, plus the host cost of merely
@@ -293,14 +295,17 @@ def migrate_phase_time(*, d_model: int = 256, d_ff: int = 256,
 
     The port's store holds the home experts in its own rows, so the copies
     read the store's home rows where the JAX step reads a separate expert
-    stack."""
+    stack. ``inputs`` are ``migrate_inputs``' (drawn here when not given;
+    left as they were, so a caller may time them again)."""
     from repro_torch.core.placement import identity_plan, stack_plans
     from repro_torch.runtime import ReplicaStore, make_migrate_step
 
-    inp = migrate_inputs(d_model=d_model, d_ff=d_ff,
-                         num_experts=num_experts, ranks=ranks,
-                         dup_slots=dup_slots, layers=layers, chunk=chunk,
-                         seed=seed, device=device)
+    if inputs is None:
+        inputs = migrate_inputs(d_model=d_model, d_ff=d_ff,
+                                num_experts=num_experts, ranks=ranks,
+                                dup_slots=dup_slots, layers=layers,
+                                chunk=chunk, seed=seed, device=device)
+    inp = dict(inputs)
     experts = inp.pop("experts")
     dev = experts["w_up"][0].device
     R = inp["ranks"]

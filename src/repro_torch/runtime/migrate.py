@@ -7,7 +7,9 @@ weight name, from home row ``src_expert`` into the back row of
 ``dst_slot`` (``runtime.store``). On a CUDA device the copies go to a side
 stream the executor owns, so they run under the forward compute of the
 main stream; each copy indexes persistent tensors with Python ints, so a
-tick allocates no device memory. On the CPU the copies run at once.
+tick allocates no device memory. On the CPU the copies run at once. With
+one EP rank a process the row goes from the expert's home rank to the
+slot's (``ReplicaStore.copy_experts``); every rank runs the same diff.
 
 ``MigrationExecutor`` runs a diff under a per-engine-step chunk budget;
 the engine keeps serving on the old plan and the live rows until ``tick``
@@ -49,13 +51,13 @@ def make_migrate_step(store: ReplicaStore,
     def step(layer, dst_slot, src_expert) -> None:
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
+        layer = np.asarray(layer).tolist()
+        dst_slot = np.asarray(dst_slot).tolist()
         with ctx:
-            for l, s, e in zip(np.asarray(layer).tolist(),
-                               np.asarray(dst_slot).tolist(),
-                               np.asarray(src_expert).tolist()):
-                back = store.back_row(l, s)
-                for w in store.weights.values():
-                    w[l][back].copy_(w[l][e])
+            store.copy_experts(layer, dst_slot,
+                               np.asarray(src_expert).tolist(),
+                               [store.back_row(l, s)
+                                for l, s in zip(layer, dst_slot)])
     return step
 
 

@@ -23,6 +23,16 @@ slot's weight index, so a replica slot reads its own copy, as each rank of
 a multi-card deployment does. Unused replica rows (no live replica points
 at them) are never read, as in JAX: building the store under the identity
 plan copies nothing.
+
+One EP rank a process (``comm``: the mesh's ``ProcessGroupRanks``): the
+store is this rank's shard of the JAX store's ``P(None, "model", ...)``
+layout, ``E_loc + 2 * D`` rows a layer: its home experts in ``[0,
+E_loc)``, then replica slot ``i``'s live and back rows at ``E_loc + 2 * i
++ {0, 1}``. Every rank keeps the whole host state (slot map, live bits,
+versions), so ``slot_rows`` gives every global slot its row in its own
+rank's shard. A fill of a back row sends the expert's home row from its
+home rank over the model group (``ProcessGroupRanks.transfer``): the same
+rows the JAX package's masked psum gives, point to point.
 """
 
 from __future__ import annotations
@@ -46,12 +56,13 @@ class ReplicaStore:
 
     def __init__(self, weights: Dict[str, Sequence[torch.Tensor]],
                  slot_experts: np.ndarray, *, num_experts: int,
-                 ep_ranks: int, dup_slots: int):
+                 ep_ranks: int, dup_slots: int, comm=None):
         self.weights = weights                  # {name: [(E + 2RD, ...)] * L}
         self.slot_experts = np.asarray(slot_experts)     # (L, S) host view
         self.num_experts = num_experts
         self.ep_ranks = ep_ranks
         self.dup_slots = dup_slots
+        self.comm = comm                        # one rank a process, or None
         self.e_loc, self.n_slots = plan_dims(num_experts, ep_ranks, dup_slots)
         L = self.slot_experts.shape[0]
         self.version = np.zeros((L,), np.int64)   # bumped per layer on commit
@@ -62,15 +73,15 @@ class ReplicaStore:
     @classmethod
     def from_params(cls, experts, plan_stack: PlacementPlan, *,
                     num_experts: int, ep_ranks: int,
-                    dup_slots: int) -> "ReplicaStore":
+                    dup_slots: int, comm=None) -> "ReplicaStore":
         """Build the store for a stacked plan from the expert weights
         {name: (L, E, ...)} (a stacked tensor or a sequence of per-layer
-        tensors), which are copied into the home rows. Each live replica
-        slot's live row gets a copy of its expert; the other replica rows
-        are zeros."""
+        tensors; with ``comm`` this rank's (L, E_loc, ...)), which are
+        copied into the home rows. Each live replica slot's live row gets
+        a copy of its expert; the other replica rows are zeros."""
         store = cls._empty(tuple(experts), plan_stack,
                            num_experts=num_experts, ep_ranks=ep_ranks,
-                           dup_slots=dup_slots)
+                           dup_slots=dup_slots, comm=comm)
         L = store.slot_experts.shape[0]
         for l in range(L):
             for k, w in experts.items():
@@ -81,19 +92,20 @@ class ReplicaStore:
     @classmethod
     def from_model(cls, model, plan_stack: PlacementPlan, *,
                    num_experts: int, ep_ranks: int,
-                   dup_slots: int) -> "ReplicaStore":
-        """Build the store from a ``Transformer``'s MoE layers and re-point
+                   dup_slots: int, comm=None) -> "ReplicaStore":
+        """Build the store from a ``Transformer``'s MoE layers (with
+        ``comm``, a model holding this rank's home experts) and re-point
         each layer's ``w_gate`` / ``w_up`` / ``w_down`` to the store's home
         rows, one layer at a time, so the old tensors are freed as the
         store grows and no home expert is held twice."""
         store = cls._empty(EXPERT_WEIGHTS, plan_stack,
                            num_experts=num_experts, ep_ranks=ep_ranks,
-                           dup_slots=dup_slots)
+                           dup_slots=dup_slots, comm=comm)
         for l, layer in enumerate(model.layers):
             for k in EXPERT_WEIGHTS:
                 rows = store._layer_rows(getattr(layer, k).data)
                 store.weights[k].append(rows)
-                setattr(layer, k, nn.Parameter(rows[:num_experts],
+                setattr(layer, k, nn.Parameter(rows[:store.home_rows],
                                                requires_grad=False))
             store._fill_live_replicas(l)
         return store
@@ -104,24 +116,53 @@ class ReplicaStore:
                                   dims["dup_slots"])
         return cls({k: [] for k in names}, se, **dims)
 
+    @property
+    def home_rows(self) -> int:
+        """Home expert rows at the head of each layer's tensor: E, or this
+        rank's E_loc with one rank a process."""
+        return self.num_experts if self.comm is None else self.e_loc
+
     def _layer_rows(self, home: torch.Tensor) -> torch.Tensor:
-        """(E, ...) home experts -> a new (E + 2RD, ...) row tensor holding
-        them in rows [0, E) and zeros in the replica rows."""
-        E = self.num_experts
-        extra = 2 * self.ep_ranks * self.dup_slots
-        rows = torch.empty((E + extra,) + tuple(home.shape[1:]),
+        """(E, ...) home experts (E_loc with ``comm``) -> a new row tensor
+        of E + 2RD rows (E_loc + 2D) holding them at its head and zeros in
+        the replica rows."""
+        n = self.home_rows
+        if home.shape[0] != n:
+            raise ValueError(f"{home.shape[0]} home experts, the store's "
+                             f"layout holds {n}")
+        replicas = self.dup_slots * (1 if self.comm is not None
+                                     else self.ep_ranks)
+        rows = torch.empty((n + 2 * replicas,) + tuple(home.shape[1:]),
                            dtype=home.dtype, device=home.device)
-        rows[:E].copy_(home)
-        rows[E:].zero_()
+        rows[:n].copy_(home)
+        rows[n:].zero_()
         return rows
 
     def _fill_live_replicas(self, l: int) -> None:
-        rows = self.slot_rows()[l]
-        for s in self.replica_slots():
-            e = int(self.slot_experts[l, s])
-            if e >= 0:
+        live = [s for s in self.replica_slots()
+                if int(self.slot_experts[l, s]) >= 0]
+        self.copy_experts([l] * len(live), live,
+                          [int(self.slot_experts[l, s]) for s in live],
+                          self.slot_rows()[l][live].tolist())
+
+    def copy_experts(self, layer, dst_slot, src_expert, dst_row) -> None:
+        """Copy each entry's expert (home row) into row ``dst_row`` of its
+        slot's rank: in place on one device, or with ``comm`` from the
+        expert's home rank to the slot's over the model group (every rank
+        calls it with the same entries)."""
+        if self.comm is None:
+            for l, e, row in zip(layer, src_expert, dst_row):
                 for w in self.weights.values():
-                    w[l][rows[s]].copy_(w[l][e])
+                    w[l][row].copy_(w[l][e])
+            return
+        me = self.comm.rank
+        moves = []
+        for l, s, e, row in zip(layer, dst_slot, src_expert, dst_row):
+            src, dst = e // self.e_loc, s // self.n_slots
+            for w in self.weights.values():
+                moves.append((src, w[l][e % self.e_loc] if src == me else None,
+                              dst, w[l][row] if dst == me else None))
+        self.comm.transfer(moves)
 
     # ------------------------------------------------------------- row maps
     def replica_slots(self) -> np.ndarray:
@@ -130,35 +171,42 @@ class ReplicaStore:
         i = np.arange(self.dup_slots)[None, :]
         return (r * self.n_slots + self.e_loc + i).reshape(-1)
 
-    def _pair_base(self, slot) -> np.ndarray:
-        """First of the two rows replica ``slot`` owns (array or int)."""
+    def _replica_index(self, slot) -> np.ndarray:
+        """Replica ``slot``'s (rank, i) index r * D + i (array or int)."""
         slot = np.asarray(slot)
-        idx = (slot // self.n_slots) * self.dup_slots \
+        return (slot // self.n_slots) * self.dup_slots \
             + slot % self.n_slots - self.e_loc
-        return self.num_experts + 2 * idx
+
+    def _pair_base(self, slot) -> np.ndarray:
+        """First of the two rows replica ``slot`` owns (array or int), in
+        its rank's rows with ``comm``."""
+        if self.comm is not None:
+            return self.e_loc + 2 * (np.asarray(slot) % self.n_slots
+                                     - self.e_loc)
+        return self.num_experts + 2 * self._replica_index(slot)
 
     def slot_rows(self, live_bit=None) -> np.ndarray:
         """(L, S) int32 row each slot reads: home slots their expert's home
         row, replica slots their live row (under ``live_bit``, default the
-        store's)."""
+        store's); with ``comm`` each in its own rank's rows."""
         bits = self.live_bit if live_bit is None else live_bit
         L, S = self.slot_experts.shape
         home = np.arange(S)
         rank, j = home // self.n_slots, home % self.n_slots
-        rows = np.broadcast_to(rank * self.e_loc + j, (L, S)).copy()
+        first = 0 if self.comm is not None else rank * self.e_loc
+        rows = np.broadcast_to(first + j, (L, S)).copy()
         rep = self.replica_slots()
         rows[:, rep] = self._pair_base(rep)[None, :] + bits
         return rows.astype(np.int32)
 
     def back_row(self, layer: int, slot: int) -> int:
         """The row a migration fills for replica ``slot`` of ``layer``."""
-        i = int(self._pair_base(slot) - self.num_experts) // 2
+        i = int(self._replica_index(slot))
         return int(self._pair_base(slot)) + 1 - int(self.live_bit[layer, i])
 
     def _flipped(self, layer, dst_slot) -> np.ndarray:
         bits = self.live_bit.copy()
-        i = (self._pair_base(np.asarray(dst_slot, np.int64))
-             - self.num_experts) // 2
+        i = self._replica_index(np.asarray(dst_slot, np.int64))
         bits[np.asarray(layer, np.int64), i] ^= 1
         return bits
 

@@ -55,7 +55,12 @@ the new placement plan replaces the old one at once (the JAX engine's
 
 ``ep=True`` is the port's counterpart of giving the JAX engine a mesh: the
 MoE layers run the expert-parallel dispatch with ``ep_ranks`` ranks as a
-leading tensor dimension on one device, and the live plan decides which
+leading tensor dimension on one device (or, given ``mesh=``, a
+``launch.mesh.Mesh``, as one rank a process: each process builds the
+engine on its rank's model and runs the same host logic on the same
+global numbers, wall-clock readings agreed through ``agree``, so every
+rank plans, admits and migrates alike; both engines), and the live plan
+decides which
 slot each (token, k) pair goes to, which pairs are dropped at capacity and
 which weights each replica slot computes with. The plan moves to the
 device once per plan swap. Dropped pairs are counted per iteration into
@@ -231,7 +236,8 @@ class _StoreMixin:
         m = self.moe_cfg
         self._store = ReplicaStore.from_model(
             model, self._identity_stack(), num_experts=m.num_experts,
-            ep_ranks=self.ep_ranks, dup_slots=m.duplication_slots)
+            ep_ranks=self.ep_ranks, dup_slots=m.duplication_slots,
+            comm=None if self.mesh is None else self.mesh.comm)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._migrate_fn = make_migrate_step(self._store, self._stream)
@@ -244,6 +250,32 @@ class _StoreMixin:
                 self._migrate_fn, self._store, chunk=chunk,
                 chunks_per_tick=chunks_per_tick, tracer=self.tracer,
                 stream=self._stream)
+
+    def _check_mesh(self, mesh, model: Transformer, ep: bool,
+                    ep_ranks: int) -> None:
+        """A process mesh serves this process's rank of an EP deployment:
+        its model axis is the EP ranks, and the model holds this rank's
+        home experts on the mesh's device."""
+        self.mesh = mesh
+        if mesh is None:
+            return
+        if not ep or ep_ranks != mesh.model:
+            raise ValueError(f"a {mesh.key} mesh serves EP over its "
+                             f"{mesh.model} model ranks (ep=True, ep_ranks="
+                             f"{mesh.model}; got ep={ep}, "
+                             f"ep_ranks={ep_ranks})")
+        if model.device != mesh.device:
+            raise ValueError(f"the model lies on {model.device}, the mesh "
+                             f"rank computes on {mesh.device}")
+
+    def agree(self, *values: float):
+        """Wall-clock readings every rank of a process mesh acts on: the
+        largest over the ranks (the values themselves without a mesh), so
+        admission, the overlap budget and the migration gate take the same
+        branch in every process."""
+        if self.mesh is None:
+            return values[0] if len(values) == 1 else values
+        return self.mesh.agree_max(*values)
 
     def _identity_stack(self) -> Optional[PlacementPlan]:
         if not self.cfg.is_moe:
@@ -370,9 +402,10 @@ class ServeEngine(_StoreMixin):
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  serve: ServeConfig, *, ep_ranks: int = 1, ep: bool = False,
-                 predictor=None, tracer=None):
+                 predictor=None, tracer=None, mesh=None):
         if ep and not (cfg.is_moe and cfg.attention in ("gqa", "mla")):
             raise ValueError("ep=True serves GQA and MLA MoE models")
+        self._check_mesh(mesh, model, ep, ep_ranks)
         self.serve = serve
         self.ep_ranks = ep_ranks
         self.ep = ep
@@ -417,7 +450,7 @@ class ServeEngine(_StoreMixin):
         self._overlap = self._store_mode and self.moe_cfg.overlap_migration
         # without ``ep`` the MoE layers take the exact dense path, which
         # reads no placement plan, so the steps are not handed one
-        self.rt = Runtime(ep=ep, ep_ranks=ep_ranks)
+        self.rt = Runtime(ep=ep, ep_ranks=ep_ranks, mesh=mesh)
         self._in_graph = (serve.in_graph_replan and cfg.is_moe
                           and serve.strategy == "dist_only")
         self._prefill = (make_prefill_replan_step if self._in_graph
@@ -614,7 +647,7 @@ class ServeEngine(_StoreMixin):
                 prefix_embeds=prefix)
         self._observe(stats, skip_replan=self._in_graph)
         self._sync()
-        dt = time.perf_counter() - t0
+        dt = self.agree(time.perf_counter() - t0)
         self.tracer.add_span("prefill", dt,
                              ts_ns=self.tracer.now_ns() - int(dt * 1e9),
                              args={"batch": B, "tokens": B * S})
@@ -795,7 +828,7 @@ class ContinuousEngine(_StoreMixin):
                  ccfg: ContinuousConfig, *, ep_ranks: int = 1,
                  ep: bool = False, predictor=None, controller=None,
                  tracer=None, metrics: Optional[ServeMetrics] = None,
-                 name: str = ""):
+                 name: str = "", mesh=None):
         if cfg.family in ("ssm", "hybrid") or cfg.is_encdec:
             raise ValueError(f"{cfg.family}: continuous batching serves "
                              "uniform-stack decoder-only GQA models "
@@ -817,6 +850,7 @@ class ContinuousEngine(_StoreMixin):
         if ep and ccfg.prefill_len % ep_ranks:
             raise ValueError(f"prefill_len {ccfg.prefill_len} does not split "
                              f"over {ep_ranks} EP ranks")
+        self._check_mesh(mesh, model, ep, ep_ranks)
         self.ccfg = ccfg
         self.ep_ranks = ep_ranks
         self.ep = ep
@@ -879,7 +913,7 @@ class ContinuousEngine(_StoreMixin):
         # window_override = max_len: the paged pool is linear in logical
         # positions (decode still masks to the architectural window)
         self.rt = Runtime(window_override=ccfg.max_len, ep=ep,
-                          ep_ranks=ep_ranks)
+                          ep_ranks=ep_ranks, mesh=mesh)
         self.pool = init_block_pool(cfg, ccfg.num_blocks, ccfg.block_size,
                                     device=self.device)
         self.allocator = BlockAllocator(ccfg.num_blocks, ccfg.block_size)
@@ -1437,10 +1471,9 @@ class ContinuousEngine(_StoreMixin):
             if self.controller is not None:
                 events.decision = self._observe_controller(iter_counts, now)
 
-        dt = clock() - now
+        dt, wall = self.agree(clock() - now, time.perf_counter() - t_wall0)
         self._recent_step_s = (dt if self._recent_step_s <= 0
                                else 0.9 * self._recent_step_s + 0.1 * dt)
-        wall = time.perf_counter() - t_wall0
         if self._step_migration_bytes == 0:
             # migration-free steps calibrate the overlap window, on the
             # wall clock and per iteration kind
@@ -1553,7 +1586,8 @@ class ContinuousEngine(_StoreMixin):
 
     # ------------------------------------------------------------ trace run
     def profile_phases(self, iters: int = 3, impl: Optional[str] = None,
-                       tokens: Optional[int] = None) -> Dict[str, float]:
+                       tokens: Optional[int] = None,
+                       draws: Optional[dict] = None) -> Dict[str, float]:
         """Measure the per-step phase breakdown on the engine's device: the
         paged decode ``attn`` kernel at this deployment's pool and table
         shapes, the dispatch phases (route / pack / a2a / ffn / combine) at
@@ -1568,13 +1602,26 @@ class ContinuousEngine(_StoreMixin):
         retrospective spans on the tracer's "dispatch-profile" track.
         Returns seconds per phase; ``migrate`` is not part of ``total``
         (it is paid per plan switch, not per step). A model without MoE has
-        the ``attn`` phase only."""
+        the ``attn`` phase only.
+
+        The dispatch and migration inputs are drawn before anything is
+        timed (``draw_profile_inputs``). ``draws``, a dict the caller keeps
+        between calls on this engine, holds them: the migration inputs do
+        not depend on ``tokens``, so a second shape draws only its
+        dispatch inputs, and a caller may draw every shape at once
+        first."""
+        if self.mesh is not None:
+            raise NotImplementedError("profile_phases times one device's "
+                                      "dispatch phases: a process mesh has "
+                                      "no profile")
         from repro_torch.moe.profile import (ATTN_PHASE, attn_phase_times,
                                              dispatch_phase_times,
                                              migrate_phase_time)
         cfg, m, ccfg = self.cfg, self.moe_cfg, self.ccfg
         tokens = tokens or ccfg.prefill_len
         ranks = self.ep_ranks if self.ep else 1
+        draws = self.draw_profile_inputs((tokens,), {} if draws is None
+                                         else draws)
         phases: Dict[str, float] = {}
         if cfg.attention in ("gqa", "mixed") and cfg.num_kv_heads > 0:
             phases.update(attn_phase_times(
@@ -1590,13 +1637,14 @@ class ContinuousEngine(_StoreMixin):
                 num_experts=m.num_experts, top_k=m.top_k, tokens=tokens,
                 ranks=ranks, capacity_factor=m.capacity_factor,
                 impl=impl or "sort", activation=cfg.activation, iters=iters,
-                device=self.device))
+                device=self.device, inputs=draws[("dispatch", tokens)]))
         if m is not None and m.duplication_slots > 0:
             phases.update(migrate_phase_time(
                 d_model=cfg.d_model, d_ff=m.d_ff_expert,
                 num_experts=m.num_experts, ranks=ranks,
                 dup_slots=m.duplication_slots, layers=cfg.num_layers,
-                chunk=ccfg.migrate_chunk, iters=iters, device=self.device))
+                chunk=ccfg.migrate_chunk, iters=iters, device=self.device,
+                inputs=draws["migrate"]))
         ts = None
         for k in (ATTN_PHASE, "route", "pack", "a2a", "ffn", "combine",
                   "migrate"):
@@ -1608,6 +1656,38 @@ class ContinuousEngine(_StoreMixin):
         if impl in (None, "sort") and not self.metrics.phase_times:
             self.metrics.record_phases(phases)
         return phases
+
+    def draw_profile_inputs(self, tokens, draws: dict) -> dict:
+        """Draw into ``draws`` what ``profile_phases`` times and ``draws``
+        lacks: the dispatch inputs at each of ``tokens`` (key ("dispatch",
+        T)) and, with duplication on, the migration inputs (key
+        "migrate"). Each comes from its own generator at
+        ``moe.profile``'s seed 0, so the values are those of
+        ``dispatch_inputs`` / ``migrate_inputs``; they are drawn at once,
+        one thread each, since at full width their numpy draws are most
+        of a profile's time. Returns ``draws``."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.moe.profile import dispatch_inputs, migrate_inputs
+        cfg, m, ccfg = self.cfg, self.moe_cfg, self.ccfg
+        if m is None:
+            return draws
+        shape = dict(d_model=cfg.d_model, d_ff=m.d_ff_expert,
+                     num_experts=m.num_experts, seed=0, device=self.device)
+        jobs = {("dispatch", t): (dispatch_inputs, dict(tokens=t))
+                for t in tokens}
+        if m.duplication_slots > 0:
+            jobs["migrate"] = (migrate_inputs, dict(
+                ranks=self.ep_ranks if self.ep else 1,
+                dup_slots=m.duplication_slots, layers=cfg.num_layers,
+                chunk=ccfg.migrate_chunk))
+        jobs = {k: v for k, v in jobs.items() if k not in draws}
+        if jobs:
+            with ThreadPoolExecutor(len(jobs)) as pool:
+                futures = {k: pool.submit(fn, **shape, **kw)
+                           for k, (fn, kw) in jobs.items()}
+                draws.update((k, f.result()) for k, f in futures.items())
+        return draws
 
     def run_trace(self, requests: List[ServeRequest], *, max_iters: int = 0,
                   time_scale: float = 1.0) -> float:
@@ -1626,7 +1706,7 @@ class ContinuousEngine(_StoreMixin):
             start = now
             self.step(start, clock=lambda: start + (
                 time.perf_counter() - t0) * time_scale)
-            now = start + (time.perf_counter() - t0) * time_scale
+            now = start + self.agree(time.perf_counter() - t0) * time_scale
             iters += 1
             if max_iters and iters >= max_iters:
                 break

@@ -15,9 +15,12 @@ repro.sweep``).
   PYTHONPATH=src python -m repro_torch.sweep collect --dir RESULTS_DIR \
       --history FILE [--pattern '*.json']
 
-``run`` needs a card unless given ``--device cpu``. One card has no data
-axis: points of a mesh ``DxM`` with D > 1 come back ``ok: false`` (and
-``run`` exits 1), so restrict a one-card sweep with ``--mesh 1x4``.
+``run`` needs a card unless given ``--device cpu``. ``--backend`` says
+where each point's mesh runs (``sweep.job``): ``stacked`` (the default)
+in one process on one device, which has no data axis, so points of a mesh
+``DxM`` with D > 1 come back ``ok: false`` (and ``run`` exits 1; restrict
+such a sweep with ``--mesh 1x4``); ``nccl`` (a card a rank) or ``gloo``
+(the CPU, or card 0 shared) in ``D x M`` processes.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def cmd_run(args) -> int:
     report = run_sweep(points, smoke=args.smoke, out_path=args.out,
                        history_path=args.history, trace_dir=args.trace_dir,
                        merged_trace_path=args.merged_trace,
-                       max_iters=args.max_iters, device=args.device)
+                       max_iters=args.max_iters, device=args.device,
+                       backend=args.backend)
     print(summarize(report))
     return 1 if report["failed"] else 0
 
@@ -107,6 +111,11 @@ def main(argv=None) -> int:
                        help="torch device of every job (default cuda, "
                             "which needs a card; cpu runs the kernels' "
                             "plain versions)")
+    run_p.add_argument("--backend", default="stacked",
+                       choices=("stacked", "nccl", "gloo"),
+                       help="stacked: a point's EP ranks in one process "
+                            "(no data axis); nccl / gloo: one process a "
+                            "mesh rank")
     run_p.add_argument("--out", default="SWEEP_report.json")
     run_p.add_argument("--history", default="",
                        help="append one line per job to this JSONL trend db")

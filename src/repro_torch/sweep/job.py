@@ -3,14 +3,18 @@ device, replay the workload trace, print a single JSON result line.
 
 The port's copy of the JAX package's ``sweep/job.py``: the same engine
 shape, trace tiers, virtual clock and metric schema, on
-``repro_torch.serve.ContinuousEngine``. The point's EP ranks
-(``mesh.model``) are a leading tensor dimension on one device, so the job
-needs no device count set before start; a data axis (``mesh.data > 1``)
-needs several cards and is refused. Invoked by the runner as a subprocess:
+``repro_torch.serve.ContinuousEngine``. ``--backend`` says where the
+point's mesh runs: ``stacked`` (the default) keeps its EP ranks
+(``mesh.model``) as a leading tensor dimension in this process on one
+device, so it refuses a data axis (``mesh.data > 1``); ``nccl`` or
+``gloo`` runs ``data x model`` processes, one a mesh rank
+(``launch.mesh.spawn``; nccl a card a rank, gloo on the CPU or sharing
+card 0), whose rank 0 writes the document. Invoked by the runner as a
+subprocess:
 
   PYTHONPATH=src python -m repro_torch.sweep.job \
       --point '{"arch": "mixtral-8x7b", "mesh": "1x4", ...}' --smoke \
-      [--device cuda]
+      [--device cuda] [--backend stacked]
 
 ``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
 the kernels' plain versions. The last stdout line is the job document the
@@ -28,8 +32,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import init_model
+from repro_torch.sharding import expert_block
 from repro_torch.sweep.matrix import SweepPoint
+
+BACKENDS = ("stacked",) + mesh_mod.BACKENDS
 
 # Engine shape for sweep deployments (static: the same engine serves
 # every workload of a point, so cross-point step times compare).
@@ -59,19 +67,41 @@ SUMMARY_METRICS = (
 
 def run_point(point: SweepPoint, *, smoke: bool = True, trace_out: str = "",
               max_iters: int = 0, time_scale: float = 0.0,
-              device: str = "cuda") -> dict:
+              device: str = "cuda", backend: str = "stacked") -> dict:
+    """The point's job document; under a process ``backend`` rank 0's."""
+    kw = dict(smoke=smoke, trace_out=trace_out, max_iters=max_iters,
+              time_scale=time_scale)
+    if backend == "stacked":
+        if point.mesh.data > 1:
+            raise ValueError(
+                f"point {point.key}: mesh {point.mesh.key} has a data axis "
+                f"of {point.mesh.data}; the stacked backend runs every EP "
+                "rank in one process on one device, which has no data "
+                "axis: a data axis needs --backend nccl or gloo (one "
+                "process a mesh rank)")
+        return _run_point(point, device=resolve_device(device), **kw)
+    if backend not in mesh_mod.BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    dev, threads = mesh_mod.rank_device(backend, device)
+    return mesh_mod.spawn(_point_rank, (point.to_obj(), kw),
+                          data=point.mesh.data, model=point.mesh.model,
+                          backend=backend, device=dev, threads=threads)[0]
+
+
+def _point_rank(mesh, point_obj: dict, kw: dict) -> dict:
+    return _run_point(SweepPoint.from_obj(point_obj), device=mesh.device,
+                      mesh=mesh, **kw)
+
+
+def _run_point(point: SweepPoint, *, smoke: bool, trace_out: str,
+               max_iters: int, time_scale: float, device,
+               mesh=None) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.obs import SpanTracer
     from repro_torch.serve import ContinuousConfig, ContinuousEngine
     from repro_torch.workloads import build_workload, to_serve_requests
 
-    if point.mesh.data > 1:
-        raise ValueError(
-            f"point {point.key}: mesh {point.mesh.key} has a data axis of "
-            f"{point.mesh.data}, and one device has no data axis (serving "
-            "across cards waits for a torch.distributed backend: "
-            "ROADMAP.md section 1, item 4)")
-    dev = resolve_device(device)
+    dev = device
     cfg = get_config(point.arch)
     if point.reduced:
         cfg = cfg.reduced()
@@ -101,14 +131,18 @@ def run_point(point: SweepPoint, *, smoke: bool = True, trace_out: str = "",
     if time_scale:
         replay["time_scale"] = time_scale
 
+    rank0 = mesh is None or mesh.rank == 0
     tracer = SpanTracer(process_name=f"sweep:{point.key}") \
-        if trace_out else None
+        if trace_out and rank0 else None
     ccfg = ContinuousConfig(strategy=strategy, lever=lever, **shape)
+    # a mesh rank keeps its block of experts (every weight still drawn)
+    shard = ({} if mesh is None else {"expert_block": expert_block(
+        cfg.moe.num_experts, {"model": mesh.model_index}, mesh)})
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(
-        point.seed), device=dev)
+        point.seed), device=dev, **shard)
     eng = ContinuousEngine(cfg, model, ccfg, ep_ranks=point.mesh.model,
                            ep=point.mesh.model > 1, predictor=predictor,
-                           tracer=tracer)
+                           tracer=tracer, mesh=mesh)
     eng.warmup()
 
     trace = build_workload(point.workload, cfg.vocab_size,
@@ -132,7 +166,7 @@ def run_point(point: SweepPoint, *, smoke: bool = True, trace_out: str = "",
         start = now
         eng.step(start, clock=lambda: start + (
             time.perf_counter() - t0) * replay["time_scale"])
-        dt = time.perf_counter() - t0
+        dt = eng.agree(time.perf_counter() - t0)
         walls.append(dt)
         now = start + dt * replay["time_scale"]
         iters += 1
@@ -158,7 +192,9 @@ def run_point(point: SweepPoint, *, smoke: bool = True, trace_out: str = "",
     if tracer is not None:
         tracer.export(trace_out, extra={"sweep_point": point.to_obj()})
 
-    device_info = {"device": str(dev)}
+    device_info = {"device": dev.type}
+    if mesh is not None:
+        device_info["backend"] = mesh.backend
     if dev.type == "cuda":
         device_info["device_name"] = torch.cuda.get_device_name(dev)
     return {
@@ -184,11 +220,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda, which needs a card; "
                          "cpu runs the kernels' plain versions)")
+    ap.add_argument("--backend", default="stacked", choices=BACKENDS,
+                    help="stacked: the EP ranks in this process (no data "
+                         "axis); nccl / gloo: one process a mesh rank")
     args = ap.parse_args(argv)
     point = SweepPoint.from_obj(json.loads(args.point))
     doc = run_point(point, smoke=args.smoke, trace_out=args.trace_out,
                     max_iters=args.max_iters, time_scale=args.time_scale,
-                    device=args.device)
+                    device=args.device, backend=args.backend)
     sys.stdout.flush()
     print(json.dumps(doc))
     return 0 if doc["ok"] else 1

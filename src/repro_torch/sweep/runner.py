@@ -48,11 +48,13 @@ def _src_root() -> str:
 
 def run_job(point: SweepPoint, *, smoke: bool, trace_out: str = "",
             max_iters: int = 0, device: str = "cuda",
-            verbose: bool = True) -> dict:
-    """One point in a subprocess; never raises — failures come back as an
-    ``ok: false`` job document so one broken point doesn't kill the sweep."""
+            verbose: bool = True, backend: str = "stacked") -> dict:
+    """One point in a subprocess (under a process ``backend``, the job's
+    own world of ranks); never raises — failures come back as an ``ok:
+    false`` job document so one broken point doesn't kill the sweep."""
     cmd = [sys.executable, "-m", "repro_torch.sweep.job",
-           "--point", json.dumps(point.to_obj()), "--device", device]
+           "--point", json.dumps(point.to_obj()), "--device", device,
+           "--backend", backend]
     if smoke:
         cmd.append("--smoke")
     if trace_out:
@@ -96,7 +98,7 @@ def run_sweep(points: Sequence[SweepPoint], *, smoke: bool = True,
               out_path: str = "", history_path: str = "",
               trace_dir: str = "", merged_trace_path: str = "",
               max_iters: int = 0, device: str = "cuda",
-              verbose: bool = True) -> dict:
+              verbose: bool = True, backend: str = "stacked") -> dict:
     meta = sweep_meta()
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
@@ -110,7 +112,8 @@ def run_sweep(points: Sequence[SweepPoint], *, smoke: bool = True,
             trace_dir, f"trace_{point.key.replace('/', '_')}.json") \
             if trace_dir else ""
         doc = run_job(point, smoke=smoke, trace_out=trace_out,
-                      max_iters=max_iters, device=device, verbose=verbose)
+                      max_iters=max_iters, device=device, verbose=verbose,
+                      backend=backend)
         jobs[point.key] = doc
         if history_path:
             append_entry(history_path, sweep_history_entry(doc, meta))

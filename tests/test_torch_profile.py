@@ -336,6 +336,65 @@ def test_profile_phases_records_and_resets(engine):
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
+def test_profile_phases_time_the_draws_kept_between_calls(engine,
+                                                          monkeypatch):
+    """``draw_profile_inputs`` draws each shape's dispatch inputs and the
+    migration inputs once, the values ``dispatch_inputs`` /
+    ``migrate_inputs`` give at seed 0; ``profile_phases`` times what the
+    ``draws`` dict holds and draws only what it lacks."""
+    calls = []
+
+    def spy(real):
+        def fn(*a, **kw):
+            calls.append((real.__name__, kw.get("tokens")))
+            return real(*a, **kw)
+        return fn
+    for name in ("dispatch_inputs", "migrate_inputs"):
+        monkeypatch.setattr(prof, name, spy(getattr(prof, name)))
+    timed = []
+    for name in ("dispatch_phase_times", "migrate_phase_time"):
+        def timer(_real=getattr(prof, name), **kw):
+            timed.append(kw["inputs"])
+            return _real(**kw)
+        monkeypatch.setattr(prof, name, timer)
+    shapes = (CCFG["prefill_len"], CCFG["max_slots"])
+    draws = engine.draw_profile_inputs(shapes, {})
+    assert sorted(calls, key=str) == sorted(
+        [("dispatch_inputs", t) for t in shapes]
+        + [("migrate_inputs", None)], key=str)
+    assert set(draws) == {("dispatch", t) for t in shapes} | {"migrate"}
+    width = dict(d_model=engine.cfg.d_model, d_ff=engine.moe_cfg.d_ff_expert,
+                 num_experts=engine.moe_cfg.num_experts, seed=0,
+                 device="cpu")
+    for t in shapes:
+        got = draws[("dispatch", t)]
+        want = prof.dispatch_inputs(tokens=t, **width)
+        assert torch.equal(got["x"], want["x"])
+        assert torch.equal(got["w_router"], want["w_router"])
+        assert all(torch.equal(got["slot_w"][k], want["slot_w"][k])
+                   for k in want["slot_w"])
+    want = prof.migrate_inputs(ranks=engine.ep_ranks if engine.ep else 1,
+                               dup_slots=1,
+                               layers=engine.cfg.num_layers,
+                               chunk=engine.ccfg.migrate_chunk, **width)
+    got = draws["migrate"]
+    assert all(torch.equal(a, b) for k in want["experts"]
+               for a, b in zip(got["experts"][k], want["experts"][k]))
+    assert all(np.array_equal(got[k], want[k])
+               for k in ("layer", "dst", "src"))
+    calls.clear()
+    for t in shapes:
+        phases = engine.profile_phases(iters=1, tokens=t, draws=draws)
+        assert set(phases) == set(SPAN_ORDER) | {"total", "prefetch"}
+    assert calls == []                       # nothing drawn again
+    assert timed == [draws[("dispatch", shapes[0])], draws["migrate"],
+                     draws[("dispatch", shapes[1])], draws["migrate"]]
+    # without a dict, each call draws its own
+    engine.profile_phases(iters=1, tokens=shapes[1])
+    assert sorted(calls, key=str) == [("dispatch_inputs", shapes[1]),
+                                      ("migrate_inputs", None)]
+
+
 def test_profile_span_order_matches_the_jax_engine(jax_engine):
     jphases = jax_engine.profile_phases(iters=1)
     assert _profile_spans(jax_engine.tracer) == SPAN_ORDER

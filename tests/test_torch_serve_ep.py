@@ -41,7 +41,8 @@ on the CPU.
 * The store-memory clamp under ``ep=True`` equals the JAX engine's under a
   mesh (the case of ``tests/test_overlap_prefetch.py``).
 * ``repro_torch.launch.serve`` with ``--data-mesh 1 --model-mesh 4`` serves
-  every request through the EP engine; a data axis or a ``--seq`` that
+  every request through the EP engine; a data axis under the stacked
+  backend (it names ``--backend nccl`` or ``gloo``) or a ``--seq`` that
   does not split over the ranks raises.
 """
 
@@ -558,7 +559,8 @@ def test_launch_serve_ep_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-mesh", "2", "--model-mesh", "4"], "ROADMAP"),
+    (["--data-mesh", "2", "--model-mesh", "4"],
+     "a data axis needs --backend nccl or gloo"),
     (["--data-mesh", "1", "--model-mesh", "4", "--seq", "18"], "split"),
 ])
 def test_launch_serve_rejects_what_one_card_cannot_run(argv, match):

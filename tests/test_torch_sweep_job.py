@@ -21,7 +21,9 @@
   that ``obs.validate_chrome_trace`` accepts.
 * CLI: ``run``, ``report``, ``manifests`` and ``collect`` end to end.
 * No silent CPU: without a card the job raises unless asked for the CPU,
-  and a data-axis point comes back ``ok: false`` with the refusal.
+  and a data-axis point under the stacked backend comes back ``ok:
+  false`` with the refusal; the same mesh's 2x2 point over gloo processes
+  (``--backend gloo``) drains its trace.
 """
 
 import json
@@ -272,11 +274,28 @@ def test_no_silent_cpu(tmp_path, job_env):
 
 
 def test_a_data_axis_is_refused(job_env):
+    """The stacked backend (the default) has one device and no data axis:
+    a data-axis point names the process backends."""
     point = _point("dist_only", MeshShape(2, 4))
-    with pytest.raises(ValueError, match="one device has no data axis"):
+    with pytest.raises(ValueError, match="needs --backend nccl or gloo"):
         job.run_point(point, device="cpu")
     doc = runner.run_job(point, smoke=True, max_iters=2, device="cpu",
                          verbose=False)
     assert not doc["ok"] and doc["metrics"] == {}
-    assert "one device has no data axis" in doc["error"]
-    assert "ROADMAP.md section 1, item 4" in doc["error"]
+    assert "has no data axis" in doc["error"]
+    assert "a data axis needs --backend nccl or gloo" in doc["error"]
+
+
+def test_a_2x2_point_runs_over_gloo_processes(job_env):
+    """A 2x2 point through the runner's subprocess with ``--backend
+    gloo``: four processes, one a mesh rank, on the CPU; rank 0's
+    document is ok, drains the trace and names the backend."""
+    point = _point("dist_only", MeshShape(2, 2))
+    doc = runner.run_job(point, smoke=True, max_iters=MAX_ITERS,
+                         device="cpu", verbose=False, backend="gloo")
+    m = doc["metrics"]
+    assert doc["ok"] and doc["key"] == point.key, doc.get("error")
+    assert doc["config"]["device"] == "cpu"
+    assert doc["config"]["backend"] == "gloo"
+    assert m["drained_ok"] == 1.0 and m["completed"] == m["submitted"] > 0
+    assert m["migration_replans"] > 0
