@@ -419,7 +419,8 @@ non-zero:
                 history, per-job traces and merged trace under
                 ``chiprun_out/sweep/``: exit 0, the job ok on this card,
                 the merged trace valid. Then llama-moe-3.5b at published
-                widths and all 32 layers (6.74e9 parameters), random
+                widths, 8 of its 32 layers (``SWEEP_LAYERS``, the jobs'
+                ``layers`` option; the script's 1200 s), random
                 weights from ``--seed``, mesh 1x4 under every strategy
                 value (dist_only, token_to_expert, reschedule, both) at
                 the smoke engine shape and trace, ``max_iters`` 400: the
@@ -491,13 +492,47 @@ non-zero:
                 cases). Then reduced Mixtral (single-device and EP) and
                 Griffin, one step on the card against the CPU from the same
                 bridged weights.
+ 22. dist_train — (last, after train has freed its models; alone with
+                ``--phases dist_train``) the EP train step over a process
+                mesh: NCCL, a card a rank, with four cards or more, else
+                gloo with four processes on card 0, every collective staged
+                through the host (this measures no NVLink). Mixtral-8x7B at
+                published widths, 1 of 32 layers (``DIST_TRAIN_LAYERS``),
+                no replica slots, cf 1.25, the
+                identity plan, 3 steps of 4 x 512 Zipf tokens
+                (``token_batches(--seed)``) at the launcher's schedule:
+                first with the EP ranks stacked in this process (the
+                reference; per step loss, aux loss, drops, expert counts,
+                grad norm, and each gradient leaf's fp64 checksum at step
+                0, an expert leaf's per rank's block), then as a (1, 4)
+                world on the same weights, each rank drawing them all and
+                keeping its experts. Step 0's loss, aux loss, drops and
+                counts bit-equal, each expert block's gradient checksum on
+                its owner equal to the stacked slice's, the router's
+                gradient and the grad norm within 1e-6 relative, steps
+                1-2's losses within 1e-3, every replicated parameter's
+                checksum equal on all ranks after the 3 steps, every
+                process's launches of moe_gemm, moe_gemm_bwd,
+                histogram_offsets and the router and its backward exact
+                (one each a layer and step; counts set to 0 just before the
+                steps and read just after). Per leg: step ms and p50,
+                tokens/s, the collectives' share of each step (CUDA events
+                around each collective on its calling stream, no
+                synchronisation added), peak memory a process. Then reduced
+                Mixtral one step on a (2, 2) world on the card against the
+                same world on the CPU (gloo, plain versions): loss, aux loss
+                and grad norm within 1e-3, every rank's gradient leaves
+                within 3e-2 in norm, parameters within 2 lr (at most 2%
+                beyond lr / 10), launches exact. A failed or timed-out rank
+                fails the phase.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. The kernels JSON lists the three backward
 kernels beside the five forward ones, with ``gradient_of`` naming the
 forward kernel and their launches from phase train; every row also has
 ``dist_launches``, rank 0's launches in phase dist's (1, 4) and (2, 2)
-worlds. Run from the repository root:
+worlds, and ``dist_train_launches``, rank 0's in phase dist_train's (1, 4)
+steps and its reduced (2, 2) step. Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--phases router,histogram,...] [--src DIR]
 
@@ -8204,7 +8239,9 @@ def llava_phase(seed: int, smi: str) -> None:
         raise SystemExit("llava failed: " + "; ".join(failures))
 
 
-SWEEP_ARCH = "llama-moe-3.5b"      # all 32 layers at published widths
+SWEEP_ARCH = "llama-moe-3.5b"      # published widths
+SWEEP_LAYERS = 8                   # of its 32: the jobs' depth (the script's
+                                   # 1200 s; phase dist_train pays for it)
 SWEEP_STRATEGIES = ("dist_only", "token_to_expert", "reschedule", "both")
 SWEEP_MAX_ITERS = 400              # the full tier's: every point drains
 SWEEP_OUT = os.path.join(ROOT, "chiprun_out", "sweep")
@@ -8292,8 +8329,8 @@ def sweep_phase(seed: int, smi: str) -> None:
     ``python -m repro_torch.sweep run`` on the smoke spec's reduced
     Mixtral point at mesh 1x4 (workload skew_shift, dist_only, ``--device
     cuda``), with its report, history and traces under ``SWEEP_OUT``.
-    Then llama-moe-3.5b at published widths and all 32 layers under
-    every strategy value (dist_only, token_to_expert, reschedule, both;
+    Then llama-moe-3.5b at published widths, ``SWEEP_LAYERS`` of its 32
+    layers (the jobs' ``layers`` option), under every strategy value (dist_only, token_to_expert, reschedule, both;
     mesh 1x4, smoke engine shape): the dist_only point in this process
     through ``run_point`` with every kernel count set to 0 just before
     and read just after (held to its engine's warmup, prefills and decode
@@ -8354,7 +8391,7 @@ def sweep_phase(seed: int, smi: str) -> None:
     t1 = time.perf_counter()
 
     # 2. llama-moe-3.5b at published widths under every strategy value
-    cfg = get_config(SWEEP_ARCH)
+    cfg = dataclasses.replace(get_config(SWEEP_ARCH), num_layers=SWEEP_LAYERS)
     spec = SweepSpec(archs=(SWEEP_ARCH,), meshes=(MeshShape(1, 4),),
                      workloads=("skew_shift",), strategies=SWEEP_STRATEGIES,
                      seeds=(seed,), reduced=False)
@@ -8363,13 +8400,13 @@ def sweep_phase(seed: int, smi: str) -> None:
         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
         d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
         points=",".join(p.key for p in points),
-        max_iters=SWEEP_MAX_ITERS, reduced="'none: published widths, all "
-        "32 layers; smoke engine shape and trace'")
+        max_iters=SWEEP_MAX_ITERS, reduced=f"'{SWEEP_LAYERS} of 32 layers "
+        "at published widths; smoke engine shape and trace'")
     rec = {}
     with _warmup_capture(rec):
         ops.reset_launches()
         first = run_point(points[0], smoke=True, max_iters=SWEEP_MAX_ITERS,
-                          device="cuda")
+                          device="cuda", layers=SWEEP_LAYERS)
         launches = dict(ops.LAUNCHES)
     eng = rec.pop("engine")
     decode_steps, warm = eng.decode_steps, rec.pop("warmup_launches")
@@ -8395,7 +8432,8 @@ def sweep_phase(seed: int, smi: str) -> None:
     rest = run_sweep(points[1:], smoke=True,
                      out_path=os.path.join(SWEEP_OUT, "SWEEP_report.json"),
                      history_path=os.path.join(SWEEP_OUT, "history.jsonl"),
-                     max_iters=SWEEP_MAX_ITERS, device="cuda")
+                     max_iters=SWEEP_MAX_ITERS, device="cuda",
+                     layers=SWEEP_LAYERS)
     docs = [first] + [rest["jobs"][p.key] for p in points[1:]]
     for doc in docs:
         failures += _sweep_doc_failures(doc, kind)
@@ -8481,15 +8519,15 @@ def _dist_requests(cfg, seed: int):
         for i in range(t["requests"])]
 
 
-def _time_collectives(comms, acc: list) -> None:
-    """Append (name, start, end) to ``acc`` for each collective of
-    ``comms``: CUDA events recorded on the calling stream, with no
+def _time_collectives(comms, acc: list, names=COLLECTIVES) -> None:
+    """Append (name, start, end) to ``acc`` for each collective ``names``
+    of ``comms``: CUDA events recorded on the calling stream, with no
     synchronisation added, so the loop's step walls are what they are
     without the timing; their elapsed times are read after the run. Under
     gloo the span includes the host staging's copies and the wait for
     them."""
     for comm in comms:
-        for name in COLLECTIVES:
+        for name in names:
             fn = getattr(comm, name)
 
             def timed(*a, _fn=fn, _name=name, **kw):
@@ -8878,13 +8916,384 @@ def _dist_cfg(layers: int):
     return dataclasses.replace(get_config("mixtral-8x7b"), num_layers=layers)
 
 
+# ---------------------------------------------------------------------------
+# phase dist_train: the EP train step across processes
+# ---------------------------------------------------------------------------
+
+# of Mixtral's 32 layers: on one card (gloo) a (1, 4) rank holds 656.4 M
+# fp32 parameters x 16 B = 10.5 GB, four ranks ~42 GB (2 layers ~67 GB).
+# Four cards (NCCL) fit 2, but under a second layer the first one's expert
+# gradients come through the replicated backward, whose last bits differ
+# from the stacked run's, so the bit-equal checks hold at one layer only
+DIST_TRAIN_LAYERS = 1
+DIST_TRAIN_STEPS = 3
+# (1, 4) against the stacked step: the router's gradient and the grad
+# norm add four ranks' parts in another order (the CPU test's 1e-6); the
+# replicated leaves' gradients differ in their last bits (the atomics of
+# the dispatch's gather backward), and Adam's first steps move each
+# element by about lr along its gradient's sign, so steps 1-2's losses are
+# held to phase train's TRAIN_REL
+DIST_TRAIN_REL = {"router": 1e-6, "grad_norm": 1e-6, "loss": 1e-3}
+GRAD_REL = 3e-2                    # a gradient leaf, card vs CPU, in norm
+# the process backend's collectives a train step runs through (the
+# autograd functions call the underscored ones)
+TRAIN_COLLECTIVES = ("_all_to_all", "_all_gather", "psum", "mean_")
+ROUTER_LEAF = "layers.0.router"
+
+
+def _dist_train_cfg(layers: int):
+    """Mixtral-8x7B at published widths, its first ``layers`` layers, no
+    replica slots (the JAX launcher's ``use_duplication=False``), cf 1.25."""
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("mixtral-8x7b")
+    moe = dataclasses.replace(base.moe, duplication_slots=0)
+    return dataclasses.replace(base, num_layers=layers, moe=moe)
+
+
+@contextlib.contextmanager
+def _adamw_grads(keep):
+    """Call ``keep(grads)`` with each train step's gradients just before
+    AdamW clips them (``train.steps`` looks ``adamw_update_`` up at each
+    call)."""
+    from repro_torch.train import steps as steps_mod
+
+    real = steps_mod.adamw_update_
+
+    def recording(params, grads, *a, **kw):
+        keep(grads)
+        return real(params, grads, *a, **kw)
+    steps_mod.adamw_update_ = recording
+    try:
+        yield
+    finally:
+        steps_mod.adamw_update_ = real
+
+
+def dist_train_steps(cfg, model, rt, seed: int, comms=()) -> dict:
+    """``DIST_TRAIN_STEPS`` steps of ``make_train_step`` under ``rt`` on
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` Zipf batches from ``token_batches
+    (seed)`` at the launcher's schedule, the identity plan; kernel counts
+    set to 0 just before and read just after. Per step: loss, aux loss,
+    drops, expert counts, grad norm, host wall (ending on a
+    synchronisation) and the collectives' CUDA-event time (``comms``'
+    ``TRAIN_COLLECTIVES``, no synchronisation added); of step 0 each
+    gradient leaf's fp64 checksum (an expert leaf's per block of E / R
+    experts, as each EP rank holds them) and the router's gradient; at the
+    end each parameter's fp64 checksum and the peak memory."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_lr_fn
+    from repro_torch.models.transformer import expert_param_names
+    from repro_torch.train import steps as steps_mod
+
+    experts = set(expert_param_names(model))
+    blocks = rt.ep_ranks if rt.mesh is None else 1
+    grads = {}
+
+    def keep(g):
+        if not grads:
+            for name, t in g.items():
+                parts = t.chunk(blocks) if name in experts else (t,)
+                grads[name] = [float(x.double().sum()) for x in parts]
+            grads[ROUTER_LEAF] = g[ROUTER_LEAF].cpu().numpy().copy()
+    acc = []
+    _time_collectives(comms, acc, TRAIN_COLLECTIVES)
+    step = steps_mod.make_train_step(cfg, rt, lr_fn=build_lr_fn(
+        cfg, TRAIN_LR, DIST_TRAIN_STEPS))
+    opt = steps_mod.init_opt_state(model)
+    gen = token_batches(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    rec = {"steps": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _adamw_grads(keep):
+        ops.reset_launches()
+        for _ in range(DIST_TRAIN_STEPS):
+            batch = next(gen)
+            n0 = len(acc)
+            t0 = time.perf_counter()
+            opt, m = step(model, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec["steps"].append({
+                "loss": float(m["loss"]), "aux": float(m["aux_loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "dropped": m["dropped"].cpu().numpy(),
+                "counts": m["expert_counts"].cpu().numpy(), "wall": wall,
+                "coll": (n0, len(acc))})
+        rec["launches"] = dict(ops.LAUNCHES)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ms = [a.elapsed_time(b) for _, a, b in acc]
+    for st in rec["steps"]:
+        i, j = st.pop("coll")
+        st["coll_s"] = sum(ms[i:j]) / 1e3
+    rec["grads"] = grads
+    rec["params"] = {n: float(p.detach().double().sum())
+                     for n, p in model.named_parameters()}
+    rec["experts"] = sorted(experts)
+    return rec
+
+
+def dist_train_rank(mesh, seed: int, layers: int) -> dict:
+    """A rank of the (1, 4) world: full-width Mixtral's first ``layers``
+    layers, this rank's experts kept (``init_model(expert_block=...)``:
+    every weight drawn as the whole model draws it), through
+    ``dist_train_steps`` over the mesh."""
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.sharding import expert_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dist_train_cfg(layers)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=mesh.device).manual_seed(
+        seed), device=mesh.device, trainable=True, expert_block=expert_block(
+            cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rt = Runtime(ep=True, ep_ranks=mesh.model, mesh=mesh)
+    return dict(dist_train_steps(cfg, model, rt, seed,
+                                 (mesh.comm, mesh.data_comm)), init_s=init_s)
+
+
+def dist_train_reduced(mesh, seed: int) -> dict:
+    """Reduced Mixtral over the mesh, one step at lr 1e-3 from weights drawn
+    on the CPU from ``seed`` (this rank's experts kept), on the mesh's
+    device. The router keeps its drawn scale: phase train's x 25 makes the
+    z loss's gradient dominate and differ card against CPU by 2-3e-3 in the
+    grad norm, in one process as in a mesh. Returns the metrics, launches,
+    this rank's gradients and the whole model's parameters after the step
+    (gathered over the model group; None but on its rank 0)."""
+    from repro_torch.bridge import params_to_jax
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Runtime, init_model
+    from repro_torch.sharding import expert_block
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    base = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, duplication_slots=0))
+    model = init_model(cfg, torch.Generator().manual_seed(seed), device="cpu",
+                       trainable=True, expert_block=expert_block(
+                           cfg.moe.num_experts, {"model": mesh.model_index},
+                           mesh))
+    model = model.to(mesh.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32)
+    rt = Runtime(ep=True, ep_ranks=mesh.model, mesh=mesh)
+    grads = {}
+    ops.reset_launches()
+    # copies: AdamW clips the gradients in place
+    with _adamw_grads(lambda g: grads.update(
+            (k, v.detach().float().cpu().numpy().copy())
+            for k, v in g.items())):
+        _, m = make_train_step(cfg, rt, lr_fn=lambda s: 1e-3)(
+            model, init_opt_state(model), {"tokens": toks[:, :-1],
+                                           "labels": toks[:, 1:]})
+    launches = dict(ops.LAUNCHES)
+    params = params_to_jax(model, mesh.comm)
+    return {"loss": float(m["loss"]), "aux": float(m["aux_loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "dropped": m["dropped"].cpu().numpy(),
+            "counts": m["expert_counts"].cpu().numpy(),
+            "launches": launches, "layers": cfg.num_layers, "grads": grads,
+            "params": None if params is None else flatten(params)}
+
+
+def _dist_train_leg_log(label, backend, smi, rec, world, layers):
+    walls = np.asarray([s["wall"] for s in rec["steps"]])
+    share = [s["coll_s"] / s["wall"] for s in rec["steps"]]
+    p50 = float(np.percentile(walls, 50))
+    log("dist_train", leg=label, backend=backend, world=world,
+        card=f"'{smi}'", layers=layers, steps=len(walls),
+        batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+        step_ms=",".join(f"{w * 1e3:.3f}" for w in walls),
+        step_p50_ms=f"{p50 * 1e3:.3f}",
+        tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / p50:.2f}",
+        collective_share_of_step=",".join(f"{x:.4f}" for x in share)
+        if world > 1 else "-",
+        loss=",".join(f"{s['loss']:.6f}" for s in rec["steps"]),
+        grad_norm=",".join(f"{s['grad_norm']:.6g}" for s in rec["steps"]),
+        dropped_pairs=",".join(str(int(s["dropped"].sum()))
+                               for s in rec["steps"]),
+        peak_gb=f"{rec['peak_gb']:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in rec["launches"].items()),
+        timing="host wall to a synchronisation after each step; "
+               "collectives by CUDA events on the calling stream, no "
+               "synchronisation added")
+
+
+def dist_train_phase(seed: int, smi: str) -> dict:
+    """Phase dist_train: the EP train step over a process mesh (one process
+    a mesh rank, ``launch.mesh``), held against the stacked EP step. Returns
+    {kernel: {"1x4": launches, "2x2": launches}} of rank 0."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import Runtime, init_model
+
+    free_engines("dist_train")
+    t0 = time.perf_counter()
+    backend, device = dist_backend()
+    layers = DIST_TRAIN_LAYERS
+    log("dist_train", backend=backend, world=EP_RANKS,
+        cards=torch.cuda.device_count(), card=f"'{smi}'",
+        ranks_on=("one card a rank" if backend == "nccl" else
+                  "card 0, collectives staged through the host (gloo)"),
+        layers=layers, cut=f"'{layers} of 32 layers at published widths: "
+        "16 B a fp32 parameter (weights, gradients, two moments)'")
+    failures = []
+
+    # 1. the reference: the EP ranks stacked in this process, on the card
+    # the gloo ranks share (card 0 under NCCL)
+    cfg = _dist_train_cfg(layers)
+    ref_dev = device if device is not None else torch.device("cuda", 0)
+    model = init_model(cfg, torch.Generator(device=ref_dev).manual_seed(seed),
+                       device=ref_dev, trainable=True)
+    ref = dist_train_steps(cfg, model, Runtime(ep=True, ep_ranks=EP_RANKS),
+                           seed)
+    del model
+    free_engines("dist_train")
+    _dist_train_leg_log("stacked_1x4", "stacked", smi, ref, 1, layers)
+    t1 = time.perf_counter()
+
+    # 2. the (1, 4) world on the same weights and batches
+    threads = 0 if backend == "nccl" else 2          # 8 host cores, 4 ranks
+    world = mesh_mod.spawn(dist_train_rank, (seed, layers),
+                           data=1, model=EP_RANKS, backend=backend,
+                           device=device, threads=threads,
+                           timeout_s=DIST_TIMEOUT_S)
+    t2 = time.perf_counter()
+    got = world[0]
+    _dist_train_leg_log("process_1x4", backend, smi, got, EP_RANKS, layers)
+    s0, r0 = got["steps"][0], ref["steps"][0]
+    exact = (s0["loss"] == r0["loss"] and s0["aux"] == r0["aux"]
+             and np.array_equal(s0["dropped"], r0["dropped"])
+             and np.array_equal(s0["counts"], r0["counts"]))
+    if not exact:
+        failures.append("1x4 step 0: loss, aux, drops or counts differ from "
+                        "the stacked step's")
+    experts = set(ref["experts"])
+    bad_experts = [n for n in experts for r, w in enumerate(world)
+                   if w["grads"][n] != [ref["grads"][n][r]]]
+    if bad_experts:
+        failures.append(f"1x4: expert gradient checksums differ: "
+                        f"{sorted(set(bad_experts))}")
+    # the routers' gradients are summed over the ranks in another order
+    shared = [n for n in ref["params"] if n not in experts
+              and not n.endswith(".router")]
+    replicated_equal = [n for n in shared
+                        if got["grads"][n] == ref["grads"][n]]
+    rg, rw = got["grads"][ROUTER_LEAF], ref["grads"][ROUTER_LEAF]
+    router_rel = float(np.linalg.norm(rg - rw) / np.linalg.norm(rw))
+    norm_rel = abs(s0["grad_norm"] - r0["grad_norm"]) / r0["grad_norm"]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(got["steps"][1:], ref["steps"][1:]))
+    if router_rel > DIST_TRAIN_REL["router"]:
+        failures.append(f"1x4: router gradient {router_rel} rel")
+    if norm_rel > DIST_TRAIN_REL["grad_norm"]:
+        failures.append(f"1x4: grad norm {norm_rel} rel")
+    if loss_rel > DIST_TRAIN_REL["loss"]:
+        failures.append(f"1x4: steps 1-2 loss {loss_rel} rel")
+    replicated = [n for n in got["params"] if n not in experts]
+    diverged = sorted(n for n in replicated for w in world[1:]
+                      if w["params"][n] != got["params"][n])
+    if diverged:
+        failures.append(f"1x4: replicated parameters differ across ranks "
+                        f"after {DIST_TRAIN_STEPS} steps: {diverged}")
+    want = {k: 0 for k in got["launches"]}
+    want.update({k: layers * DIST_TRAIN_STEPS for k in TRAIN_EP_KERNELS})
+    bad_launches = [r for r, w in enumerate(world) if w["launches"] != want]
+    if bad_launches:
+        failures.append(f"1x4 ranks {bad_launches}: launches != {want}")
+    log("dist_train", leg="process_1x4", step0_bit_equal=exact,
+        loss_step0=f"{s0['loss']:.9g}", loss_step0_stacked=f"{r0['loss']:.9g}",
+        expert_checksums_equal=not bad_experts,
+        router_grad_rel=f"{router_rel:.3g}", grad_norm_rel=f"{norm_rel:.3g}",
+        loss_rel_steps_1_2=f"{loss_rel:.3g}",
+        tolerance=f"'{DIST_TRAIN_REL}'",
+        replicated_grads_bit_equal_to_stacked=(
+            f"{len(replicated_equal)}/{len(shared)}"),
+        replicated_params_equal_across_ranks=not diverged,
+        per_rank_peak_gb=",".join(f"{w['peak_gb']:.3f}" for w in world),
+        init_s=",".join(f"{w['init_s']:.2f}" for w in world),
+        launches_exact=not bad_launches, world_s=f"{t2 - t1:.3f}")
+    launches = {"1x4": got["launches"]}
+
+    # 3. reduced Mixtral on a (2, 2) world, the card against the CPU
+    cpu_out = {}
+
+    def cpu_world():
+        t = time.perf_counter()
+        try:
+            cpu_out["ranks"] = mesh_mod.spawn(
+                dist_train_reduced, (seed,), data=2, model=2,
+                backend="gloo", device=torch.device("cpu"), threads=1,
+                timeout_s=DIST_TIMEOUT_S)
+        except RuntimeError as e:            # raised again below
+            cpu_out["error"] = e
+        cpu_out["s"] = time.perf_counter() - t
+    beside = threading.Thread(target=cpu_world)
+    beside.start()
+    card = mesh_mod.spawn(dist_train_reduced, (seed,), data=2, model=2,
+                          backend=backend, device=device, threads=threads,
+                          timeout_s=DIST_TIMEOUT_S)
+    t3 = time.perf_counter()
+    beside.join()
+    if "error" in cpu_out:
+        raise cpu_out["error"]
+    a, b = card[0], cpu_out["ranks"][0]
+    lr = 1e-3
+    worst = max(float(np.abs(a["params"][k] - w).max())
+                for k, w in b["params"].items())
+    beyond = max(float((np.abs(a["params"][k] - w) > lr / 10).mean())
+                 for k, w in b["params"].items())
+    grad_rel = max((float(np.linalg.norm(c["grads"][k] - w)
+                          / max(np.linalg.norm(w), 1e-30)), k)
+                   for c, d in zip(card, cpu_out["ranks"])
+                   for k, w in d["grads"].items())
+    want2 = {k: 0 for k in a["launches"]}
+    want2.update({k: a["layers"] for k in TRAIN_EP_KERNELS})
+    ok = (abs(a["loss"] - b["loss"]) <= TRAIN_REL * abs(b["loss"])
+          and abs(a["aux"] - b["aux"]) <= TRAIN_REL * abs(b["aux"])
+          and abs(a["grad_norm"] - b["grad_norm"])
+          <= TRAIN_REL * b["grad_norm"]
+          and worst <= 2 * lr + 1e-6 and beyond <= 0.02
+          and grad_rel[0] <= GRAD_REL
+          and all(c["launches"] == want2 for c in card))
+    log("dist_train", leg="reduced_2x2_card_vs_cpu",
+        loss_card=f"{a['loss']:.6f}", loss_cpu=f"{b['loss']:.6f}", grad_norm_card=f"{a['grad_norm']:.6g}",
+        grad_norm_cpu=f"{b['grad_norm']:.6g}",
+        equal_drops_and_counts=bool(np.array_equal(a["dropped"], b["dropped"])
+                                    and np.array_equal(a["counts"],
+                                                       b["counts"])),
+        worst_grad_rel=f"{grad_rel[0]:.4g}", worst_grad_leaf=grad_rel[1],
+        param_max_abs_diff=f"{worst:.6g}",
+        share_beyond_lr_over_10=f"{beyond:.4g}",
+        tolerance=f"loss, aux and grad norm {TRAIN_REL} rel; every "
+                  f"gradient leaf of every rank {GRAD_REL} rel in norm; "
+                  "params 2 lr, <= 2% beyond lr/10",
+        launches=",".join(f"{k}:{v}" for k, v in a["launches"].items()),
+        ok=ok, world_s=f"{t3 - t2:.3f}", cpu_world_s=f"{cpu_out['s']:.3f}")
+    if not ok:
+        failures.append("reduced 2x2 card vs CPU disagree")
+    launches["2x2"] = a["launches"]
+    log("dist_train", phase_s=f"{time.perf_counter() - t0:.3f}",
+        reference_s=f"{t1 - t0:.3f}")
+    if failures:
+        raise SystemExit("dist_train failed: " + "; ".join(failures))
+    return {k: {label: launches[label].get(k, 0) for label in launches}
+            for k in launches["1x4"]}
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
                           "rwkv", "seamless", "llava", "sweep", "dist",
-                          "train")
+                          "train", "dist_train")
 
 
 def main() -> int:
@@ -9000,6 +9409,9 @@ def main() -> int:
         launches.update((k, train_launches[k]) for k in
                         ("fused_topk_route_bwd", "rg_lru_scan_bwd",
                          "moe_gemm_bwd"))
+    dist_train_launches = {}
+    if "dist_train" in phases:
+        dist_train_launches = dist_train_phase(args.seed, smi)
 
     if set(phases) == set(PHASES):
         for k in kernels:
@@ -9007,6 +9419,10 @@ def main() -> int:
             # phase dist's runs, rank 0 of each process mesh
             k["dist_launches"] = dist_launches.get(k["name"],
                                                    {"1x4": 0, "2x2": 0})
+            # phase dist_train's: rank 0's three (1, 4) steps and its
+            # reduced (2, 2) step
+            k["dist_train_launches"] = dist_train_launches.get(
+                k["name"], {"1x4": 0, "2x2": 0})
             if k["name"] == "paged_decode_attention":
                 # phase llava's case: its pool shape, its run's launches
                 k["cases"] = {"llava_g7_pool": MEASURED["llava_paged_case"]}

@@ -57,7 +57,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (CROSS, RWKV_BLOCKS, WEIGHT_DTYPE,
                                             Transformer, _layer_kind,
-                                            _layer_shapes)
+                                            _layer_shapes,
+                                            expert_param_names)
 from repro_torch.optim.adamw import AdamWState
 
 # JAX key path -> port parameter name
@@ -267,23 +268,71 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return Transformer(cfg, top, layers, trainable, enc_layers)
 
 
-def params_to_jax(model: Transformer) -> Dict[str, Any]:
-    """The port's ``Transformer`` -> the JAX tree layout, float32 numpy."""
-    params = dict(model.named_parameters())
-    return _jax_from_flat(model, lambda name: _np32(params[name]))
+def _leaf_fn(model: Transformer, flat: Dict[str, torch.Tensor], comm=None):
+    """``leaf(name)`` for ``_jax_from_flat`` over ``flat`` (a tensor for
+    each of ``model``'s parameter names): fp32 numpy; with ``comm`` (a
+    mesh's model group) each expert leaf gathered over the group to its
+    rank 0 when asked for, one layer's leaf at a time, so rank 0 holds one
+    gathered leaf on the device at once (an empty array on the other
+    ranks, whose tree is not used)."""
+    experts = set(expert_param_names(model)) if comm is not None else ()
+
+    def leaf(name):
+        if name not in experts:
+            return _np32(flat[name])
+        whole = comm.gather(flat[name].detach()[None])     # (R, E/R, ...)
+        if whole is None:
+            return np.zeros((0,), np.float32)
+        return _np32(whole.reshape((-1,) + whole.shape[2:]))
+    return leaf
 
 
-def opt_state_to_jax(state: AdamWState, model: Transformer) -> AdamWState:
+def params_to_jax(model: Transformer, comm=None) -> Dict[str, Any]:
+    """The port's ``Transformer`` -> the JAX tree layout, float32 numpy.
+    ``comm``: None, or the model group (``launch.mesh.Mesh.comm``) of a
+    model whose ranks each hold a block of the experts; every rank of the
+    group calls, and the group's rank 0 gets the whole model's tree (the
+    others None)."""
+    tree = _jax_from_flat(model, _leaf_fn(
+        model, dict(model.named_parameters()), comm))
+    return None if comm is not None and comm.rank else tree
+
+
+def opt_state_to_jax(state: AdamWState, model: Transformer,
+                     comm=None) -> AdamWState:
     """The port's AdamW state over ``model``'s parameters (``mu`` / ``nu``
     keyed by parameter name, as ``train.steps`` keeps them) -> an
     ``AdamWState`` whose ``step`` is an int32 numpy scalar and whose
     ``mu`` / ``nu`` are float32 numpy trees in the JAX parameter layout:
     ``repro.optim.AdamWState(*...)`` continues from it, and
-    ``train.checkpoint.save`` writes the JAX package's keys."""
-    return AdamWState(
+    ``train.checkpoint.save`` writes the JAX package's keys. ``comm`` as
+    for ``params_to_jax``: the expert leaves' moments gathered to the
+    group's rank 0."""
+    out = AdamWState(
         step=np.asarray(state.step.cpu(), np.int32),
-        mu=_jax_from_flat(model, lambda name: _np32(state.mu[name])),
-        nu=_jax_from_flat(model, lambda name: _np32(state.nu[name])))
+        mu=_jax_from_flat(model, _leaf_fn(model, state.mu, comm)),
+        nu=_jax_from_flat(model, _leaf_fn(model, state.nu, comm)))
+    return None if comm is not None and comm.rank else out
+
+
+def checkpoint_tree(model: Transformer, state: AdamWState, mesh=None):
+    """{"params", "opt"} in the JAX layout, the tree ``train.checkpoint.
+    save`` writes and ``repro.train.checkpoint`` restores. With ``mesh``
+    (``launch.mesh.Mesh``; every rank calls): global rank 0's tree of the
+    whole model, each expert leaf and its moments gathered over data index
+    0's model group (every data index holds the same parameters); None on
+    every other rank."""
+    if mesh is None:
+        return {"params": params_to_jax(model),
+                "opt": opt_state_to_jax(state, model)}
+    if mesh.data_index:
+        return None
+    comm = mesh.comm if expert_param_names(model) and mesh.model > 1 else None
+    if comm is None and mesh.rank:
+        return None
+    params = params_to_jax(model, comm)
+    opt = opt_state_to_jax(state, model, comm)
+    return None if mesh.rank else {"params": params, "opt": opt}
 
 
 def opt_state_from_jax(state, model: Transformer) -> AdamWState:

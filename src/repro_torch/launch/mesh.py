@@ -8,7 +8,9 @@ model)``. The ``model`` axis carries the EP ranks: a rank's
 ``model_group`` holds the ranks that share its data index, and its
 ``comm`` (``moe.dispatch.ProcessGroupRanks``) runs the dispatch's
 collectives over that group. The ``data`` axis shards the batch: its
-``data_group`` holds the ranks that share its model index.
+``data_group`` holds the ranks that share its model index, and its
+``data_comm`` reduces over it (the serving forward's statistics and
+logits; in training, ``train.steps``, the gradients and metrics).
 
 ``init_process`` joins the world through a ``file://`` init method, so
 test workers that start worlds side by side never race for a TCP port.

@@ -29,15 +29,30 @@ its loss's read-back) as Chrome trace-event JSON; ``--remat`` recomputes
 each layer in the backward (``make_train_step(remat=True)``: the same
 values in less memory); fp32 matrix products stay fp32 (TF32 off). A
 config's ``lr_schedule`` picks the schedule:
-cosine, or WSD (minicpm-2b). ``--data-mesh 1
---model-mesh R`` trains an MoE model through the expert-parallel dispatch
-over R ranks on the one device (``Runtime(ep=True, ep_ranks=R)``, the
-identity plan stack, no replica slots: the JAX launcher's
-``use_duplication=False``); a dense model trains as without it. One device
-has no data axis, so any other ``--data-mesh`` raises.
+cosine, or WSD (minicpm-2b).
+
+``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
+nonzero train on a ``(data, model)`` mesh, a MoE model through the
+expert-parallel dispatch over the model ranks with the identity plan and
+no replica slots (the JAX launcher's ``use_duplication=False``), a model
+without MoE data-parallel, its model ranks repeating their data rank's
+work. ``--backend`` says where the ranks run. ``stacked`` (the default):
+the EP ranks as a leading tensor dimension in this one process, on one
+device (``Runtime(ep=True, ep_ranks=M)``), so ``--data-mesh`` must be 1.
+``gloo`` or ``nccl``: the launcher starts ``data x model`` processes, one
+a mesh rank (``launch.mesh``); each draws the whole model's weights from
+``--seed`` and keeps its block of the experts and their moments, draws
+the whole batch and trains on its data rank's rows; the gradients are
+averaged over the data ranks. ``nccl`` takes a card a rank (fewer cards
+raise); ``gloo`` runs on the CPU with ``--device cpu`` or, on a card,
+stages its collectives through the host, every rank on card 0. Rank 0
+prints the lines and writes ``--ckpt``, the whole model's, which the JAX
+package restores.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --reduced --device cpu --data-mesh 1 --model-mesh 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo
 """
 
 from __future__ import annotations
@@ -52,9 +67,12 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.placement import identity_plan, stack_plans, to_device
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import Runtime, init_model
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models.transformer import (Runtime, expert_param_names,
+                                            init_model)
 from repro_torch.obs import SpanTracer
 from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
+from repro_torch.sharding import expert_block
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.steps import init_opt_state, make_train_step
 
@@ -70,7 +88,10 @@ def build_lr_fn(cfg, base_lr: float, total_steps: int):
                            total=total_steps)
 
 
-def main(argv=None) -> int:
+BACKENDS = ("stacked",) + mesh_mod.BACKENDS
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -83,11 +104,15 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt", default="", help="save checkpoint here at the end")
     ap.add_argument("--data-mesh", type=int, default=0,
-                    help="1, with --model-mesh R: an MoE model trains "
-                         "through the expert-parallel dispatch over R ranks "
-                         "on the one device (0 = the single-device path)")
+                    help="data ranks D, with --model-mesh (0 = the "
+                         "single-device path)")
     ap.add_argument("--model-mesh", type=int, default=0,
-                    help="EP ranks R, with --data-mesh 1")
+                    help="model ranks M, with --data-mesh: an MoE model's "
+                         "EP ranks")
+    ap.add_argument("--backend", default="stacked", choices=BACKENDS,
+                    help="stacked: the EP ranks as a tensor dimension in "
+                         "this process (--data-mesh 1); nccl / gloo: one "
+                         "process a mesh rank")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -96,7 +121,38 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", action="store_true",
                     help="recompute each layer in the backward (less "
                          "activation memory, the same values)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    mesh_flags = bool(args.data_mesh and args.model_mesh)
+    if args.backend == "stacked":
+        if mesh_flags and args.data_mesh != 1:
+            raise ValueError(
+                f"--data-mesh {args.data_mesh}: the stacked backend runs "
+                "every EP rank in this process on one device, which has no "
+                "data axis; a data axis needs --backend gloo or nccl (one "
+                "process a mesh rank)")
+        return train(args)
+    if not mesh_flags:
+        raise ValueError(f"--backend {args.backend} runs a process mesh: "
+                         "give --data-mesh and --model-mesh")
+    device, threads = mesh_mod.rank_device(args.backend, args.device)
+    return mesh_mod.spawn(_train_rank, (vars(args),), data=args.data_mesh,
+                          model=args.model_mesh, backend=args.backend,
+                          device=device, threads=threads)[0]
+
+
+def _train_rank(mesh, argv: dict) -> int:
+    return train(argparse.Namespace(**argv), mesh)
+
+
+def train(args, mesh=None) -> int:
+    """The launcher's run for ``args``; with ``mesh``, as its rank (rank 0
+    prints and writes the checkpoint). Returns 0 when the last step's loss
+    is below the first (rank 0's, which every rank shares)."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -105,12 +161,7 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     rt = Runtime()
     if args.data_mesh and args.model_mesh:
-        if args.data_mesh != 1:
-            raise ValueError(
-                f"--data-mesh {args.data_mesh}: one device has no data axis "
-                "(training across cards waits for a torch.distributed "
-                "backend: ROADMAP.md section 1, item 4)")
-        rt = Runtime(ep=cfg.is_moe, ep_ranks=args.model_mesh)
+        rt = Runtime(ep=cfg.is_moe, ep_ranks=args.model_mesh, mesh=mesh)
     if rt.ep:
         if cfg.moe.num_experts % rt.ep_ranks:
             raise ValueError(f"--model-mesh {rt.ep_ranks} does not divide "
@@ -121,7 +172,7 @@ def main(argv=None) -> int:
     step_fn = make_train_step(cfg, rt, lr_fn=build_lr_fn(cfg, args.lr,
                                                          args.steps),
                               remat=args.remat)
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     plan = None
     if rt.ep:
         m = cfg.moe
@@ -129,16 +180,23 @@ def main(argv=None) -> int:
             identity_plan(m.num_experts, rt.ep_ranks, 0, m.max_copies)
             for _ in range(cfg.num_layers)]), m.num_experts, rt.ep_ranks, 0,
             dev)
+    # a mesh rank keeps its block of the experts (every weight still drawn)
+    block = (None if mesh is None or not rt.ep else expert_block(
+        cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                       device=dev, trainable=True)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"(analytical {cfg.num_params()/1e6:.1f}M) "
-          f"family={cfg.family} moe={cfg.is_moe}")
+                       device=dev, trainable=True, expert_block=block)
+    params = dict(model.named_parameters())
+    held = set(expert_param_names(model)) if block else set()
+    n_params = sum(p.numel() * (mesh.model if name in held else 1)
+                   for name, p in params.items())
+    say(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+        f"(analytical {cfg.num_params()/1e6:.1f}M) "
+        f"family={cfg.family} moe={cfg.is_moe}")
 
     opt = init_opt_state(model)
-    tracer = SpanTracer(enabled=bool(args.trace_out),
-                        process_name="repro-torch-launch-train")
+    tracer = SpanTracer(
+        enabled=bool(args.trace_out) and (mesh is None or mesh.rank == 0),
+        process_name="repro-torch-launch-train")
     gen = token_batches(args.seed, cfg.vocab_size, args.batch, args.seq)
     losses = []
     t0 = time.perf_counter()
@@ -160,22 +218,23 @@ def main(argv=None) -> int:
             if cfg.is_moe and metrics.get("expert_counts") is not None:
                 c = metrics["expert_counts"].cpu().numpy().sum(0)
                 extra = f" skew={c.max() / max(c.mean(), 1e-9):.2f}"
-            print(f"step {step:4d} loss={losses[-1]:.4f} "
-                  f"lr={float(metrics['lr']):.2e} "
-                  f"gnorm={float(metrics['grad_norm']):.2f}{extra}")
+            say(f"step {step:4d} loss={losses[-1]:.4f} "
+                f"lr={float(metrics['lr']):.2e} "
+                f"gnorm={float(metrics['grad_norm']):.2f}{extra}")
     dt = time.perf_counter() - t0
-    print(f"done: {args.steps} steps in {dt:.1f}s "
-          f"({dt / args.steps * 1e3:.0f} ms/step); "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    say(f"done: {args.steps} steps in {dt:.1f}s "
+        f"({dt / args.steps * 1e3:.0f} ms/step); "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
 
     if args.ckpt:
-        from repro_torch.bridge import opt_state_to_jax, params_to_jax
-        ckpt.save(args.ckpt, {"params": params_to_jax(model),
-                              "opt": opt_state_to_jax(opt, model)})
-        print(f"checkpoint saved to {args.ckpt}")
-    if args.trace_out:
+        from repro_torch.bridge import checkpoint_tree
+        tree = checkpoint_tree(model, opt, mesh)
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(args.ckpt, tree)
+            say(f"checkpoint saved to {args.ckpt}")
+    if args.trace_out and tracer.enabled:
         tracer.export(args.trace_out)
-        print(f"trace written to {args.trace_out}")
+        say(f"trace written to {args.trace_out}")
     return 0 if losses[-1] < losses[0] else 1
 
 

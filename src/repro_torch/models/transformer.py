@@ -327,6 +327,17 @@ ZEROS = 0.0                      # a ``_layer_shapes`` scale: zeros (biases)
 EXPERT_NAMES = ("w_gate", "w_up", "w_down")    # a MoE layer's (E, ...) experts
 
 
+def expert_param_names(model) -> List[str]:
+    """The parameter names (``model.named_parameters()``'s) of every MoE
+    layer's expert weights: the leaves a mesh rank holds a block of
+    (``init_model(expert_block=...)``), the rest whole."""
+    if not model.cfg.is_moe:
+        return []
+    return [f"layers.{l}.{n}" for l, layer in enumerate(model.layers)
+            if layer.kind == "attn" for n in EXPERT_NAMES
+            if hasattr(layer, n)]
+
+
 def _gqa_shapes(cfg: ModelConfig, prefix: str = ""):
     """GQA's projections (and, under ``qkv_bias``, their biases), each name
     after ``prefix``."""
@@ -631,7 +642,11 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                 a.reshape(B, R, S // R, *a.shape[2:]).transpose(0, 1)
                 .reshape(R, B * (S // R), *a.shape[2:]))
         t = split(x)
-        router_out = route(layer.router, moe, t)
+        # the router sees this rank's positions only: under one rank a
+        # process its gradient is summed over the ranks on the way back
+        router_w = (layer.router if comm.held == comm.ranks
+                    else comm.psum_grad(layer.router))
+        router_out = route(router_w, moe, t)
         pred = None if predicted_l is None else split(predicted_l)
         y, stats = ep_dispatch.ep_moe_ffn(t, router_out, experts, plan_l,
                                           moe, predicted_idx=pred, **kw)
@@ -851,14 +866,20 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             prefix_embeds=None):
     """Returns (logits, cache, stats).
 
-    Under a process mesh (``rt.mesh``; a MoE model under EP, prefill and
-    decode) the batch splits over the data axis when the data ranks
+    Under a process mesh (``rt.mesh``), in prefill and decode (a MoE model
+    under EP) the batch splits over the data axis when the data ranks
     divide it (``Mesh.batch_rows``): this rank runs its rows, reading and
     writing its rows of a linear ``cache`` in place (the paged pool is
     whole on every rank: its block tables pick the rows' blocks); the
     statistics are summed (the losses averaged) over the data axis and
     the logits gathered over it, so every rank returns the whole batch's.
-    A batch the data ranks do not divide runs whole on each of them.
+    A batch the data ranks do not divide runs whole on each of them. In
+    train mode (any model; a MoE model under EP, without replica slots)
+    ``tokens`` are the rows this rank trains on, which
+    ``train.steps.make_train_step`` picks: the logits and statistics are
+    theirs, the counts and losses summed and averaged over the model axis
+    only, and nothing crosses the data axis. A model without MoE computes
+    the same rows alike on every model rank.
 
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
                   cache None, recurrent layers from zero states. Under
@@ -921,13 +942,25 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
               frames=frames, prefix_embeds=prefix_embeds)
     if rt.mesh is None:
         return _forward(model, cfg, tokens, rt, **kw)
-    if not (cfg.is_moe and rt.ep and mode in ("prefill", "decode")):
-        raise ValueError("a process mesh serves MoE models under EP, in "
-                         "prefill and decode (training across processes "
-                         "is not ported)")
-    if rt.ep_ranks != rt.mesh.model:
+    if cfg.is_moe and not rt.ep:
+        raise ValueError("on a process mesh a MoE model runs under EP "
+                         "(Runtime(ep=True)): each rank holds its experts")
+    if rt.ep and rt.ep_ranks != rt.mesh.model:
         raise ValueError(f"ep_ranks {rt.ep_ranks} on a mesh of model axis "
                          f"{rt.mesh.model}")
+    if mode == "train":
+        if rt.ep and cfg.moe.duplication_slots:
+            raise ValueError("training across processes runs without "
+                             "replica slots (the JAX launcher's "
+                             "use_duplication=False)")
+        # the train step hands each rank its data rows and reduces over
+        # the data axis itself
+        return _forward(model, cfg, tokens, rt, **kw)
+    if not (cfg.is_moe and rt.ep):
+        raise ValueError("a process mesh serves MoE models under EP; a "
+                         "model without MoE serves on one once the tensor-"
+                         "parallel and FSDP rules are applied (ROADMAP.md "
+                         "section 1, item 4(b))")
     rows = rt.mesh.batch_rows(tokens.shape[0])
     if rows is None:
         return _forward(model, cfg, tokens, rt, **kw)

@@ -38,7 +38,9 @@ collectives over the mesh's model group (``launch.mesh``). Without a store
 each process holds only its ranks' home experts, so a replica slot there
 reads an expert of another rank from a pool that an ``all_gather`` builds
 each forward (``gather_replica_pool``, the JAX package's
-``replica_impl="gather"``).
+``replica_impl="gather"``). While autograd records, the process
+collectives the dispatch runs carry their gradients (training across
+processes, without replica slots); the others raise.
 
 Token-to-Expert predicted mode (``ep_moe_ffn(predicted_idx=...)``, a
 prefill feature): a first round dispatches every (token, k) pair to its
@@ -128,6 +130,95 @@ class StackedRanks:
         return [self.pmean(t) for t in ts]
 
 
+# elements of one ``ProcessGroupRanks.mean_`` collective (fp32: 256 MB)
+MEAN_BUCKET_NUMEL = 1 << 26
+
+
+def _records(*ts) -> bool:
+    """Whether autograd records an operation on any of the tensors ``ts``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` with a gradient. The exchange is its own transpose:
+    rank src's block for rank dst lands at dst as block src, so the way back
+    is the same exchange of the gradient (``StackedRanks``' transpose, whose
+    gradient is the transpose)."""
+
+    @staticmethod
+    def forward(ctx, comm, buf):
+        ctx.comm = comm
+        return comm._all_to_all(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._all_to_all(g)
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` with a gradient, for a gathered tensor every rank of
+    the group uses alike, under a loss every rank computes alike (the loss
+    is replicated over the model axis): each rank's rows then get their
+    whole gradient from this rank's copy, so the way back takes this rank's
+    rows. A sum over the ranks would count the gradient R times."""
+
+    @staticmethod
+    def forward(ctx, comm, t):
+        ctx.comm = comm
+        return comm._all_gather(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.comm.rank
+        return None, g[r:r + 1].contiguous()
+
+
+class _Local(torch.autograd.Function):
+    """``local`` with a gradient: the forward takes this rank's rows of a
+    tensor every rank holds alike; the way back gathers every rank's rows'
+    gradient, so the whole tensor gets its whole gradient on every rank
+    (``StackedRanks.local`` is the identity, and so is its gradient)."""
+
+    @staticmethod
+    def forward(ctx, comm, t):
+        ctx.comm = comm
+        return t[comm.rank:comm.rank + 1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._all_gather(g)
+
+
+class _PmeanLosses(torch.autograd.Function):
+    """``pmean_losses`` with a gradient: the mean's gradient is g / R on
+    each rank's own loss, with no collective (``StackedRanks``' mean over
+    its rows gives each row g / R)."""
+
+    @staticmethod
+    def forward(ctx, comm, *ts):
+        ctx.comm = comm
+        return tuple(comm._pmean_losses(ts))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + tuple(g.reshape(1) / ctx.comm.ranks for g in gs)
+
+
+class _PsumGrad(torch.autograd.Function):
+    """``psum_grad``: the identity forward, the gradient summed over the
+    group's ranks on the way back."""
+
+    @staticmethod
+    def forward(ctx, comm, w):
+        ctx.comm = comm
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm.psum_ordered(g)
+
+
 class ProcessGroupRanks:
     """One EP rank per process: the collectives of ``StackedRanks`` over a
     ``torch.distributed`` group of ``ranks`` processes, this one at
@@ -136,7 +227,15 @@ class ProcessGroupRanks:
     a ``gloo`` group given CUDA tensors; each collective then copies its
     operands to the host and its results back, by name. Every collective
     is bounded by the group's timeout, so a rank that died fails the
-    others instead of hanging them."""
+    others instead of hanging them.
+
+    While autograd records (training), ``all_to_all``, ``all_gather``,
+    ``local`` and ``pmean_losses`` carry gradients: each backward is the
+    process form of what autograd gives the same ``StackedRanks``
+    operation, under a loss that every rank of the group computes alike.
+    ``psum_grad`` sums a replicated weight's gradient over the group. The
+    other collectives have no backward: given a tensor that requires a
+    gradient while autograd records, they raise rather than drop it."""
 
     held = 1
 
@@ -154,15 +253,27 @@ class ProcessGroupRanks:
     def _back(self, t, like):
         return t.to(like.device) if self.host_staging else t
 
+    def _no_gradient(self, what: str, *ts) -> None:
+        if _records(*ts):
+            raise RuntimeError(f"ProcessGroupRanks.{what} has no backward: it "
+                               "was given a tensor that requires a gradient "
+                               "while autograd records")
+
     def all_to_all(self, buf):
         """(1, R_dst, ...) -> (1, R_src, ...): this rank's block from every
         source rank."""
+        if _records(buf):
+            return _AllToAll.apply(self, buf)
+        return self._all_to_all(buf)
+
+    def _all_to_all(self, buf):
         x = self._host(buf[0].contiguous())
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
         return self._back(out, buf)[None]
 
     def psum(self, t):
+        self._no_gradient("psum", t)
         x = t[0].cpu() if self.host_staging else t[0].clone()
         dist.all_reduce(x, group=self.group)
         return self._back(x, t)
@@ -181,25 +292,92 @@ class ProcessGroupRanks:
         return out
 
     def pmean_losses(self, *ts):
-        """``pmean`` of several (1,) fp32 losses in one collective (an
-        elementwise mean: each is what its own ``pmean`` gives)."""
-        return list(self.pmean(torch.stack(ts, dim=-1)).unbind(-1))
+        """``pmean`` of several (1,) fp32 losses in one collective: every
+        rank's gathered, then each averaged over the ranks as
+        ``StackedRanks.pmean`` averages its (R,) rows, so both backends give
+        the same bits and every rank the same value."""
+        if _records(*ts):
+            return list(_PmeanLosses.apply(self, *ts))
+        return self._pmean_losses(ts)
 
-    def pmean(self, t):
-        return self.psum(t) / self.ranks
+    def _pmean_losses(self, ts):
+        rows = self._all_gather(torch.stack(ts, dim=-1))          # (R, n)
+        return [rows[:, i].contiguous().mean(dim=0)
+                for i in range(rows.shape[1])]
+
+    def psum_grad(self, w):
+        """``w`` as it is, with its gradient summed over the group on the
+        way back: a weight every rank holds alike and applies to its own
+        share of the positions (the router), whose gradient each rank then
+        holds a part of. The parts are added in group-rank order, so every
+        rank gets the same bits."""
+        if _records(w):
+            return _PsumGrad.apply(self, w)
+        return w
+
+    def psum_ordered(self, t):
+        """The sum over the group of every rank's ``t`` (any shape), added
+        in group-rank order: every rank gets the same bits, whatever order
+        a reduction would take."""
+        self._no_gradient("psum_ordered", t)
+        return self._all_gather(t[None]).sum(dim=0)
 
     def rank_index(self, device):
         return torch.tensor([self.rank], device=device)
 
     def local(self, t):
+        if _records(t):
+            return _Local.apply(self, t)
         return t[self.rank:self.rank + 1]
 
     def all_gather(self, t):
         """(1, ...) -> (R, ...) in group-rank order."""
+        if _records(t):
+            return _AllGather.apply(self, t)
+        return self._all_gather(t)
+
+    def _all_gather(self, t):
         x = self._host(t[0].contiguous())
         out = [torch.empty_like(x) for _ in range(self.ranks)]
         dist.all_gather(out, x, group=self.group)
         return self._back(torch.stack(out), t)
+
+    def gather(self, t):
+        """(1, ...) -> (R, ...) in group-rank order on the group's rank 0,
+        None on the others (a checkpoint's expert leaves)."""
+        self._no_gradient("gather", t)
+        x = self._host(t[0].contiguous())
+        out = ([torch.empty_like(x) for _ in range(self.ranks)]
+               if self.rank == 0 else None)
+        dist.gather(x, out, dst=self.global_ranks[0], group=self.group)
+        return None if out is None else self._back(torch.stack(out), t)
+
+    def mean_(self, tensors) -> None:
+        """Average each of ``tensors`` over the group, in place (the
+        gradients over the data axis): one ``all_reduce`` a bucket of up to
+        ``MEAN_BUCKET_NUMEL`` elements of one dtype, not one a tensor (a
+        tensor larger than a bucket is a bucket of its own). Under host
+        staging each bucket goes through the host."""
+        self._no_gradient("mean_", *tensors)
+        if self.ranks == 1:
+            return
+        buckets, size = [], MEAN_BUCKET_NUMEL
+        for t in tensors:
+            if (size + t.numel() > MEAN_BUCKET_NUMEL
+                    or buckets[-1][0].dtype != t.dtype):
+                buckets.append([])
+                size = 0
+            buckets[-1].append(t)
+            size += t.numel()
+        for bucket in buckets:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            x = self._host(flat)
+            dist.all_reduce(x, group=self.group)
+            x = self._back(x, flat).div_(self.ranks)
+            at = 0
+            for t in bucket:
+                t.copy_(x[at:at + t.numel()].view_as(t))
+                at += t.numel()
 
     def transfer(self, moves) -> None:
         """Point-to-point copies between the group's ranks: ``moves`` is a
@@ -207,6 +385,9 @@ class ProcessGroupRanks:
         None) in one order on every rank; this rank passes the tensor of
         each end it is, and copies where it is both. Sends and receives go
         out together and are waited on before it returns."""
+        self._no_gradient("transfer", *(t for _, x, _, y in moves
+                                        for t in (x, y)))
+
         def pinned(t):               # a staging buffer the copies run fast on
             return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
@@ -416,6 +597,10 @@ def gather_replica_pool(experts: dict, plan: DevicePlan, moe: MoEConfig,
     rows = torch.arange(n_slots, dtype=torch.int32, device=dev).repeat(R)
     if D == 0:
         return experts, rows
+    if _records(*experts.values()):
+        # a pool entry's gradient would belong to the rank that sent it
+        raise RuntimeError("the replica pool has no backward: training "
+                           "across processes runs without replica slots")
     se = plan.slot_experts.cpu().numpy().reshape(R, n_slots)
     replica = se[:, e_loc:]
     live = replica[replica >= 0]

@@ -93,7 +93,8 @@ def adamw_update(params: Dict, grads: Dict, state: AdamWState, lr, *,
 def adamw_update_(params: Dict, grads: Dict, state: AdamWState, lr, *,
                   b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                   weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                  decay: Optional[Dict] = None):
+                  decay: Optional[Dict] = None,
+                  reduce_sq: Optional[Callable] = None):
     """``adamw_update`` in place: ``grads`` are clipped and ``params``,
     ``state.mu`` and ``state.nu`` updated where they lie, one leaf at a
     time, so the update holds 16 bytes per fp32 parameter (the parameter,
@@ -102,16 +103,22 @@ def adamw_update_(params: Dict, grads: Dict, state: AdamWState, lr, *,
     operations in the same order, the global norm over the leaves in
     sorted-key order, so both give the same bits. ``decay``: None (decay
     the leaves of ndim >= 2, as ``adamw_update``) or a tree of bools
-    matching ``params``. Returns (the state with the new step, the
-    gradients' global norm before clipping)."""
+    matching ``params``. ``reduce_sq``: None, or a function of the list
+    of the leaves' squared sums (0-d fp32, in leaf order) that returns the
+    list the norm adds up in that order: across processes, each term the
+    whole model's (``train.steps``: a sharded leaf's summed over its
+    ranks). Returns (the state with the new step, the gradients' global
+    norm before clipping)."""
     decays = (tree_leaves(decay) if decay is not None
               else [p.dim() >= 2 for p in tree_leaves(params)])
     leaves = list(zip(tree_leaves(params), tree_leaves(grads),
                       tree_leaves(state.mu), tree_leaves(state.nu), decays))
-    total = None
-    for _, g, _, _, _ in leaves:
-        sq = g.float().square().sum()
-        total = sq if total is None else total + sq
+    sq = [g.float().square().sum() for _, g, _, _, _ in leaves]
+    if reduce_sq is not None:
+        sq = reduce_sq(sq)
+    total = sq[0]
+    for s in sq[1:]:
+        total = total + s
     gn = torch.sqrt(total)
     scale = torch.clamp(max_grad_norm / torch.clamp(gn, min=1e-9), max=1.0)
     step = state.step + 1

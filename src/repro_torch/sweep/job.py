@@ -17,13 +17,16 @@ subprocess:
       [--device cuda] [--backend stacked]
 
 ``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
-the kernels' plain versions. The last stdout line is the job document the
-runner collects; everything else goes to stderr or earlier lines.
+the kernels' plain versions. ``--layers N`` cuts the model to its first N
+layers (the document's config records it). The last stdout line is the
+job document the runner collects; everything else goes to stderr or
+earlier lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -67,10 +70,13 @@ SUMMARY_METRICS = (
 
 def run_point(point: SweepPoint, *, smoke: bool = True, trace_out: str = "",
               max_iters: int = 0, time_scale: float = 0.0,
-              device: str = "cuda", backend: str = "stacked") -> dict:
-    """The point's job document; under a process ``backend`` rank 0's."""
+              device: str = "cuda", backend: str = "stacked",
+              layers: int = 0) -> dict:
+    """The point's job document; under a process ``backend`` rank 0's.
+    ``layers``: 0 (the config's depth), or the point's model cut to its
+    first ``layers`` layers (recorded in the document's config)."""
     kw = dict(smoke=smoke, trace_out=trace_out, max_iters=max_iters,
-              time_scale=time_scale)
+              time_scale=time_scale, layers=layers)
     if backend == "stacked":
         if point.mesh.data > 1:
             raise ValueError(
@@ -94,7 +100,7 @@ def _point_rank(mesh, point_obj: dict, kw: dict) -> dict:
 
 
 def _run_point(point: SweepPoint, *, smoke: bool, trace_out: str,
-               max_iters: int, time_scale: float, device,
+               max_iters: int, time_scale: float, layers: int, device,
                mesh=None) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.obs import SpanTracer
@@ -105,6 +111,8 @@ def _run_point(point: SweepPoint, *, smoke: bool, trace_out: str,
     cfg = get_config(point.arch)
     if point.reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
 
     # lever legs of the strategy axis: keep dist_only prediction, drive
     # the token-rescheduling lever (matrix.LEVER_STRATEGIES)
@@ -202,7 +210,8 @@ def _run_point(point: SweepPoint, *, smoke: bool, trace_out: str,
         "kind": "sweep-job",
         "key": point.key,
         "config": {**point.to_obj(), "smoke": smoke, **replay,
-                   "engine": shape, **device_info},
+                   "engine": shape, **device_info,
+                   **({"layers": layers} if layers else {})},
         "ok": bool(metrics["drained_ok"]),
         "wall_s": wall_s,
         "metrics": metrics,
@@ -217,6 +226,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-out", default="")
     ap.add_argument("--max-iters", type=int, default=0)
     ap.add_argument("--time-scale", type=float, default=0.0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (0: all)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda, which needs a card; "
                          "cpu runs the kernels' plain versions)")
@@ -227,7 +238,8 @@ def main(argv=None) -> int:
     point = SweepPoint.from_obj(json.loads(args.point))
     doc = run_point(point, smoke=args.smoke, trace_out=args.trace_out,
                     max_iters=args.max_iters, time_scale=args.time_scale,
-                    device=args.device, backend=args.backend)
+                    device=args.device, backend=args.backend,
+                    layers=args.layers)
     sys.stdout.flush()
     print(json.dumps(doc))
     return 0 if doc["ok"] else 1

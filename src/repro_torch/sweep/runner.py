@@ -48,7 +48,8 @@ def _src_root() -> str:
 
 def run_job(point: SweepPoint, *, smoke: bool, trace_out: str = "",
             max_iters: int = 0, device: str = "cuda",
-            verbose: bool = True, backend: str = "stacked") -> dict:
+            verbose: bool = True, backend: str = "stacked",
+            layers: int = 0) -> dict:
     """One point in a subprocess (under a process ``backend``, the job's
     own world of ranks); never raises — failures come back as an ``ok:
     false`` job document so one broken point doesn't kill the sweep."""
@@ -61,6 +62,8 @@ def run_job(point: SweepPoint, *, smoke: bool, trace_out: str = "",
         cmd += ["--trace-out", trace_out]
     if max_iters:
         cmd += ["--max-iters", str(max_iters)]
+    if layers:
+        cmd += ["--layers", str(layers)]
     env = dict(
         os.environ,
         PYTHONPATH=_src_root() + (
@@ -98,7 +101,10 @@ def run_sweep(points: Sequence[SweepPoint], *, smoke: bool = True,
               out_path: str = "", history_path: str = "",
               trace_dir: str = "", merged_trace_path: str = "",
               max_iters: int = 0, device: str = "cuda",
-              verbose: bool = True, backend: str = "stacked") -> dict:
+              verbose: bool = True, backend: str = "stacked",
+              layers: int = 0) -> dict:
+    """Every point through ``run_job``; ``layers``: 0, or each point's
+    model cut to its first ``layers`` layers."""
     meta = sweep_meta()
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
@@ -113,7 +119,7 @@ def run_sweep(points: Sequence[SweepPoint], *, smoke: bool = True,
             if trace_dir else ""
         doc = run_job(point, smoke=smoke, trace_out=trace_out,
                       max_iters=max_iters, device=device, verbose=verbose,
-                      backend=backend)
+                      backend=backend, layers=layers)
         jobs[point.key] = doc
         if history_path:
             append_entry(history_path, sweep_history_entry(doc, meta))

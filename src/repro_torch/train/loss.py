@@ -15,9 +15,12 @@ from __future__ import annotations
 import torch
 
 
-def lm_loss(logits, labels, mask=None):
+def lm_loss(logits, labels, mask=None, denom=None):
     """logits: (B, S, V); labels: (B, S) int. Returns (loss, {"nll",
-    "accuracy"}), fp32 scalars; ``mask`` (B, S) weights each position."""
+    "accuracy"}), fp32 scalars; ``mask`` (B, S) weights each position.
+    ``denom``: None (the mask's sum, at least 1), or the divisor to use in
+    its place (a data rank's share of the whole batch's, so that the data
+    ranks' mean is the whole batch's loss)."""
     logits = logits.float()
     V = logits.shape[-1]
     labels = labels.long()
@@ -27,7 +30,8 @@ def lm_loss(logits, labels, mask=None):
     gold = torch.where(valid, gold, torch.zeros_like(gold))
     nll = logz - gold
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
     top = logits.amax(dim=-1)
     acc = (((gold >= top) & (labels >= 0)) * mask).sum() / denom

@@ -7,7 +7,12 @@ dispatch under a placement plan stack (the JAX step's ``plan``), gradients
 by autograd (through the router's, the scan's and the grouped FFN's
 backward kernels on the card), optional per-layer recompute (``remat``)
 and sequential microbatches, then AdamW applied in place to the model's
-fp32 parameters.
+fp32 parameters. Under a process mesh (``Runtime(mesh=...)``, one process
+a rank of a ``(data, model)`` mesh, the JAX step under a mesh) each rank
+trains on its data rank's rows, the gradients are averaged over the data
+axis (``make_grad_fn``), a MoE model's experts are split over the model
+axis with the EP dispatch's collectives carrying their gradients, and the
+clip norm sums the expert leaves over it (``sharded_norm_terms``).
 
 For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
@@ -30,7 +35,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.duplication import duplicate_experts_device
-from repro_torch.models.transformer import Runtime, Transformer, forward
+from repro_torch.models.transformer import (Runtime, Transformer,
+                                            expert_param_names, forward)
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update_
 from repro_torch.train.loss import lm_loss
 
@@ -60,18 +66,19 @@ def init_opt_state(model: Transformer) -> AdamWState:
 
 
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
-    """``loss_fn(model, batch, plan=None) -> (loss, metrics)``: the
-    train-mode forward over ``batch["tokens"]`` (an encoder-decoder's
+    """``loss_fn(model, batch, plan=None, denom=None) -> (loss, metrics)``:
+    the train-mode forward over ``batch["tokens"]`` (an encoder-decoder's
     encoder over ``batch["frames"]``; a VLM's ``batch["prefix_embeds"]``
     (B, P, d) before the tokens, whose P positions carry no label and are
     sliced off the logits before the loss; under ``rt.ep`` dispatched
     under ``plan``, None the identity plan), ``lm_loss`` against
-    ``batch["labels"]`` (and ``batch["loss_mask"]`` if given), plus the aux
-    and z losses for MoE models, whose ``aux_loss`` and ``expert_counts``
-    join the metrics (the JAX ``make_train_step``'s inner ``loss_fn``);
-    under ``rt.ep`` also ``dropped``, each layer's capacity drops."""
+    ``batch["labels"]`` (and ``batch["loss_mask"]`` if given, divided by
+    ``denom`` when one is given), plus the aux and z losses for MoE
+    models, whose ``aux_loss`` and ``expert_counts`` join the metrics (the
+    JAX ``make_train_step``'s inner ``loss_fn``); under ``rt.ep`` also
+    ``dropped``, each layer's capacity drops."""
 
-    def loss_fn(model: Transformer, batch, plan=None):
+    def loss_fn(model: Transformer, batch, plan=None, denom=None):
         logits, _, stats = forward(model, cfg, batch["tokens"], rt,
                                    mode="train", plan=plan, remat=remat,
                                    frames=batch.get("frames"),
@@ -80,7 +87,7 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
             # the prefix carries no LM labels: score text positions only
             logits = logits[:, batch["prefix_embeds"].shape[1]:]
         loss, metrics = lm_loss(logits, batch["labels"],
-                                batch.get("loss_mask"))
+                                batch.get("loss_mask"), denom)
         if cfg.is_moe:
             loss = loss + stats["aux_loss"] + stats["z_loss"]
             metrics["aux_loss"] = stats["aux_loss"]
@@ -89,6 +96,115 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False):
             metrics["dropped"] = stats["dropped"].float()
         return loss, metrics
     return loss_fn
+
+
+# the metrics summed over the data axis; the others are averaged over it
+SUMMED_METRICS = ("expert_counts", "dropped")
+
+
+def make_grad_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False,
+                 microbatches: int = 1):
+    """``grad_fn(model, batch, plan=None) -> (loss, metrics, grads)``: the
+    train step's gradients, ``grads`` {name (``param_tree``'s): fp32
+    gradient, zeros where none reached the parameter}, left in each
+    parameter's ``.grad`` too; ``batch``, ``plan``, ``remat`` and
+    ``microbatches`` as ``make_train_step`` takes them (each microbatch's
+    fp32 gradients added to the running sum in order, the sum divided by
+    the count; loss and metrics the microbatches' means).
+
+    On a process mesh (``rt.mesh``) every rank is given the whole batch
+    and trains on its data rank's rows (``Mesh.batch_rows``; a batch the
+    data ranks do not divide whole on each), which the microbatches split.
+    Every gradient is then averaged over the data axis, one collective a
+    bucket (``ProcessGroupRanks.mean_``), and so are the losses, accuracy
+    and aux loss, detached; the expert counts and drops are summed. Under
+    a ``loss_mask`` each microbatch's loss divides by its share of the
+    whole batch's mask sum over those rows, so the data ranks' mean is the
+    loss of the whole microbatch, not a mean of per-rank means. The model
+    axis needs nothing here: the forward's collectives carry the EP
+    dispatch's gradients, every replicated parameter's gradient is whole on
+    each rank, and each expert's whole on its owner."""
+    loss_fn = make_loss_fn(cfg, rt, remat)
+    mesh = rt.mesh
+
+    def grad_fn(model: Transformer, batch, plan=None):
+        params = param_tree(model)
+        dev = model.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        rows = None if mesh is None else mesh.batch_rows(B)
+        shards = 1 if rows is None else mesh.data
+        mine = batch if rows is None else {k: v[rows]
+                                           for k, v in batch.items()}
+        b = B // shards
+        if b % microbatches:
+            raise ValueError(f"batch {B} over {shards} data ranks does not "
+                             f"split into {microbatches} microbatches")
+        n = b // microbatches
+        parts = [{k: v[i * n:(i + 1) * n] for k, v in mine.items()}
+                 for i in range(microbatches)] if microbatches > 1 else [mine]
+        denoms = [None] * microbatches
+        if shards > 1 and "loss_mask" in batch:
+            # microbatch i: rows i of every data rank's rows of the batch
+            m = batch["loss_mask"].float().reshape(
+                shards, microbatches, -1).sum(dim=(0, 2))
+            denoms = list(torch.clamp(m, min=1.0) / shards)
+        for p in params.values():
+            p.grad = None
+        losses, mets = [], []
+        for part, denom in zip(parts, denoms):
+            loss, metrics = loss_fn(model, part, plan, denom)
+            loss.backward()
+            losses.append(loss.detach())
+            mets.append({k: torch.as_tensor(v).detach()
+                         for k, v in metrics.items()})
+        if microbatches == 1:
+            loss, metrics = losses[0], mets[0]
+        else:
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in mets]).mean(dim=0)
+                       for k in mets[0]}
+        grads = {}
+        for name, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[name] = g.div_(microbatches) if microbatches > 1 else g
+        if shards > 1:
+            comm = mesh.data_comm
+            comm.mean_([grads[k] for k in sorted(grads)])
+            means = [k for k in metrics if k not in SUMMED_METRICS]
+            loss, *vals = comm.pmean_losses(
+                loss.reshape(1), *(metrics[k].reshape(1) for k in means))
+            metrics.update(zip(means, vals))
+            sums = [k for k in SUMMED_METRICS if k in metrics]
+            if sums:
+                metrics.update(zip(sums, comm.psum_counts(
+                    *(metrics[k][None] for k in sums))))
+        return loss, metrics, grads
+
+    return grad_fn
+
+
+def sharded_norm_terms(model: Transformer, rt: Runtime):
+    """``adamw_update_``'s ``reduce_sq`` for ``model`` under ``rt``: None
+    in one process; on a mesh under EP, the sum over the model axis of
+    each expert leaf's squared gradient sum (each rank holds a block of
+    the experts), added in rank order in one collective, so the clip norm
+    is the whole model's on every rank; a replicated leaf, whole on every
+    rank, counts once."""
+    if rt.mesh is None or not rt.ep or rt.mesh.model == 1:
+        return None
+    experts = set(expert_param_names(model))
+    at = [i for i, name in enumerate(sorted(param_tree(model)))
+          if name in experts]
+    comm = rt.mesh.comm
+
+    def reduce_sq(sq):
+        whole = comm.psum_ordered(torch.stack([sq[i] for i in at]))
+        sq = list(sq)
+        for i, s in zip(at, whole.unbind()):
+            sq[i] = s
+        return sq
+    return reduce_sq
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
@@ -108,50 +224,33 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
     (default 3e-4). ``remat``: each layer recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant; the values are the plain
     step's). ``microbatches``: the batch split into that many sequential
-    microbatches, each one's fp32 gradients added to the running sum in
-    order, the sum divided by the count; loss and metrics are the
-    microbatches' means. Metrics: loss, nll, accuracy, grad_norm, lr, and
-    for MoE aux_loss and expert_counts (L, E). Weight decay falls where the
-    JAX step's does (``weight_decay_mask``). Under ``rt.ep`` the metrics
-    also hold ``dropped`` (L,) fp32, the pairs each layer dropped at
-    capacity (the microbatches' mean, as every metric)."""
-    loss_fn = make_loss_fn(cfg, rt, remat)
+    microbatches (``make_grad_fn``). Metrics: loss, nll, accuracy,
+    grad_norm, lr, and for MoE aux_loss and expert_counts (L, E). Weight
+    decay falls where the JAX step's does (``weight_decay_mask``). Under
+    ``rt.ep`` the metrics also hold ``dropped`` (L,) fp32, the pairs each
+    layer dropped at capacity (the microbatches' mean, as every metric).
+
+    On a process mesh (``rt.mesh``: one rank a process, ``launch.mesh``)
+    each rank takes the whole batch and trains on its data rank's rows,
+    with the gradients and metrics reduced over the data axis
+    (``make_grad_fn``); a MoE model trains through the EP dispatch over the
+    model axis, each rank holding its block of the experts and their
+    moments, the clip norm the whole model's (``sharded_norm_terms``). A
+    model without MoE trains data-parallel, its model ranks repeating
+    their data rank's work. Every replicated parameter stays the same bits
+    on every rank: the replicated computation and its backward run alike
+    on each, and the gradients they are given are summed alike."""
+    grad_fn = make_grad_fn(cfg, rt, remat, microbatches)
     lr_fn = lr_fn or (lambda s: 3e-4)
 
     def train_step(model: Transformer, opt_state: AdamWState, batch,
                    plan=None):
         params, decay = param_tree(model), weight_decay_mask(model)
-        dev = model.device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        B = batch["tokens"].shape[0]
-        if B % microbatches:
-            raise ValueError(f"batch {B} does not split into {microbatches} "
-                             "microbatches")
-        for p in params.values():
-            p.grad = None
-        parts = ([batch] if microbatches == 1 else
-                 [{k: v[i * (B // microbatches):(i + 1) * (B // microbatches)]
-                   for k, v in batch.items()} for i in range(microbatches)])
-        losses, mets = [], []
-        for part in parts:
-            loss, metrics = loss_fn(model, part, plan)
-            loss.backward()
-            losses.append(loss.detach())
-            mets.append({k: torch.as_tensor(v).detach()
-                         for k, v in metrics.items()})
-        if microbatches == 1:
-            loss, metrics = losses[0], mets[0]
-        else:
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k] for m in mets]).mean(dim=0)
-                       for k in mets[0]}
-        grads = {}
-        for name, p in params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[name] = g.div_(microbatches) if microbatches > 1 else g
+        loss, metrics, grads = grad_fn(model, batch, plan)
         lr = lr_fn(opt_state.step)
-        opt_state, gnorm = adamw_update_(params, grads, opt_state, lr,
-                                         decay=decay)
+        opt_state, gnorm = adamw_update_(
+            params, grads, opt_state, lr, decay=decay,
+            reduce_sq=sharded_norm_terms(model, rt))
         for p in params.values():
             p.grad = None
         return opt_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)

@@ -299,3 +299,25 @@ def test_a_2x2_point_runs_over_gloo_processes(job_env):
     assert doc["config"]["backend"] == "gloo"
     assert m["drained_ok"] == 1.0 and m["completed"] == m["submitted"] > 0
     assert m["migration_replans"] > 0
+
+
+def test_layers_cut_the_points_model(job_env, monkeypatch):
+    """``layers`` cuts a point's model to its first N layers, in process
+    and through the runner's ``--layers``, and the document records it;
+    without it the config's depth and no key."""
+    depths = []
+    real = job.init_model
+
+    def recording(cfg, *a, **kw):
+        depths.append(cfg.num_layers)
+        return real(cfg, *a, **kw)
+    monkeypatch.setattr(job, "init_model", recording)
+    point = _point("dist_only")
+    docs = [job.run_point(point, smoke=True, max_iters=2, device="cpu",
+                          layers=layers) for layers in (1, 0)]
+    assert depths == [1, 2]
+    assert docs[0]["config"]["layers"] == 1
+    assert "layers" not in docs[1]["config"]
+    doc = runner.run_job(point, smoke=True, max_iters=2, device="cpu",
+                         verbose=False, layers=1)
+    assert doc["config"]["layers"] == 1 and doc["metrics"]["steps"] == 2.0
