@@ -253,7 +253,7 @@ non-zero:
 
  13. models   — (after reference, before train; alone with ``--phases
                 models``) the paper's other MoE models at published widths,
-                random weights from ``--seed``: llama-moe-3.5b (all 32
+                random weights from ``--seed``: llama-moe-3.5b (16 of 32
                 layers; 16 experts, top-4, MHA, F 688), switch-base-128 (all
                 12 layers; 128 experts, top-1, relu, MHA, d 768) and
                 arctic-480b (2 of 35 layers: 27.2 GB a layer; 128 experts,
@@ -278,8 +278,8 @@ non-zero:
                 non-parametric LayerNorm), stablelm-3b (32, head_dim 80)
                 and minicpm-2b (40, 36 KV heads, tied embeddings, WSD),
                 the launchers at every layer, the engine and
-                ``make_train_step`` runs at half of them (``DENSE_DEPTH``:
-                the script's time limit). Each through
+                ``make_train_step`` runs at a quarter of them
+                (``DENSE_DEPTH``: the script's time limit). Each through
                 ``ContinuousEngine`` on phase 4's trace
                 (completions, tokens, exact launches: paged attention once
                 a layer a decode step, nothing else), step p50, TTFT p50,
@@ -297,8 +297,8 @@ non-zero:
                 step. The four geometries' paged attention cases run in
                 phase 3 (``PAGED_MODEL_CASES``).
  15. mla      — (after dense, before train; alone with ``--phases mla``)
-                deepseek-v2-lite-16b at published widths and all 27 layers
-                (MLA attention over a 576-value latent cache a position and
+                deepseek-v2-lite-16b at published widths, its serving legs
+                at 14 of 27 layers (``MLA_SERVE_LAYERS``) (MLA attention over a 576-value latent cache a position and
                 layer, 64 experts top-6 beside 2 shared ones), random
                 weights from ``--seed``, through ``ServeEngine``: one batch of
                 8 x 512 Zipf prompts, 64 new tokens, on the dense MoE path
@@ -321,10 +321,12 @@ non-zero:
                 its scale (q/k 96 wide over head_dim 64) and router (E 16,
                 K 6, 2 shared) variants card against CPU, dense and EP.
  16. rwkv     — (after mla, before train; alone with ``--phases rwkv``)
-                rwkv6-7b at published widths and all 32 layers (the
-                attention-free RWKV-6 time mix and relu^2 channel mix,
-                7.618e9 parameters held, 15.24 GB in bf16), random weights
-                from ``--seed``, through ``ServeEngine`` (strategy none):
+                rwkv6-7b at published widths (the attention-free RWKV-6
+                time mix and relu^2 channel mix; all 32 layers hold 7.618e9
+                parameters, 15.24 GB in bf16), random weights from
+                ``--seed``, served at 16 of 32 layers
+                (``RWKV_SERVE_LAYERS``) through ``ServeEngine`` (strategy
+                none):
                 one batch of 8 x 512 Zipf prompts, 64 new tokens; prefill
                 ms, decode step p50, decode tokens/s, peak memory, finite
                 logits, every request's tokens, no kernel launched
@@ -348,11 +350,13 @@ non-zero:
                 heads of 64, fp32) with and without the clip, within
                 1e-4 in norm.
  17. seamless — (after rwkv, before train; alone with ``--phases
-                seamless``) seamless-m4t-medium at published widths and
-                all 12 + 12 layers (the encoder-decoder: a bidirectional
-                frame encoder under a GQA decoder with cross-attention,
-                877.1e6 parameters held, 1.754 GB in bf16), random weights
-                from ``--seed``, through ``ServeEngine`` (strategy none):
+                seamless``) seamless-m4t-medium at published widths (the
+                encoder-decoder: a bidirectional frame encoder under a GQA
+                decoder with cross-attention; all 12 + 12 layers hold
+                877.1e6 parameters, 1.754 GB in bf16), random weights from
+                ``--seed``, served at 6 + 6 layers
+                (``SEAMLESS_SERVE_LAYERS``) through ``ServeEngine``
+                (strategy none):
                 8 requests of 1024 random frames (~20 s of speech at 50
                 frames/s) and a 64-token Zipf prompt, 64 new tokens, then
                 one batch of 8 x 4096 frames (``max_source_len``), 8 new
@@ -465,7 +469,36 @@ non-zero:
                 each collective on its calling stream), fill entries and
                 seconds, peak memory a process. A failed or timed-out
                 rank fails the phase.
- 21. train    — (last, after every serving engine is freed) training on
+ 21. tp       — (after dist, before train; alone with ``--phases tp``)
+                the tensor-parallel ("specs") and FSDP ("fsdp") parameter
+                layouts (``sharding``) over a process mesh, gloo with four
+                processes on card 0 (NCCL a card a rank with four cards),
+                each process drawing the whole model one leaf at a time and
+                keeping its blocks. First the two kernels whose shapes the
+                layout changes, at the per-rank shapes of "model" 4, against
+                their plain versions: paged_decode_attention over 2 of
+                Mixtral's 8 KV heads (G 4) and rg_lru_scan over 640 of
+                Griffin's 2560 channels (4 x 1024). Then (a) Mixtral-8x7B
+                at published widths, 2 of 32 layers, on the tests' wide
+                router and head margins (``widen_port_margins``), the main
+                trace through ``dist_serve`` with the EP ranks stacked in
+                this process and as a (1, 4) "specs" world: equal tokens,
+                drops, re-plans and migration counters, the last logits
+                within 5e-2 + 2^-7 |logit|, every rank's launches exact;
+                (b) recurrentgemma-2b, 6 of 26 layers (its wq, wk and wv
+                gathered at use: 10 query heads, one KV head), one
+                ``ServeEngine`` batch of 4 x 1024, 8 new tokens, one process
+                against the (1, 4) world: equal tokens, prefill logits
+                within the same tolerance, 4 scans a rank; (c)
+                stablelm-3b, 2 of 32 layers, 2 train steps of 4 x 512 on a
+                (2, 2) "fsdp" mesh over the same four processes against
+                one process: losses and grad norms within 1e-3, no kernel
+                launched. Kernel counts are set to 0 just before each run
+                and read just after; each process's parameter (and moment)
+                bytes must equal the sum of its blocks
+                (``Sharder.block_shape``), and are logged beside the whole
+                model's.
+ 22. train    — (last, after every serving engine is freed) training on
                 the card. Mixtral-8x7B at published widths cut to 2 of 32
                 layers (fp32 weights, gradients and two moments: 16 bytes a
                 parameter, 50.6 GB; 3 layers would need 73.9 GB before
@@ -492,7 +525,7 @@ non-zero:
                 cases). Then reduced Mixtral (single-device and EP) and
                 Griffin, one step on the card against the CPU from the same
                 bridged weights.
- 22. dist_train — (last, after train has freed its models; alone with
+ 23. dist_train — (last, after train has freed its models; alone with
                 ``--phases dist_train``) the EP train step over a process
                 mesh: NCCL, a card a rank, with four cards or more, else
                 gloo with four processes on card 0, every collective staged
@@ -531,8 +564,10 @@ The last lines are the kernels JSON, the card's name and power limit, and
 kernels beside the five forward ones, with ``gradient_of`` naming the
 forward kernel and their launches from phase train; every row also has
 ``dist_launches``, rank 0's launches in phase dist's (1, 4) and (2, 2)
-worlds, and ``dist_train_launches``, rank 0's in phase dist_train's (1, 4)
-steps and its reduced (2, 2) step. Run from the repository root:
+worlds, ``dist_train_launches``, rank 0's in phase dist_train's (1, 4)
+steps and its reduced (2, 2) step, and ``tp_launches``, rank 0's in phase
+tp's (1, 4) "specs" runs and its (2, 2) "fsdp" steps (paged attention's
+and the scan's rows also list their per-rank case, ``tp_per_rank``). Run from the repository root:
 
     python3 chip_smoke.py [--seed N] [--phases router,histogram,...] [--src DIR]
 
@@ -5324,9 +5359,10 @@ def train_phase(seed: int) -> dict:
 # phase models: the paper's other MoE models at published widths
 # ---------------------------------------------------------------------------
 
-MODEL_LAYERS = {"llama-moe-3.5b": 32, "switch-base-128": 12, "arctic-480b": 2}
+MODEL_LAYERS = {"llama-moe-3.5b": 16, "switch-base-128": 12, "arctic-480b": 2}
 MODEL_CUTS = {
-    "llama-moe-3.5b": "none: all 32 layers (6.74e9 parameters, 13.5 GB bf16)",
+    "llama-moe-3.5b": "num_layers 32->16 since phase tp came (the script's "
+                      "time limit; all 32: 6.74e9 parameters, 13.5 GB bf16)",
     "switch-base-128": "none: all 12 layers (10.95e9 parameters held, the "
                        "experts' unread w_gate among them, 21.9 GB bf16)",
     "arctic-480b": "num_layers 35->2: 13.61e9 parameters a layer (27.2 GB "
@@ -5610,16 +5646,18 @@ def models_phase(seed: int, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("qwen1.5-0.5b", "olmo-1b", "stablelm-3b", "minicpm-2b")
-# the engine and make_train_step runs' depth: half of each model's layers
-# (the launchers, launch.serve and launch.train, run every layer)
-DENSE_DEPTH = {"qwen1.5-0.5b": 12, "olmo-1b": 8, "stablelm-3b": 16,
-               "minicpm-2b": 20}
+# the engine and make_train_step runs' depth: a quarter of each model's
+# layers since phase tp came (half before; the launchers, launch.serve and
+# launch.train, run every layer)
+DENSE_DEPTH = {"qwen1.5-0.5b": 6, "olmo-1b": 4, "stablelm-3b": 8,
+               "minicpm-2b": 10}
 # launch.serve's ServeEngine run: one batch of 8 x 512, 64 new tokens each
 DENSE_LAUNCH_SERVE = ("qwen1.5-0.5b", "minicpm-2b")
 DENSE_SERVE_ARGS = dict(requests=8, batch=8, seq=512, new_tokens=64)
 # fp32 state (weights, gradients, two moments: 16 B a parameter) of 44.7 and
-# 43.6 GB: with 4 x 512 tokens' activations of every layer held for the
-# backward the step would not stay inside 80 GB, so each layer is recomputed
+# 43.6 GB at half depth: with 4 x 512 tokens' activations of every layer
+# held for the backward the step would not stay inside 80 GB there, so each
+# layer is recomputed (kept at a quarter depth, the same check)
 DENSE_REMAT = ("stablelm-3b", "minicpm-2b")
 DENSE_PROFILE_ITERS = 6
 # minicpm-2b trains through the launcher, so its WSD schedule runs here
@@ -5985,8 +6023,11 @@ MLA_PROFILE_STEPS = 2
 # 4 of 27 layers: 2.759e9 parameters, 44.1 GB of fp32 state; 2 layers
 # (25.4 GB) if 4 runs out of device memory
 MLA_TRAIN_LAYERS = (4, 2)
-MLA_SERVE_CUT = ("none: published widths, all 27 layers (16.21e9 "
-                 "parameters, 32.4 GB bf16)")
+# the serving legs at half depth (14 of 27 layers), the time phase tp
+# takes; training keeps MLA_TRAIN_LAYERS
+MLA_SERVE_LAYERS = 14
+MLA_SERVE_CUT = ("num_layers 27->14 at published widths (the script's "
+                 "time limit: phase tp's time taken back here)")
 
 
 def mla_variants(cfg):
@@ -6149,8 +6190,9 @@ def mla_decode_profile(eng, cfg, tokens, label: str) -> None:
 
 
 def mla_serve(seed: int, smi: str) -> list:
-    """deepseek-v2-lite-16b at published widths, all 27 layers, random
-    bf16 weights from ``seed``, through ``ServeEngine`` in each of
+    """deepseek-v2-lite-16b at published widths, ``MLA_SERVE_LAYERS`` of
+    its 27 layers, random bf16 weights from ``seed``, through
+    ``ServeEngine`` in each of
     ``MLA_LEGS`` (``mla_serve_leg``) on one batch of Zipf prompts
     (``token_batches(seed)``); the EP dist_only run's prefill's layer-0
     router, histogram and moe_gemm inputs held against their plain
@@ -6160,7 +6202,8 @@ def mla_serve(seed: int, smi: str) -> list:
     from repro_torch.data.synthetic import token_batches
     from repro_torch.models.transformer import init_model
 
-    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(get_config(MLA_ARCH),
+                              num_layers=MLA_SERVE_LAYERS)
     m, a = cfg.moe, MLA_SERVE
     log("mla", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
         heads=cfg.num_heads, kv_lora_rank=cfg.mla.kv_lora_rank,
@@ -6413,6 +6456,9 @@ def mla_phase(seed: int, smi: str) -> dict:
 
 RWKV_ARCH = "rwkv6-7b"
 RWKV_SERVE = dict(batch=8, seq=512, new_tokens=64)
+# the serving run's depth: 16 of 32 layers since phase tp came (the
+# script's time limit)
+RWKV_SERVE_LAYERS = 16
 RWKV_LAUNCH = dict(requests=8, batch=8, seq=512, new_tokens=16)
 RWKV_PROFILE_STEPS = 2
 # fp32 state (16 B a parameter) of 8 layers: 36.9 GB; the first depth that
@@ -6731,8 +6777,9 @@ def rwkv_profiles(eng, tokens) -> None:
 
 
 def rwkv_serve(seed: int, smi: str) -> list:
-    """rwkv6-7b at published widths and all 32 layers, random bf16 weights
-    from ``seed``, through ``ServeEngine`` (strategy none): one batch of
+    """rwkv6-7b at published widths, ``RWKV_SERVE_LAYERS`` of its 32
+    layers, random bf16 weights from ``seed``, through ``ServeEngine``
+    (strategy none): one batch of
     ``RWKV_SERVE`` Zipf prompts (``token_batches(seed)``). Prefill ms,
     decode step p50 and tokens/s (each step synchronised), peak memory;
     every request's tokens in range, every logit finite, no kernel
@@ -6744,7 +6791,9 @@ def rwkv_serve(seed: int, smi: str) -> list:
     from repro_torch.models.transformer import _layer_shapes, init_model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg, a = get_config(RWKV_ARCH), RWKV_SERVE
+    cfg = dataclasses.replace(get_config(RWKV_ARCH),
+                              num_layers=RWKV_SERVE_LAYERS)
+    a = RWKV_SERVE
     n_held = sum(int(np.prod(shape)) for shape, _, _ in _layer_shapes(
         cfg, "rwkv").values()) * cfg.num_layers \
         + 2 * cfg.vocab_size * cfg.d_model
@@ -6754,7 +6803,8 @@ def rwkv_serve(seed: int, smi: str) -> list:
         params_held=n_held,
         wkv_state_bytes_per_request=4 * cfg.num_layers * cfg.num_heads
         * cfg.head_dim ** 2,
-        reduced="'none: published widths, all 32 layers'")
+        reduced=f"'num_layers 32->{RWKV_SERVE_LAYERS} at published widths "
+                "(the script's time limit)'")
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda")
@@ -6969,7 +7019,7 @@ def rwkv_train(seed: int, smi: str) -> list:
 
 
 def rwkv_phase(seed: int, smi: str) -> None:
-    """Phase rwkv: rwkv6-7b served through ``ServeEngine`` at all 32
+    """Phase rwkv: rwkv6-7b served through ``ServeEngine`` at 16 of 32
     layers (``rwkv_serve``), through ``launch.serve`` (``rwkv_launch_
     serve``), trained at 8 of 32 layers (``rwkv_train``), its reduced
     config and variants card against CPU (``rwkv_card_vs_cpu``) and the
@@ -6998,6 +7048,9 @@ SEAMLESS_ARCH = "seamless-m4t-medium"
 # Zipf prompt each, 64 new tokens; then one batch at the encoder's
 # max_source_len (the JAX launch specs' 4096 frames), 8 new tokens
 SEAMLESS_SERVE = dict(batch=8, frames=1024, prompt=64, new_tokens=64)
+# the serving runs' depth: 6 + 6 of 12 + 12 layers since phase tp came (the
+# script's time limit)
+SEAMLESS_SERVE_LAYERS = 6
 SEAMLESS_LONG = dict(batch=8, frames=4096, prompt=64, new_tokens=8)
 SEAMLESS_PROFILE_STEPS = 2
 # 10 steps of 4 x 512 tokens over 4 x 1024 random frames, all 12 + 12
@@ -7219,8 +7272,9 @@ def seamless_generate(eng, cfg, batch, label: str, smi: str,
 
 
 def seamless_serve(seed: int, smi: str) -> list:
-    """seamless-m4t-medium at published widths and all 12 + 12 layers,
-    random bf16 weights from ``seed``, through ``ServeEngine`` (strategy
+    """seamless-m4t-medium at published widths, ``SEAMLESS_SERVE_LAYERS``
+    of its 12 decoder and 12 encoder layers each, random bf16 weights from
+    ``seed``, through ``ServeEngine`` (strategy
     none): ``SEAMLESS_SERVE`` (8 requests of 1024 random frames and a
     64-token Zipf prompt, 64 new tokens), then ``SEAMLESS_LONG`` (8 x 4096
     frames, 8 new tokens), each through ``seamless_generate`` and
@@ -7230,7 +7284,11 @@ def seamless_serve(seed: int, smi: str) -> list:
     from repro_torch.models.transformer import init_model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = get_config(SEAMLESS_ARCH)
+    base = get_config(SEAMLESS_ARCH)
+    cfg = dataclasses.replace(
+        base, num_layers=SEAMLESS_SERVE_LAYERS,
+        encoder=dataclasses.replace(base.encoder,
+                                    num_layers=SEAMLESS_SERVE_LAYERS))
     enc = cfg.encoder
     log("seamless", model=cfg.name, layers=cfg.num_layers,
         enc_layers=enc.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
@@ -7239,7 +7297,9 @@ def seamless_serve(seed: int, smi: str) -> list:
         params_formula=cfg.num_params(), params_held=seamless_held(cfg),
         cross_cache_bytes_per_frame=2 * cfg.num_layers * cfg.num_kv_heads
         * cfg.head_dim * 2,
-        reduced="'none: published widths, all 12 + 12 layers'")
+        reduced=f"'num_layers 12->{SEAMLESS_SERVE_LAYERS}, encoder "
+                f"12->{SEAMLESS_SERVE_LAYERS}, at published widths (the "
+                "script's time limit)'")
     t0 = time.perf_counter()
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
                        device="cuda")
@@ -7513,7 +7573,7 @@ def seamless_card_vs_cpu(seed: int) -> None:
 
 def seamless_phase(seed: int, smi: str) -> None:
     """Phase seamless: seamless-m4t-medium served through ``ServeEngine``
-    at all 12 + 12 layers (``seamless_serve``), trained through
+    at 6 + 6 of 12 + 12 layers (``seamless_serve``), trained through
     ``launch.train`` and ``make_train_step`` (``seamless_train``), its
     reduced config and variants card against CPU
     (``seamless_card_vs_cpu``). Frees what earlier phases hold first."""
@@ -8546,7 +8606,8 @@ def _plan_sum(plan) -> int:
                    for i, a in enumerate(plan)))
 
 
-def dist_serve(cfg, model, seed: int, mesh=None) -> dict:
+def dist_serve(cfg, model, seed: int, mesh=None,
+               names=COLLECTIVES) -> dict:
     """The main trace through ``ContinuousEngine(ep=True)`` at
     ``MAIN_CCFG`` (the replica store, staged fills, the prefetcher), on a
     deterministic loop: iteration i runs at virtual time i *
@@ -8554,8 +8615,9 @@ def dist_serve(cfg, model, seed: int, mesh=None) -> dict:
     pinned to ``DIST_WINDOW_S``, so admission and the fill schedule do not
     depend on the host's speed and two runs of the same weights agree
     step for step. With ``mesh`` this process is its rank (at each re-plan
-    the ranks gather a checksum of their plans). Kernel counts are set to
-    0 after the warmup and read at the end. Returns the record."""
+    the ranks gather a checksum of their plans) and the collectives
+    ``names`` of its groups are timed. Kernel counts are set to 0 after the
+    warmup and read at the end. Returns the record."""
     from repro_torch.kernels import ops
     from repro_torch.serve import ContinuousConfig, ContinuousEngine
 
@@ -8588,7 +8650,7 @@ def dist_serve(cfg, model, seed: int, mesh=None) -> dict:
     eng._decode_fn = decode
     acc, spans = [], []          # collectives' events; each step's slice
     if mesh is not None:
-        _time_collectives((mesh.comm, mesh.data_comm), acc)
+        _time_collectives((mesh.comm, mesh.data_comm), acc, names)
     reqs = _dist_requests(cfg, seed)
     for r in reqs:
         eng.submit(r)
@@ -8625,7 +8687,7 @@ def dist_serve(cfg, model, seed: int, mesh=None) -> dict:
     torch.cuda.synchronize()
     ms = [a.elapsed_time(b) for _, a, b in acc]
     rec["collectives_s"] = {k: sum(t for (n, _, _), t in zip(acc, ms)
-                                   if n == k) / 1e3 for k in COLLECTIVES}
+                                   if n == k) / 1e3 for k in names}
     rec["coll_decode"] = [(sum(ms[i:j]) / 1e3, wall)
                           for i, j, wall in spans]
     rec["launches"] = dict(ops.LAUNCHES)
@@ -9287,13 +9349,513 @@ def dist_train_phase(seed: int, smi: str) -> dict:
             for k in launches["1x4"]}
 
 
+# ---------------------------------------------------------------------------
+# phase tp: the tensor-parallel and FSDP layouts across processes
+# ---------------------------------------------------------------------------
+
+# of Mixtral's 32: 2 (phase dist runs 4), for the script's time limit; the
+# tensor-parallel path is the same at any depth
+TP_MIXTRAL_LAYERS = 2
+TP_GRIFFIN_LAYERS = 6              # of recurrentgemma-2b's 26: 4 recurrent
+TP_GRIFFIN_BATCH = (4, 1024, 8)    # B, S, new tokens: one ServeEngine batch
+# 2 steps: step 1 is the first taken on updated (reduce-scattered)
+# weights; a third costs ~5 s of host-staged collectives
+TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_STEPS = "stablelm-3b", 2, 2
+TP_TRAIN_BATCH = (4, 512)
+TP_LR = 3e-4
+# logits, process against stacked: the row-parallel partial sums round to
+# bf16 before their fp32 sum (tests/test_torch_dist_tp.py's tolerance)
+TP_LOGIT_ATOL, TP_LOGIT_RTOL = 5e-2, 2.0 ** -7
+TP_KERNELS = ("fused_topk_route", "histogram_offsets", "moe_gemm",
+              "paged_decode_attention")
+# the serving collectives a tp rank times: the EP dispatch's, and every
+# all-gather (the row-parallel sums, the vocab gathers and the gathered
+# leaves all run through ``_all_gather``; ``all_gather`` calls it too)
+TP_COLLECTIVES = ("all_to_all", "psum", "_all_gather", "transfer")
+
+
+def widen_port_margins(model, cfg) -> None:
+    """``tests/_torch_margins.py``'s wide margins on a port model, whole or
+    this rank's blocks, in place: every token of group g = t * G // V (G
+    the experts, 8 without MoE) gets 8 sqrt(d) along a unit vector v_g
+    (the v_g orthonormal, from numpy's seed 1234), ``lm_head`` prefers the
+    next group's token 7 by v_g, and a MoE router expert g and then g + 1.
+    Each row's arithmetic is the same on a block as on the whole table, so
+    a tensor-parallel model and a whole one get the same bits."""
+    from repro_torch.sharding import placement
+
+    d, V = cfg.d_model, cfg.vocab_size
+    G = cfg.moe.num_experts if cfg.is_moe else 8
+    dev = model.device
+    v = torch.tensor(np.linalg.qr(np.random.default_rng(1234).normal(
+        size=(d, G)))[0].T, dtype=torch.float32, device=dev)     # (G, d)
+    nxt = torch.tensor((np.arange(G) + 1) % G * (V // G) + 7, device=dev)
+    with torch.no_grad():
+        emb = model.embed
+        rec = placement(emb)
+        lo = (rec.mesh.model_index * emb.shape[0]
+              if rec is not None and rec.model_dim is not None else 0)
+        rows = torch.arange(lo, lo + emb.shape[0], device=dev)
+        emb.copy_((emb.float() + 8.0 * np.sqrt(d)
+                   * v[rows * G // V]).to(emb.dtype))
+        head = model.lm_head
+        head[:, nxt] = (head[:, nxt].float() + v.t()).to(head.dtype)
+        if cfg.is_moe:
+            pref = torch.zeros((G, G), device=dev)
+            pref[torch.arange(G), torch.arange(G)] = 2.0
+            pref[torch.arange(G), (torch.arange(G) + 1) % G] = 1.0
+            bias = 0.3 * (v.t() @ pref)
+            for layer in model.layers:
+                layer.router.add_(bias.to(layer.router.dtype))
+
+
+def _tp_cfg(arch: str, layers: int):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _held_gb(model, opt=None) -> float:
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    if opt is not None:
+        n += sum(t.numel() * t.element_size()
+                 for tree in (opt.mu, opt.nu) for t in tree.values())
+    return n / 1e9
+
+
+def _held_bytes(model, shard, opt=None) -> dict:
+    """The bytes of parameters (and of each moment) this process holds,
+    beside the sum over its leaves of ``Sharder.block_shape``'s bytes in
+    the parameter's dtype: what the layout says it holds."""
+    out = {"params": sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+           "blocks": sum(int(np.prod(shard.block_shape(n))) * p.element_size()
+                         for n, p in model.named_parameters())}
+    if opt is not None:
+        for tree in ("mu", "nu"):
+            out[tree] = sum(t.numel() * t.element_size()
+                            for t in getattr(opt, tree).values())
+    return out
+
+
+def tp_griffin(cfg, model, seed: int, mesh=None) -> dict:
+    """One ``ServeEngine`` batch of ``TP_GRIFFIN_BATCH`` Zipf prompts
+    through ``generate``, kernel counts set to 0 just before and read just
+    after. Returns tokens, the prefill's logits and the launches."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    B, S, new = TP_GRIFFIN_BATCH
+    eng = ServeEngine(cfg, model, ServeConfig(strategy="none",
+                                              max_len=S + new), mesh=mesh)
+    tokens = next(token_batches(seed, cfg.vocab_size, B, S))["tokens"]
+    rec = {}
+    prefill = eng.prefill
+
+    def keep(*a, **kw):
+        out = prefill(*a, **kw)
+        rec["prefill"] = out[0][:, -1].float().cpu().numpy()
+        return out
+    eng.prefill = keep
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out, _ = eng.generate({"tokens": tokens}, max_new_tokens=new)
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    rec["launches"] = dict(ops.LAUNCHES)
+    rec["tokens"] = out.cpu().numpy().tolist()
+    return rec
+
+
+def tp_train(cfg, model, rt, seed: int, shard=None) -> dict:
+    """``TP_TRAIN_STEPS`` steps of ``make_train_step`` on one Zipf batch
+    of ``TP_TRAIN_BATCH`` at ``TP_LR``: per step loss, grad norm, wall ms
+    (ending on a synchronisation) and, on a mesh, the collectives' share
+    (``TRAIN_COLLECTIVES`` of both groups by CUDA events); kernel counts
+    set to 0 just before the steps and read just after; the bytes of
+    parameters and moments held (beside ``shard``'s blocks); peak
+    memory."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    B, S = TP_TRAIN_BATCH
+    toks = next(token_batches(seed, cfg.vocab_size, B, S + 1))["tokens"]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, rt, lr_fn=lambda s: TP_LR)
+    opt = init_opt_state(model)
+    acc, spans = [], []
+    if rt.mesh is not None:
+        _time_collectives((rt.mesh.comm, rt.mesh.data_comm), acc,
+                          TRAIN_COLLECTIVES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"loss": [], "grad_norm": [], "ms": []}
+    ops.reset_launches()
+    for _ in range(TP_TRAIN_STEPS):
+        n0 = len(acc)
+        t0 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        spans.append((n0, len(acc)))
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    rec["launches"] = dict(ops.LAUNCHES)
+    ms = [a.elapsed_time(b) for _, a, b in acc]
+    rec["coll_share"] = [sum(ms[i:j]) / w for (i, j), w in zip(spans,
+                                                               rec["ms"])]
+    rec["held_gb"] = _held_gb(model, opt)
+    if shard is not None:
+        rec["bytes"] = _held_bytes(model, shard, opt)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def tp_rank(mesh, seed: int) -> dict:
+    """A rank of phase tp's world, its three legs in turn: on the (1, 4)
+    ``mesh`` under "specs", Mixtral-8x7B at ``TP_MIXTRAL_LAYERS`` layers
+    through ``dist_serve``, then recurrentgemma-2b at ``TP_GRIFFIN_LAYERS``
+    through ``tp_griffin``; then, on a (2, 2) mesh over the same processes
+    under "fsdp", stablelm-3b at ``TP_TRAIN_LAYERS`` through ``tp_train``.
+    Each rank draws the whole model's weights, one leaf at a time, and
+    keeps its blocks (``init_model(shard=bridge.sharder(...))``); each leg
+    records its bytes beside the sum of its blocks and its seconds."""
+    from repro_torch.bridge import sharder
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import Runtime, init_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {}
+
+    def build(cfg, mesh, layout, **kw):
+        shard = sharder(cfg, mesh, layout)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return init_model(cfg, gen, device=dev, shard=shard, **kw), shard
+
+    def drop():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = _dist_cfg(TP_MIXTRAL_LAYERS)
+    model, shard = build(cfg, mesh, "specs")
+    widen_port_margins(model, cfg)
+    torch.cuda.synchronize()
+    out["mixtral_gb"] = _held_gb(model)
+    out["mixtral_bytes"] = _held_bytes(model, shard)
+    out["mixtral"] = dist_serve(cfg, model, seed, mesh, TP_COLLECTIVES)
+    del model
+    drop()
+    t1 = time.perf_counter()
+    cfg = _tp_cfg("recurrentgemma-2b", TP_GRIFFIN_LAYERS)
+    model, shard = build(cfg, mesh, "specs")
+    widen_port_margins(model, cfg)
+    out["griffin_gb"] = _held_gb(model)
+    out["griffin_bytes"] = _held_bytes(model, shard)
+    out["griffin"] = tp_griffin(cfg, model, seed, mesh)
+    del model
+    drop()
+    t2 = time.perf_counter()
+    mesh = Mesh(2, 2, device=dev)
+    cfg = _tp_cfg(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)
+    model, shard = build(cfg, mesh, "fsdp", trainable=True)
+    out["train"] = tp_train(cfg, model, Runtime(mesh=mesh), seed, shard)
+    out["leg_s"] = {"mixtral": t1 - t0, "griffin": t2 - t1,
+                    "train": time.perf_counter() - t2}
+    return out
+
+
+def _bytes_failures(label, world, get) -> list:
+    """Each rank's parameter (and moment) bytes, ``get(rank's record)``,
+    against its blocks'."""
+    bad = []
+    for r, w in enumerate(world):
+        b = get(w)
+        if b["params"] != b["blocks"] or any(
+                b[t] != b["blocks"] for t in ("mu", "nu") if t in b):
+            bad.append(f"{label} rank {r}: holds {b}, not its blocks' "
+                       "bytes")
+    return bad
+
+
+def _tp_kernel_checks(cfg_mixtral, cfg_griffin, flush) -> dict:
+    """The tp path's two kernels whose shapes the layout changes, at the
+    per-rank shapes of "model" 4, held against their plain versions:
+    paged_decode_attention over a pool of K / 4 = 2 KV heads (G 4, the
+    main path's 8 slots and 16-position blocks) and rg_lru_scan over the
+    recurrent block's dr / 4 = 640 channels at ``TP_GRIFFIN_BATCH``'s
+    prefill. The router, histogram_offsets and moe_gemm run at phase
+    dist's shapes (the expert block is EP's either way)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    K, G = cfg_mixtral.num_kv_heads // EP_RANKS, (
+        cfg_mixtral.num_heads // cfg_mixtral.num_kv_heads)
+    hd, bs = cfg_mixtral.head_dim, MAIN_CCFG["block_size"]
+    b, M = MAIN_CCFG["max_slots"], MAIN_CCFG["max_len"] // bs
+    lens = np.random.default_rng(7).integers(64, MAIN_CCFG["max_len"] - 1,
+                                             b)
+    q = torch.randn((b, K, G, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kp = torch.randn((1 + b * M, bs, K, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vp = torch.randn_like(kp.float()).to(torch.bfloat16)
+    tab = torch.tensor(1 + np.arange(b * M).reshape(b, M), dtype=torch.int32,
+                       device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    row = _paged_case(q, kp, vp, tab, lengths, lens,
+                      cfg_mixtral.sliding_window, flush, timed=True)
+    row["shape"] = f"b{b}_K{K}_G{G}_hd{hd}_M{M}_bs{bs}"
+    rows["paged_decode_attention"] = row
+    B, S, _ = TP_GRIFFIN_BATCH
+    D = (cfg_griffin.rnn_width or cfg_griffin.d_model) // EP_RANKS
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.49 + 0.5
+    bb = torch.randn((B, S, D), generator=gen, device="cuda") * 0.1
+    h0 = torch.zeros((B, D), device="cuda")
+    got = ops.rg_lru_scan(a, bb, h0)
+    want = ref.rg_lru_scan_plain(a, bb, h0)
+    torch.cuda.synchronize()
+    row = {"ok": all(torch.equal(g, w) for g, w in zip(got, want)),
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want)),
+           "shape": f"{B}x{S}x{D}"}
+    row["bound_ms"], row["bound_by"] = _bound(
+        4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D, FP32_FLOPS)
+    row["ms"] = time_ms(lambda: ops.rg_lru_scan(a, bb, h0), flush)
+    row["plain_ms"] = time_ms(lambda: ref.rg_lru_scan_plain(a, bb, h0),
+                              flush, runs=3)
+    rows["rg_lru_scan"] = row
+    return rows
+
+
+def tp_phase(seed: int, smi: str) -> dict:
+    """Phase tp: the tensor-parallel ("specs") and FSDP layouts over a
+    process mesh, held against one process. Returns {kernel: {"1x4":
+    launches, "2x2": launches}} of rank 0."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer import Runtime, init_model
+
+    free_engines("tp")
+    t0 = time.perf_counter()
+    backend, device = dist_backend()
+    threads = 0 if backend == "nccl" else 2          # 8 host cores, 4 ranks
+    log("tp", backend=backend, world=EP_RANKS,
+        cards=torch.cuda.device_count(), card=f"'{smi}'",
+        ranks_on=("one card a rank" if backend == "nccl" else
+                  "card 0, collectives staged through the host (gloo)"),
+        legs="'mixtral 1x4 specs; recurrentgemma 1x4 specs; stablelm "
+             "2x2 fsdp'")
+    failures = []
+    cfg_m = _dist_cfg(TP_MIXTRAL_LAYERS)
+    cfg_g = _tp_cfg("recurrentgemma-2b", TP_GRIFFIN_LAYERS)
+    cfg_t = _tp_cfg(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_rows = _tp_kernel_checks(cfg_m, cfg_g, flush)
+    del flush
+    for name, row in kernel_rows.items():
+        log("tp", kernel=name, shape=row["shape"], ok=row["ok"],
+            max_abs_err=f"{row['max_abs_err']:.6g}",
+            ms=f"{row['ms']:.5f}", plain_ms=f"{row['plain_ms']:.5f}",
+            bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"],
+            library_ms=(f"{row['library_ms']:.5f}" if "library_ms" in row
+                        else "none"),
+            tolerance=("bf16 1e-2 + 1e-2 rel" if name.startswith("paged")
+                       else "bit-equal"))
+        if not row["ok"]:
+            failures.append(f"{name} at the per-rank shape disagrees with "
+                            "its plain version")
+
+    # 1. the references, in this process: Mixtral's EP ranks stacked,
+    # Griffin and the train step whole
+    dev = torch.device("cuda", 0)
+    model = init_model(cfg_m, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+    widen_port_margins(model, cfg_m)
+    ref_m = dist_serve(cfg_m, model, seed)
+    ref_m["layers"] = TP_MIXTRAL_LAYERS
+    _dist_leg_log("tp_stacked_1x4", "stacked", smi, ref_m, 1)
+    ref_m_gb = _held_gb(model)
+    del model
+    free_engines("tp")
+    model = init_model(cfg_g, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+    widen_port_margins(model, cfg_g)
+    ref_g = tp_griffin(cfg_g, model, seed)
+    ref_g_gb = _held_gb(model)
+    del model
+    free_engines("tp")
+    model = init_model(cfg_t, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev, trainable=True)
+    ref_t = tp_train(cfg_t, model, Runtime(), seed)
+    del model
+    free_engines("tp")
+    t1 = time.perf_counter()
+
+    # 2. one world of four processes: the (1, 4) mesh under "specs"
+    # (Mixtral, then Griffin), then a (2, 2) mesh under "fsdp" (stablelm)
+    world = mesh_mod.spawn(tp_rank, (seed,), data=1, model=EP_RANKS,
+                           backend=backend, device=device, threads=threads,
+                           timeout_s=DIST_TIMEOUT_S)
+    t2 = time.perf_counter()
+    leg_s = world[0]["leg_s"]
+    for label, get in (("mixtral 1x4 specs", lambda w: w["mixtral_bytes"]),
+                       ("griffin 1x4 specs", lambda w: w["griffin_bytes"]),
+                       ("stablelm 2x2 fsdp", lambda w: w["train"]["bytes"])):
+        failures += _bytes_failures(label, world, get)
+    got = world[0]["mixtral"]
+    got["layers"] = TP_MIXTRAL_LAYERS
+    _dist_leg_log("tp_specs_1x4", backend, smi, got, EP_RANKS)
+    for k in ("tokens", "dropped", "mig", "prefills", "decode_steps"):
+        if got[k] != ref_m[k]:
+            failures.append(f"mixtral 1x4 specs: {k} differs from the "
+                            "stacked engine's")
+    if not all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+               for a, b in zip(got["plans"], ref_m["plans"])) or len(
+                   got["plans"]) != len(ref_m["plans"]):
+        failures.append("mixtral 1x4 specs: re-plans differ")
+    err = max(float(np.abs(got["last"][r] - ref_m["last"][r]).max())
+              for r in ref_m["last"])
+    close = all(np.all(np.abs(got["last"][r] - w)
+                       <= TP_LOGIT_ATOL + TP_LOGIT_RTOL * np.abs(w))
+                for r, w in ref_m["last"].items())
+    if not close:
+        failures.append(f"mixtral 1x4 specs: last logits {err} apart")
+    for r, w in enumerate(world):
+        rec = w["mixtral"]
+        want = expected_launches(rec["launches"], cfg_m, rec["prefills"],
+                                 rec["decode_steps"], ep=True)
+        if rec["launches"] != want:
+            failures.append(f"mixtral 1x4 rank {r}: launches "
+                            f"{rec['launches']} != {want}")
+        if rec["tokens"] != got["tokens"]:
+            failures.append(f"mixtral 1x4 rank {r}: tokens differ")
+    log("tp", leg="mixtral_specs_1x4", layers=TP_MIXTRAL_LAYERS,
+        equal_tokens=got["tokens"] == ref_m["tokens"],
+        equal_drops=got["dropped"] == ref_m["dropped"],
+        equal_migration=got["mig"] == ref_m["mig"], replans=len(got["plans"]),
+        migration=f"'{got['mig']}'",
+        last_logits_max_abs_err=f"{err:.6g}",
+        tolerance=f"{TP_LOGIT_ATOL} + {TP_LOGIT_RTOL:.6g} x |logit|",
+        weights_gb_a_process=",".join(f"{w['mixtral_gb']:.3f}"
+                                      for w in world),
+        weights_gb_stacked=f"{ref_m_gb:.3f}",
+        per_rank_peak_gb=",".join(f"{w['mixtral']['peak_gb']:.3f}"
+                                  for w in world),
+        bytes_equal_blocks=all(
+            w["mixtral_bytes"]["params"] == w["mixtral_bytes"]["blocks"]
+            for w in world),
+        launches=",".join(f"{k}:{got['launches'][k]}" for k in TP_KERNELS),
+        leg_s=f"{leg_s['mixtral']:.3f}")
+    g = world[0]["griffin"]
+    scans = sum(1 for l in range(cfg_g.num_layers)
+                if cfg_g.block_pattern[l % len(cfg_g.block_pattern)]
+                == "recurrent")
+    want_scans = {k: 0 for k in g["launches"]}
+    want_scans["rg_lru_scan"] = scans               # one prefill
+    g_err = float(np.abs(g["prefill"] - ref_g["prefill"]).max())
+    g_close = bool(np.all(np.abs(g["prefill"] - ref_g["prefill"])
+                          <= TP_LOGIT_ATOL + TP_LOGIT_RTOL
+                          * np.abs(ref_g["prefill"])))
+    for r, w in enumerate(world):
+        if w["griffin"]["launches"] != want_scans:
+            failures.append(f"griffin 1x4 rank {r}: launches "
+                            f"{w['griffin']['launches']} != {want_scans}")
+    if g["tokens"] != ref_g["tokens"] or not g_close:
+        failures.append(f"griffin 1x4 specs: tokens or prefill logits "
+                        f"({g_err}) differ from one process's")
+    log("tp", leg="recurrentgemma_specs_1x4", layers=TP_GRIFFIN_LAYERS,
+        batch="x".join(map(str, TP_GRIFFIN_BATCH)),
+        gathered="'wq,wk,wv (10 query heads, 1 KV head over 4 ranks)'",
+        rg_lru_scan_shape=kernel_rows["rg_lru_scan"]["shape"],
+        equal_tokens=g["tokens"] == ref_g["tokens"],
+        prefill_logits_max_abs_err=f"{g_err:.6g}",
+        weights_gb_a_process=",".join(f"{w['griffin_gb']:.3f}"
+                                      for w in world),
+        weights_gb_one_process=f"{ref_g_gb:.3f}",
+        bytes_equal_blocks=all(
+            w["griffin_bytes"]["params"] == w["griffin_bytes"]["blocks"]
+            for w in world),
+        generate_s=f"{g['s']:.3f}", generate_s_one_process=f"{ref_g['s']:.3f}",
+        launches=f"rg_lru_scan:{g['launches']['rg_lru_scan']}",
+        leg_s=f"{leg_s['griffin']:.3f}")
+    launches = {"1x4": {k: world[0]["mixtral"]["launches"].get(k, 0)
+                        + g["launches"].get(k, 0)
+                        for k in set(got["launches"]) | set(g["launches"])}}
+
+    # 3. the (2, 2) mesh under "fsdp": the train step. The grad norm is
+    # held as the losses are: a wrong factor in the reduce-scatter's mean
+    # moves it ~2x where the clipped, scale-free AdamW step barely moves
+    # the next loss
+    t = world[0]["train"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(t["loss"],
+                                                       ref_t["loss"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(t["grad_norm"],
+                                                       ref_t["grad_norm"]))
+    if loss_rel > TRAIN_REL or not all(np.isfinite(t["loss"])):
+        failures.append(f"stablelm 2x2 fsdp: losses {t['loss']} against "
+                        f"one process's {ref_t['loss']}")
+    if norm_rel > TRAIN_REL or not all(np.isfinite(t["grad_norm"])):
+        failures.append(f"stablelm 2x2 fsdp: grad norms {t['grad_norm']} "
+                        f"against one process's {ref_t['grad_norm']}")
+    if any(w["train"]["loss"] != t["loss"]
+           or w["train"]["grad_norm"] != t["grad_norm"] for w in world):
+        failures.append("stablelm 2x2 fsdp: the ranks' losses or grad "
+                        "norms differ")
+    want_train = {k: 0 for k in t["launches"]}     # no MoE, no recurrence
+    for r, w in enumerate(world):
+        if w["train"]["launches"] != want_train:
+            failures.append(f"stablelm 2x2 rank {r}: launches "
+                            f"{w['train']['launches']} != {want_train}")
+    log("tp", leg="stablelm_fsdp_2x2", layers=TP_TRAIN_LAYERS,
+        batch="x".join(map(str, TP_TRAIN_BATCH)),
+        losses=",".join(f"{x:.6f}" for x in t["loss"]),
+        losses_one_process=",".join(f"{x:.6f}" for x in ref_t["loss"]),
+        loss_rel=f"{loss_rel:.3g}", tolerance=f"{TRAIN_REL} rel",
+        grad_norm=",".join(f"{x:.5g}" for x in t["grad_norm"]),
+        grad_norm_one_process=",".join(f"{x:.5g}" for x in ref_t["grad_norm"]),
+        grad_norm_rel=f"{norm_rel:.3g}",
+        bytes_equal_blocks=all(
+            w["train"]["bytes"]["params"] == w["train"]["bytes"]["blocks"]
+            == w["train"]["bytes"]["mu"] == w["train"]["bytes"]["nu"]
+            for w in world),
+        params_and_moments_gb_a_process=",".join(
+            f"{w['train']['held_gb']:.3f}" for w in world),
+        params_and_moments_gb_one_process=f"{ref_t['held_gb']:.3f}",
+        peak_gb_a_process=",".join(f"{w['train']['peak_gb']:.3f}"
+                                   for w in world),
+        peak_gb_one_process=f"{ref_t['peak_gb']:.3f}",
+        step_ms=",".join(f"{x:.1f}" for x in t["ms"]),
+        collective_share=",".join(f"{x:.4f}" for x in t["coll_share"]),
+        step_ms_one_process=",".join(f"{x:.1f}" for x in ref_t["ms"]),
+        launches=",".join(f"{k}:{v}" for k, v in t["launches"].items()),
+        leg_s=f"{leg_s['train']:.3f}", world_s=f"{t2 - t1:.3f}")
+    launches["2x2"] = t["launches"]
+    for label in ("1x4",):
+        if any(launches[label].get(k, 0) == 0
+               for k in TP_KERNELS + ("rg_lru_scan",)):
+            failures.append(f"tp {label}: a kernel of the path never "
+                            "launched")
+    log("tp", phase_s=f"{time.perf_counter() - t0:.3f}",
+        reference_s=f"{t1 - t0:.3f}")
+    if failures:
+        raise SystemExit("tp failed: " + "; ".join(failures))
+    MEASURED["tp_cases"] = kernel_rows
+    return {k: {label: launches[label].get(k, 0) for label in launches}
+            for k in launches["1x4"]}
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
                           "rwkv", "seamless", "llava", "sweep", "dist",
-                          "train", "dist_train")
+                          "tp", "train", "dist_train")
 
 
 def main() -> int:
@@ -9404,6 +9966,9 @@ def main() -> int:
     dist_launches = {}
     if "dist" in phases:
         dist_launches = dist_phase(args.seed, smi)
+    tp_launches = {}
+    if "tp" in phases:
+        tp_launches = tp_phase(args.seed, smi)
     if "train" in phases:
         train_launches = train_phase(args.seed)
         launches.update((k, train_launches[k]) for k in
@@ -9423,9 +9988,17 @@ def main() -> int:
             # reduced (2, 2) step
             k["dist_train_launches"] = dist_train_launches.get(
                 k["name"], {"1x4": 0, "2x2": 0})
+            # phase tp's: rank 0's (1, 4) "specs" runs (Mixtral and
+            # Griffin) and its (2, 2) "fsdp" train steps
+            k["tp_launches"] = tp_launches.get(k["name"],
+                                               {"1x4": 0, "2x2": 0})
             if k["name"] == "paged_decode_attention":
                 # phase llava's case: its pool shape, its run's launches
                 k["cases"] = {"llava_g7_pool": MEASURED["llava_paged_case"]}
+            if k["name"] in MEASURED.get("tp_cases", {}):
+                # phase tp's per-rank shape ("model" 4)
+                k.setdefault("cases", {})["tp_per_rank"] = MEASURED[
+                    "tp_cases"][k["name"]]
         print(json.dumps({"kernels": _measured(kernels)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,14 @@ so the round trip is exact at once.
 step and the two moments, in the JAX tree layout on the JAX side) across,
 so either package can continue the other's training.
 
+On a process mesh (``launch.mesh.Mesh``) ``sharder(cfg, mesh, layout)``
+makes the ``sharding.Sharder`` of a layout ("none", "specs", "fsdp"):
+``params_from_jax(..., shard=)`` and ``models.transformer.init_model(...,
+shard=)`` keep this rank's block of every leaf. ``params_to_jax``,
+``opt_state_to_jax`` and ``checkpoint_tree`` gather such a model's blocks
+(and its moments') back to the mesh's rank 0, so the ``.npz`` is the one
+both packages read.
+
 ``predictor_params_from_jax`` / ``predictor_params_to_jax`` carry the
 Token-to-Expert predictors' parameter trees (``FFNPredictor.params``,
 ``LSTMPredictor.params``: nested dicts, every leaf fp32) across unchanged,
@@ -58,8 +66,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (CROSS, RWKV_BLOCKS, WEIGHT_DTYPE,
                                             Transformer, _layer_kind,
                                             _layer_shapes,
-                                            expert_param_names)
+                                            expert_param_names, param_shapes)
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.sharding import Sharder, gather_whole, placement
 
 # JAX key path -> port parameter name
 TOP_KEYS = {("embed", "table"): "embed", ("final_norm", "scale"): "final_norm",
@@ -155,6 +164,36 @@ def _hybrid_keys(cfg: ModelConfig, kind: str):
     return {path: name for path, name in keys.items() if name in names}
 
 
+def param_paths(cfg: ModelConfig):
+    """{port parameter name: (its JAX '/'-joined path, whether the JAX tree
+    stacks it over the layers)}: the names ``sharding.param_specs`` keys
+    its rules by."""
+    out = {name: ("/".join(path), False)
+           for path, name in _top_keys(cfg).items()}
+    if cfg.family == "hybrid":
+        for l in range(cfg.num_layers):
+            for path, name in _hybrid_keys(cfg, _layer_kind(cfg, l)).items():
+                out[f"layers.{l}.{name}"] = (
+                    f"hybrid_layers/{l}/" + "/".join(path), False)
+        return out
+    stacks = [("layers", None, cfg.num_layers)]
+    if cfg.is_encdec:
+        stacks.append(("enc_layers", "encoder", cfg.encoder.num_layers))
+    for stack, kind, n in stacks:
+        for path, name in _stack_keys(cfg, kind).items():
+            for l in range(n):
+                out[f"{stack}.{l}.{name}"] = (f"{stack}/" + "/".join(path),
+                                              True)
+    return out
+
+
+def sharder(cfg: ModelConfig, mesh, layout: str) -> Sharder:
+    """The ``sharding.Sharder`` of ``layout`` for this process's rank of
+    ``mesh`` over a model of ``cfg``."""
+    shapes, kinds = param_shapes(cfg)
+    return Sharder(cfg, mesh, layout, shapes, param_paths(cfg), kinds)
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -238,12 +277,18 @@ def _np32(t) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda", trainable: bool = False) -> Transformer:
+                    device="cuda", trainable: bool = False,
+                    shard: Sharder = None) -> Transformer:
     """JAX ``init_model`` tree (numpy leaves) -> the port's ``Transformer``.
     ``trainable``: every parameter fp32 with ``requires_grad``, as the JAX
-    package trains them (the default stores the serving dtypes)."""
+    package trains them (the default stores the serving dtypes).
+    ``shard``: None, or a ``Sharder`` (``sharder``): this rank's block of
+    each leaf is taken from the numpy tree, each parameter carrying its
+    ``Placement``."""
     dev = resolve_device(device)
     flat = _flat_from_jax(tree, cfg)
+    if shard is not None:
+        flat = {name: shard.block(name, a) for name, a in flat.items()}
 
     def dtype(dt):
         return torch.float32 if trainable else dt
@@ -255,6 +300,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
             t = {}
             for name, (shape, _, dt) in _layer_shapes(cfg, kind).items():
                 a = flat[f"{prefix}.{l}.{name}"]
+                if shard is not None:
+                    shape = shard.block_shape(f"{prefix}.{l}.{name}")
                 if a.shape != shape:
                     raise ValueError(f"{prefix}[{l}].{name}: shape {a.shape}, "
                                      f"expected {shape}")
@@ -265,7 +312,29 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                               for l in range(cfg.num_layers)])
     enc_layers = (stack("enc_layers", ["encoder"] * cfg.encoder.num_layers)
                   if cfg.is_encdec else [])
-    return Transformer(cfg, top, layers, trainable, enc_layers)
+    model = Transformer(cfg, top, layers, trainable, enc_layers)
+    if shard is not None:
+        shard.attach(model)
+    return model
+
+
+def _split_leaves(model: Transformer):
+    """{name: Placement} of the parameters a layout splits over an axis
+    (a model built with a ``Sharder``), else {}."""
+    out = {}
+    for name, p in model.named_parameters():
+        rec = placement(p)
+        if rec is not None and (rec.model_dim is not None
+                                or rec.data_dim is not None):
+            out[name] = rec
+    return out
+
+
+def _mesh_rank(model: Transformer):
+    """The global rank of a model built with a ``Sharder``, else None."""
+    rec = next((placement(p) for p in model.parameters()
+                if placement(p) is not None), None)
+    return None if rec is None else rec.mesh.rank
 
 
 def _leaf_fn(model: Transformer, flat: Dict[str, torch.Tensor], comm=None):
@@ -274,10 +343,16 @@ def _leaf_fn(model: Transformer, flat: Dict[str, torch.Tensor], comm=None):
     mesh's model group) each expert leaf gathered over the group to its
     rank 0 when asked for, one layer's leaf at a time, so rank 0 holds one
     gathered leaf on the device at once (an empty array on the other
-    ranks, whose tree is not used)."""
-    experts = set(expert_param_names(model)) if comm is not None else ()
+    ranks, whose tree is not used). A model built with a ``Sharder``
+    gathers every split leaf whole over the mesh instead (every rank
+    calls; ``comm`` is not read)."""
+    split = _split_leaves(model)
+    experts = (set(expert_param_names(model)) if comm is not None
+               and not split else ())
 
     def leaf(name):
+        if name in split:
+            return _np32(gather_whole(flat[name], split[name]))
         if name not in experts:
             return _np32(flat[name])
         whole = comm.gather(flat[name].detach()[None])     # (R, E/R, ...)
@@ -295,6 +370,9 @@ def params_to_jax(model: Transformer, comm=None) -> Dict[str, Any]:
     others None)."""
     tree = _jax_from_flat(model, _leaf_fn(
         model, dict(model.named_parameters()), comm))
+    rank = _mesh_rank(model)
+    if rank is not None:
+        return None if rank else tree
     return None if comm is not None and comm.rank else tree
 
 
@@ -312,6 +390,9 @@ def opt_state_to_jax(state: AdamWState, model: Transformer,
         step=np.asarray(state.step.cpu(), np.int32),
         mu=_jax_from_flat(model, _leaf_fn(model, state.mu, comm)),
         nu=_jax_from_flat(model, _leaf_fn(model, state.nu, comm)))
+    rank = _mesh_rank(model)
+    if rank is not None:
+        return None if rank else out
     return None if comm is not None and comm.rank else out
 
 
@@ -320,11 +401,17 @@ def checkpoint_tree(model: Transformer, state: AdamWState, mesh=None):
     save`` writes and ``repro.train.checkpoint`` restores. With ``mesh``
     (``launch.mesh.Mesh``; every rank calls): global rank 0's tree of the
     whole model, each expert leaf and its moments gathered over data index
-    0's model group (every data index holds the same parameters); None on
-    every other rank."""
+    0's model group (every data index holds the same parameters), or,
+    for a model built with a ``Sharder``, every split leaf gathered over
+    the whole mesh; None on every other rank."""
     if mesh is None:
         return {"params": params_to_jax(model),
                 "opt": opt_state_to_jax(state, model)}
+    if _mesh_rank(model) is not None:
+        # a layout's blocks: every rank takes part in each leaf's gather
+        params = params_to_jax(model)
+        opt = opt_state_to_jax(state, model)
+        return None if mesh.rank else {"params": params, "opt": opt}
     if mesh.data_index:
         return None
     comm = mesh.comm if expert_param_names(model) and mesh.model > 1 else None

@@ -11,8 +11,9 @@ prediction-guided expert duplication (the port of ``repro.launch.serve``).
       --reduced --device cpu --requests 8 --batch 4 --seq 40 --new-tokens 6
 
 ``--data-mesh`` and ``--model-mesh`` follow the JAX launcher's rule: both
-nonzero turn the expert-parallel path on (``ServeEngine(ep=True)``), and
-each prompt of ``--seq`` tokens splits over the ``--model-mesh`` EP ranks.
+nonzero serve on a ``(data, model)`` mesh; for a MoE model that turns the
+expert-parallel path on (``ServeEngine(ep=True)``), and each prompt of
+``--seq`` tokens splits over the ``--model-mesh`` EP ranks.
 ``--backend`` says where the ranks run. ``stacked`` (the default): as a
 leading tensor dimension in this one process, on one device, so
 ``--data-mesh`` must be 1. ``nccl`` or ``gloo``: the launcher starts
@@ -26,7 +27,19 @@ on card 0:
       --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo
 
 Rank 0 prints; every rank draws the whole model's weights from
-``--seed`` and keeps its block of experts.
+``--seed``, one leaf at a time, and keeps its block of each under
+``--shard-params`` (``sharding``): ``none`` (the default) its block of the
+experts, the rest whole; ``specs`` also the tensor-parallel blocks of the
+attention, recurrent and vocab leaves (``sharding.param_specs``). A model
+without MoE serves on a process mesh under either, its batch split over
+the data ranks:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo \
+      --shard-params specs
+
+``fsdp`` (FSDP storage) trains only (``launch.train``): serving under it
+raises.
 
 An encoder-decoder (seamless-m4t-medium) fails in the forward with
 ``KeyError``: the launcher sends tokens and no frames, as the JAX launcher
@@ -34,9 +47,9 @@ does, and the encoder needs them (``ServeEngine.generate`` with
 ``batch["frames"]`` serves it).
 
 A model without MoE (the dense family, Griffin, RWKV) has no experts to
-balance:
-its ``--strategy`` is "none" (the default there; the default for a MoE
-model is "dist_only"), and another strategy or the mesh flags raise.
+balance: its ``--strategy`` is "none" (the default there; the default for
+a MoE model is "dist_only"), and another strategy raises, as do the mesh
+flags without a process backend (the stacked backend stacks EP ranks).
 
 Weights are random, drawn from ``--seed``; prompts are Zipf-distributed
 tokens from the same seed (numpy, so the JAX launcher gets the same ones).
@@ -55,8 +68,9 @@ import time
 
 import torch
 
+from repro_torch.bridge import sharder
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.sharding import expert_block
+from repro_torch.sharding import LAYOUTS
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.predictors import ConditionalProbabilityModel
@@ -90,6 +104,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="stacked: the EP ranks as a tensor dimension in "
                          "this process (--data-mesh 1); nccl / gloo: one "
                          "process a mesh rank")
+    ap.add_argument("--shard-params", default="none", choices=LAYOUTS,
+                    help="the parameters' layout on a process mesh: none "
+                         "(the experts' blocks), specs (tensor-parallel "
+                         "blocks too); fsdp trains only")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -108,10 +126,19 @@ def main(argv=None) -> int:
         if args.strategy not in (None, "none"):
             raise ValueError(f"--strategy {args.strategy}: {cfg.name} has no "
                              "experts to balance (--strategy none)")
-        if args.data_mesh or args.model_mesh:
+        if (args.data_mesh or args.model_mesh) and args.backend == "stacked":
             raise ValueError(f"--data-mesh / --model-mesh: {cfg.name} has no "
-                             "experts to place on EP ranks")
-    ep = bool(args.data_mesh and args.model_mesh)
+                             "experts to place on stacked EP ranks (name "
+                             "--backend gloo or nccl for a process mesh)")
+    if args.shard_params == "fsdp":
+        raise ValueError("--shard-params fsdp: FSDP storage while serving "
+                         "is not ported (ROADMAP.md section 1, item 4, FSDP "
+                         "serving)")
+    if args.shard_params != "none" and args.backend == "stacked":
+        raise ValueError(f"--shard-params {args.shard_params} lays the "
+                         "parameters out over a process mesh: name --backend "
+                         "gloo or nccl")
+    ep = bool(args.data_mesh and args.model_mesh) and cfg.is_moe
     if ep and args.seq % args.model_mesh:
         raise ValueError(f"--seq {args.seq} does not split over "
                          f"{args.model_mesh} EP ranks")
@@ -123,7 +150,7 @@ def main(argv=None) -> int:
                 "no data axis; a data axis needs --backend nccl or gloo "
                 "(one process a mesh rank)")
         return serve(args, cfg)
-    if not ep:
+    if not (args.data_mesh and args.model_mesh):
         raise ValueError(f"--backend {args.backend} runs a process mesh: "
                          "give --data-mesh and --model-mesh")
     device, threads = mesh_mod.rank_device(args.backend, args.device)
@@ -145,13 +172,13 @@ def serve(args, cfg, mesh=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     strategy = args.strategy or ("dist_only" if cfg.is_moe else "none")
-    ep = bool(args.data_mesh and args.model_mesh)
+    ep = bool(args.data_mesh and args.model_mesh) and cfg.is_moe
     ep_ranks = args.model_mesh if ep else 1
     dev = resolve_device(args.device) if mesh is None else mesh.device
-    block = (None if mesh is None else expert_block(
-        cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
+    layout = args.shard_params
+    shard = None if mesh is None else sharder(cfg, mesh, layout)
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                       device=dev, expert_block=block)
+                       device=dev, shard=shard)
 
     predictor = None
     if strategy == "token_to_expert":
@@ -178,7 +205,11 @@ def serve(args, cfg, mesh=None) -> int:
             f"(replica store: {engine._store is not None})")
     elif ep:
         say(f"EP over a {mesh.key} mesh of processes ({mesh.backend}, "
-            f"{mesh.device}; replica store: {engine._store is not None})")
+            f"{mesh.device}; replica store: {engine._store is not None}; "
+            f"parameters {layout!r})")
+    elif mesh is not None:
+        say(f"parameters {layout!r} over a {mesh.key} mesh of processes "
+            f"({mesh.backend}, {mesh.device})")
 
     sched = BatchScheduler(args.batch, args.seq)
     gen = token_batches(args.seed, cfg.vocab_size, 1, args.seq)

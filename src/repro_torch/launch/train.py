@@ -47,7 +47,16 @@ averaged over the data ranks. ``nccl`` takes a card a rank (fewer cards
 raise); ``gloo`` runs on the CPU with ``--device cpu`` or, on a card,
 stages its collectives through the host, every rank on card 0. Rank 0
 prints the lines and writes ``--ckpt``, the whole model's, which the JAX
-package restores.
+package restores. ``--shard-params`` lays the parameters (and their
+moments) out over the mesh (``sharding``): ``none`` (the default) as
+above; ``specs`` also the tensor-parallel blocks of the attention,
+recurrent, RWKV and vocab leaves, so the model ranks of a model without
+MoE divide its work; ``fsdp`` every weight's block over the data ranks
+too (ZeRO-3: gathered at use, gradients reduce-scattered).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo \
+      --shard-params fsdp
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
       --reduced --device cpu --data-mesh 1 --model-mesh 4
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import torch
@@ -67,12 +77,12 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.placement import identity_plan, stack_plans, to_device
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve_device
+from repro_torch.bridge import sharder
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models.transformer import (Runtime, expert_param_names,
-                                            init_model)
+from repro_torch.models.transformer import Runtime, init_model
 from repro_torch.obs import SpanTracer
 from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
-from repro_torch.sharding import expert_block
+from repro_torch.sharding import LAYOUTS
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.steps import init_opt_state, make_train_step
 
@@ -113,6 +123,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="stacked: the EP ranks as a tensor dimension in "
                          "this process (--data-mesh 1); nccl / gloo: one "
                          "process a mesh rank")
+    ap.add_argument("--shard-params", default="none", choices=LAYOUTS,
+                    help="the parameters' layout on a process mesh: none "
+                         "(the experts' blocks), specs (tensor-parallel "
+                         "blocks too), fsdp (and every weight over data)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -134,6 +148,10 @@ def main(argv=None) -> int:
                 "every EP rank in this process on one device, which has no "
                 "data axis; a data axis needs --backend gloo or nccl (one "
                 "process a mesh rank)")
+        if args.shard_params != "none":
+            raise ValueError(f"--shard-params {args.shard_params} lays the "
+                             "parameters out over a process mesh: name "
+                             "--backend gloo or nccl")
         return train(args)
     if not mesh_flags:
         raise ValueError(f"--backend {args.backend} runs a process mesh: "
@@ -180,15 +198,13 @@ def train(args, mesh=None) -> int:
             identity_plan(m.num_experts, rt.ep_ranks, 0, m.max_copies)
             for _ in range(cfg.num_layers)]), m.num_experts, rt.ep_ranks, 0,
             dev)
-    # a mesh rank keeps its block of the experts (every weight still drawn)
-    block = (None if mesh is None or not rt.ep else expert_block(
-        cfg.moe.num_experts, {"model": mesh.model_index}, mesh))
+    # a mesh rank keeps its blocks under the layout (every weight drawn)
+    shard = (None if mesh is None else
+             sharder(cfg, mesh, getattr(args, "shard_params", "none")))
     model = init_model(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                       device=dev, trainable=True, expert_block=block)
-    params = dict(model.named_parameters())
-    held = set(expert_param_names(model)) if block else set()
-    n_params = sum(p.numel() * (mesh.model if name in held else 1)
-                   for name, p in params.items())
+                       device=dev, trainable=True, shard=shard)
+    n_params = (sum(p.numel() for p in model.parameters()) if shard is None
+                else sum(math.prod(s) for s in shard.shapes.values()))
     say(f"arch={cfg.name} params={n_params/1e6:.1f}M "
         f"(analytical {cfg.num_params()/1e6:.1f}M) "
         f"family={cfg.family} moe={cfg.is_moe}")

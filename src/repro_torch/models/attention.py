@@ -41,6 +41,18 @@ expands K and V from the whole cache (cast to the activation dtype) at
 every step, as the reference does: two plain products outside any Pallas
 kernel there. Q is full rank whatever ``q_lora_rank`` says, as the JAX
 model builds it.
+
+On a process mesh under a tensor-parallel layout (``sharding``) every path
+works on this rank's heads: the head count is read off the projections'
+widths, so a "col" block of ``wq`` / ``wk`` / ``wv`` (MLA's ``w_q``,
+``w_uk``, ``w_uv``) computes this rank's H/m query and K/m KV heads, the
+caches and the paged pool hold those K/m heads, and ``wo`` is
+row-parallel. A projection whose block splits a head is "gathered"
+(``sharding.at_use``): whole query heads compute every head alike on each
+rank and ``wo`` takes this rank's block of the output; whole KV heads under
+split query heads leave each rank the KV heads its query heads read
+(``sharding.kv_span``: reduced configs at "model" 4). MLA's latent
+projections and cache stay whole.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.models.layers import apply_rope, dense
+from repro_torch.sharding import kv_span, placement
 
 NEG_INF = -1e30
 
@@ -128,12 +141,29 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return out[:, :Sq]
 
 
+def _local_kv(p, cfg: ModelConfig, k, v):
+    """k, v (B, S, K, hd) as this rank's query heads read them: all of
+    them but when ``wk`` was gathered for split query heads, then the KV
+    heads of ``kv_span`` (each rank's own use of a replicated tensor)."""
+    rk, rq = placement(p["wk"]), placement(p["wq"])
+    if rk is None or rk.use != "gathered" or rq.use != "col":
+        return k, v
+    mesh = rq.mesh
+    lo, hi = kv_span(cfg.num_heads, cfg.num_kv_heads, mesh.model,
+                     mesh.model_index)
+    comm = mesh.comm
+    return comm.tp_copy(k)[:, :, lo:hi], comm.tp_copy(v)[:, :, lo:hi]
+
+
 def gqa_project(p, cfg: ModelConfig, x, positions):
+    """q (B, S, H, hd), k and v (B, S, K, hd) after RoPE: this rank's heads
+    on a mesh (the module docstring)."""
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, H, hd)
-    k = dense(p["wk"], x, p.get("bk")).reshape(B, S, K, hd)
-    v = dense(p["wv"], x, p.get("bv")).reshape(B, S, K, hd)
+    hd = cfg.head_dim
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, -1, hd)
+    k = dense(p["wk"], x, p.get("bk")).reshape(B, S, -1, hd)
+    v = dense(p["wv"], x, p.get("bv")).reshape(B, S, -1, hd)
+    k, v = _local_kv(p, cfg, k, v)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -237,10 +267,11 @@ def cross_attention(p, cfg: ModelConfig, x, enc_out):
     for the cross cache."""
     B, S, _ = x.shape
     Se = enc_out.shape[1]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, H, hd)
-    k = dense(p["wk"], enc_out, p.get("bk")).reshape(B, Se, K, hd)
-    v = dense(p["wv"], enc_out, p.get("bv")).reshape(B, Se, K, hd)
+    hd = cfg.head_dim
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, S, -1, hd)
+    k = dense(p["wk"], enc_out, p.get("bk")).reshape(B, Se, -1, hd)
+    v = dense(p["wv"], enc_out, p.get("bv")).reshape(B, Se, -1, hd)
+    k, v = _local_kv(p, cfg, k, v)
     out = chunked_attention(q, k, v, causal=False)
     return dense(p["wo"], out.reshape(B, S, -1)), k, v
 
@@ -251,8 +282,7 @@ def cross_decode(p, cfg: ModelConfig, x, cross_k, cross_v):
     and the PV product in fp32 (``decode_attention`` at ``cache_len`` Se,
     as the JAX decode step calls it)."""
     B = x.shape[0]
-    q = dense(p["wq"], x, p.get("bq")).reshape(B, 1, cfg.num_heads,
-                                               cfg.head_dim)
+    q = dense(p["wq"], x, p.get("bq")).reshape(B, 1, -1, cfg.head_dim)
     out = decode_attention(q, cross_k, cross_v, cache_len=cross_k.shape[1])
     return dense(p["wo"], out.reshape(B, 1, -1))
 
@@ -341,8 +371,7 @@ def _mla_qkv(p, cfg: ModelConfig, x, positions):
     RoPE."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
-    q = dense(p["w_q"], x).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = dense(p["w_q"], x).reshape(B, S, -1, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = dense(p["w_dkv"], x)
@@ -356,9 +385,8 @@ def _mla_expand(p, cfg: ModelConfig, c_kv):
     c_kv (B, S, r)."""
     m = cfg.mla
     B, S, _ = c_kv.shape
-    H = cfg.num_heads
-    k_nope = dense(p["w_uk"], c_kv).reshape(B, S, H, m.nope_head_dim)
-    v = dense(p["w_uv"], c_kv).reshape(B, S, H, m.v_head_dim)
+    k_nope = dense(p["w_uk"], c_kv).reshape(B, S, -1, m.nope_head_dim)
+    v = dense(p["w_uv"], c_kv).reshape(B, S, -1, m.v_head_dim)
     return k_nope, v
 
 
@@ -373,8 +401,12 @@ def _mla_causal(p, cfg: ModelConfig, x, qkv, window: int):
     """Causal MLA over the whole sequence from ``_mla_qkv``'s outputs."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
     q_nope, q_rope, c_kv, k_rope = qkv
+    H = q_nope.shape[2]
+    rec = placement(p["w_q"])
+    if rec is not None and rec.use == "col":
+        # the shared rope key (replicated) meets this rank's heads only
+        k_rope = rec.mesh.comm.tp_copy(k_rope)
     k_nope, v = _mla_expand(p, cfg, c_kv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
@@ -419,10 +451,10 @@ def mla_decode(p, cfg: ModelConfig, x, cache, cache_len: int, *, window=0):
     positions, the unwritten ones masked."""
     m = cfg.mla
     B = x.shape[0]
-    H = cfg.num_heads
     positions = torch.full((B, 1), cache_len, dtype=torch.long,
                            device=x.device)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
+    H = q_nope.shape[2]
     cache["c_kv"][:, cache_len] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
     cache["k_rope"][:, cache_len] = k_rope_new[:, 0, 0].to(
         cache["k_rope"].dtype)

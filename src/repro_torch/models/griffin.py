@@ -24,6 +24,14 @@ The block's bf16 arithmetic (the conv, the gelu, ``y * gate``) rounds at
 every operation, in the JAX order, because XLA does: accumulating the conv
 in fp32 and rounding once would differ from the reference in about half of
 the elements. Parameters are a dict with the JAX package's keys.
+
+On a process mesh under a tensor-parallel layout (``sharding``) the block
+runs on this rank's ``dr / m`` channels: ``w_gate`` and ``w_main`` are
+column blocks, the depthwise conv reads its channels of the whole
+``conv_w`` / ``conv_b``, ``w_a`` and ``w_x`` (dr, dr) compute this rank's
+columns from the main branch all-gathered over "model", ``lam`` and the
+scan (the kernel, at (B, S, dr / m)) run on the rank's channels, the state
+holds them, and ``w_out`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import dense, gelu_tanh, truncated_normal_init
+from repro_torch.sharding import placement
 
 CONV_WIDTH = 4
 RGLRU_C = 8.0
@@ -92,11 +101,13 @@ def _causal_conv(p, x, conv_state):
     return out + p["conv_b"].to(x.dtype), new_state
 
 
-def _decay_and_input(p, x):
+def _decay_and_input(p, x, x_all=None):
     """(a, b) of the recurrence from x (..., dr), fp32, as ``rg_lru``
-    computes them in the JAX package."""
-    r = torch.sigmoid(dense(p["w_a"], x).float())
-    i = torch.sigmoid(dense(p["w_x"], x).float())
+    computes them in the JAX package. ``x_all``: on a mesh, x's channels
+    of every rank, which ``w_a`` / ``w_x`` read (default x)."""
+    x_all = x if x_all is None else x_all
+    r = torch.sigmoid(dense(p["w_a"], x_all).float())
+    i = torch.sigmoid(dense(p["w_x"], x_all).float())
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))   # jax.nn.softplus
     log_a = -RGLRU_C * softplus * r
@@ -106,19 +117,19 @@ def _decay_and_input(p, x):
     return a, b
 
 
-def rg_lru(p, x, h0):
+def rg_lru(p, x, h0, x_all=None):
     """x: (B, S, dr); h0: (B, dr) fp32. Returns (y in x's dtype, h_last
     fp32)."""
-    a, b = _decay_and_input(p, x)
+    a, b = _decay_and_input(p, x, x_all)
     fn = (kernel_ops.RgLruScan.apply if torch.is_grad_enabled()
           else kernel_ops.rg_lru_scan)
     h, h_last = fn(a.contiguous(), b.contiguous(), h0.float().contiguous())
     return h.to(x.dtype), h_last
 
 
-def rg_lru_step(p, x, h0):
+def rg_lru_step(p, x, h0, x_all=None):
     """Single-token step. x: (B, 1, dr); h0: (B, dr) fp32."""
-    a, b = _decay_and_input(p, x)
+    a, b = _decay_and_input(p, x, x_all)
     h = a[:, 0] * h0.float() + b[:, 0]
     return h[:, None].to(x.dtype), h
 
@@ -128,17 +139,28 @@ def recurrent_block(p, cfg: ModelConfig, x, state) -> Tuple[torch.Tensor, dict]:
     new_state); the input state is not modified."""
     gate = gelu_tanh(dense(p["w_gate"], x))
     main = dense(p["w_main"], x)
+    rec = placement(p["w_main"])
+    if rec is not None and rec.use == "col":
+        # this rank's channels of the per-channel parameters
+        comm = rec.mesh.comm
+        p = dict(p, conv_w=comm.tp_split(p["conv_w"], 1),
+                 conv_b=comm.tp_split(p["conv_b"], 0),
+                 lam=comm.tp_split(p["lam"], 0))
     main, new_conv = _causal_conv(p, main, state["conv"])
+    main_all = (comm.tp_gather(main, -1) if rec is not None
+                and rec.use == "col" else None)
     if x.shape[1] == 1:
-        y, new_h = rg_lru_step(p, main, state["h"])
+        y, new_h = rg_lru_step(p, main, state["h"], main_all)
     else:
-        y, new_h = rg_lru(p, main, state["h"])
+        y, new_h = rg_lru(p, main, state["h"], main_all)
     out = dense(p["w_out"], y * gate)
     return out, {"h": new_h, "conv": new_conv}
 
 
 def init_recurrent_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                          device: Optional[torch.device] = None):
+    """Zero state of ``cfg.rnn_width`` channels (a rank's under a
+    tensor-parallel layout: ``models.transformer.local_config``)."""
     dr = cfg.rnn_width or cfg.d_model
     return {
         "h": torch.zeros((batch, dr), dtype=torch.float32, device=device),

@@ -4,6 +4,16 @@ Conventions follow the JAX package's ``models/layers.py``: dense weights are
 laid out ``(d_in, d_out)`` and cast to the activation dtype at use; norms
 run in fp32 internally; RoPE is half-split (not interleaved). All apply
 functions are shape-polymorphic over leading batch dims.
+
+On a process mesh a weight may hold this rank's block and carry its
+``sharding.Placement``: ``dense`` then runs a column-parallel product
+("col": the replicated input's gradient summed over "model") or a
+row-parallel one ("row": a replicated input cut to this rank's block
+first, the partial products summed in fp32 over "model" in rank order and
+cast back to the activation dtype); ``embed`` a vocab-parallel lookup
+("vocab": each rank's rows masked, summed over "model"), ``unembed`` the
+tied logits over this rank's rows, gathered over "model". A weight without
+a placement is used as it is.
 """
 
 from __future__ import annotations
@@ -12,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import placement
 
 
 def truncated_normal_init(shape, scale: float = 0.02, *,
@@ -54,7 +66,23 @@ def apply_norm(kind: str, scale, x):
 
 
 def dense(w, x, b=None):
-    """x (..., d_in) @ w (d_in, d_out), w cast to x's dtype."""
+    """x (..., d_in) @ w (d_in, d_out), w cast to x's dtype; column- or
+    row-parallel when ``w`` holds a "col" or "row" block (a column block's
+    bias, whole, cut to it)."""
+    rec = placement(w)
+    use = None if rec is None else rec.use
+    if use == "col":
+        comm = rec.mesh.comm
+        y = torch.matmul(comm.tp_copy(x), w.to(x.dtype))
+        if b is not None:
+            y = y + comm.tp_split(b, -1).to(x.dtype)
+        return y
+    if use == "row":
+        comm = rec.mesh.comm
+        if x.shape[-1] != w.shape[0]:               # a replicated input
+            x = comm.tp_split(x, -1)
+        y = comm.tp_sum(torch.matmul(x, w.to(x.dtype)).float()).to(x.dtype)
+        return y if b is None else y + b.to(x.dtype)
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(x.dtype)
@@ -62,12 +90,28 @@ def dense(w, x, b=None):
 
 
 def embed(table, ids):
-    return F.embedding(ids.long(), table)
+    """The rows of ``table`` at ``ids``; vocab-parallel over a "vocab"
+    block (the rows outside it zero, summed over "model": exact)."""
+    rec = placement(table)
+    if rec is None or rec.use != "vocab":
+        return F.embedding(ids.long(), table)
+    n = table.shape[0]
+    local = ids.long() - rec.mesh.model_index * n
+    inside = (local >= 0) & (local < n)
+    e = F.embedding(local.clamp(0, n - 1), table)
+    e = e * inside[..., None].to(e.dtype)
+    return rec.mesh.comm.tp_sum(e)
 
 
 def unembed(table, x):
-    """Tied unembedding from an embedding table."""
-    return torch.matmul(x, table.to(x.dtype).t())
+    """Tied unembedding from an embedding table: over a "vocab" block,
+    this rank's logits gathered over "model"."""
+    rec = placement(table)
+    if rec is None or rec.use != "vocab":
+        return torch.matmul(x, table.to(x.dtype).t())
+    comm = rec.mesh.comm
+    return comm.tp_gather(torch.matmul(comm.tp_copy(x),
+                                       table.to(x.dtype).t()), -1)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None):

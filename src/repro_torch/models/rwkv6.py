@@ -24,6 +24,15 @@ No Pallas kernel computes any of it in the JAX package, so the port is
 plain PyTorch and launches no hand-written kernel. Parameters are dicts
 under the JAX package's keys (``time_mix``: ``mu``, ``lora_a``, ...,
 ``ln_out``; ``channel_mix``: ``mu``, ``w_k``, ``w_v``, ``w_r``).
+
+On a process mesh under a tensor-parallel layout (``sharding``) the time
+mix runs on this rank's H/m heads: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g``
+are column blocks, the decay (its LoRA whole), ``bonus`` and ``ln_out``
+are cut to the rank's heads, the WKV state holds them, the output norm
+(an RMSNorm over all H * hd channels) sums its squares over "model", and
+``w_o`` is row-parallel. The channel mix's ``w_k`` is a column block and
+``w_v`` row-parallel; ``w_r``, the token-shift mixes and the LoRAs stay
+whole, and so does the token-shift state.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, rmsnorm
+from repro_torch.sharding import placement
 
 LORA_DIM = 64
 CHUNK = 32
@@ -195,23 +205,46 @@ def time_mix(p, cfg: ModelConfig, x, state) -> Tuple[torch.Tensor, dict]:
     Returns (out (B, S, d), {"shift_tm", "wkv"}): a one-token call takes
     ``wkv_step``, a longer one ``wkv_chunked``."""
     B, S, d = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     streams, new_shift = _token_shift(p, x, state["shift_tm"])
     xr, xk, xv, xw, xg = streams.unbind(2)
-    r = dense(p["w_r"], xr).reshape(B, S, H, hd)
-    k = dense(p["w_k"], xk).reshape(B, S, H, hd)
-    v = dense(p["w_v"], xv).reshape(B, S, H, hd)
+    r = dense(p["w_r"], xr).reshape(B, S, -1, hd)
+    k = dense(p["w_k"], xk).reshape(B, S, -1, hd)
+    v = dense(p["w_v"], xv).reshape(B, S, -1, hd)
+    H = r.shape[2]
     g = silu(dense(p["w_g"], xg))
-    logw = _log_decay(p, xw).reshape(B, S, H, hd)
+    logw, bonus, ln_out = _log_decay(p, xw), p["bonus"], p["ln_out"]
+    rec = placement(p["w_r"])
+    comm = rec.mesh.comm if rec is not None and rec.use == "col" else None
+    if comm is not None:
+        # this rank's heads of the per-channel decay, bonus and norm scale
+        logw, bonus, ln_out = (comm.tp_split(logw, -1),
+                               comm.tp_split(bonus, 0),
+                               comm.tp_split(ln_out, 0))
+    logw = logw.reshape(B, S, H, hd)
     if S == 1:
         y, new_wkv = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
-                              p["bonus"], state["wkv"])
+                              bonus, state["wkv"])
         y = y[:, None].to(x.dtype)
     else:
-        y, new_wkv = wkv_chunked(r, k, v, logw, p["bonus"], state["wkv"])
-    y = rmsnorm(p["ln_out"], y.reshape(B, S, H * hd).to(x.dtype))
+        y, new_wkv = wkv_chunked(r, k, v, logw, bonus, state["wkv"])
+    y = y.reshape(B, S, H * hd).to(x.dtype)
+    y = (rmsnorm(ln_out, y) if comm is None
+         else _rmsnorm_over_ranks(ln_out, y, comm, cfg.num_heads * hd))
     out = dense(p["w_o"], y * g)
     return out, {"shift_tm": new_shift, "wkv": new_wkv}
+
+
+def _rmsnorm_over_ranks(scale, x, comm, width: int, eps: float = 1e-6):
+    """``layers.rmsnorm`` of a vector whose ``width`` channels lie split
+    over the ranks of ``comm``: this rank's x and scale, the squares'
+    fp32 sum added over the ranks (and, on the way back, the gradient of
+    that sum, which every rank's normalisation reads)."""
+    dtype = x.dtype
+    x = x.float()
+    ss = comm.tp_copy(comm.tp_sum(x.square().sum(dim=-1, keepdim=True)))
+    y = x * torch.rsqrt(ss / width + eps)
+    return (y * scale).to(dtype)
 
 
 def channel_mix(p, x, x_prev):
@@ -231,7 +264,9 @@ def init_rwkv_state(cfg: ModelConfig, batch: int,
                     device: Optional[torch.device] = None
                     ) -> Dict[str, torch.Tensor]:
     """One layer's zero state, fp32 as the JAX package makes it
-    (``models.transformer.init_cache`` stacks it over the layers)."""
+    (``models.transformer.init_cache`` stacks it over the layers), of
+    ``cfg.num_heads`` heads (a rank's under a tensor-parallel layout:
+    ``models.transformer.local_config``)."""
     d = cfg.d_model
     return {
         "shift_tm": torch.zeros((batch, d), dtype=torch.float32, device=device),

@@ -106,6 +106,7 @@ from repro_torch.models.layers import (apply_norm, dense, embed, ffn,
 from repro_torch.models.moe import dense_branch, moe_ffn_dense, shared_branch
 from repro_torch.moe import dispatch as ep_dispatch
 from repro_torch.moe.router import expert_histogram, route
+from repro_torch.sharding import at_use, kv_span, placement
 
 ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
@@ -193,12 +194,19 @@ class DecoderLayer(nn.Module):
     cross-attention (``ln_cross``, ``cross_*``) between them; "encoder": an
     encoder layer (attention + FFN at the encoder's widths); "recurrent":
     recurrent block (``rec_*``) + FFN; "local": local attention + FFN;
-    "rwkv": time mix (``tm_*``) + channel mix (``cm_*``)."""
+    "rwkv": time mix (``tm_*``) + channel mix (``cm_*``).
+
+    ``gathers_at_use`` is set once, when a layout's placements are
+    attached (``sharding.Sharder.attach``): a parameter of the layer is
+    gathered at use, so each (re)computation runs on its ``LayerAtUse``."""
+
+    gathers_at_use = False
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
                  kind: str = "attn", trainable: bool = False):
         super().__init__()
         self.kind = kind
+        self.param_names = tuple(tensors)
         for name, t in tensors.items():
             setattr(self, name, _param(t, trainable))
 
@@ -219,19 +227,38 @@ class DecoderLayer(nn.Module):
         where the config has them."""
         p = {"router": self.router, "w_gate": self.w_gate,
              "w_up": self.w_up, "w_down": self.w_down}
-        p.update((n, t) for n, t in self.named_parameters()
+        p.update((n, getattr(self, n)) for n in self.param_names
                  if n.startswith(("shared_", "dense_")))
         return p
 
     def rec_params(self):
-        return {name[4:]: t for name, t in self.named_parameters()
+        return {name[4:]: getattr(self, name) for name in self.param_names
                 if name.startswith("rec_")}
 
     def rwkv_params(self, prefix: str):
         """The time mix's (``prefix`` "tm_") or the channel mix's ("cm_")
         parameters under the JAX package's keys."""
-        return {name[len(prefix):]: t for name, t in self.named_parameters()
-                if name.startswith(prefix)}
+        return {name[len(prefix):]: getattr(self, name)
+                for name in self.param_names if name.startswith(prefix)}
+
+
+class LayerAtUse:
+    """A layer's parameters as this rank computes with them
+    (``sharding.at_use``: FSDP shards gathered over "data", "gathered"
+    blocks over "model"), with ``DecoderLayer``'s accessors. Made inside a
+    layer's (re)computation, so under ``remat`` the backward gathers
+    again."""
+    attn_params = DecoderLayer.attn_params
+    cross_params = DecoderLayer.cross_params
+    moe_params = DecoderLayer.moe_params
+    rec_params = DecoderLayer.rec_params
+    rwkv_params = DecoderLayer.rwkv_params
+
+    def __init__(self, layer: DecoderLayer):
+        self.kind = layer.kind
+        self.param_names = layer.param_names
+        for name in layer.param_names:
+            setattr(self, name, at_use(getattr(layer, name)))
 
 
 class Transformer(nn.Module):
@@ -460,7 +487,7 @@ def _draw(shape, scale, dtype, generator, device, keep=None):
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device="cuda", trainable: bool = False,
-               expert_block=None) -> Transformer:
+               expert_block=None, shard=None) -> Transformer:
     """Random weights from the same distributions as the JAX package's
     ``init_model`` (a standard normal truncated to [-2, 2] times the same
     scales), drawn on ``device`` from ``generator`` (which must live on that
@@ -470,7 +497,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``expert_block``: None, or (lo, hi), the experts of each MoE layer to
     keep (an EP rank's home experts, ``sharding.expert_block``): every
     weight is still drawn, so the kept ones are the whole model's, and no
-    process holds more than its block of experts."""
+    process holds more than its block of experts. ``shard``: None, or a
+    ``sharding.Sharder`` (``bridge.sharder``): every weight is drawn whole,
+    one at a time (an expert at a time), and this rank keeps its block
+    under the sharder's layout, each parameter carrying its
+    ``Placement``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -478,33 +509,102 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     def dtype(dt):
         return torch.float32 if trainable else dt
-    top = {"embed": _draw((V, d), 0.02, dtype(WEIGHT_DTYPE), generator, dev)}
+
+    def keep(name, t):
+        return t if shard is None else shard.block(name, t).clone()
+
+    def draw(name, shape, scale, dt):
+        if shard is None:
+            return _draw(shape, scale, dtype(dt), generator, dev,
+                         expert_block if name.rsplit(".", 1)[-1]
+                         in EXPERT_NAMES else None)
+        rows = shard.expert_rows(name)
+        t = _draw(shape, scale, dtype(dt), generator, dev, rows)
+        return shard.block(name, t, rows_kept=rows is not None).clone()
+    top = {"embed": draw("embed", (V, d), 0.02, WEIGHT_DTYPE)}
     if cfg.norm == "rmsnorm":
         top["final_norm"] = torch.ones((d,), dtype=torch.float32, device=dev)
     if not cfg.tie_embeddings:
-        top["lm_head"] = _draw((d, V), 1 / math.sqrt(d), dtype(WEIGHT_DTYPE),
-                               generator, dev)
+        top["lm_head"] = draw("lm_head", (d, V), 1 / math.sqrt(d),
+                              WEIGHT_DTYPE)
     layers = []
     for l in range(cfg.num_layers):
         kind = _layer_kind(cfg, l)
-        t = {name: _draw(shape, scale, dtype(dt), generator, dev,
-                         expert_block if name in EXPERT_NAMES else None)
+        t = {name: draw(f"layers.{l}.{name}", shape, scale, dt)
              for name, (shape, scale, dt) in _layer_shapes(cfg, kind).items()
              if not name.startswith("rec_")}
         if kind == "recurrent":
-            t.update(("rec_" + n, w) for n, w in griffin.init_recurrent_block(
-                cfg, generator, dev, trainable).items())
+            t.update(("rec_" + n, keep(f"layers.{l}.rec_{n}", w))
+                     for n, w in griffin.init_recurrent_block(
+                         cfg, generator, dev, trainable).items())
         layers.append(t)
     enc_layers = []
     if cfg.is_encdec:
         if cfg.norm == "rmsnorm":
             top["enc_norm"] = torch.ones((cfg.encoder.d_model,),
                                          dtype=torch.float32, device=dev)
-        enc_layers = [{name: _draw(shape, scale, dtype(dt), generator, dev)
+        enc_layers = [{name: draw(f"enc_layers.{l}.{name}", shape, scale, dt)
                        for name, (shape, scale, dt)
                        in _layer_shapes(cfg, "encoder").items()}
-                      for _ in range(cfg.encoder.num_layers)]
-    return Transformer(cfg, top, layers, trainable, enc_layers)
+                      for l in range(cfg.encoder.num_layers)]
+    model = Transformer(cfg, top, layers, trainable, enc_layers)
+    if shard is not None:
+        shard.attach(model)
+    return model
+
+
+def param_shapes(cfg: ModelConfig):
+    """({port parameter name: whole shape}, {name: its layer's kind}) of
+    every parameter a model of ``cfg`` holds (``sharding.Sharder``'s
+    input)."""
+    d, V = cfg.d_model, cfg.vocab_size
+    shapes = {"embed": (V, d)}
+    if cfg.norm == "rmsnorm":
+        shapes["final_norm"] = (d,)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, V)
+    if cfg.is_encdec and cfg.norm == "rmsnorm":
+        shapes["enc_norm"] = (cfg.encoder.d_model,)
+    kinds = {}
+    stacks = [("layers", [_layer_kind(cfg, l)
+                          for l in range(cfg.num_layers)])]
+    if cfg.is_encdec:
+        stacks.append(("enc_layers", ["encoder"] * cfg.encoder.num_layers))
+    for stack, layer_kinds in stacks:
+        for l, kind in enumerate(layer_kinds):
+            for name, spec in _layer_shapes(cfg, kind).items():
+                shapes[f"{stack}.{l}.{name}"] = tuple(spec[0])
+                kinds[f"{stack}.{l}.{name}"] = kind
+    return shapes, kinds
+
+
+def local_config(model: Transformer, cfg: Optional[ModelConfig] = None
+                 ) -> ModelConfig:
+    """``cfg`` (default the model's) with the head and channel counts of
+    the caches this rank holds: under a tensor-parallel layout the KV
+    heads its attention computes (``num_kv_heads``), RWKV's heads
+    (``num_heads``) and Griffin's recurrent channels (``rnn_width``);
+    ``cfg`` itself otherwise."""
+    cfg = cfg or model.cfg
+    changes = {}
+    for layer in model.layers:
+        rq, rk = (placement(getattr(layer, n, None)) for n in ("wq", "wk"))
+        if rk is not None and "num_kv_heads" not in changes:
+            m = rk.mesh.model
+            if rk.use == "col":
+                changes["num_kv_heads"] = cfg.num_kv_heads // m
+            elif rk.use == "gathered" and rq.use == "col":
+                lo, hi = kv_span(cfg.num_heads, cfg.num_kv_heads, m,
+                                 rk.mesh.model_index)
+                changes["num_kv_heads"] = hi - lo
+        rec = placement(getattr(layer, "rec_w_main", None))
+        if rec is not None and rec.use == "col":
+            changes["rnn_width"] = (cfg.rnn_width or cfg.d_model) \
+                // rec.mesh.model
+        rec = placement(getattr(layer, "tm_w_k", None))
+        if rec is not None and rec.use == "col":
+            changes["num_heads"] = cfg.num_heads // rec.mesh.model
+    return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
 # ---------------------------------------------------------------------------
@@ -763,14 +863,12 @@ def _hybrid_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions, state,
     """One hybrid block: recurrent block or local attention over the
     rotating window buffer, then the FFN. Window buffers are updated in
     place; a recurrent layer returns a new state. In train mode a
-    recurrent layer starts from a zero state and a local layer attends
+    recurrent layer starts from the zero state it is given (``_forward``
+    makes it at this rank's width) and a local layer attends
     over the whole sequence within its window, with no buffer. Returns (x,
     state)."""
     h = apply_norm(cfg.norm, getattr(layer, "ln1", None), x)
     if layer.kind == "recurrent":
-        if mode == "train":
-            state = griffin.init_recurrent_state(cfg, x.shape[0], x.dtype,
-                                                 x.device)
         a, state = griffin.recurrent_block(layer.rec_params(), cfg, h, state)
     elif mode == "train":
         a = attn.gqa_attention(layer.attn_params(), cfg, h, positions,
@@ -817,7 +915,7 @@ def _encode(model: Transformer, cfg: ModelConfig, frames, remat=False):
     for layer in model.enc_layers:
         x = _run_layer(remat, _encoder_layer, layer, cfg, enc_cfg, x,
                        positions)
-    return apply_norm(cfg.norm, getattr(model, "enc_norm", None), x)
+    return apply_norm(cfg.norm, at_use(getattr(model, "enc_norm", None)), x)
 
 
 def _rwkv_layer(layer: DecoderLayer, cfg: ModelConfig, x, state):
@@ -837,10 +935,11 @@ def _rwkv_layer(layer: DecoderLayer, cfg: ModelConfig, x, state):
 def _logits(model: Transformer, x):
     """The final norm, then ``lm_head``, or under tied embeddings the
     embedding table (the JAX ``unembed``)."""
-    h = apply_norm(model.cfg.norm, getattr(model, "final_norm", None), x)
+    h = apply_norm(model.cfg.norm, at_use(getattr(model, "final_norm", None)),
+                   x)
     if model.cfg.tie_embeddings:
-        return unembed(model.embed, h)
-    return dense(model.lm_head, h)
+        return unembed(at_use(model.embed), h)
+    return dense(at_use(model.lm_head), h)
 
 
 def _migration_view(l: int, plan: Optional[DevicePlan],
@@ -866,20 +965,25 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             prefix_embeds=None):
     """Returns (logits, cache, stats).
 
-    Under a process mesh (``rt.mesh``), in prefill and decode (a MoE model
-    under EP) the batch splits over the data axis when the data ranks
-    divide it (``Mesh.batch_rows``): this rank runs its rows, reading and
-    writing its rows of a linear ``cache`` in place (the paged pool is
-    whole on every rank: its block tables pick the rows' blocks); the
-    statistics are summed (the losses averaged) over the data axis and
-    the logits gathered over it, so every rank returns the whole batch's.
-    A batch the data ranks do not divide runs whole on each of them. In
-    train mode (any model; a MoE model under EP, without replica slots)
-    ``tokens`` are the rows this rank trains on, which
-    ``train.steps.make_train_step`` picks: the logits and statistics are
-    theirs, the counts and losses summed and averaged over the model axis
-    only, and nothing crosses the data axis. A model without MoE computes
-    the same rows alike on every model rank.
+    Under a process mesh (``rt.mesh``; a MoE model under EP) the model
+    holds this rank's block of each parameter under its layout
+    (``model.layout``, ``sharding``: the experts alone under "none", the
+    tensor-parallel rules too under "specs", FSDP storage as well under
+    "fsdp", which serves nothing yet). In prefill and decode the batch
+    splits over the data axis when the data ranks divide it
+    (``Mesh.batch_rows``): this rank runs its rows, reading and writing
+    its rows of a cache in place (the paged pool is whole on every rank:
+    its block tables pick the rows' blocks; a cache holds this rank's KV
+    heads or channels, ``local_config``); a MoE model's statistics are
+    summed (the losses averaged) over the data axis, and the logits
+    gathered over it, so every rank returns the whole batch's. A batch
+    the data ranks do not divide runs whole on each of them. In train
+    mode (a MoE model under EP, without replica slots) ``tokens`` are the
+    rows this rank trains on, which ``train.steps.make_train_step``
+    picks: the logits and statistics are theirs, the counts and losses
+    summed and averaged over the model axis only, and nothing crosses the
+    data axis. Without a tensor-parallel layout a model without MoE
+    computes the same rows alike on every model rank.
 
     mode=train:   tokens (B, S); logits (B, S, V) over every position,
                   cache None, recurrent layers from zero states. Under
@@ -956,11 +1060,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         # the train step hands each rank its data rows and reduces over
         # the data axis itself
         return _forward(model, cfg, tokens, rt, **kw)
-    if not (cfg.is_moe and rt.ep):
-        raise ValueError("a process mesh serves MoE models under EP; a "
-                         "model without MoE serves on one once the tensor-"
-                         "parallel and FSDP rules are applied (ROADMAP.md "
-                         "section 1, item 4(b))")
+    if getattr(model, "layout", "none") == "fsdp":
+        raise ValueError("FSDP storage while serving is not ported: serve "
+                         "under the 'specs' or 'none' layout (ROADMAP.md "
+                         "section 1, item 4, FSDP serving)")
     rows = rt.mesh.batch_rows(tokens.shape[0])
     if rows is None:
         return _forward(model, cfg, tokens, rt, **kw)
@@ -974,23 +1077,48 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         kw["predicted_idx"] = predicted_idx[:, rows]
     if block_tables is None:
         if cache is None:
-            cache = init_cache(cfg, rt, tokens.shape[0], tokens.shape[1],
-                               device=model.device)
-        kw["cache"] = {k: t[:, rows] for k, t in cache.items()}
+            cache = init_cache(local_config(model, cfg), rt, tokens.shape[0],
+                               tokens.shape[1], device=model.device,
+                               source_len=None if frames is None
+                               else frames.shape[1])
+        if cfg.is_encdec and mode == "prefill" and frames is not None:
+            # the cross K and V over these frames, made anew for the whole
+            # batch when they hold another number (as ``_forward`` does)
+            for name in ("cross_k", "cross_v"):
+                if cache[name].shape[2] != frames.shape[1]:
+                    shape = list(cache[name].shape)
+                    shape[2] = frames.shape[1]
+                    cache[name] = cache[name].new_empty(shape)
+        kw["cache"] = _cache_rows(cache, rows)
     logits, out_cache, stats = _forward(model, cfg, tokens[rows], rt, **kw)
+    if block_tables is None and cfg.family == "hybrid":
+        # a recurrent layer's new state: written back into these rows
+        for whole, mine in zip(cache, out_cache):
+            for name, t in mine.items():
+                whole[name][rows] = t
     data = rt.mesh.data_comm
-    # summed over the data axis: the counts in one collective (a host
-    # zero overflow without a quota stays as it is), the losses in one
-    keys = [k for k in ("expert_counts", "slot_counts", "dropped",
-                        "overflow") if stats[k].device == logits.device]
-    stats.update(zip(keys, data.psum_counts(*(stats[k][None]
-                                              for k in keys))))
-    stats["aux_loss"], stats["z_loss"] = data.pmean_losses(
-        *(torch.as_tensor(stats[k], device=logits.device)[None]
-          for k in ("aux_loss", "z_loss")))
+    if cfg.is_moe:
+        # summed over the data axis: the counts in one collective (a host
+        # zero overflow without a quota stays as it is), the losses in one
+        keys = [k for k in ("expert_counts", "slot_counts", "dropped",
+                            "overflow") if stats[k].device == logits.device]
+        stats.update(zip(keys, data.psum_counts(*(stats[k][None]
+                                                  for k in keys))))
+        stats["aux_loss"], stats["z_loss"] = data.pmean_losses(
+            *(torch.as_tensor(stats[k], device=logits.device)[None]
+              for k in ("aux_loss", "z_loss")))
     logits = data.all_gather(logits[None]).reshape(
         (tokens.shape[0],) + logits.shape[1:])
     return logits, (cache if block_tables is None else out_cache), stats
+
+
+def _cache_rows(cache, rows):
+    """The views of a cache's batch rows ``rows`` (a uniform stack's or
+    RWKV's (L, B, ...) tensors, or a hybrid model's per-layer states of
+    (B, ...) tensors), which a forward updates in place."""
+    if isinstance(cache, list):
+        return [{k: t[rows] for k, t in st.items()} for st in cache]
+    return {k: t[:, rows] for k, t in cache.items()}
 
 
 def _forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime, *,
@@ -1022,18 +1150,23 @@ def _forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime, *,
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
         if cache is None and mode != "train":
-            cache = init_cache(cfg, rt, B, S, device=x.device, source_len=(
-                None if enc_out is None else enc_out.shape[1]))
+            cache = init_cache(local_config(model, cfg), rt, B, S,
+                               device=x.device, source_len=(
+                                   None if enc_out is None
+                                   else enc_out.shape[1]))
         if mode == "prefill" and cfg.is_encdec:
             # the cross K and V of every layer over this source
-            shape = (cfg.num_layers, B, enc_out.shape[1], cfg.num_kv_heads,
-                     cfg.head_dim)
+            shape = (cfg.num_layers, B, enc_out.shape[1],
+                     local_config(model, cfg).num_kv_heads, cfg.head_dim)
             for name in ("cross_k", "cross_v"):
                 if tuple(cache[name].shape) != shape:
                     cache[name] = cache["k"].new_empty(shape)
     if cfg.family == "hybrid":
         cache = [None] * cfg.num_layers if cache is None else list(cache)
         for l, layer in enumerate(model.layers):
+            if mode == "train" and layer.kind == "recurrent":
+                cache[l] = griffin.init_recurrent_state(
+                    local_config(model, cfg), B, x.dtype, x.device)
             x, cache[l] = _run_layer(
                 remat, _hybrid_layer, layer, cfg, x, positions, cache[l],
                 mode, cache_len)
@@ -1041,7 +1174,8 @@ def _forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime, *,
                 None if mode == "train" else cache, dict(NO_MOE_STATS))
     if cfg.family == "ssm":
         for l, layer in enumerate(model.layers):
-            st = (rwkv6.init_rwkv_state(cfg, B, device=x.device)
+            st = (rwkv6.init_rwkv_state(local_config(model, cfg), B,
+                                        device=x.device)
                   if mode == "train" else _layer_cache(cache, l))
             x, new = _run_layer(remat, _rwkv_layer, layer, cfg, x, st)
             if mode != "train":
@@ -1096,7 +1230,7 @@ def _embed_inputs(model: Transformer, cfg: ModelConfig, tokens,
     """The token embeddings (B, S, d), with, under ``input_mode="mixed"``,
     ``prefix_embeds`` (B, P, d) cast to the embedding's dtype and placed
     before them; in the activation dtype (the JAX ``_embed_inputs``)."""
-    x = embed(model.embed, tokens)
+    x = embed(at_use(model.embed), tokens)
     if cfg.input_mode == "mixed" and prefix_embeds is not None:
         x = torch.cat([torch.as_tensor(prefix_embeds).to(x.device, x.dtype),
                        x], dim=1)
@@ -1109,14 +1243,19 @@ def _layer_cache(cache, l: int):
     return {name: t[l] for name, t in cache.items()}
 
 
-def _run_layer(remat: bool, fn, *args, **kwargs):
-    """``fn(*args, **kwargs)``, under a non-reentrant activation checkpoint
-    when ``remat``: only the layer's inputs are kept, and the layer runs
-    again in the backward (the JAX package's ``jax.checkpoint``)."""
+def _run_layer(remat: bool, fn, layer, *args, **kwargs):
+    """``fn(layer, *args, **kwargs)`` (on its ``LayerAtUse`` when the layer
+    ``gathers_at_use``), under a non-reentrant activation checkpoint when
+    ``remat``: only the layer's inputs are kept, and the layer runs again
+    in the backward (the JAX package's ``jax.checkpoint``), gathering its
+    FSDP shards again."""
+    def body(layer, *args, **kwargs):
+        return fn(LayerAtUse(layer) if layer.gathers_at_use else layer,
+                  *args, **kwargs)
     if not remat:
-        return fn(*args, **kwargs)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             **kwargs)
+        return body(layer, *args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(body, layer, *args,
+                                             use_reentrant=False, **kwargs)
 
 
 def _last_logits(model: Transformer, x, mode: str, last_pos):

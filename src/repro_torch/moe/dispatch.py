@@ -205,18 +205,84 @@ class _PmeanLosses(torch.autograd.Function):
         return (None,) + tuple(g.reshape(1) / ctx.comm.ranks for g in gs)
 
 
-class _PsumGrad(torch.autograd.Function):
-    """``psum_grad``: the identity forward, the gradient summed over the
-    group's ranks on the way back."""
+# Tensor parallelism over the model group and FSDP over the data group
+# (``sharding``, ``models.layers``): each forward below is what the layer
+# computes, each backward what autograd must pass back when every rank
+# computes the same loss and the tensors before ``tp_copy`` (after
+# ``tp_sum``, ``tp_gather``) are the same on every rank of the group.
+
+class _TpCopy(torch.autograd.Function):
+    """The identity, with the gradient summed over the group on the way
+    back: a replicated tensor that each rank then uses on its own block
+    (the input of a column-parallel product, the router on this rank's
+    positions)."""
 
     @staticmethod
-    def forward(ctx, comm, w):
+    def forward(ctx, comm, x):
         ctx.comm = comm
-        return w.view_as(w)
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.comm.psum_ordered(g)
+        return None, ctx.comm._sum_ordered(g)
+
+
+class _TpSum(torch.autograd.Function):
+    """The sum over the group (a row-parallel product's partial sums), with
+    the gradient passed through: what follows is computed alike on every
+    rank, so each already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm._sum_ordered(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _TpGather(torch.autograd.Function):
+    """The group's blocks joined along ``dim``, with this rank's block of
+    the (whole, replicated) gradient passed back."""
+
+    @staticmethod
+    def forward(ctx, comm, x, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._block(g, ctx.dim), None
+
+
+class _TpSplit(torch.autograd.Function):
+    """This rank's block along ``dim`` of a replicated tensor, with every
+    rank's block of the gradient joined on the way back."""
+
+    @staticmethod
+    def forward(ctx, comm, x, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._block(x, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._gather_dim(g, ctx.dim), None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A parameter's data-axis shards joined along ``dim`` (ZeRO-3: at
+    use), with the gradient reduce-scattered back: each data rank's block
+    of the mean of every data rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, comm, x, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.comm._reduce_scatter_mean(g, ctx.dim), None
 
 
 class ProcessGroupRanks:
@@ -235,7 +301,15 @@ class ProcessGroupRanks:
     operation, under a loss that every rank of the group computes alike.
     ``psum_grad`` sums a replicated weight's gradient over the group. The
     other collectives have no backward: given a tensor that requires a
-    gradient while autograd records, they raise rather than drop it."""
+    gradient while autograd records, they raise rather than drop it.
+
+    The tensor-parallel and FSDP layouts (``sharding``) use five more,
+    on tensors without a rank dimension, each with its backward:
+    ``tp_copy`` (identity; the gradient summed), ``tp_sum`` (the sum, in
+    fp32 in rank order; the gradient passed), ``tp_gather`` (blocks joined
+    along a dim; this rank's block of the gradient), ``tp_split`` (this
+    rank's block; the gradients joined) and ``fsdp_gather`` (shards
+    joined; the gradient's mean reduce-scattered)."""
 
     held = 1
 
@@ -307,20 +381,86 @@ class ProcessGroupRanks:
 
     def psum_grad(self, w):
         """``w`` as it is, with its gradient summed over the group on the
-        way back: a weight every rank holds alike and applies to its own
-        share of the positions (the router), whose gradient each rank then
-        holds a part of. The parts are added in group-rank order, so every
-        rank gets the same bits."""
-        if _records(w):
-            return _PsumGrad.apply(self, w)
-        return w
+        way back (``tp_copy``): a weight every rank holds alike and applies
+        to its own share of the positions (the router), whose gradient
+        each rank then holds a part of. The parts are added in group-rank
+        order, so every rank gets the same bits."""
+        return self.tp_copy(w)
 
     def psum_ordered(self, t):
         """The sum over the group of every rank's ``t`` (any shape), added
-        in group-rank order: every rank gets the same bits, whatever order
-        a reduction would take."""
+        in fp32 in group-rank order: every rank gets the same bits,
+        whatever order a reduction would take."""
         self._no_gradient("psum_ordered", t)
-        return self._all_gather(t[None]).sum(dim=0)
+        return self._sum_ordered(t)
+
+    # -- tensor parallelism and FSDP (no leading rank dimension) --
+
+    def tp_copy(self, x):
+        """``x`` as it is; its gradient summed over the group on the way
+        back."""
+        if _records(x):
+            return _TpCopy.apply(self, x)
+        return x
+
+    def tp_sum(self, x):
+        """The sum over the group of every rank's ``x``, in fp32 in group-
+        rank order (every rank the same bits), cast back to ``x``'s dtype;
+        the gradient passed through."""
+        if _records(x):
+            return _TpSum.apply(self, x)
+        return self._sum_ordered(x)
+
+    def tp_gather(self, x, dim: int):
+        """Every rank's ``x`` joined along ``dim`` in group-rank order;
+        this rank's block of the gradient on the way back."""
+        if _records(x):
+            return _TpGather.apply(self, x, dim)
+        return self._gather_dim(x, dim)
+
+    def tp_split(self, x, dim: int):
+        """This rank's block of ``x`` (the same on every rank) along
+        ``dim``; every rank's block of the gradient joined on the way
+        back."""
+        if _records(x):
+            return _TpSplit.apply(self, x, dim)
+        return self._block(x, dim)
+
+    def fsdp_gather(self, x, dim: int):
+        """Every rank's shard of a parameter joined along ``dim``; on the
+        way back each rank's block of the group's mean gradient (a
+        reduce-scatter)."""
+        if _records(x):
+            return _FsdpGather.apply(self, x, dim)
+        return self._gather_dim(x, dim)
+
+    def _sum_ordered(self, x):
+        if self.ranks == 1:
+            return x
+        rows = self._all_gather(x.float()[None])
+        return rows.sum(dim=0).to(x.dtype)
+
+    def _gather_dim(self, x, dim: int):
+        if self.ranks == 1:
+            return x
+        rows = self._all_gather(x[None])
+        return torch.cat(rows.unbind(0), dim=dim)
+
+    def _block(self, x, dim: int):
+        n = x.shape[dim] // self.ranks
+        return x.narrow(dim, self.rank * n, n)
+
+    def _reduce_scatter_mean(self, g, dim: int):
+        """Each rank's block along ``dim`` of the group's mean of ``g``:
+        the blocks exchanged (``all_to_all``) and added in group-rank
+        order in fp32, so the result does not depend on a reduction's
+        order."""
+        if self.ranks == 1:
+            return g
+        n = g.shape[dim] // self.ranks
+        send = torch.stack(g.split(n, dim=dim))          # (R, ..block..)
+        got = self._all_to_all(send.float()[None])[0]    # every rank's block
+        return (got.sum(dim=0) / self.ranks).to(g.dtype)
 
     def rank_index(self, device):
         return torch.tensor([self.rank], device=device)

@@ -103,10 +103,14 @@ class ReplicaStore:
                            dup_slots=dup_slots, comm=comm)
         for l, layer in enumerate(model.layers):
             for k in EXPERT_WEIGHTS:
-                rows = store._layer_rows(getattr(layer, k).data)
+                old = getattr(layer, k)
+                rows = store._layer_rows(old.data)
                 store.weights[k].append(rows)
-                setattr(layer, k, nn.Parameter(rows[:store.home_rows],
-                                               requires_grad=False))
+                new = nn.Parameter(rows[:store.home_rows],
+                                   requires_grad=False)
+                if hasattr(old, "placement"):        # a layout's record
+                    new.placement = old.placement
+                setattr(layer, k, new)
             store._fill_live_replicas(l)
         return store
 

@@ -149,7 +149,7 @@ from repro_torch.core.placement import (PlacementPlan, clamp_dup_slots,
 from repro_torch.core.predictors import DistributionEstimator
 from repro_torch.core.simulator import A100_PCIE
 from repro_torch.models.transformer import (Runtime, StoreView, Transformer,
-                                            init_cache)
+                                            init_cache, local_config)
 from repro_torch.moe.dispatch import capacity
 from repro_torch.obs.accuracy import PredictorAccuracyTracker
 from repro_torch.obs.trace import NULL_TRACER
@@ -253,17 +253,23 @@ class _StoreMixin:
 
     def _check_mesh(self, mesh, model: Transformer, ep: bool,
                     ep_ranks: int) -> None:
-        """A process mesh serves this process's rank of an EP deployment:
-        its model axis is the EP ranks, and the model holds this rank's
-        home experts on the mesh's device."""
+        """A process mesh serves this process's rank of a deployment: a
+        MoE model EP over the mesh's model ranks, holding its home experts
+        (and, under the "specs" layout, its tensor-parallel blocks); a
+        model without MoE under its layout (whole but for the batch under
+        "none"), on the mesh's device. FSDP storage serves nothing yet."""
         self.mesh = mesh
         if mesh is None:
             return
-        if not ep or ep_ranks != mesh.model:
+        if model.cfg.is_moe and (not ep or ep_ranks != mesh.model):
             raise ValueError(f"a {mesh.key} mesh serves EP over its "
                              f"{mesh.model} model ranks (ep=True, ep_ranks="
                              f"{mesh.model}; got ep={ep}, "
                              f"ep_ranks={ep_ranks})")
+        if getattr(model, "layout", "none") == "fsdp":
+            raise ValueError("FSDP storage while serving is not ported: "
+                             "serve under the 'specs' or 'none' layout "
+                             "(ROADMAP.md section 1, item 4, FSDP serving)")
         if model.device != mesh.device:
             raise ValueError(f"the model lies on {model.device}, the mesh "
                              f"rank computes on {mesh.device}")
@@ -630,8 +636,9 @@ class ServeEngine(_StoreMixin):
         B, S = tokens.shape
         if cache is None:
             src = None if frames is None else frames.shape[1]
-            cache = init_cache(self.cfg, self.rt, B, self.serve.max_len,
-                               device=self.device, source_len=src)
+            cache = init_cache(local_config(self.model, self.cfg), self.rt,
+                               B, self.serve.max_len, device=self.device,
+                               source_len=src)
         self._step_moved = False
         self._tick_migration()       # overlapped fills ride this step
         plan, store = self._step_inputs()
@@ -914,7 +921,9 @@ class ContinuousEngine(_StoreMixin):
         # positions (decode still masks to the architectural window)
         self.rt = Runtime(window_override=ccfg.max_len, ep=ep,
                           ep_ranks=ep_ranks, mesh=mesh)
-        self.pool = init_block_pool(cfg, ccfg.num_blocks, ccfg.block_size,
+        # this rank's KV heads under a tensor-parallel layout
+        self.pool = init_block_pool(local_config(model, cfg),
+                                    ccfg.num_blocks, ccfg.block_size,
                                     device=self.device)
         self.allocator = BlockAllocator(ccfg.num_blocks, ccfg.block_size)
         self.scheduler = ContinuousScheduler(
@@ -926,8 +935,8 @@ class ContinuousEngine(_StoreMixin):
 
         self._prefill_fn = make_slot_prefill_step(cfg, self.rt)
         self._decode_fn = make_paged_decode_step(cfg, self.rt)
-        self._temp_cache = init_cache(cfg, self.rt, 1, ccfg.prefill_len,
-                                      device=self.device)
+        self._temp_cache = init_cache(local_config(model, cfg), self.rt, 1,
+                                      ccfg.prefill_len, device=self.device)
         self._warm = False
 
         # ----------------------------------------------- replica-weight store

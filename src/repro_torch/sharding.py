@@ -25,18 +25,47 @@ leaves prepend an unsharded L dim, handled automatically):
   moe experts (E, d, f)         -> (model, None, None)  expert-parallel
   router, norms, biases, small  -> replicated
 
-What the process backend applies of them: the expert rule (each EP rank
-holds its ``E / R`` home experts, ``shard_tensor``), the replica store's
-``(None, "model", ...)`` layout (``runtime.store``) and the batch over
-"data" (``launch.mesh.Mesh.batch_rows``). Attention, dense-FFN and vocab
-tensor parallelism, FSDP and expert TP are computed here but not applied:
-the non-expert weights are whole on every rank.
+What the process backend applies (``init_model(shard=)``,
+``bridge.params_from_jax(shard=)``) is one of three layouts, named on the
+launchers as ``--shard-params``:
+
+  "none"   the expert rule alone (each EP rank holds its ``E / R`` home
+           experts); every other weight whole on every rank;
+  "specs"  ``param_specs(shapes, mesh=mesh)``: the rules above over
+           "model", the expert rule among them;
+  "fsdp"   ``param_specs(..., fsdp_axes=batch_axes(mesh), fsdp_size=D)``:
+           "specs" with every weight of rank >= 2 also split over "data"
+           (ZeRO-3 storage), as the JAX ``abstract_params`` lays it out;
+           training only.
+
+Each rank keeps ``shard_tensor``'s block of every leaf, and each parameter
+carries a ``Placement``: its spec, its whole shape and how the layers use
+its block over "model" (``use``):
+
+  "col"       output features split: computed locally ("col" products);
+  "row"       input features split: partial products summed over "model";
+  "vocab"     the embedding's rows: a masked local lookup summed over
+              "model", logits gathered over it;
+  "expert"    the expert rule (the EP dispatch);
+  "gathered"  a projection whose block splits a head (``_sanitize`` checks
+              divisibility only): stored by its spec, all-gathered over
+              "model" at use (``at_use``), then used whole;
+  "whole"     not split over "model".
+
+A leaf split over "data" (FSDP) is all-gathered over it at use, every
+layer gathering its own leaves inside its (re)computation, and its
+gradient is reduce-scattered back. The "gathered" leaves of a config: at
+"model" 4, recurrentgemma-2b's ``wq``, ``wk`` and ``wv`` (10 query heads,
+one KV head), and ``wk`` / ``wv`` of every ``reduced()`` config (2 KV
+heads); none of any other config of the registry
+(``tests/test_torch_dist_tp.py`` checks the list). Expert TP
+(``expert_tp_axes``) is computed here but not applied.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -226,3 +255,208 @@ def expert_block(num_experts: int, coords: Dict[str, int], mesh):
     e_loc = num_experts // r
     return coords["model"] * e_loc, (coords["model"] + 1) * e_loc
 
+
+
+# ---------------------------------------------------------------------------
+# the layouts applied: a block of every leaf, and how it is used
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ("none", "specs", "fsdp")
+
+# a layer's head projections (port parameter names) -> the head count their
+# "model" blocks must divide to be used locally: "q" the query heads, "kv"
+# the KV heads
+HEAD_LEAVES = {"wq": "q", "cross_wq": "q", "w_q": "q", "w_uk": "q",
+               "w_uv": "q", "tm_w_r": "q", "tm_w_k": "q", "tm_w_v": "q",
+               "tm_w_g": "q", "wk": "kv", "wv": "kv", "cross_wk": "kv",
+               "cross_wv": "kv"}
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+class Placement:
+    """How this rank holds and uses one parameter: ``spec`` (the leaf's
+    own dims, no stacked L), ``use`` (see the module docstring), the dims
+    split over "model" and "data" (None when whole over the axis) and the
+    mesh whose groups it is used over (not pickled)."""
+
+    def __init__(self, spec: Spec, use: str, mesh):
+        self.spec, self.use = tuple(spec), use
+        axes = [_axes(s) if s is not None else () for s in self.spec]
+        self.model_dim = next((i for i, a in enumerate(axes)
+                               if "model" in a), None)
+        self.data_dim = next((i for i, a in enumerate(axes)
+                              if "data" in a), None)
+        self.mesh = mesh
+
+    def __getstate__(self):
+        return dict(self.__dict__, mesh=None)
+
+
+def placement(t) -> Optional[Placement]:
+    """The ``Placement`` a parameter (or its gathered use) carries, or
+    None (a model built without a layout)."""
+    return getattr(t, "placement", None)
+
+
+def _heads(cfg, name: str, layer_kind: str) -> int:
+    """The head count ``HEAD_LEAVES[name]`` refers to in a layer of
+    ``layer_kind`` (an encoder layer at the encoder's widths)."""
+    if layer_kind == "encoder":
+        h, k = cfg.encoder.num_heads, cfg.encoder.num_kv_heads
+    else:
+        h, k = cfg.num_heads, cfg.num_kv_heads
+    return h if HEAD_LEAVES[name] == "q" else k
+
+
+def leaf_use(name: str, spec: Spec, cfg, model_axis: int,
+             layer_kind: str = "attn") -> str:
+    """How a leaf (``name`` the port's, without its ``layers.{l}.``
+    prefix) with ``spec`` is used over a "model" axis of ``model_axis``
+    ranks."""
+    if not any(s is not None and "model" in _axes(s) for s in spec):
+        return "whole"
+    if name == "embed":
+        return "vocab"
+    if name in EXPERT_LEAVES and len(spec) == 3:
+        return "expert"
+    if name in HEAD_LEAVES and _heads(cfg, name, layer_kind) % model_axis:
+        return "gathered"
+    last = spec[-1]
+    return "col" if last is not None and "model" in _axes(last) else "row"
+
+
+def layout_specs(cfg, shapes: Dict[str, tuple], paths, mesh,
+                 layout: str) -> Dict[str, Spec]:
+    """{port name: spec of the leaf's own dims} under ``layout`` for the
+    leaves of ``shapes`` ({port name: whole shape}); ``paths``: {port name:
+    (JAX path, stacked)} (``bridge.param_paths``)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+    if layout == "none":
+        return {n: EXPERT_SPEC if n.rsplit(".", 1)[-1] in EXPERT_LEAVES
+                and len(s) == 3 else () for n, s in shapes.items()}
+    full = {}
+    for n, shape in shapes.items():
+        path, stacked = paths[n]
+        full[path] = ((cfg.num_layers,) if stacked else ()) + tuple(shape)
+    kw = (dict(fsdp_axes=batch_axes(mesh), fsdp_size=int(np.prod(
+        [mesh.shape[a] for a in batch_axes(mesh)]))) if layout == "fsdp"
+          else {})
+    specs = param_specs(full, mesh=mesh, **kw)
+    out = {}
+    for n, shape in shapes.items():
+        path, stacked = paths[n]
+        spec = specs[path][1:] if stacked else specs[path]
+        out[n] = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return out
+
+
+class Sharder:
+    """The blocks and ``Placement``s of one layout for the rank of
+    ``mesh`` this process holds (``launch.mesh.Mesh``): ``block(name,
+    whole)`` cuts a leaf, ``attach(model)`` records each parameter's
+    placement on it. ``shapes``: {port name: whole shape};
+    ``kinds``: {port name: its layer's kind} ("encoder", ...)."""
+
+    def __init__(self, cfg, mesh, layout: str, shapes, paths, kinds):
+        self.mesh, self.layout = mesh, layout
+        self.specs = layout_specs(cfg, shapes, paths, mesh, layout)
+        self.coords = {"data": mesh.data_index, "model": mesh.model_index}
+        self.shapes = {n: tuple(s) for n, s in shapes.items()}
+        self.uses = {n: leaf_use(n.rsplit(".", 1)[-1], self.specs[n], cfg,
+                                 mesh.model, kinds.get(n, "attn"))
+                     for n in shapes}
+
+    def block(self, name: str, whole, rows_kept: bool = False):
+        """This rank's block of leaf ``name`` (a tensor or array);
+        ``rows_kept``: ``whole`` holds the experts of ``expert_rows``
+        already."""
+        spec = self.specs[name]
+        if rows_kept:
+            spec = (None,) + tuple(spec[1:])
+        return shard_tensor(whole, spec, self.coords, self.mesh)
+
+    def expert_rows(self, name: str):
+        """(lo, hi): the experts this rank keeps of an expert leaf split
+        over "model" by the expert rule, else None."""
+        spec = self.specs[name]
+        if len(self.shapes[name]) != 3 or not spec or spec[0] != "model":
+            return None
+        n = self.shapes[name][0] // self.mesh.model
+        return self.mesh.model_index * n, (self.mesh.model_index + 1) * n
+
+    def attach(self, model) -> None:
+        """Record each parameter's ``Placement`` on it, the layout on the
+        model (``model.layout``), and ``gathers_at_use`` on each module
+        holding a parameter that ``at_use`` gathers."""
+        for name, p in model.named_parameters():
+            if tuple(p.shape) != self.block_shape(name):
+                raise ValueError(f"{name}: holds {tuple(p.shape)}, not its "
+                                 f"block under {self.specs[name]}")
+            p.placement = Placement(self.specs[name], self.uses[name],
+                                    self.mesh)
+            if needs_gather(p) and "." in name:
+                model.get_submodule(name.rsplit(".", 1)[0]) \
+                    .gathers_at_use = True
+        model.layout = self.layout
+
+    def block_shape(self, name: str) -> tuple:
+        """The shape of this rank's block of leaf ``name``."""
+        whole = np.broadcast_to(np.int8(0), self.shapes[name])
+        return tuple(self.block(name, whole).shape)
+
+
+def at_use(t):
+    """A parameter as the layers compute with it: its FSDP shards gathered
+    over "data", a "gathered" leaf's blocks over "model" (each carrying
+    the gradient back to this rank's shard); anything else as it is. The
+    result carries the parameter's ``Placement``."""
+    rec = placement(t)
+    if rec is None:
+        return t
+    out = t
+    if rec.data_dim is not None:
+        out = rec.mesh.data_comm.fsdp_gather(out, rec.data_dim)
+    if rec.use == "gathered":
+        out = rec.mesh.comm.tp_gather(out, rec.model_dim)
+    if out is not t:
+        out.placement = rec
+    return out
+
+
+def needs_gather(t) -> bool:
+    """Whether ``at_use`` gathers ``t`` (over either axis)."""
+    rec = placement(t)
+    return rec is not None and (rec.data_dim is not None
+                                or rec.use == "gathered")
+
+
+def gather_whole(t, rec: Optional[Placement]):
+    """The whole leaf from every rank's block ``t`` of a leaf placed by
+    ``rec`` (None: ``t`` is whole): all-gathered over "data" and then over
+    "model" along the dims its spec splits, so every rank gets it. No
+    gradient (checkpoints, tests)."""
+    if rec is None:
+        return t
+    out = t.detach()
+    if rec.data_dim is not None:
+        out = rec.mesh.data_comm._gather_dim(out, rec.data_dim)
+    if rec.model_dim is not None:
+        out = rec.mesh.comm._gather_dim(out, rec.model_dim)
+    return out
+
+
+def kv_span(num_heads: int, num_kv_heads: int, model_axis: int,
+            model_index: int) -> Tuple[int, int]:
+    """[lo, hi): the KV heads the query heads of "model" rank
+    ``model_index`` read, when the query heads split over the ranks and
+    the KV heads do not (the rank then holds those KV heads whole). Raises
+    when its query heads do not read equally many heads each."""
+    hl, g = num_heads // model_axis, num_heads // num_kv_heads
+    lo = model_index * hl // g
+    hi = ((model_index + 1) * hl - 1) // g + 1
+    if hl % (hi - lo):
+        raise ValueError(f"{hl} query heads a rank over {hi - lo} KV heads "
+                         f"(H {num_heads}, K {num_kv_heads}, model "
+                         f"{model_axis})")
+    return lo, hi

@@ -12,7 +12,12 @@ a rank of a ``(data, model)`` mesh, the JAX step under a mesh) each rank
 trains on its data rank's rows, the gradients are averaged over the data
 axis (``make_grad_fn``), a MoE model's experts are split over the model
 axis with the EP dispatch's collectives carrying their gradients, and the
-clip norm sums the expert leaves over it (``sharded_norm_terms``).
+clip norm sums the expert leaves over it (``sharded_norm_terms``). Under
+a tensor-parallel layout (``sharding``: "specs") each rank also holds and
+updates its block of the attention, recurrent and vocab leaves, whose
+gradients the layers' collectives carry; under "fsdp" every weight's
+shard over "data" too, gathered at use and its gradient reduce-scattered
+(the data mean of a shard), so AdamW's moments are the shards'.
 
 For the continuous engine: one-request slot prefill and the paged decode
 step, each with greedy next tokens. For ``ServeEngine``: the batched
@@ -38,6 +43,7 @@ from repro_torch.core.duplication import duplicate_experts_device
 from repro_torch.models.transformer import (Runtime, Transformer,
                                             expert_param_names, forward)
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update_
+from repro_torch.sharding import placement
 from repro_torch.train.loss import lm_loss
 
 
@@ -170,7 +176,9 @@ def make_grad_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False,
             grads[name] = g.div_(microbatches) if microbatches > 1 else g
         if shards > 1:
             comm = mesh.data_comm
-            comm.mean_([grads[k] for k in sorted(grads)])
+            # an FSDP shard's gradient is the data mean already
+            comm.mean_([grads[k] for k in sorted(grads)
+                        if not _split_over(params[k], "data")])
             means = [k for k in metrics if k not in SUMMED_METRICS]
             loss, *vals = comm.pmean_losses(
                 loss.reshape(1), *(metrics[k].reshape(1) for k in means))
@@ -184,25 +192,44 @@ def make_grad_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False,
     return grad_fn
 
 
+def _split_over(p, axis: str) -> bool:
+    """Whether parameter ``p`` holds a block of a leaf split over mesh
+    axis ``axis`` (its ``Placement``)."""
+    rec = placement(p)
+    if rec is None:
+        return False
+    return (rec.model_dim if axis == "model" else rec.data_dim) is not None
+
+
 def sharded_norm_terms(model: Transformer, rt: Runtime):
     """``adamw_update_``'s ``reduce_sq`` for ``model`` under ``rt``: None
-    in one process; on a mesh under EP, the sum over the model axis of
-    each expert leaf's squared gradient sum (each rank holds a block of
-    the experts), added in rank order in one collective, so the clip norm
-    is the whole model's on every rank; a replicated leaf, whole on every
-    rank, counts once."""
-    if rt.mesh is None or not rt.ep or rt.mesh.model == 1:
+    in one process; on a mesh, the sum over an axis of the squared
+    gradient sum of each leaf split over it (the EP rule's experts and a
+    layout's blocks over "model", FSDP shards over "data"), added in rank
+    order, one collective an axis, so the clip norm is the whole model's
+    on every rank; a leaf whole over an axis counts once."""
+    mesh = rt.mesh
+    if mesh is None:
         return None
-    experts = set(expert_param_names(model))
-    at = [i for i, name in enumerate(sorted(param_tree(model)))
-          if name in experts]
-    comm = rt.mesh.comm
+    params = param_tree(model)
+    names = sorted(params)
+    experts = set(expert_param_names(model)) if rt.ep else set()
+    axes = []
+    for axis, comm in (("model", mesh.comm), ("data", mesh.data_comm)):
+        at = [i for i, n in enumerate(names)
+              if _split_over(params[n], axis)
+              or (axis == "model" and n in experts)]
+        if comm.ranks > 1 and at:
+            axes.append((comm, at))
+    if not axes:
+        return None
 
     def reduce_sq(sq):
-        whole = comm.psum_ordered(torch.stack([sq[i] for i in at]))
         sq = list(sq)
-        for i, s in zip(at, whole.unbind()):
-            sq[i] = s
+        for comm, at in axes:
+            whole = comm.psum_ordered(torch.stack([sq[i] for i in at]))
+            for i, s in zip(at, whole.unbind()):
+                sq[i] = s
         return sq
     return reduce_sq
 
@@ -235,9 +262,11 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, lr_fn=None,
     with the gradients and metrics reduced over the data axis
     (``make_grad_fn``); a MoE model trains through the EP dispatch over the
     model axis, each rank holding its block of the experts and their
-    moments, the clip norm the whole model's (``sharded_norm_terms``). A
-    model without MoE trains data-parallel, its model ranks repeating
-    their data rank's work. Every replicated parameter stays the same bits
+    moments, the clip norm the whole model's (``sharded_norm_terms``).
+    Under a tensor-parallel layout ("specs", "fsdp") each rank computes
+    and updates its blocks of every split leaf; without one a model
+    without MoE trains data-parallel, its model ranks repeating their
+    data rank's work. Every replicated parameter stays the same bits
     on every rank: the replicated computation and its backward run alike
     on each, and the gradients they are given are summed alike."""
     grad_fn = make_grad_fn(cfg, rt, remat, microbatches)

@@ -478,16 +478,23 @@ def test_backends_are_named_and_checked(tmp_path):
 
 
 def test_forward_on_a_mesh_refuses_what_is_not_ported():
-    """Train mode runs every model on a mesh; prefill and decode there stay
-    a MoE model's under EP, and a mesh MoE forward needs EP."""
-    fake = types.SimpleNamespace(model=1, data=1)
+    """Every model trains and serves on a mesh, a MoE model under EP; what
+    stays refused is serving a model under the FSDP layout (ROADMAP.md
+    section 1, item 4), and a mesh MoE forward without EP."""
+    fake = types.SimpleNamespace(model=1, data=1,
+                                 batch_rows=lambda batch: None)
     toks = torch.zeros((1, 8), dtype=torch.long)
     qwen = get_config("qwen1.5-0.5b").reduced()
     model = init_model(qwen, torch.Generator().manual_seed(0), device="cpu")
     logits, _, _ = forward(model, qwen, toks, Runtime(mesh=fake),
                            mode="train")
     assert logits.shape == (1, 8, qwen.vocab_size)
-    with pytest.raises(ValueError, match="4\\(b\\)"):
+    logits, _, _ = forward(model, qwen, toks, Runtime(mesh=fake),
+                           mode="prefill")
+    assert logits.shape == (1, 1, qwen.vocab_size)
+    model.layout = "fsdp"
+    with pytest.raises(ValueError, match="FSDP storage while serving.*"
+                                         "item 4"):
         forward(model, qwen, toks, Runtime(mesh=fake), mode="prefill")
     mixtral = get_config("mixtral-8x7b").reduced()
     moe = init_model(mixtral, torch.Generator().manual_seed(0), device="cpu")
