@@ -76,7 +76,9 @@ non-zero:
   4. main     — Mixtral-8x7B at published widths with random weights from
                 ``--seed``, through ``repro_torch.serve.ContinuousEngine``
                 (dist_only, 4 EP ranks, one replica slot per rank): first
-                the dense MoE path over the first 2 layers, then the
+                the dense MoE path over the first 2 layers (and its decode
+                step under torch.profiler, the host's operators by self
+                time and calls too, so two trees under --src compare), then the
                 expert-parallel path (``ep=True``) over 8 of the 32 layers
                 at the engine's defaults: the replica store
                 (``replica_impl="store"``), layer-staged migration on a side
@@ -447,7 +449,7 @@ non-zero:
                 a rank, with four cards or more, else gloo with four
                 processes on card 0, every collective staged through the
                 host (this measures no NVLink). Mixtral-8x7B at published
-                widths, 4 of 32 layers, the main trace and engine on a
+                widths, 2 of 32 layers, the main trace and engine on a
                 virtual clock (``DIST_STEP_S`` an iteration, the overlap
                 window pinned at ``DIST_WINDOW_S``, so two runs agree step
                 for step): first with the EP ranks stacked in this process
@@ -478,8 +480,10 @@ non-zero:
                 layout changes, at the per-rank shapes of "model" 4, against
                 their plain versions: paged_decode_attention over 2 of
                 Mixtral's 8 KV heads (G 4) and rg_lru_scan over 640 of
-                Griffin's 2560 channels (4 x 1024). Then (a) Mixtral-8x7B
-                at published widths, 2 of 32 layers, on the tests' wide
+                Griffin's 2560 channels (4 x 1024), and moe_gemm at expert
+                TP's per-rank decode shape (5 slots, F 14336 / 2). Then (a)
+                Mixtral-8x7B at published widths, 1 of 32 layers, on the
+                tests' wide
                 router and head margins (``widen_port_margins``), the main
                 trace through ``dist_serve`` with the EP ranks stacked in
                 this process and as a (1, 4) "specs" world: equal tokens,
@@ -493,7 +497,17 @@ non-zero:
                 stablelm-3b, 2 of 32 layers, 2 train steps of 4 x 512 on a
                 (2, 2) "fsdp" mesh over the same four processes against
                 one process: losses and grad norms within 1e-3, no kernel
-                launched. Kernel counts are set to 0 just before each run
+                launched; (d) on that mesh Mixtral, 1 of 32 layers, 4 x
+                256 prompts at capacity factor 10 (nothing drops, so a
+                data rank's half batch computes what the stacked whole one
+                does), under "fsdp" through ``ServeEngine`` (dist_only, the
+                store, 4 new tokens) and under "fsdp" + expert TP through
+                the serving steps (``Runtime(decode_expert_tp=True)``, 8
+                decode steps), each against its stacked run on one
+                process: equal tokens, drops, telemetry and plan, last
+                logits within the tolerance above, every rank's launches
+                exact, the decode steps' p50s and collectives' shares
+                side by side. Kernel counts are set to 0 just before each run
                 and read just after; each process's parameter (and moment)
                 bytes must equal the sum of its blocks
                 (``Sharder.block_shape``), and are logged beside the whole
@@ -2449,6 +2463,17 @@ def profile_phase(eng, cfg, seed: int, label: str, iters: int = 12,
         log("profile", path=label, ms_per_step=f"{ms:.4f}",
             share=f"{ms / busy:.4f}", per_step=f"{n / iters:.1f}",
             kernel=f"'{name[:90]}'")
+    if prof is not None:
+        # the host's side of the step: its operators by self time and
+        # calls, and their total (the decode step is host-bound)
+        host = _host_ops_by_name(prof, iters)
+        log("profile", path=label,
+            host_self_ms_per_step=f"{sum(m for m, _ in host.values()):.3f}",
+            host_calls_per_step=f"{sum(n for _, n in host.values()):.1f}")
+        for name, (ms, n) in sorted(host.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+            log("profile", path=label, host_op=f"'{name[:60]}'",
+                self_ms_per_step=f"{ms:.4f}", calls_per_step=f"{n:.1f}")
     for kname, names in (
             ("paged_decode_attention (split + combine)", PAGED_KERNELS),
             ("moe_gemm (gate/up + down)", ("moe_gemm",)),
@@ -2584,6 +2609,9 @@ def main_path_phase(model, cfg, seed: int):
 
     dense = layer_view(model, cfg, DENSE_LAYERS)
     eng, _ = serve_trace("dense", dense, dense.cfg, seed, ep=False)
+    # the dense path's decode step, profiled (host operators too): two
+    # trees side by side under --src compare where its host time goes
+    profile_phase(eng, dense.cfg, seed, "dense")
     del eng, dense
     # the store run: the engine's defaults (replica_impl "store")
     eng, launches = serve_trace("ep", model, cfg, seed, ep=True)
@@ -3994,6 +4022,20 @@ def _kernel_time_by_name(prof, iters: int):
             k[0] += e.time_range.elapsed_us() / 1e3 / iters
             k[1] += 1
     return kernels
+
+
+def _host_ops_by_name(prof, iters: int):
+    """{host operator name: [self host ms per iteration, calls per
+    iteration]} of a profile taken with host activity (``aten::`` ops and
+    Python-level ranges alike)."""
+    from torch.autograd import DeviceType
+
+    ops_ = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.count:
+            ops_[e.key] = [e.self_cpu_time_total / 1e3 / iters,
+                           e.count / iters]
+    return ops_
 
 
 def griffin_phase(seed: int):
@@ -8546,8 +8588,9 @@ def sweep_phase(seed: int, smi: str) -> None:
         raise SystemExit("sweep failed: " + "; ".join(failures))
 
 
-DIST_LAYERS = 4                    # of Mixtral's 32: the reference's store
-                                   # 22.5 GB, each rank's shard 5.6 GB
+# of Mixtral's 32 (4 until phase tp's serving legs needed the script's
+# time): the reference's store 11.3 GB, each rank's shard 2.8 GB
+DIST_LAYERS = 2
 DIST_22_LAYERS = 2                 # the 2x2 leg's: two replicas of each rank
 DIST_STEP_S = 0.05                 # the deterministic loop's virtual step
 DIST_WINDOW_S = 0.05               # the pinned overlap window (both engines)
@@ -9353,9 +9396,10 @@ def dist_train_phase(seed: int, smi: str) -> dict:
 # phase tp: the tensor-parallel and FSDP layouts across processes
 # ---------------------------------------------------------------------------
 
-# of Mixtral's 32: 2 (phase dist runs 4), for the script's time limit; the
-# tensor-parallel path is the same at any depth
-TP_MIXTRAL_LAYERS = 2
+# of Mixtral's 32: 1 (2 before the (2, 2) serving legs, 4 before that),
+# for the script's time limit; the tensor-parallel path is the same at
+# any depth
+TP_MIXTRAL_LAYERS = 1
 TP_GRIFFIN_LAYERS = 6              # of recurrentgemma-2b's 26: 4 recurrent
 TP_GRIFFIN_BATCH = (4, 1024, 8)    # B, S, new tokens: one ServeEngine batch
 # 2 steps: step 1 is the first taken on updated (reduce-scattered)
@@ -9372,41 +9416,57 @@ TP_KERNELS = ("fused_topk_route", "histogram_offsets", "moe_gemm",
 # all-gather (the row-parallel sums, the vocab gathers and the gathered
 # leaves all run through ``_all_gather``; ``all_gather`` calls it too)
 TP_COLLECTIVES = ("all_to_all", "psum", "_all_gather", "transfer")
+# the (2, 2) serving legs: Mixtral at 1 of its 32 layers (one layer's
+# experts are 2.82 GB; a process holds a quarter under "fsdp" and gathers
+# a half at every forward), one batch of TP_SERVE_BATCH prompts, EP over
+# the model axis's 2 ranks with one replica slot each. Capacity factor
+# 10 = the 10 global slots: no pair drops, so a data rank's half of the
+# batch and the stacked engine's whole batch are the same computation
+# (a rank's slot capacity depends on the tokens it holds)
+TP_SERVE_LAYERS = 1
+TP_SERVE_BATCH = (4, 256)          # B, S
+TP_FSDP_NEW = 4                    # ServeEngine.generate's new tokens
+TP_ETP_STEPS = 8                   # expert-TP decode steps after the prefill
+TP_SERVE_RANKS = 2
+TP_NODROP_CF = 10.0
 
 
-def widen_port_margins(model, cfg) -> None:
+def widen_port_margins(model, cfg, shard=None) -> None:
     """``tests/_torch_margins.py``'s wide margins on a port model, whole or
     this rank's blocks, in place: every token of group g = t * G // V (G
     the experts, 8 without MoE) gets 8 sqrt(d) along a unit vector v_g
     (the v_g orthonormal, from numpy's seed 1234), ``lm_head`` prefers the
     next group's token 7 by v_g, and a MoE router expert g and then g + 1.
-    Each row's arithmetic is the same on a block as on the whole table, so
-    a tensor-parallel model and a whole one get the same bits."""
-    from repro_torch.sharding import placement
-
+    ``shard``: the model's ``Sharder`` (None: a whole model), whose blocks
+    of the three whole changes are added. Each element's arithmetic is
+    the same on a block as on the whole table, so a model under any
+    layout and a whole one get the same bits."""
     d, V = cfg.d_model, cfg.vocab_size
     G = cfg.moe.num_experts if cfg.is_moe else 8
     dev = model.device
+    block = (lambda name, t: t) if shard is None else shard.block
     v = torch.tensor(np.linalg.qr(np.random.default_rng(1234).normal(
         size=(d, G)))[0].T, dtype=torch.float32, device=dev)     # (G, d)
     nxt = torch.tensor((np.arange(G) + 1) % G * (V // G) + 7, device=dev)
     with torch.no_grad():
+        group = torch.arange(V, device=dev) * G // V
         emb = model.embed
-        rec = placement(emb)
-        lo = (rec.mesh.model_index * emb.shape[0]
-              if rec is not None and rec.model_dim is not None else 0)
-        rows = torch.arange(lo, lo + emb.shape[0], device=dev)
-        emb.copy_((emb.float() + 8.0 * np.sqrt(d)
-                   * v[rows * G // V]).to(emb.dtype))
-        head = model.lm_head
-        head[:, nxt] = (head[:, nxt].float() + v.t()).to(head.dtype)
+        emb.copy_((emb.float() + block(
+            "embed", 8.0 * np.sqrt(d) * v[group])).to(emb.dtype))
+        del group
+        head = torch.zeros((d, V), device=dev)
+        head[:, nxt] = v.t()
+        model.lm_head.copy_((model.lm_head.float() + block(
+            "lm_head", head)).to(model.lm_head.dtype))
+        del head
         if cfg.is_moe:
             pref = torch.zeros((G, G), device=dev)
             pref[torch.arange(G), torch.arange(G)] = 2.0
             pref[torch.arange(G), (torch.arange(G) + 1) % G] = 1.0
             bias = 0.3 * (v.t() @ pref)
-            for layer in model.layers:
-                layer.router.add_(bias.to(layer.router.dtype))
+            for l, layer in enumerate(model.layers):
+                layer.router.add_(block(f"layers.{l}.router", bias)
+                                  .to(layer.router.dtype))
 
 
 def _tp_cfg(arch: str, layers: int):
@@ -9513,12 +9573,152 @@ def tp_train(cfg, model, rt, seed: int, shard=None) -> dict:
     return rec
 
 
+def _tp_serve_cfg(dup_slots: int = 0):
+    """Mixtral at published widths, ``TP_SERVE_LAYERS`` layers, capacity
+    factor ``TP_NODROP_CF``; ``dup_slots`` replica slots in the config
+    (the serving steps read them there; the engine sets its own)."""
+    cfg = _dist_cfg(TP_SERVE_LAYERS)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=TP_NODROP_CF, duplication_slots=dup_slots))
+
+
+def _tp_serve_tokens(cfg, seed: int):
+    from repro_torch.data.synthetic import token_batches
+    B, S = TP_SERVE_BATCH
+    return next(token_batches(seed + 1, cfg.vocab_size, B, S))["tokens"]
+
+
+def _timed_collectives(mesh, acc: list) -> None:
+    if mesh is not None:
+        _time_collectives((mesh.comm, mesh.data_comm, mesh.world_comm), acc,
+                          TP_COLLECTIVES)
+
+
+def tp_fsdp_serve(cfg, model, seed: int, mesh=None) -> dict:
+    """One ``ServeEngine.generate`` batch (``TP_SERVE_BATCH``,
+    ``TP_FSDP_NEW`` new tokens) under EP over ``TP_SERVE_RANKS`` ranks
+    (``dist_only``, the replica store, one replica slot a rank), the
+    overlap window pinned to ``DIST_WINDOW_S`` so the fills do not depend
+    on the host's speed: stacked on one card, or this rank of ``mesh``.
+    Kernel counts set to 0 just before and read just after. Returns the
+    tokens, the drops and re-plans (``history``), the decode steps' walls
+    (synchronised) and collectives' share, the last logits, the store's
+    bytes, the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    B, S = TP_SERVE_BATCH
+    eng = ServeEngine(cfg, model, ServeConfig(
+        strategy="dist_only", dup_slots=1, max_len=S + TP_FSDP_NEW,
+        migrate_chunk=2), ep=True, ep_ranks=TP_SERVE_RANKS, mesh=mesh)
+    eng._note_step_time = lambda dt: None
+    rec = {"decode_ms": [], "coll_share": []}
+    acc = []
+    _timed_collectives(mesh, acc)
+    prefill, decode = eng.prefill, eng.decode
+
+    def pinned_prefill(*a, **kw):
+        eng._recent_step_s = DIST_WINDOW_S
+        return prefill(*a, **kw)
+
+    def timed_decode(*a, **kw):
+        eng._recent_step_s = DIST_WINDOW_S
+        n0 = len(acc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(*a, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec["decode_ms"].append(wall)
+        rec["coll_share"].append(sum(a.elapsed_time(b) for _, a, b in
+                                     acc[n0:]) / wall)
+        rec["last"] = out[1][:, -1].float().cpu().numpy()
+        return out
+    eng.prefill, eng.decode = pinned_prefill, timed_decode
+    tokens = _tp_serve_tokens(cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out, _ = eng.generate({"tokens": tokens}, max_new_tokens=TP_FSDP_NEW)
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    rec["launches"] = dict(ops.LAUNCHES)
+    rec["tokens"] = out.cpu().numpy().tolist()
+    rec["history"] = [dict(h) for h in eng.history]
+    plan = eng._current_plan()
+    rec["plan"] = [np.asarray(plan.n_replicas).tolist(),
+                   np.asarray(plan.replica_table).tolist()]
+    rec["store_gb"] = eng._store.device_bytes / 1e9
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def tp_etp_steps(cfg, model, seed: int, mesh=None) -> dict:
+    """``make_prefill_step`` on ``TP_SERVE_BATCH``, then ``TP_ETP_STEPS``
+    greedy ``make_decode_step`` steps under EP over ``TP_SERVE_RANKS``
+    ranks and ``ep_plan``'s Zipf plan at 2 ranks (one replica slot a
+    rank, no store): stacked on one card, or this rank of ``mesh`` under
+    ``Runtime(decode_expert_tp=True)``. Kernel counts set to 0 just
+    before and read just after. Returns the tokens, the drops, the decode
+    steps' walls (synchronised) and collectives' share, the last logits,
+    the launches."""
+    from repro_torch.core.duplication import duplicate_experts_host
+    from repro_torch.core.placement import stack_plans
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (Runtime, init_cache,
+                                                local_config)
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    B, S = TP_SERVE_BATCH
+    E = cfg.moe.num_experts
+    dist = 1.0 / np.arange(1, E + 1)
+    plan = stack_plans([duplicate_experts_host(
+        dist / dist.sum(), TP_SERVE_RANKS, 1, 4).plan] * cfg.num_layers)
+    rt = Runtime(ep=True, ep_ranks=TP_SERVE_RANKS, mesh=mesh,
+                 decode_expert_tp=mesh is not None)
+    prefill, decode = make_prefill_step(cfg, rt), make_decode_step(cfg, rt)
+    cache = init_cache(local_config(model, cfg), rt, B, S + TP_ETP_STEPS,
+                       device=model.device)
+    tokens = torch.as_tensor(_tp_serve_tokens(cfg, seed), device=model.device)
+    acc = []
+    _timed_collectives(mesh, acc)
+    rec = {"decode_ms": [], "coll_share": [], "tokens": [], "dropped": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache, st = prefill(model, tokens, cache, plan=plan)
+    rec["dropped"].append(int(st["dropped"].sum()))
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for t in range(TP_ETP_STEPS):
+        rec["tokens"].append(tok.cpu().numpy().tolist())
+        n0 = len(acc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, logits, cache, st = decode(model, tok, cache, S + t, plan=plan)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        rec["decode_ms"].append(wall)
+        rec["coll_share"].append(sum(a.elapsed_time(b) for _, a, b in
+                                     acc[n0:]) / wall)
+        rec["dropped"].append(int(st["dropped"].sum()))
+    rec["tokens"].append(tok.cpu().numpy().tolist())
+    rec["s"] = time.perf_counter() - t0
+    rec["last"] = logits[:, -1].float().cpu().numpy()
+    rec["launches"] = dict(ops.LAUNCHES)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
 def tp_rank(mesh, seed: int) -> dict:
     """A rank of phase tp's world, its three legs in turn: on the (1, 4)
     ``mesh`` under "specs", Mixtral-8x7B at ``TP_MIXTRAL_LAYERS`` layers
     through ``dist_serve``, then recurrentgemma-2b at ``TP_GRIFFIN_LAYERS``
     through ``tp_griffin``; then, on a (2, 2) mesh over the same processes
-    under "fsdp", stablelm-3b at ``TP_TRAIN_LAYERS`` through ``tp_train``.
+    under "fsdp", stablelm-3b at ``TP_TRAIN_LAYERS`` through ``tp_train``,
+    and Mixtral at ``TP_SERVE_LAYERS`` through ``tp_fsdp_serve`` and,
+    under "fsdp" + expert TP, ``tp_etp_steps``.
     Each rank draws the whole model's weights, one leaf at a time, and
     keeps its blocks (``init_model(shard=bridge.sharder(...))``); each leg
     records its bytes beside the sum of its blocks and its seconds."""
@@ -9531,8 +9731,8 @@ def tp_rank(mesh, seed: int) -> dict:
     dev = mesh.device
     out = {}
 
-    def build(cfg, mesh, layout, **kw):
-        shard = sharder(cfg, mesh, layout)
+    def build(cfg, mesh, layout, expert_tp=False, **kw):
+        shard = sharder(cfg, mesh, layout, expert_tp)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return init_model(cfg, gen, device=dev, shard=shard, **kw), shard
 
@@ -9543,7 +9743,7 @@ def tp_rank(mesh, seed: int) -> dict:
     t0 = time.perf_counter()
     cfg = _dist_cfg(TP_MIXTRAL_LAYERS)
     model, shard = build(cfg, mesh, "specs")
-    widen_port_margins(model, cfg)
+    widen_port_margins(model, cfg, shard)
     torch.cuda.synchronize()
     out["mixtral_gb"] = _held_gb(model)
     out["mixtral_bytes"] = _held_bytes(model, shard)
@@ -9553,7 +9753,7 @@ def tp_rank(mesh, seed: int) -> dict:
     t1 = time.perf_counter()
     cfg = _tp_cfg("recurrentgemma-2b", TP_GRIFFIN_LAYERS)
     model, shard = build(cfg, mesh, "specs")
-    widen_port_margins(model, cfg)
+    widen_port_margins(model, cfg, shard)
     out["griffin_gb"] = _held_gb(model)
     out["griffin_bytes"] = _held_bytes(model, shard)
     out["griffin"] = tp_griffin(cfg, model, seed, mesh)
@@ -9564,8 +9764,24 @@ def tp_rank(mesh, seed: int) -> dict:
     cfg = _tp_cfg(TP_TRAIN_ARCH, TP_TRAIN_LAYERS)
     model, shard = build(cfg, mesh, "fsdp", trainable=True)
     out["train"] = tp_train(cfg, model, Runtime(mesh=mesh), seed, shard)
+    del model
+    drop()
+    t3 = time.perf_counter()
+    # the (2, 2) serving legs: Mixtral under "fsdp" through ServeEngine,
+    # then under "fsdp" + expert TP through the serving steps
+    for key, expert_tp, run in (("fsdp", False, tp_fsdp_serve),
+                                ("etp", True, tp_etp_steps)):
+        cfg = _tp_serve_cfg(dup_slots=1 if expert_tp else 0)
+        model, shard = build(cfg, mesh, "fsdp", expert_tp=expert_tp)
+        widen_port_margins(model, cfg, shard)
+        torch.cuda.synchronize()
+        out[f"{key}_gb"] = _held_gb(model)
+        out[f"{key}_bytes"] = _held_bytes(model, shard)
+        out[key] = run(cfg, model, seed, mesh)
+        del model
+        drop()
     out["leg_s"] = {"mixtral": t1 - t0, "griffin": t2 - t1,
-                    "train": time.perf_counter() - t2}
+                    "train": t3 - t2, "serve_2x2": time.perf_counter() - t3}
     return out
 
 
@@ -9588,7 +9804,8 @@ def _tp_kernel_checks(cfg_mixtral, cfg_griffin, flush) -> dict:
     paged_decode_attention over a pool of K / 4 = 2 KV heads (G 4, the
     main path's 8 slots and 16-position blocks) and rg_lru_scan over the
     recurrent block's dr / 4 = 640 channels at ``TP_GRIFFIN_BATCH``'s
-    prefill. The router, histogram_offsets and moe_gemm run at phase
+    prefill; and moe_gemm at expert TP's per-rank decode shape (F over
+    the 2 data ranks). The router and histogram_offsets run at phase
     dist's shapes (the expert block is EP's either way)."""
     from repro_torch.kernels import ops, ref
 
@@ -9630,7 +9847,105 @@ def _tp_kernel_checks(cfg_mixtral, cfg_griffin, flush) -> dict:
     row["plain_ms"] = time_ms(lambda: ref.rg_lru_scan_plain(a, bb, h0),
                               flush, runs=3)
     rows["rg_lru_scan"] = row
+    # moe_gemm at expert TP's per-rank decode shape: a (2, 2) rank's 5
+    # slots (4 home experts and a replica) at F / 2 = 7168 columns, the
+    # TP_SERVE_BATCH decode's cap of 16 rows a slot, the live rows of 4
+    # of the batch's 8 pairs
+    m = cfg_mixtral.moe
+    n_slots = m.num_experts // TP_SERVE_RANKS + 1
+    d, f = cfg_mixtral.d_model, m.d_ff_expert // 2
+    counts = torch.tensor([[1], [1], [1], [0], [1]], dtype=torch.int32,
+                          device="cuda")
+    x = torch.randn((n_slots, 16, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    x[torch.arange(16, device="cuda")[None, :] >= counts] = 0
+    cw = {k: (torch.randn(shape, generator=gen, device="cuda")
+              * shape[1] ** -0.5).to(torch.bfloat16)
+          for k, shape in (("w_gate", (n_slots, d, f)),
+                           ("w_up", (n_slots, d, f)),
+                           ("w_down", (n_slots, f, d)))}
+    row = moe_gemm_case(x, counts, torch.arange(n_slots, dtype=torch.int32,
+                                                device="cuda"), cw, flush)
+    row["shape"] = f"S{n_slots}_cap16_d{d}_F{f}_live4"
+    rows["moe_gemm"] = row
+    del cw, x
     return rows
+
+
+def tp_serve_checks(world, ref, smi: str, leg_s: dict) -> list:
+    """Phase tp's (2, 2) serving legs against their stacked references:
+    ``fsdp`` (ServeEngine under "fsdp") tokens, drops and re-plans equal,
+    ``etp`` (the serving steps under "fsdp" + expert TP) tokens and drops
+    equal; on every rank the launches and the tokens; each leg's last
+    logits, held bytes, decode step walls and collectives' share logged.
+    Returns the failures."""
+    bad = []
+    cfg = _tp_serve_cfg()
+    for key, label, decodes in (("fsdp", "mixtral_fsdp_2x2",
+                                 TP_FSDP_NEW - 1),
+                                ("etp", "mixtral_expert_tp_2x2",
+                                 TP_ETP_STEPS)):
+        got, want = world[0][key], ref[key]
+        for k in (("tokens", "history", "plan") if key == "fsdp"
+                  else ("tokens", "dropped")):
+            if got[k] != want[k]:
+                bad.append(f"{label}: {k} differs from the stacked run's")
+        err = float(np.abs(got["last"] - want["last"]).max())
+        if not np.all(np.abs(got["last"] - want["last"])
+                      <= TP_LOGIT_ATOL + TP_LOGIT_RTOL * np.abs(want["last"])):
+            bad.append(f"{label}: last logits {err} apart")
+        for r, w in enumerate(world):
+            rec = w[key]
+            exp = expected_launches(rec["launches"], cfg, 1, decodes, ep=True,
+                                    paged=False)
+            if rec["launches"] != exp:
+                bad.append(f"{label} rank {r}: launches {rec['launches']} != "
+                           f"{exp}")
+            if rec["tokens"] != got["tokens"]:
+                bad.append(f"{label} rank {r}: tokens differ")
+        # the first decode step of each builds nothing: every kernel was
+        # built before the phase; the p50 is over every decode step
+        log("tp", leg=label, layers=TP_SERVE_LAYERS, card=f"'{smi}'",
+            batch="x".join(map(str, TP_SERVE_BATCH)), decode_steps=decodes,
+            capacity_factor=TP_NODROP_CF,
+            equal_tokens=got["tokens"] == want["tokens"],
+            dropped=(sum(h.get("dropped", 0) for h in got["history"])
+                     if key == "fsdp" else sum(got["dropped"])),
+            equal_drops=(got["history"] == want["history"] if key == "fsdp"
+                         else got["dropped"] == want["dropped"]),
+            **({"replans": len(got["history"]),
+                "equal_replans": got["plan"] == want["plan"]}
+               if key == "fsdp" else {}),
+            last_logits_max_abs_err=f"{err:.6g}",
+            tolerance=f"{TP_LOGIT_ATOL} + {TP_LOGIT_RTOL:.6g} x |logit|",
+            weights_gb_a_process=",".join(f"{w[key + '_gb']:.3f}"
+                                          for w in world),
+            weights_gb_stacked=f"{ref[key + '_gb']:.3f}",
+            bytes_equal_blocks=all(
+                w[key + "_bytes"]["params"] == w[key + "_bytes"]["blocks"]
+                for w in world),
+            **({"store_gb_a_process": ",".join(f"{w['fsdp']['store_gb']:.3f}"
+                                               for w in world),
+                "store_gb_stacked": f"{want['store_gb']:.3f}"}
+               if key == "fsdp" else {}),
+            peak_gb_a_process=",".join(f"{w[key]['peak_gb']:.3f}"
+                                       for w in world),
+            decode_step_ms=",".join(f"{x:.1f}" for x in got["decode_ms"]),
+            decode_step_p50_ms=f"{np.percentile(got['decode_ms'], 50):.3f}",
+            decode_step_p50_ms_stacked=(
+                f"{np.percentile(want['decode_ms'], 50):.3f}"),
+            collective_share_p50=f"{np.median(got['coll_share']):.4f}",
+            run_s=f"{got['s']:.3f}", run_s_stacked=f"{want['s']:.3f}",
+            launches=",".join(f"{k}:{v}" for k, v in got["launches"].items()
+                              if v),
+            timing="host wall of each decode step, synchronised; "
+                   "collectives by CUDA events on the calling stream")
+    ratio = (np.percentile(world[0]["fsdp"]["decode_ms"], 50)
+             / np.percentile(world[0]["etp"]["decode_ms"], 50))
+    log("tp", leg="decode_fsdp_over_expert_tp_2x2",
+        fsdp_decode_p50_over_expert_tp=f"{ratio:.3f}",
+        leg_s=f"{leg_s['serve_2x2']:.3f}")
+    return bad
 
 
 def tp_phase(seed: int, smi: str) -> dict:
@@ -9649,7 +9964,8 @@ def tp_phase(seed: int, smi: str) -> dict:
         ranks_on=("one card a rank" if backend == "nccl" else
                   "card 0, collectives staged through the host (gloo)"),
         legs="'mixtral 1x4 specs; recurrentgemma 1x4 specs; stablelm "
-             "2x2 fsdp'")
+             "2x2 fsdp train; mixtral 2x2 fsdp serve; mixtral 2x2 fsdp + "
+             "expert TP steps'")
     failures = []
     cfg_m = _dist_cfg(TP_MIXTRAL_LAYERS)
     cfg_g = _tp_cfg("recurrentgemma-2b", TP_GRIFFIN_LAYERS)
@@ -9665,6 +9981,7 @@ def tp_phase(seed: int, smi: str) -> dict:
             library_ms=(f"{row['library_ms']:.5f}" if "library_ms" in row
                         else "none"),
             tolerance=("bf16 1e-2 + 1e-2 rel" if name.startswith("paged")
+                       else "bf16 3e-2 + 3e-2 rel" if name == "moe_gemm"
                        else "bit-equal"))
         if not row["ok"]:
             failures.append(f"{name} at the per-rank shape disagrees with "
@@ -9694,6 +10011,17 @@ def tp_phase(seed: int, smi: str) -> dict:
     ref_t = tp_train(cfg_t, model, Runtime(), seed)
     del model
     free_engines("tp")
+    ref_s = {}
+    for key, run, dup in (("fsdp", tp_fsdp_serve, 0),
+                          ("etp", tp_etp_steps, 1)):
+        cfg_s = _tp_serve_cfg(dup_slots=dup)
+        model = init_model(cfg_s, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+        widen_port_margins(model, cfg_s)
+        ref_s[f"{key}_gb"] = _held_gb(model)
+        ref_s[key] = run(cfg_s, model, seed)
+        del model
+        free_engines("tp")
     t1 = time.perf_counter()
 
     # 2. one world of four processes: the (1, 4) mesh under "specs"
@@ -9705,7 +10033,10 @@ def tp_phase(seed: int, smi: str) -> dict:
     leg_s = world[0]["leg_s"]
     for label, get in (("mixtral 1x4 specs", lambda w: w["mixtral_bytes"]),
                        ("griffin 1x4 specs", lambda w: w["griffin_bytes"]),
-                       ("stablelm 2x2 fsdp", lambda w: w["train"]["bytes"])):
+                       ("stablelm 2x2 fsdp", lambda w: w["train"]["bytes"]),
+                       ("mixtral 2x2 fsdp", lambda w: w["fsdp_bytes"]),
+                       ("mixtral 2x2 fsdp + expert TP",
+                        lambda w: w["etp_bytes"])):
         failures += _bytes_failures(label, world, get)
     got = world[0]["mixtral"]
     got["layers"] = TP_MIXTRAL_LAYERS
@@ -9835,9 +10166,18 @@ def tp_phase(seed: int, smi: str) -> dict:
         launches=",".join(f"{k}:{v}" for k, v in t["launches"].items()),
         leg_s=f"{leg_s['train']:.3f}", world_s=f"{t2 - t1:.3f}")
     launches["2x2"] = t["launches"]
+    failures += tp_serve_checks(world, ref_s, smi, leg_s)
+    launches["fsdp_2x2"] = world[0]["fsdp"]["launches"]
+    launches["expert_tp_2x2"] = world[0]["etp"]["launches"]
     for label in ("1x4",):
         if any(launches[label].get(k, 0) == 0
                for k in TP_KERNELS + ("rg_lru_scan",)):
+            failures.append(f"tp {label}: a kernel of the path never "
+                            "launched")
+    for label in ("fsdp_2x2", "expert_tp_2x2"):
+        if any(launches[label].get(k, 0) == 0
+               for k in ("fused_topk_route", "histogram_offsets",
+                         "moe_gemm")):
             failures.append(f"tp {label}: a kernel of the path never "
                             "launched")
     log("tp", phase_s=f"{time.perf_counter() - t0:.3f}",
@@ -9989,9 +10329,10 @@ def main() -> int:
             k["dist_train_launches"] = dist_train_launches.get(
                 k["name"], {"1x4": 0, "2x2": 0})
             # phase tp's: rank 0's (1, 4) "specs" runs (Mixtral and
-            # Griffin) and its (2, 2) "fsdp" train steps
-            k["tp_launches"] = tp_launches.get(k["name"],
-                                               {"1x4": 0, "2x2": 0})
+            # Griffin), its (2, 2) "fsdp" train steps, its (2, 2) "fsdp"
+            # ServeEngine run and its "fsdp" + expert-TP serving steps
+            k["tp_launches"] = tp_launches.get(k["name"], {
+                "1x4": 0, "2x2": 0, "fsdp_2x2": 0, "expert_tp_2x2": 0})
             if k["name"] == "paged_decode_attention":
                 # phase llava's case: its pool shape, its run's launches
                 k["cases"] = {"llava_g7_pool": MEASURED["llava_paged_case"]}

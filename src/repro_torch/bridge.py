@@ -41,7 +41,8 @@ step and the two moments, in the JAX tree layout on the JAX side) across,
 so either package can continue the other's training.
 
 On a process mesh (``launch.mesh.Mesh``) ``sharder(cfg, mesh, layout)``
-makes the ``sharding.Sharder`` of a layout ("none", "specs", "fsdp"):
+makes the ``sharding.Sharder`` of a layout ("none", "specs", "fsdp"; with
+``expert_tp=True`` the experts' F dim split over "data" too):
 ``params_from_jax(..., shard=)`` and ``models.transformer.init_model(...,
 shard=)`` keep this rank's block of every leaf. ``params_to_jax``,
 ``opt_state_to_jax`` and ``checkpoint_tree`` gather such a model's blocks
@@ -187,11 +188,14 @@ def param_paths(cfg: ModelConfig):
     return out
 
 
-def sharder(cfg: ModelConfig, mesh, layout: str) -> Sharder:
+def sharder(cfg: ModelConfig, mesh, layout: str,
+            expert_tp: bool = False) -> Sharder:
     """The ``sharding.Sharder`` of ``layout`` for this process's rank of
-    ``mesh`` over a model of ``cfg``."""
+    ``mesh`` over a model of ``cfg``; ``expert_tp``: the experts' F dim
+    also split over "data" (the JAX ``abstract_params(expert_tp=True)``)."""
     shapes, kinds = param_shapes(cfg)
-    return Sharder(cfg, mesh, layout, shapes, param_paths(cfg), kinds)
+    return Sharder(cfg, mesh, layout, shapes, param_paths(cfg), kinds,
+                   expert_tp)
 
 
 def _get(tree, path):

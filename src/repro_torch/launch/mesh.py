@@ -10,7 +10,9 @@ model)``. The ``model`` axis carries the EP ranks: a rank's
 collectives over that group. The ``data`` axis shards the batch: its
 ``data_group`` holds the ranks that share its model index, and its
 ``data_comm`` reduces over it (the serving forward's statistics and
-logits; in training, ``train.steps``, the gradients and metrics).
+logits; in training, ``train.steps``, the gradients and metrics). Its
+``world_comm`` spans every rank, in global rank order: expert-TP decode
+sums its partial outputs over the whole ``(data, model)`` world there.
 
 ``init_process`` joins the world through a ``file://`` init method, so
 test workers that start worlds side by side never race for a TCP port.
@@ -107,6 +109,10 @@ class Mesh:
                                            rank=self.data_index,
                                            global_ranks=self.data_ranks,
                                            host_staging=staging)
+        self.world_comm = ProcessGroupRanks(dist.group.WORLD, ranks=world,
+                                            rank=rank,
+                                            global_ranks=range(world),
+                                            host_staging=staging)
 
     @property
     def shape(self) -> dict:

@@ -38,8 +38,19 @@ the data ranks:
       --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo \
       --shard-params specs
 
-``fsdp`` (FSDP storage) trains only (``launch.train``): serving under it
-raises.
+``fsdp`` (FSDP storage) also splits every weight of rank >= 2 over the
+data ranks (a MoE model's replica store with its experts); each layer
+gathers its shards at use:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --device cpu --data-mesh 2 --model-mesh 2 --backend gloo \
+      --shard-params fsdp
+
+Expert-TP decode (the experts' F columns resident over the data ranks)
+has no flag here, as in the JAX launcher: it is a ``Runtime`` of the
+serving steps (``train.steps.make_prefill_step`` / ``make_decode_step``
+under ``Runtime(decode_expert_tp=True)`` on a model laid out by
+``bridge.sharder(cfg, mesh, "fsdp", expert_tp=True)``).
 
 An encoder-decoder (seamless-m4t-medium) fails in the forward with
 ``KeyError``: the launcher sends tokens and no frames, as the JAX launcher
@@ -107,7 +118,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard-params", default="none", choices=LAYOUTS,
                     help="the parameters' layout on a process mesh: none "
                          "(the experts' blocks), specs (tensor-parallel "
-                         "blocks too); fsdp trains only")
+                         "blocks too), fsdp (and every weight's data "
+                         "shard, gathered at use)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -130,10 +142,6 @@ def main(argv=None) -> int:
             raise ValueError(f"--data-mesh / --model-mesh: {cfg.name} has no "
                              "experts to place on stacked EP ranks (name "
                              "--backend gloo or nccl for a process mesh)")
-    if args.shard_params == "fsdp":
-        raise ValueError("--shard-params fsdp: FSDP storage while serving "
-                         "is not ported (ROADMAP.md section 1, item 4, FSDP "
-                         "serving)")
     if args.shard_params != "none" and args.backend == "stacked":
         raise ValueError(f"--shard-params {args.shard_params} lays the "
                          "parameters out over a process mesh: name --backend "

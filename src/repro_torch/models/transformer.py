@@ -106,7 +106,8 @@ from repro_torch.models.layers import (apply_norm, dense, embed, ffn,
 from repro_torch.models.moe import dense_branch, moe_ffn_dense, shared_branch
 from repro_torch.moe import dispatch as ep_dispatch
 from repro_torch.moe.router import expert_histogram, route
-from repro_torch.sharding import at_use, kv_span, placement
+from repro_torch.sharding import (EXPERT_LEAVES, at_use, kv_span,
+                                  placement)
 
 ACT_DTYPE = torch.bfloat16
 WEIGHT_DTYPE = torch.bfloat16
@@ -122,11 +123,21 @@ class Runtime(NamedTuple):
     (``StackedRanks``); with one (``launch.mesh.Mesh``, one process a
     rank) this process holds its mesh rank: its EP rank's home experts,
     the dispatch's collectives over the model group (``mesh.comm``), and
-    its data rank's rows of a batch the data axis divides."""
+    its data rank's rows of a batch the data axis divides.
+
+    ``decode_expert_tp`` (the JAX package's): on a mesh, a decode step's
+    MoE layers keep each expert's F columns split over "data" where they
+    lie and compute with this rank's block of them (expert-TP decode,
+    ``_moe_apply``); the other modes, and a config whose ``d_ff_expert``
+    the data ranks do not divide, take the ordinary path. ``rows_split``
+    is set by ``forward``: this process runs its data rank's rows of the
+    batch."""
     window_override: int = 0             # force a window (engine: max_len)
     ep: bool = False                     # expert-parallel dispatch
     ep_ranks: int = 1
     mesh: Optional[object] = None        # launch.mesh.Mesh, or None
+    decode_expert_tp: bool = False       # 2D expert sharding for decode
+    rows_split: bool = False             # set by forward under a mesh
 
     @property
     def comm(self):
@@ -245,20 +256,22 @@ class DecoderLayer(nn.Module):
 class LayerAtUse:
     """A layer's parameters as this rank computes with them
     (``sharding.at_use``: FSDP shards gathered over "data", "gathered"
-    blocks over "model"), with ``DecoderLayer``'s accessors. Made inside a
-    layer's (re)computation, so under ``remat`` the backward gathers
-    again."""
+    blocks over "model"), with ``DecoderLayer``'s accessors; the leaves
+    named in ``keep`` as they lie (the MoE layer gathers them itself, or
+    computes with its blocks). Made inside a layer's (re)computation, so
+    under ``remat`` the backward gathers again."""
     attn_params = DecoderLayer.attn_params
     cross_params = DecoderLayer.cross_params
     moe_params = DecoderLayer.moe_params
     rec_params = DecoderLayer.rec_params
     rwkv_params = DecoderLayer.rwkv_params
 
-    def __init__(self, layer: DecoderLayer):
+    def __init__(self, layer: DecoderLayer, keep=()):
         self.kind = layer.kind
         self.param_names = layer.param_names
         for name in layer.param_names:
-            setattr(self, name, at_use(getattr(layer, name)))
+            w = getattr(layer, name)
+            setattr(self, name, w if name in keep else at_use(w))
 
 
 class Transformer(nn.Module):
@@ -682,7 +695,19 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
     the ranks as ``x`` is), the dense path ignores them. ``resched_l``:
     None, or the layer's (E, C_max) int32 reschedule quota: the EP
     dispatch picks replicas through it and runs the rescue round; the
-    dense path ignores it."""
+    dense path ignores it.
+
+    Under a layout that splits the experts over "data" (``sharding``:
+    "fsdp", expert TP) the layer's expert leaves and the store's rows come
+    in as this rank's blocks (``_forward`` keeps them from ``LayerAtUse``):
+    they are gathered here, the store's rows along the home experts' data
+    dim. Expert-TP decode (``expert_tp_decode``: the JAX package's
+    ``tp_mode``) gathers nothing: every rank routes the whole decode batch
+    (its rows gathered over "data"), computes its slots' pairs with its
+    block of each expert's F columns, reads no store (the replica slots
+    come from ``gather_replica_pool``, as the reference's ``slot_w_l =
+    None``), and one ordered sum over the ``(data, model)`` world makes y,
+    of which it keeps its rows."""
     moe = cfg.moe
     B, S, d = x.shape
     if not rt.ep:
@@ -703,13 +728,21 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
                            x.device)
     if fill_event is not None:
         torch.cuda.current_stream(x.device).wait_event(fill_event)
-    # the home experts at the activation dtype: a no-op for the bf16
-    # serving weights, the per-use cast of a trainable model's fp32 ones
-    # (``models.moe.routed_dense`` casts them the same way), through which
-    # the kernel's bf16 gradients reach the fp32 parameters
-    experts = experts_l or {"w_gate": layer.w_gate.to(x.dtype),
-                            "w_up": layer.w_up.to(x.dtype),
-                            "w_down": layer.w_down.to(x.dtype)}
+    tp_mode = decode and expert_tp_decode(cfg, rt)
+    if tp_mode:
+        experts_l = None                 # the replica slots from the pool
+        experts = {k: _f_block(getattr(layer, k), k, rt.mesh).to(x.dtype)
+                   for k in EXPERT_LEAVES}
+    elif experts_l is not None:
+        experts = {k: _gathered_rows(w, placement(getattr(layer, k)))
+                   for k, w in experts_l.items()}
+    else:
+        # the home experts at the activation dtype: a no-op for the bf16
+        # serving weights, the per-use cast of a trainable model's fp32
+        # ones (``models.moe.routed_dense`` casts them the same way),
+        # through which the kernel's bf16 gradients reach the fp32
+        # parameters
+        experts = {k: getattr(layer, k).to(x.dtype) for k in EXPERT_LEAVES}
     rows = None
     if comm.held < comm.ranks and experts_l is None:
         # one rank a process, no store: this rank's home experts, and its
@@ -722,13 +755,23 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
         # decode batches are too small to shard: every rank sees every
         # token, routed once, and serves the pairs bound for its slots
         t = x.reshape(B * S, d)
+        w = None if token_weight is None else token_weight.reshape(B * S)
+        if tp_mode and rt.rows_split:
+            # expert TP: the data ranks' rows too, so every rank of the
+            # world holds the whole batch
+            data = rt.mesh.data_comm
+            t = data.tp_gather(t, 0)
+            w = None if w is None else data.tp_gather(w, 0)
         router_out = route(layer.router, moe, t)
         pred = (None if predicted_l is None
                 else predicted_l.reshape(B * S, moe.top_k))
         y, stats = ep_dispatch.ep_moe_ffn_replicated(
-            t, router_out, experts, plan_l, moe, predicted_idx=pred, **kw)
+            t, router_out, experts, plan_l, moe, predicted_idx=pred,
+            tp_comm=rt.mesh.world_comm if tp_mode else None, **kw)
+        if tp_mode and rt.rows_split:
+            at = rt.mesh.data_index * B * S
+            y = y[at:at + B * S]
         y = y.reshape(B, S, d)
-        w = None if token_weight is None else token_weight.reshape(B * S)
     else:
         # the sequence splits over the ranks (the JAX package's
         # P(batch, "model", None)): rank r takes positions
@@ -770,6 +813,37 @@ def _moe_apply(layer: DecoderLayer, cfg: ModelConfig, x, rt: Runtime,
             counts = comm.psum(counts[None])
     return (y, counts, stats.slot_counts, stats.aux_loss, stats.z_loss,
             stats.dropped, stats.overflow)
+
+
+def expert_tp_decode(cfg: ModelConfig, rt: Runtime) -> bool:
+    """Whether a decode step's MoE layers run expert TP (the JAX package's
+    ``tp_mode``): ``rt.decode_expert_tp`` under EP on a mesh, whose data
+    ranks divide ``d_ff_expert``."""
+    return bool(rt.decode_expert_tp and rt.ep and rt.mesh is not None
+                and cfg.is_moe and cfg.moe.d_ff_expert % rt.mesh.data == 0)
+
+
+def _f_block(w, name: str, mesh):
+    """This data rank's block of an expert leaf's F columns (``w_gate`` /
+    ``w_up`` dim 2, ``w_down`` dim 1): the leaf as it lies where its
+    layout splits F over "data" (expert TP), else cut from the leaf
+    gathered at use."""
+    dim = 1 if name == "w_down" else 2
+    rec = placement(w)
+    if rec is not None and rec.data_dim == dim:
+        return w
+    whole = at_use(w)
+    n = whole.shape[dim] // mesh.data
+    return whole.narrow(dim, mesh.data_index * n, n).contiguous()
+
+
+def _gathered_rows(rows, rec):
+    """The replica store's rows of one weight, whole: split over "data"
+    along the home experts' data dim (``rec``, their ``Placement``) where
+    the layout splits them, as the store's rows take their layout."""
+    if rec is None or rec.data_dim is None:
+        return rows
+    return rec.mesh.data_comm.fsdp_gather(rows, rec.data_dim)
 
 
 def _attn_layer(layer: DecoderLayer, cfg: ModelConfig, x, positions,
@@ -969,7 +1043,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     holds this rank's block of each parameter under its layout
     (``model.layout``, ``sharding``: the experts alone under "none", the
     tensor-parallel rules too under "specs", FSDP storage as well under
-    "fsdp", which serves nothing yet). In prefill and decode the batch
+    "fsdp", whose shards each layer gathers at use, and the replica
+    store's rows with them). In prefill and decode the batch
     splits over the data axis when the data ranks divide it
     (``Mesh.batch_rows``): this rank runs its rows, reading and writing
     its rows of a cache in place (the paged pool is whole on every rank:
@@ -977,7 +1052,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
     heads or channels, ``local_config``); a MoE model's statistics are
     summed (the losses averaged) over the data axis, and the logits
     gathered over it, so every rank returns the whole batch's. A batch
-    the data ranks do not divide runs whole on each of them. In train
+    the data ranks do not divide runs whole on each of them. Under
+    ``rt.decode_expert_tp`` a decode step's MoE layers run expert TP
+    (``expert_tp_decode``, ``_moe_apply``): their statistics are the
+    whole batch's on every rank, and are not summed again. In train
     mode (a MoE model under EP, without replica slots) ``tokens`` are the
     rows this rank trains on, which ``train.steps.make_train_step``
     picks: the logits and statistics are theirs, the counts and losses
@@ -1060,13 +1138,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         # the train step hands each rank its data rows and reduces over
         # the data axis itself
         return _forward(model, cfg, tokens, rt, **kw)
-    if getattr(model, "layout", "none") == "fsdp":
-        raise ValueError("FSDP storage while serving is not ported: serve "
-                         "under the 'specs' or 'none' layout (ROADMAP.md "
-                         "section 1, item 4, FSDP serving)")
     rows = rt.mesh.batch_rows(tokens.shape[0])
     if rows is None:
         return _forward(model, cfg, tokens, rt, **kw)
+    rt = rt._replace(rows_split=True)
     for k in ("token_weight", "last_pos", "block_tables", "frames",
               "prefix_embeds"):
         if kw[k] is not None:
@@ -1097,9 +1172,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
             for name, t in mine.items():
                 whole[name][rows] = t
     data = rt.mesh.data_comm
-    if cfg.is_moe:
-        # summed over the data axis: the counts in one collective (a host
-        # zero overflow without a quota stays as it is), the losses in one
+    if cfg.is_moe and not (mode == "decode" and expert_tp_decode(cfg, rt)):
+        # summed over the data axis (expert-TP decode routed the whole
+        # batch on every rank: its statistics are global already): the
+        # counts in one collective (a host zero overflow without a quota
+        # stays as it is), the losses in one
         keys = [k for k in ("expert_counts", "slot_counts", "dropped",
                             "overflow") if stats[k].device == logits.device]
         stats.update(zip(keys, data.psum_counts(*(stats[k][None]
@@ -1200,16 +1277,20 @@ def _forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime, *,
         plan = to_device(plan, m.num_experts, rt.ep_ranks,
                          m.duplication_slots, x.device)
     counts, slots, dropped, overflow, aux, z = [], [], [], [], 0.0, 0.0
+    tp_mode = mode == "decode" and expert_tp_decode(cfg, rt)
     for l, layer in enumerate(model.layers):
         cache_l = None if cache is None else _layer_cache(cache, l)
         plan_l, experts_l, event = _migration_view(l, plan, store)
+        # the MoE layer gathers the store's rows, or computes with its
+        # blocks under expert TP, in place of the home experts gathered
+        keep = EXPERT_LEAVES if tp_mode or experts_l is not None else ()
         x, (c, sc, a_l, z_l, dr, ov) = _run_layer(
             remat, _attn_layer,
             layer, cfg, x, positions, rt, cache=cache_l, cache_len=cache_len,
             mode=mode, block_tables=block_tables, token_weight=token_weight,
             plan_l=plan_l, experts_l=experts_l, fill_event=event,
             predicted_l=None if predicted_idx is None else predicted_idx[l],
-            resched_l=None if resched is None else resched[l])
+            resched_l=None if resched is None else resched[l], keep=keep)
         counts.append(c)
         slots.append(sc)
         dropped.append(dr)
@@ -1243,14 +1324,14 @@ def _layer_cache(cache, l: int):
     return {name: t[l] for name, t in cache.items()}
 
 
-def _run_layer(remat: bool, fn, layer, *args, **kwargs):
+def _run_layer(remat: bool, fn, layer, *args, keep=(), **kwargs):
     """``fn(layer, *args, **kwargs)`` (on its ``LayerAtUse`` when the layer
-    ``gathers_at_use``), under a non-reentrant activation checkpoint when
-    ``remat``: only the layer's inputs are kept, and the layer runs again
-    in the backward (the JAX package's ``jax.checkpoint``), gathering its
-    FSDP shards again."""
+    ``gathers_at_use``, the leaves named in ``keep`` as they lie), under a
+    non-reentrant activation checkpoint when ``remat``: only the layer's
+    inputs are kept, and the layer runs again in the backward (the JAX
+    package's ``jax.checkpoint``), gathering its FSDP shards again."""
     def body(layer, *args, **kwargs):
-        return fn(LayerAtUse(layer) if layer.gathers_at_use else layer,
+        return fn(LayerAtUse(layer, keep) if layer.gathers_at_use else layer,
                   *args, **kwargs)
     if not remat:
         return body(layer, *args, **kwargs)

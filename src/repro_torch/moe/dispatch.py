@@ -132,6 +132,10 @@ class StackedRanks:
 
 # elements of one ``ProcessGroupRanks.mean_`` collective (fp32: 256 MB)
 MEAN_BUCKET_NUMEL = 1 << 26
+# every rank's tensor into one buffer, joined along dim 0 (the newer name
+# of ``all_gather_into_tensor`` where the installed torch has it)
+_all_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 def _records(*ts) -> bool:
@@ -444,6 +448,8 @@ class ProcessGroupRanks:
         if self.ranks == 1:
             return x
         rows = self._all_gather(x[None])
+        if dim == 0:                         # the rows are already joined
+            return rows.reshape((-1,) + tuple(x.shape[1:]))
         return torch.cat(rows.unbind(0), dim=dim)
 
     def _block(self, x, dim: int):
@@ -477,10 +483,12 @@ class ProcessGroupRanks:
         return self._all_gather(t)
 
     def _all_gather(self, t):
-        x = self._host(t[0].contiguous())
-        out = [torch.empty_like(x) for _ in range(self.ranks)]
-        dist.all_gather(out, x, group=self.group)
-        return self._back(torch.stack(out), t)
+        # one buffer the ranks' rows land in, in group-rank order: no copy
+        # to join them afterwards
+        x = self._host(t.contiguous())
+        out = x.new_empty((self.ranks,) + tuple(x.shape[1:]))
+        _all_gather_single(out, x, group=self.group)
+        return self._back(out, t)
 
     def gather(self, t):
         """(1, ...) -> (R, ...) in group-rank order on the group's rank 0,
@@ -952,7 +960,8 @@ def pack_replicated(x, router_out: RouterOutput, plan: DevicePlan,
 def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                           plan: DevicePlan, moe: MoEConfig, *, ep_ranks: int,
                           activation: str = "swiglu", predicted_idx=None,
-                          resched_quota=None, comm=None, slot_rows=None):
+                          resched_quota=None, comm=None, slot_rows=None,
+                          tp_comm=None):
     """Decode-path EP dispatch: the same (T, d) tokens on every rank, routed
     once (``router_out`` unbatched). Each held rank computes the (token,
     k) pairs assigned to its slots (``pack_replicated``) and a psum over
@@ -961,7 +970,17 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
     expert's next copy, at the same capacity, by the rank that holds it.
     ``comm`` and ``slot_rows`` as for ``ep_moe_ffn``. Returns (y (T, d),
     MoEStats). Token-to-Expert predictions are a prefill feature:
-    ``predicted_idx`` raises, as in the JAX package."""
+    ``predicted_idx`` raises, as in the JAX package.
+
+    ``tp_comm``: expert TP (the JAX package's ``tp_axis``), one rank a
+    process. ``experts`` then hold this rank's block of each expert's F
+    columns, and the same tokens reach every rank of the ``(data,
+    model)`` world, so each rank's y is a partial sum over its F block and
+    its slots' pairs: one sum over ``tp_comm`` (the mesh's
+    ``world_comm``), in fp32 in global rank order and cast back once,
+    gives every rank the same bits of the whole y. The slot counts and
+    drops are summed over ``comm`` (the model axis) only, and the expert
+    counts and overflows are global already, as in the JAX package."""
     if predicted_idx is not None:
         raise NotImplementedError("predicted pre-routing is a prefill feature")
     comm = comm or StackedRanks(ep_ranks)
@@ -1005,7 +1024,8 @@ def ep_moe_ffn_replicated(x, router_out: RouterOutput, experts: dict,
                                              shift=1, select=miss, **kw))
         y_flat = y_flat + y2
     gates = router_out.gates.to(x.dtype)
-    y = comm.psum((y_flat.reshape(H, T, K, d) * gates[..., None]).sum(dim=2))
+    y = (y_flat.reshape(H, T, K, d) * gates[..., None]).sum(dim=2)
+    y = comm.psum(y) if tp_comm is None else tp_comm.psum_ordered(y[0])
     slot_counts, dropped = comm.psum_counts(slot_counts, dropped)
     stats = MoEStats(
         expert_counts=_expert_counts(router_out.expert_idx, E),  # replicated

@@ -33,6 +33,17 @@ versions), so ``slot_rows`` gives every global slot its row in its own
 rank's shard. A fill of a back row sends the expert's home row from its
 home rank over the model group (``ProcessGroupRanks.transfer``): the same
 rows the JAX package's masked psum gives, point to point.
+
+Under a layout that splits the experts over "data" (``sharding``: "fsdp",
+expert TP) each row takes its home experts' layout: the model's experts
+are this rank's blocks, so every row holds the same block of its expert
+and a process holds ``1 / data_shards`` of the store, as it holds that
+share of its experts. A fill runs over the model group of this rank's
+data coordinate, so each data rank moves its own block of the expert
+from the rank of its data coordinate that holds it; the forward gathers
+the rows over "data" at use (``models.transformer._moe_apply``). The cost
+model's ``entry_bytes`` stays one whole expert's, as the JAX store's
+global arrays give it.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from torch import nn
 from repro_torch.core.placement import PlacementPlan, plan_dims
 from repro_torch.runtime import cost as _cost
 from repro_torch.runtime.diff import stacked_slot_experts
+from repro_torch.sharding import data_shards
 
 EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 
@@ -56,8 +68,10 @@ class ReplicaStore:
 
     def __init__(self, weights: Dict[str, Sequence[torch.Tensor]],
                  slot_experts: np.ndarray, *, num_experts: int,
-                 ep_ranks: int, dup_slots: int, comm=None):
+                 ep_ranks: int, dup_slots: int, comm=None,
+                 data_shards: int = 1):
         self.weights = weights                  # {name: [(E + 2RD, ...)] * L}
+        self.data_shards = data_shards          # data ranks a row splits over
         self.slot_experts = np.asarray(slot_experts)     # (L, S) host view
         self.num_experts = num_experts
         self.ep_ranks = ep_ranks
@@ -100,7 +114,8 @@ class ReplicaStore:
         store grows and no home expert is held twice."""
         store = cls._empty(EXPERT_WEIGHTS, plan_stack,
                            num_experts=num_experts, ep_ranks=ep_ranks,
-                           dup_slots=dup_slots, comm=comm)
+                           dup_slots=dup_slots, comm=comm,
+                           data_shards=data_shards(model.layers[0].w_up))
         for l, layer in enumerate(model.layers):
             for k in EXPERT_WEIGHTS:
                 old = getattr(layer, k)
@@ -235,7 +250,8 @@ class ReplicaStore:
     # ------------------------------------------------------------------ info
     @property
     def entry_bytes(self) -> int:
-        return _cost.entry_bytes(self.weights)
+        """One whole expert's bytes (a row's times ``data_shards``)."""
+        return _cost.entry_bytes(self.weights) * self.data_shards
 
     @property
     def hbm_bytes_per_rank(self) -> int:
@@ -248,6 +264,6 @@ class ReplicaStore:
     @property
     def device_bytes(self) -> int:
         """Bytes the row tensors hold on the device, the home rows (the
-        model's own expert weights) included."""
+        model's own expert weights) included: this rank's blocks."""
         return sum(t.numel() * t.element_size()
                    for w in self.weights.values() for t in w)

@@ -159,6 +159,7 @@ from repro_torch.runtime import (LayerStagedExecutor, MigrationExecutor,
                                  plan_diff, plans_equal)
 from repro_torch.runtime.store import EXPERT_WEIGHTS
 from repro_torch.schedule import make_scheduler
+from repro_torch.sharding import data_shards
 from repro_torch.serve.kvcache import (BlockAllocator, init_block_pool,
                                        write_prefill_blocks)
 from repro_torch.serve.metrics import (RequestTiming, ServeMetrics, imbalance,
@@ -187,6 +188,14 @@ def _model_experts(model: Transformer) -> dict:
             for k in EXPERT_WEIGHTS}
 
 
+def _entry_bytes(model: Transformer) -> int:
+    """Bytes of one expert's weights, whole: where a layout splits the
+    experts over "data", this rank's block's bytes times the data ranks
+    (the JAX package's cost model reads its global arrays' shapes)."""
+    return mig_cost.entry_bytes(_model_experts(model)) \
+        * data_shards(model.layers[0].w_up)
+
+
 def _clamp_store_dup_slots(cfg: ModelConfig, model: Transformer,
                            ep_ranks: int, dup_slots: int) -> int:
     """Store-aware memory clamp: shrink the requested replica slots until
@@ -199,7 +208,7 @@ def _clamp_store_dup_slots(cfg: ModelConfig, model: Transformer,
         return dup_slots
     return clamp_dup_slots(
         cfg.moe.num_experts, ep_ranks, dup_slots,
-        entry_bytes=mig_cost.entry_bytes(_model_experts(model)),
+        entry_bytes=_entry_bytes(model),
         num_layers=cfg.num_layers,
         hbm_budget_bytes=cfg.moe.store_hbm_budget_gb * 1e9)
 
@@ -255,9 +264,13 @@ class _StoreMixin:
                     ep_ranks: int) -> None:
         """A process mesh serves this process's rank of a deployment: a
         MoE model EP over the mesh's model ranks, holding its home experts
-        (and, under the "specs" layout, its tensor-parallel blocks); a
-        model without MoE under its layout (whole but for the batch under
-        "none"), on the mesh's device. FSDP storage serves nothing yet."""
+        (and, under the "specs" layout, its tensor-parallel blocks; under
+        "fsdp" its data shard of each weight and of the store's rows as
+        well, gathered at use); a model without MoE under its layout
+        (whole but for the batch under "none"), on the mesh's device. The
+        caches are the same under "fsdp" as under "specs" (this rank's
+        KV heads or channels, ``models.transformer.local_config``), as the
+        reference's cache specs do not depend on FSDP."""
         self.mesh = mesh
         if mesh is None:
             return
@@ -266,10 +279,6 @@ class _StoreMixin:
                              f"{mesh.model} model ranks (ep=True, ep_ranks="
                              f"{mesh.model}; got ep={ep}, "
                              f"ep_ranks={ep_ranks})")
-        if getattr(model, "layout", "none") == "fsdp":
-            raise ValueError("FSDP storage while serving is not ported: "
-                             "serve under the 'specs' or 'none' layout "
-                             "(ROADMAP.md section 1, item 4, FSDP serving)")
         if model.device != mesh.device:
             raise ValueError(f"the model lies on {model.device}, the mesh "
                              f"rank computes on {mesh.device}")
@@ -952,8 +961,7 @@ class ContinuousEngine(_StoreMixin):
         self._step_migration_hidden_bytes = 0.0
         self._prebegun_plan = None       # predictive pre-migration target
         self._pred_counts = None         # t2e predicted expert histogram EMA
-        self._entry_bytes = (mig_cost.entry_bytes(_model_experts(model))
-                             if cfg.is_moe else 0)
+        self._entry_bytes = _entry_bytes(model) if cfg.is_moe else 0
         m = self.moe_cfg
         if ep and m.duplication_slots > 0 and m.replica_impl == "store":
             self._init_store(model, chunk=ccfg.migrate_chunk,

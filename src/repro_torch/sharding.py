@@ -36,7 +36,17 @@ launchers as ``--shard-params``:
   "fsdp"   ``param_specs(..., fsdp_axes=batch_axes(mesh), fsdp_size=D)``:
            "specs" with every weight of rank >= 2 also split over "data"
            (ZeRO-3 storage), as the JAX ``abstract_params`` lays it out;
-           training only.
+           it trains and serves (each forward gathers the shards at use).
+
+``expert_tp`` (``Sharder(..., expert_tp=True)``, with "specs" or "fsdp")
+adds the JAX ``abstract_params(expert_tp=True)`` layout of the experts:
+``param_specs(..., expert_tp_axes=batch_axes(mesh))``, ``w_gate`` /
+``w_up`` as ``(model, None, data)`` and ``w_down`` as ``(model, data,
+None)``: each rank holds its EP rank's experts at its data rank's block of
+F. A decode step under ``Runtime(decode_expert_tp=True)`` computes with
+those blocks where they lie (``models.transformer``: expert-TP decode);
+any other forward gathers them over "data" at use, as the reference's
+prefill reads the experts as ``P("model", None, None)``.
 
 Each rank keeps ``shard_tensor``'s block of every leaf, and each parameter
 carries a ``Placement``: its spec, its whole shape and how the layers use
@@ -58,8 +68,7 @@ gradient is reduce-scattered back. The "gathered" leaves of a config: at
 "model" 4, recurrentgemma-2b's ``wq``, ``wk`` and ``wv`` (10 query heads,
 one KV head), and ``wk`` / ``wv`` of every ``reduced()`` config (2 KV
 heads); none of any other config of the registry
-(``tests/test_torch_dist_tp.py`` checks the list). Expert TP
-(``expert_tp_axes``) is computed here but not applied.
+(``tests/test_torch_dist_tp.py`` checks the list).
 """
 
 from __future__ import annotations
@@ -326,12 +335,16 @@ def leaf_use(name: str, spec: Spec, cfg, model_axis: int,
 
 
 def layout_specs(cfg, shapes: Dict[str, tuple], paths, mesh,
-                 layout: str) -> Dict[str, Spec]:
+                 layout: str, expert_tp: bool = False) -> Dict[str, Spec]:
     """{port name: spec of the leaf's own dims} under ``layout`` for the
     leaves of ``shapes`` ({port name: whole shape}); ``paths``: {port name:
-    (JAX path, stacked)} (``bridge.param_paths``)."""
+    (JAX path, stacked)} (``bridge.param_paths``). ``expert_tp``: the
+    experts' F dim split over the batch axes too."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+    if expert_tp and layout == "none":
+        raise ValueError("expert TP lays the experts out by the sharding "
+                         "rules: layout 'specs' or 'fsdp'")
     if layout == "none":
         return {n: EXPERT_SPEC if n.rsplit(".", 1)[-1] in EXPERT_LEAVES
                 and len(s) == 3 else () for n, s in shapes.items()}
@@ -342,6 +355,8 @@ def layout_specs(cfg, shapes: Dict[str, tuple], paths, mesh,
     kw = (dict(fsdp_axes=batch_axes(mesh), fsdp_size=int(np.prod(
         [mesh.shape[a] for a in batch_axes(mesh)]))) if layout == "fsdp"
           else {})
+    if expert_tp:
+        kw["expert_tp_axes"] = batch_axes(mesh)
     specs = param_specs(full, mesh=mesh, **kw)
     out = {}
     for n, shape in shapes.items():
@@ -356,11 +371,14 @@ class Sharder:
     ``mesh`` this process holds (``launch.mesh.Mesh``): ``block(name,
     whole)`` cuts a leaf, ``attach(model)`` records each parameter's
     placement on it. ``shapes``: {port name: whole shape};
-    ``kinds``: {port name: its layer's kind} ("encoder", ...)."""
+    ``kinds``: {port name: its layer's kind} ("encoder", ...);
+    ``expert_tp``: the experts' F dim also split over "data"."""
 
-    def __init__(self, cfg, mesh, layout: str, shapes, paths, kinds):
-        self.mesh, self.layout = mesh, layout
-        self.specs = layout_specs(cfg, shapes, paths, mesh, layout)
+    def __init__(self, cfg, mesh, layout: str, shapes, paths, kinds,
+                 expert_tp: bool = False):
+        self.mesh, self.layout, self.expert_tp = mesh, layout, expert_tp
+        self.specs = layout_specs(cfg, shapes, paths, mesh, layout,
+                                  expert_tp)
         self.coords = {"data": mesh.data_index, "model": mesh.model_index}
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
         self.uses = {n: leaf_use(n.rsplit(".", 1)[-1], self.specs[n], cfg,
@@ -422,6 +440,13 @@ def at_use(t):
     if out is not t:
         out.placement = rec
     return out
+
+
+def data_shards(t) -> int:
+    """How many data ranks hold a block of ``t``: the mesh's data axis
+    where its layout splits it over "data", else 1."""
+    rec = placement(t)
+    return 1 if rec is None or rec.data_dim is None else rec.mesh.data
 
 
 def needs_gather(t) -> bool:

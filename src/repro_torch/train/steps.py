@@ -32,7 +32,12 @@ ready mask, target plan and fill events: the JAX package's
 prefill steps take the Token-to-Expert predictions (``predicted_idx``
 (L, B, S, K)) the EP dispatch pre-routes on, and every step but the fused
 one the reschedule quota stack (``resched`` (L, E, C_max) int32) the EP
-dispatch picks replicas through."""
+dispatch picks replicas through. Under ``Runtime(decode_expert_tp=True)``
+on a process mesh (the reference's way to expert TP: its engines build
+their ``Runtime`` without it) the decode step runs expert TP on a model
+laid out with ``bridge.sharder(..., expert_tp=True)``: each expert's F
+columns stay split over "data" where they lie, while the prefill gathers
+them (``models.transformer.expert_tp_decode``)."""
 
 from __future__ import annotations
 

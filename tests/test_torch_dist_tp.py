@@ -234,14 +234,25 @@ def test_launch_serve_serves_a_dense_model_over_gloo_processes():
 
 
 def test_serving_refuses_fsdp_storage():
-    """FSDP storage serves nothing yet (ROADMAP.md section 1, item 4): the
-    launcher and the engine name it."""
+    """FSDP storage serves (tests/test_torch_dist_fsdp_serve.py holds it
+    against the meshed JAX engines): ``--shard-params fsdp`` on a (2, 2)
+    gloo world serves every request; a layout without a process mesh is
+    refused, and names the backends."""
     from repro_torch.launch import serve as launch_serve
 
-    with pytest.raises(ValueError, match="FSDP storage while serving"):
-        launch_serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
-                           "cpu", "--data-mesh", "2", "--model-mesh", "2",
-                           "--backend", "gloo", "--shard-params", "fsdp"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen1.5-0.5b", "--reduced", "--device", "cpu", "--data-mesh", "2",
+         "--model-mesh", "2", "--backend", "gloo", "--requests", "5",
+         "--batch", "2", "--seq", "16", "--new-tokens", "4",
+         "--shard-params", "fsdp"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = proc.stdout
+    assert "parameters 'fsdp' over a 2x2 mesh of processes (gloo, cpu" in out
+    assert "served 5 requests in 3 batches on cpu" in out
+    assert out.count("served") == 1                  # rank 0 reports alone
     with pytest.raises(ValueError, match="name --backend gloo or nccl"):
         launch_serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device",
                            "cpu", "--shard-params", "specs"])

@@ -478,9 +478,10 @@ def test_backends_are_named_and_checked(tmp_path):
 
 
 def test_forward_on_a_mesh_refuses_what_is_not_ported():
-    """Every model trains and serves on a mesh, a MoE model under EP; what
-    stays refused is serving a model under the FSDP layout (ROADMAP.md
-    section 1, item 4), and a mesh MoE forward without EP."""
+    """Every model trains and serves on a mesh, a MoE model under EP, the
+    FSDP layout included (its serving is held against the meshed JAX
+    engines in tests/test_torch_dist_fsdp_serve.py); what stays refused
+    is a mesh MoE forward without EP."""
     fake = types.SimpleNamespace(model=1, data=1,
                                  batch_rows=lambda batch: None)
     toks = torch.zeros((1, 8), dtype=torch.long)
@@ -493,9 +494,9 @@ def test_forward_on_a_mesh_refuses_what_is_not_ported():
                            mode="prefill")
     assert logits.shape == (1, 1, qwen.vocab_size)
     model.layout = "fsdp"
-    with pytest.raises(ValueError, match="FSDP storage while serving.*"
-                                         "item 4"):
-        forward(model, qwen, toks, Runtime(mesh=fake), mode="prefill")
+    served, _, _ = forward(model, qwen, toks, Runtime(mesh=fake),
+                           mode="prefill")
+    torch.testing.assert_close(served, logits, rtol=0, atol=0)
     mixtral = get_config("mixtral-8x7b").reduced()
     moe = init_model(mixtral, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="runs under EP"):
