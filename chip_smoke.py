@@ -449,7 +449,7 @@ non-zero:
                 a rank, with four cards or more, else gloo with four
                 processes on card 0, every collective staged through the
                 host (this measures no NVLink). Mixtral-8x7B at published
-                widths, 2 of 32 layers, the main trace and engine on a
+                widths, 1 of 32 layers, the main trace and engine on a
                 virtual clock (``DIST_STEP_S`` an iteration, the overlap
                 window pinned at ``DIST_WINDOW_S``, so two runs agree step
                 for step): first with the EP ranks stacked in this process
@@ -461,7 +461,7 @@ non-zero:
                 process's launches
                 of the router, histogram_offsets, moe_gemm and paged
                 attention exact (counts set to 0 after its warmup, read at
-                the end). A (2, 2) world at 2 layers: every request done,
+                the end). A (2, 2) world at 1 layer: every request done,
                 the ranks' plan checksums equal at each re-plan, launches
                 exact; and in it reduced Mixtral, two prefills and a
                 decode step, against the same (2, 2) run on the CPU (gloo,
@@ -572,6 +572,26 @@ non-zero:
                 within 3e-2 in norm, parameters within 2 lr (at most 2%
                 beyond lr / 10), launches exact. A failed or timed-out rank
                 fails the phase.
+ 24. dryrun   — (last; alone with ``--phases dryrun``) the dry run
+                (``repro_torch.launch.dryrun``): one rank's step traced on
+                ``meta`` tensors, nothing executed, its collectives
+                counted. First the whole table in this process: every arch
+                of the JAX package's ``ASSIGNED_ARCHS`` x every input shape
+                on 16 x 16, Mixtral's four shapes (which skip: 8 experts do
+                not split over 16 EP ranks) and olmo-1b's train_4k on 2 x
+                16 x 16, a line a row with its argument, peak and
+                collective bytes a card, its dominant term and the seconds
+                its trace took (counted work, not measured time; the rows'
+                JSON under ``chiprun_out/dryrun/``); a FAIL fails the
+                phase. Then one combination that also runs: Mixtral-8x7B
+                at published widths, 1 of 32 layers, EP, "specs", a
+                prefill and a decode step of 4 x 256 on a (1, 4) gloo world
+                on card 0, each rank against ``trace_one`` at its rank of
+                the same mesh: the collectives' result bytes by kind equal,
+                the argument bytes (parameter blocks, cache, inputs) equal,
+                and the traced peak within 15% of
+                ``torch.cuda.max_memory_allocated`` above the rank's
+                baseline (both printed).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. The kernels JSON lists the three backward
@@ -701,6 +721,7 @@ def _paged_case(q, kp, vp, tab, lengths, lens, window, flush, timed: bool):
     (gather the view, expand KV heads, one fused attention)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import smem_bytes, split_plan
+    from repro_torch.kernels.work import paged_decode_work
 
     b, K, G, hd = q.shape
     bs, M = kp.shape[1], tab.shape[1]
@@ -735,16 +756,13 @@ def _paged_case(q, kp, vp, tab, lengths, lens, window, flush, timed: bool):
               and (err_split <= atol + rtol * want_split.float().abs()).all()
               and torch.isfinite(got.float()).all())
     cl = np.asarray(lens) + 1
-    live = (np.minimum(cl, window) if window > 0 else cl).sum()
     m_lo = np.where((window > 0) & (cl > window), (cl - window) // bs, 0)
     m_hi = np.minimum(-(-cl // bs) - 1, M - 1)
     live_ctas = K * int(sum(hi // P - lo // P + 1
                             for lo, hi in zip(m_lo, m_hi)))
-    nbytes = (live * K * hd * 2 * elem      # live K and V rows
-              + 2 * q.numel() * elem        # q in, out
-              + lengths.numel() * 4
-              + sum(-(-int(c) // bs) for c in cl) * 4)
-    flops = live * K * G * hd * 4           # QK^T and PV
+    # the live K and V rows, q in and out, the lengths and the live table
+    # entries; QK^T and PV
+    nbytes, flops = paged_decode_work(b, K, G, hd, elem, lens, bs, window)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
     row = {"max_abs_err": float(err.max()),
            "max_abs_err_split": float(err_split.max()), "ok": ok,
@@ -1059,6 +1077,7 @@ def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor,
     ``activation``: swiglu, or relu / gelu (two matrices a live expert;
     ``w_gate`` is passed as the dispatch passes it, and never read)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import moe_gemm_work
 
     S, T, d = x.shape
     F = cw["w_up"].shape[-1]
@@ -1079,9 +1098,8 @@ def moe_gemm_case(x, counts, slot_map, cw, flush: torch.Tensor,
     live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
     named = len(set(slot_map.tolist()))
     matrix = (3 if gated else 2) * d * F * elem
-    nbytes = live_experts * matrix + 2 * n_live * d * elem \
-        + counts.numel() * 4 + S * 4
-    flops = (6.0 if gated else 4.0) * n_live * d * F
+    nbytes, flops = moe_gemm_work(S, d, F, elem, n_live, live_experts,
+                                  counts.numel(), gated)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
     row = {"max_abs_err": float(err.max()), "ok": ok,
@@ -1273,6 +1291,7 @@ def router_phase(flush: torch.Tensor, seed: int, cfg):
     3 to 8 CTAs per rank, warps that loop over rows. Every case is held to
     ``_route_check``; near-tie rows are counted and printed."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import fused_topk_route_work
 
     from repro_torch.configs.registry import get_config
 
@@ -1289,9 +1308,8 @@ def router_phase(flush: torch.Tensor, seed: int, cfg):
         E, K, d = mc.moe.num_experts, mc.moe.top_k, mc.d_model
         logits = _route_logits(gen, R, T, E)
         row = _route_check(logits, K)
-        nbytes = 4 * (2 * R * T * E + 2 * R * T * K + R * T + R * E)
-        flops = R * T * E * (4 + 2 * K)      # max, exp, sum, divide; K rounds
-        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, FP32_FLOPS)
+        row["bound_ms"], row["bound_by"] = _bound(
+            *fused_topk_route_work(R, T, E, K), FP32_FLOPS)
         offs = (torch.arange(R, device="cuda") * E)[:, None, None]
         x = torch.randn((R, T, d), generator=gen, device="cuda")
         w = torch.randn((d, E), generator=gen, device="cuda") * d ** -0.5
@@ -1368,6 +1386,7 @@ def histogram_phase(flush: torch.Tensor, seed: int):
     CTA-per-row kernel's first), 128 and 133, N of 0, 16, 256 and 40000 and
     R of 1, 4 and 33 (two CTAs of warps), ids from -2 to C + 2. Exact."""
     from repro_torch.kernels import histogram, ops, ref
+    from repro_torch.kernels.work import histogram_offsets_work
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     lead = torch.empty(PAIR_LEAD_BYTES, dtype=torch.uint8, device="cuda")
@@ -1381,7 +1400,7 @@ def histogram_phase(flush: torch.Tensor, seed: int):
                             dtype=torch.int32)
         row = _hist_check(ids, C)
         row["bound_ms"], row["bound_by"] = _bound(
-            4 * (R * N + 2 * R * C), R * (N + C), FP32_FLOPS)
+            *histogram_offsets_work(R, N, C), FP32_FLOPS)
         offs = (torch.arange(R, device="cuda", dtype=torch.int32) * C)[:, None]
 
         def library():
@@ -1470,6 +1489,7 @@ def rg_lru_phase(flush: torch.Tensor, seed: int):
     as the plain version does. No single PyTorch call computes a
     first-order linear recurrence, so there is no library time."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import rg_lru_scan_work
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     rows = {}
@@ -1495,10 +1515,8 @@ def rg_lru_phase(flush: torch.Tensor, seed: int):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         row = {"max_abs_err": err, "ok": ok}
         if timed:
-            # a and b read once, every h written once, h0 read, h_last
-            # written; one product and one sum per element
             row["bound_ms"], row["bound_by"] = _bound(
-                4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D, FP32_FLOPS)
+                *rg_lru_scan_work(B, S, D), FP32_FLOPS)
             row["ms"] = time_ms(lambda: ops.rg_lru_scan(a, b, h0), flush)
             if case in ("train", "prefill", "prefill_2048"):
                 row["profiler_ms"] = device_ms(
@@ -1551,11 +1569,8 @@ def _route_bwd_check(probs, idx, grads):
 
 
 def _route_bwd_bound(R, T, E, K):
-    # probs, d_probs read and d_logits written (E each), idx and d_gates
-    # read (K each), d_lse read; per element a product, a difference, two
-    # more products, a sum and the reduction's add
-    return _bound(4 * (3 * R * T * E + 2 * R * T * K + R * T),
-                  6 * R * T * E, FP32_FLOPS)
+    from repro_torch.kernels.work import fused_topk_route_bwd_work
+    return _bound(*fused_topk_route_bwd_work(R, T, E, K), FP32_FLOPS)
 
 
 def _route_bwd_timed(probs, idx, grads, logits, flush):
@@ -1787,6 +1802,7 @@ def moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush,
     output written once (dx and the whole weight gradients), 8 products of
     2 rows d F operations a live row (5 without a gate)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import moe_gemm_bwd_work
 
     args = (x, wg, wu, wd, slot_map, dy, act, counts)
     before = ops.LAUNCHES["moe_gemm_bwd"]
@@ -1816,10 +1832,9 @@ def moe_bwd_case(x, wg, wu, wd, slot_map, dy, act, counts, flush,
     n_live = int(live.sum())
     live_experts = len(set(slot_map[live.any(dim=1)].tolist()))
     elem = x.element_size()
-    n_mat = 3 if act == "swiglu" else 2
-    nbytes = (2 * n_live * d + live_experts * n_mat * d * F + S * T * d
-              + E * n_mat * d * F) * elem + counts.numel() * 4 + S * 4
-    flops = (8 if act == "swiglu" else 5) * 2.0 * n_live * d * F
+    nbytes, flops = moe_gemm_bwd_work(S, T, d, F, E, elem, n_live,
+                                      live_experts, counts.numel(),
+                                      act == "swiglu")
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     bound_ms, bound_by = _bound(nbytes, flops, peak)
 
@@ -1952,9 +1967,8 @@ def _scan_bwd_check(a, h_all, h0, grads):
 
 
 def _scan_bwd_bound(B, S, D):
-    # a, h_all and d_h_all read, d_a and d_b written; h0 and d_h_last read,
-    # d_h0 written; a product, a sum and a product per element
-    return _bound(4 * (5 * B * S * D + 3 * B * D), 3 * B * S * D, FP32_FLOPS)
+    from repro_torch.kernels.work import rg_lru_scan_bwd_work
+    return _bound(*rg_lru_scan_bwd_work(B, S, D), FP32_FLOPS)
 
 
 def _scan_bwd_timed(a, h_all, h0, grads, flush):
@@ -8588,10 +8602,10 @@ def sweep_phase(seed: int, smi: str) -> None:
         raise SystemExit("sweep failed: " + "; ".join(failures))
 
 
-# of Mixtral's 32 (4 until phase tp's serving legs needed the script's
-# time): the reference's store 11.3 GB, each rank's shard 2.8 GB
-DIST_LAYERS = 2
-DIST_22_LAYERS = 2                 # the 2x2 leg's: two replicas of each rank
+# of Mixtral's 32 (4 until phase tp's serving legs, 2 until phase dryrun,
+# needed the script's time)
+DIST_LAYERS = 1
+DIST_22_LAYERS = 1                 # the 2x2 leg's: two replicas of each rank
 DIST_STEP_S = 0.05                 # the deterministic loop's virtual step
 DIST_WINDOW_S = 0.05               # the pinned overlap window (both engines)
 DIST_TIMEOUT_S = 600
@@ -8649,6 +8663,17 @@ def _plan_sum(plan) -> int:
                    for i, a in enumerate(plan)))
 
 
+def decode_bytes_field(steps) -> str:
+    """The collectives' result bytes of a decode step
+    (``moe.dispatch.COLLECTIVE_BYTES``, counted as the dry run counts
+    them): the median step's total and, of the first step, each kind's."""
+    if not steps:
+        return "not measured"
+    total = [sum(v for k, v in c.items() if k != "count") for c in steps]
+    return (f"{int(np.median(total))}("
+            + ",".join(f"{k}:{v}" for k, v in steps[0].items() if v) + ")")
+
+
 def dist_serve(cfg, model, seed: int, mesh=None,
                names=COLLECTIVES) -> dict:
     """The main trace through ``ContinuousEngine(ep=True)`` at
@@ -8662,6 +8687,7 @@ def dist_serve(cfg, model, seed: int, mesh=None,
     ``names`` of its groups are timed. Kernel counts are set to 0 after the
     warmup and read at the end. Returns the record."""
     from repro_torch.kernels import ops
+    from repro_torch.moe import dispatch
     from repro_torch.serve import ContinuousConfig, ContinuousEngine
 
     eng = ContinuousEngine(cfg, model, ContinuousConfig(**MAIN_CCFG),
@@ -8670,7 +8696,8 @@ def dist_serve(cfg, model, seed: int, mesh=None,
     eng._overlap_window_s = lambda: DIST_WINDOW_S
     eng.warmup()
     rec = {"plans": [], "plans_agree": [], "dropped": [], "walls": [],
-           "decoded": [], "coll_decode": [], "last": {}}
+           "decoded": [], "coll_decode": [], "coll_bytes_decode": [],
+           "last": {}}
     replan = eng.replan
 
     def recording_replan():
@@ -8711,9 +8738,11 @@ def dist_serve(cfg, model, seed: int, mesh=None,
         before = eng.metrics.summary()["dropped_tokens"]
         n0 = len(acc)
         rows.clear()
+        dispatch.reset_collective_bytes()
         t0 = time.perf_counter()
         ev = eng.step(now)
         wall = time.perf_counter() - t0
+        moved = dispatch.collective_bytes()
         rec["walls"].append(wall)
         rec["dropped"].append(eng.metrics.summary()["dropped_tokens"] - before)
         rec["decoded"].append(ev.decoded_slots)
@@ -8725,6 +8754,8 @@ def dist_serve(cfg, model, seed: int, mesh=None,
         if not ev.prefilled and ev.decoded_slots and not any(
                 name == "transfer" for name, _, _ in acc[n0:]):
             spans.append((n0, len(acc), wall))   # a decode step, no fill
+            if mesh is not None:
+                rec["coll_bytes_decode"].append(moved)
         it += 1
     rec["run_s"] = time.perf_counter() - t_run
     torch.cuda.synchronize()
@@ -8866,6 +8897,8 @@ def _dist_leg_log(label, backend, smi, rec, world):
         store_gb=f"{rec['store_gb']:.3f}",
         collective_share_of_decode_step=(
             f"{np.median(share):.4f}" if share else "not measured"),
+        collective_bytes_a_decode_step=decode_bytes_field(
+            rec.get("coll_bytes_decode")),
         collective_s=",".join(f"{k}:{v:.3f}"
                               for k, v in rec["collectives_s"].items()),
         timing="host wall of the deterministic loop (virtual clock for "
@@ -9605,6 +9638,7 @@ def tp_fsdp_serve(cfg, model, seed: int, mesh=None) -> dict:
     (synchronised) and collectives' share, the last logits, the store's
     bytes, the launches."""
     from repro_torch.kernels import ops
+    from repro_torch.moe import dispatch
     from repro_torch.serve import ServeConfig, ServeEngine
 
     B, S = TP_SERVE_BATCH
@@ -9612,7 +9646,7 @@ def tp_fsdp_serve(cfg, model, seed: int, mesh=None) -> dict:
         strategy="dist_only", dup_slots=1, max_len=S + TP_FSDP_NEW,
         migrate_chunk=2), ep=True, ep_ranks=TP_SERVE_RANKS, mesh=mesh)
     eng._note_step_time = lambda dt: None
-    rec = {"decode_ms": [], "coll_share": []}
+    rec = {"decode_ms": [], "coll_share": [], "coll_bytes": []}
     acc = []
     _timed_collectives(mesh, acc)
     prefill, decode = eng.prefill, eng.decode
@@ -9624,11 +9658,13 @@ def tp_fsdp_serve(cfg, model, seed: int, mesh=None) -> dict:
     def timed_decode(*a, **kw):
         eng._recent_step_s = DIST_WINDOW_S
         n0 = len(acc)
+        dispatch.reset_collective_bytes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = decode(*a, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        rec["coll_bytes"].append(dispatch.collective_bytes())
         rec["decode_ms"].append(wall)
         rec["coll_share"].append(sum(a.elapsed_time(b) for _, a, b in
                                      acc[n0:]) / wall)
@@ -9668,6 +9704,7 @@ def tp_etp_steps(cfg, model, seed: int, mesh=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import (Runtime, init_cache,
                                                 local_config)
+    from repro_torch.moe import dispatch
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     B, S = TP_SERVE_BATCH
@@ -9683,7 +9720,8 @@ def tp_etp_steps(cfg, model, seed: int, mesh=None) -> dict:
     tokens = torch.as_tensor(_tp_serve_tokens(cfg, seed), device=model.device)
     acc = []
     _timed_collectives(mesh, acc)
-    rec = {"decode_ms": [], "coll_share": [], "tokens": [], "dropped": []}
+    rec = {"decode_ms": [], "coll_share": [], "coll_bytes": [], "tokens": [],
+           "dropped": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -9694,11 +9732,13 @@ def tp_etp_steps(cfg, model, seed: int, mesh=None) -> dict:
     for t in range(TP_ETP_STEPS):
         rec["tokens"].append(tok.cpu().numpy().tolist())
         n0 = len(acc)
+        dispatch.reset_collective_bytes()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tok, logits, cache, st = decode(model, tok, cache, S + t, plan=plan)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
+        rec["coll_bytes"].append(dispatch.collective_bytes())
         rec["decode_ms"].append(wall)
         rec["coll_share"].append(sum(a.elapsed_time(b) for _, a, b in
                                      acc[n0:]) / wall)
@@ -9808,6 +9848,7 @@ def _tp_kernel_checks(cfg_mixtral, cfg_griffin, flush) -> dict:
     the 2 data ranks). The router and histogram_offsets run at phase
     dist's shapes (the expert block is EP's either way)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import rg_lru_scan_work
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
@@ -9842,7 +9883,7 @@ def _tp_kernel_checks(cfg_mixtral, cfg_griffin, flush) -> dict:
                               for g, w in zip(got, want)),
            "shape": f"{B}x{S}x{D}"}
     row["bound_ms"], row["bound_by"] = _bound(
-        4 * (3 * B * S * D + 2 * B * D), 2 * B * S * D, FP32_FLOPS)
+        *rg_lru_scan_work(B, S, D), FP32_FLOPS)
     row["ms"] = time_ms(lambda: ops.rg_lru_scan(a, bb, h0), flush)
     row["plain_ms"] = time_ms(lambda: ref.rg_lru_scan_plain(a, bb, h0),
                               flush, runs=3)
@@ -9935,6 +9976,8 @@ def tp_serve_checks(world, ref, smi: str, leg_s: dict) -> list:
             decode_step_p50_ms_stacked=(
                 f"{np.percentile(want['decode_ms'], 50):.3f}"),
             collective_share_p50=f"{np.median(got['coll_share']):.4f}",
+            collective_bytes_a_decode_step=decode_bytes_field(
+                got.get("coll_bytes")),
             run_s=f"{got['s']:.3f}", run_s_stacked=f"{want['s']:.3f}",
             launches=",".join(f"{k}:{v}" for k, v in got["launches"].items()
                               if v),
@@ -10189,13 +10232,177 @@ def tp_phase(seed: int, smi: str) -> dict:
             for k in launches["1x4"]}
 
 
+# ---------------------------------------------------------------------------
+# phase dryrun: one rank's step traced on meta tensors, against a live run
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = os.path.join(ROOT, "chiprun_out", "dryrun")
+DRYRUN_MULTI_POD = ("olmo-1b", "train_4k")
+DRYRUN_LIVE_LAYERS = 1             # of Mixtral's 32, as phase tp's (1, 4)
+DRYRUN_LIVE = (4, 256)             # B, S of the live prefill and decode
+DRYRUN_PEAK_REL = 0.15
+
+
+def dryrun_table(smi: str) -> list:
+    """Every row of the table (the JAX package's ``ASSIGNED_ARCHS`` x
+    every shape on 16 x 16, Mixtral's four, one multi-pod row), a line
+    each. Returns the failures."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    combos = ([(a, s, False) for a in dryrun.ASSIGNED_ARCHS
+               for s in INPUT_SHAPES]
+              + [("mixtral-8x7b", s, False) for s in INPUT_SHAPES]
+              + [DRYRUN_MULTI_POD + (True,)])
+    failures, ok = [], 0
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod in combos:
+        try:
+            row = dryrun.run_combo(arch, shape, multi_pod, DRYRUN_OUT)
+        except Exception as e:                  # a FAIL row fails the phase
+            failures.append(f"{arch} {shape}: {type(e).__name__}: {e}")
+            log("dryrun", arch=arch, shape=shape, status="FAIL",
+                error=f"'{type(e).__name__}: {e}'")
+            continue
+        if row["status"] != "ok":
+            log("dryrun", arch=arch, shape=shape, status=row["status"],
+                reason=f"'{row['reason']}'")
+            continue
+        ok += 1
+        log("dryrun", arch=arch, shape=shape, mesh=row["mesh"],
+            status="ok", argument_bytes=row["argument_bytes"],
+            peak_bytes=row["peak_bytes"],
+            collective_bytes=int(row["collective_bytes_per_device"]),
+            collectives=",".join(f"{k}:{v}" for k, v in
+                                 row["collective_breakdown"].items()),
+            ordered_sum_gathered=row["ordered_sum_gathered_bytes"],
+            ordered_sum_as_all_reduce=row["ordered_sum_allreduce_bytes"],
+            executed_flops=f"{row['executed_flops_per_device']:.6g}",
+            executed_bytes=f"{row['executed_bytes_per_device']:.6g}",
+            compute_s=f"{row['compute_s']:.6g}",
+            memory_s=f"{row['memory_s']:.6g}",
+            collective_s=f"{row['collective_s']:.6g}",
+            dominant=row["dominant"], trace_s=row["trace_s"],
+            depths=",".join(map(str, row["depths"])))
+    log("dryrun", table_rows=ok, failed=len(failures),
+        table_s=f"{time.perf_counter() - t0:.2f}", card=f"'{smi}'",
+        counted="work and bytes of one rank's traced step, not measured "
+                "time; the roofline terms at the H100's data sheet")
+    return failures
+
+
+def dryrun_live_rank(mesh, seed: int) -> dict:
+    """A rank of the (1, 4) world: Mixtral at ``DRYRUN_LIVE_LAYERS``
+    layers, EP, "specs", a prefill and a decode step at ``DRYRUN_LIVE``
+    over a zero cache of S positions under the identity plan, as
+    ``launch.dryrun`` traces them. Per step: the collectives' result bytes,
+    the argument bytes (parameter blocks, cache, inputs) and the peak
+    allocated above the rank's baseline (before anything of the step was
+    allocated), with the peak statistics reset just before the step."""
+    from repro_torch.bridge import sharder
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import (Runtime, init_cache,
+                                                init_model, local_config)
+    from repro_torch.moe import dispatch
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg = _dist_cfg(DRYRUN_LIVE_LAYERS)
+    B, S = DRYRUN_LIVE
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev, shard=sharder(cfg, mesh, "specs"))
+    rt = Runtime(mesh=mesh, ep=True, ep_ranks=mesh.model)
+    plan = specs.plan_args(cfg, mesh.model)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+    for kind in ("prefill", "decode"):
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (B, S if kind == "prefill" else 1),
+                               generator=gen, device=dev, dtype=torch.int32)
+        cache = init_cache(local_config(model, cfg), rt, B, S, device=dev)
+        held = params + tokens.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in cache.values())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_collective_bytes()
+        if kind == "prefill":
+            make_prefill_step(cfg, rt)(model, tokens, cache=cache, plan=plan)
+        else:
+            make_decode_step(cfg, rt)(model, tokens, cache, S - 1, plan=plan)
+        torch.cuda.synchronize()
+        out[kind] = {"collectives": dispatch.collective_bytes(),
+                     "argument_bytes": held, "resident": resident,
+                     "peak": torch.cuda.max_memory_allocated() - base}
+        del tokens, cache
+    return out
+
+
+def dryrun_phase(seed: int, smi: str) -> None:
+    """Phase dryrun (see the module docstring, item 24)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    failures = dryrun_table(smi)
+    t1 = time.perf_counter()
+    world = mesh_mod.spawn(dryrun_live_rank, (seed,), data=1, model=EP_RANKS,
+                           backend="gloo", device=torch.device("cuda", 0),
+                           threads=2, timeout_s=DIST_TIMEOUT_S)
+    cfg = _dist_cfg(DRYRUN_LIVE_LAYERS)
+    B, S = DRYRUN_LIVE
+    for kind in ("prefill", "decode"):
+        shape = InputShape(kind, S, B, kind)
+        for r, rec in enumerate(world):
+            live = rec[kind]
+            dry = dryrun.trace_one(
+                cfg, shape, mesh_mod.ProductionMesh(
+                    {"data": 1, "model": EP_RANKS}, rank=r),
+                fsdp=False, whole=True)
+            rel = abs(dry["peak_bytes"] - live["peak"]) / live["peak"]
+            same = dry["collectives"] == live["collectives"]
+            if not same:
+                failures.append(f"{kind} rank {r}: collective bytes "
+                                f"{dry['collectives']} dry, "
+                                f"{live['collectives']} live")
+            if dry["argument_bytes"] != live["argument_bytes"]:
+                failures.append(f"{kind} rank {r}: argument bytes "
+                                f"{dry['argument_bytes']} dry, "
+                                f"{live['argument_bytes']} live")
+            if rel > DRYRUN_PEAK_REL:
+                failures.append(f"{kind} rank {r}: traced peak "
+                                f"{dry['peak_bytes']} against "
+                                f"{live['peak']} allocated")
+            log("dryrun", leg=f"live_{kind}_1x4", rank=r, card=f"'{smi}'",
+                backend="gloo", layers=DRYRUN_LIVE_LAYERS, batch=B, seq=S,
+                collectives_equal=same,
+                collectives=",".join(f"{k}:{v}" for k, v in
+                                     live["collectives"].items() if v),
+                argument_bytes_dry=dry["argument_bytes"],
+                argument_bytes_live=live["argument_bytes"],
+                resident_before_step=live["resident"],
+                peak_bytes_dry=dry["peak_bytes"],
+                max_memory_allocated_above_baseline=live["peak"],
+                peak_rel_diff=f"{rel:.4f}", tolerance=DRYRUN_PEAK_REL)
+    log("dryrun", table_s=f"{t1 - t0:.2f}",
+        live_s=f"{time.perf_counter() - t1:.2f}",
+        phase_s=f"{time.perf_counter() - t0:.2f}")
+    if failures:
+        raise SystemExit("dryrun: " + "; ".join(failures[:8]))
+
+
 KERNEL_PHASES = ("paged_attention", "moe_gemm", "router", "histogram",
                  "rg_lru", "router_bwd", "rg_lru_bwd", "moe_gemm_bwd")
 PHASES = KERNEL_PHASES + ("floor", "main", "gps", "t2e", "resched",
                           "serve_ep", "roofline", "profile", "fleet",
                           "griffin", "reference", "models", "dense", "mla",
                           "rwkv", "seamless", "llava", "sweep", "dist",
-                          "tp", "train", "dist_train")
+                          "tp", "train", "dist_train", "dryrun")
 
 
 def main() -> int:
@@ -10317,6 +10524,8 @@ def main() -> int:
     dist_train_launches = {}
     if "dist_train" in phases:
         dist_train_launches = dist_train_phase(args.seed, smi)
+    if "dryrun" in phases:
+        dryrun_phase(args.seed, smi)
 
     if set(phases) == set(PHASES):
         for k in kernels:

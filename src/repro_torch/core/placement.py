@@ -270,6 +270,23 @@ def device_plan(plan: PlacementPlan, num_experts: int, ep_ranks: int,
                       se if rows is None else rows.to(torch.int32))
 
 
+class MetaPlan(DevicePlan):
+    """A ``DevicePlan`` on the ``meta`` device (the dry run), with the same
+    plan on the CPU as ``host``: what the dispatch reads of a plan on the
+    host (``moe.dispatch.gather_replica_pool``) it reads there."""
+
+    def layer(self, l: int) -> "MetaPlan":
+        out = MetaPlan(*(t[l] for t in self))
+        out.host = self.host.layer(l)
+        return out
+
+
+def host_plan(plan: DevicePlan) -> DevicePlan:
+    """The plan whose values the host may read: a ``MetaPlan``'s CPU copy,
+    else the plan itself."""
+    return getattr(plan, "host", plan)
+
+
 def to_device(plan: PlacementPlan, num_experts: int, ep_ranks: int,
               dup_slots: int, device, rows=None) -> DevicePlan:
     """Move a (stacked) plan to ``device`` once, at each re-plan, so the
@@ -277,10 +294,17 @@ def to_device(plan: PlacementPlan, num_experts: int, ep_ranks: int,
     the slot -> row map (shaped as ``slot_experts``); None reads every
     slot's expert from its home row. A plan of tensors is moved to
     ``device`` (no copy where it already lies there, as an in-graph plan
-    does: ``device_plan``)."""
+    does: ``device_plan``). On ``meta`` the result is a ``MetaPlan``, the
+    plan kept on the CPU beside it."""
     def dev(a):
         return a.to(device) if torch.is_tensor(a) else torch.tensor(
             np.array(a), device=device)
-    return device_plan(PlacementPlan(*(dev(a) for a in plan)), num_experts,
-                       ep_ranks, dup_slots,
-                       rows=None if rows is None else dev(rows))
+    out = device_plan(PlacementPlan(*(dev(a) for a in plan)), num_experts,
+                      ep_ranks, dup_slots,
+                      rows=None if rows is None else dev(rows))
+    if torch.device(device).type != "meta":
+        return out
+    meta = MetaPlan(*out)
+    meta.host = to_device(plan, num_experts, ep_ranks, dup_slots, "cpu",
+                          rows)
+    return meta

@@ -3,6 +3,11 @@
 A CUDA tensor launches the hand-written Hopper kernel (or raises: there is
 no fallback). A CPU tensor runs the kernel's plain PyTorch version from
 ``kernels.ref`` — that is how the CPU tests exercise the same interface.
+A ``meta`` tensor (the dry run, ``launch.dryrun``, which executes nothing)
+gets empty ``meta`` outputs of the kernel's shapes and dtypes, and the
+kernel's bytes and operations are added to ``kernels.work.KERNEL_WORK``
+(the formulas of its bound; the most the shapes allow where they depend on
+the data): the dry run describes the card's path, which runs the kernel.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels.
 
@@ -27,6 +32,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rg_lru as _rg
 from repro_torch.kernels import topk_router as _tk
+from repro_torch.kernels import work as _work
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
                             "fused_topk_route": 0, "histogram_offsets": 0,
@@ -37,6 +43,14 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "moe_gemm": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _meta(t) -> bool:
+    return t.device.type == "meta"
+
+
+def _empty(shape, dtype, like):
+    return torch.empty(tuple(shape), dtype=dtype, device=like.device)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -55,6 +69,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         _pa.check_inputs(q, k_pool, v_pool, block_tables, lengths)
         return _ref.paged_decode_plain(q, k_pool, v_pool, block_tables,
                                        lengths, window=window)
+    if _meta(q):
+        _pa.check_inputs(q, k_pool, v_pool, block_tables, lengths)
+        B, K, G, hd = q.shape
+        bs, M = k_pool.shape[1], block_tables.shape[1]
+        _work.add_kernel_work("paged_decode_attention", *_work.paged_decode_work(
+            B, K, G, hd, q.element_size(), [M * bs - 1] * B, bs, window))
+        return _empty(q.shape, q.dtype, q)
     out = _pa.paged_decode_attention(q, k_pool, v_pool, block_tables,
                                      lengths, window=window)
     LAUNCHES["paged_decode_attention"] += 1
@@ -93,6 +114,16 @@ def _moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
                          row_counts)
         return _ref.moe_gemm_plain(x, w_gate, w_up, w_down, slot_experts,
                                    activation, row_counts)
+    if _meta(x):
+        _mg.check_inputs(x, w_gate, w_up, w_down, slot_experts, activation,
+                         row_counts)
+        S, T, d = x.shape
+        E, _, F = w_up.shape
+        _work.add_kernel_work("moe_gemm", *_work.moe_gemm_work(
+            S, d, F, w_up.element_size(), S * T, min(S, E),
+            0 if row_counts is None else row_counts.numel(),
+            activation == "swiglu"))
+        return _empty(x.shape, x.dtype, x)
     out = _mg.moe_gemm(x, w_gate, w_up, w_down, slot_experts, activation,
                        row_counts)
     LAUNCHES["moe_gemm"] += 1
@@ -110,6 +141,18 @@ def fused_topk_route(logits, top_k: int):
     if logits.device.type == "cpu":
         _tk.check_inputs(logits, top_k)
         return _ref.fused_topk_route_plain(logits, top_k)
+    if _meta(logits):
+        _tk.check_inputs(logits, top_k)
+        *lead, T, E = logits.shape
+        R = int(torch.Size(lead).numel())
+        _work.add_kernel_work("fused_topk_route",
+                              *_work.fused_topk_route_work(R, T, E, top_k))
+        f32, i32 = torch.float32, torch.int32
+        return (_empty((*lead, T, top_k), i32, logits),
+                _empty((*lead, T, top_k), f32, logits),
+                _empty((*lead, T, E), f32, logits),
+                _empty((*lead, T), f32, logits),
+                _empty((*lead, E), i32, logits))
     out = _tk.fused_topk_route(logits, top_k)
     LAUNCHES["fused_topk_route"] += 1
     return out
@@ -125,6 +168,15 @@ def histogram_offsets(ids, num_classes: int):
     if ids.device.type == "cpu":
         _hist.check_inputs(ids, num_classes)
         return _ref.histogram_offsets_plain(ids, num_classes)
+    if _meta(ids):
+        _hist.check_inputs(ids, num_classes)
+        *lead, N = ids.shape
+        R = int(torch.Size(lead).numel())
+        _work.add_kernel_work("histogram_offsets",
+                              *_work.histogram_offsets_work(R, N,
+                                                            num_classes))
+        return tuple(_empty((*lead, num_classes), torch.int32, ids)
+                     for _ in range(2))
     out = _hist.histogram_offsets(ids, num_classes)
     LAUNCHES["histogram_offsets"] += 1
     return out
@@ -141,6 +193,12 @@ def rg_lru_scan(a, b, h0):
     if a.device.type == "cpu":
         _rg.check_inputs(a, b, h0)
         return _ref.rg_lru_scan_plain(a, b, h0)
+    if _meta(a):
+        _rg.check_inputs(a, b, h0)
+        B, S, D = a.shape
+        _work.add_kernel_work("rg_lru_scan", *_work.rg_lru_scan_work(B, S, D))
+        return (_empty(a.shape, torch.float32, a),
+                _empty(h0.shape, torch.float32, a))
     out = _rg.rg_lru_scan(a, b, h0)
     LAUNCHES["rg_lru_scan"] += 1
     return out
@@ -157,6 +215,14 @@ def fused_topk_route_bwd(probs, idx, d_gates, d_probs, d_lse):
         _tk.check_bwd_inputs(probs, idx, d_gates, d_probs, d_lse)
         return _ref.fused_topk_route_bwd_plain(probs, idx, d_gates, d_probs,
                                                d_lse)
+    if _meta(probs):
+        _tk.check_bwd_inputs(probs, idx, d_gates, d_probs, d_lse)
+        *lead, T, E = probs.shape
+        _work.add_kernel_work("fused_topk_route_bwd",
+                              *_work.fused_topk_route_bwd_work(
+                                  int(torch.Size(lead).numel()), T, E,
+                                  idx.shape[-1]))
+        return _empty(probs.shape, torch.float32, probs)
     out = _tk.fused_topk_route_bwd(probs, idx, d_gates, d_probs, d_lse)
     LAUNCHES["fused_topk_route_bwd"] += 1
     return out
@@ -173,6 +239,14 @@ def rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last):
     if a.device.type == "cpu":
         _rg.check_bwd_inputs(a, h_all, h0, d_h_all, d_h_last)
         return _ref.rg_lru_scan_bwd_plain(a, h_all, h0, d_h_all, d_h_last)
+    if _meta(a):
+        _rg.check_bwd_inputs(a, h_all, h0, d_h_all, d_h_last)
+        B, S, D = a.shape
+        _work.add_kernel_work("rg_lru_scan_bwd",
+                              *_work.rg_lru_scan_bwd_work(B, S, D))
+        return (_empty(a.shape, torch.float32, a),
+                _empty(a.shape, torch.float32, a),
+                _empty(h0.shape, torch.float32, a))
     out = _rg.rg_lru_scan_bwd(a, h_all, h0, d_h_all, d_h_last)
     LAUNCHES["rg_lru_scan_bwd"] += 1
     return out
@@ -198,6 +272,19 @@ def moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
                              activation, row_counts)
         return _ref.moe_gemm_bwd_plain(x, w_gate, w_up, w_down, slot_experts,
                                        dy, activation, row_counts)
+    if _meta(x):
+        _mg.check_bwd_inputs(x, w_gate, w_up, w_down, slot_experts, dy,
+                             activation, row_counts)
+        S, T, d = x.shape
+        E, _, F = w_up.shape
+        gated = activation == "swiglu"
+        _work.add_kernel_work("moe_gemm_bwd", *_work.moe_gemm_bwd_work(
+            S, T, d, F, E, x.element_size(), S * T, min(S, E),
+            0 if row_counts is None else row_counts.numel(), gated))
+        wd = w_up.dtype
+        return (_empty(x.shape, x.dtype, x),
+                _empty(w_up.shape, wd, x) if gated else None,
+                _empty(w_up.shape, wd, x), _empty(w_down.shape, wd, x))
     out = _mg.moe_gemm_bwd(x, w_gate, w_up, w_down, slot_experts, dy,
                            activation, row_counts)
     LAUNCHES["moe_gemm_bwd"] += 1

@@ -23,8 +23,17 @@ is no fallback from one to the other. ``spawn`` starts a world of
 processes and returns what each one's function returned; a rank that
 fails or outlives the timeout fails the call.
 
-``make_production_mesh`` (16 x 16 TPU pods) has no counterpart yet: it
-comes with the port of the dry run.
+``make_production_mesh`` is the reference's production mesh, ``(data=16,
+model=16)`` or ``(pod=2, data=16, model=16)``, as an abstract mesh
+(``ProductionMesh``): its axes and sizes and the coordinates of the one rank
+the dry run traces (``launch.dryrun``), with ``moe.dispatch.DryRanks`` as
+its collectives. It has no processes and no devices (its device is
+``meta``), so it can describe 256 or 512 cards anywhere. Its batch axis is
+``pod`` x ``data``: its ``data``, ``data_index`` and ``data_comm`` span
+both, as ``sharding.batch_axes`` shards the batch and the FSDP storage over
+both.
+
+Importing this module initialises neither ``torch.distributed`` nor CUDA.
 """
 
 from __future__ import annotations
@@ -39,11 +48,12 @@ import traceback
 from datetime import timedelta
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.moe.dispatch import ProcessGroupRanks
+from repro_torch.moe.dispatch import DryRanks, ProcessGroupRanks
 
 BACKENDS = ("nccl", "gloo")
 DEFAULT_TIMEOUT_S = 600.0
@@ -119,6 +129,11 @@ class Mesh:
         return {"data": self.data, "model": self.model}
 
     @property
+    def coords(self) -> dict:
+        """{axis: this rank's index on it} (``sharding.shard_tensor``)."""
+        return {"data": self.data_index, "model": self.model_index}
+
+    @property
     def key(self) -> str:
         return f"{self.data}x{self.model}"
 
@@ -167,17 +182,81 @@ def rank_device(backend: str, device="cuda"):
     return dev, 1
 
 
+class ProductionMesh:
+    """An abstract ``(data, model)`` or ``(pod, data, model)`` mesh and one
+    rank of it, ``rank`` in row-major order over the axes: what ``Mesh``
+    is to a process, without processes. ``data`` is the batch axis's size
+    (``pod * data``), ``data_index`` this rank's index on it; ``comm``,
+    ``data_comm`` and ``world_comm`` are ``DryRanks`` over the same groups
+    as ``Mesh``'s. Its device is ``meta``."""
+
+    backend = "dry"
+
+    def __init__(self, axes: dict, rank: int = 0):
+        self.axes = dict(axes)
+        if list(self.axes)[-1] != "model" or not set(self.axes) <= {
+                "pod", "data", "model"}:
+            raise ValueError(f"axes {self.axes}: (pod,) data, model")
+        sizes = list(self.axes.values())
+        world = int(np.prod(sizes))
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a mesh of {world}")
+        self.rank, self.world = rank, world
+        self.model = self.axes["model"]
+        self.data = world // self.model
+        self.data_index, self.model_index = rank // self.model, \
+            rank % self.model
+        idx = np.unravel_index(rank, sizes)
+        self._coords = {a: int(i) for a, i in zip(self.axes, idx)}
+        self.device = torch.device("meta")
+        self.model_ranks = [self.data_index * self.model + m
+                            for m in range(self.model)]
+        self.data_ranks = [d * self.model + self.model_index
+                           for d in range(self.data)]
+        self.comm = DryRanks(ranks=self.model, rank=self.model_index,
+                             global_ranks=self.model_ranks)
+        self.data_comm = DryRanks(ranks=self.data, rank=self.data_index,
+                                  global_ranks=self.data_ranks)
+        self.world_comm = DryRanks(ranks=world, rank=rank,
+                                   global_ranks=range(world))
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.axes)
+
+    @property
+    def coords(self) -> dict:
+        return dict(self._coords)
+
+    @property
+    def key(self) -> str:
+        return "x".join(str(n) for n in self.axes.values())
+
+    batch_rows = Mesh.batch_rows
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> ProductionMesh:
+    """The reference's production mesh, (data=16, model=16) or (pod=2,
+    data=16, model=16), at ``rank``."""
+    axes = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
+    return ProductionMesh(axes, rank)
+
+
 def make_dev_mesh(data: int = 2, model: int = 4, *, device=None) -> Mesh:
     """The mesh over an initialised world of ``data * model`` ranks."""
     return Mesh(data, model, device=device)
 
 
-def model_axis_size(mesh: Mesh) -> int:
+def model_axis_size(mesh) -> int:
     return mesh.shape["model"]
 
 
-def batch_shards(mesh: Mesh) -> int:
-    return mesh.shape["data"]
+def batch_shards(mesh) -> int:
+    """The ranks the batch splits over: ``pod`` x ``data``."""
+    return int(np.prod([n for a, n in mesh.shape.items()
+                        if a in ("pod", "data")]))
 
 
 # ---------------------------------------------------------------------------

@@ -448,17 +448,27 @@ def mla_decode(p, cfg: ModelConfig, x, cache, cache_len: int, *, window=0):
     """Decode one token per row over the latent cache. x: (B, 1, d);
     ``cache_len``: the length BEFORE this token, where its c_kv and k_rope
     are written (in place). K and V are expanded from all ``S_max`` cached
-    positions, the unwritten ones masked."""
+    positions, the unwritten ones masked. A cache no longer than
+    ``window`` is a rotating window buffer, as ``gqa_decode_windowed``
+    keeps one: the token goes to slot ``cache_len % S_max`` and attention
+    covers the ``min(cache_len + 1, S_max)`` live slots (the RoPE'd
+    ``k_rope`` carries its position), so a long-context decode runs past
+    the buffer's end (up to it, the same as the linear cache)."""
     m = cfg.mla
     B = x.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.long,
                            device=x.device)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, positions)
     H = q_nope.shape[2]
-    cache["c_kv"][:, cache_len] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, cache_len] = k_rope_new[:, 0, 0].to(
-        cache["k_rope"].dtype)
     S_max = cache["c_kv"].shape[1]
+    if 0 < window and S_max <= window:
+        slot, cache_len, window = cache_len % S_max, \
+            min(cache_len, S_max - 1), 0
+    else:
+        slot = cache_len
+    cache["c_kv"][:, slot] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slot] = k_rope_new[:, 0, 0].to(
+        cache["k_rope"].dtype)
     k_nope, v = _mla_expand(p, cfg, cache["c_kv"].to(x.dtype))
     k_rope_all = cache["k_rope"][:, :, None, :].to(x.dtype).expand(
         B, S_max, H, m.rope_head_dim)

@@ -131,7 +131,10 @@ class Runtime(NamedTuple):
     ``_moe_apply``); the other modes, and a config whose ``d_ff_expert``
     the data ranks do not divide, take the ordinary path. ``rows_split``
     is set by ``forward``: this process runs its data rank's rows of the
-    batch."""
+    batch. A caller that sets it hands ``forward`` this rank's rows
+    already (the tokens, every per-row input and the cache: the dry run's
+    per-rank trees, ``launch.specs``), which then cuts nothing and runs
+    the rest of a split batch's step as it is."""
     window_override: int = 0             # force a window (engine: max_len)
     ep: bool = False                     # expert-parallel dispatch
     ep_ranks: int = 1
@@ -514,8 +517,12 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``sharding.Sharder`` (``bridge.sharder``): every weight is drawn whole,
     one at a time (an expert at a time), and this rank keeps its block
     under the sharder's layout, each parameter carrying its
-    ``Placement``."""
+    ``Placement``. On the ``meta`` device nothing is drawn and no
+    generator is needed: ``meta_model``."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return meta_model(cfg, trainable=trainable,
+                          expert_block=expert_block, shard=shard)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     d, V = cfg.d_model, cfg.vocab_size
@@ -559,6 +566,50 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         enc_layers = [{name: draw(f"enc_layers.{l}.{name}", shape, scale, dt)
                        for name, (shape, scale, dt)
                        in _layer_shapes(cfg, "encoder").items()}
+                      for l in range(cfg.encoder.num_layers)]
+    model = Transformer(cfg, top, layers, trainable, enc_layers)
+    if shard is not None:
+        shard.attach(model)
+    return model
+
+
+def meta_model(cfg: ModelConfig, dtype=None, trainable: bool = False,
+               expert_block=None, shard=None) -> Transformer:
+    """A model whose every parameter is an empty ``meta`` tensor: nothing
+    allocated, nothing drawn. Each holds this rank's block (``shard``: a
+    ``sharding.Sharder``, whose placements are attached; ``expert_block``:
+    (lo, hi), the experts kept) or the whole leaf. Dtypes are
+    ``init_model``'s (fp32 when ``trainable``), or ``dtype`` for every
+    leaf when given (the JAX dry run's abstract trees cast every leaf)."""
+    meta = torch.device("meta")
+
+    def leaf(name, shape, dt):
+        if shard is not None:
+            shape = shard.block_shape(name)
+        elif expert_block is not None and len(shape) == 3 \
+                and name.rsplit(".", 1)[-1] in EXPERT_NAMES:
+            shape = (expert_block[1] - expert_block[0],) + tuple(shape[1:])
+        dt = dtype or (torch.float32 if trainable else dt)
+        return torch.empty(shape, dtype=dt, device=meta)
+
+    d, V = cfg.d_model, cfg.vocab_size
+    top = {"embed": leaf("embed", (V, d), WEIGHT_DTYPE)}
+    if cfg.norm == "rmsnorm":
+        top["final_norm"] = leaf("final_norm", (d,), torch.float32)
+    if not cfg.tie_embeddings:
+        top["lm_head"] = leaf("lm_head", (d, V), WEIGHT_DTYPE)
+    layers = [{name: leaf(f"layers.{l}.{name}", spec[0], spec[2])
+               for name, spec in _layer_shapes(
+                   cfg, _layer_kind(cfg, l)).items()}
+              for l in range(cfg.num_layers)]
+    enc_layers = []
+    if cfg.is_encdec:
+        if cfg.norm == "rmsnorm":
+            top["enc_norm"] = leaf("enc_norm", (cfg.encoder.d_model,),
+                                   torch.float32)
+        enc_layers = [{name: leaf(f"enc_layers.{l}.{name}", spec[0], spec[2])
+                       for name, spec in _layer_shapes(
+                           cfg, "encoder").items()}
                       for l in range(cfg.encoder.num_layers)]
     model = Transformer(cfg, top, layers, trainable, enc_layers)
     if shard is not None:
@@ -1138,6 +1189,13 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         # the train step hands each rank its data rows and reduces over
         # the data axis itself
         return _forward(model, cfg, tokens, rt, **kw)
+    if rt.rows_split:
+        # the caller's rows already (the dry run's per-rank trees): the
+        # step of a split batch, without the cuts
+        logits, cache, stats = _forward(model, cfg, tokens, rt, **kw)
+        return _rows_joined(cfg, rt, logits, cache, stats, mode,
+                            tokens.shape[0] * rt.mesh.data,
+                            resched is not None)
     rows = rt.mesh.batch_rows(tokens.shape[0])
     if rows is None:
         return _forward(model, cfg, tokens, rt, **kw)
@@ -1171,22 +1229,33 @@ def forward(model: Transformer, cfg: ModelConfig, tokens, rt: Runtime = Runtime(
         for whole, mine in zip(cache, out_cache):
             for name, t in mine.items():
                 whole[name][rows] = t
+    return _rows_joined(cfg, rt, logits,
+                        cache if block_tables is None else out_cache, stats,
+                        mode, tokens.shape[0], resched is not None)
+
+
+def _rows_joined(cfg: ModelConfig, rt: Runtime, logits, cache, stats,
+                 mode: str, batch: int, quota: bool):
+    """What every data rank returns of a batch it ran its rows of: a MoE
+    model's statistics summed over the data axis, and the logits of all
+    ``batch`` rows gathered over it. ``quota``: the step ran under a
+    reschedule quota, so its overflow counts are device counts to sum."""
     data = rt.mesh.data_comm
     if cfg.is_moe and not (mode == "decode" and expert_tp_decode(cfg, rt)):
         # summed over the data axis (expert-TP decode routed the whole
         # batch on every rank: its statistics are global already): the
-        # counts in one collective (a host zero overflow without a quota
-        # stays as it is), the losses in one
-        keys = [k for k in ("expert_counts", "slot_counts", "dropped",
-                            "overflow") if stats[k].device == logits.device]
+        # counts in one collective (the host zero overflow without a quota
+        # stays as it is, whatever the device), the losses in one
+        keys = ["expert_counts", "slot_counts", "dropped"] + (
+            ["overflow"] if quota else [])
         stats.update(zip(keys, data.psum_counts(*(stats[k][None]
                                                   for k in keys))))
         stats["aux_loss"], stats["z_loss"] = data.pmean_losses(
             *(torch.as_tensor(stats[k], device=logits.device)[None]
               for k in ("aux_loss", "z_loss")))
     logits = data.all_gather(logits[None]).reshape(
-        (tokens.shape[0],) + logits.shape[1:])
-    return logits, (cache if block_tables is None else out_cache), stats
+        (batch,) + logits.shape[1:])
+    return logits, cache, stats
 
 
 def _cache_rows(cache, rows):

@@ -34,7 +34,11 @@ of the EP group. ``StackedRanks`` holds all of them (H = R) on one device:
 ``psum`` a sum over the rank dimension, ``pmean`` a mean and
 ``rank_index`` an ``arange(R)``. ``ProcessGroupRanks`` holds one (H = 1),
 one rank per process, and runs the same methods as ``torch.distributed``
-collectives over the mesh's model group (``launch.mesh``). Without a store
+collectives over the mesh's model group (``launch.mesh``); ``DryRanks``
+is the same without a group, for the dry run (``launch.dryrun``): its
+collectives return ``meta`` outputs and move nothing. Both count the
+result bytes of every collective they issue, by kind, in
+``COLLECTIVE_BYTES``. Without a store
 each process holds only its ranks' home experts, so a replica slot there
 reads an expert of another rank from a pool that an ``all_gather`` builds
 each forward (``gather_replica_pool``, the JAX package's
@@ -67,7 +71,7 @@ the JAX package. In the predicted mode both rounds pick through the quota
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,7 +79,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.core.placement import DevicePlan, plan_dims
+from repro_torch.core.placement import DevicePlan, host_plan, plan_dims
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.moe.router import RouterOutput
 
@@ -128,6 +132,36 @@ class StackedRanks:
     def pmean_losses(self, *ts):
         """``pmean`` of each of several (H,) tensors."""
         return [self.pmean(t) for t in ts]
+
+
+# the result bytes of every collective a ``ProcessGroupRanks`` issued, by
+# kind (the JAX package's ``roofline.collective_bytes`` counts each compiled
+# collective's result shape the same way), and "count", how many it issued
+COLLECTIVE_KINDS = ("all-to-all", "all-gather", "all-reduce", "gather",
+                    "send/recv")
+COLLECTIVE_BYTES: Dict[str, int] = dict.fromkeys(COLLECTIVE_KINDS + ("count",),
+                                                 0)
+# of the all-gathers, those of the ordered sums (``_sum_ordered``): the
+# bytes gathered, and the result bytes an all-reduce of the tensor itself
+# (XLA's psum) would have had
+ORDERED_SUMS: Dict[str, int] = {"gathered": 0, "all-reduce": 0}
+
+
+def reset_collective_bytes() -> None:
+    for counts in (COLLECTIVE_BYTES, ORDERED_SUMS):
+        for k in counts:
+            counts[k] = 0
+
+
+def collective_bytes() -> Dict[str, int]:
+    """A copy of ``COLLECTIVE_BYTES``."""
+    return dict(COLLECTIVE_BYTES)
+
+
+def _count(kind: str, *results) -> None:
+    COLLECTIVE_BYTES[kind] += sum(t.numel() * t.element_size()
+                                  for t in results)
+    COLLECTIVE_BYTES["count"] += 1
 
 
 # elements of one ``ProcessGroupRanks.mean_`` collective (fp32: 256 MB)
@@ -313,7 +347,21 @@ class ProcessGroupRanks:
     fp32 in rank order; the gradient passed), ``tp_gather`` (blocks joined
     along a dim; this rank's block of the gradient), ``tp_split`` (this
     rank's block; the gradients joined) and ``fsdp_gather`` (shards
-    joined; the gradient's mean reduce-scattered)."""
+    joined; the gradient's mean reduce-scattered).
+
+    Every collective adds its result bytes to ``COLLECTIVE_BYTES`` under
+    its kind before it is issued (``_issue_*``, the only calls into
+    ``torch.distributed``), host-staged or not: an all-to-all its output,
+    an all-gather its R rows, an all-reduce its tensor (``psum`` and each
+    bucket of ``mean_``), a gather the R rows on the group's rank 0 (none
+    elsewhere), and a batch of point-to-point copies the bytes this rank
+    receives. What that shows of the ordered sums (``_sum_ordered``: ``tp_sum``,
+    ``psum_ordered``, ``tp_copy``'s backward): each is an all-gather of R
+    fp32 copies of the tensor, summed here in rank order, where XLA
+    all-reduces the bf16 tensor itself, so at a "model" axis of 16 a bf16
+    sum moves 32 times the result bytes of the reference's all-reduce (16
+    fp32 copies, 16 x 4 bytes an element against 2); ``ORDERED_SUMS``
+    keeps both. The counts are what the port moves, not what XLA would."""
 
     held = 1
 
@@ -344,16 +392,41 @@ class ProcessGroupRanks:
             return _AllToAll.apply(self, buf)
         return self._all_to_all(buf)
 
+    # -- the calls into torch.distributed (``DryRanks`` issues none) --
+
+    def _issue_all_to_all(self, out, x) -> None:
+        dist.all_to_all_single(out, x, group=self.group)
+
+    def _issue_all_reduce(self, x) -> None:
+        dist.all_reduce(x, group=self.group)
+
+    def _issue_all_gather(self, out, x) -> None:
+        _all_gather_single(out, x, group=self.group)
+
+    def _issue_gather(self, x, out) -> None:
+        dist.gather(x, out, dst=self.global_ranks[0], group=self.group)
+
+    def _issue_p2p(self, ops) -> None:
+        """``ops``: (send?, tensor, group rank of the peer, tag)."""
+        if ops:
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend if send else dist.irecv, t,
+                               self.global_ranks[peer], self.group, tag)
+                    for send, t, peer, tag in ops]):
+                work.wait()
+
     def _all_to_all(self, buf):
         x = self._host(buf[0].contiguous())
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
+        _count("all-to-all", out)
+        self._issue_all_to_all(out, x)
         return self._back(out, buf)[None]
 
     def psum(self, t):
         self._no_gradient("psum", t)
         x = t[0].cpu() if self.host_staging else t[0].clone()
-        dist.all_reduce(x, group=self.group)
+        _count("all-reduce", x)
+        self._issue_all_reduce(x)
         return self._back(x, t)
 
     def psum_counts(self, *ts):
@@ -441,6 +514,8 @@ class ProcessGroupRanks:
     def _sum_ordered(self, x):
         if self.ranks == 1:
             return x
+        ORDERED_SUMS["gathered"] += self.ranks * x.numel() * 4
+        ORDERED_SUMS["all-reduce"] += x.numel() * x.element_size()
         rows = self._all_gather(x.float()[None])
         return rows.sum(dim=0).to(x.dtype)
 
@@ -487,7 +562,8 @@ class ProcessGroupRanks:
         # to join them afterwards
         x = self._host(t.contiguous())
         out = x.new_empty((self.ranks,) + tuple(x.shape[1:]))
-        _all_gather_single(out, x, group=self.group)
+        _count("all-gather", out)
+        self._issue_all_gather(out, x)
         return self._back(out, t)
 
     def gather(self, t):
@@ -497,7 +573,8 @@ class ProcessGroupRanks:
         x = self._host(t[0].contiguous())
         out = ([torch.empty_like(x) for _ in range(self.ranks)]
                if self.rank == 0 else None)
-        dist.gather(x, out, dst=self.global_ranks[0], group=self.group)
+        _count("gather", *(out or ()))
+        self._issue_gather(x, out)
         return None if out is None else self._back(torch.stack(out), t)
 
     def mean_(self, tensors) -> None:
@@ -520,7 +597,8 @@ class ProcessGroupRanks:
         for bucket in buckets:
             flat = torch.cat([t.reshape(-1) for t in bucket])
             x = self._host(flat)
-            dist.all_reduce(x, group=self.group)
+            _count("all-reduce", x)
+            self._issue_all_reduce(x)
             x = self._back(x, flat).div_(self.ranks)
             at = 0
             for t in bucket:
@@ -546,21 +624,45 @@ class ProcessGroupRanks:
                     y.copy_(x)
                 continue
             if src == self.rank:
-                ops.append(dist.P2POp(
-                    dist.isend, pinned(x).copy_(x) if self.host_staging
-                    else x.contiguous(), self.global_ranks[dst], self.group,
-                    tag))
+                ops.append((True, pinned(x).copy_(x) if self.host_staging
+                            else x.contiguous(), dst, tag))
             elif dst == self.rank:
                 buf = pinned(y) if self.host_staging else y
-                ops.append(dist.P2POp(dist.irecv, buf, self.global_ranks[src],
-                                      self.group, tag))
+                ops.append((False, buf, src, tag))
                 if self.host_staging:
                     landed.append((y, buf))
         if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+            _count("send/recv", *(t for send, t, _, _ in ops if not send))
+        self._issue_p2p(ops)
         for y, buf in landed:
             y.copy_(buf)
+
+
+class DryRanks(ProcessGroupRanks):
+    """``ProcessGroupRanks`` without a group, for one rank of a mesh that
+    is traced and not run (``launch.dryrun``): every collective takes the
+    same code, allocates the live one's outputs (``meta`` tensors, given
+    ``meta`` inputs) and counts their bytes in ``COLLECTIVE_BYTES``, and
+    issues nothing."""
+
+    def __init__(self, *, ranks: int, rank: int, global_ranks):
+        super().__init__(None, ranks=ranks, rank=rank,
+                         global_ranks=global_ranks)
+
+    def _issue_all_to_all(self, out, x) -> None:
+        pass
+
+    def _issue_all_reduce(self, x) -> None:
+        pass
+
+    def _issue_all_gather(self, out, x) -> None:
+        pass
+
+    def _issue_gather(self, x, out) -> None:
+        pass
+
+    def _issue_p2p(self, ops) -> None:
+        pass
 
 
 def capacity(t_local: int, top_k: int, num_slots_global: int, factor: float,
@@ -749,7 +851,7 @@ def gather_replica_pool(experts: dict, plan: DevicePlan, moe: MoEConfig,
         # a pool entry's gradient would belong to the rank that sent it
         raise RuntimeError("the replica pool has no backward: training "
                            "across processes runs without replica slots")
-    se = plan.slot_experts.cpu().numpy().reshape(R, n_slots)
+    se = host_plan(plan).slot_experts.cpu().numpy().reshape(R, n_slots)
     replica = se[:, e_loc:]
     live = replica[replica >= 0]
     if live.size == 0:

@@ -9,15 +9,36 @@ Three terms per (arch x shape x chips), in seconds:
 The op model (``analytic_flops``, ``analytic_hbm_bytes``, ``model_flops``)
 is the JAX package's ``roofline.py``, term for term, so one config and
 shape give the same numbers in both packages. The JAX package reads its
-per-device HLO and collective bytes from a compiled XLA program; the port
-has no compiled program to read, so ``analyze`` fills the analytic terms
-only (``hlo_*`` 0, ``collective_bytes_per_device`` 0 with an empty
-breakdown). The HLO text parser waits for the dry-run port (ROADMAP.md).
+per-device HLO and collective bytes and its memory analysis from a
+compiled XLA program. Eager PyTorch has no compiled program; the port's
+dry run (``launch.dryrun``) runs one rank's step on ``meta`` tensors and
+counts instead, and ``analyze`` takes those counts (``counts``):
+
+  collective_bytes_per_device  the result bytes of every collective the
+                               rank issued, by kind in
+                               ``collective_breakdown`` (with "count");
+  argument_bytes               the step's parameters, moments, cache and
+                               inputs on this rank;
+  peak_bytes                   the high-water mark of live ``meta``
+                               storage while the step ran (arguments
+                               included), ``temp_bytes`` = peak -
+                               arguments, ``output_bytes`` the results;
+  executed_flops_per_device    the operations of every PyTorch operator
+                               the step ran (``torch.utils.flop_counter``'s
+                               table) plus its kernels' (``kernels.work``);
+  executed_bytes_per_device    each operator's inputs and outputs plus its
+                               kernels' bytes: what eager execution moves,
+                               unfused.
+
+The ``hlo_*`` fields stay 0: there is no HLO. Without counts the
+collective and memory fields are 0 as well.
 
 Hardware constants: NVIDIA H100 SXM 80GB HBM3 at 700 W, from the data
 sheet, as ``core.simulator.H100_SXM_NVLINK`` holds them: 989 TFLOP/s dense
 bf16, 3.35 TB/s HBM3, 900 GB/s NVLink 4 per GPU. They are peak figures,
-not measurements.
+not measurements. A 16 x 16 mesh of 256 cards spans 32 nodes of 8, whose
+traffic between nodes runs over the network at a fraction of NVLink's
+rate, so ``collective_s`` at 900 GB/s is a lower bound there.
 """
 
 from __future__ import annotations
@@ -199,6 +220,9 @@ class RooflineReport:
     output_bytes: int = 0
     temp_bytes: int = 0
     peak_bytes: int = 0
+    # the dry run's counted work (``launch.dryrun``; 0 without it)
+    executed_flops_per_device: float = 0.0
+    executed_bytes_per_device: float = 0.0
 
     @property
     def compute_s(self) -> float:
@@ -239,16 +263,28 @@ class RooflineReport:
         return d
 
 
-def analyze(arch: str, shape, mesh_name: str, chips: int,
-            cfg) -> RooflineReport:
-    """The analytic report of ``cfg`` at ``shape`` over ``chips`` cards."""
+def analyze(arch: str, shape, mesh_name: str, chips: int, cfg,
+            counts=None) -> RooflineReport:
+    """The report of ``cfg`` at ``shape`` over ``chips`` cards: the
+    analytic terms, and with ``counts`` (``launch.dryrun.trace_one``'s) the
+    counted collective bytes, memory and executed work of one rank."""
+    c = counts or {}
+    coll = c.get("collectives", {})
     return RooflineReport(
         arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
         analytic_flops_per_device=analytic_flops(cfg, shape) / chips,
         analytic_hbm_per_device=analytic_hbm_bytes(cfg, shape, chips),
         hlo_flops_per_device=0.0, hlo_bytes_per_device=0.0,
-        collective_bytes_per_device=0.0, collective_breakdown={},
-        model_flops_total=model_flops(cfg, shape))
+        collective_bytes_per_device=float(sum(
+            v for k, v in coll.items() if k != "count")),
+        collective_breakdown={k: int(v) for k, v in coll.items() if v},
+        model_flops_total=model_flops(cfg, shape),
+        argument_bytes=int(c.get("argument_bytes", 0)),
+        output_bytes=int(c.get("output_bytes", 0)),
+        temp_bytes=int(c.get("peak_bytes", 0) - c.get("argument_bytes", 0)),
+        peak_bytes=int(c.get("peak_bytes", 0)),
+        executed_flops_per_device=float(c.get("flops", 0.0)),
+        executed_bytes_per_device=float(c.get("bytes", 0.0)))
 
 
 def save_report(path: str, report: RooflineReport) -> None:

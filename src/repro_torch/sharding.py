@@ -286,7 +286,9 @@ class Placement:
     """How this rank holds and uses one parameter: ``spec`` (the leaf's
     own dims, no stacked L), ``use`` (see the module docstring), the dims
     split over "model" and "data" (None when whole over the axis) and the
-    mesh whose groups it is used over (not pickled)."""
+    mesh whose groups it is used over (not pickled). A dim split over
+    ``("pod", "data")`` (a multi-pod mesh) counts as split over "data":
+    the mesh's data axis is then both."""
 
     def __init__(self, spec: Spec, use: str, mesh):
         self.spec, self.use = tuple(spec), use
@@ -379,7 +381,8 @@ class Sharder:
         self.mesh, self.layout, self.expert_tp = mesh, layout, expert_tp
         self.specs = layout_specs(cfg, shapes, paths, mesh, layout,
                                   expert_tp)
-        self.coords = {"data": mesh.data_index, "model": mesh.model_index}
+        self.coords = getattr(mesh, "coords", None) or {
+            "data": mesh.data_index, "model": mesh.model_index}
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
         self.uses = {n: leaf_use(n.rsplit(".", 1)[-1], self.specs[n], cfg,
                                  mesh.model, kinds.get(n, "attn"))

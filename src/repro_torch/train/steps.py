@@ -143,11 +143,16 @@ def make_grad_fn(cfg: ModelConfig, rt: Runtime, remat: bool = False,
         dev = model.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         B = batch["tokens"].shape[0]
-        rows = None if mesh is None else mesh.batch_rows(B)
-        shards = 1 if rows is None else mesh.data
+        # ``rt.rows_split`` set by the caller: the batch is this rank's
+        # rows already (the dry run's per-rank inputs)
+        given = mesh is not None and rt.rows_split
+        if given and "loss_mask" in batch:
+            raise ValueError("a loss mask needs the whole batch's rows")
+        rows = None if mesh is None or given else mesh.batch_rows(B)
+        shards = mesh.data if given or rows is not None else 1
         mine = batch if rows is None else {k: v[rows]
                                            for k, v in batch.items()}
-        b = B // shards
+        b = B if given else B // shards
         if b % microbatches:
             raise ValueError(f"batch {B} over {shards} data ranks does not "
                              f"split into {microbatches} microbatches")
